@@ -13,6 +13,12 @@ that layout loads with ``load_state_dict(strict=True)``.
   ``low_hz``/``band_hz`` <-> ``low_hz_``/``band_hz_``, ``mean``/``var`` <->
   ``running_mean``/``running_var``.
 * ``load_frontend_ckpt`` loads either format into a module, strictly.
+* ``model_variables_to_state_dict`` / ``model_state_dict_to_variables``
+  do the same for the whole PASE model (``model.PASE``): the JAX
+  ``params/frontend/...`` and ``params/<worker>/...`` trees (and their
+  ``batch_stats/``) <-> ``frontend.*`` and ``workers.<worker>.*``. A
+  transposed-conv kernel [K, Cout, Cin] <-> weight [Cin, Cout, K] is the
+  same transpose as a conv's. ``load_model_variables`` loads strictly.
 """
 
 import json
@@ -144,3 +150,46 @@ def load_frontend_ckpt(path, module):
             sd[k] = v
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def model_variables_to_state_dict(flat):
+    """JAX PASE variables ({'params/frontend/W/kernel': array,
+    'params/lps/blocks_0/W/kernel': array, ...}) -> the state dict of
+    ``model.PASE`` ({'frontend.W.weight': tensor,
+    'workers.lps.blocks.0.W.weight': tensor, ...})."""
+    sd = {}
+    for key, arr in flat.items():
+        col, top, *rest = key.split("/")
+        prefix = "frontend." if top == "frontend" else f"workers.{top}."
+        for k, v in variables_to_state_dict(
+                {"/".join([col] + rest): arr}).items():
+            sd[prefix + k] = v
+    return sd
+
+
+def model_state_dict_to_variables(state_dict):
+    """The inverse of ``model_variables_to_state_dict``
+    (``num_batches_tracked`` is dropped)."""
+    flat = {}
+    for tkey, t in state_dict.items():
+        top, _, rest = tkey.partition(".")
+        if top == "workers":
+            top, _, rest = rest.partition(".")
+        elif top != "frontend":
+            raise KeyError(f"unexpected PASE state-dict key {tkey!r}")
+        for k, v in state_dict_to_variables({rest: t}).items():
+            col, _, path = k.partition("/")
+            flat[f"{col}/{top}/{path}"] = v
+    return flat
+
+
+def load_model_variables(model, flat):
+    """Load JAX PASE variables into ``model`` with
+    ``load_state_dict(strict=True)``; only ``num_batches_tracked``
+    buffers keep the model's value."""
+    sd = model_variables_to_state_dict(flat)
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked") and k not in sd:
+            sd[k] = v
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -196,11 +196,13 @@ class Encoder:
         fe.load_pretrained('FE_e199.ckpt', load_last=True)
         y = fe(x)          # x: (B, 1, T) or (B, T) -> (B, emb, T')
 
-    Holds a WaveFe in eval mode on ``device``; its parameters are drawn
-    from a ``torch.Generator`` seeded with ``seed``.
+    Holds a WaveFe in eval mode on ``device`` (default: the card); its
+    parameters are drawn from a ``torch.Generator`` seeded with ``seed``.
+    Training goes through the WaveFe module itself, in train mode
+    (``model.PASE``, ``trainer.Trainer``).
     """
 
-    def __init__(self, cfg, device, seed=0):
+    def __init__(self, cfg, device="cuda", seed=0):
         self.cfg = load_cfg(cfg)
         self.device = torch.device(device)
         generator = torch.Generator().manual_seed(seed)
@@ -238,8 +240,9 @@ class Encoder:
         return y[0] if squeeze_batch else y
 
 
-def wf_builder(cfg, device, seed=0):
-    """Frontend factory preserving the reference entrypoint."""
+def wf_builder(cfg, device="cuda", seed=0):
+    """Frontend factory preserving the reference entrypoint. The encoder
+    runs on the card unless ``device='cpu'`` asks for the CPU."""
     if cfg is None:
         raise ValueError("cfg cannot be None!")
     return Encoder(load_cfg(cfg), device, seed=seed)

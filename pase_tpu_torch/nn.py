@@ -11,9 +11,20 @@ reference layout loads with ``load_state_dict(strict=True)``:
 * ``FeBlock``     — pad(reflect) -> conv/sinc -> BatchNorm -> PReLU
                     (torch's own BatchNorm1d and PReLU, init 0).
 * ``QRNN``        — window-2 quasi-recurrent layer: Linear over
-                    [x_t, x_{t-1}], then the CUDA pooling kernel
-                    (ops/cuda_qrnn.py) on CUDA tensors, the plain version on
-                    CPU tensors.
+                    [x_t, x_{t-1}], then the CUDA pooling kernels
+                    (ops/cuda_qrnn.py; an autograd Function with the
+                    backward kernel when training) on CUDA tensors, the
+                    plain versions on CPU tensors.
+* ``MLPBlock``    — worker-head block: 1x1 (/context) conv -> PReLU (init
+                    0.25) -> dropout.
+* ``Deconv1D`` / ``GDeconv1DBlock`` — transposed-conv upsampling block of
+                    the waveform decoder: ConvTranspose1d -> (trim) ->
+                    PReLU (init 0).
+
+BatchNorm is torch's BatchNorm1d: in train mode it normalizes with the
+biased batch variance and updates the running stats with the unbiased one
+at momentum 0.1, as ``pase_tpu/nn.py`` BatchNorm1d does (which takes the
+variance in one pass, E[x^2] - E[x]^2; torch in two: equal to rounding).
 
 Parameters are created on the CPU and drawn from the generator passed in;
 the owner moves the finished module to its device.
@@ -150,3 +161,71 @@ class QRNN(nn.Module):
             if self.dropout > 0 and i < len(self.layers) - 1:
                 h = F.dropout(h, self.dropout, training=self.training)
         return h
+
+
+class MLPBlock(nn.Module):
+    """Conv1d (kwidth ``context``, zero-padded to keep T) -> PReLU (init
+    0.25) -> dropout, on [B, C, T]."""
+
+    def __init__(self, in_channels, fmaps, context=1, dout=0.0,
+                 generator=None):
+        super().__init__()
+        if context % 2 == 0:
+            raise ValueError(f"MLPBlock context must be odd, got {context}")
+        self.context = context
+        self.W = Conv1D(in_channels, fmaps, context, generator=generator)
+        self.act = nn.PReLU(fmaps, init=0.25)
+        self.dout = dout
+
+    def forward(self, x):
+        if self.context > 1:
+            x = F.pad(x, (self.context // 2, self.context // 2))
+        h = self.act(self.W(x))
+        if self.dout > 0:
+            h = F.dropout(h, self.dout, training=self.training)
+        return h
+
+
+class Deconv1D(nn.ConvTranspose1d):
+    """ConvTranspose1d(stride, padding=pad): out = (L-1)*stride - 2*pad +
+    kwidth. Weight [Cin, Cout, K] (the JAX kernel [K, Cout, Cin]
+    transposed); uniform(+-1/sqrt(Cout*K)) init drawn from ``generator``."""
+
+    def __init__(self, in_channels, out_channels, kwidth, stride, pad,
+                 generator=None):
+        super().__init__(in_channels, out_channels, kwidth, stride=stride,
+                         padding=pad)
+        bound = 1.0 / math.sqrt(out_channels * kwidth)
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+
+class GDeconv1DBlock(nn.Module):
+    """Transposed-conv upsampling block on [B, C, T]: deconv -> trim one
+    sample where stride and kwidth differ in parity -> norm -> PReLU."""
+
+    def __init__(self, in_channels, fmaps, kwidth, stride=4, norm_type=None,
+                 act=None, generator=None):
+        super().__init__()
+        if act not in (None, "prelu"):
+            raise NotImplementedError(
+                f"GDeconv1DBlock act={act!r} is not ported yet: "
+                f"{ROADMAP_OFF_SLICE}")
+        if norm_type not in ("bnorm", None):
+            raise NotImplementedError(
+                f"GDeconv1DBlock norm_type={norm_type!r} is not ported yet: "
+                f"{ROADMAP_OFF_SLICE}")
+        pad = max(0, (stride - kwidth) // -2)
+        self.trim = (stride % 2) != (kwidth % 2)
+        self.deconv = Deconv1D(in_channels, fmaps, kwidth, stride, pad,
+                               generator=generator)
+        self.norm = nn.BatchNorm1d(fmaps) if norm_type == "bnorm" else None
+        self.act = nn.PReLU(fmaps, init=0.0)
+
+    def forward(self, x):
+        y = self.deconv(x)
+        if self.trim:
+            y = y[:, :, :-1]
+        if self.norm is not None:
+            y = self.norm(y)
+        return self.act(y)

@@ -1,16 +1,22 @@
-"""QRNN pooling through the hand-written CUDA kernel (csrc/qrnn_pool.cu).
+"""QRNN pooling through the hand-written CUDA kernels (csrc/qrnn_pool.cu).
 
-The kernel replaces the TPU kernels of ``pase_tpu/ops/pallas_qrnn.py``
-(the linear scan and the gate math around it, forward only). It is built
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C entry
-point at first use, cached under ``build/pase_tpu_torch/`` by a hash of
-the source, and loaded with ``ctypes``.
+The kernels replace the TPU kernels of ``pase_tpu/ops/pallas_qrnn.py``:
+the linear scan and the gate math around it (forward), and the
+reverse-time scan of its custom VJP (backward). They are built with
+``nvcc`` for ``sm_90a`` into one shared library with plain C entry points
+at first use, cached under ``build/pase_tpu_torch/`` by a hash of the
+source, and loaded with ``ctypes``.
 
-``qrnn_pool(y, c0=None)`` takes the plain PyTorch version
-(``ops/qrnn.py``) for a tensor on the CPU. For a CUDA tensor it launches
-the kernel or raises: a missing ``nvcc``, a failed build and a refused
-launch all raise. The backward kernel comes with the training slice, so a
-CUDA call that would need a gradient raises too.
+Entry points, each with a launch count in ``LAUNCHES``:
+  qrnn_pool_fwd        ``qrnn_pool`` without a gradient (serving, eval);
+  qrnn_pool_fwd_train  the forward of ``QRNNPool``: also stores every c_t;
+  qrnn_pool_bwd        the backward of ``QRNNPool``.
+
+``qrnn_pool(y, c0=None)`` goes through the ``QRNNPool`` autograd Function
+when a gradient is needed, and through the serving forward otherwise. A
+tensor on the CPU takes the plain PyTorch versions (``ops/qrnn.py``). For
+a CUDA tensor every wrapper launches its kernel or raises: a missing
+``nvcc``, a failed build and a refused launch all raise.
 """
 
 import ctypes
@@ -31,9 +37,26 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel launches since import (or since a caller reset it to 0)
-LAUNCHES = 0
+# kernel launches per entry point since import (or since reset_launches)
+LAUNCHES = {"qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
+            "qrnn_pool_bwd": 0}
 _LIB = None
+
+_P = ctypes.c_void_p
+_N = ctypes.c_longlong
+_ARGTYPES = {
+    # (y, c0, h, c_T, B, T, H, stream)
+    "qrnn_pool_fwd": [_P, _P, _P, _P, _N, _N, _N, _P],
+    # (y, c0, h, c, c_T, B, T, H, stream)
+    "qrnn_pool_fwd_train": [_P, _P, _P, _P, _P, _N, _N, _N, _P],
+    # (y, c, dh, dc_T, c0, dy, dc0, B, T, H, stream)
+    "qrnn_pool_bwd": [_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _P],
+}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _find_nvcc():
@@ -45,7 +68,7 @@ def _find_nvcc():
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the QRNN CUDA kernel cannot be built")
+            "the QRNN CUDA kernels cannot be built")
     return nvcc
 
 
@@ -58,7 +81,7 @@ def library_path():
 
 
 def build(verbose=False):
-    """Compile the kernel if its library is not built yet, load it, and
+    """Compile the kernels if their library is not built yet, load it, and
     return the ``ctypes`` handle. Raises on any failure."""
     global _LIB
     if _LIB is not None:
@@ -83,13 +106,38 @@ def build(verbose=False):
             print((proc.stdout + proc.stderr).strip())
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    lib.qrnn_pool_fwd.restype = ctypes.c_int
-    lib.qrnn_pool_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p]
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     _LIB = lib
     return lib
+
+
+def _check_lanes(name, t, like):
+    """t is None, or float32 [B, H] on like's device and contiguous."""
+    if t is None:
+        return
+    bsz, hid = like.shape[0], like.shape[-1]
+    if t.device != like.device or t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 on y's device")
+    if tuple(t.shape) != (bsz, hid):
+        raise ValueError(f"{name} must be [{bsz}, {hid}], "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_steps(name, t, y):
+    """t is float32 [B, T, H] on y's device and contiguous."""
+    bsz, steps, h3 = y.shape
+    if t.device != y.device or t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 on y's device")
+    if tuple(t.shape) != (bsz, steps, h3 // 3):
+        raise ValueError(f"{name} must be [{bsz}, {steps}, {h3 // 3}], "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _check(y, c0):
@@ -102,42 +150,109 @@ def _check(y, c0):
         raise ValueError(f"empty y {tuple(y.shape)}")
     if not y.is_contiguous():
         raise ValueError("y must be contiguous")
-    if c0 is not None:
-        if c0.device != y.device or c0.dtype != torch.float32:
-            raise TypeError("c0 must be float32 on y's device")
-        if tuple(c0.shape) != (bsz, h3 // 3):
-            raise ValueError(f"c0 must be [{bsz}, {h3 // 3}], "
-                             f"got {tuple(c0.shape)}")
-        if not c0.is_contiguous():
-            raise ValueError("c0 must be contiguous")
+    _check_lanes("c0", c0, y[:, 0, :h3 // 3])
+
+
+def _cuda_or_plain(y):
+    """True when y is on the CPU (plain version), False for CUDA."""
+    if y.device.type == "cpu":
+        return True
+    if y.device.type != "cuda":
+        raise ValueError(f"qrnn_pool: no kernel for device {y.device}")
+    return False
+
+
+def _launch(name, *args):
+    lib = build()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def qrnn_pool_fwd(y, c0=None):
+    """Serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h [B, T, H],
+    c_T [B, H]). No gradient."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool(y, c0)
+    _check(y, c0)
+    bsz, t, h3 = y.shape
+    h = torch.empty((bsz, t, h3 // 3), dtype=y.dtype, device=y.device)
+    c_last = torch.empty((bsz, h3 // 3), dtype=y.dtype, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        _launch("qrnn_pool_fwd", y.data_ptr(), _ptr(c0), h.data_ptr(),
+                c_last.data_ptr(), bsz, t, h3 // 3, stream)
+    return h, c_last
+
+
+def qrnn_pool_fwd_train(y, c0=None):
+    """Training forward: y [B, T, 3H] (+ c0 [B, H]) -> (h [B, T, H],
+    c [B, T, H], c_T [B, H]); c is the residual of ``qrnn_pool_bwd``."""
+    if _cuda_or_plain(y):
+        h, c = _plain.qrnn_pool_fwd_train(y, c0)
+        return h, c, c[:, -1].clone()
+    _check(y, c0)
+    bsz, t, h3 = y.shape
+    h = torch.empty((bsz, t, h3 // 3), dtype=y.dtype, device=y.device)
+    c = torch.empty_like(h)
+    c_last = torch.empty((bsz, h3 // 3), dtype=y.dtype, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        _launch("qrnn_pool_fwd_train", y.data_ptr(), _ptr(c0), h.data_ptr(),
+                c.data_ptr(), c_last.data_ptr(), bsz, t, h3 // 3, stream)
+    return h, c, c_last
+
+
+def qrnn_pool_bwd(y, c, dh, dc_last=None, c0=None):
+    """Backward of ``qrnn_pool``: -> (dy [B, T, 3H], dc0 [B, H] or None
+    when c0 is None). Same contract as ``ops.qrnn.qrnn_pool_bwd``."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool_bwd(y, c, dh, dc_last, c0)
+    _check(y, c0)
+    _check_steps("c", c, y)
+    _check_steps("dh", dh, y)
+    _check_lanes("dc_last", dc_last, c[:, 0])
+    bsz, t, h3 = y.shape
+    dy = torch.empty_like(y)
+    dc0 = None if c0 is None else torch.empty_like(c0)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        _launch("qrnn_pool_bwd", y.data_ptr(), c.data_ptr(), dh.data_ptr(),
+                _ptr(dc_last), _ptr(c0), dy.data_ptr(), _ptr(dc0), bsz, t,
+                h3 // 3, stream)
+    return dy, dc0
+
+
+class QRNNPool(torch.autograd.Function):
+    """QRNN pooling with its gradient: the forward stores c through
+    ``qrnn_pool_fwd_train``, the backward is ``qrnn_pool_bwd``. On CPU
+    tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, y, c0):
+        h, c, c_last = qrnn_pool_fwd_train(y, c0)
+        ctx.save_for_backward(y, c, c0)
+        return h, c_last
+
+    @staticmethod
+    def backward(ctx, dh, dc_last):
+        y, c, c0 = ctx.saved_tensors
+        dy, dc0 = qrnn_pool_bwd(y, c, dh.contiguous(), dc_last.contiguous(),
+                                c0)
+        return dy, dc0
 
 
 def qrnn_pool(y, c0=None):
     """Window-2 QRNN pooling: y [B, T, 3H] (+ optional c0 [B, H]) ->
-    (h [B, T, H], c_T [B, H]). Same contract as ``ops.qrnn.qrnn_pool``."""
-    global LAUNCHES
-    if y.device.type == "cpu":
-        return _plain.qrnn_pool(y, c0)
-    if y.device.type != "cuda":
-        raise ValueError(f"qrnn_pool: no kernel for device {y.device}")
+    (h [B, T, H], c_T [B, H]). Same contract as ``ops.qrnn.qrnn_pool``;
+    differentiable through ``QRNNPool`` when grad mode is on and y or c0
+    requires a gradient."""
     if torch.is_grad_enabled() and (y.requires_grad or (
             c0 is not None and c0.requires_grad)):
-        raise NotImplementedError(
-            "qrnn_pool CUDA kernel is forward-only: the backward kernel "
-            "comes with the training slice (ROADMAP.md, queue 1: encoder "
-            "backward)")
-    _check(y, c0)
-    bsz, t, h3 = y.shape
-    hid = h3 // 3
-    lib = build()
-    h = torch.empty((bsz, t, hid), dtype=y.dtype, device=y.device)
-    c_last = torch.empty((bsz, hid), dtype=y.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.qrnn_pool_fwd(
-            y.data_ptr(), None if c0 is None else c0.data_ptr(),
-            h.data_ptr(), c_last.data_ptr(), bsz, t, hid, stream)
-    if err != 0:
-        raise RuntimeError(f"qrnn_pool_fwd launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return h, c_last
+        return QRNNPool.apply(y, c0)
+    return qrnn_pool_fwd(y, c0)

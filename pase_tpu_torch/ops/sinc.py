@@ -56,8 +56,12 @@ def build_sinc_filters(low_hz_, band_hz_, n_, window_, sample_rate=16000,
     device. Returns [C, K] filters (K odd).
     """
     low = min_low_hz + torch.abs(low_hz_)                        # [C,1]
-    high = torch.clamp(low + min_band_hz + torch.abs(band_hz_),
-                       min_low_hz, sample_rate / 2.0)            # [C,1]
+    # clip as max then min, not torch.clamp: at the init the last filter's
+    # high edge lands exactly on sr/2, where maximum/minimum split the
+    # gradient in half, as jnp.clip does (torch.clamp passes all of it)
+    high = low + min_band_hz + torch.abs(band_hz_)
+    high = torch.minimum(torch.maximum(high, high.new_tensor(min_low_hz)),
+                         high.new_tensor(sample_rate / 2.0))     # [C,1]
     band = (high - low)[:, 0]                                    # [C]
 
     f_t_low = low @ n_                                           # [C, K/2]

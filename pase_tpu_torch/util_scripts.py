@@ -4,7 +4,7 @@
                    independent windows (same flags and semantics as
                    ``util_scripts.py forward-chunk`` of the JAX package)
 
-Run as ``python -m pase_tpu_torch.util_scripts forward-chunk --device cuda
+Run as ``python -m pase_tpu_torch.util_scripts forward-chunk
 --fe_cfg cfg/frontend/PASE+.cfg --fe_ckpt FE_e199.ckpt --wav_list ...``.
 """
 
@@ -81,7 +81,8 @@ def build_parser():
     fc.add_argument("--fe_ckpt", default=None,
                     help="native FE_e*.npz or reference torch FE_e*.ckpt; "
                          "without it the seeded random init is used")
-    fc.add_argument("--device", required=True, choices=("cuda", "cpu"))
+    fc.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the encoder runs (default: the card)")
     fc.add_argument("--in_wav", default=None)
     fc.add_argument("--out_file", default=None)
     fc.add_argument("--wav_list", default=None,

@@ -120,4 +120,47 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12
+    assert int(proc.stdout.strip()) >= 25
+
+
+def _port_sources():
+    root = os.path.join(REPO, "pase_tpu_torch")
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(root):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_sources_import_no_jax(path):
+    """No import statement anywhere in the port or chip_smoke.py, lazy
+    ones inside functions included, names jax, jaxlib, flax, optax or the
+    JAX package."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in
+           ("jax", "jaxlib", "flax", "optax", "pase_tpu")]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_card():
+    """forward-chunk, wf_builder and the trainer CLI run on the card unless
+    the caller asks for the CPU; without one they refuse, never fall back."""
+    import inspect
+    from pase_tpu_torch import frontend
+    from pase_tpu_torch import train as port_train
+    opts = port_cli.build_parser().parse_args(
+        ["forward-chunk", "--fe_cfg", "x.cfg", "--in_wav", "a.wav",
+         "--out_file", "a.npy"])
+    assert opts.device == "cuda"
+    assert inspect.signature(frontend.wf_builder).parameters[
+        "device"].default == "cuda"
+    assert port_train.build_argparser().parse_args([]).device == "cuda"

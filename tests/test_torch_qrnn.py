@@ -1,7 +1,9 @@
 """The port's QRNN pooling (pase_tpu_torch.ops) against the JAX package:
 the plain torch version vs the Pallas kernel in interpret mode and vs the
-associative scan, on the same numpy inputs; and the CUDA wrapper's CPU
-path. The kernel itself is tested on the card by tests/test_torch_cuda.py.
+associative scan, on the same numpy inputs; the plain backward (through
+the ``QRNNPool`` autograd Function) vs ``jax.grad`` of the Pallas kernel's
+custom VJP; and the CUDA wrapper's CPU path. The kernels themselves are
+tested on the card by tests/test_torch_cuda.py.
 
 Tolerance: atol 2e-5, as tests/test_qrnn.py holds the Pallas kernel to the
 scan (float32 recurrences summed in different orders)."""
@@ -99,11 +101,15 @@ def test_cuda_wrapper_cpu_path_needs_no_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     y, c0 = _inputs(2, 33, 8, seed=5)
-    before = cuda_qrnn.LAUNCHES
+    before = dict(cuda_qrnn.LAUNCHES)
     h, c = cuda_qrnn.qrnn_pool(torch.from_numpy(y), torch.from_numpy(c0))
     h_ref, c_ref = torch_qrnn.qrnn_pool(torch.from_numpy(y),
                                         torch.from_numpy(c0))
     assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
+    yg = torch.from_numpy(y).requires_grad_()
+    h, c = cuda_qrnn.qrnn_pool(yg, torch.from_numpy(c0))
+    (h.sum() + c.sum()).backward()
+    assert yg.grad is not None
     assert cuda_qrnn.LAUNCHES == before
 
 
@@ -115,3 +121,61 @@ def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_qrnn, "_LIB", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_qrnn.build()
+
+
+def _jax_pool_grads(y, c0, wh, wc):
+    """jax.grad of sum(h*wh) + sum(c_T*wc) through the Pallas kernel's
+    custom VJP, in interpret mode (as tests/test_qrnn.py runs it)."""
+    def loss(y_, c0_):
+        h, c_last = jax_pallas.qrnn_pool_pallas(y_, c0_)
+        return jnp.sum(h * wh) + jnp.sum(c_last * wc)
+
+    with pltpu.force_tpu_interpret_mode():
+        if c0 is None:
+            return jax.grad(lambda y_: loss(y_, None))(jnp.asarray(y)), None
+        gy, gc = jax.grad(loss, argnums=(0, 1))(jnp.asarray(y),
+                                                  jnp.asarray(c0))
+    return gy, gc
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_qrnn_pool_backward_matches_jax_grad(shape, seeded):
+    """The QRNNPool Function on CPU tensors (plain forward, plain reverse
+    loop) vs jax.grad, with a nonzero gradient on c_T."""
+    y, c0 = _inputs(*shape, seed=sum(shape) + 1)
+    c0 = c0 if seeded else None
+    rng = np.random.RandomState(9)
+    wh = rng.randn(shape[0], shape[1], shape[2]).astype(np.float32)
+    wc = rng.randn(shape[0], shape[2]).astype(np.float32)
+    gy_ref, gc_ref = _jax_pool_grads(y, c0, wh, wc)
+    yt = torch.from_numpy(y).requires_grad_()
+    c0t = None if c0 is None else torch.from_numpy(c0).requires_grad_()
+    h, c_last = cuda_qrnn.qrnn_pool(yt, c0t)
+    (torch.sum(h * torch.from_numpy(wh))
+     + torch.sum(c_last * torch.from_numpy(wc))).backward()
+    np.testing.assert_allclose(yt.grad.numpy(), np.asarray(gy_ref),
+                               atol=ATOL)
+    if seeded:
+        np.testing.assert_allclose(c0t.grad.numpy(), np.asarray(gc_ref),
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_qrnn_pool_function_gradcheck(seeded):
+    """Finite differences in float64 against the plain backward."""
+    rng = np.random.RandomState(4)
+    y = torch.from_numpy(rng.randn(2, 9, 3 * 3)).requires_grad_()
+    c0 = (torch.from_numpy(rng.randn(2, 3)).requires_grad_() if seeded
+          else None)
+    assert torch.autograd.gradcheck(
+        lambda y_, c0_: cuda_qrnn.QRNNPool.apply(y_, c0_), (y, c0),
+        eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+def test_plain_backward_returns_no_c0_grad_without_c0():
+    y, _ = _inputs(2, 5, 4, seed=2)
+    yt = torch.from_numpy(y)
+    h, c = torch_qrnn.qrnn_pool_fwd_train(yt)
+    dy, dc0 = torch_qrnn.qrnn_pool_bwd(yt, c, torch.ones_like(h))
+    assert dy.shape == yt.shape and dc0 is None
