@@ -6,8 +6,9 @@
 Phases, each printed as it ends; any failure exits non-zero:
   1. device  — a CUDA device (else exit 1), its nvidia-smi name and power
                limit, TF32 off for matmuls and cuDNN.
-  2. build   — the QRNN kernel (pase_tpu_torch/csrc/qrnn_pool.cu), nvcc for
-               sm_90a, from the sources of this checkout.
+  2. build   — the QRNN kernels (pase_tpu_torch/csrc/qrnn_pool.cu) and the
+               stride-1 conv kernel (csrc/conv_s1.cu), nvcc for sm_90a,
+               from the sources of this checkout, both builds at once.
   3. kernel  — the kernel against its plain PyTorch version on the card at
                the main path's QRNN shapes: max|dh|, max|dc_T| <= 1e-5, a
                c0-seeded case, block-streamed == full bit for bit, and the
@@ -36,15 +37,33 @@ Phases, each printed as it ends; any failure exits non-zero:
                --synthetic`` at batch 32 x 32000 for one epoch (100
                steps, a 10-batch eval, FE_e0.npz), and a torch.profiler
                split of three further steps.
-Two main paths, each with the launch counts reset to 0 just before it and
+  8. train-dist — bench.py's step: PASE+ / workers+ at batch 32 x 32000
+               with ZNorm statistics from compute_stats (2 synthetic
+               batches of 8) and the distortion stack (reverb .5, overlap
+               .1, noise .4, clip .2, chop .2) on synthetic assets seeded
+               as bench.py makes them; 3 warm-up steps, 3 trials of 20:
+               median steps/s, audio-s/s, the trials' spread, and the
+               same trainer's steps/s with the stack off; every loss
+               finite; a torch.profiler split with pase.prepare; and
+               apply_distortions on the card against the CPU with the same
+               draws, max|diff| <= 1e-5 of max|out| (the bench stack, and
+               all nine stages at p = 1).
+  9. conv    — python -m pase_tpu_torch.conv_proto's seven trunk layers at
+               batch 96 in bf16 (kernel vs plain within 2^-7 of max|y|)
+               and one in float32 (within 1e-5 of max|y|); kernel, plain
+               and cuDNN times and bounds.
+Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd once per
 QRNN layer per encoder call; training (the CLI in phase 7) must launch
 qrnn_pool_fwd_train and qrnn_pool_bwd once per QRNN layer per train step,
-and qrnn_pool_fwd once per layer per eval step. The line before the last
-is a JSON summary of the kernels; the last line is {"ok": true, "device":
-{...}}.
+and qrnn_pool_fwd once per layer per eval step; the distorted step
+(phase 8) the training kernels once per layer per step; the conv_proto run
+(phase 9) conv_s1 once per layer, 7 in all. No other path launches
+conv_s1. The line before the last is a JSON summary of the kernels; the
+last line is {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -84,6 +103,13 @@ QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
+# phase 8: bench.py's trial protocol and the card-vs-CPU distortion bound
+N_WARM, N_MEAS, N_TRIALS = 3, 20, 3
+DIST_REL = 1e-5
+# phase 9: kernel vs plain, relative to max|y_plain|: one bf16 rounding of
+# float32 sums taken in another order; float32 sums in another order
+CONV_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+CONV_F32_LAYER = 2          # the float32 case: (1600, 11, 1, 128, 128)
 
 
 class SmokeFailure(Exception):
@@ -120,12 +146,27 @@ def phase_device():
 
 
 def phase_build():
-    from pase_tpu_torch.ops import cuda_qrnn
+    """Both kernel libraries, one nvcc each, started together."""
+    from pase_tpu_torch.ops import conv, cuda_qrnn
     t0 = time.perf_counter()
-    cuda_qrnn.build(verbose=True)
-    print(f"[build] {os.path.relpath(cuda_qrnn.library_path(), HERE)} from "
-          f"{os.path.relpath(cuda_qrnn.SOURCE, HERE)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(m.build, True) for m in (cuda_qrnn, conv)]:
+            job.result()
+    for m in (cuda_qrnn, conv):
+        print(f"[build] {os.path.relpath(m.library_path(), HERE)} from "
+              f"{os.path.relpath(m.SOURCE, HERE)}")
+    print(f"[build] both in {time.perf_counter() - t0:.2f} s")
+
+
+def reset_launches():
+    from pase_tpu_torch.ops import conv, cuda_qrnn
+    cuda_qrnn.reset_launches()
+    conv.reset_launches()
+
+
+def read_launches():
+    from pase_tpu_torch.ops import conv, cuda_qrnn
+    return {**cuda_qrnn.LAUNCHES, **conv.LAUNCHES}
 
 
 def _kernel_ms(fn, batches=5, per_batch=10):
@@ -466,16 +507,15 @@ def phase_train_cli(tmp):
     import math
     import torch
     from pase_tpu_torch import train as train_cli
-    from pase_tpu_torch.ops import cuda_qrnn
     torch.cuda.reset_peak_memory_stats()
-    cuda_qrnn.reset_launches()                 # the training path starts
+    reset_launches()                           # the training path starts
     t0 = time.perf_counter()
     tr = train_cli.main([
         "--synthetic", "--net_cfg", WORKERSP_CFG, "--fe_cfg", PASEP_CFG,
         "--batch_size", str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK),
         "--epoch", "1", "--log_freq", "25", "--save_path", tmp])
     torch.cuda.synchronize()
-    launches = dict(cuda_qrnn.LAUNCHES)        # ... and ends here
+    launches = read_launches()                 # ... and ends here
     wall = time.perf_counter() - t0
     recs = []
     with open(os.path.join(tmp, "metrics.jsonl")) as f:
@@ -493,7 +533,7 @@ def phase_train_cli(tmp):
     steps, evals = tr.bpe, tr.cfg["va_bpe"]
     expected = {"qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals}
+                "qrnn_pool_fwd": layers * evals, "conv_s1": 0}
     print(f"[launches] training path: {launches} (expected {expected}: "
           f"{layers} QRNN layer(s) x {steps} train steps, x {evals} eval "
           f"steps)")
@@ -523,13 +563,13 @@ def phase_train_cli(tmp):
     return tr, launches, p
 
 
-def phase_profile(tr):
-    """torch.profiler split of three train steps of the CLI's trainer."""
+def phase_profile(tr, what="train step"):
+    """torch.profiler split of three train steps of a trainer."""
     from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
     from pase_tpu_torch.profiling import profile_train_steps
     batcher = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size, seed=7)
     prof = profile_train_steps(tr, [batcher.make_batch() for _ in range(5)])
-    print(f"[profile] train step (batch {TRAIN_BATCH} x {TRAIN_CHUNK}): wall"
+    print(f"[profile] {what} (batch {TRAIN_BATCH} x {TRAIN_CHUNK}): wall"
           f" {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms,"
           f" idle share {prof['idle_share']:.3f}")
     for span, kinds in sorted(prof["split"].items()):
@@ -540,11 +580,207 @@ def phase_profile(tr):
     return prof
 
 
-def _row(name, source, replaces, launches, err, ms, plain_ms, bnd):
+def bench_assets(t):
+    """bench.py's synthetic assets and distortion config: 4 IRs of 8000
+    taps (a direct path, two with one echo), 8 noise rows and 4 overlap
+    rows of 2t samples from numpy.random.RandomState(0)."""
+    import torch
+    from pase_tpu_torch.data.distortions import (DistortionAssets,
+                                                 DistortionConfig)
+    rng = np.random.RandomState(0)
+    ir = np.zeros((4, 8000), np.float32)
+    ir[:, 0] = 1.0
+    ir[0, 1000] = 0.4
+    ir[1, 2000] = 0.2
+    assets = DistortionAssets(
+        ir_bank=torch.from_numpy(ir),
+        ir_pmax=torch.zeros(4, dtype=torch.int32),
+        noise_bank=torch.from_numpy(rng.randn(8, 2 * t).astype(np.float32)
+                                    * 0.1),
+        overlap_bank=torch.from_numpy(rng.randn(4, 2 * t).astype(np.float32)
+                                      * 0.1))
+    cfg = DistortionConfig(reverb_p=0.5, overlap_p=0.1, noises_p=0.4,
+                           clip_p=0.2, chop_p=0.2, bandrop_p=0.0,
+                           downsample_p=0.0)
+    return cfg, assets
+
+
+def check_distortions_card_vs_cpu(cfg, assets, what):
+    """apply_distortions on the card against the CPU, the same batch and
+    the same draws (drawn on the CPU, then copied); returns max|diff| /
+    max|out_cpu| of the output and of the overlap label."""
+    import torch
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.data.distortions import (apply_distortions,
+                                                 draw_distortions)
+    wav = DeviceSyntheticBatcher(TRAIN_BATCH, TRAIN_CHUNK, seed=3,
+                                 device="cpu").make_batch()["chunk"]
+    draws = draw_distortions(torch.Generator().manual_seed(5), TRAIN_BATCH,
+                             TRAIN_CHUNK, cfg, assets)
+    y_cpu, m_cpu = apply_distortions(wav, draws, cfg, assets)
+    y_gpu, m_gpu = apply_distortions(wav.cuda(), draws.to("cuda"), cfg,
+                                     assets.to("cuda"))
+    rel = ((y_gpu.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    mask_err = (m_gpu.cpu() - m_cpu).abs().max().item()
+    changed = (y_cpu != wav).any(dim=1).sum().item()
+    print(f"[train-dist] apply_distortions card vs cpu ({what}, "
+          f"{changed}/{TRAIN_BATCH} rows distorted): max|diff| / max|out| "
+          f"{rel:.3e} (bound {DIST_REL}), overlap label max|diff| "
+          f"{mask_err:.3e}")
+    check(rel <= DIST_REL and mask_err <= DIST_REL,
+          f"distortions card vs cpu ({what}): {rel:.3e}, label "
+          f"{mask_err:.3e}")
+    check(changed > 0, f"distortions ({what}) changed no row")
+    return rel
+
+
+def _trials(tr, raws, losses=None):
+    """bench.py's protocol after warm-up: N_TRIALS trials of N_MEAS train
+    steps, synchronized at both ends; the rates in steps/s, sorted. Each
+    step's losses go to ``losses``."""
+    import torch
+    rates = []
+    for _ in range(N_TRIALS):
+        t0 = time.perf_counter()
+        for i in range(N_MEAS):
+            out = tr.train_step(raws[i % len(raws)])
+            if losses is not None:
+                losses.append(out)
+        torch.cuda.synchronize()
+        rates.append(N_MEAS / (time.perf_counter() - t0))
+    return sorted(rates)
+
+
+def phase_train_dist(tmp):
+    """bench.py's distorted PASE+ step on the card. Returns (trainer,
+    launch counts of the timed steps, {perf scalars})."""
+    import torch
+    from pase_tpu_torch.data.dataset import (DeviceSyntheticBatcher,
+                                             SyntheticChunkBatcher)
+    from pase_tpu_torch.data.distortions import build_resample_filters
+    from pase_tpu_torch.data.pipeline import compute_stats, make_prepare_fn
+    from pase_tpu_torch.model import parse_workers_cfg
+    from pase_tpu_torch.trainer import Trainer
+    b, t = TRAIN_BATCH, TRAIN_CHUNK
+    dcfg, assets = bench_assets(t)
+    t0 = time.perf_counter()
+    stats = compute_stats(SyntheticChunkBatcher(8, t, seed=11),
+                          parse_workers_cfg(WORKERSP_CFG), max_batches=2,
+                          device="cuda")
+    stats_s = time.perf_counter() - t0
+    check(all(np.isfinite(v[k]).all() and (v["std"] > 0).all()
+              for v in stats.values() for k in ("mean", "std")),
+          "compute_stats: non-finite or zero statistics")
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=400,
+               batch_size=b, chunk_size=t, log_freq=100, fe_lr=1e-3,
+               min_lr=5e-4, lr_mode="poly", save_path=tmp)
+    tr = Trainer(PASEP_CFG, WORKERSP_CFG, cfg, stats=stats, dist_cfg=dcfg,
+                 dist_assets=assets, device="cuda")
+    batcher = DeviceSyntheticBatcher(b, t, seed=0)
+    raws = [batcher.make_batch() for _ in range(4)]
+    losses = []
+    reset_launches()                      # the distorted step starts here
+    for i in range(N_WARM):
+        losses.append(tr.train_step(raws[i % len(raws)]))
+    torch.cuda.synchronize()
+    rates = _trials(tr, raws, losses)
+    launches = read_launches()            # ... and ends here
+    steps = N_WARM + N_TRIALS * N_MEAS
+    layers = len(tr.model.frontend.rnn.layers)
+    expected = {"qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps, "qrnn_pool_fwd": 0,
+                "conv_s1": 0}
+    print(f"[launches] distorted training step: {launches} (expected "
+          f"{expected}: {layers} QRNN layer(s) x {steps} steps)")
+    check(launches == expected, f"distorted step launches {launches} != "
+          f"{expected}")
+    totals = torch.stack([torch.stack(list(d.values())) for d in losses])
+    bad = (~torch.isfinite(totals)).sum().item()
+    check(bad == 0, f"{bad} non-finite losses in the distorted step")
+    rate = statistics.median(rates)
+    # the same trainer and protocol with the stack off: what it costs
+    with_stack = tr.prepare
+    tr.prepare = make_prepare_fn(tr.meta, stats=stats, hop=tr.hop)
+    rate_off = statistics.median(_trials(tr, raws))
+    tr.prepare = with_stack
+    perf = {"steps_per_sec": rate, "audio_sec_per_sec": rate * b * t / SR,
+            "spread": rates[-1] / rates[0] - 1.0, "rates": rates,
+            "steps_per_sec_without": rate_off}
+    print(f"[train-dist] bench step (PASE+, workers+, batch {b} x {t}, "
+          f"float32, ZNorm stats from 2 batches of 8 in {stats_s:.2f} s, "
+          f"reverb .5 overlap .1 noise .4 clip .2 chop .2): median of "
+          f"{N_TRIALS} trials of {N_MEAS} steps {rate:.3f} steps/s, "
+          f"{perf['audio_sec_per_sec']:.1f} audio-s/s, trial spread "
+          f"{perf['spread']:.1%} (rates "
+          + ", ".join(f"{r:.3f}" for r in rates)
+          + f"); total loss {float(totals[-1, -1]):.4f} after {steps} "
+          f"steps, every loss finite; the same trainer without the stack "
+          f"{rate_off:.3f} steps/s, so the stack costs "
+          f"{1e3 / rate - 1e3 / rate_off:.2f} ms per step")
+    check_distortions_card_vs_cpu(dcfg, assets, "the bench stack")
+    rng = np.random.RandomState(1)
+    every = assets._replace(
+        resample_filters=build_resample_filters((2, 4)),
+        bandrop_bank=torch.from_numpy(rng.randn(3, 129).astype(np.float32)),
+        bandrop_lens=torch.tensor([129, 65, 33], dtype=torch.int32),
+        downsample_bank=torch.from_numpy(rng.randn(1, 101).astype(
+            np.float32)))
+    every_cfg = dcfg._replace(
+        reverb_p=1.0, overlap_p=1.0, overlap_reverb=True, noises_p=1.0,
+        speed_p=1.0, speed_range=(-0.1, 0.1), resample_p=1.0,
+        resample_factors=(2, 4), clip_p=1.0, chop_p=1.0, bandrop_p=1.0,
+        downsample_p=1.0)
+    check_distortions_card_vs_cpu(every_cfg, every, "all nine stages at p=1")
+    return tr, launches, perf
+
+
+def phase_conv():
+    """python -m pase_tpu_torch.conv_proto's layers on the card. Returns
+    (conv_s1 launches of the conv_proto run, the bf16 rows, the float32
+    row)."""
+    from pase_tpu_torch import conv_proto
+    from pase_tpu_torch.ops import conv
+    import torch
+    inputs = conv_proto.make_inputs(torch.bfloat16, "cuda")
+    reset_launches()                      # the conv_proto run starts here
+    ys = conv_proto.forward(inputs)
+    torch.cuda.synchronize()
+    launches = read_launches()            # ... and ends here
+    expected = {"qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
+                "qrnn_pool_bwd": 0, "conv_s1": len(conv_proto.LAYERS)}
+    print(f"[launches] conv_proto run: {launches} (expected {expected}: one "
+          f"per layer)")
+    check(launches == expected, f"conv_proto run launches {launches} != "
+          f"{expected}")
+    rows = conv_proto.measure(inputs, ys)
+    del inputs, ys
+    torch.cuda.empty_cache()
+    f32_in = conv_proto.make_inputs(
+        torch.float32, "cuda", layers=[conv_proto.LAYERS[CONV_F32_LAYER]])
+    f32 = conv_proto.measure(f32_in, conv_proto.forward(f32_in))[0]
+    del f32_in
+    torch.cuda.empty_cache()
+    for r in rows + [f32]:
+        dt = r["dtype"].replace("torch.", "")
+        print(f"[conv] {dt} " + conv_proto.format_row(r))
+        rel = r["max_abs_err"] / r["max_abs_plain"]
+        check(rel <= CONV_REL[dt], f"conv_s1 vs plain at {r['layer']} "
+              f"({dt}): {rel:.3e} > {CONV_REL[dt]}")
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms")}
+    print(f"[conv] bf16 seven layers: kernel {tot['ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms "
+          f"({sum(r['gflop'] for r in rows):.1f} GFLOP)")
+    return launches["conv_s1"], rows, f32
+
+
+def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
+         library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": None}
+            "bound_by": bnd[1], "library_ms": library_ms}
 
 
 def main():
@@ -559,14 +795,14 @@ def main():
         phase_build()
         rows = phase_kernel()
         train_rows = phase_kernel_train()
-        from pase_tpu_torch.ops import cuda_qrnn
-        cuda_qrnn.reset_launches()          # the serving path starts here
+        reset_launches()                    # the serving path starts here
         enc, enc_calls = phase_encoder("cuda")
         serve_calls = phase_serve(enc, "cuda")
-        serving_launches = dict(cuda_qrnn.LAUNCHES)   # ... and ends here
+        serving_launches = read_launches()  # ... and ends here
         layers = len(enc.module.rnn.layers)
         expected = {"qrnn_pool_fwd": layers * (enc_calls + serve_calls),
-                    "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0}
+                    "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0,
+                    "conv_s1": 0}
         print(f"[launches] serving path: {serving_launches} (expected "
               f"{expected}: {layers} QRNN layer(s) x "
               f"{enc_calls + serve_calls} encoder calls)")
@@ -576,6 +812,11 @@ def main():
         phase_train_parity(os.path.join(tmp, "parity"))
         tr, train_launches, _ = phase_train_cli(os.path.join(tmp, "cli"))
         phase_profile(tr)
+        del tr
+        tr, _, _ = phase_train_dist(os.path.join(tmp, "dist"))
+        phase_profile(tr, "distorted train step")
+        del tr
+        conv_launches, conv_rows, conv_f32 = phase_conv()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -586,6 +827,13 @@ def main():
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
+    # the seven layers' bound: the sum of each layer's; bound by what
+    # bounds the larger share of that sum
+    by_ops = sum(r["bound_ms"] for r in conv_rows
+                 if r["bound_by"] == "operations")
+    conv_bound = (sum(r["bound_ms"] for r in conv_rows),
+                  "operations" if 2 * by_ops >= sum(
+                      r["bound_ms"] for r in conv_rows) else "bytes")
     print(json.dumps({"kernels": [
         _row("qrnn_pool_fwd", src, "pase_tpu/ops/pallas_qrnn.py:63",
              serving_launches["qrnn_pool_fwd"],
@@ -598,7 +846,13 @@ def main():
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
-             train["bwd_plain_ms"], train["bwd_bound"])]}))
+             train["bwd_plain_ms"], train["bwd_bound"]),
+        _row("conv_s1", "pase_tpu_torch/csrc/conv_s1.cu",
+             "experiments/pallas_conv_proto.py:65", conv_launches,
+             max(r["max_abs_err"] for r in conv_rows),
+             sum(r["ms"] for r in conv_rows),
+             sum(r["plain_ms"] for r in conv_rows), conv_bound,
+             sum(r["library_ms"] for r in conv_rows))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ from pase_tpu_torch.minions import (DecoderMinion, MLPMinion,
                                     make_mi_labels, make_mi_samples)
 
 ROADMAP_HEADS = "ROADMAP.md, queue 1: off-path model variants"
+ROADMAP_OVERLAP = "ROADMAP.md, queue 1: the overlap worker head"
 
 _MINION_FIELDS = {
     "mlp": ("num_outputs", "hidden_size", "hidden_layers", "context",
@@ -58,9 +59,10 @@ def parse_workers_cfg(cfg):
 def _build_minion(cfg, in_channels, generator=None):
     mtype = cfg.get("type", "mlp")
     if cfg["name"] in ("spc", "gap", "overlap") or mtype not in _MINION_CLS:
+        item = ROADMAP_OVERLAP if cfg["name"] == "overlap" else ROADMAP_HEADS
         raise NotImplementedError(
             f"worker {cfg['name']!r} (type {mtype!r}) is not ported yet: "
-            f"{ROADMAP_HEADS}")
+            f"{item}")
     kwargs = {k: cfg[k] for k in _MINION_FIELDS[mtype] if k in cfg}
     for seq_key in ("fmaps", "strides", "kwidths"):
         if seq_key in kwargs:

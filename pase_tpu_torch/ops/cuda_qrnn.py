@@ -5,7 +5,7 @@ the linear scan and the gate math around it (forward), and the
 reverse-time scan of its custom VJP (backward). They are built with
 ``nvcc`` for ``sm_90a`` into one shared library with plain C entry points
 at first use, cached under ``build/pase_tpu_torch/`` by a hash of the
-source, and loaded with ``ctypes``.
+source, and loaded with ``ctypes`` (``ops/cuda_build.py``).
 
 Entry points, each with a launch count in ``LAUNCHES``:
   qrnn_pool_fwd        ``qrnn_pool`` without a gradient (serving, eval);
@@ -19,31 +19,20 @@ a CUDA tensor every wrapper launches its kernel or raises: a missing
 ``nvcc``, a failed build and a refused launch all raise.
 """
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-
 import torch
 
+from pase_tpu_torch.ops import cuda_build
 from pase_tpu_torch.ops import qrnn as _plain
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "qrnn_pool.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "pase_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = cuda_build.source_path("qrnn_pool")
+BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches per entry point since import (or since reset_launches)
 LAUNCHES = {"qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
             "qrnn_pool_bwd": 0}
 _LIB = None
 
-_P = ctypes.c_void_p
-_N = ctypes.c_longlong
+_P, _N = cuda_build.PTR, cuda_build.SIZE
 _ARGTYPES = {
     # (y, c0, h, c_T, B, T, H, stream)
     "qrnn_pool_fwd": [_P, _P, _P, _P, _N, _N, _N, _P],
@@ -59,59 +48,18 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _find_nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = os.path.join(home, "bin", "nvcc")
-        nvcc = cand if os.path.isfile(cand) else None
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the QRNN CUDA kernels cannot be built")
-    return nvcc
-
-
 def library_path():
     """Where the built library for the current source lives."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libqrnn_pool_{digest}.so")
+    return cuda_build.library_path(SOURCE, BUILD_DIR)
 
 
 def build(verbose=False):
     """Compile the kernels if their library is not built yet, load it, and
     return the ``ctypes`` handle. Raises on any failure."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    so = library_path()
-    if not os.path.isfile(so):
-        nvcc = _find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # compile to a private name, then rename: a concurrent process never
-        # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(" ".join(cmd))
-            print((proc.stdout + proc.stderr).strip())
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    _LIB = lib
-    return lib
+    if _LIB is None:
+        _LIB = cuda_build.load(SOURCE, _ARGTYPES, BUILD_DIR, verbose)
+    return _LIB
 
 
 def _check_lanes(name, t, like):
@@ -163,11 +111,7 @@ def _cuda_or_plain(y):
 
 
 def _launch(name, *args):
-    lib = build()
-    err = getattr(lib, name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    cuda_build.launch(build(), name, LAUNCHES, *args)
 
 
 def _ptr(t):

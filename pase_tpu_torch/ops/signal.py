@@ -1,5 +1,6 @@
-"""Batched signal primitives of the port: framing, windowed means and the
-STFT magnitude, on [B, T] waveforms (or [B, T, C] feature maps).
+"""Batched signal primitives of the port: framing, windowed means, the
+STFT magnitude and the FFT convolution, on [B, T] waveforms (or [B, T, C]
+feature maps).
 
 The STFT goes through ``torch.stft`` (cuFFT on the card). The JAX package
 evaluates small DFTs as matmuls only because the TPU has no FFT unit
@@ -69,3 +70,15 @@ def stft_mag(wav, n_fft, hop, win, window=None, n_frames=None):
                       window=window.to(wav.device, wav.dtype), center=True,
                       pad_mode="reflect", return_complex=True)
     return spec.abs().transpose(1, 2)[:, :n_frames]
+
+
+def fft_convolve_full(x, h):
+    """'full' 1-D convolution of [B, T] with [B, K] (or [K]) through the
+    rFFT at the next power of two of T + K - 1: [B, T + K - 1]."""
+    if h.dim() == 1:
+        h = h[None]
+    n = x.shape[-1] + h.shape[-1] - 1
+    nfft = 1 << (n - 1).bit_length()
+    y = torch.fft.irfft(torch.fft.rfft(x, n=nfft) * torch.fft.rfft(h, n=nfft),
+                        n=nfft)
+    return y[..., :n]

@@ -2,14 +2,17 @@
 
     python -m pase_tpu_torch.train --synthetic \\
         --net_cfg cfg/workers/workers+.cfg --fe_cfg cfg/frontend/PASE+.cfg \\
-        --batch_size 32 --chunk_size 32000 --epoch 1 --save_path ckpt
+        --batch_size 32 --chunk_size 32000 --epoch 1 --save_path ckpt \\
+        [--dtrans_cfg dist.cfg] [--stats stats.pkl]
 
 The flags are those of the JAX CLI (``train.py``) for the synthetic path;
 ``--device`` picks the card (default ``cuda``) or the CPU. Synthetic data
 is drawn on the device (``data/dataset.py``) with 100 steps per epoch and
 a 10-batch eval; each epoch writes ``FE_e{epoch}.npz`` and appends to
-``metrics.jsonl`` in ``--save_path``. Flags of paths the port does not
-build yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+``metrics.jsonl`` in ``--save_path``. ``--dtrans_cfg`` turns on the
+distortion stack with the assets its cfg names (the first cfg that is not
+"None" wins). Flags of paths the port does not build yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 import argparse
@@ -27,7 +30,6 @@ def str2bool(v):
 _UNPORTED = {
     "data_root": ([], "queue 1: disk-fed training"),
     "data_cfg": ([], "queue 1: disk-fed training"),
-    "dtrans_cfg": ([], "queue 1: batch prepare (the distortion stack)"),
     "device_corpus": (False, "queue 1: disk-fed training"),
     "cache_feats_dir": (None, "queue 1: disk-fed training"),
     "gan_cfg": (None, "queue 1: off-path model variants (GAN workers)"),
@@ -36,6 +38,10 @@ _UNPORTED = {
     "chunking_K": (None, "queue 1: off-path model variants"),
     "zero_speech_p": (0.0, "queue 1: disk-fed training"),
 }
+ROADMAP_HOST_STAGE = ("ROADMAP.md, queue 1: the host distortion stage "
+                      "(codec2, whisperize)")
+# steps per epoch of the synthetic path, as in the JAX CLI
+SYNTHETIC_BPE = 100
 
 
 def build_argparser():
@@ -81,10 +87,7 @@ def build_argparser():
 def check_ported(opts):
     """Raise for a flag whose path the port does not build yet."""
     for flag, (unused, item) in _UNPORTED.items():
-        value = getattr(opts, flag)
-        if flag == "dtrans_cfg":    # "None" disables a corpus's stack
-            value = [c for c in value if str(c) not in ("None", "none", "")]
-        if value != unused:
+        if getattr(opts, flag) != unused:
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md, {item}")
     if not opts.synthetic:
@@ -98,6 +101,26 @@ def check_ported(opts):
             "policies)")
     if opts.net_cfg is None or opts.fe_cfg is None:
         raise ValueError("--net_cfg and --fe_cfg are required")
+
+
+def build_distortions(opts, chunk_size):
+    """(DistortionConfig, DistortionAssets) of the first ``--dtrans_cfg``
+    that is not the sentinel "None" (which disables a corpus's stack), or
+    (None, None). The host stage (codec2, whisperize) is not ported and
+    raises."""
+    from pase_tpu_torch.data.distortions import build_assets, config_from_json
+    real = [c for c in (opts.dtrans_cfg or [])
+            if str(c) not in ("None", "none", "")]
+    if not real:
+        return None, None
+    with open(real[0]) as f:
+        dcfg_json = json.load(f)
+    cfg = config_from_json(dcfg_json)
+    for key in ("codec2_p", "whisper_p"):
+        if float(dcfg_json.get(key, 0) or 0) > 0:
+            raise NotImplementedError(
+                f"{key} > 0 in {real[0]}: {ROADMAP_HOST_STAGE}")
+    return cfg, build_assets(dcfg_json, cfg, chunk_size)
 
 
 def train(opts):
@@ -116,7 +139,8 @@ def train(opts):
         fe_cfg = json.load(f)
     with open(opts.net_cfg) as f:
         wk_cfg = json.load(f)
-    bpe = 100
+    dist_cfg, dist_assets = build_distortions(opts, opts.chunk_size)
+    bpe = SYNTHETIC_BPE
     batcher = DeviceSyntheticBatcher(opts.batch_size, opts.chunk_size,
                                      seed=opts.seed, device=opts.device)
     va_batcher = DeviceSyntheticBatcher(opts.batch_size, opts.chunk_size,
@@ -127,7 +151,8 @@ def train(opts):
     cfg = vars(opts).copy()
     cfg.update(bpe=bpe, va_bpe=max(bpe // 10, 1),
                random_scale=str2bool(opts.random_scale))
-    tr = Trainer(fe_cfg, wk_cfg, cfg, stats=stats, device=opts.device)
+    tr = Trainer(fe_cfg, wk_cfg, cfg, stats=stats, dist_cfg=dist_cfg,
+                 dist_assets=dist_assets, device=opts.device)
     try:
         tr.train_(batcher, va_batcher)
     finally:

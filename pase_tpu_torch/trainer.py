@@ -2,7 +2,8 @@
 
 The port of ``pase_tpu/trainer.py`` for the base policy. One step:
   1. prepare the raw batch on the device (targets from the clean chunk,
-     ZNorm; ``data/pipeline.py``);
+     ZNorm, the distortion stack on the encoder's chunk when a
+     ``DistortionConfig`` and its assets are given; ``data/pipeline.py``);
   2. forward the model in train mode: the three streams through the
      encoder as one batch (BatchNorm statistics over all three, running
      stats updated), then every worker head;
@@ -40,7 +41,7 @@ from pase_tpu_torch.scheduling import apply_policy, init_policy_state
 class Trainer:
 
     def __init__(self, frontend_cfg, workers_cfg, cfg, stats=None,
-                 device="cuda"):
+                 dist_cfg=None, dist_assets=None, device="cuda"):
         self.cfg = dict(cfg)
         self.device = torch.device(device)
         self.mode = self.cfg.get("backprop_mode", "base")
@@ -57,7 +58,8 @@ class Trainer:
         self.num_workers = len(self.ordered_names)
         self.hop = self.cfg.get("hop", 160)
         self.prepare = make_prepare_fn(
-            self.meta, stats=stats, hop=self.hop,
+            self.meta, stats=stats, dist_cfg=dist_cfg, assets=dist_assets,
+            hop=self.hop,
             random_scale=self.cfg.get("random_scale", False))
         self.prep_generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)

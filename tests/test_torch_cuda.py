@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: the QRNN pooling kernels
 (pase_tpu_torch/csrc/qrnn_pool.cu: serving forward, training forward,
-backward) against their plain PyTorch versions, the encoder on the GPU
-against the same weights on the CPU, and one small train step on the GPU
-against the CPU.
+backward) and the stride-1 conv kernel (csrc/conv_s1.cu) against their
+plain PyTorch versions, the encoder on the GPU against the same weights on
+the CPU, one small train step on the GPU against the CPU, and the
+distortion stack on the GPU against the CPU with the same draws.
 
 This file imports no JAX, so it runs on a host without it. There the
 repository's conftest (which configures JAX) is left out:
@@ -15,14 +16,16 @@ forward kernels and 1e-5 x max(1, max|dy_plain|) for the backward
 contraction), 2e-4 of the largest output for the encoder (the bound
 tests/test_frontend_parity.py holds the JAX encoder to), 1e-4 relative per
 worker loss and 1e-3 of the largest gradient per parameter group for the
-train step."""
+train step; for the conv kernel 2^-7 of the largest output in bf16 (one
+bf16 rounding of float32 sums taken in another order) and 1e-5 in
+float32; the distortion stack within 1e-5 of its largest output."""
 
 import numpy as np
 import pytest
 import torch
 
 from pase_tpu_torch import wf_builder
-from pase_tpu_torch.ops import cuda_qrnn
+from pase_tpu_torch.ops import conv, cuda_qrnn
 from pase_tpu_torch.ops import qrnn as plain
 from torch_port_common import NARROW_CFG, cuda_device  # noqa: F401
 
@@ -182,3 +185,69 @@ def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):
         top = max(x.abs().max().item() for x in c)
         diff = max((a.cpu() - b).abs().max().item() for a, b in zip(g, c))
         assert diff <= 1e-3 * top, (part, diff, top)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -7),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("layer", [(160, 20, 10, 64, 64), (37, 11, 1, 48, 70),
+                                   (200, 11, 2, 128, 256), (9, 3, 1, 5, 3)])
+def test_conv_kernel_matches_plain(cuda_device, dtype, rel, layer):
+    """Ragged tiles in t, c and o included (37 steps, 48 / 5 channels, 70
+    / 3 outputs)."""
+    t, k, s, cin, cout = layer
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(layer))
+    x = torch.randn((3, t + k - 1, cin), generator=gen,
+                    device=cuda_device).to(dtype)
+    w = torch.randn((k, cin, cout), generator=gen, device=cuda_device) * 0.05
+    before = conv.LAUNCHES["conv_s1"]
+    y = conv.conv_strided(x, w, s)
+    assert conv.LAUNCHES["conv_s1"] == before + 1
+    xs, ws, tout = conv.space_to_depth(x, w, s)
+    want = conv.conv_s1_plain(xs, ws)[:, :tout]
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == want.shape
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item(), err
+
+
+def test_conv_kernel_refuses(cuda_device):
+    x = torch.randn(2, 30, 4, device=cuda_device)
+    with pytest.raises(TypeError):
+        conv.conv_s1(x.double(), torch.randn(3, 4, 2, device=cuda_device))
+    with pytest.raises(ValueError):
+        conv.conv_s1(x, torch.randn(3, 5, 2, device=cuda_device))
+    with pytest.raises(ValueError):
+        conv.conv_s1(x, torch.randn(31, 4, 2, device=cuda_device))
+
+
+def test_distortions_gpu_match_cpu(cuda_device):
+    """Every stage at p = 1 on the card against the CPU, same draws."""
+    from pase_tpu_torch.data import distortions as D
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    rng = np.random.RandomState(0)
+    t = 4800
+    ir = np.zeros((2, 300), np.float32)
+    ir[:, 0], ir[1, 40] = 1.0, 0.5
+    assets = D.DistortionAssets(
+        ir_bank=torch.from_numpy(ir), ir_pmax=torch.tensor([0, 0]),
+        noise_bank=torch.from_numpy(rng.randn(3, 2 * t).astype(np.float32)),
+        overlap_bank=torch.from_numpy(rng.randn(2, 2 * t).astype(
+            np.float32)),
+        bandrop_bank=torch.from_numpy(rng.randn(2, 65).astype(np.float32)),
+        bandrop_lens=torch.tensor([65, 33], dtype=torch.int32),
+        downsample_bank=torch.from_numpy(rng.randn(1, 65).astype(
+            np.float32)),
+        resample_filters=D.build_resample_filters((2, 4)))
+    cfg = D.DistortionConfig(
+        reverb_p=1.0, overlap_p=1.0, overlap_reverb=True, noises_p=1.0,
+        speed_p=1.0, speed_range=(-0.1, 0.1), resample_p=1.0,
+        resample_factors=(2, 4), clip_p=1.0, chop_p=1.0, bandrop_p=1.0,
+        downsample_p=1.0)
+    wav = torch.from_numpy(next(iter(SyntheticChunkBatcher(4, t)))["chunk"])
+    draws = D.draw_distortions(torch.Generator().manual_seed(1), 4, t, cfg,
+                               assets)
+    y_cpu, m_cpu = D.apply_distortions(wav, draws, cfg, assets)
+    y, m = D.apply_distortions(wav.to(cuda_device), draws.to(cuda_device),
+                               cfg, assets.to(cuda_device))
+    assert (y.cpu() - y_cpu).abs().max() <= 1e-5 * y_cpu.abs().max()
+    assert (m.cpu() - m_cpu).abs().max() <= 1e-7

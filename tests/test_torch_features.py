@@ -165,9 +165,20 @@ def test_prepare_matches_jax(wav, with_stats):
 
 
 def test_prepare_refuses_distortions():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.make_prepare_fn(parse_workers_cfg(WORKERS),
-                                 dist_cfg=object())
+    """Per-corpus distortion masks, zero-speech rows, explicit clean chunks
+    and int16 waveforms belong to disk-fed training, not ported yet."""
+    from pase_tpu_torch.data.distortions import (DistortionAssets,
+                                                 DistortionConfig)
+    prepare = pipeline.make_prepare_fn(
+        parse_workers_cfg(WORKERS), dist_cfg=DistortionConfig(clip_p=0.5),
+        assets=DistortionAssets())
+    raw = {k: torch.zeros(2, 4800) for k in ("chunk", "chunk_ctxt",
+                                             "chunk_rand")}
+    for extra in ({"dist_mask": torch.ones(2)}, {"zs_mask": torch.ones(2)},
+                  {"cchunk": torch.zeros(2, 4800)},
+                  {"chunk": torch.zeros(2, 4800, dtype=torch.int16)}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            prepare({**raw, **extra})
 
 
 def test_stats_pkl_round_trip(tmp_path):
