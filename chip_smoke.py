@@ -7,8 +7,10 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device  — a CUDA device (else exit 1), its nvidia-smi name and power
                limit, TF32 off for matmuls and cuDNN.
   2. build   — the QRNN kernels (pase_tpu_torch/csrc/qrnn_pool.cu) and the
-               stride-1 conv kernel (csrc/conv_s1.cu), nvcc for sm_90a,
-               from the sources of this checkout, both builds at once.
+               two stride-1 conv kernels (csrc/conv_s1_tc.cu, bf16 on the
+               tensor cores; csrc/conv_s1.cu, float32), nvcc for sm_90a,
+               from the sources of this checkout, the three builds at
+               once.
   3. kernel  — the kernel against its plain PyTorch version on the card at
                the main path's QRNN shapes: max|dh|, max|dc_T| <= 1e-5, a
                c0-seeded case, block-streamed == full bit for bit, and the
@@ -49,21 +51,25 @@ Phases, each printed as it ends; any failure exits non-zero:
                draws, max|diff| <= 1e-5 of max|out| (the bench stack, and
                all nine stages at p = 1).
   9. conv    — python -m pase_tpu_torch.conv_proto's seven trunk layers at
-               batch 96 in bf16 (kernel vs plain within 2^-7 of max|y|)
-               and one in float32 (within 1e-5 of max|y|); kernel, plain
-               and cuDNN times and bounds.
+               batch 96 in bf16 through conv_s1_tc (within 2^-7 of
+               max|y_plain|) and one layer in float32 through conv_s1
+               (within 1e-5 of max|y_plain|); per layer the kernel's,
+               cuDNN's and the plain version's ms, TFLOP/s and share of
+               the bound.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd once per
 QRNN layer per encoder call; training (the CLI in phase 7) must launch
 qrnn_pool_fwd_train and qrnn_pool_bwd once per QRNN layer per train step,
 and qrnn_pool_fwd once per layer per eval step; the distorted step
-(phase 8) the training kernels once per layer per step; the conv_proto run
-(phase 9) conv_s1 once per layer, 7 in all. No other path launches
-conv_s1. The line before the last is a JSON summary of the kernels; the
+(phase 8) the training kernels once per layer per step; the bf16
+conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all, and conv_s1
+never; its float32 layer conv_s1 once. No other path launches a conv
+kernel. The line before the last is a JSON summary of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import functools
 import json
 import os
 import shutil
@@ -146,16 +152,19 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernel libraries, one nvcc each, started together."""
+    """The three kernel libraries, one nvcc each, started together."""
     from pase_tpu_torch.ops import conv, cuda_qrnn
+    libs = [(cuda_qrnn.SOURCE, cuda_qrnn.library_path, cuda_qrnn.build)]
+    libs += [(conv.SOURCES[n], functools.partial(conv.library_path, n),
+              functools.partial(conv.build, n)) for n in conv.SOURCES]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(m.build, True) for m in (cuda_qrnn, conv)]:
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for job in [pool.submit(build, True) for _, _, build in libs]:
             job.result()
-    for m in (cuda_qrnn, conv):
-        print(f"[build] {os.path.relpath(m.library_path(), HERE)} from "
-              f"{os.path.relpath(m.SOURCE, HERE)}")
-    print(f"[build] both in {time.perf_counter() - t0:.2f} s")
+    for source, path, _ in libs:
+        print(f"[build] {os.path.relpath(path(), HERE)} from "
+              f"{os.path.relpath(source, HERE)}")
+    print(f"[build] all {len(libs)} in {time.perf_counter() - t0:.2f} s")
 
 
 def reset_launches():
@@ -533,7 +542,8 @@ def phase_train_cli(tmp):
     steps, evals = tr.bpe, tr.cfg["va_bpe"]
     expected = {"qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals, "conv_s1": 0}
+                "qrnn_pool_fwd": layers * evals, "conv_s1": 0,
+                "conv_s1_tc": 0}
     print(f"[launches] training path: {launches} (expected {expected}: "
           f"{layers} QRNN layer(s) x {steps} train steps, x {evals} eval "
           f"steps)")
@@ -689,7 +699,7 @@ def phase_train_dist(tmp):
     layers = len(tr.model.frontend.rnn.layers)
     expected = {"qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps, "qrnn_pool_fwd": 0,
-                "conv_s1": 0}
+                "conv_s1": 0, "conv_s1_tc": 0}
     print(f"[launches] distorted training step: {launches} (expected "
           f"{expected}: {layers} QRNN layer(s) x {steps} steps)")
     check(launches == expected, f"distorted step launches {launches} != "
@@ -734,45 +744,52 @@ def phase_train_dist(tmp):
     return tr, launches, perf
 
 
-def phase_conv():
-    """python -m pase_tpu_torch.conv_proto's layers on the card. Returns
-    (conv_s1 launches of the conv_proto run, the bf16 rows, the float32
-    row)."""
+def _conv_run(dtype, layers, expected):
+    """conv_proto.forward over ``layers`` in ``dtype`` with the launch
+    counts reset just before and read just after; checks them against
+    ``expected`` (the conv kernels' counts; every other kernel 0) and
+    returns (launches, measure's rows)."""
     from pase_tpu_torch import conv_proto
     from pase_tpu_torch.ops import conv
     import torch
-    inputs = conv_proto.make_inputs(torch.bfloat16, "cuda")
+    inputs = conv_proto.make_inputs(dtype, "cuda", layers=layers)
     reset_launches()                      # the conv_proto run starts here
     ys = conv_proto.forward(inputs)
     torch.cuda.synchronize()
     launches = read_launches()            # ... and ends here
-    expected = {"qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
-                "qrnn_pool_bwd": 0, "conv_s1": len(conv_proto.LAYERS)}
-    print(f"[launches] conv_proto run: {launches} (expected {expected}: one "
-          f"per layer)")
-    check(launches == expected, f"conv_proto run launches {launches} != "
-          f"{expected}")
+    expected = {**{k: 0 for k in launches}, **expected}
+    dt = str(dtype).replace("torch.", "")
+    print(f"[launches] conv_proto run, {dt}: {launches} (expected "
+          f"{expected}: one per layer)")
+    check(launches == expected, f"conv_proto run ({dt}) launches "
+          f"{launches} != {expected}")
     rows = conv_proto.measure(inputs, ys)
     del inputs, ys
     torch.cuda.empty_cache()
-    f32_in = conv_proto.make_inputs(
-        torch.float32, "cuda", layers=[conv_proto.LAYERS[CONV_F32_LAYER]])
-    f32 = conv_proto.measure(f32_in, conv_proto.forward(f32_in))[0]
-    del f32_in
-    torch.cuda.empty_cache()
-    for r in rows + [f32]:
-        dt = r["dtype"].replace("torch.", "")
+    for r in rows:
         print(f"[conv] {dt} " + conv_proto.format_row(r))
         rel = r["max_abs_err"] / r["max_abs_plain"]
-        check(rel <= CONV_REL[dt], f"conv_s1 vs plain at {r['layer']} "
-              f"({dt}): {rel:.3e} > {CONV_REL[dt]}")
-    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
-                                               "library_ms", "bound_ms")}
-    print(f"[conv] bf16 seven layers: kernel {tot['ms']:.3f} ms, plain "
-          f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, "
-          f"bound {tot['bound_ms']:.4f} ms "
-          f"({sum(r['gflop'] for r in rows):.1f} GFLOP)")
-    return launches["conv_s1"], rows, f32
+        check(rel <= CONV_REL[dt], f"{conv.ROUTES[dtype]} vs plain at "
+              f"{r['layer']} ({dt}): {rel:.3e} > {CONV_REL[dt]}")
+    return launches, rows
+
+
+def phase_conv():
+    """python -m pase_tpu_torch.conv_proto's layers on the card: the seven
+    in bf16 (conv_s1_tc), one in float32 (conv_s1). Returns (launches of
+    the bf16 run, its rows, launches of the float32 run, its row)."""
+    from pase_tpu_torch import conv_proto
+    import torch
+    layers = conv_proto.LAYERS
+    bf16, rows = _conv_run(torch.bfloat16, layers,
+                           {"conv_s1_tc": len(layers)})
+    f32, f32_rows = _conv_run(torch.float32, [layers[CONV_F32_LAYER]],
+                              {"conv_s1": 1})
+    print(f"[conv] bf16 seven layers, {conv_proto.format_total(rows)}")
+    slower = [r["layer"] for r in rows if r["ms"] > r["library_ms"]]
+    print(f"[conv] layers where conv_s1_tc is slower than cuDNN: "
+          f"{slower or 'none'}")
+    return bf16, rows, f32, f32_rows[0]
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
@@ -802,7 +819,7 @@ def main():
         layers = len(enc.module.rnn.layers)
         expected = {"qrnn_pool_fwd": layers * (enc_calls + serve_calls),
                     "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0,
-                    "conv_s1": 0}
+                    "conv_s1": 0, "conv_s1_tc": 0}
         print(f"[launches] serving path: {serving_launches} (expected "
               f"{expected}: {layers} QRNN layer(s) x "
               f"{enc_calls + serve_calls} encoder calls)")
@@ -816,7 +833,7 @@ def main():
         tr, _, _ = phase_train_dist(os.path.join(tmp, "dist"))
         phase_profile(tr, "distorted train step")
         del tr
-        conv_launches, conv_rows, conv_f32 = phase_conv()
+        conv_launches, conv_rows, f32_launches, conv_f32 = phase_conv()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -847,12 +864,18 @@ def main():
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
              train["bwd_plain_ms"], train["bwd_bound"]),
-        _row("conv_s1", "pase_tpu_torch/csrc/conv_s1.cu",
-             "experiments/pallas_conv_proto.py:65", conv_launches,
+        _row("conv_s1_tc", "pase_tpu_torch/csrc/conv_s1_tc.cu",
+             "experiments/pallas_conv_proto.py:65",
+             conv_launches["conv_s1_tc"],
              max(r["max_abs_err"] for r in conv_rows),
              sum(r["ms"] for r in conv_rows),
              sum(r["plain_ms"] for r in conv_rows), conv_bound,
-             sum(r["library_ms"] for r in conv_rows))]}))
+             sum(r["library_ms"] for r in conv_rows)),
+        _row("conv_s1", "pase_tpu_torch/csrc/conv_s1.cu",
+             "experiments/pallas_conv_proto.py:65", f32_launches["conv_s1"],
+             conv_f32["max_abs_err"], conv_f32["ms"], conv_f32["plain_ms"],
+             (conv_f32["bound_ms"], conv_f32["bound_by"]),
+             conv_f32["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""The stride-1 conv kernel (``ops/conv.py``, ``csrc/conv_s1.cu``) at the
-PASE+ trunk's conv shapes, against its plain version and cuDNN.
+"""The stride-1 conv kernels (``ops/conv.py``: ``csrc/conv_s1_tc.cu`` for
+bf16, ``csrc/conv_s1.cu`` for float32) at the PASE+ trunk's conv shapes,
+against their plain version and cuDNN.
 
     python -m pase_tpu_torch.conv_proto [--device cuda]
 
@@ -8,13 +9,15 @@ the seven layers (T, K, stride, Cin, Cout) of ``LAYERS`` at batch 96, x [96,
 T + K - 1, Cin] and w [K, Cin, Cout] x 0.05 drawn on the device from a
 seeded ``torch.Generator``, strided layers through the space-to-depth
 reform. ``forward`` runs each layer once through ``conv_strided`` (one
-kernel launch per layer); ``measure`` then gives, per layer: max|y -
-y_plain| and its share of max|y_plain|, the kernel's time, the plain
-version's, cuDNN's (``F.conv1d`` on NCW / OIW copies made before the timed
-region), all in CUDA-event ms, and the bound: the larger of the bytes
-(x and w read once, y written once) at 3.35 TB/s and the operations at the
-dtype's dense peak (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
-float32), the H100 SXM's published rates.
+kernel launch per layer: ``conv_s1_tc`` in bf16, ``conv_s1`` in float32);
+``measure`` then gives, per layer: max|y - y_plain| and its share of
+max|y_plain|, the kernel's time, the plain version's, cuDNN's
+(``F.conv1d`` on NCW / OIW copies made before the timed region, TF32 off),
+all in CUDA-event ms, and the bound: the larger of the bytes (x and w read
+once, y written once) at 3.35 TB/s and the operations at the dtype's dense
+peak (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s float32), the H100
+SXM's published rates. TFLOP/s count the layer's own operations, not the
+taps the reform pads.
 """
 
 import argparse
@@ -97,31 +100,45 @@ def measure(inputs, ys):
     are not the ``forward`` run's: read ``conv.LAUNCHES`` before calling
     this."""
     rows = []
-    for (layer, x, w), y in zip(inputs, ys):
-        t, k, s, cin, cout = layer
-        xs, ws, tout = conv.space_to_depth(x, w, s)
-        plain = conv.conv_s1_plain(xs, ws)[:, :tout]
-        err = (y.float() - plain.float()).abs().max().item()
-        top = plain.float().abs().max().item()
-        ws_x = ws.to(x.dtype).contiguous()
-        x_ncw = x.transpose(1, 2).contiguous()
-        w_oiw = w.to(x.dtype).permute(2, 1, 0).contiguous()
-        lib = F.conv1d(x_ncw, w_oiw, stride=s).transpose(1, 2)
-        lib_err = (lib.float() - plain.float()).abs().max().item()
-        ms = _cuda_ms(lambda: conv.conv_s1(xs, ws_x))
-        strided_ms = _cuda_ms(lambda: conv.conv_strided(x, w, s))
-        plain_ms = _cuda_ms(lambda: conv.conv_s1_plain(xs, ws_x))
-        library_ms = _cuda_ms(lambda: F.conv1d(x_ncw, w_oiw, stride=s))
-        bound_ms, bound_by = bound(layer, x, x.shape[0])
-        rows.append({"layer": list(layer), "dtype": str(x.dtype),
-                     "max_abs_err": err, "max_abs_plain": top,
-                     "library_err": lib_err, "ms": ms,
-                     "strided_ms": strided_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     "gflop": 2 * x.shape[0] * tout * k * cin * cout / 1e9})
-        del plain, lib, x_ncw, w_oiw, xs, ws, ws_x
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for (layer, x, w), y in zip(inputs, ys):
+            rows.append(_measure_layer(layer, x, w, y))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return rows
+
+
+def _measure_layer(layer, x, w, y):
+    t, k, s, cin, cout = layer
+    xs, ws, tout = conv.space_to_depth(x, w, s)
+    plain = conv.conv_s1_plain(xs, ws)[:, :tout]
+    err = (y.float() - plain.float()).abs().max().item()
+    top = plain.float().abs().max().item()
+    ws_x = ws.to(x.dtype).contiguous()
+    x_ncw = x.transpose(1, 2).contiguous()
+    w_oiw = w.to(x.dtype).permute(2, 1, 0).contiguous()
+    lib = F.conv1d(x_ncw, w_oiw, stride=s).transpose(1, 2)
+    lib_err = (lib.float() - plain.float()).abs().max().item()
+    ms = _cuda_ms(lambda: conv.conv_s1(xs, ws_x))
+    strided_ms = _cuda_ms(lambda: conv.conv_strided(x, w, s))
+    plain_ms = _cuda_ms(lambda: conv.conv_s1_plain(xs, ws_x))
+    library_ms = _cuda_ms(lambda: F.conv1d(x_ncw, w_oiw, stride=s))
+    bound_ms, bound_by = bound(layer, x, x.shape[0])
+    row = {"layer": list(layer), "dtype": str(x.dtype),
+           "max_abs_err": err, "max_abs_plain": top,
+           "library_err": lib_err, "ms": ms, "strided_ms": strided_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gflop": 2 * x.shape[0] * tout * k * cin * cout / 1e9}
+    del plain, lib, x_ncw, w_oiw, xs, ws, ws_x
+    return row
+
+
+def _rate(r, ms):
+    """TFLOP/s and share of the bound of a call that took ``ms``."""
+    return f"{r['gflop'] / ms:.1f} TFLOP/s, {r['bound_ms'] / ms:.1%} of bound"
 
 
 def format_row(r):
@@ -129,11 +146,20 @@ def format_row(r):
     return (f"k={k:<2d} s={s:<2d} {cin:>3d}->{cout:<3d} T={t:<5d} "
             f"max|y - y_plain| {r['max_abs_err']:.3e} "
             f"({r['max_abs_err'] / r['max_abs_plain']:.2e} of max|y_plain|),"
-            f" cuDNN {r['library_err']:.3e}; kernel {r['ms']:.3f} ms "
-            f"(+ reform {r['strided_ms']:.3f}), plain {r['plain_ms']:.3f}, "
-            f"cuDNN {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} "
-            f"({r['bound_by']}); "
-            f"{r['gflop'] / r['ms']:.1f} TFLOP/s")
+            f" cuDNN {r['library_err']:.3e}; kernel {r['ms']:.4f} ms "
+            f"({_rate(r, r['ms'])}; + reform {r['strided_ms']:.4f}), "
+            f"cuDNN {r['library_ms']:.4f} ms ({_rate(r, r['library_ms'])}), "
+            f"plain {r['plain_ms']:.3f} ms ({_rate(r, r['plain_ms'])}); "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def format_total(rows):
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gflop")}
+    return (f"{tot['gflop']:.1f} GFLOP: kernel {tot['ms']:.4f} ms "
+            f"({_rate(tot, tot['ms'])}), cuDNN {tot['library_ms']:.4f} ms "
+            f"({_rate(tot, tot['library_ms'])}), plain "
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
 
 
 def main(argv=None):
@@ -150,10 +176,7 @@ def main(argv=None):
     rows = measure(inputs, forward(inputs))
     for r in rows:
         print(format_row(r))
-    print(f"TOTAL kernel {sum(r['ms'] for r in rows):.3f} ms, plain "
-          f"{sum(r['plain_ms'] for r in rows):.3f}, cuDNN "
-          f"{sum(r['library_ms'] for r in rows):.3f}, bound "
-          f"{sum(r['bound_ms'] for r in rows):.4f}")
+    print("TOTAL " + format_total(rows))
     return rows
 
 

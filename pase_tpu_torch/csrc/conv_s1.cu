@@ -1,37 +1,34 @@
-// VALID stride-1 1-D convolution in the JAX layout, for Hopper (sm_90a).
+// VALID stride-1 1-D convolution in float32 in the JAX layout, for Hopper
+// (sm_90a), on the CUDA cores.
 //
-// Replaces the TPU kernel of experiments/pallas_conv_proto.py: _kernel /
-// conv_s1_pallas (pallas_call at :65), K4. It computes
+// Replaces, for float32, the TPU kernel of experiments/pallas_conv_proto.py:
+// _kernel / conv_s1_pallas (pallas_call at :65), K4. It computes
 //
 //   y[b, t, o] = sum_{j < K, c < C} x[b, t + j, c] * w[j, c, o]
 //
 // for x [B, Tin, C], w [K, C, O], y [B, Tout, O], Tout = Tin - K + 1, all
-// contiguous, in float32 or bfloat16 (w in x's type, y in x's type), with
-// the sum kept in float32 and rounded once to y's type at the end. Strided
-// layers reach it through the space-to-depth reform in ops/conv.py, as the
-// prototype's conv_pallas does.
+// contiguous float32, with the sum kept in float32. bfloat16 inputs go to the
+// tensor-core kernel csrc/conv_s1_tc.cu: the tensor cores have no full
+// float32 product, and TF32 would break the 1e-5 bound this route is held to.
+// Strided layers reach both through the space-to-depth reform in
+// ops/conv.py, as the prototype's conv_pallas does.
 //
 // The TPU kernel holds one whole x row [Tin, C] and every weight in VMEM and
 // runs K unrolled [Tout, C] x [C, O] dots on the matrix unit. Here a block
 // owns a kTT x kTO tile of (t, o) outputs of one batch row; 256 threads, each
 // with a 4 x 4 register tile (4 consecutive t, 4 consecutive o). Input
 // channels go in stages of kCC: the x window [kTT + K - 1, kCC] is staged in
-// shared memory as float (transposed, t fastest, so a thread's 4 t are
-// consecutive), and the weights [kKC taps, kCC, kTO] beside it; every
-// (tap, channel) step is 4 + 1 vector shared loads and 16 FMAs. Out-of-range
-// t, c and o are zero-filled in shared memory and masked at the store, so
-// any shape runs without padding copies; offsets are 64-bit.
+// shared memory (transposed, t fastest, so a thread's 4 t are consecutive),
+// and the weights [kKC taps, kCC, kTO] beside it; every (tap, channel) step
+// is 4 + 1 vector shared loads and 16 FMAs. Out-of-range t, c and o are
+// zero-filled in shared memory and masked at the store, so any shape runs
+// without padding copies; offsets are 64-bit.
 //
-// What bounds it: the seven trunk layers of the prototype are 0.5 TFLOP in
-// all; with bf16 tensor cores the card would take about 0.5 ms for them
-// (operations bound all but the first layer, whose 393 MB input makes it
-// bound by bytes). This first kernel runs on the CUDA cores in float32 (67
-// TFLOP/s peak) and is bound by its shared-memory loads, one to two orders
-// of magnitude above that bound. Moving it onto the tensor cores (mma.sync
-// or wgmma, with TMA staging) is later work.
+// What bounds it: float32 has 67 TFLOP/s outside the tensor cores; this
+// kernel is bound by its shared-memory loads well below that (about 24
+// TFLOP/s at the trunk shapes on an H100).
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,30 +39,15 @@ constexpr int kCC = 16;         // input channels per shared-memory stage
 constexpr int kKC = 8;          // taps per weight stage
 constexpr int kThreads = 256;   // 16 x 16 threads, 4 t x 4 o each
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, as torch's .to()
-}
-
 // Row length of the transposed x window in shared memory: odd, so the
 // transposing stores of a warp spread over the banks.
 __host__ __device__ inline int x_ld(long long K) {
   return (kTT + static_cast<int>(K) - 1) | 1;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_s1_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ y, long long Tin, long long C, long long K,
+conv_s1_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ y, long long Tin, long long C, long long K,
                long long O) {
   extern __shared__ float smem[];
   const int xld = x_ld(K);
@@ -78,7 +60,7 @@ conv_s1_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const long long b = blockIdx.z;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const T* xb = x + b * Tin * C;
+  const float* xb = x + b * Tin * C;
   const int xlen = kTT + static_cast<int>(K) - 1;
   float acc[4][4] = {};
 
@@ -86,15 +68,14 @@ conv_s1_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = tid; i < xlen * kCC; i += kThreads) {
       const int r = i / kCC, c = i % kCC;
       const long long t = t0 + r, cc = c0 + c;
-      xs[c * xld + r] = (t < Tin && cc < C) ? to_float(xb[t * C + cc]) : 0.f;
+      xs[c * xld + r] = (t < Tin && cc < C) ? xb[t * C + cc] : 0.f;
     }
     for (long long j0 = 0; j0 < K; j0 += kKC) {
       const int kc = (K - j0 < kKC) ? static_cast<int>(K - j0) : kKC;
       for (int i = tid; i < kc * kCC * kTO; i += kThreads) {
         const int o = i % kTO, c = (i / kTO) % kCC, jj = i / (kTO * kCC);
         const long long cc = c0 + c, oo = o0 + o;
-        ws[i] = (cc < C && oo < O) ? to_float(w[((j0 + jj) * C + cc) * O + oo])
-                                   : 0.f;
+        ws[i] = (cc < C && oo < O) ? w[((j0 + jj) * C + cc) * O + oo] : 0.f;
       }
       __syncthreads();
       for (int jj = 0; jj < kc; ++jj) {
@@ -123,46 +104,38 @@ conv_s1_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     const long long t = t0 + ty * 4 + i;
     if (t >= tout) continue;
-    T* yr = y + (b * tout + t) * O;
+    float* yr = y + (b * tout + t) * O;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const long long o = o0 + tx * 4 + k;
-      if (o < O) yr[o] = from_float<T>(acc[i][k]);
+      if (o < O) yr[o] = acc[i][k];
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* y, long long B, long long Tin,
-           long long C, long long K, long long O, cudaStream_t stream) {
+}  // namespace
+
+// float32 x [B, Tin, C], w [K, C, O], y [B, Tin - K + 1, O], contiguous.
+// Launches on `stream` (a cudaStream_t) and returns cudaGetLastError() after
+// the launch: 0 when it was accepted. The caller checks Tin >= K, B and
+// ceil(O / 64) <= 65535.
+extern "C" int conv_s1(const void* x, const void* w, void* y, long long B,
+                       long long Tin, long long C, long long K, long long O,
+                       void* stream) {
   const long long tout = Tin - K + 1;
   const size_t smem = sizeof(float) * (static_cast<size_t>(kCC) * x_ld(K) +
                                        static_cast<size_t>(kKC) * kCC * kTO);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_s1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_s1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(static_cast<unsigned int>((tout + kTT - 1) / kTT),
                   static_cast<unsigned int>((O + kTO - 1) / kTO),
                   static_cast<unsigned int>(B));
-  conv_s1_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      Tin, C, K, O);
+  conv_s1_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), Tin, C, K, O);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Launches on `stream` (a cudaStream_t) and returns cudaGetLastError() after
-// the launch: 0 when it was accepted. dtype 0 is float32, 1 bfloat16. The
-// caller checks Tin >= K, B and ceil(O / 64) <= 65535.
-extern "C" int conv_s1(const void* x, const void* w, void* y, long long B,
-                       long long Tin, long long C, long long K, long long O,
-                       int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, y, B, Tin, C, K, O, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, B, Tin, C, K, O, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

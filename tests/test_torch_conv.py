@@ -160,3 +160,142 @@ def test_conv_proto_bound_and_inputs():
                                     batch=2)
     ys = conv_proto.forward(inputs)
     assert [tuple(y.shape) for y in ys] == [(2, 32, 4), (2, 16, 8)]
+
+
+# --- the bf16 route's plan (conv_s1_tc's tensor maps and tiles), which the
+# CPU reaches although the kernel runs only on the card
+
+
+def _bf16(*shape):
+    return torch.randn(*shape).to(torch.bfloat16)
+
+
+def test_route_by_dtype():
+    assert conv.route(torch.zeros(1, dtype=torch.float32)) == "conv_s1"
+    assert conv.route(torch.zeros(1, dtype=torch.bfloat16)) == "conv_s1_tc"
+    for dt in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            conv.route(torch.zeros(1, dtype=dt))
+
+
+@pytest.mark.parametrize("c,o,c_dim,o_dim,bn", [
+    (5, 3, 8, 8, 64), (48, 70, 48, 72, 128), (640, 64, 640, 64, 64),
+    (1024, 512, 1024, 512, 128)])
+def test_tc_plan_pads_only_ragged_channels(c, o, c_dim, o_dim, bn):
+    """C goes to a multiple of 8 (TMA's 16-byte rows of x) through a copy
+    of x, O likewise through a copy of w (its rows); y is never padded
+    (stored by threads). A float32 w is copied to bf16 in any case."""
+    x = _bf16(3, 40, c)
+    plan = conv.tc_plan(x, torch.zeros(4, c, o, dtype=torch.bfloat16))
+    assert plan["c_dim"] == c_dim and plan["o_dim"] == o_dim
+    assert plan["bn"] == bn
+    assert plan["copy"] == (c_dim != c)
+    assert plan["w_copy"] == (o_dim != o)
+    assert plan["row_bytes"] == 2 * c_dim
+    assert plan["slabs"] == 1
+    assert plan["tiles"] == -(-plan["rows_out"] // conv.TC_BM) * -(-o // bn)
+    assert conv.tc_plan(x, torch.zeros(4, c, o))["w_copy"]
+
+
+def test_tc_plan_takes_the_l1_view_as_is():
+    """L1 (K=20, s=10) folds x [B, 32019, 64] to a strided view [B, 3201,
+    640]: the tensor map reads it in place, a slab per batch row."""
+    x = torch.empty((2, 32019, 64), dtype=torch.bfloat16)
+    xs, ws, tout = conv.space_to_depth(x, torch.zeros(20, 64, 64), 10)
+    assert xs.data_ptr() == x.data_ptr() and not xs.is_contiguous()
+    plan = conv.tc_plan(xs, ws)
+    assert not plan["copy"]
+    assert (plan["c_dim"], plan["rows"], plan["slabs"]) == (640, 3201, 2)
+    assert plan["row_bytes"] == 640 * 2
+    assert plan["slab_bytes"] == 32019 * 64 * 2
+    assert plan["rows_out"] == plan["tout"] == tout == 3200
+    assert plan["bn"] == 64 and plan["tiles"] == 13 * 2
+
+
+def test_tc_plan_flattens_contiguous_batches():
+    """L7 (400 steps, K=11, s=2, 512 -> 512) folds to x [B, 205, 1024]:
+    one slab of B * 205 rows, 5 dropped per batch row, not 56 of 256."""
+    x = torch.empty((96, 410, 512), dtype=torch.bfloat16, device="meta")
+    xs, ws, tout = conv.space_to_depth(x, torch.zeros(11, 512, 512,
+                                                      device="meta"), 2)
+    plan = conv.tc_plan(xs, ws)
+    assert not plan["copy"] and plan["slabs"] == 1
+    assert plan["rows"] == 96 * 205 and plan["tout"] == tout == 200
+    assert plan["rows_out"] == 95 * 205 + 200
+    assert plan["slab_bytes"] == 96 * 205 * 1024 * 2
+    assert plan["tiles"] == 77 * 4
+
+
+def test_tc_plan_copies_what_tma_cannot_take():
+    x = _bf16(2, 30, 16)
+    assert not conv.tc_plan(x, torch.zeros(3, 16, 8))["copy"]
+    # channels not contiguous; a base 2 bytes past 16-byte alignment; rows
+    # 26 channels (52 bytes) apart
+    for bad in (_bf16(2, 8, 30).transpose(1, 2), x[:, :, 1:9],
+                _bf16(2, 30, 26)[:, :, :8]):
+        plan = conv.tc_plan(bad, torch.zeros(3, 8, 8))
+        assert plan["copy"], bad.stride()
+        assert plan["row_bytes"] == 16 and plan["slabs"] == 1
+
+
+def test_tc_plan_refuses_what_the_map_cannot_hold():
+    big = torch.empty((70000, 40000, 8), dtype=torch.bfloat16,
+                      device="meta")
+    with pytest.raises(ValueError):
+        conv.tc_plan(big, torch.zeros(3, 8, 8, device="meta"))
+    many = torch.empty((2 ** 20, 2 ** 21, 8), dtype=torch.bfloat16,
+                       device="meta")[:, :2 ** 20]
+    with pytest.raises(ValueError):   # 2^20 slabs of 2^12 tiles
+        conv.tc_plan(many, torch.zeros(1, 8, 8, device="meta"))
+
+
+def _emulate_tc(x, w):
+    """conv_s1_tc's work from its plan alone, in float32 on the CPU: the
+    tensor map as a strided view of x's storage, zeros past its rows, the
+    taps summed over the grid's rows, and the epilogue's row -> (b, t)
+    mapping and masks. Returns float32 y."""
+    plan = conv.tc_plan(x, w)
+    if plan["copy"]:
+        x = torch.nn.functional.pad(
+            x, (0, plan["c_dim"] - x.shape[2])).contiguous()
+        plan = conv.tc_plan(x, w)
+    b, tin, _ = x.shape
+    k, c, o = w.shape
+    cd, rows, slabs = plan["c_dim"], plan["rows"], plan["slabs"]
+    tmap = torch.as_strided(x, (slabs, rows, cd), (
+        plan["slab_bytes"] // 2, plan["row_bytes"] // 2, 1),
+        x.storage_offset()).float()
+    m = plan["tiles"] // slabs // -(-o // plan["bn"]) * conv.TC_BM
+    assert m >= plan["rows_out"]
+    a = torch.cat([tmap, torch.zeros(slabs, m + k, cd)], 1)
+    wt = torch.nn.functional.pad(
+        w.to(torch.bfloat16).float().permute(0, 2, 1), (0, cd - c))
+    acc = sum(a[:, j:j + m] @ wt[j].T for j in range(k))
+    r = torch.arange(m)
+    keep = (r < plan["rows_out"]) & (r % tin < plan["tout"])
+    y = torch.full((b, plan["tout"], o), float("nan"))
+    for s in range(slabs):
+        y[s + r[keep] // tin, r[keep] % tin] = acc[s, keep]
+    assert not torch.isnan(y).any()
+    return y
+
+
+@pytest.mark.parametrize("layer", [(160, 20, 10, 64, 64), (37, 11, 1, 48, 70),
+                                   (200, 11, 2, 128, 256), (9, 3, 1, 5, 3),
+                                   (50, 1, 1, 24, 40)],
+                         ids=lambda l: "T{0}k{1}s{2}c{3}o{4}".format(*l))
+def test_tc_plan_emulated_matches_plain(layer):
+    """The plan's maps, grid and epilogue cover every output once and
+    nothing else, on the card's test layers: the L1 fold (a strided view),
+    ragged t / C / O, a flattened batch, K=1."""
+    t, k, s, cin, cout = layer
+    rng = np.random.RandomState(sum(layer))
+    x = torch.from_numpy(rng.randn(3, t + k - 1, cin).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(k, cin, cout) * 0.05).astype(
+        np.float32))
+    xs, ws, tout = conv.space_to_depth(x, w, s)
+    got = _emulate_tc(xs, ws)[:, :tout]
+    want = conv.conv_s1_plain(xs.float(), ws.to(torch.bfloat16).float())
+    assert got.shape == want[:, :tout].shape
+    assert rel_err(got.numpy(), want[:, :tout].numpy()) <= REL["float32"]

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: the QRNN pooling kernels
 (pase_tpu_torch/csrc/qrnn_pool.cu: serving forward, training forward,
-backward) and the stride-1 conv kernel (csrc/conv_s1.cu) against their
-plain PyTorch versions, the encoder on the GPU against the same weights on
-the CPU, one small train step on the GPU against the CPU, and the
-distortion stack on the GPU against the CPU with the same draws.
+backward) and the stride-1 conv kernels (csrc/conv_s1_tc.cu for bf16,
+csrc/conv_s1.cu for float32) against their plain PyTorch versions, the
+encoder on the GPU against the same weights on the CPU, one small train
+step on the GPU against the CPU, and the distortion stack on the GPU
+against the CPU with the same draws.
 
 This file imports no JAX, so it runs on a host without it. There the
 repository's conftest (which configures JAX) is left out:
@@ -189,19 +190,25 @@ def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):
 
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -7),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("layer", [(160, 20, 10, 64, 64), (37, 11, 1, 48, 70),
-                                   (200, 11, 2, 128, 256), (9, 3, 1, 5, 3)])
+@pytest.mark.parametrize("layer", [
+    (160, 20, 10, 64, 64), (37, 11, 1, 48, 70), (200, 11, 2, 128, 256),
+    (9, 3, 1, 5, 3), (50, 1, 1, 24, 40), (1600, 20, 10, 64, 64),
+    (400, 11, 2, 512, 512), (120, 20, 1, 16, 24)])
 def test_conv_kernel_matches_plain(cuda_device, dtype, rel, layer):
-    """Ragged tiles in t, c and o included (37 steps, 48 / 5 channels, 70
-    / 3 outputs)."""
+    """Each route's kernel (conv_s1_tc for bf16, conv_s1 for float32)
+    against the plain version. Ragged tiles in t, c and o included (37
+    steps, 48 / 5 channels, 70 / 3 outputs), K=1, the L1 fold read as a
+    strided view (K=20 s=10), L7's shape at batch 3 (one flattened slab),
+    and 20 taps at stride 1 (two tap groups of conv_s1_tc's windows)."""
     t, k, s, cin, cout = layer
     gen = torch.Generator(device=cuda_device).manual_seed(sum(layer))
     x = torch.randn((3, t + k - 1, cin), generator=gen,
                     device=cuda_device).to(dtype)
     w = torch.randn((k, cin, cout), generator=gen, device=cuda_device) * 0.05
-    before = conv.LAUNCHES["conv_s1"]
+    name = conv.route(x)
+    before = dict(conv.LAUNCHES)
     y = conv.conv_strided(x, w, s)
-    assert conv.LAUNCHES["conv_s1"] == before + 1
+    assert conv.LAUNCHES == {**before, name: before[name] + 1}
     xs, ws, tout = conv.space_to_depth(x, w, s)
     want = conv.conv_s1_plain(xs, ws)[:, :tout]
     torch.cuda.synchronize()
@@ -210,14 +217,51 @@ def test_conv_kernel_matches_plain(cuda_device, dtype, rel, layer):
     assert err <= rel * want.float().abs().max().item(), err
 
 
+def test_conv_launches_count_by_route(cuda_device):
+    """One bf16 call counts one conv_s1_tc launch, one float32 call one
+    conv_s1 launch, and nothing else."""
+    x = torch.randn(2, 40, 16, device=cuda_device)
+    w = torch.randn(3, 16, 8, device=cuda_device)
+    before = dict(conv.LAUNCHES)
+    conv.conv_s1(x.to(torch.bfloat16), w)
+    assert conv.LAUNCHES == {**before,
+                             "conv_s1_tc": before["conv_s1_tc"] + 1}
+    conv.conv_s1(x, w)
+    assert conv.LAUNCHES == {"conv_s1": before["conv_s1"] + 1,
+                             "conv_s1_tc": before["conv_s1_tc"] + 1}
+
+
+def test_conv_tc_reads_the_l1_view_in_place(cuda_device):
+    """L1's space-to-depth view goes into conv_s1_tc without a copy: the
+    call's peak memory rises by less than x's bytes (y and w are a tenth
+    of them)."""
+    x = torch.randn((8, 16019, 64), device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((20, 64, 64), device=cuda_device) * 0.05
+    xs, ws, tout = conv.space_to_depth(x, w, 10)
+    assert xs.data_ptr() == x.data_ptr() and not xs.is_contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = conv.conv_s1(xs, ws)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise < x.numel() * x.element_size(), rise
+    want = conv.conv_s1_plain(xs, ws)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item(), err
+
+
 def test_conv_kernel_refuses(cuda_device):
     x = torch.randn(2, 30, 4, device=cuda_device)
     with pytest.raises(TypeError):
         conv.conv_s1(x.double(), torch.randn(3, 4, 2, device=cuda_device))
-    with pytest.raises(ValueError):
-        conv.conv_s1(x, torch.randn(3, 5, 2, device=cuda_device))
-    with pytest.raises(ValueError):
-        conv.conv_s1(x, torch.randn(31, 4, 2, device=cuda_device))
+    with pytest.raises(TypeError):
+        conv.conv_s1(x.half(), torch.randn(3, 4, 2, device=cuda_device))
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError):
+            conv.conv_s1(x.to(dt), torch.randn(3, 5, 2, device=cuda_device))
+        with pytest.raises(ValueError):
+            conv.conv_s1(x.to(dt), torch.randn(31, 4, 2, device=cuda_device))
 
 
 def test_distortions_gpu_match_cpu(cuda_device):
