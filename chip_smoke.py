@@ -7,14 +7,18 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device  — a CUDA device (else exit 1), its nvidia-smi name and power
                limit, TF32 off for matmuls and cuDNN.
   2. build   — the QRNN kernels (pase_tpu_torch/csrc/qrnn_pool.cu) and the
-               two stride-1 conv kernels (csrc/conv_s1_tc.cu, bf16 on the
-               tensor cores; csrc/conv_s1.cu, float32), nvcc for sm_90a,
-               from the sources of this checkout, the three builds at
-               once.
-  3. kernel  — the kernel against its plain PyTorch version on the card at
-               the main path's QRNN shapes: max|dh|, max|dc_T| <= 1e-5, a
-               c0-seeded case, block-streamed == full bit for bit, and the
-               median time of each.
+               stride-1 conv kernels (csrc/conv_s1_tc.cu: conv_s1_tc, bf16,
+               and conv_s1_tf32x3, float32, both on the tensor cores), nvcc
+               for sm_90a, from the sources of this checkout, the two
+               builds at once.
+  3. kernel  — the serving forward kernels against the plain PyTorch
+               version on the card at each of QRNN_SHAPES: the chunked
+               kernel (qrnn_pool_fwd_chunked) and the serial one
+               (qrnn_pool_fwd) unseeded, max|dh|, max|dc_T| <= 1e-5; the
+               serial one c0-seeded, and block-streamed == full bit for
+               bit on that seeded route; the time of each (CUDA graphs of
+               20 launches, so no host time between them; serial through a
+               zero-c0 call) and the route an unseeded call takes there.
   4. encoder — PASE+ at full width (cfg/frontend/PASE+.cfg), seeded
                weights: the (1,1,100000) -> (1,256,625) contract, a
                (8,1,160000) batch, the same batch on the CPU (plain path)
@@ -51,25 +55,26 @@ Phases, each printed as it ends; any failure exits non-zero:
                draws, max|diff| <= 1e-5 of max|out| (the bench stack, and
                all nine stages at p = 1).
   9. conv    — python -m pase_tpu_torch.conv_proto's seven trunk layers at
-               batch 96 in bf16 through conv_s1_tc (within 2^-7 of
-               max|y_plain|) and one layer in float32 through conv_s1
+               batch 96, in bf16 through conv_s1_tc (within 2^-7 of
+               max|y_plain|) and in float32 through conv_s1_tf32x3
                (within 1e-5 of max|y_plain|); per layer the kernel's,
                cuDNN's and the plain version's ms, TFLOP/s and share of
-               the bound.
+               the bound (float32: also the bound at the CUDA cores'
+               67 TFLOP/s).
 Main paths, each with the launch counts reset to 0 just before it and
-read just after: serving (phases 4-5) must launch qrnn_pool_fwd once per
-QRNN layer per encoder call; training (the CLI in phase 7) must launch
-qrnn_pool_fwd_train and qrnn_pool_bwd once per QRNN layer per train step,
-and qrnn_pool_fwd once per layer per eval step; the distorted step
-(phase 8) the training kernels once per layer per step; the bf16
-conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all, and conv_s1
-never; its float32 layer conv_s1 once. No other path launches a conv
+read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
+once per QRNN layer per encoder call and qrnn_pool_fwd never; training
+(the CLI in phase 7) must launch qrnn_pool_fwd_train and qrnn_pool_bwd
+once per QRNN layer per train step, and qrnn_pool_fwd once per layer per
+eval step (batch 3 x 32: above the chunked route's lane count); the
+distorted step (phase 8) the training kernels once per layer per step;
+the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
+the float32 run conv_s1_tf32x3 7 times. No other path launches a conv
 kernel. The line before the last is a JSON summary of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
-import functools
 import json
 import os
 import shutil
@@ -102,10 +107,13 @@ FWD_OPS, BWD_OPS = 14, 25
 TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512)]
 TRAIN_SHAPE = (96, 200, 512)
 TRAIN_BATCH, TRAIN_CHUNK = 32, 32000
-# (B, T, H) of the QRNN pooling: the four shapes of benchmarks/bench_qrnn.py
-# and the serving batch (8 x 10 s windows at 100 frames/s)
+# (B, T, H) of the QRNN pooling: the four shapes of benchmarks/bench_qrnn.py,
+# the serving batch (8 x 10 s windows at 100 frames/s), one window alone
+# (forward-chunk's file at a time), and 32 and 48 x 200, about the chunked
+# route's limit (cuda_qrnn.CHUNKED_LANES)
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
-               (8, 4000, 512), (8, 1000, 512)]
+               (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
+               (32, 200, 512), (48, 200, 512)]
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
@@ -115,7 +123,7 @@ DIST_REL = 1e-5
 # phase 9: kernel vs plain, relative to max|y_plain|: one bf16 rounding of
 # float32 sums taken in another order; float32 sums in another order
 CONV_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
-CONV_F32_LAYER = 2          # the float32 case: (1600, 11, 1, 128, 128)
+CONV_L3 = 2                 # L3: (1600, 11, 1, 128, 128)
 
 
 class SmokeFailure(Exception):
@@ -152,11 +160,10 @@ def phase_device():
 
 
 def phase_build():
-    """The three kernel libraries, one nvcc each, started together."""
+    """The two kernel libraries, one nvcc each, started together."""
     from pase_tpu_torch.ops import conv, cuda_qrnn
-    libs = [(cuda_qrnn.SOURCE, cuda_qrnn.library_path, cuda_qrnn.build)]
-    libs += [(conv.SOURCES[n], functools.partial(conv.library_path, n),
-              functools.partial(conv.build, n)) for n in conv.SOURCES]
+    libs = [(cuda_qrnn.SOURCE, cuda_qrnn.library_path, cuda_qrnn.build),
+            (conv.SOURCE, conv.library_path, conv.build)]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for job in [pool.submit(build, True) for _, _, build in libs]:
@@ -196,6 +203,30 @@ def _kernel_ms(fn, batches=5, per_batch=10):
     return statistics.median(times)
 
 
+def _graph_ms(fn, batches=5, per_batch=20):
+    """Median over batches of the CUDA-event time per launch of a CUDA
+    graph of per_batch calls: the device's time alone, where a kernel
+    takes less than its wrapper's host time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_batch):
+            fn()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / per_batch)
+    del graph
+    return statistics.median(times)
+
+
 def _wall_ms(fn, device, reps=3):
     """Median host time of a synchronized call, after one warm-up call."""
     fn()
@@ -217,7 +248,8 @@ def bound(nbytes, nops):
 
 
 def phase_kernel():
-    """Kernel vs plain version at each QRNN shape; returns the summary."""
+    """The serving forward kernels vs the plain version at each QRNN shape;
+    returns the summary rows."""
     import torch
     from pase_tpu_torch.ops import cuda_qrnn
     from pase_tpu_torch.ops import qrnn as plain
@@ -226,37 +258,49 @@ def phase_kernel():
     for b, t, h in QRNN_SHAPES:
         y = torch.randn(b, t, 3 * h, device="cuda", generator=gen)
         c0 = torch.randn(b, h, device="cuda", generator=gen)
-        errs = []
-        for seed in (None, c0):
-            hk, ck = cuda_qrnn.qrnn_pool(y, seed)
-            hp, cp = plain.qrnn_pool(y, seed)
+        zeros = torch.zeros_like(c0)
+        errs = {}
+        for name, fn in (
+                ("chunked", lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
+                ("serial", lambda: cuda_qrnn.qrnn_pool_fwd(y, zeros)),
+                ("seeded", lambda: cuda_qrnn.qrnn_pool(y, c0))):
+            hk, ck = fn()
+            hp, cp = plain.qrnn_pool(y, c0 if name == "seeded" else None)
             torch.cuda.synchronize()
-            errs += [(hk - hp).abs().max().item(),
-                     (ck - cp).abs().max().item()]
+            errs[name] = ((hk - hp).abs().max().item(),
+                          (ck - cp).abs().max().item())
         half = t // 2
         h_full, c_full = cuda_qrnn.qrnn_pool(y, c0)
         h1, c1 = cuda_qrnn.qrnn_pool(y[:, :half].contiguous(), c0)
         h2, c2 = cuda_qrnn.qrnn_pool(y[:, half:].contiguous(), c1)
         streamed = bool(torch.equal(torch.cat([h1, h2], 1), h_full)
                         and torch.equal(c2, c_full))
-        ms = _kernel_ms(lambda: cuda_qrnn.qrnn_pool(y))
+        route = ("qrnn_pool_fwd_chunked" if b * h < cuda_qrnn.CHUNKED_LANES
+                 else "qrnn_pool_fwd")
+        chunked_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y))
+        serial_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd(y, zeros))
         plain_ms = _wall_ms(lambda: plain.qrnn_pool(y), "cuda")
         # y read once, h written once, c_T written once
         bound_ms, bound_by = bound(16 * b * t * h + 4 * b * h,
                                    FWD_OPS * b * t * h)
-        err = max(errs)
-        print(f"[kernel] qrnn_pool y[{b},{t},{3 * h}]: max|dh| {errs[0]:.3e} "
-              f"max|dc_T| {errs[1]:.3e}; c0-seeded max|dh| {errs[2]:.3e} "
-              f"max|dc_T| {errs[3]:.3e}; block-streamed == full: {streamed}; "
-              f"kernel {ms:.4f} ms (CUDA events, median of 5x10), plain "
-              f"{plain_ms:.2f} ms (synchronized, median of 3), bound "
+        err = max(max(e) for e in errs.values())
+        print(f"[kernel] qrnn_pool y[{b},{t},{3 * h}]: max|dh|, max|dc_T| "
+              + "; ".join(f"{k} {e[0]:.3e}, {e[1]:.3e}"
+                          for k, e in errs.items())
+              + f"; block-streamed == full (seeded): {streamed}; chunked "
+              f"{chunked_ms:.4f} ms, serial {serial_ms:.4f} ms (CUDA graphs "
+              f"of 20, median of 5); unseeded route {route}; plain "
+              f"{plain_ms:.2f} ms (synchronized, median of 3); bound "
               f"{bound_ms:.4f} ms ({bound_by})")
         check(err <= KERNEL_ATOL,
-              f"kernel vs plain at {(b, t, h)}: {err:.3e} > {KERNEL_ATOL}")
+              f"kernels vs plain at {(b, t, h)}: {err:.3e} > {KERNEL_ATOL}")
         check(streamed, f"block-streamed != full at {(b, t, h)}")
-        rows.append({"shape": [b, t, h], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+        rows.append({"shape": [b, t, h], "chunked_err": max(errs["chunked"]),
+                     "serial_err": max(max(errs["serial"]),
+                                       max(errs["seeded"])),
+                     "chunked_ms": chunked_ms, "serial_ms": serial_ms,
+                     "route": route, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
         del y, c0, h_full, h1, h2
     torch.cuda.empty_cache()
     return rows
@@ -540,10 +584,10 @@ def phase_train_cli(tmp):
     check(not bad, f"non-finite logged losses: {bad[:5]}")
     layers = len(tr.model.frontend.rnn.layers)
     steps, evals = tr.bpe, tr.cfg["va_bpe"]
-    expected = {"qrnn_pool_fwd_train": layers * steps,
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals, "conv_s1": 0,
-                "conv_s1_tc": 0}
+                "qrnn_pool_fwd": layers * evals}
     print(f"[launches] training path: {launches} (expected {expected}: "
           f"{layers} QRNN layer(s) x {steps} train steps, x {evals} eval "
           f"steps)")
@@ -697,9 +741,9 @@ def phase_train_dist(tmp):
     launches = read_launches()            # ... and ends here
     steps = N_WARM + N_TRIALS * N_MEAS
     layers = len(tr.model.frontend.rnn.layers)
-    expected = {"qrnn_pool_fwd_train": layers * steps,
-                "qrnn_pool_bwd": layers * steps, "qrnn_pool_fwd": 0,
-                "conv_s1": 0, "conv_s1_tc": 0}
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps}
     print(f"[launches] distorted training step: {launches} (expected "
           f"{expected}: {layers} QRNN layer(s) x {steps} steps)")
     check(launches == expected, f"distorted step launches {launches} != "
@@ -775,21 +819,43 @@ def _conv_run(dtype, layers, expected):
 
 
 def phase_conv():
-    """python -m pase_tpu_torch.conv_proto's layers on the card: the seven
-    in bf16 (conv_s1_tc), one in float32 (conv_s1). Returns (launches of
-    the bf16 run, its rows, launches of the float32 run, its row)."""
+    """python -m pase_tpu_torch.conv_proto's seven layers on the card, in
+    bf16 (conv_s1_tc) and in float32 (conv_s1_tf32x3). Returns {dtype
+    name: (launches of its run, its rows)}."""
     from pase_tpu_torch import conv_proto
     import torch
     layers = conv_proto.LAYERS
-    bf16, rows = _conv_run(torch.bfloat16, layers,
-                           {"conv_s1_tc": len(layers)})
-    f32, f32_rows = _conv_run(torch.float32, [layers[CONV_F32_LAYER]],
-                              {"conv_s1": 1})
-    print(f"[conv] bf16 seven layers, {conv_proto.format_total(rows)}")
-    slower = [r["layer"] for r in rows if r["ms"] > r["library_ms"]]
-    print(f"[conv] layers where conv_s1_tc is slower than cuDNN: "
-          f"{slower or 'none'}")
-    return bf16, rows, f32, f32_rows[0]
+    out = {}
+    for dtype, name in ((torch.bfloat16, "conv_s1_tc"),
+                        (torch.float32, "conv_s1_tf32x3")):
+        launches, rows = _conv_run(dtype, layers, {name: len(layers)})
+        dt = str(dtype).replace("torch.", "")
+        print(f"[conv] {dt} seven layers, {conv_proto.format_total(rows)}")
+        slower = [r["layer"] for r in rows if r["ms"] > r["library_ms"]]
+        print(f"[conv] layers where {name} is slower than cuDNN: "
+              f"{slower or 'none'}")
+        out[dt] = (launches, rows)
+    l3 = out["float32"][1][CONV_L3]
+    print(f"[conv] float32 L3 {l3['layer']}: conv_s1_tf32x3 {l3['ms']:.4f} "
+          f"ms, cuDNN {l3['library_ms']:.4f} ms "
+          f"({l3['library_ms'] / l3['ms']:.2f}x), bound {l3['bound_ms']:.4f}"
+          f" ms ({l3['bound_ms'] / l3['ms']:.1%}), at 67 TFLOP/s "
+          f"{l3['old_bound_ms']:.4f} ms")
+    return out
+
+
+def _conv_summary(name, launches, rows):
+    """The kernels-line row of a conv route over the seven layers: times
+    and bounds summed; bound by what bounds the larger share of the sum."""
+    total = sum(r["bound_ms"] for r in rows)
+    by_ops = sum(r["bound_ms"] for r in rows
+                 if r["bound_by"] == "operations")
+    return _row(name, "pase_tpu_torch/csrc/conv_s1_tc.cu",
+                "experiments/pallas_conv_proto.py:65", launches[name],
+                max(r["max_abs_err"] for r in rows),
+                sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows),
+                (total, "operations" if 2 * by_ops >= total else "bytes"),
+                sum(r["library_ms"] for r in rows))
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
@@ -817,9 +883,9 @@ def main():
         serve_calls = phase_serve(enc, "cuda")
         serving_launches = read_launches()  # ... and ends here
         layers = len(enc.module.rnn.layers)
-        expected = {"qrnn_pool_fwd": layers * (enc_calls + serve_calls),
-                    "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0,
-                    "conv_s1": 0, "conv_s1_tc": 0}
+        expected = {**{k: 0 for k in serving_launches},
+                    "qrnn_pool_fwd_chunked": layers * (enc_calls
+                                                       + serve_calls)}
         print(f"[launches] serving path: {serving_launches} (expected "
               f"{expected}: {layers} QRNN layer(s) x "
               f"{enc_calls + serve_calls} encoder calls)")
@@ -833,7 +899,7 @@ def main():
         tr, _, _ = phase_train_dist(os.path.join(tmp, "dist"))
         phase_profile(tr, "distorted train step")
         del tr
-        conv_launches, conv_rows, f32_launches, conv_f32 = phase_conv()
+        convs = phase_conv()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -841,21 +907,21 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     import torch
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
+    # the chunked kernel at the serving shape; the serial one at the eval
+    # shape of the training path, where it runs
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
+    evals = next(r for r in rows if tuple(r["shape"]) == TRAIN_SHAPE)
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
-    # the seven layers' bound: the sum of each layer's; bound by what
-    # bounds the larger share of that sum
-    by_ops = sum(r["bound_ms"] for r in conv_rows
-                 if r["bound_by"] == "operations")
-    conv_bound = (sum(r["bound_ms"] for r in conv_rows),
-                  "operations" if 2 * by_ops >= sum(
-                      r["bound_ms"] for r in conv_rows) else "bytes")
     print(json.dumps({"kernels": [
-        _row("qrnn_pool_fwd", src, "pase_tpu/ops/pallas_qrnn.py:63",
-             serving_launches["qrnn_pool_fwd"],
-             max(r["max_abs_err"] for r in rows), serving["ms"],
+        _row("qrnn_pool_fwd_chunked", src, "pase_tpu/ops/pallas_qrnn.py:63",
+             serving_launches["qrnn_pool_fwd_chunked"],
+             max(r["chunked_err"] for r in rows), serving["chunked_ms"],
              serving["plain_ms"], (serving["bound_ms"], serving["bound_by"])),
+        _row("qrnn_pool_fwd", src, "pase_tpu/ops/pallas_qrnn.py:63",
+             train_launches["qrnn_pool_fwd"],
+             max(r["serial_err"] for r in rows), evals["serial_ms"],
+             evals["plain_ms"], (evals["bound_ms"], evals["bound_by"])),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],
@@ -863,19 +929,10 @@ def main():
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
-             train["bwd_plain_ms"], train["bwd_bound"]),
-        _row("conv_s1_tc", "pase_tpu_torch/csrc/conv_s1_tc.cu",
-             "experiments/pallas_conv_proto.py:65",
-             conv_launches["conv_s1_tc"],
-             max(r["max_abs_err"] for r in conv_rows),
-             sum(r["ms"] for r in conv_rows),
-             sum(r["plain_ms"] for r in conv_rows), conv_bound,
-             sum(r["library_ms"] for r in conv_rows)),
-        _row("conv_s1", "pase_tpu_torch/csrc/conv_s1.cu",
-             "experiments/pallas_conv_proto.py:65", f32_launches["conv_s1"],
-             conv_f32["max_abs_err"], conv_f32["ms"], conv_f32["plain_ms"],
-             (conv_f32["bound_ms"], conv_f32["bound_by"]),
-             conv_f32["library_ms"])]}))
+             train["bwd_plain_ms"], train["bwd_bound"])]
+        + [_conv_summary(name, *convs[dt])
+           for dt, name in (("bfloat16", "conv_s1_tc"),
+                            ("float32", "conv_s1_tf32x3"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""The stride-1 conv kernels (``ops/conv.py``: ``csrc/conv_s1_tc.cu`` for
-bf16, ``csrc/conv_s1.cu`` for float32) at the PASE+ trunk's conv shapes,
-against their plain version and cuDNN.
+"""The stride-1 conv kernels (``ops/conv.py``: the entry points
+``conv_s1_tc`` for bf16 and ``conv_s1_tf32x3`` for float32 of
+``csrc/conv_s1_tc.cu``) at the PASE+ trunk's conv shapes, against their
+plain version and cuDNN.
 
     python -m pase_tpu_torch.conv_proto [--device cuda]
 
@@ -8,16 +9,20 @@ The port of the benchmark loop of ``experiments/pallas_conv_proto.py``:
 the seven layers (T, K, stride, Cin, Cout) of ``LAYERS`` at batch 96, x [96,
 T + K - 1, Cin] and w [K, Cin, Cout] x 0.05 drawn on the device from a
 seeded ``torch.Generator``, strided layers through the space-to-depth
-reform. ``forward`` runs each layer once through ``conv_strided`` (one
-kernel launch per layer: ``conv_s1_tc`` in bf16, ``conv_s1`` in float32);
+reform (bf16 from the command line; ``chip_smoke.py`` also runs float32).
+``forward`` runs each layer once through ``conv_strided`` (one kernel
+launch per layer: ``conv_s1_tc`` in bf16, ``conv_s1_tf32x3`` in float32);
 ``measure`` then gives, per layer: max|y - y_plain| and its share of
 max|y_plain|, the kernel's time, the plain version's, cuDNN's
 (``F.conv1d`` on NCW / OIW copies made before the timed region, TF32 off),
 all in CUDA-event ms, and the bound: the larger of the bytes (x and w read
 once, y written once) at 3.35 TB/s and the operations at the dtype's dense
-peak (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s float32), the H100
-SXM's published rates. TFLOP/s count the layer's own operations, not the
-taps the reform pads.
+peak on the tensor cores, the H100 SXM's published rates: 989 TFLOP/s
+bf16; for float32 three TF32 products at 495 TFLOP/s, 165 TFLOP/s of
+float32 work (the float32-accurate method on the tensor cores). Beside it
+for float32, ``old_bound_ms``: the same with 67 TFLOP/s, the CUDA cores'
+float32 peak, the bound of earlier measurements. TFLOP/s count the layer's
+own operations, not the taps the reform pads.
 """
 
 import argparse
@@ -39,7 +44,8 @@ LAYERS = [
     (400, 11, 2, 512, 512),
 ]
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+CUDA_CORE_F32_OPS_PER_S = 67e12
 
 
 def make_inputs(dtype=torch.bfloat16, device="cuda", layers=LAYERS, batch=B,
@@ -80,8 +86,9 @@ def _cuda_ms(fn, batches=3, per_batch=5):
     return statistics.median(times)
 
 
-def bound(layer, x, batch=B):
-    """(least ms for the layer's conv on the card, what bounds it)."""
+def bound(layer, x, batch=B, peak=None):
+    """(least ms for the layer's conv on the card, what bounds it), with
+    the operations at ``peak`` FLOP/s (default: x's type's)."""
     t, k, s, cin, cout = layer
     tout = (x.shape[1] - k) // s + 1
     esize = x.element_size()
@@ -89,7 +96,7 @@ def bound(layer, x, batch=B):
         * esize
     nops = 2 * batch * tout * k * cin * cout
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = nops / PEAK_OPS_PER_S[x.dtype]
+    t_ops = nops / (peak or PEAK_OPS_PER_S[x.dtype])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -126,11 +133,14 @@ def _measure_layer(layer, x, w, y):
     plain_ms = _cuda_ms(lambda: conv.conv_s1_plain(xs, ws_x))
     library_ms = _cuda_ms(lambda: F.conv1d(x_ncw, w_oiw, stride=s))
     bound_ms, bound_by = bound(layer, x, x.shape[0])
+    old = (bound(layer, x, x.shape[0], CUDA_CORE_F32_OPS_PER_S)
+           if x.dtype == torch.float32 else (None, None))
     row = {"layer": list(layer), "dtype": str(x.dtype),
            "max_abs_err": err, "max_abs_plain": top,
            "library_err": lib_err, "ms": ms, "strided_ms": strided_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "old_bound_ms": old[0], "old_bound_by": old[1],
            "gflop": 2 * x.shape[0] * tout * k * cin * cout / 1e9}
     del plain, lib, x_ncw, w_oiw, xs, ws, ws_x
     return row
@@ -150,16 +160,28 @@ def format_row(r):
             f"({_rate(r, r['ms'])}; + reform {r['strided_ms']:.4f}), "
             f"cuDNN {r['library_ms']:.4f} ms ({_rate(r, r['library_ms'])}), "
             f"plain {r['plain_ms']:.3f} ms ({_rate(r, r['plain_ms'])}); "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" + _old(r))
+
+
+def _old(r):
+    """The float32 bound at the CUDA cores' peak, beside the new one."""
+    if r.get("old_bound_ms") is None:
+        return ""
+    return (f"; at 67 TFLOP/s (CUDA cores) {r['old_bound_ms']:.4f} ms "
+            f"({r['old_bound_by']})")
 
 
 def format_total(rows):
+    keys = ["ms", "plain_ms", "library_ms", "bound_ms", "gflop"]
+    old = all(r.get("old_bound_ms") is not None for r in rows)
     tot = {k: sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gflop")}
+           for k in keys + (["old_bound_ms"] if old else [])}
     return (f"{tot['gflop']:.1f} GFLOP: kernel {tot['ms']:.4f} ms "
             f"({_rate(tot, tot['ms'])}), cuDNN {tot['library_ms']:.4f} ms "
             f"({_rate(tot, tot['library_ms'])}), plain "
-            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms"
+            + (f" (at 67 TFLOP/s {tot['old_bound_ms']:.4f} ms)" if old
+               else ""))
 
 
 def main(argv=None):

@@ -26,9 +26,11 @@
 // padding copies: the ragged last block is masked, and every offset is
 // 64-bit.
 //
-// Three entry points:
-//   qrnn_pool_fwd        serving forward: reads y, writes h and c_T
-//                        (16 bytes per lane-step);
+// Four entry points:
+//   qrnn_pool_fwd        forward: reads y, writes h and c_T (16 bytes per
+//                        lane-step); the seeded serving call (c0 given);
+//   qrnn_pool_fwd_chunked the same function, chunked in time: the unseeded
+//                        serving and eval call (below);
 //   qrnn_pool_fwd_train  the same, and also writes c, the residual of the
 //                        backward (20 bytes per lane-step). A reverse scan
 //                        cannot rebuild c_{t-1} from c_t without dividing
@@ -40,11 +42,31 @@
 //                        c_prev and runs the forward kernel again; here one
 //                        pass walks t from T-1 down to 0.
 //
-// What bounds them: at batch (B*H lanes in the tens of thousands) device
-// memory bytes. At serving shapes there are few lanes (B*H = 512 at B = 1)
-// and the sequential T loop makes them bound by load latency; each loop
-// loads kUnroll steps ahead of their use so several loads are in flight per
-// thread. A chunked two-level scan for few lanes is later work.
+// What bounds them: device memory bytes, when there are enough lanes. At
+// serving shapes there are few lanes (B*H = 4096 at B = 8, 512 at B = 1):
+// a thread per lane gives 64 blocks of two warps or fewer, each walking all
+// T steps, bound by load latency (about 0.23 us a step on the H100) with
+// most SMs idle. The serial loops load kUnroll steps ahead of their use so
+// several loads are in flight per thread.
+//
+// qrnn_pool_fwd_chunked cuts each lane's time axis into chunks of at most
+// kMaxChunk steps, one thread each, as pase_tpu/parallel/sp.py composes the
+// carries across shards, inside one block: (1) each thread loads its chunk's
+// z and f gates (all loads issued before the first use), keeps a and b in
+// registers, and composes the chunk's map c -> A c + B from c = 0; (2) one
+// warp per lane scans the lane's chunk maps (each thread composes a few
+// consecutive chunks, then a shuffle scan) into the carry into every chunk;
+// (3) each thread re-runs its chunk from its carry with the serial step's
+// fmaf(a, c, b), loading the o gate, and writes h. y is read once. A block
+// is a tile of kChunkThreads / lanes chunks x `lanes` consecutive lanes (8,
+// or 4 when tiles of 8 would leave SMs idle); longer T is walked in segments
+// of chunks x len steps, each seeded with the last one's c_T, so any T is
+// one launch. The carry into a chunk comes from composed maps, so it rounds
+// otherwise than the serial loop (a = 1 - f lies in (0, 1): the composition
+// only contracts); a block-streamed run is bit-identical to the full run
+// only on the serial kernel, so seeded calls stay there. With many lanes
+// the serial kernel is bound by bytes and the chunked one is slower
+// (ops/cuda_qrnn.py routes by lane count).
 //
 // The carry is SEEDED with c0 and every step is c = a*c + b (one FMA). The
 // JAX version folds c0 into b_1 instead (a rounded multiply, then an add);
@@ -197,6 +219,129 @@ qrnn_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ c,
   if (dc0 != nullptr) dc0[lane] = a_next * g;   // a_0 * g_0
 }
 
+constexpr int kChunkThreads = 512;
+// Steps per chunk at most, blocks per SM the registers must allow, o loads
+// in flight per thread in (3). Of 16/1/16, 16/2/8, 16/2/16, 8/2/8 and
+// 8/3/8, 8/2/8 was the fastest at the serving shape [8,1000,512] on the
+// H100 (python -m pase_tpu_torch.kernel_variants; PERF.md).
+constexpr int kMaxChunk = 8;
+constexpr int kChunkBlocks = 2;
+constexpr int kOLoads = 8;
+
+__global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
+qrnn_pool_fwd_chunked_kernel(const float* __restrict__ y,
+                             const float* __restrict__ c0,
+                             float* __restrict__ h,
+                             float* __restrict__ c_last, int64_t B,
+                             int64_t T, int64_t H, int lanes, int len) {
+  // the chunk maps (A, B) of a segment; phase 2 puts the carry into each
+  // chunk in sb
+  __shared__ float sa[kChunkThreads], sb[kChunkThreads];
+  __shared__ float carry[8];         // into the segment, per lane
+  const int chunks = kChunkThreads / lanes;
+  const int l = threadIdx.x % lanes, k = threadIdx.x / lanes;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * lanes + l;
+  const bool live = lane < B * H;
+  const int64_t b = lane / H;
+  const int64_t j = lane - b * H;
+  const int64_t ys = 3 * H;
+  const float* yp = y + b * T * ys + j;
+  float* hp = h + b * T * H + j;
+  if (threadIdx.x < lanes) {
+    carry[threadIdx.x] = (live && c0 != nullptr) ? c0[lane] : 0.0f;
+  }
+  const int64_t seg = static_cast<int64_t>(chunks) * len;
+  for (int64_t s0 = 0; s0 < T; s0 += seg) {
+    const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
+    const int64_t left = live ? T - t0 : 0;
+    const int n = left <= 0 ? 0 : (left < len ? static_cast<int>(left) : len);
+    // (1) the chunk's z and f gates (z in bz, f in a); then a = 1 - f,
+    // b = f z and the map from c = 0 (steps past n are the identity)
+    float a[kMaxChunk], bz[kMaxChunk];
+#pragma unroll
+    for (int u = 0; u < kMaxChunk; ++u) {
+      a[u] = 1.0f;
+      bz[u] = 0.0f;
+      if (u < n) {
+        const float* p = yp + (t0 + u) * ys;
+        bz[u] = p[0];
+        a[u] = p[H];
+      }
+    }
+    float ca = 1.0f, cb = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kMaxChunk; ++u) {
+      if (u < n) {
+        const float z = tanhf(bz[u]);
+        const float f = sigmoidf_(a[u]);
+        a[u] = 1.0f - f;
+        bz[u] = f * z;
+        cb = fmaf(a[u], cb, bz[u]);
+        ca *= a[u];
+      }
+    }
+    sa[threadIdx.x] = ca;
+    sb[threadIdx.x] = cb;
+    __syncthreads();
+    // (2) warp w scans lane w's chunks; thread i owns chunks i q .. i q +
+    // q - 1. A map (pa, pb) composed after an earlier one (qa, qb) is
+    // c -> pa (qa c + qb) + pb
+    if (threadIdx.x / 32 < lanes) {
+      const int wl = threadIdx.x / 32, i = threadIdx.x % 32;
+      const int q = chunks / 32;
+      float pa = 1.0f, pb = 0.0f;
+      for (int m = 0; m < q; ++m) {
+        const int idx = (i * q + m) * lanes + wl;
+        pb = fmaf(sa[idx], pb, sb[idx]);
+        pa *= sa[idx];
+      }
+      for (int off = 1; off < 32; off *= 2) {
+        const float qa = __shfl_up_sync(0xffffffffu, pa, off);
+        const float qb = __shfl_up_sync(0xffffffffu, pb, off);
+        if (i >= off) {
+          pb = fmaf(pa, qb, pb);
+          pa *= qa;
+        }
+      }
+      float ea = __shfl_up_sync(0xffffffffu, pa, 1);
+      float eb = __shfl_up_sync(0xffffffffu, pb, 1);
+      if (i == 0) {
+        ea = 1.0f;
+        eb = 0.0f;
+      }
+      float c = fmaf(ea, carry[wl], eb);
+      for (int m = 0; m < q; ++m) {
+        const int idx = (i * q + m) * lanes + wl;
+        const float ma = sa[idx], mb = sb[idx];
+        sb[idx] = c;
+        c = fmaf(ma, c, mb);
+      }
+    }
+    __syncthreads();
+    // (3) the chunk again from its carry, as the serial kernel steps, with
+    // the o gate loaded kOLoads steps at a time
+    float c = sb[threadIdx.x];
+#pragma unroll
+    for (int u0 = 0; u0 < kMaxChunk; u0 += kOLoads) {
+      float o[kOLoads];
+#pragma unroll
+      for (int u = 0; u < kOLoads; ++u) {
+        if (u0 + u < n) o[u] = yp[(t0 + u0 + u) * ys + 2 * H];
+      }
+#pragma unroll
+      for (int u = 0; u < kOLoads; ++u) {
+        if (u0 + u < n) {
+          c = fmaf(a[u0 + u], c, bz[u0 + u]);
+          hp[(t0 + u0 + u) * H] = sigmoidf_(o[u]) * c;
+        }
+      }
+    }
+    if (n > 0 && t0 + n == T) c_last[lane] = c;
+    if (k == chunks - 1 && n == len) carry[l] = c;  // into the next segment
+    __syncthreads();
+  }
+}
+
 unsigned int blocks_for(long long B, long long H) {
   return static_cast<unsigned int>((B * H + kThreads - 1) / kThreads);
 }
@@ -214,6 +359,30 @@ extern "C" int qrnn_pool_fwd(const void* y, const void* c0, void* h,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<const float*>(c0),
       static_cast<float*>(h), nullptr, static_cast<float*>(c_last), B, T, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lanes per block: 8, or 4 when tiles of 8 would be fewer blocks than the
+// card has SMs.
+extern "C" int qrnn_pool_fwd_chunked(const void* y, const void* c0, void* h,
+                                     void* c_last, long long B, long long T,
+                                     long long H, void* stream) {
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int lanes = (B * H + 7) / 8 >= sms ? 8 : 4;
+  const long long chunks = kChunkThreads / lanes;
+  const long long need = (T + chunks - 1) / chunks;
+  const int len = static_cast<int>(need < kMaxChunk ? need : kMaxChunk);
+  qrnn_pool_fwd_chunked_kernel<<<
+      static_cast<unsigned int>((B * H + lanes - 1) / lanes), kChunkThreads,
+      0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<const float*>(c0),
+      static_cast<float*>(h), static_cast<float*>(c_last), B, T, H, lanes,
+      len);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,18 +1,22 @@
-"""VALID 1-D convolution in the JAX layout through two hand-written CUDA
-kernels, one per input type.
+"""VALID 1-D convolution in the JAX layout through hand-written CUDA
+kernels on the tensor cores, one per input type.
 
 Both replace the TPU kernel of ``experiments/pallas_conv_proto.py``
 (``_kernel`` / ``conv_s1_pallas``, K4): a stride-1 convolution of
 x [B, Tin, C] with w [K, C, O] into y [B, Tin - K + 1, O], summed in
 float32, y in x's type (w is cast to it). The route is chosen by x's type
-alone (``ROUTES``):
-  conv_s1     float32, on the CUDA cores (``csrc/conv_s1.cu``); the tensor
-              cores have no full float32 product;
-  conv_s1_tc  bfloat16, an implicit GEMM on the tensor cores: TMA loads,
-              wgmma products (``csrc/conv_s1_tc.cu``). It reads x in place
-              through a tensor map with x's own strides (``tc_plan``), so
-              the strided space-to-depth view of a folded layer goes in
-              without a copy.
+alone (``ROUTES``); both are entry points of ``csrc/conv_s1_tc.cu``, an
+implicit GEMM with TMA loads and wgmma products:
+  conv_s1_tf32x3  float32: x and w each split into a high and a low TF32
+                  part (``split_tf32``), three TF32 products summed in
+                  float32 (``conv_s1_tf32x3_plain`` repeats the split);
+                  within 1e-5 of max|y_plain|, which TF32 alone would
+                  miss. w's parts go in as [2K, O, C], written by a small
+                  kernel of the same entry point on every call;
+  conv_s1_tc      bfloat16 products; within 2^-7 of max|y_plain|.
+Both read x in place through a tensor map with x's own strides
+(``tc_plan``), so the strided space-to-depth view of a folded layer goes
+in without a copy.
 ``conv_strided`` is the prototype's ``conv_pallas``: the exact
 space-to-depth reform of a strided convolution into a stride-1 one
 (``space_to_depth``), done here in torch outside the kernels.
@@ -30,29 +34,30 @@ import torch.nn.functional as F
 
 from pase_tpu_torch.ops import cuda_build
 
-SOURCES = {name: cuda_build.source_path(name)
-           for name in ("conv_s1", "conv_s1_tc")}
+SOURCE = cuda_build.source_path("conv_s1_tc")
 BUILD_DIR = cuda_build.BUILD_DIR
-ROUTES = {torch.float32: "conv_s1", torch.bfloat16: "conv_s1_tc"}
-# grid limit of conv_s1's batch and output-channel-tile dimensions
-_GRID_YZ = 65535
+ROUTES = {torch.float32: "conv_s1_tf32x3", torch.bfloat16: "conv_s1_tc"}
 _INT32 = 2 ** 31 - 1
-# conv_s1_tc: output rows per block; TMA coordinates are 32-bit signed and
-# a block reads up to TC_BM + 15 rows past its first
+# output rows per tile (128 in float32 at bn 128); TMA coordinates are
+# 32-bit signed and a block reads up to TC_BM + 15 rows past its first
 TC_BM = 256
 _TC_MAX_ROWS = 2 ** 31 - 2 * TC_BM
+# the w-splitting kernel's grid: taps and O / 32 in its z and y dimensions
+_GRID_YZ = 65535
 
 # kernel launches since import (or since reset_launches)
-LAUNCHES = {"conv_s1": 0, "conv_s1_tc": 0}
-_LIBS = {}
+LAUNCHES = {"conv_s1_tf32x3": 0, "conv_s1_tc": 0}
+_LIB = None
 _P, _N = cuda_build.PTR, cuda_build.SIZE
 _ARGTYPES = {
-    # (x, w, y, B, Tin, C, K, O, stream)
-    "conv_s1": [_P, _P, _P, _N, _N, _N, _N, _N, _P],
     # (x, c_dim, rows, slabs, row_bytes, slab_bytes, w, C, w_row_bytes, y,
     #  Tin, Tout, K, O, rows_out, bn, stream)
     "conv_s1_tc": [_P, _N, _N, _N, _N, _N, _P, _N, _N, _P, _N, _N, _N, _N,
                    _N, cuda_build.INT, _P],
+    # (x, c_dim, rows, slabs, row_bytes, slab_bytes, w, C, ws, y, Tin,
+    #  Tout, K, O, rows_out, bn, stream)
+    "conv_s1_tf32x3": [_P, _N, _N, _N, _N, _N, _P, _N, _P, _P, _N, _N, _N,
+                       _N, _N, cuda_build.INT, _P],
 }
 
 
@@ -61,17 +66,17 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def library_path(name):
-    return cuda_build.library_path(SOURCES[name], BUILD_DIR)
+def library_path():
+    return cuda_build.library_path(SOURCE, BUILD_DIR)
 
 
-def build(name, verbose=False):
-    """Compile kernel ``name`` if its library is not built yet, load it,
-    and return the ``ctypes`` handle. Raises on any failure."""
-    if name not in _LIBS:
-        _LIBS[name] = cuda_build.load(SOURCES[name], {name: _ARGTYPES[name]},
-                                      BUILD_DIR, verbose)
-    return _LIBS[name]
+def build(verbose=False):
+    """Compile the kernels if their library is not built yet, load it, and
+    return the ``ctypes`` handle. Raises on any failure."""
+    global _LIB
+    if _LIB is None:
+        _LIB = cuda_build.load(SOURCE, _ARGTYPES, BUILD_DIR, verbose)
+    return _LIB
 
 
 def conv_s1_plain(x, w):
@@ -84,6 +89,40 @@ def conv_s1_plain(x, w):
     for j in range(1, k):
         acc = acc + x[:, j:j + tout].float() @ w[j]
     return acc.to(x.dtype)
+
+
+def round_tf32(v):
+    """float32 v rounded to TF32 (10 mantissa bits; the 13 below them
+    zero), to nearest, ties to even, by integer operations on its bits as
+    the kernel's tf32_rne does; inf and nan pass unchanged."""
+    u = v.contiguous().view(torch.int32)
+    r = (u + 0xFFF + ((u >> 13) & 1)) & ~0x1FFF
+    special = (u & 0x7F800000) == 0x7F800000
+    return torch.where(special, u, r).view(torch.float32)
+
+
+def split_tf32(v):
+    """(hi, lo) of float32 v: hi = tf32(v), lo = tf32(v - hi), the split
+    of ``conv_s1_tf32x3``, bit for bit. v - hi is exact, and hi + lo is
+    within about 2^-22 of v."""
+    hi = round_tf32(v)
+    return hi, round_tf32(v - hi)
+
+
+def conv_s1_tf32x3_plain(x, w):
+    """``conv_s1_tf32x3``'s arithmetic in plain float32: per tap, x_lo w_hi
+    + x_hi w_lo + x_hi w_hi of the TF32 parts (x_lo w_lo is dropped).
+    x, w float32; returns float32 y. Only the order of the sums differs
+    from the kernel's."""
+    k = w.shape[0]
+    tout = x.shape[1] - k + 1
+    xh, xl = split_tf32(x.float())
+    wh, wl = split_tf32(w.float())
+    acc = 0
+    for j in range(k):
+        xhj, xlj = xh[:, j:j + tout], xl[:, j:j + tout]
+        acc = acc + xlj @ wh[j] + xhj @ wl[j] + xhj @ wh[j]
+    return acc
 
 
 def route(x):
@@ -107,32 +146,40 @@ def _check(x, w):
 
 
 def tc_plan(x, w):
-    """How ``conv_s1_tc`` reads bf16 x [B, Tin, C] and w [K, C, O].
+    """How the kernel of x's type reads x [B, Tin, C] (bf16 or float32)
+    and w [K, C, O].
 
-    TMA takes x as it lies when its channels are contiguous and a multiple
-    of 8, its row and batch strides are multiples of 16 bytes and cover
-    the rows below them, and it starts on 16 bytes; else ``copy`` is True
-    and the wrapper reads a contiguous copy with C zero-padded to
-    ``c_dim``, a multiple of 8 (the plan's strides are then the copy's).
-    When the batch rows lie evenly spaced the tensor map has one slab of
-    B * Tin rows and the windows that straddle two batch rows are dropped;
-    otherwise a slab per batch row. Output row r of slab s is y[s + r //
-    Tin, r % Tin] where r % Tin < Tout and r < rows_out.
+    TMA takes x as it lies when its channels are contiguous and fill whole
+    16-byte units (C a multiple of 8 in bf16, of 4 in float32), its row
+    and batch strides are multiples of 16 bytes and cover the rows below
+    them, and it starts on 16 bytes; else ``copy`` is True and the wrapper
+    reads a contiguous copy with C zero-padded to ``c_dim`` (the plan's
+    strides are then the copy's). When the batch rows lie evenly spaced
+    the tensor map has one slab of B * Tin rows and the windows that
+    straddle two batch rows are dropped; otherwise a slab per batch row.
+    Output row r of slab s is y[s + r // Tin, r % Tin] where r % Tin <
+    Tout and r < rows_out.
 
-    w goes in as it lies ([K, C, O], O contiguous; TMA fills channels past
-    C with zeros) when it is bf16, contiguous, 16-byte aligned and O is a
-    multiple of 8; else ``w_copy`` is True and the wrapper reads a bf16
-    copy with O zero-padded to ``o_dim``. y is stored by threads, never
-    padded. A tile is TC_BM output rows by ``bn`` output channels;
-    ``tiles`` is their number, over all slabs (the kernel's blocks walk
-    them)."""
+    bf16: w goes in as it lies ([K, C, O], O contiguous; TMA fills
+    channels past C with zeros) when it is bf16, contiguous, 16-byte
+    aligned and O is a multiple of 8; else ``w_copy`` is True and the
+    wrapper reads a bf16 copy with O zero-padded to ``o_dim``. float32: w
+    always goes through the kernel's own split into [2K, O, c_dim]
+    (``w_copy`` True, ``o_dim`` = O). y is stored by threads, never
+    padded. A tile is ``bm`` output rows (TC_BM; 128 in float32 at bn
+    128, where the kernel keeps two sets of sums) by ``bn`` output
+    channels; ``tiles`` is their number, over all slabs (the kernel's
+    blocks walk them)."""
     b, tin, c = x.shape
     k, _, o = w.shape
     tout = tin - k + 1
-    c_dim = -(-c // 8) * 8
+    esize = x.element_size()
+    unit = 16 // esize                  # channels in 16 bytes
+    c_dim = -(-c // unit) * unit
     row, slab = x.stride(1), x.stride(0)
-    as_is = (c_dim == c and x.stride(2) == 1 and row % 8 == 0 and row >= c
-             and (b == 1 or (slab % 8 == 0 and slab >= tin * row))
+    as_is = (c_dim == c and x.stride(2) == 1 and row % unit == 0
+             and row >= c
+             and (b == 1 or (slab % unit == 0 and slab >= tin * row))
              and x.data_ptr() % 16 == 0)
     if not as_is:
         row, slab = c_dim, tin * c_dim
@@ -141,40 +188,54 @@ def tc_plan(x, w):
             b * tin * row
     else:
         rows, slabs, rows_out = tin, b, tout
-    o_dim = -(-o // 8) * 8
-    w_copy = not (w.dtype == torch.bfloat16 and w.is_contiguous()
-                  and o_dim == o and w.data_ptr() % 16 == 0)
+    if x.dtype == torch.float32:
+        o_dim, w_copy = o, True
+        if k > _GRID_YZ or -(-o // 32) > _GRID_YZ:
+            raise ValueError(f"w {tuple(w.shape)} exceeds the w split's "
+                             "grid")
+    else:
+        o_dim = -(-o // 8) * 8
+        w_copy = not (w.dtype == torch.bfloat16 and w.is_contiguous()
+                      and o_dim == o and w.data_ptr() % 16 == 0)
     bn = 64 if o <= 64 else 128
-    tiles = -(-rows_out // TC_BM) * -(-o // bn) * slabs
+    bm = TC_BM // 2 if x.dtype == torch.float32 and bn == 128 else TC_BM
+    tiles = -(-rows_out // bm) * -(-o // bn) * slabs
     if rows > _TC_MAX_ROWS or tiles > _INT32:
-        raise ValueError(f"x {tuple(x.shape)} exceeds conv_s1_tc's tensor "
+        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's tensor "
                          f"map ({rows} rows, {tiles} tiles)")
     return {"copy": not as_is, "c_dim": c_dim, "rows": rows, "slabs": slabs,
-            "row_bytes": 2 * row, "slab_bytes": 2 * slab,
+            "row_bytes": esize * row, "slab_bytes": esize * slab,
             "rows_out": rows_out, "tout": tout, "w_copy": w_copy,
-            "o_dim": o_dim, "bn": bn, "tiles": tiles}
+            "o_dim": o_dim, "bn": bn, "bm": bm, "tiles": tiles}
 
 
-def _conv_s1_tc(x, w):
+def _conv_s1_tc(name, x, w):
     plan = tc_plan(x, w)
     if plan["copy"]:
         x = F.pad(x, (0, plan["c_dim"] - x.shape[2])).contiguous()
         plan = tc_plan(x, w)
     b, tin, _ = x.shape
     k, c, o = w.shape
-    if plan["w_copy"]:
-        w = w.to(torch.bfloat16)
-        w = (F.pad(w, (0, plan["o_dim"] - o)) if plan["o_dim"] != o
-             else w).contiguous()
+    if name == "conv_s1_tf32x3":
+        w = w.to(torch.float32).contiguous()
+        # scratch for w's TF32 parts, written by the kernel's split
+        ws = torch.empty((2 * k, o, plan["c_dim"]), dtype=torch.float32,
+                         device=x.device)
+        w_args = (w.data_ptr(), c, ws.data_ptr())
+    else:
+        if plan["w_copy"]:
+            w = w.to(torch.bfloat16)
+            w = (F.pad(w, (0, plan["o_dim"] - o)) if plan["o_dim"] != o
+                 else w).contiguous()
+        w_args = (w.data_ptr(), c, 2 * plan["o_dim"])
     y = torch.empty((b, plan["tout"], o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         cuda_build.launch(
-            build("conv_s1_tc"), "conv_s1_tc", LAUNCHES, x.data_ptr(),
-            plan["c_dim"], plan["rows"], plan["slabs"], plan["row_bytes"],
-            plan["slab_bytes"], w.data_ptr(), c, 2 * plan["o_dim"],
-            y.data_ptr(), tin, plan["tout"], k, o, plan["rows_out"],
-            plan["bn"], stream)
+            build(), name, LAUNCHES, x.data_ptr(), plan["c_dim"],
+            plan["rows"], plan["slabs"], plan["row_bytes"],
+            plan["slab_bytes"], *w_args, y.data_ptr(), tin, plan["tout"], k,
+            o, plan["rows_out"], plan["bn"], stream)
     return y
 
 
@@ -187,22 +248,7 @@ def conv_s1(x, w):
         raise ValueError(f"conv_s1: no kernel for device {x.device}")
     name = route(x)
     _check(x, w)
-    if name == "conv_s1_tc":
-        return _conv_s1_tc(x, w)
-    b, tin, c = x.shape
-    k, _, o = w.shape
-    if b > _GRID_YZ or -(-o // 64) > _GRID_YZ:
-        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} exceed "
-                         "conv_s1's grid")
-    x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
-    y = torch.empty((b, tin - k + 1, o), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        cuda_build.launch(build("conv_s1"), "conv_s1", LAUNCHES, x.data_ptr(),
-                          w.data_ptr(), y.data_ptr(), b, tin, c, k, o,
-                          stream)
-    return y
+    return _conv_s1_tc(name, x, w)
 
 
 def space_to_depth(x, w, stride):

@@ -8,15 +8,24 @@ at first use, cached under ``build/pase_tpu_torch/`` by a hash of the
 source, and loaded with ``ctypes`` (``ops/cuda_build.py``).
 
 Entry points, each with a launch count in ``LAUNCHES``:
-  qrnn_pool_fwd        ``qrnn_pool`` without a gradient (serving, eval);
-  qrnn_pool_fwd_train  the forward of ``QRNNPool``: also stores every c_t;
-  qrnn_pool_bwd        the backward of ``QRNNPool``.
+  qrnn_pool_fwd_chunked ``qrnn_pool`` without a gradient and without c0,
+                        on fewer than CHUNKED_LANES lanes (B * H; serving):
+                        the time axis in chunks, their carries composed in
+                        the block, so few lanes fill the card; within 1e-5
+                        of the plain version;
+  qrnn_pool_fwd         ``qrnn_pool`` without a gradient otherwise: seeded
+                        with c0, or unseeded on many lanes (eval at batch):
+                        one serial loop per lane, so a block-streamed run
+                        (c_T threaded into the next block's c0) equals one
+                        full run bit for bit;
+  qrnn_pool_fwd_train   the forward of ``QRNNPool``: also stores every c_t;
+  qrnn_pool_bwd         the backward of ``QRNNPool``.
 
 ``qrnn_pool(y, c0=None)`` goes through the ``QRNNPool`` autograd Function
-when a gradient is needed, and through the serving forward otherwise. A
-tensor on the CPU takes the plain PyTorch versions (``ops/qrnn.py``). For
-a CUDA tensor every wrapper launches its kernel or raises: a missing
-``nvcc``, a failed build and a refused launch all raise.
+when a gradient is needed, and through ``qrnn_pool_fwd`` otherwise, which
+routes by c0 and lane count. A tensor on the CPU takes the plain PyTorch versions
+(``ops/qrnn.py``). For a CUDA tensor every wrapper launches its kernel or
+raises: a missing ``nvcc``, a failed build and a refused launch all raise.
 """
 
 import torch
@@ -28,14 +37,21 @@ SOURCE = cuda_build.source_path("qrnn_pool")
 BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches per entry point since import (or since reset_launches)
-LAUNCHES = {"qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
-            "qrnn_pool_bwd": 0}
+LAUNCHES = {"qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd": 0,
+            "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0}
 _LIB = None
+# unseeded calls on fewer lanes take the chunked kernel. On the H100 the
+# chunked kernel took 0.0356 ms at [24,200,512] (12288 lanes) against the
+# serial kernel's 0.0489, but 0.0682 at [48,200,512] (24576 lanes) against
+# 0.0578 and 0.1313 at [96,200,512] against 0.0715, where the serial kernel
+# is bound by bytes (chip_smoke.py phase 3)
+CHUNKED_LANES = 16384
 
 _P, _N = cuda_build.PTR, cuda_build.SIZE
 _ARGTYPES = {
     # (y, c0, h, c_T, B, T, H, stream)
     "qrnn_pool_fwd": [_P, _P, _P, _P, _N, _N, _N, _P],
+    "qrnn_pool_fwd_chunked": [_P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c0, h, c, c_T, B, T, H, stream)
     "qrnn_pool_fwd_train": [_P, _P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c, dh, dc_T, c0, dy, dc0, B, T, H, stream)
@@ -118,20 +134,37 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def qrnn_pool_fwd(y, c0=None):
-    """Serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h [B, T, H],
-    c_T [B, H]). No gradient."""
-    if _cuda_or_plain(y):
-        return _plain.qrnn_pool(y, c0)
+def _forward(name, y, c0):
     _check(y, c0)
     bsz, t, h3 = y.shape
     h = torch.empty((bsz, t, h3 // 3), dtype=y.dtype, device=y.device)
     c_last = torch.empty((bsz, h3 // 3), dtype=y.dtype, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        _launch("qrnn_pool_fwd", y.data_ptr(), _ptr(c0), h.data_ptr(),
+        _launch(name, y.data_ptr(), _ptr(c0), h.data_ptr(),
                 c_last.data_ptr(), bsz, t, h3 // 3, stream)
     return h, c_last
+
+
+def qrnn_pool_fwd(y, c0=None):
+    """Serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h [B, T, H],
+    c_T [B, H]). No gradient. Unseeded calls on fewer than CHUNKED_LANES
+    lanes launch ``qrnn_pool_fwd_chunked``, the others the serial
+    ``qrnn_pool_fwd``."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool(y, c0)
+    if c0 is None and y.shape[0] * (y.shape[-1] // 3) < CHUNKED_LANES:
+        return qrnn_pool_fwd_chunked(y)
+    return _forward("qrnn_pool_fwd", y, c0)
+
+
+def qrnn_pool_fwd_chunked(y, c0=None):
+    """The chunked serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h,
+    c_T), no gradient. On the CPU the chunked plain version
+    (``ops.qrnn.qrnn_pool_chunked_plain``)."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool_chunked_plain(y, c0)
+    return _forward("qrnn_pool_fwd_chunked", y, c0)
 
 
 def qrnn_pool_fwd_train(y, c0=None):

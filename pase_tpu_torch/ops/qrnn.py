@@ -11,7 +11,8 @@ build_rnn_block):
 
 These are the plain versions of the CUDA kernels in ``ops/cuda_qrnn.py``:
 the CPU path of the encoder and the reference the kernels are held to on
-the card. ``forget_mult`` steps sequentially over T in the JAX package's
+the card (``qrnn_pool_chunked_plain`` repeats the chunked kernel's algebra,
+for tests). ``forget_mult`` steps sequentially over T in the JAX package's
 algebra (a = 1-f, b = f*z, c0 folded into b_1); ``qrnn_pool_bwd`` is the
 reverse-time scan of its gradient (the VJP of
 ``pase_tpu/ops/pallas_qrnn.py``), with the gate derivatives applied.
@@ -61,6 +62,50 @@ def qrnn_pool(y, c0=None):
     """
     h, c = qrnn_pool_fwd_train(y, c0)
     return h, c[:, -1]
+
+
+def qrnn_pool_chunked_plain(y, c0=None, chunk=8, chunks=64):
+    """The chunked serving kernel's algebra (``qrnn_pool_fwd_chunked``),
+    for tests: the same function as ``qrnn_pool``. T is walked in segments
+    of ``chunks`` chunks of ``chunk`` steps, each seeded with the last
+    one's c_T: (1) every chunk's map c -> A c + B from c = 0; (2) the carry
+    into each chunk, the segment's carry put through the composed maps of
+    the chunks before it; (3) each chunk re-run from its carry.
+    Returns (h [B, T, H], c_T [B, H])."""
+    yz, yf, yo = torch.chunk(y, 3, dim=-1)
+    f = torch.sigmoid(yf)
+    a, b = 1.0 - f, f * torch.tanh(yz)
+    bsz, t, hid = a.shape
+    carry = torch.zeros_like(a[:, 0]) if c0 is None else c0
+    seg = chunk * chunks
+    parts = []
+    for s0 in range(0, t, seg):
+        n = min(seg, t - s0)
+        nc = -(-n // chunk)
+        pad = (0, 0, 0, nc * chunk - n)     # steps past T: the identity
+        aa = F.pad(a[:, s0:s0 + n], pad, value=1.0).reshape(
+            bsz, nc, chunk, hid)
+        bb = F.pad(b[:, s0:s0 + n], pad).reshape(bsz, nc, chunk, hid)
+        ma, mb = torch.ones_like(aa[:, :, 0]), torch.zeros_like(aa[:, :, 0])
+        for u in range(chunk):
+            mb = aa[:, :, u] * mb + bb[:, :, u]
+            ma = ma * aa[:, :, u]
+        pa, pb = torch.ones_like(carry), torch.zeros_like(carry)
+        cin = []
+        for k in range(nc):
+            cin.append(pa * carry + pb)
+            pb = ma[:, k] * pb + mb[:, k]
+            pa = pa * ma[:, k]
+        c = torch.stack(cin, dim=1)
+        cs = []
+        for u in range(chunk):
+            c = aa[:, :, u] * c + bb[:, :, u]
+            cs.append(c)
+        c = torch.stack(cs, dim=2).reshape(bsz, nc * chunk, hid)[:, :n]
+        parts.append(c)
+        carry = c[:, -1]
+    c = torch.cat(parts, dim=1)
+    return torch.sigmoid(yo) * c, c[:, -1]
 
 
 def qrnn_pool_bwd(y, c, dh, dc_last=None, c0=None):

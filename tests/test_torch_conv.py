@@ -1,6 +1,7 @@
 """The port's stride-1 conv (pase_tpu_torch.ops.conv: the plain version of
-the CUDA kernel csrc/conv_s1.cu, and the space-to-depth reform of strided
-layers) against the TPU kernel it replaces, K4 of
+the CUDA kernels of csrc/conv_s1_tc.cu, the space-to-depth reform of
+strided layers, the float32 route's TF32 split and its 3xTF32 arithmetic,
+and the kernels' read plan) against the TPU kernel it replaces, K4 of
 experiments/pallas_conv_proto.py, and against pase_tpu.nn.conv1d, on the
 CPU.
 
@@ -171,7 +172,8 @@ def _bf16(*shape):
 
 
 def test_route_by_dtype():
-    assert conv.route(torch.zeros(1, dtype=torch.float32)) == "conv_s1"
+    assert conv.route(torch.zeros(1, dtype=torch.float32)) == \
+        "conv_s1_tf32x3"
     assert conv.route(torch.zeros(1, dtype=torch.bfloat16)) == "conv_s1_tc"
     for dt in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(TypeError):
@@ -250,10 +252,11 @@ def test_tc_plan_refuses_what_the_map_cannot_hold():
 
 
 def _emulate_tc(x, w):
-    """conv_s1_tc's work from its plan alone, in float32 on the CPU: the
-    tensor map as a strided view of x's storage, zeros past its rows, the
-    taps summed over the grid's rows, and the epilogue's row -> (b, t)
-    mapping and masks. Returns float32 y."""
+    """The tensor-core kernels' work from their plan alone, in float32 on
+    the CPU: the tensor map as a strided view of x's storage, zeros past
+    its rows, the taps summed over the grid's rows (bf16: products of bf16
+    values; float32: the three TF32 products), and the epilogue's row ->
+    (b, t) mapping and masks. Returns float32 y."""
     plan = conv.tc_plan(x, w)
     if plan["copy"]:
         x = torch.nn.functional.pad(
@@ -262,15 +265,21 @@ def _emulate_tc(x, w):
     b, tin, _ = x.shape
     k, c, o = w.shape
     cd, rows, slabs = plan["c_dim"], plan["rows"], plan["slabs"]
+    es = x.element_size()
     tmap = torch.as_strided(x, (slabs, rows, cd), (
-        plan["slab_bytes"] // 2, plan["row_bytes"] // 2, 1),
+        plan["slab_bytes"] // es, plan["row_bytes"] // es, 1),
         x.storage_offset()).float()
-    m = plan["tiles"] // slabs // -(-o // plan["bn"]) * conv.TC_BM
+    m = plan["tiles"] // slabs // -(-o // plan["bn"]) * plan["bm"]
     assert m >= plan["rows_out"]
     a = torch.cat([tmap, torch.zeros(slabs, m + k, cd)], 1)
     wt = torch.nn.functional.pad(
-        w.to(torch.bfloat16).float().permute(0, 2, 1), (0, cd - c))
-    acc = sum(a[:, j:j + m] @ wt[j].T for j in range(k))
+        w.to(x.dtype).float().permute(0, 2, 1), (0, cd - c))
+    if x.dtype == torch.float32:
+        (ah, al), (wh, wl) = conv.split_tf32(a), conv.split_tf32(wt)
+        acc = sum(al[:, j:j + m] @ wh[j].T + ah[:, j:j + m] @ wl[j].T
+                  + ah[:, j:j + m] @ wh[j].T for j in range(k))
+    else:
+        acc = sum(a[:, j:j + m] @ wt[j].T for j in range(k))
     r = torch.arange(m)
     keep = (r < plan["rows_out"]) & (r % tin < plan["tout"])
     y = torch.full((b, plan["tout"], o), float("nan"))
@@ -299,3 +308,145 @@ def test_tc_plan_emulated_matches_plain(layer):
     want = conv.conv_s1_plain(xs.float(), ws.to(torch.bfloat16).float())
     assert got.shape == want[:, :tout].shape
     assert rel_err(got.numpy(), want[:, :tout].numpy()) <= REL["float32"]
+
+
+@pytest.mark.parametrize("layer", [(160, 20, 10, 64, 64), (37, 11, 1, 48, 70),
+                                   (200, 11, 2, 128, 256), (9, 3, 1, 5, 3),
+                                   (50, 1, 1, 24, 40)],
+                         ids=lambda l: "T{0}k{1}s{2}c{3}o{4}".format(*l))
+def test_tc_plan_emulated_matches_plain_float32(layer):
+    """The float32 route's plan (C to a multiple of 4, 128-row tiles at
+    bn 128) with its 3xTF32 products covers every output once, within
+    1e-5 of the plain version, on the card's test layers."""
+    t, k, s, cin, cout = layer
+    rng = np.random.RandomState(sum(layer) + 1)
+    x = torch.from_numpy(rng.randn(3, t + k - 1, cin).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, cin, cout) * 0.05).astype(
+        np.float32))
+    xs, ws, tout = conv.space_to_depth(x, w, s)
+    got = _emulate_tc(xs, ws)[:, :tout]
+    want = conv.conv_s1_plain(xs, ws)[:, :tout]
+    assert got.shape == want.shape
+    assert rel_err(got.numpy(), want.numpy()) <= REL["float32"]
+
+
+# --- the float32 route's TF32 split (bit for bit with the kernel's integer
+# rounding) and its arithmetic
+
+
+def _tf32_numpy(v):
+    """v rounded to TF32 in float64 arithmetic, independently of the bit
+    trick: to the nearest multiple of the TF32 quantum of v's binade (11
+    significant bits; 2^-136 below 2^-126), ties to even (np.rint)."""
+    v = np.asarray(v, np.float32)
+    out = v.astype(np.float64)
+    a = np.abs(out)
+    fin = np.isfinite(a) & (a > 0)
+    e = np.frexp(a[fin])[1]
+    q = np.where(a[fin] < 2.0 ** -126, 2.0 ** -136, np.ldexp(1.0, e - 11))
+    out[fin] = np.copysign(np.rint(a[fin] / q) * q, out[fin])
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+def _tf32_cases(kind):
+    rng = np.random.RandomState(3)
+    if kind == "random":
+        return (rng.randn(4000) * 10.0 ** rng.randint(-30, 30, 4000)
+                ).astype(np.float32)
+    if kind == "ties":
+        # halfway between two TF32 values: even neighbour below, odd below
+        # (rounds up), negative, and one ulp either side of a tie
+        base = np.float32([1.0, 1.0 + 2 ** -10, 3.0, 1.5 + 2 ** -10])
+        tie = base + np.float32(2 ** -11) * np.exp2(np.floor(np.log2(
+            base))).astype(np.float32)
+        near = np.concatenate([tie, np.nextafter(tie, 2 * tie),
+                               np.nextafter(tie, 0 * tie)])
+        return np.concatenate([near, -near]).astype(np.float32)
+    if kind == "subnormal":
+        small = np.float32([2 ** -149, 3 * 2 ** -149, 2 ** -137,
+                            3 * 2 ** -137, 2 ** -136 + 2 ** -149,
+                            2 ** -126 - 2 ** -149, 2 ** -126, 0.0])
+        return np.concatenate([small, -small]).astype(np.float32)
+    # float32's largest rounds up to inf; TF32's largest stays
+    top, tf32_top = np.finfo(np.float32).max, (2 - 2.0 ** -10) * 2.0 ** 127
+    return np.float32([np.inf, -np.inf, np.nan, top, -top, tf32_top,
+                       -tf32_top, 0.0, -0.0])
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "subnormal", "special"])
+def test_round_tf32_matches_numpy_bit_for_bit(kind):
+    v = _tf32_cases(kind)
+    got = conv.round_tf32(torch.from_numpy(v)).numpy()
+    want = _tf32_numpy(v)
+    nan = np.isnan(v)
+    assert np.isnan(got[nan]).all()
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+    assert (got.view(np.uint32)[~nan] & 0x1FFF == 0).all()
+
+
+def test_split_tf32_parts():
+    """hi and lo are TF32 values, v - hi is exact, and hi + lo is within
+    2^-22 of v (normal v)."""
+    v = _tf32_cases("random")
+    v = v[np.abs(v) > 2.0 ** -100]
+    hi, lo = conv.split_tf32(torch.from_numpy(v))
+    hi, lo = hi.numpy(), lo.numpy()
+    np.testing.assert_array_equal(hi, _tf32_numpy(v))
+    np.testing.assert_array_equal(
+        lo, _tf32_numpy((v.astype(np.float64) - hi).astype(np.float32)))
+    err = np.abs(hi.astype(np.float64) + lo - v) / np.abs(v)
+    assert err.max() <= 2.0 ** -22, err.max()
+
+
+@pytest.mark.parametrize("layer", [(160, 20, 10, 64, 64), (37, 11, 1, 48, 70),
+                                   (200, 11, 2, 128, 256), (9, 3, 1, 5, 3),
+                                   (50, 1, 1, 24, 40)],
+                         ids=lambda l: "T{0}k{1}s{2}c{3}o{4}".format(*l))
+def test_conv_s1_tf32x3_plain_matches_plain(layer):
+    """The three TF32 products hold the float32 conv within 1e-6 of
+    max|y| at the ragged layers and the L1 fold: the split's arithmetic.
+    (The kernel's own order of sums is checked on the card.)"""
+    t, k, s, cin, cout = layer
+    rng = np.random.RandomState(sum(layer))
+    x = torch.from_numpy(rng.randn(2, t + k - 1, cin).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, cin, cout) * 0.05).astype(
+        np.float32))
+    xs, ws, tout = conv.space_to_depth(x, w, s)
+    got = conv.conv_s1_tf32x3_plain(xs, ws)[:, :tout]
+    want = conv.conv_s1_plain(xs, ws)[:, :tout]
+    assert got.dtype == torch.float32
+    assert rel_err(got.numpy(), want.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("c,c_dim", [(4, 4), (5, 8), (640, 640), (30, 32)])
+def test_tc_plan_float32_pads_c_to_four(c, c_dim):
+    """float32 rows are 16 bytes at 4 channels: C a multiple of 4 goes in
+    as it lies, else a copy pads it; w always goes through the kernel's
+    split (w_copy), O unpadded; 128-row tiles at bn 128."""
+    x = torch.randn(3, 40, c)
+    for o, bn, bm in ((8, 64, 256), (70, 128, 128)):
+        plan = conv.tc_plan(x, torch.zeros(4, c, o))
+        assert plan["c_dim"] == c_dim and plan["copy"] == (c_dim != c)
+        assert plan["row_bytes"] == 4 * c_dim
+        assert plan["w_copy"] and plan["o_dim"] == o
+        assert (plan["bn"], plan["bm"]) == (bn, bm)
+        assert plan["tiles"] == -(-plan["rows_out"] // bm) * -(-o // bn)
+
+
+def test_tc_plan_float32_takes_the_l1_view_as_is():
+    """L1's space-to-depth view of float32 x [B, 32019, 64] goes in
+    without a copy: a slab per batch row, 32019 * 64 * 4 bytes apart."""
+    x = torch.empty((2, 32019, 64))
+    xs, ws, tout = conv.space_to_depth(x, torch.zeros(20, 64, 64), 10)
+    assert xs.data_ptr() == x.data_ptr() and not xs.is_contiguous()
+    plan = conv.tc_plan(xs, ws)
+    assert not plan["copy"]
+    assert (plan["c_dim"], plan["rows"], plan["slabs"]) == (640, 3201, 2)
+    assert plan["row_bytes"] == 640 * 4
+    assert plan["slab_bytes"] == 32019 * 64 * 4
+    assert plan["rows_out"] == plan["tout"] == tout == 3200
+    # a ragged C of a strided view is copied
+    bad = torch.empty((2, 50, 7))[:, :, :6]
+    assert conv.tc_plan(bad, torch.zeros(3, 6, 4))["copy"]

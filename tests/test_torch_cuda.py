@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: the QRNN pooling kernels
-(pase_tpu_torch/csrc/qrnn_pool.cu: serving forward, training forward,
-backward) and the stride-1 conv kernels (csrc/conv_s1_tc.cu for bf16,
-csrc/conv_s1.cu for float32) against their plain PyTorch versions, the
+(pase_tpu_torch/csrc/qrnn_pool.cu: the chunked and the serial serving
+forward, training forward, backward) and the stride-1 conv kernels
+(csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
+against their plain PyTorch versions, the
 encoder on the GPU against the same weights on the CPU, one small train
 step on the GPU against the CPU, and the distortion stack on the GPU
 against the CPU with the same draws.
@@ -59,8 +60,10 @@ def test_kernel_builds(cuda_device):
 @pytest.mark.parametrize("shape", [(3, 200, 16), (2, 1000, 512),
                                    (9, 131, 40), (1, 7, 24)])
 def test_kernel_matches_plain(cuda_device, shape):
+    """Unseeded (the chunked kernel at these lane counts) and seeded (the
+    serial kernel) against the plain version."""
     y, c0 = _inputs(*shape, cuda_device)
-    before = cuda_qrnn.LAUNCHES["qrnn_pool_fwd"]
+    before = dict(cuda_qrnn.LAUNCHES)
     for seed in (None, c0):
         h, c = cuda_qrnn.qrnn_pool(y, seed)
         h_ref, c_ref = plain.qrnn_pool(y, seed)
@@ -68,7 +71,42 @@ def test_kernel_matches_plain(cuda_device, shape):
         assert h.shape == h_ref.shape and c.shape == c_ref.shape
         assert (h - h_ref).abs().max().item() <= 1e-5
         assert (c - c_ref).abs().max().item() <= 1e-5
-    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd"] == before + 2
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd": before["qrnn_pool_fwd"] + 1,
+        "qrnn_pool_fwd_chunked": before["qrnn_pool_fwd_chunked"] + 1}
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t", [1, 17, 1000, 10000])
+def test_chunked_kernel_matches_plain(cuda_device, b, t):
+    """qrnn_pool_fwd_chunked against the plain version: one step, a ragged
+    chunk, one segment, several segments; at B = 1 in tiles of 4 lanes a
+    block (64 tiles of 8 would leave SMs idle), at B = 8 of 8."""
+    y, c0 = _inputs(b, t, 512, cuda_device, seed=t + b)
+    h_ref, c_ref = plain.qrnn_pool(y)
+    h, c = cuda_qrnn.qrnn_pool_fwd_chunked(y)
+    torch.cuda.synchronize()
+    assert (h - h_ref).abs().max().item() <= 1e-5
+    assert (c - c_ref).abs().max().item() <= 1e-5
+    h, c = cuda_qrnn.qrnn_pool_fwd_chunked(y, c0)
+    h_ref, c_ref = plain.qrnn_pool(y, c0)
+    torch.cuda.synchronize()
+    assert (h - h_ref).abs().max().item() <= 1e-5
+    assert (c - c_ref).abs().max().item() <= 1e-5
+
+
+def test_serving_forward_routes(cuda_device):
+    """Unseeded under CHUNKED_LANES lanes: the chunked kernel; seeded, or
+    unseeded on more lanes: the serial one. One launch each."""
+    small, c0 = _inputs(2, 30, 16, cuda_device)
+    big = torch.randn(cuda_qrnn.CHUNKED_LANES // 64, 3, 3 * 64,
+                      device=cuda_device)
+    for y, seed, name in ((small, None, "qrnn_pool_fwd_chunked"),
+                          (small, c0, "qrnn_pool_fwd"),
+                          (big, None, "qrnn_pool_fwd")):
+        before = dict(cuda_qrnn.LAUNCHES)
+        cuda_qrnn.qrnn_pool(y, seed)
+        assert cuda_qrnn.LAUNCHES == {**before, name: before[name] + 1}
 
 
 @pytest.mark.parametrize("shape", [(3, 200, 16), (1, 1001, 512)])
@@ -104,9 +142,9 @@ def test_encoder_gpu_matches_cpu(cuda_device):
     gpu = wf_builder(NARROW_CFG, device=cuda_device, seed=0)
     cpu = wf_builder(NARROW_CFG, device="cpu", seed=0)
     x = (np.random.RandomState(0).randn(2, 1, 16000) * 0.1).astype(np.float32)
-    before = cuda_qrnn.LAUNCHES["qrnn_pool_fwd"]
+    before = cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"]
     y = gpu(x)
-    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd"] == \
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == \
         before + len(gpu.module.rnn.layers)
     y_cpu = cpu(x)
     assert tuple(y.shape) == tuple(y_cpu.shape) == (2, 8, 400)
@@ -152,6 +190,7 @@ def test_train_kernels_count_launches(cuda_device):
     assert after["qrnn_pool_fwd_train"] == before["qrnn_pool_fwd_train"] + 1
     assert after["qrnn_pool_bwd"] == before["qrnn_pool_bwd"] + 1
     assert after["qrnn_pool_fwd"] == before["qrnn_pool_fwd"]
+    assert after["qrnn_pool_fwd_chunked"] == before["qrnn_pool_fwd_chunked"]
 
 
 def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):
@@ -195,11 +234,12 @@ def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):
     (9, 3, 1, 5, 3), (50, 1, 1, 24, 40), (1600, 20, 10, 64, 64),
     (400, 11, 2, 512, 512), (120, 20, 1, 16, 24)])
 def test_conv_kernel_matches_plain(cuda_device, dtype, rel, layer):
-    """Each route's kernel (conv_s1_tc for bf16, conv_s1 for float32)
-    against the plain version. Ragged tiles in t, c and o included (37
-    steps, 48 / 5 channels, 70 / 3 outputs), K=1, the L1 fold read as a
-    strided view (K=20 s=10), L7's shape at batch 3 (one flattened slab),
-    and 20 taps at stride 1 (two tap groups of conv_s1_tc's windows)."""
+    """Each route's kernel (conv_s1_tc for bf16, conv_s1_tf32x3 for
+    float32) against the plain version. Ragged tiles in t, c and o
+    included (37 steps, 48 / 5 channels, 70 / 3 outputs; C = 5 is copied
+    to 8), K=1, the L1 fold read as a strided view (K=20 s=10), L7's shape
+    at batch 3 (one flattened slab), and 20 taps at stride 1 (two tap
+    groups of the kernels' windows)."""
     t, k, s, cin, cout = layer
     gen = torch.Generator(device=cuda_device).manual_seed(sum(layer))
     x = torch.randn((3, t + k - 1, cin), generator=gen,
@@ -219,7 +259,7 @@ def test_conv_kernel_matches_plain(cuda_device, dtype, rel, layer):
 
 def test_conv_launches_count_by_route(cuda_device):
     """One bf16 call counts one conv_s1_tc launch, one float32 call one
-    conv_s1 launch, and nothing else."""
+    conv_s1_tf32x3 launch (its w split included), and nothing else."""
     x = torch.randn(2, 40, 16, device=cuda_device)
     w = torch.randn(3, 16, 8, device=cuda_device)
     before = dict(conv.LAUNCHES)
@@ -227,15 +267,25 @@ def test_conv_launches_count_by_route(cuda_device):
     assert conv.LAUNCHES == {**before,
                              "conv_s1_tc": before["conv_s1_tc"] + 1}
     conv.conv_s1(x, w)
-    assert conv.LAUNCHES == {"conv_s1": before["conv_s1"] + 1,
-                             "conv_s1_tc": before["conv_s1_tc"] + 1}
+    assert conv.LAUNCHES == {
+        "conv_s1_tf32x3": before["conv_s1_tf32x3"] + 1,
+        "conv_s1_tc": before["conv_s1_tc"] + 1}
 
 
 def test_conv_tc_reads_the_l1_view_in_place(cuda_device):
     """L1's space-to-depth view goes into conv_s1_tc without a copy: the
     call's peak memory rises by less than x's bytes (y and w are a tenth
     of them)."""
-    x = torch.randn((8, 16019, 64), device=cuda_device).to(torch.bfloat16)
+    _reads_the_l1_view_in_place(cuda_device, torch.bfloat16, 2.0 ** -7)
+
+
+def test_conv_tf32x3_reads_the_l1_view_in_place(cuda_device):
+    """The same for conv_s1_tf32x3 in float32 (its w split is 2 x w)."""
+    _reads_the_l1_view_in_place(cuda_device, torch.float32, 1e-5)
+
+
+def _reads_the_l1_view_in_place(cuda_device, dtype, rel):
+    x = torch.randn((8, 16019, 64), device=cuda_device).to(dtype)
     w = torch.randn((20, 64, 64), device=cuda_device) * 0.05
     xs, ws, tout = conv.space_to_depth(x, w, 10)
     assert xs.data_ptr() == x.data_ptr() and not xs.is_contiguous()
@@ -248,7 +298,7 @@ def test_conv_tc_reads_the_l1_view_in_place(cuda_device):
     assert rise < x.numel() * x.element_size(), rise
     want = conv.conv_s1_plain(xs, ws)
     err = (y.float() - want.float()).abs().max().item()
-    assert err <= 2.0 ** -7 * want.float().abs().max().item(), err
+    assert err <= rel * want.float().abs().max().item(), err
 
 
 def test_conv_kernel_refuses(cuda_device):

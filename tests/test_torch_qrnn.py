@@ -179,3 +179,58 @@ def test_plain_backward_returns_no_c0_grad_without_c0():
     h, c = torch_qrnn.qrnn_pool_fwd_train(yt)
     dy, dc0 = torch_qrnn.qrnn_pool_bwd(yt, c, torch.ones_like(h))
     assert dy.shape == yt.shape and dc0 is None
+
+
+# (T, chunk, chunks per segment): one step; T under one chunk; T one past
+# whole chunks; several segments (5 of 8 steps, the last ragged)
+CHUNKED = [(1, 8, 64), (5, 8, 64), (17, 8, 64), (37, 4, 2)]
+
+
+@pytest.mark.parametrize("t,chunk,chunks", CHUNKED,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("seeded", [False, True])
+def test_chunked_plain_matches_serial_and_pallas(t, chunk, chunks, seeded):
+    """The chunked kernel's algebra (chunk maps, composed carries, chunks
+    re-run from their carry) against the serial plain version and the
+    Pallas kernel in interpret mode, within 1e-6."""
+    y, c0 = _inputs(3, t, 8, seed=t + chunk)
+    c0 = c0 if seeded else None
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    h, c = torch_qrnn.qrnn_pool_chunked_plain(torch.from_numpy(y), c0t,
+                                              chunk=chunk, chunks=chunks)
+    h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
+    with pltpu.force_tpu_interpret_mode():
+        h_ref, c_ref = jax_pallas.qrnn_pool_pallas(
+            jnp.asarray(y), None if c0 is None else jnp.asarray(c0))
+    assert h.shape == (3, t, 8) and c.shape == (3, 8)
+    for got, want in ((h, h_ser), (c, c_ser), (h, np.asarray(h_ref)),
+                      (c, np.asarray(c_ref))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_chunked_wrapper_cpu_path_and_route():
+    """qrnn_pool_fwd_chunked on a CPU tensor takes the chunked plain
+    version and launches nothing; its launches are counted under their own
+    name (an unseeded call on the card under CHUNKED_LANES lanes)."""
+    y, c0 = _inputs(2, 21, 8, seed=6)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c = cuda_qrnn.qrnn_pool_fwd_chunked(torch.from_numpy(y))
+    h_ref, c_ref = torch_qrnn.qrnn_pool_chunked_plain(torch.from_numpy(y))
+    assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
+    assert cuda_qrnn.LAUNCHES == before
+    assert cuda_qrnn.CHUNKED_LANES == 16384
+    assert set(cuda_qrnn.LAUNCHES) == {"qrnn_pool_fwd_chunked",
+                                       "qrnn_pool_fwd",
+                                       "qrnn_pool_fwd_train",
+                                       "qrnn_pool_bwd"}
+
+
+def test_kernel_variants_replace_lines_of_the_shipped_sources():
+    """python -m pase_tpu_torch.kernel_variants builds each variant from
+    the shipped source with lines replaced: each line it replaces is
+    there exactly once."""
+    from pase_tpu_torch import kernel_variants
+    for name, (source, subs) in kernel_variants.VARIANTS.items():
+        with open(source) as f:
+            text = f.read()
+        assert [text.count(old) for old, _ in subs] == [1] * len(subs), name
