@@ -43,14 +43,16 @@ Phases, each printed as it ends; any failure exits non-zero:
                --synthetic`` at batch 32 x 32000 for one epoch (100
                steps, a 10-batch eval, FE_e0.npz), and a torch.profiler
                split of three further steps.
-  8. train-dist — bench.py's step: PASE+ / workers+ at batch 32 x 32000
-               with ZNorm statistics from compute_stats (2 synthetic
-               batches of 8) and the distortion stack (reverb .5, overlap
-               .1, noise .4, clip .2, chop .2) on synthetic assets seeded
-               as bench.py makes them; 3 warm-up steps, 3 trials of 20:
-               median steps/s, audio-s/s, the trials' spread, and the
-               same trainer's steps/s with the stack off; every loss
-               finite; a torch.profiler split with pase.prepare; and
+  8. train-dist — bench.py's step (pase_tpu_torch/bench.py's build and
+               measure): PASE+ / workers+ at batch 32 x 32000 with ZNorm
+               statistics from compute_stats (2 synthetic batches of 8)
+               and the distortion stack (reverb .5, overlap .1, noise .4,
+               clip .2, chop .2) on synthetic assets seeded as bench.py
+               makes them, in bf16 (bench.py's compute_dtype) and in
+               float32; 3 warm-up steps, 3 trials of 20: median steps/s,
+               audio-s/s, the trials' spread, and the same trainer's
+               steps/s with the stack off; every loss finite; a
+               torch.profiler split with pase.prepare for each; and
                apply_distortions on the card against the CPU with the same
                draws, max|diff| <= 1e-5 of max|out| (the bench stack, and
                all nine stages at p = 1).
@@ -61,13 +63,28 @@ Phases, each printed as it ends; any failure exits non-zero:
                cuDNN's and the plain version's ms, TFLOP/s and share of
                the bound (float32: also the bound at the CUDA cores'
                67 TFLOP/s).
+ 10. trajectory — pase_tpu_torch/trajectory.py's 40-step gate on the card
+               in float32 (TF32 off) and in bf16 against the JAX runs of
+               tests/fixtures/torch_port_trajectory.json: per worker and
+               'total', mean relative deviation <= 1 % or <= 2x the JAX
+               run's own one-ulp floor; the table is printed.
+ 11. resume  — in a process of its own under
+               torch.use_deterministic_algorithms (warnings recorded, not
+               raised; CUBLAS_WORKSPACE_CONFIG set): the gate's trainer
+               trains 2 steps, saves, a new Trainer resumes and trains 2
+               more, against 4 uninterrupted steps run twice (the card's
+               own run-to-run spread), in float32 and bf16. Bit for bit
+               where the uninterrupted runs agree bit for bit; else within
+               twice their spread, with the ops that have no deterministic
+               implementation named.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
 (the CLI in phase 7) must launch qrnn_pool_fwd_train and qrnn_pool_bwd
 once per QRNN layer per train step, and qrnn_pool_fwd once per layer per
 eval step (batch 3 x 32: above the chunked route's lane count); the
-distorted step (phase 8) the training kernels once per layer per step;
+distorted step (phase 8, bf16 and float32 each) the training kernels once
+per layer per step;
 the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
 the float32 run conv_s1_tf32x3 7 times. No other path launches a conv
 kernel. The line before the last is a JSON summary of the kernels; the
@@ -117,9 +134,10 @@ QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
-# phase 8: bench.py's trial protocol and the card-vs-CPU distortion bound
-N_WARM, N_MEAS, N_TRIALS = 3, 20, 3
+# phase 8: the card-vs-CPU distortion bound
 DIST_REL = 1e-5
+TRAJECTORY = os.path.join(HERE, "tests", "fixtures",
+                          "torch_port_trajectory.json")
 # phase 9: kernel vs plain, relative to max|y_plain|: one bf16 rounding of
 # float32 sums taken in another order; float32 sums in another order
 CONV_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
@@ -634,31 +652,6 @@ def phase_profile(tr, what="train step"):
     return prof
 
 
-def bench_assets(t):
-    """bench.py's synthetic assets and distortion config: 4 IRs of 8000
-    taps (a direct path, two with one echo), 8 noise rows and 4 overlap
-    rows of 2t samples from numpy.random.RandomState(0)."""
-    import torch
-    from pase_tpu_torch.data.distortions import (DistortionAssets,
-                                                 DistortionConfig)
-    rng = np.random.RandomState(0)
-    ir = np.zeros((4, 8000), np.float32)
-    ir[:, 0] = 1.0
-    ir[0, 1000] = 0.4
-    ir[1, 2000] = 0.2
-    assets = DistortionAssets(
-        ir_bank=torch.from_numpy(ir),
-        ir_pmax=torch.zeros(4, dtype=torch.int32),
-        noise_bank=torch.from_numpy(rng.randn(8, 2 * t).astype(np.float32)
-                                    * 0.1),
-        overlap_bank=torch.from_numpy(rng.randn(4, 2 * t).astype(np.float32)
-                                      * 0.1))
-    cfg = DistortionConfig(reverb_p=0.5, overlap_p=0.1, noises_p=0.4,
-                           clip_p=0.2, chop_p=0.2, bandrop_p=0.0,
-                           downsample_p=0.0)
-    return cfg, assets
-
-
 def check_distortions_card_vs_cpu(cfg, assets, what):
     """apply_distortions on the card against the CPU, the same batch and
     the same draws (drawn on the CPU, then copied); returns max|diff| /
@@ -688,89 +681,69 @@ def check_distortions_card_vs_cpu(cfg, assets, what):
     return rel
 
 
-def _trials(tr, raws, losses=None):
-    """bench.py's protocol after warm-up: N_TRIALS trials of N_MEAS train
-    steps, synchronized at both ends; the rates in steps/s, sorted. Each
-    step's losses go to ``losses``."""
+def phase_train_dist(tmp, compute_dtype="bfloat16"):
+    """bench.py's distorted PASE+ step on the card through
+    pase_tpu_torch.bench, in ``compute_dtype``. Returns (trainer, launch
+    counts of the timed steps, {perf scalars})."""
     import torch
-    rates = []
-    for _ in range(N_TRIALS):
-        t0 = time.perf_counter()
-        for i in range(N_MEAS):
-            out = tr.train_step(raws[i % len(raws)])
-            if losses is not None:
-                losses.append(out)
-        torch.cuda.synchronize()
-        rates.append(N_MEAS / (time.perf_counter() - t0))
-    return sorted(rates)
-
-
-def phase_train_dist(tmp):
-    """bench.py's distorted PASE+ step on the card. Returns (trainer,
-    launch counts of the timed steps, {perf scalars})."""
-    import torch
-    from pase_tpu_torch.data.dataset import (DeviceSyntheticBatcher,
-                                             SyntheticChunkBatcher)
-    from pase_tpu_torch.data.distortions import build_resample_filters
-    from pase_tpu_torch.data.pipeline import compute_stats, make_prepare_fn
-    from pase_tpu_torch.model import parse_workers_cfg
-    from pase_tpu_torch.trainer import Trainer
+    from pase_tpu_torch import bench
+    from pase_tpu_torch.data.pipeline import make_prepare_fn
     b, t = TRAIN_BATCH, TRAIN_CHUNK
-    dcfg, assets = bench_assets(t)
-    t0 = time.perf_counter()
-    stats = compute_stats(SyntheticChunkBatcher(8, t, seed=11),
-                          parse_workers_cfg(WORKERSP_CFG), max_batches=2,
-                          device="cuda")
-    stats_s = time.perf_counter() - t0
+    tr, raws, stats, stats_s = bench.build("cuda", compute_dtype,
+                                           save_path=tmp)
     check(all(np.isfinite(v[k]).all() and (v["std"] > 0).all()
               for v in stats.values() for k in ("mean", "std")),
           "compute_stats: non-finite or zero statistics")
-    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=400,
-               batch_size=b, chunk_size=t, log_freq=100, fe_lr=1e-3,
-               min_lr=5e-4, lr_mode="poly", save_path=tmp)
-    tr = Trainer(PASEP_CFG, WORKERSP_CFG, cfg, stats=stats, dist_cfg=dcfg,
-                 dist_assets=assets, device="cuda")
-    batcher = DeviceSyntheticBatcher(b, t, seed=0)
-    raws = [batcher.make_batch() for _ in range(4)]
     losses = []
     reset_launches()                      # the distorted step starts here
-    for i in range(N_WARM):
-        losses.append(tr.train_step(raws[i % len(raws)]))
-    torch.cuda.synchronize()
-    rates = _trials(tr, raws, losses)
+    rates = bench.measure(tr, raws, losses=losses)
     launches = read_launches()            # ... and ends here
-    steps = N_WARM + N_TRIALS * N_MEAS
+    steps = len(losses)
     layers = len(tr.model.frontend.rnn.layers)
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps}
-    print(f"[launches] distorted training step: {launches} (expected "
-          f"{expected}: {layers} QRNN layer(s) x {steps} steps)")
-    check(launches == expected, f"distorted step launches {launches} != "
-          f"{expected}")
+    print(f"[launches] distorted training step, {compute_dtype}: {launches}"
+          f" (expected {expected}: {layers} QRNN layer(s) x {steps} steps)")
+    check(launches == expected, f"distorted step ({compute_dtype}) "
+          f"launches {launches} != {expected}")
     totals = torch.stack([torch.stack(list(d.values())) for d in losses])
     bad = (~torch.isfinite(totals)).sum().item()
-    check(bad == 0, f"{bad} non-finite losses in the distorted step")
+    check(bad == 0, f"{bad} non-finite losses in the distorted step "
+          f"({compute_dtype})")
     rate = statistics.median(rates)
     # the same trainer and protocol with the stack off: what it costs
     with_stack = tr.prepare
     tr.prepare = make_prepare_fn(tr.meta, stats=stats, hop=tr.hop)
-    rate_off = statistics.median(_trials(tr, raws))
+    rate_off = statistics.median(bench.trials(tr, raws))
     tr.prepare = with_stack
     perf = {"steps_per_sec": rate, "audio_sec_per_sec": rate * b * t / SR,
             "spread": rates[-1] / rates[0] - 1.0, "rates": rates,
             "steps_per_sec_without": rate_off}
-    print(f"[train-dist] bench step (PASE+, workers+, batch {b} x {t}, "
-          f"float32, ZNorm stats from 2 batches of 8 in {stats_s:.2f} s, "
-          f"reverb .5 overlap .1 noise .4 clip .2 chop .2): median of "
-          f"{N_TRIALS} trials of {N_MEAS} steps {rate:.3f} steps/s, "
-          f"{perf['audio_sec_per_sec']:.1f} audio-s/s, trial spread "
-          f"{perf['spread']:.1%} (rates "
+    print(f"[train-dist] bench step ({compute_dtype}; PASE+, workers+, "
+          f"batch {b} x {t}, ZNorm stats from 2 batches of 8 in "
+          f"{stats_s:.2f} s, reverb .5 overlap .1 noise .4 clip .2 chop "
+          f".2): median of {bench.N_TRIALS} trials of {bench.N_MEAS} steps "
+          f"{rate:.3f} steps/s, {perf['audio_sec_per_sec']:.1f} audio-s/s, "
+          f"trial spread {perf['spread']:.1%} (rates "
           + ", ".join(f"{r:.3f}" for r in rates)
           + f"); total loss {float(totals[-1, -1]):.4f} after {steps} "
           f"steps, every loss finite; the same trainer without the stack "
           f"{rate_off:.3f} steps/s, so the stack costs "
           f"{1e3 / rate - 1e3 / rate_off:.2f} ms per step")
+    if perf["spread"] > bench.CONTENTION_SPREAD:
+        print(f"[train-dist] WARNING: trial spread {perf['spread']:.1%} "
+              f"> {bench.CONTENTION_SPREAD:.0%}: the card or the host was "
+              "likely shared during the trials")
+    return tr, launches, perf
+
+
+def check_bench_distortions():
+    """The bench stack and all nine stages, card against CPU."""
+    import torch
+    from pase_tpu_torch import bench
+    from pase_tpu_torch.data.distortions import build_resample_filters
+    dcfg, assets = bench.bench_assets(TRAIN_CHUNK)
     check_distortions_card_vs_cpu(dcfg, assets, "the bench stack")
     rng = np.random.RandomState(1)
     every = assets._replace(
@@ -785,7 +758,123 @@ def phase_train_dist(tmp):
         resample_factors=(2, 4), clip_p=1.0, chop_p=1.0, bandrop_p=1.0,
         downsample_p=1.0)
     check_distortions_card_vs_cpu(every_cfg, every, "all nine stages at p=1")
-    return tr, launches, perf
+
+
+def phase_trajectory(tmp):
+    """The 40-step gate on the card in float32 and bf16 against the JAX
+    runs of the fixture."""
+    from pase_tpu_torch import trajectory as T
+    fixture = T.load_fixture(TRAJECTORY)
+    verdicts = {}
+    for precision in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        traj = T.run_port(fixture, precision, "cuda",
+                          save_path=os.path.join(tmp, precision))
+        rows, ok = T.verdict(fixture, precision, traj)
+        print(f"[trajectory] {precision}, {len(traj)} steps in "
+              f"{time.perf_counter() - t0:.1f} s; per worker mean |port - "
+              f"jax| / |jax| (max; the JAX one-ulp floor's mean, max): "
+              + T.format_rows(rows))
+        verdicts[precision] = (rows, ok)
+    env = T.mean_max_rel(fixture["runs"]["f32"], fixture["runs"]["bf16"])
+    print("[trajectory] JAX bf16 against JAX f32 (mean, max): " + ", ".join(
+        f"{k} {m:.2e} {x:.2e}" for k, (m, x) in env.items()))
+    for precision, (rows, ok) in verdicts.items():
+        check(ok, f"trajectory gate ({precision}) failed: "
+              + T.format_rows(rows))
+
+
+def phase_resume():
+    """Phase 11 in a process of its own: CUBLAS_WORKSPACE_CONFIG has to be
+    set before cuBLAS starts, and the deterministic mode must not touch
+    the other phases' timings."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--resume-check"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[resume]"):
+            print(line)
+    check(proc.returncode == 0, f"resume check failed (exit "
+          f"{proc.returncode}): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+
+def resume_check():
+    """2 steps, save, resume in a new Trainer, 2 more steps, against 4
+    uninterrupted steps run twice; float32 and bf16, the gate's model and
+    distortion stack on device batches. Returns 0 when bit for bit, or
+    within twice the uninterrupted runs' own spread where that is not 0."""
+    import warnings
+    import torch
+    from pase_tpu_torch import trajectory as T
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tmp = tempfile.mkdtemp(prefix="pase_chip_resume_")
+    ok = True
+    try:
+        for precision in ("f32", "bf16"):
+            def trainer(name, **over):
+                return T.make_trainer(precision, "cuda",
+                                      os.path.join(tmp, precision, name),
+                                      bpe=2, epoch=2, log_freq=1, **over)
+
+            def batcher():
+                return DeviceSyntheticBatcher(T.BATCH, T.CHUNK, seed=1)
+
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                runs = []
+                for name in ("whole_a", "whole_b"):
+                    runs.append(trainer(name))
+                    runs[-1].train_(batcher())
+                cut = trainer("cut")
+                cut.train_(batcher(), epochs=1)
+                # another seed: the checkpoint's must win
+                runs.append(trainer("cut", seed=99))
+                runs[-1].train_(batcher())
+            for tr in runs + [cut]:
+                tr.logger.close()
+            a, b_, r = ([logged[s] for s in (3, 4)] for logged in (
+                _logged(os.path.join(tmp, precision, n))
+                for n in ("whole_a", "whole_b", "cut")))
+            spread, diff = _max_rel(a, b_), _max_rel(a, r)
+            same = all(torch.equal(runs[2].model.state_dict()[k], v)
+                       for k, v in runs[0].model.state_dict().items()
+                       if not k.endswith("num_batches_tracked"))
+            ops = sorted({str(w.message).split(" does not")[0]
+                          for w in caught
+                          if "deterministic" in str(w.message)})
+            bitwise = diff == 0.0 and same
+            good = bitwise or (spread > 0 and diff <= 2 * spread)
+            ok = ok and good
+            verdict = ("bit for bit" if bitwise else
+                       "within 2x the spread" if good else "FAIL")
+            print(f"[resume] {precision}: resumed steps 3-4 against the "
+                  f"uninterrupted run: max |loss diff| / |loss| {diff:.3e},"
+                  f" parameters {'bit-identical' if same else 'differ'}; "
+                  f"two uninterrupted runs differ by {spread:.3e} (the "
+                  f"card's run-to-run spread); ops without a deterministic "
+                  f"implementation: {ops or 'none'}; {verdict}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0 if ok else 1
+
+
+def _logged(path):
+    """{step: {worker: loss}} of a run's metrics.jsonl train lines."""
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return {r["step"]: {k: v for k, v in r.items()
+                        if k not in ("t", "split", "step")}
+            for r in recs if r["split"] == "train"}
+
+
+def _max_rel(ref, other):
+    return max(abs(o[k] - a[k]) / max(abs(a[k]), 1e-12)
+               for a, o in zip(ref, other) for k in a)
 
 
 def _conv_run(dtype, layers, expected):
@@ -875,6 +964,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="pase_chip_train_")
     try:
         name = phase_device()
+        import torch
         phase_build()
         rows = phase_kernel()
         train_rows = phase_kernel_train()
@@ -896,16 +986,22 @@ def main():
         tr, train_launches, _ = phase_train_cli(os.path.join(tmp, "cli"))
         phase_profile(tr)
         del tr
-        tr, _, _ = phase_train_dist(os.path.join(tmp, "dist"))
-        phase_profile(tr, "distorted train step")
-        del tr
+        for dtype in ("bfloat16", "float32"):
+            tr, _, _ = phase_train_dist(os.path.join(tmp, "dist_" + dtype),
+                                        dtype)
+            phase_profile(tr, f"distorted train step, {dtype}")
+            del tr
+            torch.cuda.empty_cache()
+        check_bench_distortions()
         convs = phase_conv()
+        phase_trajectory(os.path.join(tmp, "trajectory"))
+        torch.cuda.empty_cache()
+        phase_resume()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    import torch
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
     # the chunked kernel at the serving shape; the serial one at the eval
     # shape of the training path, where it runs
@@ -940,4 +1036,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--resume-check"]:        # phase 11's own process
+        sys.path.insert(0, HERE)
+        sys.exit(resume_check())
     sys.exit(main())

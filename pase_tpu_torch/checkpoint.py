@@ -1,4 +1,15 @@
-"""The weight bridge between the JAX package's checkpoints and the port.
+"""Checkpoints of the port, in the JAX package's native layout.
+
+* ``save_variables`` / ``load_variables``: one ``.npz`` of flat
+  ``/``-joined keys plus a ``__meta__`` entry (uint8 JSON, the step), as
+  ``pase_tpu/checkpoint.py`` writes them.
+* ``train_state_to_tree`` / ``restore_train_state``: a ``Trainer``'s full
+  state as the JAX package's TrainState keys, and back (strict).
+* ``Saver``: the rolling checkpoint index with ``max_ckpts`` retention.
+* ``load_frontend_ckpt``: an encoder artifact (native .npz or reference
+  torch .ckpt) into a module.
+
+The weight bridge between the JAX package's checkpoints and the port:
 
 The port's parameter and buffer names are the reference torch state-dict
 keys (the ones ``util_scripts.py export-torch`` writes), so a state dict in
@@ -36,10 +47,29 @@ _LEAF_TO_TORCH = {"low_hz": "low_hz_", "band_hz": "band_hz_",
 _LEAF_TO_JAX = {v: k for k, v in _LEAF_TO_TORCH.items()}
 
 
+def save_variables(path, flat, step=0):
+    """Write {'/'-joined key: array} as a native .npz with ``__meta__``
+    ({"step": step} as uint8 JSON)."""
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+    meta = {"step": int(step)}
+    flat["__meta__"] = np.frombuffer(
+        json.dumps(meta).encode("utf-8"), dtype=np.uint8).copy()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+    return path
+
+
+def load_variables(path):
+    """Native .npz -> ({'/'-joined key: np.ndarray}, meta dict)."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = (json.loads(bytes(data["__meta__"].tobytes()).decode("utf-8"))
+                if "__meta__" in data.files else {})
+        return {k: data[k] for k in data.files if k != "__meta__"}, meta
+
+
 def load_variables_npz(path):
     """Native .npz -> {'/'-joined key: np.ndarray}, without ``__meta__``."""
-    with np.load(path, allow_pickle=False) as data:
-        return {k: data[k] for k in data.files if k != "__meta__"}
+    return load_variables(path)[0]
 
 
 def _module_path_to_torch(parts):
@@ -121,12 +151,7 @@ def state_dict_to_variables(state_dict):
 def save_variables_npz(path, state_dict, step=0):
     """Write a state dict as a native .npz (the JAX package's
     ``checkpoint.save_variables`` layout, ``__meta__`` included)."""
-    flat = state_dict_to_variables(state_dict)
-    flat["__meta__"] = np.frombuffer(
-        json.dumps({"step": int(step)}).encode("utf-8"), dtype=np.uint8).copy()
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **flat)
-    return path
+    return save_variables(path, state_dict_to_variables(state_dict), step)
 
 
 def _load_torch_state_dict(path):
@@ -136,17 +161,25 @@ def _load_torch_state_dict(path):
     return dict(st)
 
 
-def load_frontend_ckpt(path, module):
+def load_frontend_ckpt(path, module, load_last=True):
     """Load a native .npz or a reference torch .ckpt state dict into
     ``module`` with ``load_state_dict(strict=True)``. Only a
     ``num_batches_tracked`` buffer the file lacks (the native format has
-    none) keeps the module's value."""
+    none) keeps the module's value.
+
+    ``load_last=False`` drops the last two entries of a torch .ckpt (the
+    reference's ``load_pretrained_ckpt``, as ``pase_tpu/checkpoint.py``
+    does); the module keeps its own values there, and every other key
+    must still be the module's. A native .npz always loads whole."""
     if path.endswith(".npz"):
         sd = variables_to_state_dict(load_variables_npz(path))
     else:
         sd = _load_torch_state_dict(path)
+        if not load_last:
+            sd = dict(list(sd.items())[:-2])
     for k, v in module.state_dict().items():
-        if k.endswith("num_batches_tracked") and k not in sd:
+        if k not in sd and (k.endswith("num_batches_tracked")
+                            or not load_last):
             sd[k] = v
     module.load_state_dict(sd, strict=True)
     return module
@@ -193,3 +226,158 @@ def load_model_variables(model, flat):
             sd[k] = v
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# the full train state in the JAX package's TrainState layout
+# ---------------------------------------------------------------------------
+
+GROUPS = ("frontend", "minion")
+_POLICY_FIELDS = ("q", "last_loss", "pi", "count")
+
+
+def _adam_prefix(group):
+    """optax ``multi_transform`` -> ``masked`` -> (adam, schedule) keys."""
+    return f"opt_state/inner_states/{group}/inner_state"
+
+
+def _group_params(trainer):
+    """{group: {parameter name: parameter}} of the trainer's optimizer."""
+    named = {id(p): n for n, p in trainer.model.named_parameters()}
+    return {g["name"]: {named[id(p)]: p for p in g["params"]}
+            for g in trainer.opt.param_groups}
+
+
+def rng_key(seed, step):
+    """The ``rng`` leaf a port checkpoint carries: the raw JAX key
+    [seed, step] (uint32). A JAX resume of a port checkpoint draws its
+    distortions and dropout from there; the port itself derives its
+    streams from (seed, step) and does not read it."""
+    return np.array([int(seed) & 0xFFFFFFFF, int(step) & 0xFFFFFFFF],
+                    np.uint32)
+
+
+def train_state_to_tree(trainer):
+    """A ``Trainer``'s full state as flat JAX TrainState keys: ``params/``
+    and ``batch_stats/`` (the weight bridge), ``opt_state/`` (per group
+    Adam's ``count``, ``mu`` = exp_avg and ``nu`` = exp_avg_sq in the
+    params' layout, and the schedule's ``count``), ``policy_state/``,
+    ``alpha``, ``rng`` (``rng_key``), ``step``, and ``torch/seed``, the
+    seed the port's per-step streams derive from."""
+    flat = model_state_dict_to_variables(trainer.model.state_dict())
+    count = np.asarray(trainer.opt_count, np.int32)
+    for group, params in _group_params(trainer).items():
+        pre = _adam_prefix(group)
+        for leaf, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            sd = {}
+            for n, p in params.items():
+                st = trainer.opt.state.get(p, {})
+                sd[n] = st[key] if key in st else torch.zeros_like(p)
+            for k, v in model_state_dict_to_variables(sd).items():
+                flat[f"{pre}/0/{leaf}/{k.partition('/')[2]}"] = v
+        flat[f"{pre}/0/count"] = count
+        flat[f"{pre}/1/count"] = count
+    for f in _POLICY_FIELDS:
+        flat[f"policy_state/{f}"] = getattr(trainer.policy_state,
+                                            f).cpu().numpy()
+    flat["alpha"] = trainer.alpha.detach().cpu().numpy()
+    flat["rng"] = rng_key(trainer.seed, trainer.step)
+    flat["step"] = np.asarray(trainer.step, np.int32)
+    flat["torch/seed"] = np.asarray(trainer.seed, np.int32)
+    return flat
+
+
+def restore_train_state(trainer, flat):
+    """Load a flat TrainState tree (``train_state_to_tree``'s keys, from
+    either package) into ``trainer``. Strict: every key of the trainer's
+    own tree but ``torch/`` ones must be present (a partial optimizer
+    state would silently perturb optimization); the error names up to 8
+    missing keys. Without ``torch/seed`` (a JAX checkpoint) the trainer
+    keeps its configured seed."""
+    want = [k for k in train_state_to_tree(trainer)
+            if not k.startswith("torch/")]
+    missing = [k for k in want if k not in flat]
+    if missing:
+        raise ValueError(
+            "checkpoint is missing TrainState leaves (refusing a partial "
+            f"resume): {missing[:8]}{'...' if len(missing) > 8 else ''}")
+    load_model_variables(trainer.model, {
+        k: v for k, v in flat.items()
+        if k.startswith(("params/", "batch_stats/"))})
+    dev = trainer.device
+    for group, params in _group_params(trainer).items():
+        pre = _adam_prefix(group)
+        count = int(flat[f"{pre}/0/count"])
+        moments = {}
+        for leaf in ("mu", "nu"):
+            head = f"{pre}/0/{leaf}/"
+            moments[leaf] = model_variables_to_state_dict(
+                {"params/" + k[len(head):]: v for k, v in flat.items()
+                 if k.startswith(head)})
+        for n, p in params.items():
+            trainer.opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": moments["mu"][n].to(dev).contiguous(),
+                "exp_avg_sq": moments["nu"][n].to(dev).contiguous()}
+    trainer.opt_count = int(flat[f"{_adam_prefix(GROUPS[0])}/0/count"])
+    trainer.policy_state = type(trainer.policy_state)(*(
+        torch.as_tensor(np.asarray(flat[f"policy_state/{f}"]), device=dev)
+        for f in _POLICY_FIELDS))
+    trainer.alpha = torch.as_tensor(np.asarray(flat["alpha"]), device=dev)
+    trainer.step = int(flat["step"])
+    if "torch/seed" in flat:
+        trainer.seed = int(flat["torch/seed"])
+    return trainer
+
+
+class Saver:
+    """Rolling checkpoint manager with a JSON index (``<prefix>checkpoints``:
+    the ``latest`` list and the ``current`` pointer), as the JAX package's
+    ``Saver``: files ``weights_<prefix><name>-<step>.npz``, at most
+    ``max_ckpts`` kept."""
+
+    def __init__(self, save_path, max_ckpts=5, prefix=""):
+        self.save_path = save_path
+        self.max_ckpts = max_ckpts
+        self.prefix = prefix
+        self.index_path = os.path.join(save_path, f"{prefix}checkpoints")
+
+    def _read_index(self):
+        if os.path.exists(self.index_path):
+            with open(self.index_path) as f:
+                return json.load(f)
+        return {"latest": [], "current": None}
+
+    def save(self, name, flat, step):
+        """Write the new weights first, then the index naming them, then
+        evict the oldest: a kill in between never leaves ``current``
+        dangling."""
+        os.makedirs(self.save_path, exist_ok=True)
+        ckpts = self._read_index()
+        model_path = f"{self.prefix}{name}-{step}.npz"
+        save_variables(os.path.join(self.save_path, "weights_" + model_path),
+                       flat, step)
+        latest = ckpts["latest"]
+        todel = None
+        if self.max_ckpts is not None and len(latest) >= self.max_ckpts:
+            todel, latest = latest[0], latest[1:]
+        latest.append(model_path)
+        ckpts["latest"], ckpts["current"] = latest, model_path
+        with open(self.index_path, "w") as f:
+            f.write(json.dumps(ckpts, indent=2))
+        if todel is not None:
+            try:
+                os.remove(os.path.join(self.save_path, "weights_" + todel))
+            except FileNotFoundError:
+                pass
+        return model_path
+
+    def read_latest_checkpoint(self):
+        return self._read_index().get("current")
+
+    def load_weights(self):
+        """(flat tree, meta) of the current checkpoint, or (None, None)."""
+        cur = self.read_latest_checkpoint()
+        if cur is None:
+            return None, None
+        return load_variables(os.path.join(self.save_path, "weights_" + cur))

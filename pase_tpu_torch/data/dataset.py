@@ -11,12 +11,22 @@ LIM / GIM contrastive tasks are learnable.
 * ``DeviceSyntheticBatcher`` — the same signal family drawn on the device
   with a ``torch.Generator``; it keeps the synthetic training loop off
   the host. Its random streams are not the JAX package's.
+
+``step_seed(seed, step)`` is the seed of one step's stream: the device
+batcher's batch k and the trainer's distortion draws of step k come from
+generators seeded with it, so a run resumed at step k replays the
+uninterrupted run's batches and draws without any generator state.
 """
 
 import math
 
 import numpy as np
 import torch
+
+
+def step_seed(seed, step):
+    """The seed of step ``step``'s stream of a run seeded with ``seed``."""
+    return ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
 
 
 class SyntheticChunkBatcher:
@@ -62,14 +72,18 @@ class SyntheticChunkBatcher:
 
 
 class DeviceSyntheticBatcher:
-    """Synthetic batches made on ``device`` from a ``torch.Generator``
-    seeded with ``seed``: harmonic stacks of 5 partials at f0 ~ U[80, 260)
-    Hz with 1/k^tilt amplitudes (tilt ~ U[0.7, 1.5)), a slow sine envelope
-    (U[1, 4) Hz), times 0.2, plus N(0, 0.05^2) noise."""
+    """Synthetic batches made on ``device`` from a ``torch.Generator``:
+    harmonic stacks of 5 partials at f0 ~ U[80, 260) Hz with 1/k^tilt
+    amplitudes (tilt ~ U[0.7, 1.5)), a slow sine envelope (U[1, 4) Hz),
+    times 0.2, plus N(0, 0.05^2) noise. Batch k of ``batches(step)`` is
+    drawn from ``step_seed(seed, k)``, so ``batches(k0)`` is the tail of
+    ``batches(0)`` from batch k0 on (a resumed run's feed);
+    ``make_batch()`` without a step continues the generator's stream."""
 
     def __init__(self, batch_size, chunk_size, seed=0, device="cuda"):
         self.batch_size = batch_size
         self.chunk_size = chunk_size
+        self.seed = seed
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed)
@@ -94,7 +108,9 @@ class DeviceSyntheticBatcher:
                             device=self.device) * 0.05
         return sig * env * 0.2 + noise
 
-    def make_batch(self):
+    def make_batch(self, step=None):
+        if step is not None:
+            self.generator.manual_seed(step_seed(self.seed, step))
         b = self.batch_size
         f0 = self._uniform(80.0, 260.0, (b, 1))
         tilt = self._uniform(0.7, 1.5, (b, 1))
@@ -104,6 +120,10 @@ class DeviceSyntheticBatcher:
                 "chunk_ctxt": self._speechlike(f0, tilt),
                 "chunk_rand": self._speechlike(f0r, tiltr)}
 
-    def __iter__(self):
+    def batches(self, step=0):
         while True:
-            yield self.make_batch()
+            yield self.make_batch(step)
+            step += 1
+
+    def __iter__(self):
+        return self.batches(0)

@@ -6,7 +6,9 @@ device:
   1. optional norm_and_scale (random gain per sample);
   2. cchunk := the clean chunk (the denoising target);
   3. worker feature targets from the clean chunk;
-  4. ZNorm of the targets with a stats dict ({key: {'mean', 'std'}});
+  4. ZNorm of the targets with a stats dict ({key: {'mean', 'std'}}),
+     then, under a compute dtype (``precision.py``), the targets stored
+     in it (the losses cast them back to float32 at the criterion);
   5. the distortion stack (``data/distortions.py``) on 'chunk' only, and
      the frame-level 'overlap' label when the workers have an overlap
      worker.
@@ -25,6 +27,7 @@ import torch
 from pase_tpu_torch.data.distortions import (apply_distortions,
                                              draw_distortions)
 from pase_tpu_torch.ops.features import feature_fn_for_worker
+from pase_tpu_torch.precision import get_compute_dtype
 
 ROADMAP_DISK = "ROADMAP.md, queue 1: disk-fed training"
 _DISK_KEYS = ("dist_mask", "zs_mask", "cchunk")
@@ -87,9 +90,11 @@ def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
             ctxt = norm_and_scale(ctxt, generator)
             rand = norm_and_scale(rand, generator)
         out = {"chunk_ctxt": ctxt, "chunk_rand": rand, "cchunk": chunk}
+        cd = get_compute_dtype()
         with torch.no_grad():
             for name, fn in feat_fns.items():
-                out[name] = znorm(name, fn(chunk))
+                feats = znorm(name, fn(chunk))
+                out[name] = feats if cd is None else feats.to(cd)
             overlap = chunk.new_zeros((b, t // hop))
             if distort:
                 dev_assets = cached(("assets", chunk.device),

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from pase_tpu_torch.nn import ROADMAP_OFF_SLICE, Conv1D, FeBlock, QRNN
+from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, BatchNorm1d, Conv1D,
+                               FeBlock, QRNN)
 
 
 def pool_to(skip, out_len):
@@ -111,7 +112,7 @@ class WaveFe(nn.Module):
         self.denseskips = nn.ModuleList(
             [Conv1D(fm, emb_dim, 1, bias=False, generator=generator)
              for fm in fmaps[:nblocks - 1]] if denseskips else [])
-        self.norm_out = (nn.BatchNorm1d(self.output_dim, affine=False)
+        self.norm_out = (BatchNorm1d(self.output_dim, affine=False)
                          if norm_out else None)
 
     def forward(self, wav):
@@ -212,13 +213,10 @@ class Encoder:
 
     def load_pretrained(self, ckpt_path, load_last=True):
         """Load a native FE_e*.npz or a reference torch FE_e*.ckpt state
-        dict; every key must match (strict)."""
-        if not load_last:
-            raise NotImplementedError(
-                "partial (load_last=False) loads are not ported yet: "
-                "ROADMAP.md, queue 1: checkpoint / resume")
+        dict; every key must match (strict). ``load_last=False`` skips a
+        .ckpt's last two entries, which keep their current values."""
         from pase_tpu_torch.checkpoint import load_frontend_ckpt
-        load_frontend_ckpt(ckpt_path, self.module)
+        load_frontend_ckpt(ckpt_path, self.module, load_last=load_last)
         return self
 
     def __call__(self, x, train=False, mode=None):

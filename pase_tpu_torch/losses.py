@@ -65,6 +65,11 @@ def framed_mse_linear(weight, bias, h, target, r):
       bias: [D*r] or None.
       h: [B, T, H] head input (the last hidden activation).
       target: [B, T, D] unframed ground truth.
+
+    Under the compute-dtype policy W is cast to h's type (bf16 when h is)
+    and every sum, cross term and bias term is float32, as in
+    ``pase_tpu/losses.py``: the Grams take float32 copies of the bf16
+    values, the r shifted products round to h's type before their sums.
     """
     kernel = weight[:, :, 0].t() if weight.dim() == 3 else weight
     rr = int(r) if r else 1
@@ -72,13 +77,15 @@ def framed_mse_linear(weight, bias, h, target, r):
     d = kernel.shape[1] // rr
     pad_l = rr // 2
     w = kernel.reshape(hdim, d, rr)
+    wc = w.to(h.dtype)
+    hf, wcf, target = h.float(), wc.float(), target.float()
     n_elems = b * t * d * rr
 
-    g = torch.einsum("bth,btk->hk", h, h)
-    wg = torch.einsum("hdj,kdj->hk", w, w)
+    g = torch.einsum("bth,btk->hk", hf, hf)
+    wg = torch.einsum("hdj,kdj->hk", wcf, wcf)
     p2 = torch.sum(g * wg)
     if bias is not None:
-        hsum = torch.sum(h, dim=(0, 1))
+        hsum = torch.sum(hf, dim=(0, 1))
         p2 = p2 + 2.0 * torch.dot(hsum @ kernel, bias)
         p2 = p2 + b * t * torch.sum(bias * bias)
 
@@ -88,7 +95,7 @@ def framed_mse_linear(weight, bias, h, target, r):
     cross = 0.0
     bmat = None if bias is None else bias.reshape(d, rr)
     for j in range(rr):
-        qj = _shift_time(h, pad_l - j) @ w[:, :, j]             # [B, T, D]
+        qj = (_shift_time(h, pad_l - j) @ wc[:, :, j]).float()  # [B,T,D]
         cross = cross + torch.sum(qj * target)
         if bmat is not None:
             lo, hi = max(0, j - pad_l), min(t, t + j - pad_l)

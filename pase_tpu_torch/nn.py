@@ -4,12 +4,14 @@ The blocks of ``pase_tpu.nn`` that the PASE+ encoder reaches, with the
 reference torch module and parameter names so that a state dict in the
 reference layout loads with ``load_state_dict(strict=True)``:
 
+* ``conv1d``      — VALID conv1d under the compute-dtype policy
+                    (``precision.py``).
 * ``Conv1D``      — torch Conv1d with the torch-default uniform init drawn
-                    from a ``torch.Generator``.
+                    from a ``torch.Generator``, through ``conv1d``.
 * ``SincConv``    — SincNet band-pass layer: filters synthesized every
                     forward, one plain conv1d on the reflect-padded input.
-* ``FeBlock``     — pad(reflect) -> conv/sinc -> BatchNorm -> PReLU
-                    (torch's own BatchNorm1d and PReLU, init 0).
+* ``FeBlock``     — pad(reflect) -> conv/sinc -> BatchNorm -> PReLU (init 0).
+* ``BatchNorm1d`` / ``PReLU`` — torch's, with the policy's cast points.
 * ``QRNN``        — window-2 quasi-recurrent layer: Linear over
                     [x_t, x_{t-1}], then the CUDA pooling kernels
                     (ops/cuda_qrnn.py; an autograd Function with the
@@ -26,6 +28,17 @@ biased batch variance and updates the running stats with the unbiased one
 at momentum 0.1, as ``pase_tpu/nn.py`` BatchNorm1d does (which takes the
 variance in one pass, E[x^2] - E[x]^2; torch in two: equal to rounding).
 
+Under a bfloat16 compute policy (``precision.compute_dtype``) the blocks
+mirror the JAX package's cast points: a conv casts a float32 x to bf16 and
+its kernel to x's type, and its output stays bf16; a bias (float32) added
+to it promotes the sum to float32, as JAX's type promotion does, so a
+Conv1D with a bias hands on float32 and the SincConv, the bias-free skip
+projections and the decoder's transposed convs (bias cast to bf16) hand
+on bf16. BatchNorm takes its statistics of a bf16 x in float32 in one
+pass and normalizes in bf16; PReLU casts its slope to x's type; the QRNN's
+linear runs in bf16 and its output goes to the pooling kernels as
+float32.
+
 Parameters are created on the CPU and drawn from the generator passed in;
 the owner moves the finished module to its device.
 """
@@ -41,6 +54,7 @@ from pase_tpu_torch.ops.pad import feblock_pad, pad_1d, sinc_same_pad
 from pase_tpu_torch.ops.qrnn import shift_right
 from pase_tpu_torch.ops.sinc import (build_sinc_filters, mel_init_hz,
                                      sinc_time_axes)
+from pase_tpu_torch.precision import get_compute_dtype
 
 ROADMAP_OFF_SLICE = "ROADMAP.md, queue 1: off-path model variants"
 
@@ -50,9 +64,36 @@ def _uniform_(tensor, bound, generator):
         tensor.uniform_(-bound, bound, generator=generator)
 
 
+def conv1d(x, weight, bias=None, stride=1, dilation=1):
+    """VALID conv1d of [B, Cin, T] with weight [Cout, Cin, K] (+ bias).
+
+    Under a compute dtype a float32 x is cast to it and the weight to x's
+    type; the conv's output stays in that type (float32 sums inside) and
+    the float32 bias, added after, promotes the sum to float32
+    (``pase_tpu/nn.py`` conv1d and Conv1D)."""
+    cd = get_compute_dtype()
+    if cd is not None and x.dtype == torch.float32:
+        x = x.to(cd)
+    if x.dtype == weight.dtype:
+        return F.conv1d(x, weight, bias, stride, dilation=dilation)
+    y = _low_precision(F.conv1d, x, weight.to(x.dtype), None, stride,
+                       dilation=dilation)
+    return y if bias is None else y + bias[:, None]
+
+
+def _low_precision(conv, x, w, *args, **kwargs):
+    """conv(x, w, ...) of two low-precision tensors, output in their type.
+    On the CPU it is taken of float32 copies (the same products, float32
+    sums) and rounded once: torch's bf16 CPU conv is wrong at some
+    strided shapes (stride 10, kernel 20 over 4819 samples)."""
+    if x.device.type == "cpu":
+        return conv(x.float(), w.float(), *args, **kwargs).to(x.dtype)
+    return conv(x, w, *args, **kwargs)
+
+
 class Conv1D(nn.Conv1d):
     """Conv1d (VALID) with torch-default uniform(+-1/sqrt(Cin*K)) init for
-    weight and bias, drawn from ``generator``."""
+    weight and bias, drawn from ``generator``; runs ``conv1d``."""
 
     def __init__(self, in_channels, out_channels, kwidth, stride=1,
                  dilation=1, bias=True, generator=None):
@@ -62,6 +103,51 @@ class Conv1D(nn.Conv1d):
         _uniform_(self.weight, bound, generator)
         if self.bias is not None:
             _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        return conv1d(x, self.weight, self.bias, self.stride[0],
+                      self.dilation[0])
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """torch's BatchNorm1d for a float32 x. For a bf16 x (under the
+    compute-dtype policy) the JAX package's: batch statistics in float32
+    in one pass, var = E[x^2] - E[x]^2, the running stats updated in
+    float32 with the unbiased variance, then (x - mean) * rsqrt(var + eps)
+    and the affine in x's type, mean, inv, weight and bias cast to it."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean,
+                              min=0.0)
+            n = x.shape[0] * x.shape[2]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / max(n - 1, 1)))
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+
+        def col(v):
+            return v.to(x.dtype)[:, None]
+
+        y = (x - col(mean)) * col(torch.rsqrt(var + self.eps))
+        if self.affine:
+            y = y * col(self.weight) + col(self.bias)
+        return y
+
+
+class PReLU(nn.PReLU):
+    """torch's PReLU with its slope cast to x's type."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 class SincConv(nn.Module):
@@ -95,7 +181,7 @@ class SincConv(nn.Module):
         if x.shape[1] != 1:
             raise ValueError("SincConv only supports one input channel")
         x = pad_1d(x, sinc_same_pad(self.kwidth, self.stride), self.pad_mode)
-        return F.conv1d(x, self.filters()[:, None, :], stride=self.stride)
+        return conv1d(x, self.filters()[:, None, :], stride=self.stride)
 
 
 class FeBlock(nn.Module):
@@ -122,8 +208,8 @@ class FeBlock(nn.Module):
             self.pad = feblock_pad(kwidth, stride, dilation)
             self.conv = Conv1D(in_channels, fmaps, kwidth, stride, dilation,
                                generator=generator)
-        self.norm = nn.BatchNorm1d(fmaps) if norm_type == "bnorm" else None
-        self.act = nn.PReLU(fmaps, init=0.0)
+        self.norm = BatchNorm1d(fmaps) if norm_type == "bnorm" else None
+        self.act = PReLU(fmaps, init=0.0)
 
     def forward(self, x):
         h = self.conv(pad_1d(x, self.pad, self.pad_mode))
@@ -143,7 +229,9 @@ class _QRNNLayer(nn.Module):
 
 class QRNN(nn.Module):
     """Window-2 QRNN stack, NTC in/out: per layer y = Linear([x_t, x_{t-1}])
-    then pooling (ops/cuda_qrnn.py: the kernel on CUDA, plain on CPU)."""
+    then pooling (ops/cuda_qrnn.py: the kernel on CUDA, plain on CPU).
+    Under a compute dtype the linear runs in it (bias added in it) and y
+    reaches the pooling as float32."""
 
     def __init__(self, input_size, hidden, layers=1, dropout=0.0,
                  generator=None):
@@ -154,9 +242,16 @@ class QRNN(nn.Module):
              for i in range(layers)])
 
     def forward(self, x):
+        cd = get_compute_dtype()
         h = x
         for i, layer in enumerate(self.layers):
-            y = layer.linear(torch.cat([h, shift_right(h, dim=1)], dim=-1))
+            src = torch.cat([h, shift_right(h, dim=1)], dim=-1)
+            lin = layer.linear
+            if cd is None:
+                y = lin(src)
+            else:
+                y = (F.linear(src.to(cd), lin.weight.to(cd))
+                     + lin.bias.to(cd)).float()
             h, _ = cuda_qrnn.qrnn_pool(y.contiguous())
             if self.dropout > 0 and i < len(self.layers) - 1:
                 h = F.dropout(h, self.dropout, training=self.training)
@@ -174,7 +269,7 @@ class MLPBlock(nn.Module):
             raise ValueError(f"MLPBlock context must be odd, got {context}")
         self.context = context
         self.W = Conv1D(in_channels, fmaps, context, generator=generator)
-        self.act = nn.PReLU(fmaps, init=0.25)
+        self.act = PReLU(fmaps, init=0.25)
         self.dout = dout
 
     def forward(self, x):
@@ -189,7 +284,9 @@ class MLPBlock(nn.Module):
 class Deconv1D(nn.ConvTranspose1d):
     """ConvTranspose1d(stride, padding=pad): out = (L-1)*stride - 2*pad +
     kwidth. Weight [Cin, Cout, K] (the JAX kernel [K, Cout, Cin]
-    transposed); uniform(+-1/sqrt(Cout*K)) init drawn from ``generator``."""
+    transposed); uniform(+-1/sqrt(Cout*K)) init drawn from ``generator``.
+    Under a compute dtype x and the weight run in it, and the bias is
+    added in the output's type."""
 
     def __init__(self, in_channels, out_channels, kwidth, stride, pad,
                  generator=None):
@@ -198,6 +295,16 @@ class Deconv1D(nn.ConvTranspose1d):
         bound = 1.0 / math.sqrt(out_channels * kwidth)
         _uniform_(self.weight, bound, generator)
         _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        cd = get_compute_dtype()
+        if cd is not None and x.dtype == torch.float32:
+            x = x.to(cd)
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = _low_precision(F.conv_transpose1d, x, self.weight.to(x.dtype),
+                           None, self.stride, self.padding)
+        return y + self.bias.to(y.dtype)[:, None]
 
 
 class GDeconv1DBlock(nn.Module):
@@ -219,8 +326,8 @@ class GDeconv1DBlock(nn.Module):
         self.trim = (stride % 2) != (kwidth % 2)
         self.deconv = Deconv1D(in_channels, fmaps, kwidth, stride, pad,
                                generator=generator)
-        self.norm = nn.BatchNorm1d(fmaps) if norm_type == "bnorm" else None
-        self.act = nn.PReLU(fmaps, init=0.0)
+        self.norm = BatchNorm1d(fmaps) if norm_type == "bnorm" else None
+        self.act = PReLU(fmaps, init=0.0)
 
     def forward(self, x):
         y = self.deconv(x)

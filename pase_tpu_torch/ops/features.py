@@ -7,7 +7,8 @@ extractor maps ``wav [B, T] -> [B, T//hop, dim]`` (NTC).
 * ``mfcc``      — librosa mfcc: hann, mel power, per-sample top_db, DCT.
 * ``fbanks``    — python_speech_features logfbank, deltas on the psf frame
                   count, then replicate-padded.
-* ``gammatone`` — causal 512-tap FIR bank (one plain conv1d), windowed RMS.
+* ``gammatone`` — causal 512-tap FIR bank (one conv1d, in bf16 under the
+                  compute-dtype policy), windowed RMS.
 * ``prosody``   — [interp log F0, uv, energy, zcr]; the F0 tracker's
                   autocorrelation goes through ``torch.fft``.
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pase_tpu_torch.nn import conv1d
 from pase_tpu_torch.ops.signal import (frame_signal, framed_box_mean_ntc,
                                        stft_mag)
 
@@ -55,9 +57,12 @@ def _const(make, *args, like):
 
 
 def add_deltas(feats, der_order=2):
-    """[B, T, D] -> [B, T, D*(1+der_order)], concat order [x, d1, d2]."""
+    """[B, T, D] -> [B, T, D*(1+der_order)], concat order [x, d1, d2].
+    A bf16 x is taken as float32 (JAX promotes it against the float32
+    delta operators and in the concatenation)."""
     if der_order <= 0:
         return feats
+    feats = feats.float()
     t = feats.shape[1]
     outs = [feats]
     for n in range(1, der_order + 1):
@@ -251,9 +256,11 @@ def gammatone(wav, f_min=500, n_channels=40, hop=160, win=400, rate=16000,
     t = wav.shape[-1]
     bank = _const(gammatone_fir_bank, rate, n_channels, float(f_min),
                   like=wav)
-    # conv1d is a cross-correlation: flip the responses for a causal FIR
+    # conv1d is a cross-correlation: flip the responses for a causal FIR.
+    # Under the compute-dtype policy it runs in bf16 and the RMS and log
+    # stay in bf16 up to the deltas, as in the JAX package
     xp = F.pad(wav, (bank.shape[1] - 1, 0))[:, None, :]
-    filtered = F.conv1d(xp, bank.flip(-1)[:, None, :])        # [B, C, T]
+    filtered = conv1d(xp, bank.flip(-1)[:, None, :])          # [B, C, T]
     power = (filtered * filtered).transpose(1, 2)             # [B, T, C]
     ncols = (t - win) // hop + 1
     y = torch.sqrt(framed_box_mean_ntc(power, win, hop, ncols))

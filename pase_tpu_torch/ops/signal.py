@@ -29,12 +29,37 @@ def frame_signal(x, frame_len, hop, n_frames=None, pad_end=False):
     return x[..., :need].unfold(-1, frame_len, hop)
 
 
+def blocked_cumsum(x, dim):
+    """Cumulative sum along ``dim`` as XLA evaluates a long scan: blocks
+    of 16 steps summed in order, the blocks' totals scanned the same
+    way (recursively), each block's carry added to its steps. In bf16
+    every partial sum is rounded to bf16, as in the JAX package's bf16
+    scans on the CPU (bit for bit)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    base = 16
+    if n <= base:
+        acc, outs = x[..., 0], [x[..., 0]]
+        for i in range(1, n):
+            acc = acc + x[..., i]
+            outs.append(acc)
+        return torch.stack(outs, -1).movedim(-1, dim)
+    nb = -(-n // base)
+    xb = F.pad(x, (0, nb * base - n)).reshape(*x.shape[:-1], nb, base)
+    inner = blocked_cumsum(xb, -1)
+    carry = F.pad(blocked_cumsum(inner[..., -1], -1), (1, 0))[..., :nb]
+    out = (inner + carry[..., None]).reshape(*x.shape[:-1], nb * base)
+    return out[..., :n].movedim(-1, dim)
+
+
 def framed_box_mean_ntc(x, win, hop, n_frames):
     """Mean over sliding windows along axis 1 of [B, T, C]:
     out[:, t] = mean(x[:, t*hop : t*hop + win]) for t < n_frames,
     zero-padded past the end, without the [B, F, win, C] frame tensor:
     per-hop bin sums, a cumulative sum over bins, and a partial-head bin
-    when win % hop != 0."""
+    when win % hop != 0. A bf16 x (the gammatone power under the bf16
+    policy) keeps bf16 throughout, its cumulative sum rounded as the JAX
+    package's (``blocked_cumsum``)."""
     if win < hop:
         raise ValueError("framed_box_mean_ntc requires win >= hop")
     b, t, c = x.shape
@@ -46,7 +71,9 @@ def framed_box_mean_ntc(x, win, hop, n_frames):
         x = F.pad(x, (0, 0, 0, nbins * hop - t))
     xb = x[:, :nbins * hop].reshape(b, nbins, hop, c)
     bins = xb.sum(dim=2)                                     # [B, nbins, C]
-    cs = torch.cat([x.new_zeros((b, 1, c)), bins.cumsum(dim=1)], dim=1)
+    cum = (bins.cumsum(dim=1) if x.dtype == torch.float32
+           else blocked_cumsum(bins, 1))
+    cs = torch.cat([x.new_zeros((b, 1, c)), cum], dim=1)
     idx = torch.arange(n_frames, device=x.device)
     out = cs[:, idx + nbins_full] - cs[:, idx]
     if rem:

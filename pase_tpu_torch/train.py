@@ -3,13 +3,21 @@
     python -m pase_tpu_torch.train --synthetic \\
         --net_cfg cfg/workers/workers+.cfg --fe_cfg cfg/frontend/PASE+.cfg \\
         --batch_size 32 --chunk_size 32000 --epoch 1 --save_path ckpt \\
-        [--dtrans_cfg dist.cfg] [--stats stats.pkl]
+        [--dtrans_cfg dist.cfg] [--stats stats.pkl] \\
+        [--compute_dtype bfloat16] [--max_ckpts 5] [--no_continue True] \\
+        [--pretrained_ckpt FE_e9.npz]
 
 The flags are those of the JAX CLI (``train.py``) for the synthetic path;
 ``--device`` picks the card (default ``cuda``) or the CPU. Synthetic data
 is drawn on the device (``data/dataset.py``) with 100 steps per epoch and
-a 10-batch eval; each epoch writes ``FE_e{epoch}.npz`` and appends to
-``metrics.jsonl`` in ``--save_path``. ``--dtrans_cfg`` turns on the
+a 10-batch eval; each epoch writes the full train state
+(``weights_PASE-Pase_base-<step>.npz``, at most ``--max_ckpts`` kept, in
+the JAX package's layout) and ``FE_e{epoch}.npz`` and appends to
+``metrics.jsonl`` in ``--save_path``. A run resumes from the latest train
+state in ``--save_path`` unless ``--no_continue True``;
+``--pretrained_ckpt`` warm-starts the encoder from an encoder artifact.
+``--compute_dtype bfloat16`` runs the JAX package's bf16 compute policy
+(``precision.py``). ``--dtrans_cfg`` turns on the
 distortion stack with the assets its cfg names (the first cfg that is not
 "None" wins). Flags of paths the port does not build yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -33,7 +41,6 @@ _UNPORTED = {
     "device_corpus": (False, "queue 1: disk-fed training"),
     "cache_feats_dir": (None, "queue 1: disk-fed training"),
     "gan_cfg": (None, "queue 1: off-path model variants (GAN workers)"),
-    "compute_dtype": (None, "queue 1: bf16 compute policy"),
     "att_cfg": (None, "queue 1: off-path model variants"),
     "chunking_K": (None, "queue 1: off-path model variants"),
     "zero_speech_p": (0.0, "queue 1: disk-fed training"),
@@ -53,6 +60,7 @@ def build_argparser():
     p.add_argument("--fe_cfg", type=str, default=None)
     p.add_argument("--stats", type=str, default=None)
     p.add_argument("--save_path", type=str, default="ckpt")
+    p.add_argument("--max_ckpts", type=int, default=5)
     p.add_argument("--seed", type=int, default=2)
     p.add_argument("--random_scale", type=str, default="False")
     p.add_argument("--chunk_size", type=int, default=16000)
@@ -69,6 +77,7 @@ def build_argparser():
                    help="step-mode LR gamma (0 keeps 0.1)")
     p.add_argument("--backprop_mode", type=str, default="base")
     p.add_argument("--hop", type=int, default=160)
+    p.add_argument("--no_continue", type=str, default="False")
     p.add_argument("--zero_speech_p", type=float, default=0.0)
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="synthetic data drawn on the device")
@@ -78,6 +87,9 @@ def build_argparser():
     p.add_argument("--gan_cfg", type=str, default=None)
     p.add_argument("--att_cfg", type=str, default=None)
     p.add_argument("--chunking_K", type=int, default=None)
+    p.add_argument("--pretrained_ckpt", type=str, default=None,
+                   help="warm-start the encoder from a native .npz or "
+                        "torch .ckpt encoder artifact")
     p.add_argument("--device", type=str, default="cuda",
                    choices=("cuda", "cpu"),
                    help="where the step runs (default: the card)")
@@ -131,8 +143,8 @@ def train(opts):
     if opts.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device "
                            "(torch.cuda.is_available() is False)")
-    # full float32 (no TF32 matmuls or convolutions): the JAX CLI's
-    # reference precision
+    # no TF32 matmuls or convolutions: float32 is the JAX CLI's reference
+    # precision, and bf16 is chosen explicitly by --compute_dtype
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with open(opts.fe_cfg) as f:
@@ -150,11 +162,12 @@ def train(opts):
              if opts.stats and os.path.exists(opts.stats) else None)
     cfg = vars(opts).copy()
     cfg.update(bpe=bpe, va_bpe=max(bpe // 10, 1),
-               random_scale=str2bool(opts.random_scale))
+               random_scale=str2bool(opts.random_scale),
+               ckpt_continue=not str2bool(opts.no_continue))
     tr = Trainer(fe_cfg, wk_cfg, cfg, stats=stats, dist_cfg=dist_cfg,
                  dist_assets=dist_assets, device=opts.device)
     try:
-        tr.train_(batcher, va_batcher)
+        tr.train_(batcher, va_batcher, resume=cfg["ckpt_continue"])
     finally:
         tr.logger.close()
     return tr

@@ -11,32 +11,56 @@ The port of ``pase_tpu/trainer.py`` for the base policy. One step:
      summed total;
   4. backward (the QRNN layer through its CUDA forward/backward kernels on
      the card) and one Adam step over the 'frontend' and 'minion' groups,
-     the lr of step k being sched(k).
-Each worker's parameters get gradients from its own loss only; the
-encoder from the sum, scaled per worker by alpha (``scale_grad``). The
-five parts run in ``torch.profiler.record_function`` spans named
-``pase.prepare``, ``pase.forward``, ``pase.losses``, ``pase.backward`` and
+     the lr of an update being sched(count), count the updates before it
+     (optax's schedule count).
+Steps 1-3 (and the eval step) run under ``cfg['compute_dtype']``
+(``precision.py``: None / 'float32' or 'bfloat16'), as the JAX step runs
+its whole body under the policy. Each worker's parameters get gradients
+from its own loss only; the encoder from the sum, scaled per worker by
+alpha (``scale_grad``). The five parts run in
+``torch.profiler.record_function`` spans named ``pase.prepare``,
+``pase.forward``, ``pase.losses``, ``pase.backward`` and
 ``pase.optimizer``, which ``profiling.py`` reads.
 
-``train_`` runs epochs of ``bpe`` steps with a NaN guard at each logged
-step, a 'perf' line per epoch (steps/s, audio-s/s), an eval pass and an
-``FE_e{epoch}.npz`` encoder checkpoint. Full train-state checkpoints and
-resume are later work (ROADMAP.md, queue 1: checkpoint / resume).
+Randomness: step k's distortion draws come from a generator seeded with
+``step_seed(seed + 1, k)`` (``data/dataset.py``), unless the caller hands
+the step its draws; the device batcher's batch k from ``step_seed(its
+seed, k)``. A resumed run therefore replays the uninterrupted run's
+batches and draws with no generator state in the checkpoint.
+
+``train_`` resumes from the latest checkpoint in ``save_path`` (unless
+``resume=False``), then runs epochs of ``bpe`` steps with a NaN guard at
+each logged step, a 'perf' line per epoch (steps/s, audio-s/s), an eval
+pass and ``save``: the full train state through the ``Saver``
+(``weights_PASE-Pase_base-<step>.npz``, the JAX package's TrainState
+layout, readable by either package) and the encoder artifact
+``FE_e{epoch}.npz``. ``cfg['pretrained_ckpt']`` warm-starts the encoder.
 """
 
 import math
 import os
+import sys
 import time
 
 import torch
 from torch.profiler import record_function
 
-from pase_tpu_torch.checkpoint import save_variables_npz
+from pase_tpu_torch.checkpoint import (Saver, load_frontend_ckpt,
+                                       load_model_variables,
+                                       restore_train_state,
+                                       save_variables_npz,
+                                       train_state_to_tree)
+from pase_tpu_torch.data.dataset import step_seed
 from pase_tpu_torch.data.pipeline import make_prepare_fn
 from pase_tpu_torch.log import MetricLogger
 from pase_tpu_torch.model import build_pase, worker_losses
 from pase_tpu_torch.optim import build_optimizer, set_lr
+from pase_tpu_torch.precision import compute_dtype, resolve
 from pase_tpu_torch.scheduling import apply_policy, init_policy_state
+
+# the run's name in its train-state files, the JAX Trainer's default
+NAME = "Pase_base"
+
 
 class Trainer:
 
@@ -44,15 +68,19 @@ class Trainer:
                  dist_cfg=None, dist_assets=None, device="cuda"):
         self.cfg = dict(cfg)
         self.device = torch.device(device)
+        self.compute_dtype = resolve(self.cfg.get("compute_dtype"))
         self.mode = self.cfg.get("backprop_mode", "base")
         if self.mode != "base":
             raise NotImplementedError(
                 f"backprop_mode {self.mode!r} is not ported yet: ROADMAP.md,"
                 " queue 1: off-path model variants (non-base policies)")
-        seed = int(self.cfg.get("seed", 0))
+        self.seed = int(self.cfg.get("seed", 0))
         self.model, self.meta = build_pase(
             frontend_cfg, workers_cfg,
-            generator=torch.Generator().manual_seed(seed))
+            generator=torch.Generator().manual_seed(self.seed))
+        if self.cfg.get("pretrained_ckpt"):
+            load_frontend_ckpt(self.cfg["pretrained_ckpt"],
+                               self.model.frontend)
         self.model.to(self.device)
         self.ordered_names = self.model.worker_names
         self.num_workers = len(self.ordered_names)
@@ -61,8 +89,7 @@ class Trainer:
             self.meta, stats=stats, dist_cfg=dist_cfg, assets=dist_assets,
             hop=self.hop,
             random_scale=self.cfg.get("random_scale", False))
-        self.prep_generator = torch.Generator(
-            device=self.device).manual_seed(seed + 1)
+        self.prep_generator = torch.Generator(device=self.device)
         self.bpe = self.cfg.get("bpe", 100)
         self.epochs = self.cfg.get("epoch", 100)
         self.save_path = self.cfg.get("save_path", "ckpt")
@@ -82,30 +109,40 @@ class Trainer:
         self.policy_state = init_policy_state(self.num_workers, self.device)
         self.alpha = torch.ones(self.num_workers, device=self.device)
         self.step = 0
+        self.opt_count = 0          # optimizer updates: the lr schedule's
         self.logger = MetricLogger(self.save_path)
+        self.saver = Saver(self.save_path,
+                           max_ckpts=self.cfg.get("max_ckpts", 5),
+                           prefix="PASE-")
 
     def _to_device(self, raw):
         return {k: torch.as_tensor(v, dtype=torch.float32,
                                    device=self.device)
                 for k, v in raw.items()}
 
-    def train_step(self, raw_batch):
+    def train_step(self, raw_batch, draws=None):
         """One optimizer step on a raw batch; returns the detached
-        per-worker losses and 'total'. The parameters' ``.grad`` keep
-        this step's gradients until the next step."""
+        per-worker losses and 'total'. ``draws`` (a ``DistortionDraws``)
+        replaces the step's own distortion draws. The parameters' ``.grad``
+        keep this step's gradients until the next step."""
         self.model.train()
-        with record_function("pase.prepare"):
-            batch = self.prepare(self._to_device(raw_batch),
-                                 self.prep_generator)
-        set_lr(self.opt, self.scheds, self.step)
-        with record_function("pase.forward"):
-            _, _, preds, labels = self.model(batch, self.alpha)
-        with record_function("pase.losses"):
-            losses = worker_losses(self.meta, preds, labels)
-            loss_vec = torch.stack([losses[n] for n in self.ordered_names])
-            weights, alpha_next, self.policy_state = apply_policy(
-                self.mode, loss_vec.detach(), self.policy_state)
-            total = torch.sum(weights * loss_vec)
+        self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
+        if draws is not None:
+            draws = draws.to(self.device)
+        with compute_dtype(self.compute_dtype):
+            with record_function("pase.prepare"):
+                batch = self.prepare(self._to_device(raw_batch),
+                                     self.prep_generator, draws)
+            set_lr(self.opt, self.scheds, self.opt_count)
+            with record_function("pase.forward"):
+                _, _, preds, labels = self.model(batch, self.alpha)
+            with record_function("pase.losses"):
+                losses = worker_losses(self.meta, preds, labels)
+                loss_vec = torch.stack([losses[n]
+                                        for n in self.ordered_names])
+                weights, alpha_next, self.policy_state = apply_policy(
+                    self.mode, loss_vec.detach(), self.policy_state)
+                total = torch.sum(weights * loss_vec)
         with record_function("pase.backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
@@ -113,15 +150,16 @@ class Trainer:
             self.opt.step()
         self.alpha = alpha_next
         self.step += 1
+        self.opt_count += 1
         out = {k: v.detach() for k, v in losses.items()}
         out["total"] = total.detach()
         return out
 
     def eval_step(self, raw_batch):
         """Per-worker losses and their sum in eval mode (running BatchNorm
-        statistics, no gradient)."""
+        statistics, no gradient), under the training compute dtype."""
         self.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), compute_dtype(self.compute_dtype):
             batch = self.prepare(self._to_device(raw_batch),
                                  self.prep_generator)
             _, _, preds, labels = self.model(batch, 1.0)
@@ -133,10 +171,17 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def train_(self, batcher, valid_batcher=None, epochs=None):
+    def train_(self, batcher, valid_batcher=None, epochs=None, resume=True):
+        """Epochs from the current (or, with ``resume``, the latest saved)
+        step on. A batcher with ``batches(step)`` is fed from the resumed
+        step, so a resumed run sees the batches the uninterrupted run saw
+        there; any other iterable is read from its start."""
+        if resume:
+            self.try_resume()
         epochs = epochs if epochs is not None else self.epochs
         bpe = self.bpe
-        it = iter(batcher)
+        it = (batcher.batches(self.step) if hasattr(batcher, "batches")
+              else iter(batcher))
         for e in range(self.step // bpe, epochs):
             self._sync()
             t0 = time.time()
@@ -171,8 +216,37 @@ class Trainer:
         return means
 
     def save(self, epoch):
-        """The encoder-only artifact ``FE_e{epoch}.npz`` (the JAX package's
-        native format, which ``wf_builder(...).load_pretrained`` reads)."""
+        """The full train state through the Saver (params, BatchNorm
+        stats, Adam moments and counts, policy state, alpha, rng, step),
+        then the encoder-only artifact ``FE_e{epoch}.npz`` (the JAX
+        package's native format, which ``wf_builder(...).load_pretrained``
+        reads). Returns the artifact's path."""
+        self.saver.save(NAME, train_state_to_tree(self), self.step)
         return save_variables_npz(
             os.path.join(self.save_path, f"FE_e{epoch}.npz"),
             self.model.frontend.state_dict(), self.step)
+
+    def try_resume(self):
+        """Load the Saver's current checkpoint into this trainer; returns
+        its step, or None without one. A legacy weights-only checkpoint
+        resumes params, BatchNorm stats and the step with fresh Adam
+        state (a warning says so); otherwise the restore is strict and
+        the index's step must equal the state's."""
+        flat, meta = self.saver.load_weights()
+        if flat is None:
+            return None
+        step = int(meta.get("step", 0))
+        if not any(k.startswith("opt_state/") for k in flat):
+            print("[trainer] WARNING: legacy checkpoint without optimizer "
+                  "state; resuming weights only (Adam moments reset)",
+                  file=sys.stderr)
+            load_model_variables(self.model, {
+                k: v for k, v in flat.items()
+                if k.startswith(("params/", "batch_stats/"))})
+            self.step = step
+            return step
+        restore_train_state(self, flat)
+        if self.step != step:
+            raise ValueError(f"checkpoint step mismatch: index says {step}, "
+                             f"state holds {self.step}")
+        return step

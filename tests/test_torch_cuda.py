@@ -227,6 +227,74 @@ def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):
         assert diff <= 1e-3 * top, (part, diff, top)
 
 
+def _small_trainer(device, save_path, compute_dtype=None):
+    import json
+    from pase_tpu_torch.trainer import Trainer
+    with open("cfg/workers/workers+.cfg") as f:
+        wk = json.load(f)
+    for group in ("regr", "cls"):
+        for e in wk[group]:
+            e["hidden_size"] = 32
+            if e["name"] == "cchunk":
+                e["fmaps"] = [16, 16, 8]
+    fe = dict(NARROW_CFG, strides=[1, 10, 4, 4])
+    cfg = dict(batch_size=2, chunk_size=4800, fe_lr=5e-4, min_lr=5e-4,
+               lr_mode="poly", save_path=str(save_path),
+               compute_dtype=compute_dtype)
+    return Trainer(fe, wk, cfg, device=device)
+
+
+def test_bf16_step_launches_the_training_kernels(cuda_device, tmp_path):
+    """Two bf16 train steps: qrnn_pool_fwd_train and qrnn_pool_bwd once
+    per QRNN layer per step, no other kernel; every loss finite."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.ops import conv as conv_ops
+    tr = _small_trainer(cuda_device, tmp_path, "bfloat16")
+    it = iter(SyntheticChunkBatcher(2, 4800, seed=3))
+    cuda_qrnn.reset_launches()
+    conv_ops.reset_launches()
+    for _ in range(2):
+        losses = tr.train_step(next(it))
+        assert all(torch.isfinite(v) for v in losses.values())
+    layers = len(tr.model.frontend.rnn.layers)
+    assert cuda_qrnn.LAUNCHES == {
+        "qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd": 0,
+        "qrnn_pool_fwd_train": 2 * layers, "qrnn_pool_bwd": 2 * layers}
+    assert not any(conv_ops.LAUNCHES.values())
+
+
+def test_bf16_qrnn_gates_reach_the_kernels_as_float32(cuda_device,
+                                                      monkeypatch):
+    """Under the bf16 policy the QRNN's linear runs in bf16 and its gates
+    reach the training kernels as float32; the forward and backward
+    kernels each launch once, the output and the gradients are finite
+    and float32."""
+    from pase_tpu_torch import nn as pnn
+    from pase_tpu_torch.precision import compute_dtype
+    layer = pnn.QRNN(16, 24).to(cuda_device)
+    seen = []
+    fwd = cuda_qrnn.qrnn_pool_fwd_train
+
+    def spy(y, c0=None):
+        seen.append(y.dtype)
+        return fwd(y, c0)
+
+    monkeypatch.setattr(cuda_qrnn, "qrnn_pool_fwd_train", spy)
+    x = torch.randn(3, 40, 16, device=cuda_device, requires_grad=True)
+    before = dict(cuda_qrnn.LAUNCHES)
+    with compute_dtype(torch.bfloat16):
+        h = layer(x)
+    h.float().pow(2).sum().backward()
+    assert seen == [torch.float32]
+    assert h.dtype == torch.float32 and bool(torch.isfinite(h).all())
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_train"] == \
+        before["qrnn_pool_fwd_train"] + 1
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_bwd"] == \
+        before["qrnn_pool_bwd"] + 1
+    grad = layer.layers[0].linear.weight.grad
+    assert grad.dtype == torch.float32 and bool(torch.isfinite(grad).all())
+
+
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -7),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("layer", [

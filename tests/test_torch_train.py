@@ -431,7 +431,7 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--zero_speech_p", "0.5"], ["--device_corpus"],
-    ["--compute_dtype", "bfloat16"], ["--gan_cfg", "{}"],
+    ["--chunking_K", "3"], ["--gan_cfg", "{}"],
     ["--backprop_mode", "softmax"], ["--cache_feats_dir", "x"],
     ["--data_cfg", "data/librispeech_data.cfg"]])
 def test_train_cli_refuses_unported_flags(tmp_path, flags):
