@@ -77,6 +77,24 @@ Phases, each printed as it ends; any failure exits non-zero:
                where the uninterrupted runs agree bit for bit; else within
                twice their spread, with the ops that have no deterministic
                implementation named.
+ 12. disk    — disk-fed training (no corpus needed on disk: the phase
+               writes its own): a seeded synthetic corpus of 2 h of
+               1-16 s utterances in LibriSpeech's layout
+               (pase_tpu_torch/data/synthetic_corpus.py, some shorter than
+               the 2 s chunk) and 2 min of valid audio; its ZNorm pickle
+               from ``python -m pase_tpu_torch.make_trainset_statistics``;
+               then ``python -m pase_tpu_torch.train --data_root
+               --data_cfg`` at PASE+ / workers+, batch 32 x 32000, bf16,
+               bench.py's distortion stack (written as a --dtrans_cfg), one
+               epoch with each feed: one host ChunkBatcher, 4 host
+               threads, 4 threads with the int16 wire, the device corpus.
+               Per feed: steps/s against phase 8's bf16 rate, the host's
+               wait for the next batch and the staging's host time per
+               step, every loss finite; the device corpus's bytes and
+               build time; its rows against the wav files bit for bit at
+               starts read back from the card; a second call with --epoch
+               2 resumes at step bpe and draws the uninterrupted feed's
+               batch there bit for bit.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -85,6 +103,8 @@ once per QRNN layer per train step, and qrnn_pool_fwd once per layer per
 eval step (batch 3 x 32: above the chunked route's lane count); the
 distorted step (phase 8, bf16 and float32 each) the training kernels once
 per layer per step;
+each disk-fed run (phase 12, five of them) the training kernels once per
+layer per train step and qrnn_pool_fwd once per layer per eval step;
 the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
 the float32 run conv_s1_tf32x3 7 times. No other path launches a conv
 kernel. The line before the last is a JSON summary of the kernels; the
@@ -142,6 +162,13 @@ TRAJECTORY = os.path.join(HERE, "tests", "fixtures",
 # float32 sums taken in another order; float32 sums in another order
 CONV_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 CONV_L3 = 2                 # L3: (1600, 11, 1, 128, 128)
+# phase 12: the corpus (seconds of train and valid audio) and the feeds
+DISK_TRAIN_S, DISK_VALID_S = 7200, 120
+DISK_FEEDS = (("host ChunkBatcher", ["--num_workers", "1"]),
+              ("4 host threads", ["--num_workers", "4"]),
+              ("4 host threads int16 wire", ["--num_workers", "4",
+                                             "--wire_dtype", "int16"]),
+              ("device corpus", ["--device_corpus"]))
 
 
 class SmokeFailure(Exception):
@@ -947,6 +974,191 @@ def _conv_summary(name, launches, rows):
                 sum(r["library_ms"] for r in rows))
 
 
+def write_bench_dtrans_cfg(root):
+    """bench.py's distortion stack as a --dtrans_cfg file: its IRs as .npy
+    files, its noise and overlap rows as wavs, its probabilities."""
+    from pase_tpu_torch import bench
+    from pase_tpu_torch.data.io import write_wav
+    dcfg, assets = bench.bench_assets(TRAIN_CHUNK)
+    dirs = {k: os.path.join(root, k) for k in ("irs", "noise", "overlap")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i, ir in enumerate(assets.ir_bank.numpy()):
+        np.save(os.path.join(dirs["irs"], f"ir{i}.npy"), ir)
+    for key, bank in (("noise", assets.noise_bank),
+                      ("overlap", assets.overlap_bank)):
+        for i, row in enumerate(bank.numpy()):
+            write_wav(os.path.join(dirs[key], f"{key}{i}.wav"), row)
+    js = {"reverb_data_root": dirs["irs"], "reverb_fmt": "npy",
+          "reverb_p": dcfg.reverb_p, "noises_dir": dirs["noise"],
+          "noises_snrs": list(dcfg.noises_snrs), "noises_p": dcfg.noises_p,
+          "overlap_dir": dirs["overlap"],
+          "overlap_snrs": list(dcfg.overlap_snrs),
+          "overlap_p": dcfg.overlap_p, "clip_factors":
+          list(dcfg.clip_factors), "clip_p": dcfg.clip_p,
+          "chop_factors": [list(f) for f in dcfg.chop_factors],
+          "max_chops": dcfg.max_chops, "chop_p": dcfg.chop_p}
+    path = os.path.join(root, "bench_dist.cfg")
+    with open(path, "w") as f:
+        json.dump(js, f)
+    return path
+
+
+def _disk_run(args, label, synthetic_rate):
+    """One epoch (or the resumed one) of the training CLI from the corpus;
+    checks every logged loss and the QRNN launches. Returns (trainer,
+    {perf line}, {feed line or {}})."""
+    import math
+    import torch
+    from pase_tpu_torch import train as train_cli
+    reset_launches()                       # the disk-fed path starts here
+    t0 = time.perf_counter()
+    tr = train_cli.main(args)
+    torch.cuda.synchronize()
+    launches = read_launches()             # ... and ends here
+    wall = time.perf_counter() - t0
+    save = args[args.index("--save_path") + 1]
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    perf = [r for r in recs if r["split"] == "perf"][-1]
+    feed = next((r for r in recs if r["split"] == "feed"), {})
+    bad = [(r["split"], r["step"], k) for r in recs
+           if r["split"] in ("train", "eval") for k, v in r.items()
+           if k not in ("t", "split", "step") and not math.isfinite(v)]
+    check(not bad, f"disk-fed ({label}): non-finite losses {bad[:5]}")
+    layers = len(tr.model.frontend.rnn.layers)
+    steps, evals = tr.bpe, tr.cfg["va_bpe"]
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps,
+                "qrnn_pool_fwd": layers * evals}
+    check(launches == expected, f"disk-fed ({label}) launches {launches} "
+          f"!= {expected}")
+    sps = perf["steps_per_sec"]
+    ev = [r for r in recs if r["split"] == "eval"][-1]
+    print(f"[disk] {label}: {steps} steps + {evals} eval batches, "
+          f"{wall:.1f} s in all; {sps:.3f} steps/s = "
+          f"{sps / synthetic_rate:.3f} x phase 8's synthetic bf16 rate "
+          f"({synthetic_rate:.3f}); host wait for the next batch "
+          f"{perf['feed_wait_ms']:.2f} ms/step, staging "
+          f"{perf['stage_ms']:.2f} ms/step; eval total "
+          f"{ev['total']:.4f}; launches {launches} (as expected: {layers} "
+          f"QRNN layer(s) x {steps} steps, x {evals} eval steps)")
+    return tr, perf, feed
+
+
+def phase_disk(tmp, synthetic_rate):
+    """Disk-fed training at full width from a seeded corpus on disk."""
+    import torch
+    from pase_tpu_torch import make_trainset_statistics
+    from pase_tpu_torch.data import device_corpus as DC
+    from pase_tpu_torch.data.dataset import LibriSpeechTupleDataset, crop_at
+    from pase_tpu_torch.data.io import read_wav, wav_len
+    from pase_tpu_torch.data.pipeline import load_stats_pkl
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_corpus
+    t0 = time.perf_counter()
+    wav_root, data_cfg = write_synthetic_corpus(
+        os.path.join(tmp, "corpus"), DISK_TRAIN_S, DISK_VALID_S, seed=0)
+    with open(data_cfg) as f:
+        cfg = json.load(f)
+    names = [w["filename"] for w in cfg["train"]["data"]]
+    lens = [wav_len(os.path.join(wav_root, n)) for n in names]
+    n_short = sum(n < TRAIN_CHUNK for n in lens)
+    print(f"[disk] corpus: {len(names)} train utterances of 1-16 s, "
+          f"{cfg['train']['total_wav_dur'] / SR / 3600:.3f} h, "
+          f"{2 * sum(lens) / 1e6:.1f} MB of PCM16, {n_short} shorter than the "
+          f"{TRAIN_CHUNK / SR:.0f} s chunk; {len(cfg['valid']['data'])} "
+          f"valid utterances; written in {time.perf_counter() - t0:.1f} s")
+    check(n_short > 0, "the corpus has no utterance shorter than the chunk")
+    stats_pkl = os.path.join(tmp, "stats.pkl")
+    t0 = time.perf_counter()
+    make_trainset_statistics.main([
+        "--data_root", wav_root, "--data_cfg", data_cfg, "--net_cfg",
+        WORKERSP_CFG, "--out_file", stats_pkl, "--batch_size",
+        str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK), "--max_batches",
+        "2"])
+    stats = load_stats_pkl(stats_pkl)
+    check(len(stats) == 9 and all(
+        np.isfinite(v[k]).all() and (v["std"] > 0).all()
+        for v in stats.values() for k in ("mean", "std")),
+        f"statistics CLI: {sorted(stats)}, non-finite or zero std")
+    print(f"[disk] python -m pase_tpu_torch.make_trainset_statistics: "
+          f"{len(stats)} targets from 2 batches of {TRAIN_BATCH} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    common = ["--data_root", wav_root, "--data_cfg", data_cfg, "--net_cfg",
+              WORKERSP_CFG, "--fe_cfg", PASEP_CFG, "--batch_size",
+              str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK),
+              "--compute_dtype", "bfloat16", "--stats", stats_pkl,
+              "--dtrans_cfg", write_bench_dtrans_cfg(tmp), "--log_freq", "25"]
+    rates, feeds, saves = {}, {}, {}
+    for label, flags in DISK_FEEDS:
+        saves[label] = os.path.join(tmp, "disk_" + label.replace(" ", "_"))
+        tr, perf, feeds[label] = _disk_run(
+            common + flags + ["--epoch", "1", "--save_path", saves[label]],
+            label, synthetic_rate)
+        rates[label] = perf["steps_per_sec"]
+        bpe, seed = tr.bpe, tr.seed
+        del tr
+        torch.cuda.empty_cache()
+    feed = feeds["device corpus"]
+    check(feed.get("corpus_bytes", 0) > 0, "no device corpus line logged")
+    print(f"[disk] device corpus: {int(feed['corpus_bytes'])} bytes of int16 "
+          f"on the card ({feed['corpus_bytes'] / 1e6:.1f} MB), built in "
+          f"{feed['corpus_build_s']:.2f} s")
+
+    # rows on the card are the wavs' samples at the starts drawn there
+    ds = LibriSpeechTupleDataset(wav_root, data_cfg, "train")
+    ref = DC.DeviceCorpusBatcher(ds, TRAIN_BATCH, TRAIN_CHUNK, seed=seed)
+    batch = ref.make_batch(bpe)
+    starts = ref.sample_starts(bpe).cpu().numpy()
+    for role, key in enumerate(("chunk", "chunk_ctxt", "chunk_rand")):
+        rows = batch[key].cpu().numpy()
+        for r in range(TRAIN_BATCH):
+            i = int(np.searchsorted(ref.offsets, starts[role, r], "right")
+                    - 1)
+            off = int(starts[role, r] - ref.offsets[i])
+            wav, _ = read_wav(os.path.join(wav_root, names[i]))
+            if len(wav) < TRAIN_CHUNK:
+                wav = crop_at(wav, 0, TRAIN_CHUNK)
+            check(np.array_equal(rows[r], wav[off:off + TRAIN_CHUNK]),
+                  f"device corpus {key} row {r} != {names[i]}[{off}:]")
+    print(f"[disk] device corpus rows of batch {bpe}: all "
+          f"{3 * TRAIN_BATCH} equal the wav files' samples bit for bit at "
+          "the starts read back from the card")
+
+    # a second call resumes at step bpe and draws batch bpe of the
+    # uninterrupted run
+    seen = []
+    make_batch = DC.DeviceCorpusBatcher.make_batch
+
+    def recording(self, step):
+        out = make_batch(self, step)
+        if self.n_utts == len(names) and not seen:
+            seen.append((step, {k: v.clone() for k, v in out.items()}))
+        return out
+
+    DC.DeviceCorpusBatcher.make_batch = recording
+    try:
+        tr, _, _ = _disk_run(common + ["--device_corpus", "--epoch", "2",
+                                       "--save_path",
+                                       saves["device corpus"]],
+                             "device corpus, resumed at epoch 2",
+                             synthetic_rate)
+    finally:
+        DC.DeviceCorpusBatcher.make_batch = make_batch
+    check(tr.step == 2 * bpe, f"resumed run ended at step {tr.step}")
+    step, first = seen[0]
+    check(step == bpe, f"the resumed run drew batch {step} first, not {bpe}")
+    check(all(torch.equal(first[k], batch[k]) for k in batch),
+          "the resumed run's first batch is not the uninterrupted run's")
+    print(f"[disk] resume: the second call resumed at step {bpe}, ended at "
+          f"{tr.step}, and its first batch equals batch {bpe} of an "
+          "uninterrupted feed bit for bit")
+    del tr, ref, batch
+    torch.cuda.empty_cache()
+    return rates
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -986,9 +1198,10 @@ def main():
         tr, train_launches, _ = phase_train_cli(os.path.join(tmp, "cli"))
         phase_profile(tr)
         del tr
+        dist_perf = {}
         for dtype in ("bfloat16", "float32"):
-            tr, _, _ = phase_train_dist(os.path.join(tmp, "dist_" + dtype),
-                                        dtype)
+            tr, _, dist_perf[dtype] = phase_train_dist(
+                os.path.join(tmp, "dist_" + dtype), dtype)
             phase_profile(tr, f"distorted train step, {dtype}")
             del tr
             torch.cuda.empty_cache()
@@ -997,6 +1210,8 @@ def main():
         phase_trajectory(os.path.join(tmp, "trajectory"))
         torch.cuda.empty_cache()
         phase_resume()
+        phase_disk(os.path.join(tmp, "disk"),
+                   dist_perf["bfloat16"]["steps_per_sec"])
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

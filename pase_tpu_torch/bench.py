@@ -108,7 +108,7 @@ def build(device="cuda", compute_dtype="bfloat16", save_path=None):
     tr = Trainer(FE_CFG, NET_CFG, cfg, stats=stats, dist_cfg=dcfg,
                  dist_assets=assets, device=device)
     it = iter(SyntheticChunkBatcher(B, T, seed=0))
-    raws = [tr._to_device(next(it)) for _ in range(4)]
+    raws = [tr.ready(next(it)) for _ in range(4)]
     return tr, raws, stats, stats_s
 
 

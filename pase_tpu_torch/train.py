@@ -1,31 +1,52 @@
 """Self-supervised PASE / PASE+ pretraining CLI of the PyTorch port.
 
-    python -m pase_tpu_torch.train --synthetic \\
+    python -m pase_tpu_torch.train --data_root data/LibriSpeech_50h/wav_sel \\
+        --data_cfg data/librispeech_data_50h.cfg \\
         --net_cfg cfg/workers/workers+.cfg --fe_cfg cfg/frontend/PASE+.cfg \\
-        --batch_size 32 --chunk_size 32000 --epoch 1 --save_path ckpt \\
-        [--dtrans_cfg dist.cfg] [--stats stats.pkl] \\
-        [--compute_dtype bfloat16] [--max_ckpts 5] [--no_continue True] \\
-        [--pretrained_ckpt FE_e9.npz]
+        --stats data/librispeech_50h_stats.pkl \\
+        --batch_size 32 --chunk_size 32000 --epoch 400 --save_path ckpt \\
+        [--device_corpus | --num_workers 4 [--wire_dtype int16]] \\
+        [--dtrans_cfg dist.cfg] [--compute_dtype bfloat16]
+    python -m pase_tpu_torch.train --synthetic --net_cfg ... --fe_cfg ...
 
-The flags are those of the JAX CLI (``train.py``) for the synthetic path;
-``--device`` picks the card (default ``cuda``) or the CPU. Synthetic data
-is drawn on the device (``data/dataset.py``) with 100 steps per epoch and
-a 10-batch eval; each epoch writes the full train state
+The flags are those of the JAX CLI (``train.py``); ``--device`` picks the
+card (default ``cuda``) or the CPU. From a corpus (``data/dataset.py``):
+one epoch is total_wav_dur // chunk_size // batch_size steps, then an
+eval pass of a tenth of that over the valid split. The host feed crops
+batches in ``--num_workers`` threads (one ``ChunkBatcher`` each; one
+batcher's own thread when 1), ``--fast_loader`` in the native decoder;
+``--wire_dtype int16`` sends the waveforms to the card as PCM16.
+``--device_corpus`` keeps the train and valid splits on the card as int16
+(``data/device_corpus.py``). Repeated ``--data_root`` / ``--data_cfg`` /
+``--dataset`` concatenate corpora (a ``--dtrans_cfg`` of "None" leaves one
+undistorted); ``--dataset GenhancementDataset --clean_root R`` reads a
+parallel clean tree, ``PairWavDataset`` has no neighbor context.
+``--zero_speech_p`` injects near-silent rows (``--zerospeech_cfg`` adds
+noise to them), ``--cache_feats_dir`` (alias ``--trans_cache``) reads the
+worker targets from a feature cache (``data/cache.py``). Synthetic data
+is drawn on the device with 100 steps per epoch and a 10-batch eval.
+
+Each epoch writes the full train state
 (``weights_PASE-Pase_base-<step>.npz``, at most ``--max_ckpts`` kept, in
 the JAX package's layout) and ``FE_e{epoch}.npz`` and appends to
 ``metrics.jsonl`` in ``--save_path``. A run resumes from the latest train
-state in ``--save_path`` unless ``--no_continue True``;
-``--pretrained_ckpt`` warm-starts the encoder from an encoder artifact.
-``--compute_dtype bfloat16`` runs the JAX package's bf16 compute policy
-(``precision.py``). ``--dtrans_cfg`` turns on the
-distortion stack with the assets its cfg names (the first cfg that is not
-"None" wins). Flags of paths the port does not build yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+state in ``--save_path`` unless ``--no_continue True``: the device feeds
+replay the uninterrupted run's batches from the resumed step, a host
+feed restarts its stream (as in the JAX CLI). ``--pretrained_ckpt``
+warm-starts the encoder from an encoder artifact. ``--compute_dtype
+bfloat16`` runs the JAX package's bf16 compute policy (``precision.py``).
+``--dtrans_cfg`` turns on the distortion stack with the assets its cfg
+names (the first cfg that is not "None" wins). Flags of paths the port
+does not build yet raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 import argparse
+import functools
+import glob
 import json
 import os
+import time
 
 import torch
 
@@ -36,19 +57,20 @@ def str2bool(v):
 
 # flag -> (value that means "not used", ROADMAP.md item that ports it)
 _UNPORTED = {
-    "data_root": ([], "queue 1: disk-fed training"),
-    "data_cfg": ([], "queue 1: disk-fed training"),
-    "device_corpus": (False, "queue 1: disk-fed training"),
-    "cache_feats_dir": (None, "queue 1: disk-fed training"),
     "gan_cfg": (None, "queue 1: off-path model variants (GAN workers)"),
     "att_cfg": (None, "queue 1: off-path model variants"),
     "chunking_K": (None, "queue 1: off-path model variants"),
-    "zero_speech_p": (0.0, "queue 1: disk-fed training"),
+    "shard_device_corpus": (False, "queue 1, item 10: multi-GPU"),
+    "ihm2sdm": (None, "queue 1, item 5: disk-fed training (the AMI "
+                      "channel-key dataset)"),
 }
 ROADMAP_HOST_STAGE = ("ROADMAP.md, queue 1: the host distortion stage "
                       "(codec2, whisperize)")
 # steps per epoch of the synthetic path, as in the JAX CLI
 SYNTHETIC_BPE = 100
+DEFAULT_DATASET = "LibriSpeechSegTupleWavDataset"
+DATASETS = ("LibriSpeechSegTupleWavDataset", "PairWavDataset",
+            "GenhancementDataset")
 
 
 def build_argparser():
@@ -61,6 +83,8 @@ def build_argparser():
     p.add_argument("--stats", type=str, default=None)
     p.add_argument("--save_path", type=str, default="ckpt")
     p.add_argument("--max_ckpts", type=int, default=5)
+    p.add_argument("--num_workers", type=int, default=2,
+                   help="host feed threads, each with its own batcher")
     p.add_argument("--seed", type=int, default=2)
     p.add_argument("--random_scale", type=str, default="False")
     p.add_argument("--chunk_size", type=int, default=16000)
@@ -81,9 +105,32 @@ def build_argparser():
     p.add_argument("--zero_speech_p", type=float, default=0.0)
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="synthetic data drawn on the device")
-    p.add_argument("--cache_feats_dir", type=str, default=None)
+    p.add_argument("--dataset", action="append", default=[],
+                   help="LibriSpeechSegTupleWavDataset (default) | "
+                        "PairWavDataset | GenhancementDataset, per "
+                        "--data_root")
+    p.add_argument("--clean_root", type=str, default=None,
+                   help="the clean tree of GenhancementDataset")
+    p.add_argument("--ihm2sdm", type=str, default=None)
+    p.add_argument("--cache_feats_dir", type=str, default=None,
+                   help="precomputed worker-target cache (data/cache.py)")
+    p.add_argument("--trans_cache", type=str, default=None,
+                   help="the reference's name of --cache_feats_dir")
+    p.add_argument("--zerospeech_cfg", action="append", default=None,
+                   help="JSON {noises_dir, noises_snrs}: additive noise "
+                        "on the zero-speech rows")
+    p.add_argument("--fast_loader", action="store_true", default=False,
+                   help="decode and crop in native/libpase_wavio.so")
     p.add_argument("--compute_dtype", type=str, default=None)
-    p.add_argument("--device_corpus", action="store_true", default=False)
+    p.add_argument("--device_corpus", action="store_true", default=False,
+                   help="keep the corpus on the card as int16 and gather "
+                        "the crops there")
+    p.add_argument("--shard_device_corpus", action="store_true",
+                   default=False)
+    p.add_argument("--wire_dtype", type=str, default="float32",
+                   choices=("float32", "int16"),
+                   help="int16 sends host waveform batches as PCM16 "
+                        "(lossless for PCM16 corpora)")
     p.add_argument("--gan_cfg", type=str, default=None)
     p.add_argument("--att_cfg", type=str, default=None)
     p.add_argument("--chunking_K", type=int, default=None)
@@ -97,15 +144,21 @@ def build_argparser():
 
 
 def check_ported(opts):
-    """Raise for a flag whose path the port does not build yet."""
+    """Raise for a flag whose path the port does not build yet, for a
+    dataset name it does not know and for a missing corpus; resolve the
+    --trans_cache alias."""
     for flag, (unused, item) in _UNPORTED.items():
         if getattr(opts, flag) != unused:
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md, {item}")
-    if not opts.synthetic:
-        raise NotImplementedError(
-            "training from a corpus is not ported yet (use --synthetic): "
-            "ROADMAP.md, queue 1: disk-fed training")
+    for name in opts.dataset:
+        if name == "AmiSegTupleWavDataset":
+            raise NotImplementedError(
+                "--dataset AmiSegTupleWavDataset is not ported yet: "
+                "ROADMAP.md, queue 1, item 5: disk-fed training (the AMI "
+                "channel-key dataset)")
+        if name not in DATASETS:
+            raise ValueError(f"--dataset {name}: one of {DATASETS}")
     if opts.backprop_mode != "base":
         raise NotImplementedError(
             f"--backprop_mode {opts.backprop_mode} is not ported yet: "
@@ -113,6 +166,153 @@ def check_ported(opts):
             "policies)")
     if opts.net_cfg is None or opts.fe_cfg is None:
         raise ValueError("--net_cfg and --fe_cfg are required")
+    if opts.trans_cache:
+        if opts.cache_feats_dir:
+            raise ValueError("--trans_cache and --cache_feats_dir are "
+                             "the same capability; pass one")
+        opts.cache_feats_dir = opts.trans_cache
+    if not opts.synthetic and not (opts.data_root and opts.data_cfg):
+        raise ValueError("--data_root and --data_cfg are required "
+                         "without --synthetic")
+
+
+def _nth(lst, i, default=None):
+    """The i-th of a repeated flag's values, else its first, else
+    ``default``."""
+    return lst[i] if i < len(lst) else (lst[0] if lst else default)
+
+
+def build_datasets(opts):
+    """The train and valid tuple datasets of ``--data_root`` /
+    ``--data_cfg`` / ``--dataset`` (a ``MetaConcatDataset`` of several,
+    with a per-corpus distortion flag from ``--dtrans_cfg``)."""
+    from pase_tpu_torch.data import dataset as D
+    classes = {"LibriSpeechSegTupleWavDataset": D.LibriSpeechTupleDataset,
+               "PairWavDataset": D.PairWavDataset}
+    n_ds = len(opts.data_root)
+
+    def make_one(i, split, seed):
+        name = _nth(opts.dataset, i, DEFAULT_DATASET)
+        if name == "GenhancementDataset":
+            return D.GenhancementDataset(opts.data_root[i], opts.clean_root,
+                                         _nth(opts.data_cfg, i), split,
+                                         seed=seed)
+        return classes[name](opts.data_root[i], _nth(opts.data_cfg, i),
+                             split, zero_speech_p=opts.zero_speech_p
+                             if split == "train" else 0.0, seed=seed)
+
+    def make_ds(split, seed):
+        parts = [make_one(i, split, seed + 101 * i) for i in range(n_ds)]
+        if len(parts) == 1:
+            return parts[0]
+        flags = [str(_nth(opts.dtrans_cfg, i, "None")) not in
+                 ("None", "none", "") for i in range(n_ds)]
+        return D.MetaConcatDataset(parts, dist_flags=flags)
+
+    return make_ds("train", opts.seed), make_ds("valid", opts.seed + 1)
+
+
+def build_feeds(opts, wk_cfg):
+    """(train batcher, valid batcher, steps per epoch, {facts of the feed
+    for the log}) of the options: synthetic batches drawn on the device,
+    the device corpus, or a host feed of ``--num_workers`` threads."""
+    from pase_tpu_torch.data import dataset as D
+    bs, t = opts.batch_size, opts.chunk_size
+    if opts.synthetic:
+        return (D.DeviceSyntheticBatcher(bs, t, seed=opts.seed,
+                                         device=opts.device),
+                D.DeviceSyntheticBatcher(bs, t, seed=opts.seed + 1,
+                                         device=opts.device),
+                SYNTHETIC_BPE, {})
+    ds, va_ds = build_datasets(opts)
+    batcher_cls = D.FastChunkBatcher if opts.fast_loader else D.ChunkBatcher
+    if opts.cache_feats_dir:
+        if opts.fast_loader or str2bool(opts.random_scale) \
+                or opts.zero_speech_p:
+            raise ValueError("--cache_feats_dir is incompatible with "
+                             "--fast_loader / --random_scale / "
+                             "--zero_speech_p")
+        from pase_tpu_torch.data.cache import CachedTargetBatcher
+        from pase_tpu_torch.model import parse_workers_cfg
+        from pase_tpu_torch.ops.features import feature_fn_for_worker
+        names = [e["name"] for e in parse_workers_cfg(wk_cfg)["regr"]
+                 if feature_fn_for_worker(e["name"], e.get("transform"),
+                                          hop=opts.hop) is not None]
+        batcher_cls = functools.partial(
+            CachedTargetBatcher, cache_dir=opts.cache_feats_dir,
+            worker_names=names, hop=opts.hop)
+        print(f"Cached targets: {names} from {opts.cache_feats_dir}")
+    info = {}
+    if opts.device_corpus:
+        if len(opts.data_root) != 1 or opts.cache_feats_dir or \
+                _nth(opts.dataset, 0, DEFAULT_DATASET) not in (
+                    DEFAULT_DATASET, "GenhancementDataset"):
+            raise ValueError(
+                "--device_corpus supports a single corpus: "
+                "LibriSpeechSegTupleWavDataset, or a parallel clean/noisy "
+                "tree (GenhancementDataset); no MetaConcat / "
+                "--cache_feats_dir")
+        from pase_tpu_torch.data.device_corpus import DeviceCorpusBatcher
+        t0 = time.perf_counter()
+        batcher = DeviceCorpusBatcher(ds, bs, t, seed=opts.seed,
+                                      device=opts.device)
+        info = {"corpus_bytes": batcher.nbytes,
+                "corpus_build_s": time.perf_counter() - t0}
+        va_batcher = DeviceCorpusBatcher(va_ds, bs, t, seed=opts.seed + 1,
+                                         device=opts.device)
+        print(f"Device corpus: {batcher.nbytes / 1e9:.3f} GB int16 on "
+              f"{opts.device}, built in {info['corpus_build_s']:.1f} s")
+    else:
+        batcher = batcher_cls(ds, bs, t, seed=opts.seed)
+        va_batcher = batcher_cls(va_ds, bs, t, seed=opts.seed + 1)
+    bpe = batcher.bpe
+    if not opts.device_corpus and opts.num_workers > 1:
+        # N producers, each with its own batcher and seed, into one queue
+        batcher = D.ThreadedPrefetcher(
+            lambda tid: iter(batcher_cls(ds, bs, t, seed=opts.seed
+                                         + 13 * tid)._make_batch, None),
+            n_threads=opts.num_workers, bpe=bpe)
+    print(f"Dataset: {ds.total_wav_dur / 16000 / 3600.0:.1f} h train "
+          f"audio, bpe={bpe}")
+    return batcher, va_batcher, bpe, info
+
+
+def build_zerospeech(opts, chunk_size):
+    """--zerospeech_cfg JSON {noises_dir, noises_snrs} -> (noise bank
+    [n, 2 x chunk_size], SNRs), the additive noise of the zero-speech
+    rows; (None, (0, 5, 10)) without one or with --zero_speech_p 0."""
+    cfgs = [c for c in (opts.zerospeech_cfg or [])
+            if str(c) not in ("None", "none", "")]
+    if not cfgs:
+        return None, (0, 5, 10)
+    if opts.zero_speech_p <= 0:
+        print("--zerospeech_cfg given but --zero_speech_p is 0: "
+              "zero-speech samples never occur")
+        return None, (0, 5, 10)
+    if opts.device_corpus or opts.synthetic:
+        raise ValueError("--zerospeech_cfg needs the host feed (the "
+                         "device-corpus / synthetic paths carry no "
+                         "zero-speech mask); drop --device_corpus/"
+                         "--synthetic")
+    if len(set(cfgs)) > 1:
+        raise ValueError("one global --zerospeech_cfg is supported "
+                         "(repeat the same file per corpus if needed)")
+    with open(cfgs[0]) as f:
+        z = json.load(f)
+    unknown = [k for k in z if k not in ("noises_dir", "noises_snrs")]
+    if unknown:
+        raise ValueError(f"unknown zerospeech cfg keys {unknown}: "
+                         "config_zerospeech takes noises_dir, noises_snrs")
+    from pase_tpu_torch.data.distortions import load_wav_bank
+    dirs = z.get("noises_dir")
+    dirs = dirs if isinstance(dirs, list) else [dirs]
+    files = [f for d in dirs for f in glob.glob(os.path.join(d, "*.wav"))]
+    if not files:
+        raise ValueError(f"no noise wavs under {dirs}")
+    bank = load_wav_bank(files, 2 * chunk_size)
+    snrs = tuple(z.get("noises_snrs", (0, 5, 10)))
+    print(f"Zero-speech additive: {len(files)} noises, snrs {snrs}")
+    return bank, snrs
 
 
 def build_distortions(opts, chunk_size):
@@ -137,7 +337,6 @@ def build_distortions(opts, chunk_size):
 
 def train(opts):
     check_ported(opts)
-    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
     from pase_tpu_torch.data.pipeline import load_stats_pkl
     from pase_tpu_torch.trainer import Trainer
     if opts.device == "cuda" and not torch.cuda.is_available():
@@ -152,12 +351,11 @@ def train(opts):
     with open(opts.net_cfg) as f:
         wk_cfg = json.load(f)
     dist_cfg, dist_assets = build_distortions(opts, opts.chunk_size)
-    bpe = SYNTHETIC_BPE
-    batcher = DeviceSyntheticBatcher(opts.batch_size, opts.chunk_size,
-                                     seed=opts.seed, device=opts.device)
-    va_batcher = DeviceSyntheticBatcher(opts.batch_size, opts.chunk_size,
-                                        seed=opts.seed + 1,
-                                        device=opts.device)
+    zs_bank, zs_snrs = build_zerospeech(opts, opts.chunk_size)
+    batcher, va_batcher, bpe, feed_info = build_feeds(opts, wk_cfg)
+    if opts.wire_dtype == "int16" and opts.zero_speech_p > 0:
+        print("WARNING: --wire_dtype int16 quantizes zero-speech samples "
+              "(~1e-5 amplitude) to silence; prefer float32 here")
     stats = (load_stats_pkl(opts.stats)
              if opts.stats and os.path.exists(opts.stats) else None)
     cfg = vars(opts).copy()
@@ -165,8 +363,11 @@ def train(opts):
                random_scale=str2bool(opts.random_scale),
                ckpt_continue=not str2bool(opts.no_continue))
     tr = Trainer(fe_cfg, wk_cfg, cfg, stats=stats, dist_cfg=dist_cfg,
-                 dist_assets=dist_assets, device=opts.device)
+                 dist_assets=dist_assets, device=opts.device,
+                 zs_bank=zs_bank, zs_snrs=zs_snrs)
     try:
+        if feed_info:
+            tr.logger.log("feed", 0, feed_info)
         tr.train_(batcher, va_batcher, resume=cfg["ckpt_continue"])
     finally:
         tr.logger.close()

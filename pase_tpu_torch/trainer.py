@@ -28,6 +28,13 @@ the step its draws; the device batcher's batch k from ``step_seed(its
 seed, k)``. A resumed run therefore replays the uninterrupted run's
 batches and draws with no generator state in the checkpoint.
 
+Feeding: host batches (numpy arrays from a disk batcher) are staged one
+step ahead (``stage``): pinned host memory and a non_blocking copy on a
+side stream, whose event the step waits on before it reads the batch;
+with ``cfg['wire_dtype'] == 'int16'`` the waveforms cross as PCM16 and
+the prepare divides them by 32768 on the device. Batches already on the
+device (the device corpus, the synthetic batcher) are used in place.
+
 ``train_`` resumes from the latest checkpoint in ``save_path`` (unless
 ``resume=False``), then runs epochs of ``bpe`` steps with a NaN guard at
 each logged step, a 'perf' line per epoch (steps/s, audio-s/s), an eval
@@ -41,6 +48,7 @@ import math
 import os
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -60,12 +68,22 @@ from pase_tpu_torch.scheduling import apply_policy, init_policy_state
 
 # the run's name in its train-state files, the JAX Trainer's default
 NAME = "Pase_base"
+# the waveform entries of a batch, which the int16 wire sends as PCM16
+WAVE_KEYS = ("chunk", "chunk_ctxt", "chunk_rand", "cchunk")
+
+
+class Staged(NamedTuple):
+    """A batch whose copy to the device was started by ``Trainer.stage``:
+    its device tensors and the copy's event (None off the card)."""
+    batch: dict
+    event: Optional[torch.cuda.Event]
 
 
 class Trainer:
 
     def __init__(self, frontend_cfg, workers_cfg, cfg, stats=None,
-                 dist_cfg=None, dist_assets=None, device="cuda"):
+                 dist_cfg=None, dist_assets=None, device="cuda",
+                 zs_bank=None, zs_snrs=(0, 5, 10)):
         self.cfg = dict(cfg)
         self.device = torch.device(device)
         self.compute_dtype = resolve(self.cfg.get("compute_dtype"))
@@ -88,8 +106,14 @@ class Trainer:
         self.prepare = make_prepare_fn(
             self.meta, stats=stats, dist_cfg=dist_cfg, assets=dist_assets,
             hop=self.hop,
-            random_scale=self.cfg.get("random_scale", False))
+            random_scale=self.cfg.get("random_scale", False),
+            zs_bank=zs_bank, zs_snrs=zs_snrs)
         self.prep_generator = torch.Generator(device=self.device)
+        wire = str(self.cfg.get("wire_dtype") or "float32")
+        if wire not in ("float32", "int16"):
+            raise ValueError(f"wire_dtype {wire!r}: float32 or int16")
+        self.wire_int16 = wire == "int16"
+        self._copy_stream = None
         self.bpe = self.cfg.get("bpe", 100)
         self.epochs = self.cfg.get("epoch", 100)
         self.save_path = self.cfg.get("save_path", "ckpt")
@@ -115,24 +139,74 @@ class Trainer:
                            max_ckpts=self.cfg.get("max_ckpts", 5),
                            prefix="PASE-")
 
-    def _to_device(self, raw):
-        return {k: torch.as_tensor(v, dtype=torch.float32,
-                                   device=self.device)
-                for k, v in raw.items()}
+    def _host_tensor(self, key, v):
+        """A host batch entry as the tensor that crosses the wire: int16
+        stays int16, waveforms become int16 under the int16 wire, the rest
+        float32. A tensor already on the device is returned as it is."""
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            return v
+        v = torch.as_tensor(v)
+        if v.dtype == torch.int16:
+            return v
+        if self.wire_int16 and key in WAVE_KEYS:
+            # exact for PCM16-sourced audio: read_wav's x is the stored
+            # sample / 32768
+            return torch.clamp(v * 32768.0, -32768, 32767).to(torch.int16)
+        return v.to(torch.float32)
 
-    def train_step(self, raw_batch, draws=None):
-        """One optimizer step on a raw batch; returns the detached
-        per-worker losses and 'total'. ``draws`` (a ``DistortionDraws``)
-        replaces the step's own distortion draws. The parameters' ``.grad``
-        keep this step's gradients until the next step."""
+    def stage(self, raw):
+        """Start a raw batch's copy to the device: host entries go through
+        pinned memory as non_blocking copies on a side stream (on the
+        card), entries already on the device stay there. Returns a
+        ``Staged``; ``train_step`` waits for its copy before the step
+        reads it."""
+        host = {k: self._host_tensor(k, v) for k, v in raw.items()}
+        if self.device.type != "cuda":
+            return Staged({k: v.to(self.device) for k, v in host.items()},
+                          None)
+        if all(v.device.type != "cpu" for v in host.values()):
+            return Staged(host, None)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        out = {}
+        with torch.cuda.stream(self._copy_stream):
+            for k, v in host.items():
+                out[k] = (v if v.device.type != "cpu" else
+                          v.pin_memory().to(self.device, non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return Staged(out, event)
+
+    def ready(self, raw_batch):
+        """The device batch of a raw or staged batch, safe to read on the
+        current stream."""
+        staged = (raw_batch if isinstance(raw_batch, Staged)
+                  else self.stage(raw_batch))
+        if staged.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.event)
+            for v in staged.batch.values():
+                # freed only once this stream's use of it has completed
+                v.record_stream(stream)
+        return staged.batch
+
+    def train_step(self, raw_batch, draws=None, zs_draws=None):
+        """One optimizer step on a raw batch (host arrays, device tensors,
+        or a ``Staged`` from ``stage``); returns the detached per-worker
+        losses and 'total'. ``draws`` (a ``DistortionDraws``) and
+        ``zs_draws`` (a ``ZeroSpeechDraws``) replace the step's own draws.
+        The parameters' ``.grad`` keep this step's gradients until the next
+        step."""
         self.model.train()
         self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
         if draws is not None:
             draws = draws.to(self.device)
+        if zs_draws is not None:
+            zs_draws = zs_draws.to(self.device)
         with compute_dtype(self.compute_dtype):
             with record_function("pase.prepare"):
-                batch = self.prepare(self._to_device(raw_batch),
-                                     self.prep_generator, draws)
+                batch = self.prepare(self.ready(raw_batch),
+                                     self.prep_generator, draws, zs_draws)
             set_lr(self.opt, self.scheds, self.opt_count)
             with record_function("pase.forward"):
                 _, _, preds, labels = self.model(batch, self.alpha)
@@ -160,7 +234,7 @@ class Trainer:
         statistics, no gradient), under the training compute dtype."""
         self.model.eval()
         with torch.no_grad(), compute_dtype(self.compute_dtype):
-            batch = self.prepare(self._to_device(raw_batch),
+            batch = self.prepare(self.ready(raw_batch),
                                  self.prep_generator)
             _, _, preds, labels = self.model(batch, 1.0)
             losses = worker_losses(self.meta, preds, labels)
@@ -171,46 +245,75 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _fetch(self, it, clock):
+        """Read the next raw batch of ``it`` and stage it; adds the host's
+        wait for the batch and the staging's host time to ``clock``."""
+        t0 = time.perf_counter()
+        raw = next(it)
+        t1 = time.perf_counter()
+        staged = self.stage(raw)
+        clock["feed"] += t1 - t0
+        clock["stage"] += time.perf_counter() - t1
+        return staged
+
     def train_(self, batcher, valid_batcher=None, epochs=None, resume=True):
         """Epochs from the current (or, with ``resume``, the latest saved)
         step on. A batcher with ``batches(step)`` is fed from the resumed
         step, so a resumed run sees the batches the uninterrupted run saw
-        there; any other iterable is read from its start."""
+        there; any other iterable is read from its start. The next batch
+        is read and its copy to the device started while the card runs the
+        current step; the perf line reports the host's wait for batches
+        and the staging's host time per step."""
         if resume:
             self.try_resume()
         epochs = epochs if epochs is not None else self.epochs
         bpe = self.bpe
         it = (batcher.batches(self.step) if hasattr(batcher, "batches")
               else iter(batcher))
-        for e in range(self.step // bpe, epochs):
-            self._sync()
-            t0 = time.time()
-            for bidx in range(1, bpe + 1):
-                losses = self.train_step(next(it))
-                if bidx % self.log_freq == 0 or bidx >= bpe:
-                    host = {k: float(v) for k, v in losses.items()}
-                    gstep = e * bpe + bidx
-                    self.logger.log("train", gstep, host)
-                    if not math.isfinite(host["total"]):
-                        raise FloatingPointError(
-                            f"non-finite total loss at step {gstep}: {host}")
-            self._sync()
-            sps = bpe / (time.time() - t0)
-            self.logger.log("perf", (e + 1) * bpe, {
-                "steps_per_sec": sps,
-                "audio_sec_per_sec": sps * self.batch_size *
-                self.chunk_size / 16000})
-            if valid_batcher is not None:
-                self.evaluate(valid_batcher, epoch=e)
-            self.save(e)
+        staged = None
+        try:
+            for e in range(self.step // bpe, epochs):
+                self._sync()
+                t0 = time.time()
+                clock = {"feed": 0.0, "stage": 0.0}
+                for bidx in range(1, bpe + 1):
+                    batch = (staged if staged is not None
+                             else self._fetch(it, clock))
+                    losses = self.train_step(batch)
+                    staged = (None if e == epochs - 1 and bidx == bpe
+                              else self._fetch(it, clock))
+                    if bidx % self.log_freq == 0 or bidx >= bpe:
+                        host = {k: float(v) for k, v in losses.items()}
+                        gstep = e * bpe + bidx
+                        self.logger.log("train", gstep, host)
+                        if not math.isfinite(host["total"]):
+                            raise FloatingPointError(
+                                f"non-finite total loss at step {gstep}: "
+                                f"{host}")
+                self._sync()
+                sps = bpe / (time.time() - t0)
+                self.logger.log("perf", (e + 1) * bpe, {
+                    "steps_per_sec": sps,
+                    "audio_sec_per_sec": sps * self.batch_size *
+                    self.chunk_size / 16000,
+                    "feed_wait_ms": 1e3 * clock["feed"] / bpe,
+                    "stage_ms": 1e3 * clock["stage"] / bpe})
+                if valid_batcher is not None:
+                    self.evaluate(valid_batcher, epoch=e)
+                self.save(e)
+        finally:
+            _close(it)
 
     def evaluate(self, batcher, epoch=0, n_batches=None):
         n_batches = n_batches or self.cfg.get("va_bpe", 10)
         running = {}
         it = iter(batcher)
-        for _ in range(n_batches):
-            for k, v in self.eval_step(next(it)).items():
-                running.setdefault(k, []).append(float(v))
+        try:
+            for _ in range(n_batches):
+                for k, v in self.eval_step(next(it)).items():
+                    running.setdefault(k, []).append(float(v))
+        finally:
+            _close(it)
         means = {k: sum(v) / len(v) for k, v in running.items()}
         self.logger.log("eval", epoch, means)
         return means
@@ -250,3 +353,10 @@ class Trainer:
             raise ValueError(f"checkpoint step mismatch: index says {step}, "
                              f"state holds {self.step}")
         return step
+
+
+def _close(it):
+    """Close a generator (a batcher's prefetch threads stop with it)."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()

@@ -22,6 +22,8 @@ train step; for the conv kernel 2^-7 of the largest output in bf16 (one
 bf16 rounding of float32 sums taken in another order) and 1e-5 in
 float32; the distortion stack within 1e-5 of its largest output."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -413,3 +415,55 @@ def test_distortions_gpu_match_cpu(cuda_device):
                                cfg, assets.to(cuda_device))
     assert (y.cpu() - y_cpu).abs().max() <= 1e-5 * y_cpu.abs().max()
     assert (m.cpu() - m_cpu).abs().max() <= 1e-7
+
+
+def test_stage_copies_host_batches_and_keeps_device_ones(cuda_device,
+                                                         tmp_path):
+    """Trainer.stage on the card: host arrays cross through pinned memory
+    on the side stream (int16 waveforms under the int16 wire) and the
+    step's stream waits for the copy; tensors already on the card are the
+    same tensors after staging."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    tr = _small_trainer(cuda_device, tmp_path)
+    tr.wire_int16 = True
+    raw = next(iter(SyntheticChunkBatcher(2, 4800, seed=3)))
+    on_card = torch.ones(2, device=cuda_device)
+    staged = tr.stage(dict(raw, dist_mask=on_card))
+    assert staged.event is not None
+    batch = tr.ready(staged)
+    assert batch["dist_mask"] is on_card
+    for k in ("chunk", "chunk_ctxt", "chunk_rand"):
+        want = np.clip(raw[k] * 32768.0, -32768, 32767).astype(np.int16)
+        assert batch[k].dtype == torch.int16 and batch[k].is_cuda
+        np.testing.assert_array_equal(batch[k].cpu().numpy(), want)
+    losses = tr.train_step(staged)
+    assert all(torch.isfinite(v) for v in losses.values())
+
+
+def test_device_corpus_rows_on_the_card(cuda_device, tmp_path):
+    """The card-resident corpus: the buffer equals the CPU build's, and
+    every row of a batch is the wav's samples at the start drawn on the
+    card."""
+    from pase_tpu_torch.data.dataset import LibriSpeechTupleDataset, crop_at
+    from pase_tpu_torch.data.device_corpus import DeviceCorpusBatcher
+    from pase_tpu_torch.data.io import read_wav
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_corpus
+    root, cfg = write_synthetic_corpus(str(tmp_path), 20, 2,
+                                       min_seconds=0.2, max_seconds=2.0)
+    ds = LibriSpeechTupleDataset(root, cfg, "train")
+    names = [w["filename"] for w in ds.wavs]
+    card = DeviceCorpusBatcher(ds, 8, 16000, seed=1, device=cuda_device)
+    host = DeviceCorpusBatcher(LibriSpeechTupleDataset(root, cfg, "train"),
+                               8, 16000, seed=1, device="cpu")
+    assert torch.equal(card.buf.cpu(), host.buf)
+    batch = card.make_batch(3)
+    starts = card.sample_starts(3).cpu().numpy()
+    for role, key in enumerate(("chunk", "chunk_ctxt", "chunk_rand")):
+        for r in range(8):
+            i = int(np.searchsorted(card.offsets, starts[role, r], "right")
+                    - 1)
+            off = int(starts[role, r] - card.offsets[i])
+            wav, _ = read_wav(os.path.join(root, names[i]))
+            wav = crop_at(wav, 0, 16000) if len(wav) < 16000 else wav
+            np.testing.assert_array_equal(batch[key][r].cpu().numpy(),
+                                          wav[off:off + 16000])

@@ -165,20 +165,30 @@ def test_prepare_matches_jax(wav, with_stats):
 
 
 def test_prepare_refuses_distortions():
-    """Per-corpus distortion masks, zero-speech rows, explicit clean chunks
-    and int16 waveforms belong to disk-fed training, not ported yet."""
+    """The rows a batch's dist_mask (0) or zs_mask (1) excludes are not
+    distorted (overlap label 0), the other rows are; an explicit clean
+    chunk is the cchunk; int16 waveforms are divided by 32768."""
     from pase_tpu_torch.data.distortions import (DistortionAssets,
                                                  DistortionConfig)
     prepare = pipeline.make_prepare_fn(
-        parse_workers_cfg(WORKERS), dist_cfg=DistortionConfig(clip_p=0.5),
-        assets=DistortionAssets())
-    raw = {k: torch.zeros(2, 4800) for k in ("chunk", "chunk_ctxt",
-                                             "chunk_rand")}
-    for extra in ({"dist_mask": torch.ones(2)}, {"zs_mask": torch.ones(2)},
-                  {"cchunk": torch.zeros(2, 4800)},
-                  {"chunk": torch.zeros(2, 4800, dtype=torch.int16)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prepare({**raw, **extra})
+        {"regr": [], "cls": [{"name": "overlap"}]},
+        dist_cfg=DistortionConfig(clip_p=1.0), assets=DistortionAssets())
+    rng = np.random.RandomState(0)
+    wav = torch.from_numpy(rng.randn(2, 4800).astype(np.float32) * 0.1)
+    raw = {"chunk": wav, "chunk_ctxt": wav, "chunk_rand": wav}
+    for mask in ({"dist_mask": torch.tensor([0.0, 1.0])},
+                 {"zs_mask": torch.tensor([1.0, 0.0])}):
+        out = prepare({**raw, **mask}, torch.Generator().manual_seed(1))
+        assert torch.equal(out["chunk"][0], wav[0])
+        assert not torch.equal(out["chunk"][1], wav[1])
+        assert (out["overlap"][0] == 0).all()
+    clean = wav * 0.5
+    gen = torch.Generator().manual_seed(2)
+    assert prepare({**raw, "cchunk": clean}, gen)["cchunk"] is clean
+    pcm = torch.from_numpy(rng.randint(-32768, 32767, (2, 4800)).astype(
+        np.int16))
+    out = prepare({**raw, "chunk_ctxt": pcm}, gen)
+    assert torch.equal(out["chunk_ctxt"], pcm.float() / 32768)
 
 
 def test_stats_pkl_round_trip(tmp_path):

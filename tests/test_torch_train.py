@@ -430,10 +430,10 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--zero_speech_p", "0.5"], ["--device_corpus"],
+    ["--shard_device_corpus"], ["--ihm2sdm", "x"],
     ["--chunking_K", "3"], ["--gan_cfg", "{}"],
-    ["--backprop_mode", "softmax"], ["--cache_feats_dir", "x"],
-    ["--data_cfg", "data/librispeech_data.cfg"]])
+    ["--backprop_mode", "softmax"], ["--att_cfg", "x"],
+    ["--dataset", "AmiSegTupleWavDataset"]])
 def test_train_cli_refuses_unported_flags(tmp_path, flags):
     from pase_tpu_torch import train as port_train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
