@@ -22,7 +22,12 @@ Phases, each printed as it ends; any failure exits non-zero:
   4. encoder — PASE+ at full width (cfg/frontend/PASE+.cfg), seeded
                weights: the (1,1,100000) -> (1,256,625) contract, a
                (8,1,160000) batch, the same batch on the CPU (plain path)
-               within 2e-4 of its largest value, forward time.
+               within 2e-4 of its largest value, forward time. Then, off
+               the serving path's count, the registered QRNN operator
+               against the direct launch it wraps, in this process: host us
+               per call, and the forward at (1,1,160000) and (8,1,160000)
+               through each in alternating pairs (medians, and a bootstrap
+               95 % interval of the paired difference).
   5. serve   — forward-chunk (the port's CLI entry point) over four wavs
                with the seeded weights saved as a native .npz.
   6. kernel-train — the training kernels qrnn_pool_fwd_train and
@@ -95,6 +100,34 @@ Phases, each printed as it ends; any failure exits non-zero:
                starts read back from the card; a second call with --epoch
                2 resumes at step bpe and draws the uninterrupted feed's
                batch there bit for bit.
+ 13. stream  — the streaming encoder (pase_tpu_torch/streaming.py), PASE+
+               at full width, seeded weights: B=1 and B=8 over 10 s of
+               audio in 1 s pushes and in 100 ms pushes; the two chunkings
+               bit for bit equal, each within rtol 1e-3 / atol 2e-4 of the
+               offline encoder (the max relative difference printed);
+               forward-chunk --streaming over phase 5's four wavs against
+               the offline encoder of each whole file (the same bound); the
+               median ms per 1 s push at B=1 and the real-time factor; the
+               seeded serial K1 at [1,100,512] and [8,100,512] in CUDA
+               graphs beside its byte bound and its latency floor (the
+               kernel at T=1 plus T-1 dependent FMAs at the SM's clock).
+ 14. export  — ``python -m pase_tpu_torch.util_scripts export`` on the card
+               (buckets 8000/16000/32000/64000, a streaming chunk of 16000;
+               the seconds per program printed), then serve-encode over the
+               four wavs, single and with --batch_size 4, within 2e-5 of
+               forward-chunk --chunk_size 64000 (requests/s of each); the
+               streaming artifact against the in-process stream at the same
+               chunk, bit for bit (B=1 and 4); the 64000 bucket at B=40,
+               above the chunked route's lanes, within 2e-5 of the offline
+               encoder; and a narrow artifact exported on the CPU, served on
+               the card (moved by the loader), within 2e-5 of its CPU
+               frames.
+ 15. overlap — one full-width step of workers+ plus an overlap head (BCE on
+               the frame label of the distortion stack at overlap_p 1.0,
+               bench.py's assets; batch 2 x 16000) on the card and on the
+               CPU, the same weights, batch and draws: per-worker losses
+               within 1e-4 relative; the training kernels once per QRNN
+               layer on the card.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -106,8 +139,12 @@ per layer per step;
 each disk-fed run (phase 12, five of them) the training kernels once per
 layer per train step and qrnn_pool_fwd once per layer per eval step;
 the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
-the float32 run conv_s1_tf32x3 7 times. No other path launches a conv
-kernel. The line before the last is a JSON summary of the kernels; the
+the float32 run conv_s1_tf32x3 7 times; each stream (phase 13)
+qrnn_pool_fwd once per QRNN layer per push that reaches the QRNN and
+qrnn_pool_fwd_chunked never; serve-encode through the exported programs
+(phase 14) qrnn_pool_fwd_chunked once per layer per program call, and the
+B=40 call qrnn_pool_fwd; the overlap step (phase 15) the training
+kernels once per layer. No other path launches a conv kernel. The line before the last is a JSON summary of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -169,6 +206,25 @@ DISK_FEEDS = (("host ChunkBatcher", ["--num_workers", "1"]),
               ("4 host threads int16 wire", ["--num_workers", "4",
                                              "--wire_dtype", "int16"]),
               ("device corpus", ["--device_corpus"]))
+
+
+# phases 13-14: the streaming contract (tests/test_streaming.py), the
+# serving contract (tests/test_serving.py), the pushes and the chunk
+STREAM_RTOL, STREAM_ATOL = 1e-3, 2e-4
+SERVE_TOL = 2e-5
+STREAM_SECONDS = 10
+STREAM_PUSHES = (("1 s", 16000), ("100 ms", 1600))
+EXPORT_BUCKETS = "8000,16000,32000,64000"
+EXPORT_CHUNK = 16000
+# a batch above the chunked route's lanes (40 x 512 >= 16384)
+EXPORT_WIDE_BATCH = 40
+# phase 4's operator timing: calls per host-time sample (5 samples), and
+# alternating pairs of forwards per batch of 160000 samples
+OP_CALLS = 300
+OP_PAIRS = {1: 200, 8: 40}
+# phase 13's latency floor: cycles of one dependent float32 FMA on the SM
+# (published microbenchmarks of Volta to Hopper)
+FMA_LATENCY_CYCLES = 4
 
 
 class SmokeFailure(Exception):
@@ -393,23 +449,98 @@ def phase_encoder(device, cfg=PASEP_CFG, batch=8, samples=160000, reps=5):
     return enc, calls
 
 
+def _host_us(fn, calls):
+    """Host us per call of ``calls`` unsynchronized calls (the kernel is
+    shorter than its host side), after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_operator(enc):
+    """The registered QRNN operator (``torch.ops.pase_tpu_torch.
+    qrnn_pool_fwd``) against the direct launch it wraps, in alternation:
+    host us per call at [1,1000,1536] (the (1,1,160000) forward's QRNN
+    input), and the forward through each at OP_PAIRS."""
+    import torch
+    from pase_tpu_torch.ops import cuda_qrnn
+    operator = cuda_qrnn.qrnn_pool_fwd
+    direct = cuda_qrnn._qrnn_pool_fwd_cuda      # below the dispatcher
+    y = torch.randn(1, 1000, 1536, device="cuda")
+    host = {"operator": [], "direct": []}
+    for _ in range(5):
+        host["operator"].append(_host_us(lambda: operator(y, None),
+                                         OP_CALLS))
+        host["direct"].append(_host_us(lambda: direct(y, None), OP_CALLS))
+    op_us, direct_us = (statistics.median(host[k])
+                        for k in ("operator", "direct"))
+    print(f"[operator] host us per qrnn_pool_fwd call at [1,1000,1536] "
+          f"({OP_CALLS} calls, median of 5, alternating): operator "
+          f"{op_us:.2f}, direct launch {direct_us:.2f}, difference "
+          f"{op_us - direct_us:+.2f}")
+    rng = np.random.RandomState(2)
+    boot = np.random.RandomState(0)
+    try:
+        for b, pairs in OP_PAIRS.items():
+            x = torch.from_numpy((rng.randn(b, 1, 160000) * 0.1).astype(
+                np.float32)).cuda()
+            ms = {"operator": [], "direct": []}
+            for i in range(pairs + 1):          # the first pair warms up
+                order = (("operator", "direct") if i % 2 == 0
+                         else ("direct", "operator"))
+                for name in order:
+                    cuda_qrnn.qrnn_pool_fwd = (operator if name == "operator"
+                                               else direct)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    enc(x)
+                    torch.cuda.synchronize()
+                    if i:
+                        ms[name].append((time.perf_counter() - t0) * 1e3)
+            d = np.array(ms["operator"]) - np.array(ms["direct"])
+            meds = np.median(boot.choice(d, (2000, len(d))), axis=1)
+            lo, hi = np.percentile(meds, [2.5, 97.5]) * 1e3
+            print(f"[operator] forward (1 QRNN call per layer) at "
+                  f"({b},1,160000), {pairs} alternating pairs: operator "
+                  f"{statistics.median(ms['operator']):.3f} ms, direct "
+                  f"{statistics.median(ms['direct']):.3f} ms (medians); "
+                  f"paired difference median {np.median(d) * 1e3:+.1f} us, "
+                  f"95 % interval [{lo:+.1f}, {hi:+.1f}] us")
+    finally:
+        cuda_qrnn.qrnn_pool_fwd = operator
+
+
+def write_wavs(root):
+    """The four request wavs of WAV_SECONDS (seeded) and list.txt under
+    root; returns {name: samples}."""
+    from pase_tpu_torch.data.io import write_wav
+    rng = np.random.RandomState(1)
+    lengths = {}
+    for i, sec in enumerate(WAV_SECONDS):
+        n = int(round(sec * SR))
+        write_wav(os.path.join(root, f"utt{i}.wav"),
+                  (rng.randn(n) * 0.1).astype(np.float32))
+        lengths[f"utt{i}"] = n
+    with open(os.path.join(root, "list.txt"), "w") as f:
+        f.write("".join(f"{k}.wav\n" for k in lengths))
+    return lengths
+
+
 def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000):
     """forward-chunk over four wavs; returns the number of encoder calls
     (one per window, plus one for the cross-check)."""
     from pase_tpu_torch import util_scripts
     from pase_tpu_torch.checkpoint import save_variables_npz
-    from pase_tpu_torch.data.io import read_wav, write_wav
+    from pase_tpu_torch.data.io import read_wav
     tmp = tempfile.mkdtemp(prefix="pase_chip_smoke_")
     try:
-        rng = np.random.RandomState(1)
-        lengths = {}
-        for i, sec in enumerate(WAV_SECONDS):
-            n = int(round(sec * SR))
-            write_wav(os.path.join(tmp, f"utt{i}.wav"),
-                      (rng.randn(n) * 0.1).astype(np.float32))
-            lengths[f"utt{i}"] = n
-        with open(os.path.join(tmp, "list.txt"), "w") as f:
-            f.write("".join(f"{k}.wav\n" for k in lengths))
+        lengths = write_wavs(tmp)
         npz = save_variables_npz(os.path.join(tmp, "FE_seed0.npz"),
                                  enc.module.state_dict())
         t0 = time.perf_counter()
@@ -1159,6 +1290,396 @@ def phase_disk(tmp, synthetic_rate):
     return rates
 
 
+def _stream_run(enc, wav, chunk):
+    """One stream of wav [B, T] (on the card) in pushes of chunk samples;
+    returns (frames, launch counts, pushes that reached the QRNN)."""
+    from pase_tpu_torch.streaming import StreamingEncoder
+    reset_launches()                        # a streaming path starts here
+    st = StreamingEncoder(enc)
+    outs = [st.push(wav[:, beg:beg + chunk])
+            for beg in range(0, wav.shape[1], chunk)] + [st.flush()]
+    _sync("cuda")
+    launches = read_launches()              # ... and ends here
+    return (np.concatenate([y.cpu().numpy() for y in outs if y is not None],
+                           axis=2), launches, st.qrnn_calls)
+
+
+def _stream_launches_ok(launches, layers, calls, what):
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd": layers * calls}
+    check(launches == expected,
+          f"{what}: launches {launches} != {expected}")
+    return expected
+
+
+def phase_stream():
+    """The streaming encoder on the card, forward-chunk --streaming, and
+    the seeded serial K1 at the push shapes."""
+    import torch
+    from pase_tpu_torch import util_scripts, wf_builder
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    from pase_tpu_torch.ops import cuda_qrnn
+    from pase_tpu_torch.ops import qrnn as plain
+    from pase_tpu_torch.streaming import StreamingEncoder
+    enc = wf_builder(PASEP_CFG, device="cuda", seed=0)
+    layers = len(enc.module.rnn.layers)
+    rng = np.random.RandomState(13)
+    n = STREAM_SECONDS * SR
+    total_launches = 0
+    for b in (1, 8):
+        wav = torch.from_numpy((rng.randn(b, n) * 0.1).astype(np.float32))
+        wav = wav.cuda()
+        got = {}
+        for label, chunk in STREAM_PUSHES:
+            y, launches, calls = _stream_run(enc, wav, chunk)
+            expected = _stream_launches_ok(launches, layers, calls,
+                                           f"stream B={b}, {label} pushes")
+            total_launches += expected["qrnn_pool_fwd"]
+            got[label] = y
+            print(f"[launches] stream B={b}, {label} pushes: {launches} "
+                  f"({calls} pushes reached the QRNN x {layers} layer(s))")
+        ref = enc(wav[:, None]).cpu().numpy()
+        (la, a), (lb, bb) = got.items()
+        same = a.shape == bb.shape and np.array_equal(a, bb)
+        rel = float(np.abs(a - ref).max() / np.abs(ref).max())
+        print(f"[stream] PASE+ B={b}, {STREAM_SECONDS} s: {la} and {lb} "
+              f"pushes bit for bit equal: {same}; streamed vs offline "
+              f"max|d|/max|y| {rel:.3e} (bound rtol {STREAM_RTOL}, atol "
+              f"{STREAM_ATOL})")
+        check(same, f"stream B={b}: {la} and {lb} pushes differ")
+        check(a.shape == ref.shape and np.allclose(
+            a, ref, rtol=STREAM_RTOL, atol=STREAM_ATOL),
+            f"stream B={b} vs offline beyond rtol {STREAM_RTOL} / atol "
+            f"{STREAM_ATOL}: {rel:.3e}")
+    print(f"[launches] the four streams: qrnn_pool_fwd {total_launches}")
+
+    # ms per 1 s push at B=1, steady state (the first push primes)
+    wav = torch.from_numpy((rng.randn(1, n) * 0.1).astype(np.float32))
+    wav = wav.cuda()
+    st = StreamingEncoder(enc)
+    times = []
+    for beg in range(0, n, SR):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        st.push(wav[:, beg:beg + SR])
+        _sync("cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+    push_ms = statistics.median(times[1:])
+    print(f"[stream] 1 s pushes at B=1: median {push_ms:.3f} ms per push "
+          f"(pushes 2-{len(times)}; the first, priming, {times[0]:.3f} ms),"
+          f" real-time factor {push_ms / 1e3:.5f}")
+
+    # forward-chunk --streaming over the four wavs
+    tmp = tempfile.mkdtemp(prefix="pase_chip_stream_")
+    try:
+        from pase_tpu_torch.data.io import read_wav
+        lengths = write_wavs(tmp)
+        npz = save_variables_npz(os.path.join(tmp, "FE_seed0.npz"),
+                                 enc.module.state_dict())
+        reset_launches()
+        t0 = time.perf_counter()
+        util_scripts.main([
+            "forward-chunk", "--streaming", "--device", "cuda", "--fe_cfg",
+            PASEP_CFG, "--fe_ckpt", npz, "--wav_list",
+            os.path.join(tmp, "list.txt"), "--files_root", tmp, "--out_dir",
+            os.path.join(tmp, "out"), "--chunk_size", str(SR)])
+        _sync("cuda")
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        worst = 0.0
+        calls = 0
+        for k, m in lengths.items():
+            out = np.load(os.path.join(tmp, "out", f"{k}.npy"))
+            w, _ = read_wav(os.path.join(tmp, f"{k}.wav"))
+            # the pushes of this file that reach the QRNN, counted by the
+            # same stream in this process
+            calls += _stream_run(enc, torch.from_numpy(w[None]).cuda(),
+                                 SR)[2]
+            ref = enc(w[None, None])[0].cpu().numpy()[:, :m // 160]
+            check(out.shape == ref.shape, f"{k}: {out.shape} != {ref.shape}")
+            check(np.allclose(out, ref, rtol=STREAM_RTOL, atol=STREAM_ATOL),
+                  f"forward-chunk --streaming {k} vs offline")
+            worst = max(worst, float(np.abs(out - ref).max()
+                                     / np.abs(ref).max()))
+        _stream_launches_ok(launches, layers, calls,
+                            "forward-chunk --streaming")
+        print(f"[stream] forward-chunk --streaming (1 s pieces): "
+              f"{len(lengths)} files in {dt:.3f} s, vs the offline encoder "
+              f"of each whole file max|d|/max|y| {worst:.3e}; launches "
+              f"{launches} ({calls} pushes reached the QRNN x {layers} "
+              f"layer(s))")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the seeded serial K1 at the stream's shapes
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    sm_hz = float(smi.stdout.split()[0]) * 1e6
+    for b in (1, 8):
+        t, h = SR // 160, 512
+        y = torch.randn(b, t, 3 * h, device="cuda")
+        c0 = torch.randn(b, h, device="cuda")
+        hk, ck = cuda_qrnn.qrnn_pool_fwd(y, c0)
+        hp, cp = plain.qrnn_pool(y, c0)
+        err = max((hk - hp).abs().max().item(), (ck - cp).abs().max().item())
+        ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd(y, c0))
+        plain_ms = _wall_ms(lambda: plain.qrnn_pool(y, c0), "cuda")
+        # y and c0 read once, h and c_T written once
+        bound_ms, bound_by = bound(16 * b * t * h + 8 * b * h,
+                                   FWD_OPS * b * t * h)
+        # one lane's steps are a chain of dependent FMAs: the kernel at one
+        # step, plus t - 1 more FMA latencies
+        y1 = y[:, :1].contiguous()
+        one_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd(y1, c0))
+        floor_ms = one_ms + (t - 1) * FMA_LATENCY_CYCLES / sm_hz * 1e3
+        print(f"[stream] seeded serial K1 qrnn_pool_fwd y[{b},{t},{3 * h}]:"
+              f" {ms:.4f} ms (CUDA graphs of 20, median of 5), bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of it; "
+              f"latency floor {floor_ms:.5f} ms (T=1 {one_ms:.4f} ms + "
+              f"{t - 1} FMAs of {FMA_LATENCY_CYCLES} cycles at "
+              f"{sm_hz / 1e6:.0f} MHz), {floor_ms / ms:.1%} of it; per step "
+              f"beyond T=1 {(ms - one_ms) / (t - 1) * 1e3:.3f} us; plain "
+              f"{plain_ms:.2f} ms; max|d| vs plain {err:.3e}")
+        check(err <= KERNEL_ATOL, f"seeded K1 at {(b, t, h)}: {err:.3e}")
+    del enc
+    torch.cuda.empty_cache()
+
+
+def _cli_seconds(argv):
+    from pase_tpu_torch import util_scripts
+    t0 = time.perf_counter()
+    util_scripts.main(argv)
+    _sync("cuda")
+    return time.perf_counter() - t0
+
+
+def phase_export():
+    """export / serve-encode on the card; returns the launch counts of the
+    exported programs' calls."""
+    import torch
+    from pase_tpu_torch import serving, wf_builder
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    from pase_tpu_torch.streaming import stream_frames
+    enc = wf_builder(PASEP_CFG, device="cuda", seed=0)
+    layers = len(enc.module.rnn.layers)
+    tmp = tempfile.mkdtemp(prefix="pase_chip_export_")
+    try:
+        lengths = write_wavs(tmp)
+        npz = save_variables_npz(os.path.join(tmp, "FE_seed0.npz"),
+                                 enc.module.state_dict())
+        art = os.path.join(tmp, "artifact")
+        common = ["--fe_cfg", PASEP_CFG, "--fe_ckpt", npz]
+        export_s = _cli_seconds(
+            ["export", "--device", "cuda", "--out_dir", art, "--chunk_sizes",
+             EXPORT_BUCKETS, "--streaming_chunk", str(EXPORT_CHUNK)]
+            + common)
+        with open(os.path.join(art, "meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(art, "meta_streaming.json")) as f:
+            smeta = json.load(f)
+        check(meta["device"] == "cuda" and smeta["device"] == "cuda",
+              f"artifact devices {meta['device']}, {smeta['device']}")
+        print(f"[export] python -m pase_tpu_torch.util_scripts export: "
+              f"{export_s:.2f} s in all; per bucket "
+              + ", ".join(f"T={k} {v:.2f} s"
+                          for k, v in meta["export_seconds"].items())
+              + "; streaming (chunk " + str(EXPORT_CHUNK) + ") "
+              + ", ".join(f"{k} {v:.2f} s"
+                          for k, v in smeta["export_seconds"].items())
+              + f"; halo {meta['halo']} samples; meta device "
+              f"{meta['device']}")
+        lst = ["--wav_list", os.path.join(tmp, "list.txt"), "--files_root",
+               tmp]
+        fc_s = _cli_seconds(["forward-chunk", "--device", "cuda",
+                             "--chunk_size", "64000", "--out_dir",
+                             os.path.join(tmp, "fc")] + common + lst)
+        reset_launches()                # the serving programs start here
+        single_s = _cli_seconds(["serve-encode", "--export_dir", art,
+                                 "--out_dir", os.path.join(tmp, "single")]
+                                + lst)
+        single = read_launches()        # ... and end here
+        calls = sum(-(-m // 64000) for m in lengths.values())
+        expected = {**{k: 0 for k in single},
+                    "qrnn_pool_fwd_chunked": layers * calls}
+        print(f"[launches] serve-encode (exported programs): {single} "
+              f"(expected {expected}: {calls} program calls x {layers} "
+              "layer(s))")
+        check(single == expected, f"serve-encode launches {single}")
+        batch_s = _cli_seconds(["serve-encode", "--export_dir", art,
+                                "--batch_size", "4", "--out_dir",
+                                os.path.join(tmp, "batch")] + lst)
+        worst = 0.0
+        for k, m in lengths.items():
+            want = np.load(os.path.join(tmp, "fc", f"{k}.npy"))
+            for mode in ("single", "batch"):
+                got = np.load(os.path.join(tmp, mode, f"{k}.npy"))
+                check(got.shape == want.shape == (enc.emb_dim, m // 160),
+                      f"serve-encode {mode} {k}: {got.shape}")
+                worst = max(worst, float(np.abs(got - want).max()))
+                check(np.allclose(got, want, atol=SERVE_TOL,
+                                  rtol=SERVE_TOL),
+                      f"serve-encode {mode} {k} vs forward-chunk")
+        nreq = len(lengths)
+        print(f"[export] serve-encode {nreq} requests: single {single_s:.3f}"
+              f" s ({nreq / single_s:.2f} requests/s), --batch_size 4 "
+              f"{batch_s:.3f} s ({nreq / batch_s:.2f} requests/s); "
+              f"forward-chunk --chunk_size 64000 {fc_s:.3f} s "
+              f"({nreq / fc_s:.2f} requests/s), each call including its "
+              f"set-up; max|serve - forward-chunk| {worst:.3e} (bound "
+              f"{SERVE_TOL})")
+
+        # the same requests in one process, the set-up apart: the loader
+        # (params.npz and four programs) once, then the encodes, against
+        # forward-chunk's windows through the in-memory encoder
+        from pase_tpu_torch.data.io import read_wav
+        wavs = [read_wav(os.path.join(tmp, f"{k}.wav"))[0] for k in lengths]
+        t0 = time.perf_counter()
+        srv = serving.ServingEncoder(art)
+        load_s = time.perf_counter() - t0
+
+        def windows(w, big=64000):
+            return [enc(np.pad(w[i:i + big], (0, max(0, i + big - len(w))))
+                        [None, None])[0].cpu().numpy()
+                    for i in range(0, len(w), big)]
+
+        rates = {}
+        for name, fn in (("serve", srv.encode), ("forward-chunk", windows),
+                         ("serve again", srv.encode),
+                         ("forward-chunk again", windows)):
+            fn(wavs[0])
+            _sync("cuda")
+            t0 = time.perf_counter()
+            for w in wavs:
+                fn(w)
+            _sync("cuda")
+            rates[name] = nreq / (time.perf_counter() - t0)
+        print(f"[export] in one process: ServingEncoder load {load_s:.3f} "
+              f"s; then requests/s "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+
+        # the serial route through the same exported bucket
+        rng = np.random.RandomState(17)
+        wide = (rng.randn(EXPORT_WIDE_BATCH, 64000) * 0.1).astype(
+            np.float32)
+        reset_launches()
+        got = srv._call(64000, wide)
+        _sync("cuda")
+        wide_launches = read_launches()
+        ref = enc(wide[:, None]).transpose(1, 2).cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        expected = {**{k: 0 for k in wide_launches},
+                    "qrnn_pool_fwd": layers}
+        print(f"[launches] exported T=64000 program at B="
+              f"{EXPORT_WIDE_BATCH} ({EXPORT_WIDE_BATCH * 512} lanes): "
+              f"{wide_launches}; vs the offline encoder max|d| {err:.3e}")
+        check(wide_launches == expected,
+              f"B={EXPORT_WIDE_BATCH} launches {wide_launches}")
+        check(err <= SERVE_TOL, f"B={EXPORT_WIDE_BATCH}: {err:.3e}")
+
+        # the streaming artifact against the in-process stream
+        ssrv = serving.ServingStreamingEncoder(art)
+        for b in (1, 4):
+            w = (rng.randn(b, 4 * EXPORT_CHUNK) * 0.1).astype(np.float32)
+            ssrv.reset()
+            ys = [ssrv.push(w[:, i:i + EXPORT_CHUNK])
+                  for i in range(0, w.shape[1], EXPORT_CHUNK)]
+            got = np.concatenate(ys + [ssrv.flush()], axis=2)
+            want = stream_frames(enc, torch.from_numpy(w).cuda(),
+                                 EXPORT_CHUNK).cpu().numpy()
+            same = got.shape == want.shape and np.array_equal(got, want)
+            print(f"[export] streaming artifact (prime/step/flush, chunk "
+                  f"{EXPORT_CHUNK}) B={b}: {got.shape[2]} frames, bit for "
+                  f"bit equal to the in-process stream: {same}")
+            check(same, f"streaming artifact B={b} != in-process stream")
+
+        # an artifact exported on the CPU, served on the card
+        small = {"kwidths": [65, 10, 4, 4], "strides": [1, 10, 4, 4],
+                 "fmaps": [16, 16, 24, 24], "emb_dim": 24, "norm_out": True,
+                 "rnn_pool": True, "rnn_dim": 24, "denseskips": True}
+        cpu_art = os.path.join(tmp, "cpu_artifact")
+        serving.export_encoder(wf_builder(small, device="cpu", seed=3),
+                               cpu_art, chunk_sizes=(1600,))
+        w = (rng.randn(3200) * 0.1).astype(np.float32)
+        reset_launches()
+        on_card = serving.ServingEncoder(cpu_art, device="cuda").encode(w)
+        moved = read_launches()
+        on_cpu = serving.ServingEncoder(cpu_art).encode(w)
+        err = float(np.abs(on_card - on_cpu).max())
+        print(f"[export] an artifact exported on the CPU (meta device "
+              f"cpu), served on the card: launches {moved}; vs its CPU "
+              f"frames max|d| {err:.3e}")
+        check(moved["qrnn_pool_fwd_chunked"] == 2, f"moved: {moved}")
+        check(err <= SERVE_TOL, f"moved artifact: {err:.3e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del enc
+    torch.cuda.empty_cache()
+    return single
+
+
+def phase_overlap():
+    """workers+ plus an overlap head: one full-width step on the card and
+    on the CPU with the same weights, batch and distortion draws."""
+    import torch
+    from pase_tpu_torch import bench
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.data.distortions import draw_distortions
+    from pase_tpu_torch.model import parse_workers_cfg
+    from pase_tpu_torch.trainer import Trainer
+    b, t = 2, 16000
+    workers = parse_workers_cfg(WORKERSP_CFG)
+    workers["cls"].append({
+        "name": "overlap", "type": "mlp", "num_outputs": 1, "dropout": 0,
+        "hidden_size": 256, "hidden_layers": 1,
+        "loss": "BCEWithLogitsLoss", "skip": False, "loss_weight": 1.0})
+    dcfg, assets = bench.bench_assets(t)
+    dcfg = dcfg._replace(overlap_p=1.0)
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
+               batch_size=b, chunk_size=t, fe_lr=1e-4, min_lr=4e-4,
+               lr_mode="step", save_path=tempfile.mkdtemp(
+                   prefix="pase_chip_overlap_"))
+    try:
+        gpu = Trainer(PASEP_CFG, workers, cfg, dist_cfg=dcfg,
+                      dist_assets=assets, device="cuda")
+        cpu = Trainer(PASEP_CFG, workers, cfg, dist_cfg=dcfg,
+                      dist_assets=assets, device="cpu")
+        cpu.model.load_state_dict(gpu.model.state_dict())
+        raw = next(iter(SyntheticChunkBatcher(b, t, seed=4)))
+        draws = draw_distortions(torch.Generator().manual_seed(6), b, t,
+                                 dcfg, assets)
+        label = cpu.prepare({k: torch.from_numpy(v) for k, v in raw.items()},
+                            torch.Generator(), draws)["overlap"]
+        reset_launches()                 # the overlap step starts here
+        lg = gpu.train_step(raw, draws=draws)
+        _sync("cuda")
+        launches = read_launches()       # ... and ends here
+        lc = cpu.train_step(raw, draws=draws)
+        layers = len(gpu.model.frontend.rnn.layers)
+        expected = {**{k: 0 for k in launches},
+                    "qrnn_pool_fwd_train": layers, "qrnn_pool_bwd": layers}
+        err = {k: abs(float(lg[k]) - float(lc[k])) / abs(float(lc[k]))
+               for k in gpu.ordered_names}
+        print(f"[overlap] workers+ plus overlap (BCE, overlap_p 1.0, "
+              f"{float(label.mean()):.3f} of the frames labelled "
+              f"overlapped), batch {b} x {t}: overlap loss card "
+              f"{float(lg['overlap']):.6f}, cpu {float(lc['overlap']):.6f};"
+              f" per-worker |loss_gpu - loss_cpu| / |loss_cpu|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+              + f" (bound {TRAIN_LOSS_REL})")
+        print(f"[launches] overlap step: {launches} (expected {expected})")
+        check(float(label.sum()) > 0, "the overlap label is all zeros")
+        check(all(v <= TRAIN_LOSS_REL for v in err.values()),
+              f"overlap step card vs cpu beyond {TRAIN_LOSS_REL}: {err}")
+        check(launches == expected, f"overlap step launches {launches}")
+    finally:
+        shutil.rmtree(cfg["save_path"], ignore_errors=True)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -1193,6 +1714,7 @@ def main():
               f"{enc_calls + serve_calls} encoder calls)")
         check(serving_launches == expected,
               f"serving launches {serving_launches} != {expected}")
+        phase_operator(enc)
         del enc
         phase_train_parity(os.path.join(tmp, "parity"))
         tr, train_launches, _ = phase_train_cli(os.path.join(tmp, "cli"))
@@ -1212,6 +1734,9 @@ def main():
         phase_resume()
         phase_disk(os.path.join(tmp, "disk"),
                    dist_perf["bfloat16"]["steps_per_sec"])
+        phase_stream()
+        phase_export()
+        phase_overlap()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -1219,7 +1744,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
     # the chunked kernel at the serving shape; the serial one at the eval
-    # shape of the training path, where it runs
+    # shape of the training path, where it runs (phase 13 prints it at the
+    # streaming shapes)
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
     evals = next(r for r in rows if tuple(r["shape"]) == TRAIN_SHAPE)
     train = next(r for r in train_rows

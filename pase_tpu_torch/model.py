@@ -1,10 +1,12 @@
 """PASE multi-task model: the encoder and the worker bank, in PyTorch.
 
 The port of ``pase_tpu/model.py`` for the MLP and decoder heads of the
-workers+ bank. The encoder runs ONCE on the concatenated {chunk, ctxt,
-rand} batch, so its BatchNorm statistics span the three streams together
-as in the JAX package; every worker reads the shared hidden, and the
-LIM / GIM pairs and labels are made in the forward.
+workers+ bank and the overlap head (an MLP on the chunk stream, BCE on the
+overlap distortion's frame label). The encoder runs ONCE on the
+concatenated {chunk, ctxt, rand} batch, so its BatchNorm statistics span
+the three streams together as in the JAX package; every worker reads the
+shared hidden, and the LIM / GIM pairs and labels are made in the
+forward.
 
 Worker configs are the reference JSON worker cfgs (cfg/workers/*.cfg).
 Layout: the encoder returns [B, T, emb] (NTC); the heads run in the
@@ -23,7 +25,6 @@ from pase_tpu_torch.minions import (DecoderMinion, MLPMinion,
                                     make_mi_labels, make_mi_samples)
 
 ROADMAP_HEADS = "ROADMAP.md, queue 1: off-path model variants"
-ROADMAP_OVERLAP = "ROADMAP.md, queue 1: the overlap worker head"
 
 _MINION_FIELDS = {
     "mlp": ("num_outputs", "hidden_size", "hidden_layers", "context",
@@ -58,11 +59,10 @@ def parse_workers_cfg(cfg):
 
 def _build_minion(cfg, in_channels, generator=None):
     mtype = cfg.get("type", "mlp")
-    if cfg["name"] in ("spc", "gap", "overlap") or mtype not in _MINION_CLS:
-        item = ROADMAP_OVERLAP if cfg["name"] == "overlap" else ROADMAP_HEADS
+    if cfg["name"] in ("spc", "gap") or mtype not in _MINION_CLS:
         raise NotImplementedError(
             f"worker {cfg['name']!r} (type {mtype!r}) is not ported yet: "
-            f"{item}")
+            f"{ROADMAP_HEADS}")
     kwargs = {k: cfg[k] for k in _MINION_FIELDS[mtype] if k in cfg}
     for seq_key in ("fmaps", "strides", "kwidths"):
         if seq_key in kwargs:
@@ -112,7 +112,10 @@ class PASE(nn.Module):
         self.regr_meta = list(workers_meta.get("regr", []))
         self.workers = nn.ModuleDict()
         for e in self.cls_meta:
-            self.workers[e["name"]] = _build_minion(e, 2 * emb, generator)
+            # LIM / GIM heads read a pos/neg pair concatenated on channels;
+            # the overlap head reads the chunk stream alone
+            cin = emb if e["name"] == "overlap" else 2 * emb
+            self.workers[e["name"]] = _build_minion(e, cin, generator)
         for e in self.regr_meta:
             self.workers[e["name"]] = _build_minion(e, emb, generator)
 
@@ -136,6 +139,12 @@ class PASE(nn.Module):
         preds, labels = {}, {}
         for i, e in enumerate(self.cls_meta):
             name = e["name"]
+            if name == "overlap":
+                # the frame label of the overlap distortion, [B, F, 1]
+                preds[name] = self.workers[name](chunk, a_of(i)).transpose(
+                    1, 2)
+                labels[name] = batch["overlap"][..., None]
+                continue
             pos, neg = make_mi_samples(chunk, h["chunk_ctxt"],
                                        h["chunk_rand"],
                                        bool(e.get("augment", False)))

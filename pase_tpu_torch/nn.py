@@ -177,10 +177,15 @@ class SincConv(nn.Module):
                                   self.window_, self.sample_rate,
                                   self.min_low_hz, self.min_band_hz)
 
-    def forward(self, x):
+    def forward(self, x, do_pad=True):
+        """SAME conv of the reflect-padded x; ``do_pad=False`` runs it VALID
+        on frames whose context the caller supplies (the streaming
+        encoder)."""
         if x.shape[1] != 1:
             raise ValueError("SincConv only supports one input channel")
-        x = pad_1d(x, sinc_same_pad(self.kwidth, self.stride), self.pad_mode)
+        if do_pad:
+            x = pad_1d(x, sinc_same_pad(self.kwidth, self.stride),
+                       self.pad_mode)
         return conv1d(x, self.filters()[:, None, :], stride=self.stride)
 
 
@@ -211,8 +216,15 @@ class FeBlock(nn.Module):
         self.norm = BatchNorm1d(fmaps) if norm_type == "bnorm" else None
         self.act = PReLU(fmaps, init=0.0)
 
-    def forward(self, x):
-        h = self.conv(pad_1d(x, self.pad, self.pad_mode))
+    def forward(self, x, do_pad=True):
+        """``do_pad=False`` skips the SAME pad (the conv runs VALID), the
+        JAX package's ``do_pad=False`` form: the streaming encoder supplies
+        each block's left and right frames itself."""
+        if isinstance(self.conv, SincConv):
+            h = self.conv(x, do_pad=do_pad)
+        else:
+            h = self.conv(pad_1d(x, self.pad, self.pad_mode) if do_pad
+                          else x)
         if self.norm is not None:
             h = self.norm(h)
         return self.act(h)
@@ -241,21 +253,56 @@ class QRNN(nn.Module):
             [_QRNNLayer(input_size if i == 0 else hidden, hidden, generator)
              for i in range(layers)])
 
-    def forward(self, x):
+    @staticmethod
+    def _linear(layer, src):
         cd = get_compute_dtype()
+        lin = layer.linear
+        if cd is None:
+            return lin(src)
+        return (F.linear(src.to(cd), lin.weight.to(cd))
+                + lin.bias.to(cd)).float()
+
+    def forward(self, x):
         h = x
         for i, layer in enumerate(self.layers):
             src = torch.cat([h, shift_right(h, dim=1)], dim=-1)
-            lin = layer.linear
-            if cd is None:
-                y = lin(src)
-            else:
-                y = (F.linear(src.to(cd), lin.weight.to(cd))
-                     + lin.bias.to(cd)).float()
+            y = self._linear(layer, src)
             h, _ = cuda_qrnn.qrnn_pool(y.contiguous())
             if self.dropout > 0 and i < len(self.layers) - 1:
                 h = F.dropout(h, self.dropout, training=self.training)
         return h
+
+    def layer_step(self, i, x, prev, c0, frames):
+        """Layer i on a block of frames of a stream (eval): x [B, T, C], the
+        frame before the block prev [B, 1, C] (zeros at the stream's start)
+        and the carry c0 [B, H] -> (h [B, T, H], x's last frame, c_T). The
+        same linear as ``forward``, in calls of ``frames`` frames
+        (``time_blocks``), then ``cuda_qrnn.qrnn_pool(y, c0)``:
+        seeded, so a block-streamed run equals one full run of the pooling
+        bit for bit (pase_tpu/streaming.py ``_qrnn_layer``)."""
+        src = torch.cat([x, torch.cat([prev, x[:, :-1]], dim=1)], dim=-1)
+        layer = self.layers[i]
+        y = time_blocks(lambda s: self._linear(layer, s), src, frames, dim=1)
+        h, c_last = cuda_qrnn.qrnn_pool(y.contiguous(), c0)
+        return h, x[:, -1:], c_last
+
+
+def time_blocks(fn, x, frames, dim):
+    """fn(x) for a framewise fn (each output frame reads its input frame
+    alone: a linear, a 1x1 conv), taken in calls of exactly ``frames``
+    frames along ``dim``, the last call's input zero-padded, and trimmed
+    back. A GEMM library picks its kernel by the call's shape, and so its
+    order of summation: with one shape for every call, a frame's value
+    does not depend on how many frames came with it."""
+    t = x.shape[dim]
+    pad = (-t) % frames
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    return torch.cat([fn(x.narrow(dim, i, frames))
+                      for i in range(0, t + pad, frames)],
+                     dim=dim).narrow(dim, 0, t)
 
 
 class MLPBlock(nn.Module):

@@ -26,6 +26,17 @@ when a gradient is needed, and through ``qrnn_pool_fwd`` otherwise, which
 routes by c0 and lane count. A tensor on the CPU takes the plain PyTorch versions
 (``ops/qrnn.py``). For a CUDA tensor every wrapper launches its kernel or
 raises: a missing ``nvcc``, a failed build and a refused launch all raise.
+
+The serving forward is also a registered operator,
+``torch.ops.pase_tpu_torch.qrnn_pool_fwd(Tensor y, Tensor? c0) -> (Tensor,
+Tensor)`` (``torch.library.Library``: a CPU implementation, the plain
+version; a CUDA one, the kernels; a fake one for the shapes), so that
+``torch.export`` traces the encoder with a symbolic batch and an exported
+program calls the kernels. The route between the chunked and the serial
+kernel is taken inside the CUDA implementation, from the shapes of the
+call, so one exported program takes each route at the batch sizes that
+call for it. Importing this module registers the operator; a process that
+loads an exported program needs nothing else of the package.
 """
 
 import torch
@@ -146,16 +157,43 @@ def _forward(name, y, c0):
     return h, c_last
 
 
+# the operator's namespace; its registrations last as long as this object
+_OPS = torch.library.Library("pase_tpu_torch", "DEF")
+_OPS.define("qrnn_pool_fwd(Tensor y, Tensor? c0) -> (Tensor, Tensor)")
+
+
+def _qrnn_pool_fwd_cpu(y, c0):
+    """The plain version, for CPU tensors (c_T copied: an operator's
+    outputs own their memory)."""
+    h, c_last = _plain.qrnn_pool(y, c0)
+    return h, c_last.clone()
+
+
+def _qrnn_pool_fwd_cuda(y, c0):
+    """The kernels, routed by this call's shapes: unseeded on fewer than
+    CHUNKED_LANES lanes to the chunked kernel, else to the serial one."""
+    if c0 is None and y.shape[0] * (y.shape[-1] // 3) < CHUNKED_LANES:
+        return _forward("qrnn_pool_fwd_chunked", y, None)
+    return _forward("qrnn_pool_fwd", y, c0)
+
+
+@torch.library.register_fake("pase_tpu_torch::qrnn_pool_fwd", lib=_OPS)
+def _qrnn_pool_fwd_fake(y, c0):
+    bsz, t, h3 = y.shape
+    return y.new_empty((bsz, t, h3 // 3)), y.new_empty((bsz, h3 // 3))
+
+
+_OPS.impl("qrnn_pool_fwd", _qrnn_pool_fwd_cpu, "CPU")
+_OPS.impl("qrnn_pool_fwd", _qrnn_pool_fwd_cuda, "CUDA")
+
+
 def qrnn_pool_fwd(y, c0=None):
     """Serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h [B, T, H],
-    c_T [B, H]). No gradient. Unseeded calls on fewer than CHUNKED_LANES
-    lanes launch ``qrnn_pool_fwd_chunked``, the others the serial
-    ``qrnn_pool_fwd``."""
-    if _cuda_or_plain(y):
-        return _plain.qrnn_pool(y, c0)
-    if c0 is None and y.shape[0] * (y.shape[-1] // 3) < CHUNKED_LANES:
-        return qrnn_pool_fwd_chunked(y)
-    return _forward("qrnn_pool_fwd", y, c0)
+    c_T [B, H]). No gradient. Through the registered operator
+    ``torch.ops.pase_tpu_torch.qrnn_pool_fwd``: unseeded calls on fewer
+    than CHUNKED_LANES lanes launch ``qrnn_pool_fwd_chunked``, the others
+    the serial ``qrnn_pool_fwd``; on the CPU the plain version."""
+    return torch.ops.pase_tpu_torch.qrnn_pool_fwd(y, c0)
 
 
 def qrnn_pool_fwd_chunked(y, c0=None):

@@ -20,6 +20,13 @@ import torch
 _COMPUTE_DTYPE = None
 
 
+def full_precision():
+    """Feature extraction at full float32 precision (no TF32 matmuls or
+    convolutions), as the JAX package serves at 'highest'."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def set_compute_dtype(dtype):
     global _COMPUTE_DTYPE
     _COMPUTE_DTYPE = dtype

@@ -467,3 +467,70 @@ def test_device_corpus_rows_on_the_card(cuda_device, tmp_path):
             wav = crop_at(wav, 0, 16000) if len(wav) < 16000 else wav
             np.testing.assert_array_equal(batch[key][r].cpu().numpy(),
                                           wav[off:off + 16000])
+
+
+def test_registered_op_launches_and_routes(cuda_device):
+    """torch.ops.pase_tpu_torch.qrnn_pool_fwd on CUDA tensors launches the
+    kernels, the route taken inside the operator from the call's shapes:
+    unseeded on 1 x 512 lanes the chunked kernel, on 64 x 512 the serial
+    one; seeded, the serial one. Within 1e-5 of the plain version."""
+    op = torch.ops.pase_tpu_torch.qrnn_pool_fwd
+    for b, seeded, name in ((1, False, "qrnn_pool_fwd_chunked"),
+                            (64, False, "qrnn_pool_fwd"),
+                            (1, True, "qrnn_pool_fwd")):
+        y, c0 = _inputs(b, 50, 512, cuda_device, seed=b)
+        c0 = c0 if seeded else None
+        before = dict(cuda_qrnn.LAUNCHES)
+        h, c = op(y, c0)
+        assert cuda_qrnn.LAUNCHES == {**before, name: before[name] + 1}
+        hp, cp = plain.qrnn_pool(y, c0)
+        assert (h - hp).abs().max().item() <= 1e-5
+        assert (c - cp).abs().max().item() <= 1e-5
+    with pytest.raises(TypeError):
+        op(torch.randn(2, 5, 6, device=cuda_device).double(), None)
+
+
+def test_streaming_is_bit_identical_across_chunkings(cuda_device):
+    """The narrow encoder streamed on the card in three chunkings: the
+    frames are equal bit for bit, within the streaming contract of the
+    offline forward, and every pooling call took the seeded serial
+    kernel."""
+    from pase_tpu_torch.streaming import StreamingEncoder
+    enc = wf_builder(dict(NARROW_CFG, strides=[1, 10, 4, 4]),
+                     device=cuda_device)
+    wav = torch.from_numpy((np.random.RandomState(3).randn(2, 16000)
+                            * 0.1).astype(np.float32)).to(cuda_device)
+    outs = []
+    for chunk in (16000, 4000, 1600):
+        cuda_qrnn.reset_launches()
+        st = StreamingEncoder(enc)
+        ys = [st.push(wav[:, i:i + chunk])
+              for i in range(0, 16000, chunk)] + [st.flush()]
+        outs.append(torch.cat([y for y in ys if y is not None], 2))
+        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == 0
+        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd"] == st.qrnn_calls
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    ref = enc(wav)
+    assert torch.allclose(outs[0], ref, rtol=1e-3, atol=2e-4)
+
+
+def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
+    """A bucket exported on the card serves there (meta device 'cuda'),
+    within 2e-5 of the offline encoder, through the chunked kernel at a
+    small batch and the serial one above CHUNKED_LANES lanes."""
+    from pase_tpu_torch import serving
+    enc = wf_builder(dict(NARROW_CFG, strides=[1, 10, 4, 4]),
+                     device=cuda_device)
+    serving.export_encoder(enc, str(tmp_path), chunk_sizes=(1600,))
+    srv = serving.ServingEncoder(str(tmp_path))
+    assert srv.meta["device"] == "cuda"
+    lanes = NARROW_CFG["rnn_dim"]
+    for b, name in ((2, "qrnn_pool_fwd_chunked"),
+                    (cuda_qrnn.CHUNKED_LANES // lanes, "qrnn_pool_fwd")):
+        wav = (np.random.RandomState(b).randn(b, 1600) * 0.1).astype(
+            np.float32)
+        before = dict(cuda_qrnn.LAUNCHES)
+        got = srv._call(1600, wav)
+        assert cuda_qrnn.LAUNCHES == {**before, name: before[name] + 1}
+        ref = enc(wav).transpose(1, 2).cpu().numpy()
+        assert np.abs(got - ref).max() <= 2e-5

@@ -465,9 +465,19 @@ def test_train_cli_with_dtrans_cfg(tmp_path, monkeypatch):
 
 
 def test_overlap_head_still_refuses():
-    """The prepare emits the overlap label; the head that reads it is not
-    ported and names its ROADMAP item."""
+    """The prepare emits the overlap label, and the head that reads it is
+    ported now (an MLP on the chunk stream, held to the JAX step by
+    tests/test_torch_overlap.py): the bank builds with it. The contrastive
+    heads beside it, SPC and Gap, still refuse, naming their ROADMAP
+    item."""
     from pase_tpu_torch.model import build_pase
     from torch_port_common import NARROW_CFG
-    with pytest.raises(NotImplementedError, match="overlap worker head"):
-        build_pase(NARROW_CFG, _overlap_workers())
+    wk = {"regr": [], "cls": [dict(_overlap_workers()["cls"][0],
+                                   num_outputs=1)]}
+    model, _ = build_pase(NARROW_CFG, wk)
+    assert "overlap" in model.workers
+    for name in ("spc", "gap"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, queue 1: off-path"):
+            build_pase(NARROW_CFG,
+                       dict(wk, cls=[dict(wk["cls"][0], name=name)]))

@@ -85,7 +85,30 @@ def test_single_file_equals_list_entry(corpus, tmp_path):
                                   np.load(tmp_path / "list/spk2/a.npy"))
 
 
-@pytest.mark.parametrize("flag", ["--streaming", "--time_shard"])
+def test_forward_chunk_streaming_matches_jax(corpus):
+    """--streaming: each wav through the online encoder in pieces of
+    --chunk_size, against the JAX CLI's --streaming on the same list."""
+    import util_scripts
+    util_scripts.forward_chunk(argparse.Namespace(
+        fe_cfg=str(corpus / "fe.cfg"), fe_ckpt=str(corpus / "FE_e0.npz"),
+        in_wav=None, out_file=None, wav_list=str(corpus / "list.txt"),
+        files_root=str(corpus), out_dir=str(corpus / "out_jax_stream"),
+        chunk_size=CHUNK, streaming=True))
+    port_cli.main(["forward-chunk", "--device", "cpu", "--streaming",
+                   "--fe_cfg", str(corpus / "fe.cfg"),
+                   "--fe_ckpt", str(corpus / "FE_e0.npz"),
+                   "--wav_list", str(corpus / "list.txt"),
+                   "--files_root", str(corpus),
+                   "--out_dir", str(corpus / "out_port_stream"),
+                   "--chunk_size", str(CHUNK)])
+    for name, n in LENGTHS.items():
+        want = np.load(corpus / "out_jax_stream" / f"{name}.npy")
+        got = np.load(corpus / "out_port_stream" / f"{name}.npy")
+        assert got.shape == want.shape == (8, n // 160)
+        assert rel_err(got, want) <= 1e-4, (name, rel_err(got, want))
+
+
+@pytest.mark.parametrize("flag", ["--time_shard"])
 def test_later_slices_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(["forward-chunk", "--device", "cpu", flag,
@@ -152,14 +175,19 @@ def test_port_sources_import_no_jax(path):
 
 
 def test_entry_points_default_to_the_card():
-    """forward-chunk, wf_builder and the trainer CLI run on the card unless
-    the caller asks for the CPU; without one they refuse, never fall back."""
+    """forward-chunk, export, wf_builder and the trainer CLI run on the
+    card unless the caller asks for the CPU; without one they refuse, never
+    fall back. serve-encode serves the device its artifact was exported
+    on."""
     import inspect
     from pase_tpu_torch import frontend
     from pase_tpu_torch import train as port_train
     opts = port_cli.build_parser().parse_args(
         ["forward-chunk", "--fe_cfg", "x.cfg", "--in_wav", "a.wav",
          "--out_file", "a.npy"])
+    assert opts.device == "cuda"
+    opts = port_cli.build_parser().parse_args(
+        ["export", "--fe_cfg", "x.cfg", "--out_dir", "art"])
     assert opts.device == "cuda"
     assert inspect.signature(frontend.wf_builder).parameters[
         "device"].default == "cuda"
