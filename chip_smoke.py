@@ -128,6 +128,38 @@ Phases, each printed as it ends; any failure exits non-zero:
                CPU, the same weights, batch and draws: per-worker losses
                within 1e-4 relative; the training kernels once per QRNN
                layer on the card.
+ 16. variants-train — (a) cfg/frontend/PASE+_resblocks_VQ8192.cfg (the
+               residual trunk, an 8192-code VQ-EMA quantizer) with
+               workers+, one 2 x 16000 step on the card and the CPU, the
+               same weights and batch: losses ('vq' included) within 1e-4
+               relative, gradients within 1e-3 of each group's largest,
+               with the CPU's PReLU signs and near-tie VQ codes (top-2
+               margin within 1e-5 of |x|^2 + |e|^2) taken from the card
+               (grad_parity.prelu_signs, vq_codes), the codes equal
+               outside ties, the forced codes counted; (b) its training
+               CLI at 32 x 32000, bf16, the bench stack, one epoch:
+               steps/s beside phase 8's bf16 rate, every loss finite,
+               vq_perplexity, a torch.profiler split with the quantizer's
+               own span; (c) cfg/frontend/PASE.cfg with
+               cfg/workers/workers.cfg (the PASE v0.1 bank: SPC, LIM, GIM,
+               cchunk, lps, mfcc, prosody), one 2 x 16000 step with an
+               injected spc_idx card vs CPU, then its CLI for one epoch at
+               32 x 32000 (float32): steps/s, every loss finite; (d)
+               workers+ plus a Gap head, one step with an injected gap_idx
+               card vs CPU.
+ 17. variants-serve — the VQ encoder, seeded weights: (8,1,160000) on the
+               card against the CPU within 2e-4 of max|y| with the CPU's
+               near-tie codes taken from the card, the forward's ms and a
+               profile of it (the quantizer beside the trunk);
+               forward-chunk over phase 5's four wavs; streams at B=1 and
+               B=8 in 1 s and 100 ms pushes, the two chunkings bit for bit
+               equal, each within rtol 1e-3 / atol 2e-4 of the offline
+               encoder where the codes agree (codes may differ only at the
+               offline encoder's ties; counted); ms per 1 s push at B=1;
+               export (buckets 8000-64000, a 16000 streaming chunk) and
+               serve-encode over the four wavs within 2e-5 of forward-chunk
+               --chunk_size 64000, the streaming artifact bit for bit
+               equal to the in-process stream.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -144,8 +176,17 @@ qrnn_pool_fwd once per QRNN layer per push that reaches the QRNN and
 qrnn_pool_fwd_chunked never; serve-encode through the exported programs
 (phase 14) qrnn_pool_fwd_chunked once per layer per program call, and the
 B=40 call qrnn_pool_fwd; the overlap step (phase 15) the training
-kernels once per layer. No other path launches a conv kernel. The line before the last is a JSON summary of the kernels; the
-last line is {"ok": true, "device": {...}}.
+kernels once per layer; phase 16's steps (VQ, v0.1, Gap) the training
+kernels once per QRNN layer (none in v0.1, which has no QRNN), the VQ
+training CLI the training kernels once per layer per train step and
+qrnn_pool_fwd once per layer per eval step, the v0.1 CLI none; phase 17's
+VQ serving path qrnn_pool_fwd_chunked once per layer per encoder call,
+its streams qrnn_pool_fwd once per layer per push that reaches the QRNN,
+its serve-encode qrnn_pool_fwd_chunked once per layer per program call.
+The kernels line gives each kernel's launches on every path ("paths").
+No other path launches a conv kernel. The line before the last is a
+JSON summary of the kernels; the last line is {"ok": true, "device":
+{...}}.
 """
 
 import concurrent.futures
@@ -163,6 +204,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PASEP_CFG = os.path.join(HERE, "cfg", "frontend", "PASE+.cfg")
 WORKERSP_CFG = os.path.join(HERE, "cfg", "workers", "workers+.cfg")
+# phases 16-17: the residual VQ-8192 encoder and the PASE v0.1 bank
+VQ_CFG = os.path.join(HERE, "cfg", "frontend", "PASE+_resblocks_VQ8192.cfg")
+V01_CFG = os.path.join(HERE, "cfg", "frontend", "PASE.cfg")
+V01_WORKERS = os.path.join(HERE, "cfg", "workers", "workers.cfg")
 KERNEL_ATOL = 1e-5
 ENCODER_REL = 2e-4
 TRAIN_LOSS_REL = 1e-4
@@ -532,7 +577,7 @@ def write_wavs(root):
     return lengths
 
 
-def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000):
+def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000, label="serve"):
     """forward-chunk over four wavs; returns the number of encoder calls
     (one per window, plus one for the cross-check)."""
     from pase_tpu_torch import util_scripts
@@ -567,7 +612,7 @@ def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000):
         rel = float(np.abs(got - ref).max() / np.abs(ref).max())
         check(rel <= 1e-5, f"forward-chunk vs encoder: {rel:.3e}")
         audio_s = sum(lengths.values()) / SR
-        print(f"[serve] forward-chunk served {len(lengths)} requests "
+        print(f"[{label}] forward-chunk served {len(lengths)} requests "
               f"({audio_s:.1f} s of audio, {windows} windows) in {dt:.3f} s "
               f"incl. encoder build + weight load: "
               f"{len(lengths) / dt:.2f} requests/s, "
@@ -794,12 +839,23 @@ def phase_train_cli(tmp):
 
 
 def phase_profile(tr, what="train step"):
-    """torch.profiler split of three train steps of a trainer."""
+    """torch.profiler split of three train steps of a trainer (its
+    quantizer's kernels in a span of their own)."""
+    import contextlib
     from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
-    from pase_tpu_torch.profiling import profile_train_steps
+    from pase_tpu_torch.profiling import module_span, profile_train_steps
     batcher = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size, seed=7)
-    prof = profile_train_steps(tr, [batcher.make_batch() for _ in range(5)])
-    print(f"[profile] {what} (batch {TRAIN_BATCH} x {TRAIN_CHUNK}): wall"
+    vq = tr.model.frontend.quantizer
+    with (contextlib.nullcontext() if vq is None
+          else module_span(vq, "pase.quantizer")):
+        prof = profile_train_steps(tr, [batcher.make_batch()
+                                        for _ in range(5)])
+    print_profile(prof, f"{what} (batch {TRAIN_BATCH} x {TRAIN_CHUNK})")
+    return prof
+
+
+def print_profile(prof, what):
+    print(f"[profile] {what}: wall"
           f" {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms,"
           f" idle share {prof['idle_share']:.3f}")
     for span, kinds in sorted(prof["split"].items()):
@@ -807,7 +863,6 @@ def phase_profile(tr, what="train step"):
         print(f"[profile]   {span}: {tot:.2f} ms = " + ", ".join(
             f"{k} {v:.2f}" for k, v in sorted(kinds.items(),
                                               key=lambda kv: -kv[1])))
-    return prof
 
 
 def check_distortions_card_vs_cpu(cfg, assets, what):
@@ -1091,7 +1146,7 @@ def phase_conv():
     return out
 
 
-def _conv_summary(name, launches, rows):
+def _conv_summary(name, launches, rows, paths=None):
     """The kernels-line row of a conv route over the seven layers: times
     and bounds summed; bound by what bounds the larger share of the sum."""
     total = sum(r["bound_ms"] for r in rows)
@@ -1102,7 +1157,7 @@ def _conv_summary(name, launches, rows):
                 max(r["max_abs_err"] for r in rows),
                 sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows),
                 (total, "operations" if 2 * by_ops >= total else "bytes"),
-                sum(r["library_ms"] for r in rows))
+                sum(r["library_ms"] for r in rows), paths)
 
 
 def write_bench_dtrans_cfg(root):
@@ -1680,12 +1735,367 @@ def phase_overlap():
     return launches
 
 
+def _variant_step(fe_cfg, workers, raw, what, tmp):
+    """One train step of a model variant on the card and on the CPU, the
+    same weights, batch and injected draws. The CPU's PReLUs take the
+    card's side of their kink and its near-tie VQ codes the card's
+    (grad_parity.prelu_signs, vq_codes); outside the ties the codes must
+    agree. Per-worker losses ('vq' included) within 1e-4 relative,
+    gradients within 1e-3 of each group's largest. Returns the card's
+    launch counts of the step."""
+    import torch
+    from pase_tpu_torch.grad_parity import (code_flips, group_errors,
+                                            prelu_signs, sign_flips,
+                                            vq_codes, worst_leaves)
+    from pase_tpu_torch.trainer import Trainer
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
+               batch_size=2, chunk_size=16000, fe_lr=1e-4, min_lr=4e-4,
+               lr_mode="step", save_path=tmp)
+    gpu = Trainer(fe_cfg, workers, cfg, device="cuda")
+    cpu = Trainer(fe_cfg, workers, cfg, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    x_gpu, x_cpu, c_gpu, c_cpu, forced = {}, {}, {}, {}, {}
+    reset_launches()                     # the variant's step starts here
+    with prelu_signs(gpu.model, record=x_gpu), \
+            vq_codes(gpu.model, record=c_gpu):
+        lg = gpu.train_step(raw)
+    _sync("cuda")
+    launches = read_launches()           # ... and ends here
+    with prelu_signs(cpu.model, record=x_cpu,
+                     force={k: x > 0 for k, x in x_gpu.items()}), \
+            vq_codes(cpu.model, record=c_cpu, forced=forced,
+                     force={k: c for k, (c, _) in c_gpu.items()}):
+        lc = cpu.train_step(raw)
+    names = [k for k in lg if k != "total"]
+    loss_err = {k: abs(float(lg[k]) - float(lc[k])) / abs(float(lc[k]))
+                for k in names}
+    gg = _grads(gpu.model)
+    grad_err = group_errors(gg, _grads(cpu.model))
+    worst = worst_leaves(gg, _grads(cpu.model), n=3)
+    flips = sign_flips(x_gpu, x_cpu)
+    far = max([r for _, r in flips.values()], default=0.0)
+    codes = code_flips(c_cpu, c_gpu)
+    print(f"[variants-train] {what}, batch 2 x 16000, card vs cpu: "
+          f"per-worker |loss_gpu - loss_cpu| / |loss_cpu| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in loss_err.items())
+          + f" (bound {TRAIN_LOSS_REL}); PReLU inputs of opposite sign "
+          f"{sum(n for n, _ in flips.values())}, the largest |x| {far:.2e}"
+          f" of its module's max (bound {FLIP_REL}); VQ codes forced to "
+          f"the card's at cpu ties: {sum(forced.values())} of "
+          f"{sum(len(c) for c, _ in c_gpu.values())}, differing outside "
+          f"ties: {sum(n for _, n in codes.values())}; max|g_gpu - g_cpu| "
+          "/ max|g_cpu| per group: "
+          + ", ".join(f"{g} {v:.2e}" for g, v in grad_err.items())
+          + f" (bound {TRAIN_GRAD_REL}); worst leaves: " + "; ".join(
+              f"{k} {a:.2e} of its max" for k, a, _, _ in worst))
+    check(all(v <= TRAIN_LOSS_REL for v in loss_err.values()),
+          f"{what}: card vs cpu losses beyond {TRAIN_LOSS_REL}: {loss_err}")
+    check(far <= FLIP_REL, f"{what}: a PReLU input {far:.3e} of its "
+          f"module's max from 0 has opposite signs: {flips}")
+    check(all(n == 0 for _, n in codes.values()),
+          f"{what}: VQ codes differ outside ties: {codes}")
+    check(all(v <= TRAIN_GRAD_REL for v in grad_err.values()),
+          f"{what}: card vs cpu gradients beyond {TRAIN_GRAD_REL}: "
+          f"{grad_err}")
+    check(all(a <= TRAIN_GRAD_REL for _, a, _, _ in worst),
+          f"{what}: gradient leaves beyond {TRAIN_GRAD_REL}: {worst}")
+    layers = (0 if gpu.model.frontend.rnn is None
+              else len(gpu.model.frontend.rnn.layers))
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_train": layers, "qrnn_pool_bwd": layers}
+    print(f"[launches] {what} step: {launches} (expected {expected})")
+    check(launches == expected, f"{what} step launches {launches}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _variant_cli(fe_cfg, net_cfg, what, tmp, extra=()):
+    """The training CLI on a variant at batch 32 x 32000 for one epoch;
+    returns (trainer, launch counts, the perf line, the last train
+    line)."""
+    import math
+    import torch
+    from pase_tpu_torch import train as train_cli
+    reset_launches()                     # the variant's training starts
+    t0 = time.perf_counter()
+    tr = train_cli.main([
+        "--synthetic", "--net_cfg", net_cfg, "--fe_cfg", fe_cfg,
+        "--batch_size", str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK),
+        "--epoch", "1", "--log_freq", "25", "--save_path", tmp]
+        + list(extra))
+    torch.cuda.synchronize()
+    launches = read_launches()           # ... and ends here
+    wall = time.perf_counter() - t0
+    tr.logger.close()
+    with open(os.path.join(tmp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    perf = [r for r in recs if r["split"] == "perf"]
+    check(len(perf) == 1, f"{what}: {len(perf)} perf lines")
+    logged = [(r["split"], r["step"], k, v) for r in recs
+              if r["split"] in ("train", "eval") for k, v in r.items()
+              if k not in ("t", "split", "step")]
+    bad = [x for x in logged if not math.isfinite(x[3])]
+    check(logged and not bad, f"{what}: non-finite losses {bad[:5]}")
+    last = [r for r in recs if r["split"] == "train"][-1]
+    layers = (0 if tr.model.frontend.rnn is None
+              else len(tr.model.frontend.rnn.layers))
+    steps, evals = tr.bpe, tr.cfg["va_bpe"]
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps,
+                "qrnn_pool_fwd": layers * evals}
+    print(f"[launches] {what} training CLI: {launches} (expected "
+          f"{expected}: {layers} QRNN layer(s) x {steps} train steps, x "
+          f"{evals} eval steps)")
+    check(launches == expected, f"{what} CLI launches {launches}")
+    flags = "".join(f" {a}" for a in extra)
+    print(f"[variants-train] {what}: python -m pase_tpu_torch.train "
+          f"--synthetic at batch {TRAIN_BATCH} x {TRAIN_CHUNK}{flags}, 1 "
+          f"epoch of {steps} steps + {evals} eval "
+          f"batches: {wall:.1f} s in all; {perf[0]['steps_per_sec']:.3f} "
+          f"steps/s, {perf[0]['audio_sec_per_sec']:.1f} audio-s/s; step "
+          f"{last['step']} total {last['total']:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return tr, launches, perf[0], last
+
+
+def phase_variants_train(tmp, bf16_rate):
+    """Phase 16: the VQ encoder, the v0.1 bank with SPC, and a Gap head
+    trained on the card. Returns {path: launch counts}."""
+    import torch
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.model import parse_workers_cfg
+    paths = {}
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=0)))
+    # (a) the VQ encoder with workers+, card vs cpu
+    paths["vq_step"] = _variant_step(VQ_CFG, WORKERSP_CFG, raw,
+                                     "VQ8192 resblocks + workers+",
+                                     os.path.join(tmp, "vq_step"))
+    # (b) its training CLI in bf16 with the bench distortion stack
+    torch.cuda.reset_peak_memory_stats()
+    dist = write_bench_dtrans_cfg(os.path.join(tmp, "vq_assets"))
+    tr, paths["vq_training"], perf, last = _variant_cli(
+        VQ_CFG, WORKERSP_CFG, "VQ8192 resblocks + workers+",
+        os.path.join(tmp, "vq_cli"),
+        ["--compute_dtype", "bfloat16", "--dtrans_cfg", dist])
+    rate = perf["steps_per_sec"]
+    print(f"[variants-train] VQ8192 bf16 with the bench stack: "
+          f"{rate:.3f} steps/s against phase 8's PASE+ bf16 bench step "
+          f"{bf16_rate:.3f} ({rate / bf16_rate:.3f}x); last step's vq "
+          f"{last['vq']:.4f}, vq_perplexity {last['vq_perplexity']:.1f} of "
+          f"8192 codes")
+    phase_profile(tr, "VQ8192 train step, bf16, bench stack")
+    del tr
+    torch.cuda.empty_cache()
+    # (c) the v0.1 bank (workers.cfg: SPC) on PASE.cfg
+    rng = np.random.RandomState(3)
+    t = rng.randint(22, 79)
+    spc = dict(raw, spc_idx=np.array([t, rng.randint(t + 16, 95),
+                                      rng.randint(5, t - 16)], np.int64))
+    paths["v01_step"] = _variant_step(V01_CFG, V01_WORKERS, spc,
+                                      "PASE v0.1 (PASE.cfg + workers.cfg)",
+                                      os.path.join(tmp, "v01_step"))
+    tr, paths["v01_training"], _, _ = _variant_cli(
+        V01_CFG, V01_WORKERS, "PASE v0.1 (PASE.cfg + workers.cfg)",
+        os.path.join(tmp, "v01_cli"))
+    del tr
+    torch.cuda.empty_cache()
+    # (d) workers+ plus a Gap head
+    workers = parse_workers_cfg(WORKERSP_CFG)
+    workers["cls"].append({
+        "name": "gap", "type": "mlp", "num_outputs": 1, "dropout": 0,
+        "hidden_size": 256, "hidden_layers": 1, "loss": "MSELoss",
+        "skip": False, "loss_weight": 1.0})
+    gap = dict(raw, gap_idx=rng.randint(0, 100, (2, 2)).astype(np.int64))
+    paths["gap_step"] = _variant_step(PASEP_CFG, workers, gap,
+                                      "PASE+ workers+ plus gap",
+                                      os.path.join(tmp, "gap_step"))
+    return paths
+
+
+def _vq_stream_check(enc, wav, got, what):
+    """Streamed frames against the offline encoder: the codes equal
+    outside the offline side's ties, and where they are equal the frames
+    within rtol / atol. Returns (max relative difference, tie codes)."""
+    import torch
+    from pase_tpu_torch.grad_parity import vq_codes
+    rec = {}
+    with torch.no_grad(), vq_codes(enc.module, record=rec):
+        ref = enc(wav[:, None]).cpu().numpy()
+    (codes, ties), = rec.values()
+    check(got.shape == ref.shape, f"{what}: {got.shape} != {ref.shape}")
+    vq = enc.module.quantizer
+    with torch.no_grad():
+        mine = vq.nearest(torch.from_numpy(got).cuda().transpose(1, 2)
+                          .reshape(-1, got.shape[1])).cpu()
+    differ = mine != codes
+    check(not bool((differ & ~ties).any()),
+          f"{what}: codes differ outside ties at "
+          f"{int((differ & ~ties).sum())} frames")
+    keep = (~differ).numpy().reshape(got.shape[0], got.shape[2])
+    a = np.transpose(got, (0, 2, 1))[keep]
+    b = np.transpose(ref, (0, 2, 1))[keep]
+    check(np.allclose(a, b, rtol=STREAM_RTOL, atol=STREAM_ATOL),
+          f"{what} vs offline beyond rtol {STREAM_RTOL} / atol "
+          f"{STREAM_ATOL}")
+    return float(np.abs(a - b).max() / np.abs(b).max()), int(differ.sum())
+
+
+def phase_variants_serve():
+    """Phase 17: the VQ encoder served, streamed and exported on the card.
+    Returns {path: launch counts}."""
+    import torch
+    from pase_tpu_torch import serving, wf_builder
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    from pase_tpu_torch.grad_parity import vq_codes
+    from pase_tpu_torch.profiling import module_span, profile_calls
+    from pase_tpu_torch.streaming import StreamingEncoder, stream_frames
+    paths = {}
+    enc = wf_builder(VQ_CFG, device="cuda", seed=0)
+    cpu = wf_builder(VQ_CFG, device="cpu", seed=0)
+    cpu.module.load_state_dict(enc.module.state_dict())
+    layers = len(enc.module.rnn.layers)
+    rng = np.random.RandomState(0)
+    x = (rng.randn(8, 1, 160000) * 0.1).astype(np.float32)
+    reset_launches()                     # the VQ serving path starts here
+    rec, forced = {}, {}
+    with vq_codes(enc.module, record=rec):
+        y = enc(x)
+    _sync("cuda")
+    calls = 1
+    ms = _wall_ms(lambda: enc(x), "cuda", reps=5)
+    calls += 6
+    with vq_codes(cpu.module, force={k: c for k, (c, _) in rec.items()},
+                  forced=forced):
+        y_cpu = cpu(x)
+    rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    check(tuple(y.shape) == (8, 256, 1000), f"VQ forward {tuple(y.shape)}")
+    print(f"[variants-serve] VQ8192 resblocks (8,1,160000) -> "
+          f"{tuple(y.shape)}: forward {ms:.2f} ms (synchronized, median of"
+          f" 5), {8 * 10 / (ms / 1e3):.1f} audio-s/s; card vs cpu max|dy|/"
+          f"max|y_cpu| {rel:.3e} (bound {ENCODER_REL}), the cpu's codes "
+          f"forced to the card's at {sum(forced.values())} ties of 8000")
+    check(rel <= ENCODER_REL, f"VQ card vs cpu: {rel:.3e}")
+    del cpu, y_cpu
+    calls += phase_serve(enc, "cuda", cfg=VQ_CFG, label="variants-serve")
+    paths["vq_serving"] = read_launches()    # ... and ends here
+    expected = {**{k: 0 for k in paths["vq_serving"]},
+                "qrnn_pool_fwd_chunked": layers * calls}
+    print(f"[launches] VQ serving path: {paths['vq_serving']} (expected "
+          f"{expected}: {calls} encoder calls)")
+    check(paths["vq_serving"] == expected,
+          f"VQ serving launches {paths['vq_serving']}")
+    vq = enc.module.quantizer
+    with module_span(vq, "pase.quantizer"), torch.no_grad():
+        prof = profile_calls([lambda: enc(x)] * 4)
+    print_profile(prof, "VQ8192 forward (8,1,160000); the trunk is "
+                  "'other'")
+
+    # streams: B=1 and B=8, 1 s and 100 ms pushes
+    n = STREAM_SECONDS * SR
+    paths["vq_stream"] = {}
+    for b in (1, 8):
+        wav = torch.from_numpy((rng.randn(b, n) * 0.1).astype(
+            np.float32)).cuda()
+        got = {}
+        for label, chunk in STREAM_PUSHES:
+            frames, launches, pushes = _stream_run(enc, wav, chunk)
+            _stream_launches_ok(launches, layers, pushes,
+                                f"VQ stream B={b}, {label} pushes")
+            for k, v in launches.items():
+                paths["vq_stream"][k] = paths["vq_stream"].get(k, 0) + v
+            got[label] = frames
+        (la, a), (lb, bb) = got.items()
+        same = a.shape == bb.shape and np.array_equal(a, bb)
+        check(same, f"VQ stream B={b}: {la} and {lb} pushes differ")
+        rel, ties = _vq_stream_check(enc, wav, a, f"VQ stream B={b}")
+        print(f"[variants-serve] VQ8192 stream B={b}, {STREAM_SECONDS} s: "
+              f"{la} and {lb} pushes bit for bit equal: {same}; streamed "
+              f"vs offline max|d|/max|y| {rel:.3e} where the codes agree "
+              f"(bound rtol {STREAM_RTOL}, atol {STREAM_ATOL}); codes "
+              f"differing at offline ties {ties} of {a.shape[0] * a.shape[2]}")
+    wav = torch.from_numpy((rng.randn(1, n) * 0.1).astype(np.float32)).cuda()
+    st = StreamingEncoder(enc)
+    times = []
+    for beg in range(0, n, SR):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        st.push(wav[:, beg:beg + SR])
+        _sync("cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+    push_ms = statistics.median(times[1:])
+    print(f"[variants-serve] VQ8192 1 s pushes at B=1: median "
+          f"{push_ms:.3f} ms per push (pushes 2-{len(times)}), real-time "
+          f"factor {push_ms / 1e3:.5f}")
+
+    # export and serve-encode
+    tmp = tempfile.mkdtemp(prefix="pase_chip_vq_export_")
+    try:
+        lengths = write_wavs(tmp)
+        npz = save_variables_npz(os.path.join(tmp, "FE_seed0.npz"),
+                                 enc.module.state_dict())
+        art = os.path.join(tmp, "artifact")
+        common = ["--fe_cfg", VQ_CFG, "--fe_ckpt", npz]
+        export_s = _cli_seconds(
+            ["export", "--device", "cuda", "--out_dir", art, "--chunk_sizes",
+             EXPORT_BUCKETS, "--streaming_chunk", str(EXPORT_CHUNK)]
+            + common)
+        lst = ["--wav_list", os.path.join(tmp, "list.txt"), "--files_root",
+               tmp]
+        _cli_seconds(["forward-chunk", "--device", "cuda", "--chunk_size",
+                      "64000", "--out_dir", os.path.join(tmp, "fc")]
+                     + common + lst)
+        reset_launches()                 # the VQ artifact's calls start
+        serve_s = _cli_seconds(["serve-encode", "--export_dir", art,
+                                "--out_dir", os.path.join(tmp, "se")] + lst)
+        paths["vq_export"] = read_launches()     # ... and end here
+        pcalls = sum(-(-m // 64000) for m in lengths.values())
+        expected = {**{k: 0 for k in paths["vq_export"]},
+                    "qrnn_pool_fwd_chunked": layers * pcalls}
+        check(paths["vq_export"] == expected,
+              f"VQ serve-encode launches {paths['vq_export']}")
+        worst = 0.0
+        for k, m in lengths.items():
+            want = np.load(os.path.join(tmp, "fc", f"{k}.npy"))
+            got = np.load(os.path.join(tmp, "se", f"{k}.npy"))
+            check(got.shape == want.shape == (256, m // 160),
+                  f"VQ serve-encode {k}: {got.shape}")
+            worst = max(worst, float(np.abs(got - want).max()))
+        check(worst <= SERVE_TOL, f"VQ serve-encode vs forward-chunk: "
+              f"{worst:.3e}")
+        ssrv = serving.ServingStreamingEncoder(art)
+        w = (rng.randn(1, 4 * EXPORT_CHUNK) * 0.1).astype(np.float32)
+        ys = [ssrv.push(w[:, i:i + EXPORT_CHUNK])
+              for i in range(0, w.shape[1], EXPORT_CHUNK)]
+        sgot = np.concatenate(ys + [ssrv.flush()], axis=2)
+        swant = stream_frames(enc, torch.from_numpy(w).cuda(),
+                              EXPORT_CHUNK).cpu().numpy()
+        ssame = sgot.shape == swant.shape and np.array_equal(sgot, swant)
+        print(f"[variants-serve] VQ8192 export (buckets {EXPORT_BUCKETS}, "
+              f"streaming chunk {EXPORT_CHUNK}) {export_s:.2f} s; "
+              f"serve-encode {len(lengths)} requests {serve_s:.3f} s, max|"
+              f"serve - forward-chunk| {worst:.3e} (bound {SERVE_TOL}); "
+              f"launches {paths['vq_export']} ({pcalls} program calls); "
+              f"the streaming artifact bit for bit equal to the in-process "
+              f"stream: {ssame}")
+        check(ssame, "VQ streaming artifact != in-process stream")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del enc
+    torch.cuda.empty_cache()
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
-         library_ms=None):
+         library_ms=None, paths=None):
+    """A kernel's summary; ``paths``: {path: its launches there}, each
+    path's counts reset to 0 just before it and read just after."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library_ms}
+            "bound_by": bnd[1], "library_ms": library_ms,
+            "paths": {p: c.get(name, 0) for p, c in (paths or {}).items()}}
 
 
 def main():
@@ -1737,6 +2147,11 @@ def main():
         phase_stream()
         phase_export()
         phase_overlap()
+        paths = {"serving": serving_launches, "training": train_launches}
+        paths.update(phase_variants_train(
+            os.path.join(tmp, "variants"),
+            dist_perf["bfloat16"]["steps_per_sec"]))
+        paths.update(phase_variants_serve())
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -1754,20 +2169,22 @@ def main():
         _row("qrnn_pool_fwd_chunked", src, "pase_tpu/ops/pallas_qrnn.py:63",
              serving_launches["qrnn_pool_fwd_chunked"],
              max(r["chunked_err"] for r in rows), serving["chunked_ms"],
-             serving["plain_ms"], (serving["bound_ms"], serving["bound_by"])),
+             serving["plain_ms"], (serving["bound_ms"], serving["bound_by"]),
+             paths=paths),
         _row("qrnn_pool_fwd", src, "pase_tpu/ops/pallas_qrnn.py:63",
              train_launches["qrnn_pool_fwd"],
              max(r["serial_err"] for r in rows), evals["serial_ms"],
-             evals["plain_ms"], (evals["bound_ms"], evals["bound_by"])),
+             evals["plain_ms"], (evals["bound_ms"], evals["bound_by"]),
+             paths=paths),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],
-             train["fwd_plain_ms"], train["fwd_bound"]),
+             train["fwd_plain_ms"], train["fwd_bound"], paths=paths),
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
-             train["bwd_plain_ms"], train["bwd_bound"])]
-        + [_conv_summary(name, *convs[dt])
+             train["bwd_plain_ms"], train["bwd_bound"], paths=paths)]
+        + [_conv_summary(name, *convs[dt], paths=paths)
            for dt, name in (("bfloat16", "conv_s1_tc"),
                             ("float32", "conv_s1_tf32x3"))]}))
     print(json.dumps({"ok": True, "device": {

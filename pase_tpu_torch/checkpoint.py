@@ -22,7 +22,10 @@ that layout loads with ``load_state_dict(strict=True)``.
   ``layers.N.linear``, a conv kernel [K, Cin, Cout] <-> weight
   [Cout, Cin, K], a Dense kernel [in, out] <-> weight [out, in],
   ``low_hz``/``band_hz`` <-> ``low_hz_``/``band_hz_``, ``mean``/``var`` <->
-  ``running_mean``/``running_var``.
+  ``running_mean``/``running_var``. The VQ quantizer's buffers ``emb``
+  [K, D], ``ema_cluster_size`` and ``ema_w`` keep their names and layout
+  and live in ``batch_stats`` (``batch_stats/quantizer/emb``): the
+  codebook is state, not a kernel, and is never transposed.
 * ``load_frontend_ckpt`` loads either format into a module, strictly.
 * ``model_variables_to_state_dict`` / ``model_state_dict_to_variables``
   do the same for the whole PASE model (``model.PASE``): the JAX
@@ -45,6 +48,9 @@ _COLLECTIONS = ("params", "batch_stats")
 _LEAF_TO_TORCH = {"low_hz": "low_hz_", "band_hz": "band_hz_",
                   "mean": "running_mean", "var": "running_var"}
 _LEAF_TO_JAX = {v: k for k, v in _LEAF_TO_TORCH.items()}
+# the leaves of the JAX 'batch_stats' collection: BatchNorm's running
+# statistics and the VQ quantizer's codebook and EMA state
+_BATCH_STATS = {"mean", "var", "emb", "ema_cluster_size", "ema_w"}
 
 
 def save_variables(path, flat, step=0):
@@ -136,13 +142,12 @@ def state_dict_to_variables(state_dict):
         if leaf == "num_batches_tracked":
             continue
         arr = t.detach().cpu().numpy()
-        col = "params"
         if leaf in _LEAF_TO_JAX:
             leaf = _LEAF_TO_JAX[leaf]
-            col = "batch_stats" if leaf in ("mean", "var") else "params"
         elif leaf == "weight" and arr.ndim >= 2:
             arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
             leaf = "kernel"
+        col = "batch_stats" if leaf in _BATCH_STATS else "params"
         flat["/".join([col] + _module_path_to_jax(path) + [leaf])] = \
             np.ascontiguousarray(arr)
     return flat

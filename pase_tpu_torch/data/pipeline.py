@@ -20,6 +20,8 @@ from the int16 wire, divided by 32768 here):
      skips the stack on those rows and, with a zero-speech noise bank,
      adds bank noise at a random SNR to them instead.
 Targets come from clean audio; the encoder sees the distorted chunk.
+Injected SPC / Gap frame indices (``INDEX_KEYS``, parity harnesses) pass
+through unchanged.
 """
 
 import pickle
@@ -32,6 +34,9 @@ from pase_tpu_torch.data.distortions import (additive, apply_distortions,
                                              draw_distortions)
 from pase_tpu_torch.ops.features import feature_fn_for_worker
 from pase_tpu_torch.precision import get_compute_dtype
+
+# integer batch entries that pass through the prepare to the model
+INDEX_KEYS = ("spc_idx", "gap_idx")
 
 
 class ZeroSpeechDraws(NamedTuple):
@@ -167,6 +172,10 @@ def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
         out["chunk"] = chunk
         if has_overlap:
             out["overlap"] = batch.get("overlap", overlap)
+        for k in INDEX_KEYS:
+            # injected SPC / Gap frame indices ride through to the model
+            if k in batch:
+                out[k] = batch[k]
         return out
 
     return prepare

@@ -1,11 +1,15 @@
 """The PASE waveform encoder ("frontend") in PyTorch.
 
 ``WaveFe`` is the encoder of ``pase_tpu.frontend``: SincNet first layer,
-strided FeBlocks (stride product 160 -> 100 Hz frames at 16 kHz), optional
-dense skips (mean-pooled to the output rate, then a bias-free 1x1
-projection, summed or concatenated), optional window-2 QRNN context layer,
-1x1 projection ``W`` to ``emb_dim``, optional affine-free BatchNorm output
-normalization, optional tanh.
+strided FeBlocks (stride product 160 -> 100 Hz frames at 16 kHz), or with
+``resblocks`` FeResBlocks after the SincNet layer (the stride as nearest
+decimation), optional dense skips (mean-pooled to the output rate, then a
+bias-free 1x1 projection, summed or concatenated), optional window-2 QRNN
+context layer, 1x1 projection ``W`` to ``emb_dim``, optional affine-free
+BatchNorm output normalization, optional tanh, and with ``vq_K`` the
+VQ-EMA quantizer (``nn.VQEMA``) last. The quantizer's commitment loss and
+code perplexity of the last call are ``vq_loss`` and ``vq_perplexity``
+(the JAX module sows them as intermediates).
 
 Internal layout is [B, C, T]; ``WaveFe`` returns [B, T', emb] like the JAX
 module, and ``Encoder`` exposes the reference (B, 1, T) -> (B, emb, T')
@@ -18,8 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, BatchNorm1d, Conv1D,
-                               FeBlock, QRNN)
+from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, VQEMA, BatchNorm1d,
+                               Conv1D, FeBlock, FeResBlock, QRNN)
 
 
 def pool_to(skip, out_len):
@@ -59,15 +63,10 @@ class WaveFe(nn.Module):
                  norm_type="bnorm", pad_mode="reflect", sr=16000,
                  emb_dim=256, rnn_dim=None, activation=None, rnn_pool=False,
                  rnn_layers=1, rnn_dropout=0.0, rnn_type="qrnn", vq_K=None,
-                 norm_out=False, tanh_out=False, resblocks=False,
-                 denseskips=False, densemerge="sum", generator=None):
+                 vq_beta=0.25, vq_gamma=0.99, norm_out=False,
+                 tanh_out=False, resblocks=False, denseskips=False,
+                 densemerge="sum", generator=None):
         super().__init__()
-        if resblocks:
-            raise NotImplementedError(
-                f"WaveFe resblocks are not ported yet: {ROADMAP_OFF_SLICE}")
-        if vq_K is not None and vq_K > 0:
-            raise NotImplementedError(
-                f"WaveFe VQ (vq_K) is not ported yet: {ROADMAP_OFF_SLICE}")
         if rnn_pool and str(rnn_type).lower() != "qrnn":
             if str(rnn_type).lower() in ("lstm", "gru"):
                 raise NotImplementedError(
@@ -93,10 +92,19 @@ class WaveFe(nn.Module):
         cin = num_inputs
         for i, (kw, st, dil, fm) in enumerate(zip(kwidths, strides,
                                                   dilations, fmaps)):
-            blocks.append(FeBlock(cin, fm, kw, st, dil, pad_mode=pad_mode,
-                                  act=activation, norm_type=norm_type,
-                                  sincnet=sincnet and i == 0, sr=sr,
-                                  generator=generator))
+            sinc_here = sincnet and i == 0
+            if resblocks and not sinc_here:
+                # every non-sinc layer, its stride as decimation; the
+                # dilations key does not reach it (FeResBlock's (1, 2))
+                blocks.append(FeResBlock(cin, fm, kw, downsample=st,
+                                         act=activation,
+                                         norm_type=norm_type,
+                                         generator=generator))
+            else:
+                blocks.append(FeBlock(cin, fm, kw, st, dil,
+                                      pad_mode=pad_mode, act=activation,
+                                      norm_type=norm_type, sincnet=sinc_here,
+                                      sr=sr, generator=generator))
             cin = fm
         self.blocks = nn.ModuleList(blocks)
         self.rnn = None
@@ -114,6 +122,19 @@ class WaveFe(nn.Module):
              for fm in fmaps[:nblocks - 1]] if denseskips else [])
         self.norm_out = (BatchNorm1d(self.output_dim, affine=False)
                          if norm_out else None)
+        self.quantizer = (VQEMA(vq_K, self.output_dim, vq_beta, vq_gamma,
+                                generator=generator)
+                          if vq_K is not None and vq_K > 0 else None)
+
+    @property
+    def vq_loss(self):
+        """The quantizer's commitment loss of the last call (None without
+        a quantizer)."""
+        return None if self.quantizer is None else self.quantizer.loss
+
+    @property
+    def vq_perplexity(self):
+        return None if self.quantizer is None else self.quantizer.perplexity
 
     def forward(self, wav):
         """wav: [B, T] or [B, 1, T] -> [B, T//prod(strides), output_dim]."""
@@ -133,7 +154,8 @@ class WaveFe(nn.Module):
             y = self.norm_out(y)
         if self.tanh_out:
             y = torch.tanh(y)
-        return y.transpose(1, 2)
+        y = y.transpose(1, 2)
+        return y if self.quantizer is None else self.quantizer(y)
 
 
 def load_cfg(cfg):
@@ -146,8 +168,9 @@ def load_cfg(cfg):
 _WAVEFE_KEYS = {
     "num_inputs", "sincnet", "kwidths", "strides", "dilations", "fmaps",
     "norm_type", "pad_mode", "sr", "emb_dim", "rnn_dim", "activation",
-    "rnn_pool", "rnn_layers", "rnn_dropout", "rnn_type", "vq_K",
-    "norm_out", "tanh_out", "resblocks", "denseskips", "densemerge",
+    "rnn_pool", "rnn_layers", "rnn_dropout", "rnn_type", "vq_K", "vq_beta",
+    "vq_gamma", "norm_out", "tanh_out", "resblocks", "denseskips",
+    "densemerge",
 }
 # other keys are ignored, as the JAX package's build_wavefe ignores them;
 # among them the JAX-only evaluation switches qrnn_impl (which scan) and

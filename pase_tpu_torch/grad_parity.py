@@ -19,6 +19,8 @@ float32 on the card with cuDNN on and off. It prints:
     the module where the gradient error jumps is where it enters;
   * the same comparisons with every run's PReLUs taking the card's signs
     (``prelu_signs(force=...)``), which leaves float32 rounding alone;
+    a VQ encoder's near-tie codes are matched the same way
+    (``vq_codes``);
   * each convolution and BatchNorm alone, from the float64 run's input and
     output gradient rounded to float32, against float64.
 """
@@ -85,6 +87,66 @@ def prelu_signs(model, record=None, force=None):
     finally:
         for h in hooks:
             h.remove()
+
+
+# a VQ code whose top-2 distance margin is within this share of
+# |x|^2 + |e|^2 is a tie at float32 rounding: two devices may pick either
+VQ_TIE_REL = 1e-5
+
+
+def vq_margins(vq, rows, dist):
+    """Per row, the top-2 distance margin over |x|^2 + |e|^2 of the
+    nearest code e."""
+    top = torch.topk(dist, 2, dim=1, largest=False)
+    e = vq.emb[top.indices[:, 0]]
+    scale = torch.sum(rows * rows, dim=1) + torch.sum(e * e, dim=1)
+    return (top.values[:, 1] - top.values[:, 0]) / scale
+
+
+@contextlib.contextmanager
+def vq_codes(model, record=None, force=None, forced=None, rel=VQ_TIE_REL):
+    """Within the block, each VQEMA quantizer of ``model`` puts its codes
+    and its ties (rows whose top-2 margin is within ``rel`` of |x|^2 +
+    |e|^2), both on the CPU, into ``record[name]``. With ``force`` (name ->
+    the other side's codes), a tie row takes the forced code instead of
+    its own, and ``forced[name]`` counts the rows where that changed the
+    code; outside the ties each side keeps its own code, which must agree
+    (``code_flips``). One quantizer call per module in the block."""
+    from pase_tpu_torch.nn import VQEMA
+
+    def picker(name, vq):
+        def pick(rows, dist, idx):
+            ties = vq_margins(vq, rows, dist) <= rel
+            if force is not None:
+                want = force[name].to(idx.device)
+                new = torch.where(ties, want, idx)
+                if forced is not None:
+                    forced[name] = int((new != idx).sum())
+                idx = new
+            if record is not None:
+                record[name] = (idx.cpu(), ties.cpu())
+            return idx
+        return pick
+
+    mods = [(n, m) for n, m in model.named_modules() if isinstance(m, VQEMA)]
+    for n, m in mods:
+        m.pick = picker(n, m)
+    try:
+        yield
+    finally:
+        for _, m in mods:
+            m.pick = None
+
+
+def code_flips(got, want):
+    """Per quantizer: (codes that differ between two ``vq_codes`` records,
+    those of them that are a tie on neither side)."""
+    out = {}
+    for k, (w, wt) in want.items():
+        g, gt = got[k]
+        diff = g != w
+        out[k] = (int(diff.sum()), int((diff & ~gt & ~wt).sum()))
+    return out
 
 
 def sign_flips(got, want):

@@ -9,11 +9,17 @@ names:
                       activation and the final 1x1 conv's weight to a fused
                       head+loss (``losses.framed_mse_linear``).
 * ``DecoderMinion`` — transposed-conv stack back to the waveform rate.
+* ``SPCMinion``     — sequence predictive coding: (current frame, future
+                      window) against (current frame, past window), BCE.
+* ``GapMinion``     — temporal gap regression: a frame pair per sample,
+                      predicts |a - b| / (T - 1).
 * ``make_mi_samples`` / ``make_mi_labels`` — LIM / GIM pair synthesis.
 * ``scale_grad``    — identity forward, gradient times alpha backward.
 
-GRU, SPC and Gap heads are later work (ROADMAP.md, queue 1: off-path
-model variants).
+The SPC and Gap frame indices are drawn on the tensor's device from the
+``torch.Generator`` the caller passes (the trainer seeds one per step
+from (seed, step)), or injected (``idx``) by a parity harness. The GRU
+head is later work (ROADMAP.md, queue 1: off-path model variants).
 """
 
 import torch
@@ -126,6 +132,114 @@ def _refuse(kwargs, who):
             raise NotImplementedError(
                 f"{who} {k}={v!r} is not ported yet: ROADMAP.md, queue 1: "
                 "off-path model variants")
+
+
+def _mlp_head(in_channels, num_outputs, hidden_size, hidden_layers,
+              dropout, generator):
+    blocks = []
+    cin = in_channels
+    for _ in range(hidden_layers):
+        blocks.append(MLPBlock(cin, hidden_size, dout=dropout,
+                               generator=generator))
+        cin = hidden_size
+    return nn.ModuleList(blocks), Conv1D(cin, num_outputs, 1,
+                                         generator=generator)
+
+
+def spc_draw(frames, ctxt_frames, seq_pad, generator=None, device=None):
+    """One SPC draw per batch, [t, future_t, past_t] (int64 on
+    ``device``): t in [m + 1, T - m) with m = seq_pad + ctxt_frames, the
+    future window's start in [t + seq_pad, T - N), the past window's end
+    in [N, t - seq_pad) (``pase_tpu/minions.py`` SPCMinion). Raises
+    where T leaves no t to draw."""
+    n = ctxt_frames
+    m = seq_pad + n
+    if frames - m <= m + 1:
+        raise ValueError(
+            f"SPC needs more than 2 * (seq_pad + ctxt_frames) + 1 = "
+            f"{2 * m + 1} frames, got {frames}")
+    t = torch.randint(m + 1, frames - m, (), generator=generator,
+                      device=device)
+    u2 = torch.rand((), generator=generator, device=device)
+    u3 = torch.rand((), generator=generator, device=device)
+    ft = t + seq_pad + (u2 * ((frames - n) - (t + seq_pad))).long()
+    pt = n + (u3 * ((t - seq_pad) - n)).long()
+    return torch.stack([t, ft, pt])
+
+
+class SPCMinion(nn.Module):
+    """Sequence predictive coding head: [B, C, T] -> [2B, num_outputs, 1]
+    logits, positives (the current frame t with the future window [ft,
+    ft + N)) first, negatives (t with the past window [pt - N, pt)) after.
+    A window flattens as its [C, N] slice, row-major: the JAX head's NTC
+    window transposed to (C, N). Input width C * (1 + N)."""
+
+    def __init__(self, in_channels, num_outputs, hidden_size=256,
+                 hidden_layers=2, ctxt_frames=5, seq_pad=16, dropout=0.0,
+                 skip=True, generator=None):
+        super().__init__()
+        self.ctxt_frames = ctxt_frames
+        self.seq_pad = seq_pad
+        self.blocks, self.W = _mlp_head(in_channels, num_outputs,
+                                        hidden_size, hidden_layers, dropout,
+                                        generator)
+
+    def forward(self, x, alpha=1.0, generator=None, idx=None):
+        """``idx`` injects [t, future_t, past_t]; else ``spc_draw`` draws
+        them from ``generator``."""
+        x = scale_grad(x, alpha)
+        b, c, t = x.shape
+        n = self.ctxt_frames
+        if idx is None:
+            idx = spc_draw(t, n, self.seq_pad, generator, x.device)
+        idx = torch.as_tensor(idx, device=x.device).long()
+        window = torch.arange(n, device=x.device)
+        cur = x.index_select(2, idx[0:1])[:, :, 0]
+        fut = x.index_select(2, idx[1] + window).reshape(b, c * n)
+        past = x.index_select(2, idx[2] - n + window).reshape(b, c * n)
+        h = torch.cat([torch.cat([cur, fut], dim=1),
+                       torch.cat([cur, past], dim=1)], dim=0)[:, :, None]
+        for block in self.blocks:
+            h = block(h)
+        return self.W(h)
+
+
+def gap_draw(batch, frames, generator=None, device=None):
+    """[2, B] frame pairs (a, b), each uniform in [0, T) (int64)."""
+    return torch.randint(0, frames, (2, batch), generator=generator,
+                         device=device)
+
+
+class GapMinion(nn.Module):
+    """Temporal gap regression head: [B, C, T] -> ([B, num_outputs, 1]
+    predictions, [B, 1, 1] labels |a - b| / (T - 1)) for one frame pair
+    (a, b) per sample, the pair's frames concatenated on channels (input
+    width 2 C)."""
+
+    def __init__(self, in_channels, num_outputs, hidden_size=256,
+                 hidden_layers=2, dropout=0.0, skip=True, generator=None):
+        super().__init__()
+        self.blocks, self.W = _mlp_head(in_channels, num_outputs,
+                                        hidden_size, hidden_layers, dropout,
+                                        generator)
+
+    def forward(self, x, alpha=1.0, generator=None, idx=None):
+        """``idx`` injects the [2, B] pairs; else ``gap_draw`` draws them
+        from ``generator``."""
+        x = scale_grad(x, alpha)
+        b, c, t = x.shape
+        if idx is None:
+            idx = gap_draw(b, t, generator, x.device)
+        idx = torch.as_tensor(idx, device=x.device).long()
+
+        def frame(i):
+            return x.gather(2, i[:, None, None].expand(b, c, 1))
+
+        dists = (torch.abs(idx[0] - idx[1]) / (t - 1)).to(torch.float32)
+        h = torch.cat([frame(idx[0]), frame(idx[1])], dim=1)
+        for block in self.blocks:
+            h = block(h)
+        return self.W(h), dists.reshape(b, 1, 1)
 
 
 def make_mi_samples(h_chunk, h_ctxt, h_rand, augment=False):

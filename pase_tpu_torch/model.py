@@ -1,8 +1,11 @@
 """PASE multi-task model: the encoder and the worker bank, in PyTorch.
 
 The port of ``pase_tpu/model.py`` for the MLP and decoder heads of the
-workers+ bank and the overlap head (an MLP on the chunk stream, BCE on the
-overlap distortion's frame label). The encoder runs ONCE on the
+workers+ bank, the overlap head (an MLP on the chunk stream, BCE on the
+overlap distortion's frame label) and the SPC and Gap heads of the PASE
+v0.1 bank (on the chunk stream; their frame draws come from the
+generator the caller passes, or from ``batch['spc_idx']`` /
+``batch['gap_idx']``). The encoder runs ONCE on the
 concatenated {chunk, ctxt, rand} batch, so its BatchNorm statistics span
 the three streams together as in the JAX package; every worker reads the
 shared hidden, and the LIM / GIM pairs and labels are made in the
@@ -21,8 +24,9 @@ from torch import nn
 
 from pase_tpu_torch.frontend import build_frontend_module, load_cfg
 from pase_tpu_torch.losses import framed_mse_linear, make_loss
-from pase_tpu_torch.minions import (DecoderMinion, MLPMinion,
-                                    make_mi_labels, make_mi_samples)
+from pase_tpu_torch.minions import (DecoderMinion, GapMinion, MLPMinion,
+                                    SPCMinion, make_mi_labels,
+                                    make_mi_samples)
 
 ROADMAP_HEADS = "ROADMAP.md, queue 1: off-path model variants"
 
@@ -34,8 +38,12 @@ _MINION_FIELDS = {
     "decoder": ("num_outputs", "fmaps", "strides", "kwidths", "hidden_size",
                 "hidden_layers", "dropout", "dropout_time", "norm_type",
                 "skip"),
+    "spc": ("num_outputs", "hidden_size", "hidden_layers", "ctxt_frames",
+            "seq_pad", "dropout", "skip"),
+    "gap": ("num_outputs", "hidden_size", "hidden_layers", "dropout", "skip"),
 }
-_MINION_CLS = {"mlp": MLPMinion, "decoder": DecoderMinion}
+_MINION_CLS = {"mlp": MLPMinion, "decoder": DecoderMinion,
+               "spc": SPCMinion, "gap": GapMinion}
 
 
 def parse_workers_cfg(cfg):
@@ -57,9 +65,17 @@ def parse_workers_cfg(cfg):
     return out
 
 
+def minion_type(cfg):
+    """The head kind of a worker entry: SPC and Gap route by name, as in
+    the reference (cls_minions.py), the rest by 'type'."""
+    if cfg["name"] in ("spc", "gap"):
+        return cfg["name"]
+    return cfg.get("type", "mlp")
+
+
 def _build_minion(cfg, in_channels, generator=None):
-    mtype = cfg.get("type", "mlp")
-    if cfg["name"] in ("spc", "gap") or mtype not in _MINION_CLS:
+    mtype = minion_type(cfg)
+    if mtype not in _MINION_CLS:
         raise NotImplementedError(
             f"worker {cfg['name']!r} (type {mtype!r}) is not ported yet: "
             f"{ROADMAP_HEADS}")
@@ -112,9 +128,15 @@ class PASE(nn.Module):
         self.regr_meta = list(workers_meta.get("regr", []))
         self.workers = nn.ModuleDict()
         for e in self.cls_meta:
-            # LIM / GIM heads read a pos/neg pair concatenated on channels;
+            # LIM / GIM heads read a pos/neg pair concatenated on channels,
+            # Gap a frame pair; SPC a frame and a window of ctxt_frames;
             # the overlap head reads the chunk stream alone
-            cin = emb if e["name"] == "overlap" else 2 * emb
+            if e["name"] == "overlap":
+                cin = emb
+            elif minion_type(e) == "spc":
+                cin = emb * (1 + int(e.get("ctxt_frames", 5)))
+            else:
+                cin = 2 * emb
             self.workers[e["name"]] = _build_minion(e, cin, generator)
         for e in self.regr_meta:
             self.workers[e["name"]] = _build_minion(e, emb, generator)
@@ -124,7 +146,9 @@ class PASE(nn.Module):
         """Loss order: cls first, then regr."""
         return [e["name"] for e in self.cls_meta + self.regr_meta]
 
-    def forward(self, batch, alpha=1.0):
+    def forward(self, batch, alpha=1.0, generator=None):
+        """``generator`` draws the SPC and Gap frame indices that the batch
+        does not inject."""
         keys = ["chunk", "chunk_ctxt", "chunk_rand"]
         x = torch.cat([batch[k] for k in keys], dim=0)
         hcat = self.frontend(x).transpose(1, 2)          # [3B, emb, F]
@@ -139,6 +163,16 @@ class PASE(nn.Module):
         preds, labels = {}, {}
         for i, e in enumerate(self.cls_meta):
             name = e["name"]
+            kind = minion_type(e)
+            if kind in ("spc", "gap"):
+                y = self.workers[name](chunk, a_of(i), generator,
+                                       batch.get(f"{name}_idx"))
+                if kind == "gap":
+                    y, labels[name] = y
+                preds[name] = y.transpose(1, 2)
+                if kind == "spc":
+                    labels[name] = make_mi_labels(preds[name])
+                continue
             if name == "overlap":
                 # the frame label of the overlap distortion, [B, F, 1]
                 preds[name] = self.workers[name](chunk, a_of(i)).transpose(

@@ -11,6 +11,12 @@ reference layout loads with ``load_state_dict(strict=True)``:
 * ``SincConv``    — SincNet band-pass layer: filters synthesized every
                     forward, one plain conv1d on the reflect-padded input.
 * ``FeBlock``     — pad(reflect) -> conv/sinc -> BatchNorm -> PReLU (init 0).
+* ``FeResBlock``  — residual block of the resblocks trunk: nearest
+                    decimation, two zero-padded stride-1 convs (dilations
+                    1, 2) with BatchNorm / PReLU, plus the (1x1-projected)
+                    identity, then BatchNorm.
+* ``VQEMA``       — the VQ-VAE quantizer with EMA codebook updates; its
+                    codebook and EMA state are buffers.
 * ``BatchNorm1d`` / ``PReLU`` — torch's, with the policy's cast points.
 * ``QRNN``        — window-2 quasi-recurrent layer: Linear over
                     [x_t, x_{t-1}], then the CUDA pooling kernels
@@ -43,6 +49,7 @@ Parameters are created on the CPU and drawn from the generator passed in;
 the owner moves the finished module to its device.
 """
 
+import contextlib
 import math
 
 import torch
@@ -230,6 +237,93 @@ class FeBlock(nn.Module):
         return self.act(h)
 
 
+def decimate(x, factor):
+    """Nearest-neighbour decimation of [B, C, T] by an integer factor
+    (``F.interpolate(scale_factor=1/factor, mode='nearest')``): frames
+    0, factor, 2 factor, ..., floor(T / factor) of them."""
+    if factor == 1:
+        return x
+    return x[:, :, :x.shape[2] // factor * factor:factor]
+
+
+class FeResBlock(nn.Module):
+    """Two-conv residual block of the resblocks trunk, on [B, C, T]
+    (``pase_tpu/nn.py`` FeResBlock): nearest decimation by ``downsample``
+    first, then a symmetric zero pad of (kwidth // 2) * dilation, conv1,
+    norm1, act1, the same pad, conv2, act2, plus the identity (the 1x1
+    ``resproj`` where the widths differ), then norm2. Dilations (1, 2);
+    PReLUs start at 0.
+
+    The identity is decimated before its projection (the JAX block
+    projects first: the same function, one order for the offline, the
+    streamed and the exported paths). ``stage1``, ``stage2``,
+    ``identity`` and ``finish`` are the block's parts, which the
+    streaming encoder runs one by one."""
+
+    def __init__(self, in_channels, fmaps, kwidth, downsample=1,
+                 dilations=(1, 2), act=None, norm_type=None,
+                 generator=None):
+        super().__init__()
+        if act not in (None, "prelu"):
+            if act == "glu":
+                raise TypeError("FeResBlock does not support glu (broken "
+                                "in the reference as well)")
+            raise NotImplementedError(
+                f"FeResBlock act={act!r} is not ported yet: "
+                f"{ROADMAP_OFF_SLICE}")
+        if norm_type not in ("bnorm", None):
+            raise NotImplementedError(
+                f"FeResBlock norm_type={norm_type!r} is not ported yet "
+                f"(snorm/wnorm/bsnorm/lnorm/inorm): {ROADMAP_OFF_SLICE}")
+        if kwidth % 2 == 0:
+            raise ValueError(
+                f"FeResBlock kwidth={kwidth} (even) grows the conv's "
+                "length past the identity's; the reference's residual add "
+                "fails the same way: use odd kwidths with resblocks")
+        self.kwidth = kwidth
+        self.downsample = downsample
+        self.dilations = tuple(dilations)
+        d1, d2 = self.dilations
+        self.pads = ((kwidth // 2) * d1, (kwidth // 2) * d2)
+        self.conv1 = Conv1D(in_channels, fmaps, kwidth, dilation=d1,
+                            generator=generator)
+        self.conv2 = Conv1D(fmaps, fmaps, kwidth, dilation=d2,
+                            generator=generator)
+        self.resproj = (Conv1D(in_channels, fmaps, 1, generator=generator)
+                        if in_channels != fmaps else None)
+        bnorm = norm_type == "bnorm"
+        self.norm1 = BatchNorm1d(fmaps) if bnorm else None
+        self.norm2 = BatchNorm1d(fmaps) if bnorm else None
+        self.act1 = PReLU(fmaps, init=0.0)
+        self.act2 = PReLU(fmaps, init=0.0)
+
+    def stage1(self, x):
+        """conv1 -> norm1 -> act1 on frames padded by the caller."""
+        h = self.conv1(x)
+        if self.norm1 is not None:
+            h = self.norm1(h)
+        return self.act1(h)
+
+    def stage2(self, h):
+        """conv2 -> act2 on frames padded by the caller."""
+        return self.act2(self.conv2(h))
+
+    def identity(self, xd):
+        """The decimated input, projected where the widths differ."""
+        return xd if self.resproj is None else self.resproj(xd)
+
+    def finish(self, h, ident):
+        h = h + ident
+        return h if self.norm2 is None else self.norm2(h)
+
+    def forward(self, x):
+        xd = decimate(x, self.downsample)
+        p1, p2 = self.pads
+        h = self.stage1(F.pad(xd, (p1, p1)))
+        h = self.stage2(F.pad(h, (p2, p2)))
+        return self.finish(h, self.identity(xd))
+
+
 class _QRNNLayer(nn.Module):
     def __init__(self, input_size, hidden, generator=None):
         super().__init__()
@@ -383,3 +477,102 @@ class GDeconv1DBlock(nn.Module):
         if self.norm is not None:
             y = self.norm(y)
         return self.act(y)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Float32 matmuls without TF32 within the block (the flag is global;
+    it is restored after)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class VQEMA(nn.Module):
+    """VQ-VAE quantizer with EMA codebook updates (``pase_tpu/nn.py``
+    VQEMA) on [B, T, D] frames.
+
+    The codebook ``emb`` [K, D] and the EMA state ``ema_cluster_size``
+    [K], ``ema_w`` [K, D] are buffers (the JAX package keeps them in
+    ``batch_stats``): training updates them, gradients do not. A frame's
+    code is the argmin of |x|^2 + |e|^2 - 2 x e^T, taken in float32
+    without TF32. In training the EMA update runs first: the counts and
+    the code sums through the one-hot matrix (a GEMM, deterministic on
+    the card), Laplace smoothing (size + eps) / (n + K eps) n, and
+    emb = ema_w / size; the output's codes are read from the updated
+    codebook. The output passes x's gradient straight through (x + sg(q -
+    x)); the commitment loss beta * mean((sg(q) - x)^2) and the code
+    perplexity of the last call are kept in ``loss`` and ``perplexity``,
+    its codes in ``codes``.
+
+    ``pick``, when set, is called as pick(rows, dist, codes) -> codes: a
+    parity harness forces a side's codes with it
+    (``grad_parity.vq_codes``)."""
+
+    def __init__(self, emb_K, emb_dim, beta=0.25, gamma=0.99, eps=1e-5,
+                 generator=None):
+        super().__init__()
+        self.emb_K = emb_K
+        self.beta = beta
+        self.gamma = gamma
+        self.eps = eps
+        self.register_buffer("emb", torch.randn(emb_K, emb_dim,
+                                                generator=generator))
+        self.register_buffer("ema_cluster_size", torch.zeros(emb_K))
+        self.register_buffer("ema_w", torch.randn(emb_K, emb_dim,
+                                                  generator=generator))
+        self.pick = None
+        self.loss = self.perplexity = self.codes = None
+
+    def distances(self, flat):
+        """[N, K] squared distances of [N, D] rows to the codebook."""
+        e = self.emb
+        with _no_tf32():
+            return (torch.sum(flat * flat, dim=1, keepdim=True)
+                    + torch.sum(e * e, dim=1) - 2.0 * (flat @ e.t()))
+
+    def nearest(self, flat):
+        """The code of each [N, D] row, through ``pick`` when set."""
+        dist = self.distances(flat)
+        idx = torch.argmin(dist, dim=1)
+        return idx if self.pick is None else self.pick(flat, dist, idx)
+
+    def quantize(self, y):
+        """The codebook rows nearest to the frames of y [B, D, t] (the
+        streaming encoder's output form, no EMA, no straight-through):
+        [B, D, t]."""
+        b, d, t = y.shape
+        flat = y.transpose(1, 2).reshape(-1, d)
+        q = self.emb[self.nearest(flat)]
+        return q.reshape(b, t, d).transpose(1, 2)
+
+    def forward(self, x):
+        b, t, d = x.shape
+        flat = x.reshape(-1, d)
+        with torch.no_grad():
+            idx = self.nearest(flat)
+            if self.training:
+                enc = F.one_hot(idx, self.emb_K).to(flat.dtype)
+                counts = enc.sum(dim=0)
+                g = self.gamma
+                size = self.ema_cluster_size * g + (1 - g) * counts
+                n = size.sum()
+                size = (size + self.eps) / (n + self.emb_K * self.eps) * n
+                with _no_tf32():
+                    dw = enc.t() @ flat
+                new_w = self.ema_w * g + (1 - g) * dw
+                self.ema_cluster_size.copy_(size)
+                self.ema_w.copy_(new_w)
+                self.emb.copy_(new_w / size[:, None])
+            else:
+                counts = torch.bincount(idx, minlength=self.emb_K).to(
+                    flat.dtype)
+            q = self.emb[idx].reshape(b, t, d)
+            p = counts / flat.shape[0]
+            self.perplexity = torch.exp(-torch.sum(p * torch.log(p + 1e-10)))
+        self.codes = idx
+        self.loss = self.beta * torch.mean(torch.square(q - x))
+        return x + (q - x).detach()

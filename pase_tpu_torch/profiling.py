@@ -16,16 +16,48 @@ kernel's name:
   adam — the optimizer's multi-tensor kernels;
   reduction, elementwise — the rest.
 
+``module_span`` puts a module's calls in a span of their own (the VQ
+quantizer's ``pase.quantizer`` inside ``pase.forward``); an op counts in
+the innermost span. ``profile_calls`` splits any function's device time
+the same way (an encoder forward: the quantizer beside the trunk,
+'other').
+
 A measurement helper: it needs a CUDA device and is used by
 ``chip_smoke.py``.
 """
 
+import contextlib
 import time
 
 import torch
+from torch.profiler import record_function
 
 SPANS = ("pase.prepare", "pase.forward", "pase.losses", "pase.backward",
-         "pase.optimizer")
+         "pase.optimizer", "pase.quantizer")
+
+
+@contextlib.contextmanager
+def module_span(module, name):
+    """Within the block, every call of ``module`` runs in a
+    ``record_function(name)`` span (forward hooks: the module's code is
+    not touched, so an exported program never sees the span)."""
+    open_spans = []
+
+    def enter(mod, args):
+        span = record_function(name)
+        span.__enter__()
+        open_spans.append(span)
+
+    def leave(mod, args, out):
+        open_spans.pop().__exit__(None, None, None)
+
+    hooks = [module.register_forward_pre_hook(enter),
+             module.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def kernel_kind(name):
@@ -71,16 +103,23 @@ def profile_train_steps(trainer, batches, warmup=2):
     ``warmup`` run unprofiled). Returns a dict: wall ms per step (host
     clock, synchronized), device busy ms per step (sum of kernel times),
     the idle share, and {span: {kind: ms per step}}."""
+    return profile_calls([lambda raw=raw: trainer.train_step(raw)
+                          for raw in batches], warmup)
+
+
+def profile_calls(calls, warmup=1):
+    """Profile a list of calls (the first ``warmup`` run unprofiled);
+    the same dict as ``profile_train_steps``, per call."""
     from torch.profiler import ProfilerActivity, profile
-    for raw in batches[:warmup]:
-        trainer.train_step(raw)
-    measured = batches[warmup:]
+    for fn in calls[:warmup]:
+        fn()
+    measured = calls[warmup:]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for raw in measured:
-            trainer.train_step(raw)
+        for fn in measured:
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / len(measured)
     split = {}

@@ -55,6 +55,7 @@ from pase_tpu_torch.checkpoint import (save_variables,
                                        state_dict_to_variables)
 # registers torch.ops.pase_tpu_torch.qrnn_pool_fwd, which the programs call
 from pase_tpu_torch.ops import cuda_qrnn  # noqa: F401
+from pase_tpu_torch.nn import FeResBlock
 from pase_tpu_torch.precision import full_precision
 from pase_tpu_torch.streaming import StreamingEncoder, block_geometry
 
@@ -84,13 +85,18 @@ __all__ = ["export_encoder", "ServingEncoder", "export_streaming_encoder",
 def time_shard_halo(module):
     """The trunk's receptive extent in samples, rounded up to the stride
     product R, plus one R of slack for the asymmetric SAME pads (the port's
-    copy of ``pase_tpu/parallel/sp.py`` ``time_shard_halo``, FeBlock
-    trunks)."""
+    copy of ``pase_tpu/parallel/sp.py`` ``time_shard_halo``): an FeBlock
+    adds (kw - 1) * dilation at its input's rate; an FeResBlock decimates
+    first, then adds (kw - 1) * (d1 + d2) at its output's rate."""
     ext, cum = 0, 1
     for blk in module.blocks:
         kw, st, dil, _ = block_geometry(blk)
-        ext += (kw - 1) * dil * cum
-        cum *= st
+        if isinstance(blk, FeResBlock):
+            cum *= st
+            ext += (kw - 1) * sum(dil) * cum
+        else:
+            ext += (kw - 1) * dil * cum
+            cum *= st
     return ((ext + cum - 1) // cum + 1) * cum
 
 

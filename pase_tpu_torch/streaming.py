@@ -10,7 +10,7 @@ stream's first frames once ``l + 1`` of them have arrived; a FIFO keeps the
 ``K_eff - stride`` frames of the next VALID window's overlap, and enough to
 reflect the ``r`` right-pad frames at ``flush``. The blocks run without
 their own pad (``FeBlock.forward(x, do_pad=False)``). Dense skips are
-mean-pooled to the output rate by per-skip FIFOs (``_PoolStream``), then
+mean-pooled to the output rate by per-skip FIFOs (``_GroupStream``), then
 projected, and a fuse synchronizer emits the frames that every skip and
 the trunk have reached. The QRNN carries (x_{t-1}, c_t) per layer across
 chunks (``_QRNNStream``); BatchNorm (eval statistics), PReLU, ``W``,
@@ -31,9 +31,15 @@ The reference quirk of the JAX package holds here too: the offline
 deviant size, which no online form can know in advance; the stream then
 emits ``floor(T / 160)`` frames with the canonical factor.
 
-The resblocks trunk (``_DecimStream`` / ``_ResBlockStream`` in the JAX
-package), InstanceNorm and non-QRNN RNNs have no stream here: the port
-builds none of them yet (ROADMAP.md, queue 1: off-path model variants).
+The resblocks trunk streams per FeResBlock (``_ResBlockStream``): the
+nearest decimation (a ``_GroupStream`` keeping the first frame of each
+complete group), the two stride-1 convs as ``_ConvStream``s in
+'constant' (zero) pad mode, the decimated identity (projected in
+GEMM_FRAMES calls) in a FIFO, fused with the conv path's frames as both
+arrive, then the eval norm2. A VQ quantizer takes each emitted frame's
+nearest codebook row (the argmin and the gather, in GEMM_FRAMES calls)
+last. InstanceNorm and non-QRNN RNNs have no stream here: the port
+builds neither yet (ROADMAP.md, queue 1: off-path model variants).
 
 Usage::
 
@@ -49,7 +55,7 @@ import numpy as np
 import torch
 
 from pase_tpu_torch.nn import (QRNN, ROADMAP_OFF_SLICE, BatchNorm1d,
-                               FeBlock, SincConv, time_blocks)
+                               FeResBlock, SincConv, time_blocks)
 from pase_tpu_torch.ops.pad import pad_1d, sinc_same_pad
 
 # the output-rate GEMMs (the QRNN's linear, W, the skip projections) run in
@@ -132,12 +138,16 @@ class _ConvStream:
         self.started = bool(st.get("started", True))
 
 
-class _PoolStream:
-    """Mean-pool downsampler by an integer factor (``fuse_skip``'s pooling:
-    trailing frames that do not fill a group wait for the next push)."""
+class _GroupStream:
+    """Reduces each complete group of ``factor`` frames to one frame:
+    ``"mean"`` pools (``fuse_skip``'s pooling), ``"first"`` decimates
+    (``nn.decimate``). Trailing frames that do not fill a group wait for
+    the next push (and at the end are dropped, as the offline forms drop
+    them)."""
 
-    def __init__(self, factor):
+    def __init__(self, factor, reduce="mean"):
         self.factor = factor
+        self.reduce = reduce
         self.buf = None
 
     def push(self, x):
@@ -150,16 +160,87 @@ class _PoolStream:
         if n == 0:
             return None
         b, c, _ = self.buf.shape
-        y = self.buf[:, :, :n * self.factor].reshape(
-            b, c, n, self.factor).mean(dim=3)
+        groups = self.buf[:, :, :n * self.factor].reshape(b, c, n,
+                                                          self.factor)
         self.buf = self.buf[:, :, n * self.factor:]
-        return y
+        return groups.mean(dim=3) if self.reduce == "mean" else \
+            groups[..., 0]
 
     def get_state(self):
-        return {"buf": self.buf}
+        # factor 1 passes frames through and holds none: no state (an
+        # exported state has no empty leaves)
+        return {} if self.factor == 1 else {"buf": self.buf}
 
     def set_state(self, st):
-        self.buf = st["buf"]
+        self.buf = st.get("buf")
+
+
+class _ResBlockStream:
+    """Streaming state of one FeResBlock, exact offline semantics: the
+    decimation, the two zero-padded stride-1 convs (``stage1``,
+    ``stage2``), the identity FIFO, and norm2 on the frames that both
+    paths have reached."""
+
+    def __init__(self, blk):
+        self.blk = blk
+        (p1, p2), (d1, d2) = blk.pads, blk.dilations
+        self.decim = _GroupStream(blk.downsample, "first")
+        self.conv1 = _ConvStream(blk.stage1, blk.kwidth, 1, d1, (p1, p1),
+                                 "constant")
+        self.conv2 = _ConvStream(blk.stage2, blk.kwidth, 1, d2, (p2, p2),
+                                 "constant")
+        self.id_fifo = None
+        self.h_fifo = None
+
+    def _ingest(self, x, flush):
+        xd = self.decim.push(x)
+        if xd is not None:
+            # the 1x1 projection at a fixed call shape, as the output-rate
+            # GEMMs
+            ident = (xd if self.blk.resproj is None else time_blocks(
+                self.blk.identity, xd, GEMM_FRAMES, dim=2))
+            self.id_fifo = _tcat(self.id_fifo, ident)
+        h1 = self.conv1.push(xd)
+        if flush:
+            h1 = _tcat(h1, self.conv1.flush())
+        h2 = self.conv2.push(h1)
+        if flush:
+            h2 = _tcat(h2, self.conv2.flush())
+        self.h_fifo = _tcat(self.h_fifo, h2)
+
+    def _emit(self):
+        if self.h_fifo is None or self.id_fifo is None:
+            return None
+        m = min(self.h_fifo.shape[2], self.id_fifo.shape[2])
+        if m == 0:
+            return None
+        y = self.blk.finish(self.h_fifo[:, :, :m], self.id_fifo[:, :, :m])
+        self.h_fifo = self.h_fifo[:, :, m:]
+        self.id_fifo = self.id_fifo[:, :, m:]
+        return y
+
+    def push(self, x):
+        if x is None or x.shape[2] == 0:
+            return None
+        self._ingest(x, flush=False)
+        return self._emit()
+
+    def flush(self):
+        self._ingest(None, flush=True)
+        return self._emit()
+
+    def get_state(self):
+        return {"decim": self.decim.get_state(),
+                "conv1": self.conv1.get_state(),
+                "conv2": self.conv2.get_state(),
+                "id_fifo": self.id_fifo, "h_fifo": self.h_fifo}
+
+    def set_state(self, st):
+        self.decim.set_state(st["decim"])
+        self.conv1.set_state(st["conv1"])
+        self.conv2.set_state(st["conv2"])
+        self.id_fifo = st["id_fifo"]
+        self.h_fifo = st["h_fifo"]
 
 
 class _QRNNStream:
@@ -199,7 +280,11 @@ class _QRNNStream:
 
 
 def block_geometry(block):
-    """(kwidth, stride, dilation, (left, right) pad) of an FeBlock."""
+    """(kwidth, stride, dilation, (left, right) pad) of an FeBlock; of an
+    FeResBlock (kwidth, the decimation, its two dilations, each conv's
+    symmetric zero pad)."""
+    if isinstance(block, FeResBlock):
+        return block.kwidth, block.downsample, block.dilations, block.pads
     conv = block.conv
     if isinstance(conv, SincConv):
         return (conv.kwidth, conv.stride, 1,
@@ -229,14 +314,11 @@ class StreamingEncoder:
         if module.training:
             raise ValueError("StreamingEncoder needs the encoder in eval "
                              "mode (BatchNorm's running statistics)")
-        for i, blk in enumerate(module.blocks):
-            if not isinstance(blk, FeBlock):
-                raise NotImplementedError(
-                    f"streaming block {i} ({type(blk).__name__}): the "
-                    "resblocks trunk's streams (_DecimStream, "
-                    f"_ResBlockStream) are not ported yet: "
-                    f"{ROADMAP_OFF_SLICE}")
-            if blk.norm is not None and not isinstance(blk.norm, BatchNorm1d):
+        for blk in module.blocks:
+            norms = ((blk.norm1, blk.norm2) if isinstance(blk, FeResBlock)
+                     else (blk.norm,))
+            if any(n is not None and not isinstance(n, BatchNorm1d)
+                   for n in norms):
                 raise NotImplementedError(
                     "InstanceNorm normalizes over the whole utterance and "
                     "has no exact streaming form")
@@ -251,12 +333,15 @@ class StreamingEncoder:
         for blk in module.blocks:
             kw, st, dil, pad = block_geometry(blk)
             strides.append(st)
+            if isinstance(blk, FeResBlock):
+                self.conv_streams.append(_ResBlockStream(blk))
+                continue
             self.conv_streams.append(_ConvStream(
                 lambda x, blk=blk: blk(x, do_pad=False), kw, st, dil, pad,
                 blk.pad_mode))
         self.hop = int(np.prod(strides))
         nskips = len(module.denseskips)
-        self.skip_pools = [_PoolStream(int(np.prod(strides[i + 1:])))
+        self.skip_pools = [_GroupStream(int(np.prod(strides[i + 1:])))
                            for i in range(nskips)]
         self.skip_fifos = [None] * nskips
         self.qrnn = None if module.rnn is None else _QRNNStream(module.rnn)
@@ -314,6 +399,8 @@ class StreamingEncoder:
             y = mod.norm_out(y)
         if mod.tanh_out:
             y = torch.tanh(y)
+        if mod.quantizer is not None:
+            y = time_blocks(mod.quantizer.quantize, y, GEMM_FRAMES, dim=2)
         return y
 
     def _step(self, wav, flush):

@@ -8,7 +8,9 @@ The port of ``pase_tpu/trainer.py`` for the base policy. One step:
      encoder as one batch (BatchNorm statistics over all three, running
      stats updated), then every worker head;
   3. per-worker losses, base policy (weights and alpha all ones), the
-     summed total;
+     summed total, plus the encoder's VQ commitment loss where it has a
+     quantizer (reported as 'vq', with 'vq_perplexity', which is not
+     summed);
   4. backward (the QRNN layer through its CUDA forward/backward kernels on
      the card) and one Adam step over the 'frontend' and 'minion' groups,
      the lr of an update being sched(count), count the updates before it
@@ -24,9 +26,12 @@ alpha (``scale_grad``). The five parts run in
 
 Randomness: step k's distortion draws come from a generator seeded with
 ``step_seed(seed + 1, k)`` (``data/dataset.py``), unless the caller hands
-the step its draws; the device batcher's batch k from ``step_seed(its
-seed, k)``. A resumed run therefore replays the uninterrupted run's
-batches and draws with no generator state in the checkpoint.
+the step its draws; the SPC and Gap heads' frame indices from one seeded
+with ``step_seed(seed + 2, k)``, unless the batch injects them
+(``spc_idx``, ``gap_idx``); the device batcher's batch k from
+``step_seed(its seed, k)``. A resumed run therefore replays the
+uninterrupted run's batches and draws with no generator state in the
+checkpoint.
 
 Feeding: host batches (numpy arrays from a disk batcher) are staged one
 step ahead (``stage``): pinned host memory and a non_blocking copy on a
@@ -59,7 +64,7 @@ from pase_tpu_torch.checkpoint import (Saver, load_frontend_ckpt,
                                        save_variables_npz,
                                        train_state_to_tree)
 from pase_tpu_torch.data.dataset import step_seed
-from pase_tpu_torch.data.pipeline import make_prepare_fn
+from pase_tpu_torch.data.pipeline import INDEX_KEYS, make_prepare_fn
 from pase_tpu_torch.log import MetricLogger
 from pase_tpu_torch.model import build_pase, worker_losses
 from pase_tpu_torch.optim import build_optimizer, set_lr
@@ -109,6 +114,7 @@ class Trainer:
             random_scale=self.cfg.get("random_scale", False),
             zs_bank=zs_bank, zs_snrs=zs_snrs)
         self.prep_generator = torch.Generator(device=self.device)
+        self.sample_generator = torch.Generator(device=self.device)
         wire = str(self.cfg.get("wire_dtype") or "float32")
         if wire not in ("float32", "int16"):
             raise ValueError(f"wire_dtype {wire!r}: float32 or int16")
@@ -142,10 +148,13 @@ class Trainer:
     def _host_tensor(self, key, v):
         """A host batch entry as the tensor that crosses the wire: int16
         stays int16, waveforms become int16 under the int16 wire, the rest
-        float32. A tensor already on the device is returned as it is."""
+        float32, injected frame indices int64. A tensor already on the
+        device is returned as it is."""
         if isinstance(v, torch.Tensor) and v.device.type != "cpu":
             return v
         v = torch.as_tensor(v)
+        if key in INDEX_KEYS:
+            return v.long()
         if v.dtype == torch.int16:
             return v
         if self.wire_int16 and key in WAVE_KEYS:
@@ -199,6 +208,8 @@ class Trainer:
         step."""
         self.model.train()
         self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
+        self.sample_generator.manual_seed(
+            step_seed(self.seed + 2, self.step))
         if draws is not None:
             draws = draws.to(self.device)
         if zs_draws is not None:
@@ -209,7 +220,8 @@ class Trainer:
                                      self.prep_generator, draws, zs_draws)
             set_lr(self.opt, self.scheds, self.opt_count)
             with record_function("pase.forward"):
-                _, _, preds, labels = self.model(batch, self.alpha)
+                _, _, preds, labels = self.model(batch, self.alpha,
+                                                 self.sample_generator)
             with record_function("pase.losses"):
                 losses = worker_losses(self.meta, preds, labels)
                 loss_vec = torch.stack([losses[n]
@@ -217,6 +229,13 @@ class Trainer:
                 weights, alpha_next, self.policy_state = apply_policy(
                     self.mode, loss_vec.detach(), self.policy_state)
                 total = torch.sum(weights * loss_vec)
+                fe = self.model.frontend
+                if fe.vq_loss is not None:
+                    # the commitment loss trains the encoder toward the
+                    # codebook; the perplexity is reported only
+                    losses["vq"] = fe.vq_loss
+                    total = total + fe.vq_loss
+                    losses["vq_perplexity"] = fe.vq_perplexity
         with record_function("pase.backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
@@ -236,9 +255,15 @@ class Trainer:
         with torch.no_grad(), compute_dtype(self.compute_dtype):
             batch = self.prepare(self.ready(raw_batch),
                                  self.prep_generator)
-            _, _, preds, labels = self.model(batch, 1.0)
+            _, _, preds, labels = self.model(batch, 1.0,
+                                             self.sample_generator)
             losses = worker_losses(self.meta, preds, labels)
             losses["total"] = sum(losses.values())
+            vq = self.model.frontend.vq_loss
+            if vq is not None:
+                # the train step's objective: the commitment term too
+                losses["vq"] = vq
+                losses["total"] = losses["total"] + vq
         return losses
 
     def _sync(self):

@@ -11,14 +11,7 @@ import pytest
 import torch
 
 from pase_tpu_torch import bench
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_common import port_test_guard  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

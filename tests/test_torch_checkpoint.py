@@ -22,6 +22,7 @@ from pase_tpu_torch.checkpoint import (load_variables_npz,
                                        variables_to_state_dict)
 from torch_port_common import (NARROW_CFG, PASEP_CFG, flat_variables,
                                jax_variables, rel_err)
+from torch_port_common import port_test_guard  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -151,14 +152,6 @@ def _train_losses(path):
 def _opt_state(tr):
     return {n: {k: v.clone() for k, v in tr.opt.state[p].items()}
             for n, p in tr.model.named_parameters()}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_resume_is_bit_identical_to_the_uninterrupted_run(tmp_path):

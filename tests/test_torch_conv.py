@@ -32,19 +32,12 @@ from pase_tpu.nn import conv1d as jax_conv1d
 from pase_tpu_torch import conv_proto
 from pase_tpu_torch.ops import conv
 from torch_port_common import rel_err
+from torch_port_common import port_test_guard  # noqa: F401
 
 PROTO = "experiments/pallas_conv_proto.py"
 LAYERS = [(t // 100, k, s, cin // 16, cout // 16)
           for t, k, s, cin, cout in conv_proto.LAYERS]
 REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,9 @@ forward, training forward, backward) and the stride-1 conv kernels
 (csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
 against their plain PyTorch versions, the
 encoder on the GPU against the same weights on the CPU, one small train
-step on the GPU against the CPU, and the distortion stack on the GPU
-against the CPU with the same draws.
+step on the GPU against the CPU, the distortion stack on the GPU
+against the CPU with the same draws, and the residual VQ encoder's
+blocks (FeResBlock, the VQEMA quantizer) against the CPU.
 
 This file imports no JAX, so it runs on a host without it. There the
 repository's conftest (which configures JAX) is left out:
@@ -32,6 +33,7 @@ from pase_tpu_torch import wf_builder
 from pase_tpu_torch.ops import conv, cuda_qrnn
 from pase_tpu_torch.ops import qrnn as plain
 from torch_port_common import NARROW_CFG, cuda_device  # noqa: F401
+from torch_port_common import port_test_guard  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -534,3 +536,50 @@ def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
         assert cuda_qrnn.LAUNCHES == {**before, name: before[name] + 1}
         ref = enc(wav).transpose(1, 2).cpu().numpy()
         assert np.abs(got - ref).max() <= 2e-5
+
+
+def test_vq_argmin_and_ema_on_the_card(cuda_device):
+    """VQEMA at 512 codes of width 256 on the card against the CPU, one
+    training call: the codes equal outside ties (grad_parity.vq_codes
+    forces the card's at the CPU's ties), then the output, the loss and
+    the EMA state within 1e-5 of their largest."""
+    from pase_tpu_torch.grad_parity import code_flips, vq_codes
+    from pase_tpu_torch.nn import VQEMA
+    gen = torch.Generator().manual_seed(4)
+    cpu = VQEMA(512, 256, generator=gen).train()
+    gpu = VQEMA(512, 256).train()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(cuda_device)
+    x = torch.randn(3, 200, 256, generator=gen)
+    rec_gpu, rec_cpu, forced = {}, {}, {}
+    with vq_codes(gpu, record=rec_gpu):
+        y_gpu = gpu(x.to(cuda_device))
+    with vq_codes(cpu, record=rec_cpu, force={"": rec_gpu[""][0]},
+                  forced=forced):
+        y_cpu = cpu(x)
+    assert code_flips(rec_cpu, rec_gpu)[""] == (0, 0)
+    for a, b in ((y_gpu, y_cpu), (gpu.loss, cpu.loss),
+                 (gpu.emb, cpu.emb), (gpu.ema_w, cpu.ema_w),
+                 (gpu.ema_cluster_size, cpu.ema_cluster_size)):
+        err = (a.detach().cpu() - b.detach()).abs().max()
+        assert err <= 1e-5 * b.detach().abs().max(), err
+
+
+@pytest.mark.parametrize("cin", [16, 24])
+def test_feresblock_on_the_card(cuda_device, cin):
+    """FeResBlock (kwidth 11, downsample 2, with and without resproj) on
+    the card against the CPU, train and eval: within 1e-5 of the largest
+    output."""
+    from pase_tpu_torch.nn import FeResBlock
+    cpu = FeResBlock(cin, 24, 11, downsample=2, norm_type="bnorm",
+                     generator=torch.Generator().manual_seed(5))
+    gpu = FeResBlock(cin, 24, 11, downsample=2, norm_type="bnorm")
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(cuda_device)
+    x = torch.randn(4, cin, 3000, generator=torch.Generator().manual_seed(6))
+    for train in (True, False):
+        y_gpu = gpu.train(train)(x.to(cuda_device)).detach().cpu()
+        y_cpu = cpu.train(train)(x).detach()
+        assert y_gpu.shape == (4, 24, 1500)
+        err = (y_gpu - y_cpu).abs().max() / y_cpu.abs().max()
+        assert err <= 1e-5, (train, err)

@@ -50,20 +50,13 @@ from pase_tpu_torch.data.synthetic_corpus import write_synthetic_corpus
 from pase_tpu_torch.model import parse_workers_cfg
 from test_torch_distortions import jax_draws
 from torch_port_common import rel_err
+from torch_port_common import port_test_guard  # noqa: F401
 
 CHUNK = 4000
 REL = 1e-5
 WAIT_S = 60.0
 # the targets the two packages compute within 2.3e-6 of their largest value
 CLOSE_TARGETS = ("fbank", "mfcc", "prosody")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def write_corpus(root, train_seconds=3.0, valid_seconds=1.0, seed=0):

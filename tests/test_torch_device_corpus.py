@@ -50,16 +50,9 @@ from test_torch_data import _overlap_assets, jax_zs_draws, write_corpus
 from test_torch_distortions import jax_draws
 from test_torch_train import (ADAM_B1, BN_CANCELLED, SMALL_FE, _cfg,
                               _init_state, _np_tree, small_workers)
+from torch_port_common import port_test_guard  # noqa: F401
 
 CHUNK = 4800
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -37,19 +37,12 @@ from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
 from pase_tpu_torch.data.io import write_wav
 from pase_tpu_torch.model import parse_workers_cfg
 from torch_port_common import rel_err
+from torch_port_common import port_test_guard  # noqa: F401
 
 B, T = 2, 4800
 FFT_REL = 1e-5
 REL = 1e-4
 LABEL_ATOL = 1e-7
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _speech(b=B, t=T, seed=0):
@@ -467,17 +460,20 @@ def test_train_cli_with_dtrans_cfg(tmp_path, monkeypatch):
 def test_overlap_head_still_refuses():
     """The prepare emits the overlap label, and the head that reads it is
     ported now (an MLP on the chunk stream, held to the JAX step by
-    tests/test_torch_overlap.py): the bank builds with it. The contrastive
-    heads beside it, SPC and Gap, still refuse, naming their ROADMAP
-    item."""
+    tests/test_torch_overlap.py): the bank builds with it, and with the
+    contrastive heads beside it, SPC and Gap (tests/test_torch_spc_gap.py).
+    A GRU head still refuses, naming its ROADMAP item."""
     from pase_tpu_torch.model import build_pase
     from torch_port_common import NARROW_CFG
     wk = {"regr": [], "cls": [dict(_overlap_workers()["cls"][0],
                                    num_outputs=1)]}
     model, _ = build_pase(NARROW_CFG, wk)
     assert "overlap" in model.workers
-    for name in ("spc", "gap"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1: off-path"):
-            build_pase(NARROW_CFG,
-                       dict(wk, cls=[dict(wk["cls"][0], name=name)]))
+    heads = [dict(wk["cls"][0], name=name) for name in ("spc", "gap")]
+    model, _ = build_pase(NARROW_CFG, dict(wk, cls=wk["cls"] + heads))
+    assert {"overlap", "spc", "gap"} <= set(model.workers)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, queue 1: off-path"):
+        build_pase(NARROW_CFG,
+                   dict(wk, cls=[dict(wk["cls"][0], name="mi",
+                                      type="gru")]))

@@ -26,19 +26,12 @@ from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
 from pase_tpu_torch.model import parse_workers_cfg
 from pase_tpu_torch.ops import features, signal
 from torch_port_common import rel_err
+from torch_port_common import port_test_guard  # noqa: F401
 
 REL = 1e-4
 WORKERS = "cfg/workers/workers+.cfg"
 TARGETS = ["lps", "lps_long", "fbank", "fbank_long", "gtn", "gtn_long",
            "mfcc", "mfcc_long", "prosody"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

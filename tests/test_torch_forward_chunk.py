@@ -20,6 +20,7 @@ from pase_tpu.data.io import write_wav as jax_write_wav
 from pase_tpu_torch import util_scripts as port_cli
 from pase_tpu_torch.data import io as port_io
 from torch_port_common import NARROW_CFG, jax_variables, rel_err
+from torch_port_common import port_test_guard  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the narrow encoder at PASE+'s 160x frame rate

@@ -26,6 +26,7 @@ from pase_tpu_torch.checkpoint import variables_to_state_dict
 from pase_tpu_torch.ops import pad, sinc
 from torch_port_common import (NARROW_CFG, PASEP_CFG, flat_variables,
                                jax_variables, rel_err)
+from torch_port_common import port_test_guard  # noqa: F401
 
 REL_BOUND = 1e-4
 
@@ -79,7 +80,8 @@ def test_encoder_is_seeded_and_refuses_train():
 
 
 @pytest.mark.parametrize("extra", [
-    {"resblocks": True}, {"vq_K": 64}, {"rnn_type": "lstm"},
+    {"resblocks": True, "norm_type": "snorm"}, {"rnn_type": "gru"},
+    {"rnn_type": "lstm"},
     {"norm_type": "snorm"}, {"activation": "glu"}, {"name": "tdnn"}])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

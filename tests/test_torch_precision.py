@@ -42,18 +42,11 @@ from pase_tpu_torch.ops import cuda_qrnn
 from pase_tpu_torch.ops import features as port_features
 from pase_tpu_torch.trainer import Trainer
 from torch_port_common import flat_variables
+from torch_port_common import port_test_guard  # noqa: F401
 
 REL = 2.0 ** -8
 STEP_REL = 2.0 ** -7
 BF16 = torch.bfloat16
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _x(shape, seed=0, scale=1.0):
@@ -189,6 +182,61 @@ def test_feblock_site(kind):
                             xj)
     with precision.compute_dtype(BF16):
         _check(pm(xt), want_eval, layout="nct")
+
+
+@pytest.mark.parametrize("kind", ["proj_f32_in", "same_bf16_in",
+                                  "proj_bf16_in"])
+def test_feresblock_site(kind):
+    """FeResBlock (downsample 2): conv1 and conv2 cast x to bf16, their
+    biases make both float32, so norm1, the PReLUs and norm2 run in
+    float32; the 1x1 resproj (bias) hands on float32; without it a bf16
+    input's identity (the sinc block's output) is added to the float32
+    path as bf16, which promotes. Train mode, then eval."""
+    cin = 12 if kind.startswith("proj") else 16
+    jm = jnn.FeResBlock(fmaps=16, kwidth=5, downsample=2, norm_type="bnorm")
+    pm = pnn.FeResBlock(cin, 16, 5, downsample=2, norm_type="bnorm")
+    x = _x((2, 300, cin))
+    xj = jnp.asarray(x)
+    xt = torch.from_numpy(x).transpose(1, 2)
+    if kind.endswith("bf16_in"):
+        xj, xt = xj.astype(jnp.bfloat16), xt.to(BF16)
+    v = _randomize(jm.init(jax.random.PRNGKey(0), xj, train=False))
+    pm = _port_module(pm, v)
+    want, stats = _jax_run(jm, v, xj, train=True)
+    pm.train()
+    with precision.compute_dtype(BF16):
+        got = pm(xt)
+    _check(got, want, layout="nct")
+    pm.eval()
+    want_eval, _ = _jax_run(jm, {"params": v["params"], "batch_stats": stats},
+                            xj)
+    with precision.compute_dtype(BF16):
+        _check(pm(xt), want_eval, layout="nct")
+
+
+def test_vq_stays_float32():
+    """The quantizer's distances, EMA update and gather stay float32
+    under the bf16 policy (plain matmuls, no cast site), as in JAX: the
+    port's output and EMA state under the policy equal its float32 run
+    bit for bit, and JAX's under its policy within 1e-6."""
+    x = _x((2, 40, 6))
+    jm = jnn.VQEMA(32, 6)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    (_, want, _, _), stats = _jax_run(jm, v, jnp.asarray(x), train=True)
+    runs = []
+    for policy in (BF16, None):
+        pm = _port_module(pnn.VQEMA(32, 6), v).train()
+        with precision.compute_dtype(policy):
+            runs.append((pm(torch.from_numpy(x)), pm.state_dict()))
+    (got, sd), (ref, ref_sd) = runs
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    for k in sd:
+        torch.testing.assert_close(sd[k], ref_sd[k], rtol=0, atol=0)
+    _check(got, want, rel=1e-6)
+    for k, w in flatten_dict(unfreeze(stats), sep="/").items():
+        w = np.asarray(w)
+        assert np.abs(sd[k].numpy() - w).max() <= 1e-6 * np.abs(w).max(), k
 
 
 @pytest.mark.parametrize("train", [True, False])

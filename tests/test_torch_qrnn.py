@@ -20,6 +20,7 @@ from pase_tpu.ops import pallas_qrnn as jax_pallas
 from pase_tpu.ops import qrnn as jax_qrnn
 from pase_tpu_torch.ops import cuda_qrnn
 from pase_tpu_torch.ops import qrnn as torch_qrnn
+from torch_port_common import port_test_guard  # noqa: F401
 
 ATOL = 2e-5
 # (B, T, H): B and T off the Pallas kernel's 8 x 128 tiling, T over one

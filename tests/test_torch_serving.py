@@ -27,6 +27,7 @@ from pase_tpu_torch import util_scripts as port_cli
 from pase_tpu_torch.checkpoint import variables_to_state_dict
 from pase_tpu_torch.ops import cuda_qrnn
 from torch_port_common import flat_variables, jax_variables
+from torch_port_common import port_test_guard  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = {"kwidths": [65, 10, 4, 4], "strides": [1, 10, 4, 4],
@@ -34,14 +35,6 @@ CFG = {"kwidths": [65, 10, 4, 4], "strides": [1, 10, 4, 4],
        "rnn_pool": True, "rnn_dim": 24, "denseskips": True}
 BUCKETS = (1600, 3200)
 CHUNK = 1600
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

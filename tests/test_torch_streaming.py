@@ -23,17 +23,10 @@ from pase_tpu_torch import frontend, streaming
 from pase_tpu_torch.checkpoint import variables_to_state_dict
 from torch_port_common import (NARROW_CFG, PASEP_CFG, flat_variables,
                                jax_variables)
+from torch_port_common import port_test_guard  # noqa: F401
 
 CFG = dict(NARROW_CFG, strides=[1, 10, 4, 4])
 REL = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _JaxEncoder:

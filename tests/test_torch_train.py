@@ -49,6 +49,7 @@ from pase_tpu_torch.checkpoint import (load_model_variables,
                                        model_variables_to_state_dict)
 from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
 from pase_tpu_torch.trainer import Trainer
+from torch_port_common import port_test_guard  # noqa: F401
 
 SMALL_FE = {"kwidths": [251, 20, 11, 11], "strides": [1, 10, 4, 4],
             "fmaps": [8, 8, 16, 16], "rnn_pool": True, "rnn_dim": 16,
@@ -76,14 +77,6 @@ def _cfg(save_path):
     return dict(backprop_mode="base", hop=160, bpe=100, epoch=10,
                 batch_size=BATCH, chunk_size=CHUNK, log_freq=2, fe_lr=LR,
                 min_lr=LR, lr_mode="poly", save_path=str(save_path))
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):

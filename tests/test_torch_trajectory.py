@@ -19,18 +19,11 @@ import pytest
 import torch
 
 from pase_tpu_torch import trajectory as T
+from torch_port_common import port_test_guard  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "torch_port_trajectory.json")
 FAST_STEPS = 5
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,17 @@
 """Shared helpers of the tests that hold the PyTorch port (pase_tpu_torch)
-to the JAX package: the narrow encoder config, seeded non-trivial weights
-and the CUDA fixture."""
+to the JAX package: the narrow encoder config, seeded non-trivial weights,
+the CUDA fixture and the per-test guard every port test file imports."""
+
+import faulthandler
+import sys
 
 import numpy as np
 import pytest
 import torch
+
+# a port test that runs this long is stalled: every thread's stack is
+# dumped and its process exits, which frees its xdist worker
+STALL_SECONDS = 300
 
 # narrow WaveFe: PASE+'s layer kinds at a few channels (stride product 40)
 NARROW_CFG = {
@@ -67,3 +74,30 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False); run on the card with -m cuda")
     return torch.device("cuda", 0)
+
+
+def _stderr_fd(config):
+    """The descriptor pytest's faulthandler plugin writes to (a copy of
+    the real stderr, taken before capturing), else the process's own."""
+    try:
+        from _pytest.faulthandler import fault_handler_stderr_fd_key
+        return config.stash[fault_handler_stderr_fd_key]
+    except (ImportError, KeyError):
+        return sys.__stderr__.fileno()
+
+
+@pytest.fixture(autouse=True)
+def port_test_guard(request):
+    """Per test: torch on one thread (torch on the CPU is much faster so
+    here, and xdist runs several workers side by side), and a deadline:
+    past STALL_SECONDS the test's process dumps every thread's stack and
+    exits."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    faulthandler.dump_traceback_later(STALL_SECONDS, exit=True,
+                                      file=_stderr_fd(request.config))
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        torch.set_num_threads(n)
