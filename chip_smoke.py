@@ -13,12 +13,15 @@ Phases, each printed as it ends; any failure exits non-zero:
                builds at once.
   3. kernel  — the serving forward kernels against the plain PyTorch
                version on the card at each of QRNN_SHAPES: the chunked
-               kernel (qrnn_pool_fwd_chunked) and the serial one
-               (qrnn_pool_fwd) unseeded, max|dh|, max|dc_T| <= 1e-5; the
-               serial one c0-seeded, and block-streamed == full bit for
-               bit on that seeded route; the time of each (CUDA graphs of
-               20 launches, so no host time between them; serial through a
-               zero-c0 call) and the route an unseeded call takes there.
+               kernel (qrnn_pool_fwd_chunked), the segmented serial one
+               (qrnn_pool_fwd_seg) and the one-thread-a-lane one
+               (qrnn_pool_fwd) unseeded, max|dh|, max|dc_T| <= 1e-5;
+               qrnn_pool c0-seeded, and block-streamed == full bit for bit
+               on that seeded route; the two serial kernels equal bit for
+               bit, seeded and unseeded; the time of each (CUDA graphs of
+               20 launches, so no host time between them; the two serial
+               kernels in turns) and the route an unseeded and a seeded
+               call take there.
   4. encoder — PASE+ at full width (cfg/frontend/PASE+.cfg), seeded
                weights: the (1,1,100000) -> (1,256,625) contract, a
                (8,1,160000) batch, the same batch on the CPU (plain path)
@@ -107,10 +110,15 @@ Phases, each printed as it ends; any failure exits non-zero:
                offline encoder (the max relative difference printed);
                forward-chunk --streaming over phase 5's four wavs against
                the offline encoder of each whole file (the same bound); the
-               median ms per 1 s push at B=1 and the real-time factor; the
-               seeded serial K1 at [1,100,512] and [8,100,512] in CUDA
-               graphs beside its byte bound and its latency floor (the
-               kernel at T=1 plus T-1 dependent FMAs at the SM's clock).
+               median ms per 1 s push at B=1 and the real-time factor; a
+               steady 1 s push profiled (device busy ms, K1's ms and share
+               of it) with K1 as the segmented kernel and as the
+               one-thread-a-lane one (the route forced), in turns; the two
+               seeded at [1,100,512], [8,100,512], [1,10,512] and
+               [8,10,512], bit for bit equal, each timed in turns in CUDA
+               graphs at T and at T=1 beside its byte bound and its
+               latency floor (the faster kernel at T=1 plus T-1 dependent
+               FMAs at the SM's clock).
  14. export  — ``python -m pase_tpu_torch.util_scripts export`` on the card
                (buckets 8000/16000/32000/64000, a streaming chunk of 16000;
                the seconds per program printed), then serve-encode over the
@@ -155,7 +163,8 @@ Phases, each printed as it ends; any failure exits non-zero:
                B=8 in 1 s and 100 ms pushes, the two chunkings bit for bit
                equal, each within rtol 1e-3 / atol 2e-4 of the offline
                encoder where the codes agree (codes may differ only at the
-               offline encoder's ties; counted); ms per 1 s push at B=1;
+               offline encoder's ties; counted); ms per 1 s push at B=1
+               and a steady push profiled as in phase 13;
                export (buckets 8000-64000, a 16000 streaming chunk) and
                serve-encode over the four wavs within 2e-5 of forward-chunk
                --chunk_size 64000, the streaming artifact bit for bit
@@ -172,8 +181,8 @@ each disk-fed run (phase 12, five of them) the training kernels once per
 layer per train step and qrnn_pool_fwd once per layer per eval step;
 the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
 the float32 run conv_s1_tf32x3 7 times; each stream (phase 13)
-qrnn_pool_fwd once per QRNN layer per push that reaches the QRNN and
-qrnn_pool_fwd_chunked never; serve-encode through the exported programs
+qrnn_pool_fwd_seg once per QRNN layer per push that reaches the QRNN and
+no other forward kernel; serve-encode through the exported programs
 (phase 14) qrnn_pool_fwd_chunked once per layer per program call, and the
 B=40 call qrnn_pool_fwd; the overlap step (phase 15) the training
 kernels once per layer; phase 16's steps (VQ, v0.1, Gap) the training
@@ -181,9 +190,14 @@ kernels once per QRNN layer (none in v0.1, which has no QRNN), the VQ
 training CLI the training kernels once per layer per train step and
 qrnn_pool_fwd once per layer per eval step, the v0.1 CLI none; phase 17's
 VQ serving path qrnn_pool_fwd_chunked once per layer per encoder call,
-its streams qrnn_pool_fwd once per layer per push that reaches the QRNN,
+its streams qrnn_pool_fwd_seg once per layer per push that reaches the
+QRNN,
 its serve-encode qrnn_pool_fwd_chunked once per layer per program call.
-The kernels line gives each kernel's launches on every path ("paths").
+The kernels line gives each kernel's launches on every path ("paths":
+serving, training, stream (phase 13's four streams), stream_cli
+(forward-chunk --streaming), export (phase 14's serve-encode), and phase
+16-17's vq_step, vq_training, v01_step, v01_training, gap_step,
+vq_serving, vq_stream, vq_export).
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -270,6 +284,8 @@ OP_PAIRS = {1: 200, 8: 40}
 # phase 13's latency floor: cycles of one dependent float32 FMA on the SM
 # (published microbenchmarks of Volta to Hopper)
 FMA_LATENCY_CYCLES = 4
+# phase 13's K1 shapes (B, T): 1 s and 100 ms pushes at B=1 and 8
+PUSH_SHAPES = [(1, 100), (8, 100), (1, 10), (8, 10)]
 
 
 class SmokeFailure(Exception):
@@ -312,12 +328,34 @@ def phase_build():
             (conv.SOURCE, conv.library_path, conv.build)]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        for job in [pool.submit(build, True) for _, _, build in libs]:
+        jobs = [pool.submit(build, True) for _, _, build in libs]
+        for job in jobs:
             job.result()
     for source, path, _ in libs:
         print(f"[build] {os.path.relpath(path(), HERE)} from "
               f"{os.path.relpath(source, HERE)}")
-    print(f"[build] all {len(libs)} in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] both in {time.perf_counter() - t0:.2f} s")
+
+
+def _seg_route_off(fn):
+    """fn() with every seeded serving call routed to the one-thread-a-lane
+    qrnn_pool_fwd (cuda_qrnn.SEG_LANES at 0), for comparison only."""
+    from pase_tpu_torch.ops import cuda_qrnn
+    saved = cuda_qrnn.SEG_LANES
+    cuda_qrnn.SEG_LANES = 0
+    try:
+        return fn()
+    finally:
+        cuda_qrnn.SEG_LANES = saved
+
+
+def _turns_ms(fns):
+    """{name: mean of two CUDA-graph times}, timed in turns: the names in
+    order, then in reverse order."""
+    times = {k: [] for k in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(fns[name]())
+    return {k: statistics.mean(v) for k, v in times.items()}
 
 
 def reset_launches():
@@ -394,8 +432,9 @@ def bound(nbytes, nops):
 
 
 def phase_kernel():
-    """The serving forward kernels vs the plain version at each QRNN shape;
-    returns the summary rows."""
+    """The serving forward kernels vs the plain version at each QRNN shape,
+    the two serial ones also against each other; returns the summary
+    rows."""
     import torch
     from pase_tpu_torch.ops import cuda_qrnn
     from pase_tpu_torch.ops import qrnn as plain
@@ -404,27 +443,38 @@ def phase_kernel():
     for b, t, h in QRNN_SHAPES:
         y = torch.randn(b, t, 3 * h, device="cuda", generator=gen)
         c0 = torch.randn(b, h, device="cuda", generator=gen)
-        zeros = torch.zeros_like(c0)
         errs = {}
         for name, fn in (
                 ("chunked", lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
-                ("serial", lambda: cuda_qrnn.qrnn_pool_fwd(y, zeros)),
+                ("seg", lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
+                ("loop", lambda: cuda_qrnn.qrnn_pool_fwd_loop(y)),
                 ("seeded", lambda: cuda_qrnn.qrnn_pool(y, c0))):
             hk, ck = fn()
             hp, cp = plain.qrnn_pool(y, c0 if name == "seeded" else None)
             torch.cuda.synchronize()
             errs[name] = ((hk - hp).abs().max().item(),
                           (ck - cp).abs().max().item())
+        # the two serial kernels, seeded and unseeded
+        same = True
+        for seed in (c0, None):
+            hk, ck = cuda_qrnn.qrnn_pool_fwd_seg(y, seed)
+            hl, cl = cuda_qrnn.qrnn_pool_fwd_loop(y, seed)
+            same = same and bool(torch.equal(hk, hl) and torch.equal(ck, cl))
         half = t // 2
         h_full, c_full = cuda_qrnn.qrnn_pool(y, c0)
         h1, c1 = cuda_qrnn.qrnn_pool(y[:, :half].contiguous(), c0)
         h2, c2 = cuda_qrnn.qrnn_pool(y[:, half:].contiguous(), c1)
         streamed = bool(torch.equal(torch.cat([h1, h2], 1), h_full)
                         and torch.equal(c2, c_full))
-        route = ("qrnn_pool_fwd_chunked" if b * h < cuda_qrnn.CHUNKED_LANES
-                 else "qrnn_pool_fwd")
+        route = cuda_qrnn.forward_entry(b * h, False)
+        seeded_route = cuda_qrnn.forward_entry(b * h, True)
         chunked_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y))
-        serial_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd(y, zeros))
+        ms = _turns_ms({
+            "seg": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
+            "loop": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_loop(y))})
+        seg_ms, loop_ms = ms["seg"], ms["loop"]
         plain_ms = _wall_ms(lambda: plain.qrnn_pool(y), "cuda")
         # y read once, h written once, c_T written once
         bound_ms, bound_by = bound(16 * b * t * h + 4 * b * h,
@@ -433,18 +483,24 @@ def phase_kernel():
         print(f"[kernel] qrnn_pool y[{b},{t},{3 * h}]: max|dh|, max|dc_T| "
               + "; ".join(f"{k} {e[0]:.3e}, {e[1]:.3e}"
                           for k, e in errs.items())
-              + f"; block-streamed == full (seeded): {streamed}; chunked "
-              f"{chunked_ms:.4f} ms, serial {serial_ms:.4f} ms (CUDA graphs "
-              f"of 20, median of 5); unseeded route {route}; plain "
+              + f"; seg == loop bit for bit (seeded, unseeded): {same}; "
+              f"block-streamed == full (seeded): {streamed}; chunked "
+              f"{chunked_ms:.4f} ms, seg {seg_ms:.4f} ms, loop "
+              f"{loop_ms:.4f} ms (CUDA graphs of 20, median of 5; seg and "
+              f"loop in turns, mean of two); unseeded route {route}, seeded "
+              f"route {seeded_route}; plain "
               f"{plain_ms:.2f} ms (synchronized, median of 3); bound "
               f"{bound_ms:.4f} ms ({bound_by})")
         check(err <= KERNEL_ATOL,
               f"kernels vs plain at {(b, t, h)}: {err:.3e} > {KERNEL_ATOL}")
         check(streamed, f"block-streamed != full at {(b, t, h)}")
+        check(same, f"qrnn_pool_fwd_seg != qrnn_pool_fwd at {(b, t, h)}")
         rows.append({"shape": [b, t, h], "chunked_err": max(errs["chunked"]),
-                     "serial_err": max(max(errs["serial"]),
-                                       max(errs["seeded"])),
-                     "chunked_ms": chunked_ms, "serial_ms": serial_ms,
+                     "seg_err": max(errs["seg"]),
+                     "loop_err": max(max(errs["loop"]),
+                                     max(errs["seeded"])),
+                     "chunked_ms": chunked_ms, "seg_ms": seg_ms,
+                     "loop_ms": loop_ms,
                      "route": route, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by})
         del y, c0, h_full, h1, h2
@@ -1361,15 +1417,46 @@ def _stream_run(enc, wav, chunk):
 
 def _stream_launches_ok(launches, layers, calls, what):
     expected = {**{k: 0 for k in launches},
-                "qrnn_pool_fwd": layers * calls}
+                "qrnn_pool_fwd_seg": layers * calls}
     check(launches == expected,
           f"{what}: launches {launches} != {expected}")
     return expected
 
 
+def _push_profiles(enc, wav, what):
+    """Device busy ms per steady 1 s push at B=1 (pushes 3-10 of a stream
+    of wav [1, n] profiled, the first two run before) and K1's device ms,
+    with K1 as the segmented kernel and as the one-thread-a-lane loop (the
+    route forced), in turns."""
+    from pase_tpu_torch.profiling import profile_calls
+    from pase_tpu_torch.streaming import StreamingEncoder
+    got = {}
+    for label in ("seg", "loop", "loop", "seg"):
+        st = StreamingEncoder(enc)
+        calls = [lambda beg=beg: st.push(wav[:, beg:beg + SR])
+                 for beg in range(0, wav.shape[1], SR)]
+        prof = (_seg_route_off(lambda: profile_calls(calls, warmup=2))
+                if label == "loop" else profile_calls(calls, warmup=2))
+        k1 = sum(span.get("qrnn fwd", 0.0)
+                 for span in prof["split"].values())
+        got.setdefault(label, []).append(
+            (prof["wall_ms"], prof["busy_ms"], k1))
+    for label, runs in got.items():
+        wall, busy, k1 = (statistics.mean(v) for v in zip(*runs))
+        print(f"[stream] {what} steady 1 s push at B=1, K1 {label} "
+              f"(torch.profiler, pushes 3-{wav.shape[1] // SR}, mean of two"
+              f" turns): wall {wall:.3f} ms, device busy {busy:.4f} ms "
+              f"(idle share {max(0.0, 1 - busy / wall):.3f}), K1 "
+              f"{k1:.4f} ms = {k1 / busy:.1%} of busy; per turn busy "
+              + ", ".join(f"{r[1]:.4f}" for r in runs))
+        check(k1 > 0, f"{what}: no K1 kernel in the push's profile")
+
+
 def phase_stream():
     """The streaming encoder on the card, forward-chunk --streaming, and
-    the seeded serial K1 at the push shapes."""
+    the seeded segmented K1 at the push shapes against the
+    one-thread-a-lane one. Returns ({path: launch counts} of the four
+    streams and forward-chunk --streaming, {(B, T): K1's numbers})."""
     import torch
     from pase_tpu_torch import util_scripts, wf_builder
     from pase_tpu_torch.checkpoint import save_variables_npz
@@ -1380,16 +1467,17 @@ def phase_stream():
     layers = len(enc.module.rnn.layers)
     rng = np.random.RandomState(13)
     n = STREAM_SECONDS * SR
-    total_launches = 0
+    paths = {"stream": {}}
     for b in (1, 8):
         wav = torch.from_numpy((rng.randn(b, n) * 0.1).astype(np.float32))
         wav = wav.cuda()
         got = {}
         for label, chunk in STREAM_PUSHES:
             y, launches, calls = _stream_run(enc, wav, chunk)
-            expected = _stream_launches_ok(launches, layers, calls,
-                                           f"stream B={b}, {label} pushes")
-            total_launches += expected["qrnn_pool_fwd"]
+            _stream_launches_ok(launches, layers, calls,
+                                f"stream B={b}, {label} pushes")
+            for k, v in launches.items():
+                paths["stream"][k] = paths["stream"].get(k, 0) + v
             got[label] = y
             print(f"[launches] stream B={b}, {label} pushes: {launches} "
                   f"({calls} pushes reached the QRNN x {layers} layer(s))")
@@ -1406,7 +1494,8 @@ def phase_stream():
             a, ref, rtol=STREAM_RTOL, atol=STREAM_ATOL),
             f"stream B={b} vs offline beyond rtol {STREAM_RTOL} / atol "
             f"{STREAM_ATOL}: {rel:.3e}")
-    print(f"[launches] the four streams: qrnn_pool_fwd {total_launches}")
+    print(f"[launches] the four streams: qrnn_pool_fwd_seg "
+          f"{paths['stream']['qrnn_pool_fwd_seg']}")
 
     # ms per 1 s push at B=1, steady state (the first push primes)
     wav = torch.from_numpy((rng.randn(1, n) * 0.1).astype(np.float32))
@@ -1423,6 +1512,7 @@ def phase_stream():
     print(f"[stream] 1 s pushes at B=1: median {push_ms:.3f} ms per push "
           f"(pushes 2-{len(times)}; the first, priming, {times[0]:.3f} ms),"
           f" real-time factor {push_ms / 1e3:.5f}")
+    _push_profiles(enc, wav, "PASE+")
 
     # forward-chunk --streaming over the four wavs
     tmp = tempfile.mkdtemp(prefix="pase_chip_stream_")
@@ -1458,6 +1548,7 @@ def phase_stream():
                                      / np.abs(ref).max()))
         _stream_launches_ok(launches, layers, calls,
                             "forward-chunk --streaming")
+        paths["stream_cli"] = launches
         print(f"[stream] forward-chunk --streaming (1 s pieces): "
               f"{len(lengths)} files in {dt:.3f} s, vs the offline encoder "
               f"of each whole file max|d|/max|y| {worst:.3e}; launches "
@@ -1466,40 +1557,66 @@ def phase_stream():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # the seeded serial K1 at the stream's shapes
+    # the seeded serial K1 at the stream's shapes: the segmented kernel
+    # and the one-thread-a-lane one, in turns
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     sm_hz = float(smi.stdout.split()[0]) * 1e6
-    for b in (1, 8):
-        t, h = SR // 160, 512
+    k1 = {}
+    for b, t in PUSH_SHAPES:
+        h = 512
         y = torch.randn(b, t, 3 * h, device="cuda")
         c0 = torch.randn(b, h, device="cuda")
-        hk, ck = cuda_qrnn.qrnn_pool_fwd(y, c0)
+        hk, ck = cuda_qrnn.qrnn_pool_fwd_seg(y, c0)
+        hl, cl = cuda_qrnn.qrnn_pool_fwd_loop(y, c0)
         hp, cp = plain.qrnn_pool(y, c0)
         err = max((hk - hp).abs().max().item(), (ck - cp).abs().max().item())
-        ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd(y, c0))
+        same = bool(torch.equal(hk, hl) and torch.equal(ck, cl))
+        y1 = y[:, :1].contiguous()
+
+        def timed(y_):
+            return {"seg": lambda: _graph_ms(
+                        lambda: cuda_qrnn.qrnn_pool_fwd_seg(y_, c0)),
+                    "loop": lambda: _graph_ms(
+                        lambda: cuda_qrnn.qrnn_pool_fwd_loop(y_, c0))}
+        ms = _turns_ms(timed(y))
+        one = _turns_ms(timed(y1))
         plain_ms = _wall_ms(lambda: plain.qrnn_pool(y, c0), "cuda")
         # y and c0 read once, h and c_T written once
         bound_ms, bound_by = bound(16 * b * t * h + 8 * b * h,
                                    FWD_OPS * b * t * h)
-        # one lane's steps are a chain of dependent FMAs: the kernel at one
-        # step, plus t - 1 more FMA latencies
-        y1 = y[:, :1].contiguous()
-        one_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd(y1, c0))
-        floor_ms = one_ms + (t - 1) * FMA_LATENCY_CYCLES / sm_hz * 1e3
-        print(f"[stream] seeded serial K1 qrnn_pool_fwd y[{b},{t},{3 * h}]:"
-              f" {ms:.4f} ms (CUDA graphs of 20, median of 5), bound "
-              f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of it; "
-              f"latency floor {floor_ms:.5f} ms (T=1 {one_ms:.4f} ms + "
+        # one lane's steps are a chain of dependent FMAs: the faster
+        # kernel at one step, plus t - 1 more FMA latencies
+        floor_ms = (min(one.values())
+                    + (t - 1) * FMA_LATENCY_CYCLES / sm_hz * 1e3)
+        # each kernel's own time per step beyond T=1
+        slope = {k: (ms[k] - one[k]) / max(t - 1, 1) * 1e3 for k in ms}
+        print(f"[stream] seeded serial K1 y[{b},{t},{3 * h}]: "
+              f"qrnn_pool_fwd_seg {ms['seg']:.5f} ms, qrnn_pool_fwd (one "
+              f"thread a lane) {ms['loop']:.5f} ms "
+              f"({ms['loop'] / ms['seg']:.2f}x; CUDA graphs of 20, median "
+              f"of 5, in turns, mean of two); bound {bound_ms:.5f} ms "
+              f"({bound_by}): "
+              f"{bound_ms / ms['seg']:.1%} of seg, {bound_ms / ms['loop']:.1%}"
+              f" of loop; latency floor {floor_ms:.5f} ms (the faster at "
+              f"T=1, seg {one['seg']:.5f} / loop {one['loop']:.5f} ms, + "
               f"{t - 1} FMAs of {FMA_LATENCY_CYCLES} cycles at "
-              f"{sm_hz / 1e6:.0f} MHz), {floor_ms / ms:.1%} of it; per step "
-              f"beyond T=1 {(ms - one_ms) / (t - 1) * 1e3:.3f} us; plain "
-              f"{plain_ms:.2f} ms; max|d| vs plain {err:.3e}")
+              f"{sm_hz / 1e6:.0f} MHz): {floor_ms / ms['seg']:.1%} of seg, "
+              f"{floor_ms / ms['loop']:.1%} of loop; per step beyond T=1, "
+              f"each kernel against its own T=1: seg {slope['seg']:.4f} us, "
+              f"loop {slope['loop']:.4f} us; bit for bit equal: {same}; "
+              f"plain {plain_ms:.2f} ms; max|d| vs plain {err:.3e}")
         check(err <= KERNEL_ATOL, f"seeded K1 at {(b, t, h)}: {err:.3e}")
+        check(same, f"seeded K1 at {(b, t, h)}: qrnn_pool_fwd_seg != "
+              "qrnn_pool_fwd")
+        k1[(b, t)] = {"err": err, "ms": ms["seg"], "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "floor_ms": floor_ms}
     del enc
     torch.cuda.empty_cache()
+    return paths, k1
 
 
 def _cli_seconds(argv):
@@ -1943,8 +2060,9 @@ def _vq_stream_check(enc, wav, got, what):
 
 
 def phase_variants_serve():
-    """Phase 17: the VQ encoder served, streamed and exported on the card.
-    Returns {path: launch counts}."""
+    """Phase 17: the VQ encoder served, streamed and exported on the card,
+    a steady push profiled with K1 as the segmented kernel and as the
+    one-thread-a-lane one. Returns {path: launch counts}."""
     import torch
     from pase_tpu_torch import serving, wf_builder
     from pase_tpu_torch.checkpoint import save_variables_npz
@@ -2028,6 +2146,7 @@ def phase_variants_serve():
     print(f"[variants-serve] VQ8192 1 s pushes at B=1: median "
           f"{push_ms:.3f} ms per push (pushes 2-{len(times)}), real-time "
           f"factor {push_ms / 1e3:.5f}")
+    _push_profiles(enc, wav, "VQ8192")
 
     # export and serve-encode
     tmp = tempfile.mkdtemp(prefix="pase_chip_vq_export_")
@@ -2088,14 +2207,16 @@ def phase_variants_serve():
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
-         library_ms=None, paths=None):
+         library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
-    path's counts reset to 0 just before it and read just after."""
+    path's counts reset to 0 just before it and read just after;
+    ``extra``: more keys (the shape the times are at, a latency floor)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": library_ms,
-            "paths": {p: c.get(name, 0) for p, c in (paths or {}).items()}}
+            "paths": {p: c.get(name, 0) for p, c in (paths or {}).items()},
+            **extra}
 
 
 def main():
@@ -2144,10 +2265,11 @@ def main():
         phase_resume()
         phase_disk(os.path.join(tmp, "disk"),
                    dist_perf["bfloat16"]["steps_per_sec"])
-        phase_stream()
-        phase_export()
-        phase_overlap()
         paths = {"serving": serving_launches, "training": train_launches}
+        stream_paths, k1 = phase_stream()
+        paths.update(stream_paths)
+        paths["export"] = phase_export()
+        phase_overlap()
         paths.update(phase_variants_train(
             os.path.join(tmp, "variants"),
             dist_perf["bfloat16"]["steps_per_sec"]))
@@ -2158,24 +2280,31 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
-    # the chunked kernel at the serving shape; the serial one at the eval
-    # shape of the training path, where it runs (phase 13 prints it at the
-    # streaming shapes)
+    # the chunked kernel at the serving shape; the one-thread-a-lane one at
+    # the eval shape of the training path, where it runs; the segmented one
+    # at a 1 s push at B=1 (phase 13 prints it at all four push shapes)
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
     evals = next(r for r in rows if tuple(r["shape"]) == TRAIN_SHAPE)
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
+    push = k1[(1, 100)]
     print(json.dumps({"kernels": [
         _row("qrnn_pool_fwd_chunked", src, "pase_tpu/ops/pallas_qrnn.py:63",
              serving_launches["qrnn_pool_fwd_chunked"],
              max(r["chunked_err"] for r in rows), serving["chunked_ms"],
              serving["plain_ms"], (serving["bound_ms"], serving["bound_by"]),
              paths=paths),
+        _row("qrnn_pool_fwd_seg", src, "pase_tpu/ops/pallas_qrnn.py:63",
+             paths["stream"]["qrnn_pool_fwd_seg"],
+             max([r["seg_err"] for r in rows]
+                 + [r["err"] for r in k1.values()]), push["ms"],
+             push["plain_ms"], (push["bound_ms"], push["bound_by"]),
+             paths=paths, shape=[1, 100, 512], floor_ms=push["floor_ms"]),
         _row("qrnn_pool_fwd", src, "pase_tpu/ops/pallas_qrnn.py:63",
              train_launches["qrnn_pool_fwd"],
-             max(r["serial_err"] for r in rows), evals["serial_ms"],
+             max(r["loop_err"] for r in rows), evals["loop_ms"],
              evals["plain_ms"], (evals["bound_ms"], evals["bound_by"]),
-             paths=paths),
+             paths=paths, shape=list(TRAIN_SHAPE)),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],

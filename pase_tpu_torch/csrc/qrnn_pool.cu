@@ -20,15 +20,21 @@
 //   dc0  = a_0 * g_0
 //
 // Layout: y / dy [B, T, 3H], h / c / dh [B, T, H], c0 / c_T / dc_T / dc0
-// [B, H], all f32, contiguous. One thread owns one (b, j) lane, j fastest,
-// so the loads and stores at t*3H + {0, H, 2H} + j and t*H + j are coalesced
-// across a warp. The carry (c forward, g backward) lives in a register. No
+// [B, H], all f32, contiguous. In qrnn_pool_fwd and the training kernels
+// one thread owns one (b, j) lane, j fastest, so the loads and stores at
+// t*3H + {0, H, 2H} + j and t*H + j are coalesced across a warp;
+// qrnn_pool_fwd_seg and qrnn_pool_fwd_chunked tile lanes and steps
+// (below). The carry (c forward, g backward) lives in a register. No
 // padding copies: the ragged last block is masked, and every offset is
 // 64-bit.
 //
-// Four entry points:
+// Five entry points:
 //   qrnn_pool_fwd        forward: reads y, writes h and c_T (16 bytes per
-//                        lane-step); the seeded serving call (c0 given);
+//                        lane-step), one thread a lane: the serving call
+//                        on many lanes (eval at batch);
+//   qrnn_pool_fwd_seg    the same function, bit for bit, gates apart from
+//                        the chain (below): the seeded serving call on
+//                        fewer lanes (a streaming push);
 //   qrnn_pool_fwd_chunked the same function, chunked in time: the unseeded
 //                        serving and eval call (below);
 //   qrnn_pool_fwd_train  the same, and also writes c, the residual of the
@@ -43,11 +49,28 @@
 //                        pass walks t from T-1 down to 0.
 //
 // What bounds them: device memory bytes, when there are enough lanes. At
-// serving shapes there are few lanes (B*H = 4096 at B = 8, 512 at B = 1):
-// a thread per lane gives 64 blocks of two warps or fewer, each walking all
-// T steps, bound by load latency (about 0.23 us a step on the H100) with
-// most SMs idle. The serial loops load kUnroll steps ahead of their use so
-// several loads are in flight per thread.
+// the streaming push shapes there are few lanes and few steps ([1, 100,
+// 512]: 512 lanes of 100 steps, 0.6 MB). There the one-thread-per-lane
+// loop (qrnn_pool_fwd_kernel, still the training forward) gave 8 blocks of
+// two warps, each thread doing tanhf, two expf and two IEEE divides before
+// the one FMA of the carry, with nothing to hide their latency: about 360
+// cycles a step against the FMA's 4 (0.0201 ms at [1,100,512] on the H100,
+// ten times its latency floor). qrnn_pool_fwd_seg separates the gate
+// math, which is parallel in t, from the carry chain, which is serial in t
+// (qrnn_pool_fwd_seg_kernel): a block owns a tile of
+// kSegLanes consecutive lanes and walks T in segments of kSegSteps steps.
+// (1) Every thread of the block loads its share of the segment's gates
+// (rows of kSegLanes floats at t*3H + {0, H, 2H} + j) and computes a =
+// 1 - sigmoid(f), b = sigmoid(f) tanh(z) into shared memory and s =
+// sigmoid(o) into registers, with the expressions of the serial step; then
+// it issues the next segment's loads, which land while (2) one thread per
+// lane steps c = fmaf(a, c, b) over the segment from shared memory, a and
+// b read kChainAhead steps ahead so that only the FMA's latency stays on
+// the chain, and writes each c_t back over b_t; (3) every thread writes
+// h = s c. The transcendentals are spread over all the block's threads and
+// over B*H / kSegLanes blocks, and the chain is the serial loop's: the
+// same gates, the same seed, the same fmaf in the same order, so the bits
+// are those of the one-thread-per-lane loop at every shape.
 //
 // qrnn_pool_fwd_chunked cuts each lane's time axis into chunks of at most
 // kMaxChunk steps, one thread each, as pase_tpu/parallel/sp.py composes the
@@ -99,7 +122,7 @@ __device__ __forceinline__ float step_(float c, float zr, float fr, float orr,
   return c;
 }
 
-// kWriteC = false is the serving kernel; true also stores every c_t.
+// kWriteC = false is qrnn_pool_fwd; true also stores every c_t.
 template <bool kWriteC>
 __global__ void __launch_bounds__(kThreads)
 qrnn_pool_fwd_kernel(const float* __restrict__ y, const float* __restrict__ c0,
@@ -218,6 +241,134 @@ qrnn_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ c,
   }
   if (dc0 != nullptr) dc0[lane] = a_next * g;   // a_0 * g_0
 }
+
+// qrnn_pool_fwd_seg's kernel, gates apart from the chain (header). A block
+// owns kSegLanes consecutive lanes and walks T in segments of kSegSteps steps
+// with kSegThreads threads; each thread keeps one lane and every
+// kSegThreads / kSegLanes-th step of the segment. Chosen on the H100 at
+// the push shapes [1,100,512], [8,100,512], [1,10,512] and [8,10,512]
+// among 4, 8 and 32 lanes, 32, 64 and 128 steps and 128 and 256 threads
+// (python -m pase_tpu_torch.kernel_variants serial; PERF.md): 8 / 128 /
+// 128 was the fastest at [8,100,512], within 0.7 us of the fastest at
+// [1,100,512] (tiles of 256 threads, 1.5-2 us slower at B = 8), and faster
+// than the loop at the 100 ms pushes.
+constexpr int kSegLanes = 8;
+constexpr int kSegSteps = 128;
+constexpr int kSegThreads = 128;
+constexpr int kChainAhead = 8;
+
+// Thread row r's raw gates of the segment from s0: steps s0 + r + k kRows.
+template <int kPer, int kRows>
+__device__ __forceinline__ void seg_load_(const float* yp, bool live,
+                                          int64_t s0, int r, int64_t T,
+                                          int64_t H, float (&zr)[kPer],
+                                          float (&fr)[kPer],
+                                          float (&orr)[kPer]) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t t = s0 + r + k * kRows;
+    if (live && t < T) {
+      const float* p = yp + t * 3 * H;
+      zr[k] = p[0];
+      fr[k] = p[H];
+      orr[k] = p[2 * H];
+    }
+  }
+}
+
+template <int L, int S, int NT>
+__global__ void __launch_bounds__(NT)
+qrnn_pool_fwd_seg_kernel(const float* __restrict__ y,
+                         const float* __restrict__ c0,
+                         float* __restrict__ h, float* __restrict__ c_last,
+                         int64_t B, int64_t T, int64_t H) {
+  static_assert(NT % L == 0 && S % (NT / L) == 0 && S % kChainAhead == 0,
+                "a block's rows must tile the segment");
+  constexpr int kRows = NT / L;    // steps one pass of the block covers
+  constexpr int kPer = S / kRows;  // steps per thread per segment
+  // a and b of the segment's steps, [step][lane]; the chain writes c_t
+  // over b_t
+  __shared__ float sa[S * L], sb[S * L];
+  const int l = threadIdx.x % L, r = threadIdx.x / L;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * L + l;
+  const bool live = lane < B * H;
+  const int64_t bi = live ? lane / H : 0;
+  const int64_t j = live ? lane - bi * H : 0;
+  const int64_t ys = 3 * H;
+  const float* yp = y + bi * T * ys + j;
+  float* hp = h + bi * T * H + j;
+  // the carry; only threads r == 0 (one per lane) run the chain
+  float c = (live && r == 0 && c0 != nullptr) ? c0[lane] : 0.0f;
+  float zr[kPer], fr[kPer], orr[kPer], s[kPer];
+
+  seg_load_<kPer, kRows>(yp, live, 0, r, T, H, zr, fr, orr);
+  for (int64_t s0 = 0; s0 < T; s0 += S) {
+    const int n = T - s0 < S ? static_cast<int>(T - s0) : S;
+    // (1) the gates of the segment; steps past n (and dead lanes) are the
+    // identity map a = 1, b = 0
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int tt = r + k * kRows;
+      float a = 1.0f, b = 0.0f;
+      s[k] = 0.0f;
+      if (live && tt < n) {
+        const float z = tanhf(zr[k]);
+        const float f = sigmoidf_(fr[k]);
+        a = 1.0f - f;
+        b = f * z;
+        s[k] = sigmoidf_(orr[k]);
+      }
+      sa[tt * L + l] = a;
+      sb[tt * L + l] = b;
+    }
+    if (s0 + S < T) {                // in flight during (2) and (3)
+      seg_load_<kPer, kRows>(yp, live, s0 + S, r, T, H, zr, fr, orr);
+    }
+    __syncthreads();
+    // (2) the chain, a and b read kChainAhead steps ahead; the padded
+    // steps past n (up to a multiple of kChainAhead) are never read back
+    if (r == 0 && live) {
+      const int steps = (n + kChainAhead - 1) / kChainAhead * kChainAhead;
+      float na[kChainAhead], nb[kChainAhead];
+#pragma unroll
+      for (int u = 0; u < kChainAhead; ++u) {
+        na[u] = sa[u * L + l];
+        nb[u] = sb[u * L + l];
+      }
+      for (int t0 = 0; t0 < steps; t0 += kChainAhead) {
+        float ca[kChainAhead], cb[kChainAhead];
+#pragma unroll
+        for (int u = 0; u < kChainAhead; ++u) {
+          ca[u] = na[u];
+          cb[u] = nb[u];
+        }
+        if (t0 + kChainAhead < steps) {
+#pragma unroll
+          for (int u = 0; u < kChainAhead; ++u) {
+            na[u] = sa[(t0 + kChainAhead + u) * L + l];
+            nb[u] = sb[(t0 + kChainAhead + u) * L + l];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kChainAhead; ++u) {
+          c = fmaf(ca[u], c, cb[u]);
+          sb[(t0 + u) * L + l] = c;
+        }
+      }
+      c = sb[(n - 1) * L + l];        // c at the segment's last real step
+    }
+    __syncthreads();
+    // (3) h = s c
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int tt = r + k * kRows;
+      if (live && tt < n) hp[(s0 + tt) * H] = s[k] * sb[tt * L + l];
+    }
+    __syncthreads();                  // before (1) of the next segment
+  }
+  if (r == 0 && live) c_last[lane] = c;
+}
+
 
 constexpr int kChunkThreads = 512;
 // Steps per chunk at most, blocks per SM the registers must allow, o loads
@@ -361,6 +512,20 @@ extern "C" int qrnn_pool_fwd(const void* y, const void* c0, void* h,
       static_cast<float*>(h), nullptr, static_cast<float*>(c_last), B, T, H);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int qrnn_pool_fwd_seg(const void* y, const void* c0, void* h,
+                                 void* c_last, long long B, long long T,
+                                 long long H, void* stream) {
+  qrnn_pool_fwd_seg_kernel<kSegLanes, kSegSteps, kSegThreads>
+      <<<static_cast<unsigned int>((B * H + kSegLanes - 1) / kSegLanes),
+         kSegThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(y), static_cast<const float*>(c0),
+          static_cast<float*>(h), static_cast<float*>(c_last), B, T, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The segment length of qrnn_pool_fwd_seg's kernel (tests cut T around it).
+extern "C" int qrnn_pool_fwd_segment_steps() { return kSegSteps; }
 
 // Lanes per block: 8, or 4 when tiles of 8 would be fewer blocks than the
 // card has SMs.

@@ -13,29 +13,35 @@ Entry points, each with a launch count in ``LAUNCHES``:
                         the time axis in chunks, their carries composed in
                         the block, so few lanes fill the card; within 1e-5
                         of the plain version;
-  qrnn_pool_fwd         ``qrnn_pool`` without a gradient otherwise: seeded
-                        with c0, or unseeded on many lanes (eval at batch):
-                        one serial loop per lane, so a block-streamed run
-                        (c_T threaded into the next block's c0) equals one
-                        full run bit for bit;
+  qrnn_pool_fwd_seg     ``qrnn_pool`` without a gradient, seeded with c0,
+                        on fewer than SEG_LANES lanes (a streaming push):
+                        the gates of a segment of steps computed by every
+                        thread of a block, then one serial FMA chain per
+                        lane seeded with c0, so a block-streamed run (c_T
+                        threaded into the next block's c0) equals one full
+                        run bit for bit;
+  qrnn_pool_fwd         the same function on the other calls (many lanes:
+                        eval at batch), one thread a lane, with the same
+                        bits as qrnn_pool_fwd_seg;
   qrnn_pool_fwd_train   the forward of ``QRNNPool``: also stores every c_t;
   qrnn_pool_bwd         the backward of ``QRNNPool``.
 
 ``qrnn_pool(y, c0=None)`` goes through the ``QRNNPool`` autograd Function
 when a gradient is needed, and through ``qrnn_pool_fwd`` otherwise, which
-routes by c0 and lane count. A tensor on the CPU takes the plain PyTorch versions
-(``ops/qrnn.py``). For a CUDA tensor every wrapper launches its kernel or
-raises: a missing ``nvcc``, a failed build and a refused launch all raise.
+routes by c0 and lane count (``forward_entry``). A tensor on the CPU
+takes the plain PyTorch versions (``ops/qrnn.py``). For a CUDA tensor
+every wrapper launches its kernel or raises: a missing ``nvcc``, a failed
+build and a refused launch all raise.
 
 The serving forward is also a registered operator,
 ``torch.ops.pase_tpu_torch.qrnn_pool_fwd(Tensor y, Tensor? c0) -> (Tensor,
 Tensor)`` (``torch.library.Library``: a CPU implementation, the plain
 version; a CUDA one, the kernels; a fake one for the shapes), so that
 ``torch.export`` traces the encoder with a symbolic batch and an exported
-program calls the kernels. The route between the chunked and the serial
-kernel is taken inside the CUDA implementation, from the shapes of the
-call, so one exported program takes each route at the batch sizes that
-call for it. Importing this module registers the operator; a process that
+program calls the kernels. The route between the three forward kernels
+is taken inside the CUDA implementation, from the shapes of the call, so
+one exported program takes each route at the batch sizes that call for
+it. Importing this module registers the operator; a process that
 loads an exported program needs nothing else of the package.
 """
 
@@ -48,8 +54,9 @@ SOURCE = cuda_build.source_path("qrnn_pool")
 BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches per entry point since import (or since reset_launches)
-LAUNCHES = {"qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd": 0,
-            "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0}
+LAUNCHES = {"qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd_seg": 0,
+            "qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
+            "qrnn_pool_bwd": 0}
 _LIB = None
 # unseeded calls on fewer lanes take the chunked kernel. On the H100 the
 # chunked kernel took 0.0356 ms at [24,200,512] (12288 lanes) against the
@@ -57,16 +64,27 @@ _LIB = None
 # 0.0578 and 0.1313 at [96,200,512] against 0.0715, where the serial kernel
 # is bound by bytes (chip_smoke.py phase 3)
 CHUNKED_LANES = 16384
+# seeded calls on fewer lanes take the segmented kernel, the others the
+# one-thread-a-lane loop (the same bits). On the H100, seeded (python -m
+# pase_tpu_torch.kernel_variants serial): the segmented kernel took
+# 0.00456 ms at [1,100,512] against the loop's 0.01975 and 0.01884 at
+# [32,100,512] (16384 lanes) against 0.02062, but 0.05817 at [48,200,512]
+# (24576 lanes) against 0.05697 and 0.11211 at [96,200,512] against 0.07021,
+# where the loop is bound by bytes
+SEG_LANES = 16384
 
 _P, _N = cuda_build.PTR, cuda_build.SIZE
 _ARGTYPES = {
     # (y, c0, h, c_T, B, T, H, stream)
     "qrnn_pool_fwd": [_P, _P, _P, _P, _N, _N, _N, _P],
+    "qrnn_pool_fwd_seg": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_chunked": [_P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c0, h, c, c_T, B, T, H, stream)
     "qrnn_pool_fwd_train": [_P, _P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c, dh, dc_T, c0, dy, dc0, B, T, H, stream)
     "qrnn_pool_bwd": [_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _P],
+    # () -> qrnn_pool_fwd_seg's segment length
+    "qrnn_pool_fwd_segment_steps": [],
 }
 
 
@@ -87,6 +105,12 @@ def build(verbose=False):
     if _LIB is None:
         _LIB = cuda_build.load(SOURCE, _ARGTYPES, BUILD_DIR, verbose)
     return _LIB
+
+
+def segment_steps():
+    """Steps per segment of ``qrnn_pool_fwd_seg``'s kernel, from the
+    built library."""
+    return build().qrnn_pool_fwd_segment_steps()
 
 
 def _check_lanes(name, t, like):
@@ -169,12 +193,22 @@ def _qrnn_pool_fwd_cpu(y, c0):
     return h, c_last.clone()
 
 
+def forward_entry(lanes, seeded):
+    """The forward kernel's entry point for a call on ``lanes`` lanes
+    (B * H): unseeded on fewer than CHUNKED_LANES the chunked kernel,
+    seeded on fewer than SEG_LANES the segmented one, else the
+    one-thread-a-lane loop."""
+    if not seeded and lanes < CHUNKED_LANES:
+        return "qrnn_pool_fwd_chunked"
+    if seeded and lanes < SEG_LANES:
+        return "qrnn_pool_fwd_seg"
+    return "qrnn_pool_fwd"
+
+
 def _qrnn_pool_fwd_cuda(y, c0):
-    """The kernels, routed by this call's shapes: unseeded on fewer than
-    CHUNKED_LANES lanes to the chunked kernel, else to the serial one."""
-    if c0 is None and y.shape[0] * (y.shape[-1] // 3) < CHUNKED_LANES:
-        return _forward("qrnn_pool_fwd_chunked", y, None)
-    return _forward("qrnn_pool_fwd", y, c0)
+    """The kernels, routed by this call's shapes (``forward_entry``)."""
+    lanes = y.shape[0] * (y.shape[-1] // 3)
+    return _forward(forward_entry(lanes, c0 is not None), y, c0)
 
 
 @torch.library.register_fake("pase_tpu_torch::qrnn_pool_fwd", lib=_OPS)
@@ -190,9 +224,8 @@ _OPS.impl("qrnn_pool_fwd", _qrnn_pool_fwd_cuda, "CUDA")
 def qrnn_pool_fwd(y, c0=None):
     """Serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h [B, T, H],
     c_T [B, H]). No gradient. Through the registered operator
-    ``torch.ops.pase_tpu_torch.qrnn_pool_fwd``: unseeded calls on fewer
-    than CHUNKED_LANES lanes launch ``qrnn_pool_fwd_chunked``, the others
-    the serial ``qrnn_pool_fwd``; on the CPU the plain version."""
+    ``torch.ops.pase_tpu_torch.qrnn_pool_fwd``, which launches the kernel
+    ``forward_entry`` names; on the CPU the plain version."""
     return torch.ops.pase_tpu_torch.qrnn_pool_fwd(y, c0)
 
 
@@ -203,6 +236,24 @@ def qrnn_pool_fwd_chunked(y, c0=None):
     if _cuda_or_plain(y):
         return _plain.qrnn_pool_chunked_plain(y, c0)
     return _forward("qrnn_pool_fwd_chunked", y, c0)
+
+
+def qrnn_pool_fwd_seg(y, c0=None):
+    """The segmented serving forward at any lane count: y [B, T, 3H] (+ c0
+    [B, H]) -> (h, c_T), no gradient. On the CPU the seeded serial plain
+    version (``ops.qrnn.qrnn_pool_serial_plain``)."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool_serial_plain(y, c0)
+    return _forward("qrnn_pool_fwd_seg", y, c0)
+
+
+def qrnn_pool_fwd_loop(y, c0=None):
+    """The one-thread-a-lane serving forward (entry ``qrnn_pool_fwd``) at
+    any lane count: y [B, T, 3H] (+ c0 [B, H]) -> (h, c_T), no gradient.
+    On the CPU the seeded serial plain version."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool_serial_plain(y, c0)
+    return _forward("qrnn_pool_fwd", y, c0)
 
 
 def qrnn_pool_fwd_train(y, c0=None):

@@ -11,8 +11,10 @@ build_rnn_block):
 
 These are the plain versions of the CUDA kernels in ``ops/cuda_qrnn.py``:
 the CPU path of the encoder and the reference the kernels are held to on
-the card (``qrnn_pool_chunked_plain`` repeats the chunked kernel's algebra,
-for tests). ``forget_mult`` steps sequentially over T in the JAX package's
+the card (``qrnn_pool_chunked_plain`` repeats the chunked kernel's
+algebra, ``qrnn_pool_serial_plain`` the seeded chain of the serial ones,
+for tests).
+``forget_mult`` steps sequentially over T in the JAX package's
 algebra (a = 1-f, b = f*z, c0 folded into b_1); ``qrnn_pool_bwd`` is the
 reverse-time scan of its gradient (the VJP of
 ``pase_tpu/ops/pallas_qrnn.py``), with the gate derivatives applied.
@@ -106,6 +108,27 @@ def qrnn_pool_chunked_plain(y, c0=None, chunk=8, chunks=64):
         carry = c[:, -1]
     c = torch.cat(parts, dim=1)
     return torch.sigmoid(yo) * c, c[:, -1]
+
+
+def qrnn_pool_serial_plain(y, c0=None):
+    """The seeded serial plain version of the serial serving kernels
+    (``qrnn_pool_fwd_seg`` and ``qrnn_pool_fwd``), for tests: the same
+    function as ``qrnn_pool``. The gates of every step first (a = 1 -
+    sigmoid(f), b = sigmoid(f) tanh(z), s = sigmoid(o)); then one chain per
+    lane, c = a c + b, SEEDED with c0 (or 0) rather than folding c0 into
+    b_1; h = s c. The kernels round a c + b once (fmaf), this twice, so it
+    is within rounding of them, not bit for bit. Returns (h [B, T, H], c_T
+    [B, H])."""
+    yz, yf, yo = torch.chunk(y, 3, dim=-1)
+    f = torch.sigmoid(yf)
+    a, b, s = 1.0 - f, f * torch.tanh(yz), torch.sigmoid(yo)
+    c = torch.zeros_like(a[:, 0]) if c0 is None else c0
+    cs = []
+    for u in range(y.shape[1]):
+        c = a[:, u] * c + b[:, u]
+        cs.append(c)
+    c = torch.stack(cs, dim=1)
+    return s * c, c[:, -1]
 
 
 def qrnn_pool_bwd(y, c, dh, dc_last=None, c0=None):

@@ -5,7 +5,9 @@
 (the ``pase.*`` spans of ``trainer.py``) and by kernel kind, read from the
 kernel's name:
 
-  qrnn fwd_train / qrnn bwd / qrnn fwd — this package's CUDA kernels;
+  qrnn fwd_train / qrnn bwd / qrnn fwd / qrnn fwd chunked — this
+      package's CUDA kernels (qrnn fwd: the serial serving forward, the
+      seeded K1 of a streaming push);
   conv fprop / conv dgrad / conv wgrad — cuDNN convolutions. In the
       forward span a dgrad kernel is a transposed convolution (the
       cchunk decoder), in the backward span an fprop kernel is the data
@@ -66,7 +68,9 @@ def kernel_kind(name):
         return "qrnn bwd"
     if "qrnn_pool_fwd_kernel<true>" in n:
         return "qrnn fwd_train"
-    if "qrnn_pool_fwd_kernel" in n:
+    if "qrnn_pool_fwd_chunked" in n:
+        return "qrnn fwd chunked"
+    if "qrnn_pool_fwd_seg_kernel" in n or "qrnn_pool_fwd_kernel" in n:
         return "qrnn fwd"
     if "dgrad" in n:
         return "conv dgrad"

@@ -24,9 +24,10 @@ process serves with torch, numpy and the registered QRNN operator alone
 
 The QRNN pooling in the programs is the registered operator
 ``pase_tpu_torch::qrnn_pool_fwd``: its CUDA implementation takes the
-route (chunked or serial kernel) from each call's shapes, so one exported
-bucket takes the chunked kernel at a small batch and the serial one above
-``cuda_qrnn.CHUNKED_LANES`` lanes.
+route (``cuda_qrnn.forward_entry``) from each call's shapes, so one
+exported bucket takes the chunked kernel at a small batch and the
+one-thread-a-lane one above ``cuda_qrnn.CHUNKED_LANES`` lanes, and a
+streaming program's seeded calls take the segmented one.
 
 Devices: a program traced on one device names it in some of its nodes (a
 zero carry, the SincConv's time axes), so an artifact serves the device it

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: the QRNN pooling kernels
-(pase_tpu_torch/csrc/qrnn_pool.cu: the chunked and the serial serving
-forward, training forward, backward) and the stride-1 conv kernels
+(pase_tpu_torch/csrc/qrnn_pool.cu: the chunked, the segmented and the
+one-thread-a-lane serving forward, the last two also against each other,
+bit for bit; training forward, backward) and the stride-1 conv kernels
 (csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
-against their plain PyTorch versions, the
-encoder on the GPU against the same weights on the CPU, one small train
+against their plain PyTorch versions, the encoder on the GPU against the
+same weights on the CPU, one small train
 step on the GPU against the CPU, the distortion stack on the GPU
 against the CPU with the same draws, and the residual VQ encoder's
 blocks (FeResBlock, the VQEMA quantizer) against the CPU.
@@ -65,7 +66,7 @@ def test_kernel_builds(cuda_device):
                                    (9, 131, 40), (1, 7, 24)])
 def test_kernel_matches_plain(cuda_device, shape):
     """Unseeded (the chunked kernel at these lane counts) and seeded (the
-    serial kernel) against the plain version."""
+    segmented serial kernel) against the plain version."""
     y, c0 = _inputs(*shape, cuda_device)
     before = dict(cuda_qrnn.LAUNCHES)
     for seed in (None, c0):
@@ -76,7 +77,7 @@ def test_kernel_matches_plain(cuda_device, shape):
         assert (h - h_ref).abs().max().item() <= 1e-5
         assert (c - c_ref).abs().max().item() <= 1e-5
     assert cuda_qrnn.LAUNCHES == {
-        **before, "qrnn_pool_fwd": before["qrnn_pool_fwd"] + 1,
+        **before, "qrnn_pool_fwd_seg": before["qrnn_pool_fwd_seg"] + 1,
         "qrnn_pool_fwd_chunked": before["qrnn_pool_fwd_chunked"] + 1}
 
 
@@ -100,13 +101,14 @@ def test_chunked_kernel_matches_plain(cuda_device, b, t):
 
 
 def test_serving_forward_routes(cuda_device):
-    """Unseeded under CHUNKED_LANES lanes: the chunked kernel; seeded, or
-    unseeded on more lanes: the serial one. One launch each."""
+    """Unseeded under CHUNKED_LANES lanes: the chunked kernel; seeded
+    under SEG_LANES: the segmented one; unseeded on more lanes: the
+    one-thread-a-lane loop. One launch each."""
     small, c0 = _inputs(2, 30, 16, cuda_device)
     big = torch.randn(cuda_qrnn.CHUNKED_LANES // 64, 3, 3 * 64,
                       device=cuda_device)
     for y, seed, name in ((small, None, "qrnn_pool_fwd_chunked"),
-                          (small, c0, "qrnn_pool_fwd"),
+                          (small, c0, "qrnn_pool_fwd_seg"),
                           (big, None, "qrnn_pool_fwd")):
         before = dict(cuda_qrnn.LAUNCHES)
         cuda_qrnn.qrnn_pool(y, seed)
@@ -122,6 +124,76 @@ def test_block_streaming_is_bit_identical(cuda_device, shape):
     h2, c2 = cuda_qrnn.qrnn_pool(y[:, cut:].contiguous(), c1)
     assert torch.equal(torch.cat([h1, h2], 1), h_full)
     assert torch.equal(c2, c_full)
+
+
+def _steps(spec):
+    """T from a spec: an int, or 'S-1' / 'S' / 'S+1' around the segmented
+    kernel's segment length S."""
+    if isinstance(spec, int):
+        return spec
+    return cuda_qrnn.segment_steps() + int(spec[1:] or 0)
+
+
+@pytest.mark.parametrize("t", [1, 10, "S-1", "S", "S+1", 100, 1001],
+                         ids=str)
+@pytest.mark.parametrize("b,h", [(1, 512), (8, 512), (3, 20)])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_serial_kernel_equals_the_lane_loop(cuda_device, t, b, h, seeded):
+    """The segmented serial forward (gates by every thread of a block, one
+    FMA chain per lane) equals the one-thread-a-lane loop bit for bit, and
+    the plain version within 1e-5: B in {1, 8} at 512 lanes a row, and
+    3 x 20 lanes (not a multiple of a tile's lanes); one step, 100 ms and
+    1 s pushes, a segment and one step either side of it, a long stream.
+    One launch of each."""
+    t = _steps(t)
+    y, c0 = _inputs(b, t, h, cuda_device, seed=t + b + h)
+    c0 = c0 if seeded else None
+    before = dict(cuda_qrnn.LAUNCHES)
+    hk, ck = cuda_qrnn.qrnn_pool_fwd_seg(y, c0)
+    h_lane, c_lane = cuda_qrnn.qrnn_pool_fwd_loop(y, c0)
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_seg": before["qrnn_pool_fwd_seg"] + 1,
+        "qrnn_pool_fwd": before["qrnn_pool_fwd"] + 1}
+    torch.cuda.synchronize()
+    assert torch.equal(hk, h_lane) and torch.equal(ck, c_lane)
+    h_ref, c_ref = plain.qrnn_pool(y, c0)
+    assert (hk - h_ref).abs().max().item() <= 1e-5
+    assert (ck - c_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("cut", ["S-3", "S", "S+5", 301],
+                         ids=str)
+@pytest.mark.parametrize("b,h", [(1, 512), (3, 20)])
+def test_serial_kernel_block_streamed_equals_full(cuda_device, cut, b, h):
+    """Two calls with c_T threaded into the second's c0 == one call, bit
+    for bit, cut inside a segment, on its edge and past it."""
+    cut = _steps(cut)
+    t = cut + 150
+    y, c0 = _inputs(b, t, h, cuda_device, seed=cut)
+    h_full, c_full = cuda_qrnn.qrnn_pool_fwd_seg(y, c0)
+    h1, c1 = cuda_qrnn.qrnn_pool_fwd_seg(y[:, :cut].contiguous(), c0)
+    h2, c2 = cuda_qrnn.qrnn_pool_fwd_seg(y[:, cut:].contiguous(), c1)
+    assert torch.equal(torch.cat([h1, h2], 1), h_full)
+    assert torch.equal(c2, c_full)
+
+
+@pytest.mark.parametrize("b,t,kernel", [
+    (1, 100, "qrnn_pool_fwd_seg_kernel"), (8, 10, "qrnn_pool_fwd_seg_kernel"),
+    (1, 1, "qrnn_pool_fwd_seg_kernel"), (16, 10, "qrnn_pool_fwd_seg_kernel"),
+    (32, 100, "qrnn_pool_fwd_kernel<false>")])
+def test_serial_forward_routes_by_lanes(cuda_device, b, t, kernel):
+    """A seeded qrnn_pool_fwd launches the segmented kernel under
+    SEG_LANES lanes and the one-thread-a-lane loop from there on (the same
+    bits either way): the kernel's name in a profile."""
+    from torch.profiler import ProfilerActivity, profile
+    y, c0 = _inputs(b, t, 512, cuda_device)
+    cuda_qrnn.qrnn_pool_fwd(y, c0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_qrnn.qrnn_pool_fwd(y, c0)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "qrnn" in e.key]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 def test_wrapper_refuses(cuda_device):
@@ -194,6 +266,7 @@ def test_train_kernels_count_launches(cuda_device):
     assert after["qrnn_pool_fwd_train"] == before["qrnn_pool_fwd_train"] + 1
     assert after["qrnn_pool_bwd"] == before["qrnn_pool_bwd"] + 1
     assert after["qrnn_pool_fwd"] == before["qrnn_pool_fwd"]
+    assert after["qrnn_pool_fwd_seg"] == before["qrnn_pool_fwd_seg"]
     assert after["qrnn_pool_fwd_chunked"] == before["qrnn_pool_fwd_chunked"]
 
 
@@ -262,8 +335,9 @@ def test_bf16_step_launches_the_training_kernels(cuda_device, tmp_path):
         assert all(torch.isfinite(v) for v in losses.values())
     layers = len(tr.model.frontend.rnn.layers)
     assert cuda_qrnn.LAUNCHES == {
-        "qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd": 0,
-        "qrnn_pool_fwd_train": 2 * layers, "qrnn_pool_bwd": 2 * layers}
+        "qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd_seg": 0,
+        "qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 2 * layers,
+        "qrnn_pool_bwd": 2 * layers}
     assert not any(conv_ops.LAUNCHES.values())
 
 
@@ -474,12 +548,14 @@ def test_device_corpus_rows_on_the_card(cuda_device, tmp_path):
 def test_registered_op_launches_and_routes(cuda_device):
     """torch.ops.pase_tpu_torch.qrnn_pool_fwd on CUDA tensors launches the
     kernels, the route taken inside the operator from the call's shapes:
-    unseeded on 1 x 512 lanes the chunked kernel, on 64 x 512 the serial
-    one; seeded, the serial one. Within 1e-5 of the plain version."""
+    unseeded on 1 x 512 lanes the chunked kernel, on 64 x 512 the
+    one-thread-a-lane one; seeded, on 1 x 512 the segmented one, on 64 x
+    512 the one-thread-a-lane one. Within 1e-5 of the plain version."""
     op = torch.ops.pase_tpu_torch.qrnn_pool_fwd
     for b, seeded, name in ((1, False, "qrnn_pool_fwd_chunked"),
                             (64, False, "qrnn_pool_fwd"),
-                            (1, True, "qrnn_pool_fwd")):
+                            (1, True, "qrnn_pool_fwd_seg"),
+                            (64, True, "qrnn_pool_fwd")):
         y, c0 = _inputs(b, 50, 512, cuda_device, seed=b)
         c0 = c0 if seeded else None
         before = dict(cuda_qrnn.LAUNCHES)
@@ -495,7 +571,7 @@ def test_registered_op_launches_and_routes(cuda_device):
 def test_streaming_is_bit_identical_across_chunkings(cuda_device):
     """The narrow encoder streamed on the card in three chunkings: the
     frames are equal bit for bit, within the streaming contract of the
-    offline forward, and every pooling call took the seeded serial
+    offline forward, and every pooling call took the seeded segmented
     kernel."""
     from pase_tpu_torch.streaming import StreamingEncoder
     enc = wf_builder(dict(NARROW_CFG, strides=[1, 10, 4, 4]),
@@ -510,7 +586,7 @@ def test_streaming_is_bit_identical_across_chunkings(cuda_device):
               for i in range(0, 16000, chunk)] + [st.flush()]
         outs.append(torch.cat([y for y in ys if y is not None], 2))
         assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == 0
-        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd"] == st.qrnn_calls
+        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_seg"] == st.qrnn_calls
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
     ref = enc(wav)
     assert torch.allclose(outs[0], ref, rtol=1e-3, atol=2e-4)
@@ -519,7 +595,8 @@ def test_streaming_is_bit_identical_across_chunkings(cuda_device):
 def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
     """A bucket exported on the card serves there (meta device 'cuda'),
     within 2e-5 of the offline encoder, through the chunked kernel at a
-    small batch and the serial one above CHUNKED_LANES lanes."""
+    small batch and the one-thread-a-lane one above CHUNKED_LANES
+    lanes."""
     from pase_tpu_torch import serving
     enc = wf_builder(dict(NARROW_CFG, strides=[1, 10, 4, 4]),
                      device=cuda_device)

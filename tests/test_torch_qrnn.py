@@ -221,16 +221,95 @@ def test_chunked_wrapper_cpu_path_and_route():
     assert cuda_qrnn.LAUNCHES == before
     assert cuda_qrnn.CHUNKED_LANES == 16384
     assert set(cuda_qrnn.LAUNCHES) == {"qrnn_pool_fwd_chunked",
+                                       "qrnn_pool_fwd_seg",
                                        "qrnn_pool_fwd",
                                        "qrnn_pool_fwd_train",
                                        "qrnn_pool_bwd"}
 
 
+@pytest.mark.parametrize("lanes,seeded,entry", [
+    (512, True, "qrnn_pool_fwd_seg"), (512, False, "qrnn_pool_fwd_chunked"),
+    (16383, True, "qrnn_pool_fwd_seg"), (16384, True, "qrnn_pool_fwd"),
+    (16384, False, "qrnn_pool_fwd"), (49152, False, "qrnn_pool_fwd")])
+def test_forward_entry_routes_by_seed_and_lanes(lanes, seeded, entry):
+    """The operator's route: unseeded under CHUNKED_LANES lanes the
+    chunked kernel, seeded under SEG_LANES the segmented one (a streaming
+    push), else the one-thread-a-lane loop (eval at batch)."""
+    assert cuda_qrnn.SEG_LANES == 16384
+    assert cuda_qrnn.forward_entry(lanes, seeded) == entry
+
+
+# (B, T, H) of narrow streaming pushes: a 1 s push, a 100 ms push
+PUSHES = [(1, 100, 16), (2, 10, 16)]
+
+
+@pytest.mark.parametrize("shape", PUSHES, ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_serial_plain_matches_pallas_at_push_shapes(shape, seeded):
+    """The seeded serial plain version (gates first, then one chain per
+    lane seeded with c0, as the serial kernels run it) against the Pallas
+    kernel in interpret mode (which folds c0 into b_1) and the plain
+    version, within 1e-6."""
+    y, c0 = _inputs(*shape, seed=sum(shape) + seeded)
+    c0t = torch.from_numpy(c0) if seeded else None
+    h, c = torch_qrnn.qrnn_pool_serial_plain(torch.from_numpy(y), c0t)
+    with pltpu.force_tpu_interpret_mode():
+        h_ref, c_ref = jax_pallas.qrnn_pool_pallas(
+            jnp.asarray(y), jnp.asarray(c0) if seeded else None)
+    h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
+    assert h.shape == shape and c.shape == (shape[0], shape[2])
+    for got, want in ((h, np.asarray(h_ref)), (c, np.asarray(c_ref)),
+                      (h, h_ser), (c, c_ser)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("wrapper", ["qrnn_pool_fwd_seg",
+                                     "qrnn_pool_fwd_loop"])
+def test_serial_wrappers_cpu_path(wrapper):
+    """The serial kernels' wrappers on CPU tensors take the seeded serial
+    plain version and launch nothing."""
+    y, c0 = _inputs(2, 21, 8, seed=8)
+    before = dict(cuda_qrnn.LAUNCHES)
+    for seed in (None, torch.from_numpy(c0)):
+        h, c = getattr(cuda_qrnn, wrapper)(torch.from_numpy(y), seed)
+        h_ref, c_ref = torch_qrnn.qrnn_pool_serial_plain(
+            torch.from_numpy(y), seed)
+        assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
+    assert cuda_qrnn.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::qrnn_pool_fwd_seg_kernel<4, 128, 128>"
+     "(float const*, float const*, float*, float*, long, long, long)",
+     "qrnn fwd"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_kernel<false>(float "
+     "const*, float const*, float*, float*, float*, long, long, long)",
+     "qrnn fwd"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_kernel<true>(float "
+     "const*, float const*, float*, float*, float*, long, long, long)",
+     "qrnn fwd_train"),
+    ("(anonymous namespace)::qrnn_pool_fwd_chunked_kernel(float const*)",
+     "qrnn fwd chunked"),
+    ("(anonymous namespace)::qrnn_pool_bwd_kernel(float const*)",
+     "qrnn bwd")])
+def test_profiler_names_the_qrnn_kernels(name, kind):
+    """A push's profile counts K1's serial serving kernels (the segmented
+    one and the one-thread-a-lane loop) as 'qrnn fwd', apart from the
+    chunked kernel."""
+    from pase_tpu_torch.profiling import kernel_kind
+    assert kernel_kind(name) == kind
+
+
 def test_kernel_variants_replace_lines_of_the_shipped_sources():
     """python -m pase_tpu_torch.kernel_variants builds each variant from
     the shipped source with lines replaced: each line it replaces is
-    there exactly once."""
+    there exactly once. The serial group holds every tile of the
+    segmented kernel but the shipped one."""
     from pase_tpu_torch import kernel_variants
+    serial = [k for k in kernel_variants.VARIANTS
+              if k.startswith("qrnn serial")]
+    assert kernel_variants.SEG_SHIPPED in kernel_variants.SEG_TILES
+    assert len(serial) == len(kernel_variants.SEG_TILES) - 1
     for name, (source, subs) in kernel_variants.VARIANTS.items():
         with open(source) as f:
             text = f.read()
