@@ -169,6 +169,27 @@ Phases, each printed as it ends; any failure exits non-zero:
                serve-encode over the four wavs within 2e-5 of forward-chunk
                --chunk_size 64000, the streaming artifact bit for bit
                equal to the in-process stream.
+ 18. gan     — the GAN workers: (a) one full-width PASE+ / workers+ step
+               with recipes/run_pase_plus_gan.sh's gan_cfg (wave LSGAN on
+               cchunk), batch 2 x 16000, card vs CPU with the same model
+               and D weights: losses (cchunk_g and d_loss included) within
+               1e-4 relative, gradients under phase 7's rule, D's
+               gradients within 1e-3 of their largest, D's parameters
+               after the step within 1e-4 of their largest where D's
+               gradient is above 1e-4 of its leaf's largest (else within
+               2 lr: Adam's first step), u within 1e-5; (b) the same for
+               the z GAN with the cchunk prior; (c) the recipe's command
+               line through the CLI with --synthetic (its corpus,
+               statistics and distortion flags dropped: their files are
+               not in the repository), batch 16 x 32000, bf16, one epoch,
+               then the same without --gan_cfg: steps/s of both, every loss
+               finite; (f) a torch.profiler split of three GAN steps, D's
+               span pase.discriminator against the rest; (d) the GAN train
+               state saved, resumed by a new Trainer bit for bit (D's
+               leaves too), and the next step of both within 1e-4; (e)
+               PASE+ with snorm and with wnorm FeBlocks (the sinc layer
+               off: it takes no reparameterization) at (8,1,160000), card
+               vs CPU within 2e-4 of max|y|.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -192,18 +213,24 @@ qrnn_pool_fwd once per layer per eval step, the v0.1 CLI none; phase 17's
 VQ serving path qrnn_pool_fwd_chunked once per layer per encoder call,
 its streams qrnn_pool_fwd_seg once per layer per push that reaches the
 QRNN,
-its serve-encode qrnn_pool_fwd_chunked once per layer per program call.
+its serve-encode qrnn_pool_fwd_chunked once per layer per program call;
+phase 18's GAN steps (wave, z) the training kernels once per layer (D
+has no QRNN), each recipe CLI run the training kernels once per layer
+per train step and qrnn_pool_fwd once per layer per eval step, the snorm
+and wnorm encoders qrnn_pool_fwd_chunked once per layer per call.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
-(forward-chunk --streaming), export (phase 14's serve-encode), and phase
+(forward-chunk --streaming), export (phase 14's serve-encode), phase
 16-17's vq_step, vq_training, v01_step, v01_training, gap_step,
-vq_serving, vq_stream, vq_export).
+vq_serving, vq_stream, vq_export, and phase 18's gan_step, gan_z_step,
+gan_cli, gan_cli_plain, snorm_serving, wnorm_serving).
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
@@ -286,10 +313,42 @@ OP_PAIRS = {1: 200, 8: 40}
 FMA_LATENCY_CYCLES = 4
 # phase 13's K1 shapes (B, T): 1 s and 100 ms pushes at B=1 and 8
 PUSH_SHAPES = [(1, 100), (8, 100), (1, 10), (8, 10)]
+# phase 18: the GAN recipe, its z variant, the card-vs-CPU bounds of D
+# (parameters after a step relative to their largest, where D's gradient
+# is above D_LIVE_REL of its leaf's largest; u absolute)
+GAN_RECIPE = "recipes/run_pase_plus_gan.sh"
+GAN_Z_CFG = {"type": "z", "loss": "BCE", "lr": 0.0004, "weight": 1.0,
+             "cchunk_prior": True}
+GAN_D_REL = 1e-4
+D_LIVE_REL = 1e-4
+GAN_U_ATOL = 1e-5
+# the recipe's flags that name the corpus, its statistics and its
+# distortion assets (not in the repository; the phase trains --synthetic)
+RECIPE_DATA_FLAGS = ("--data_root", "--data_cfg", "--stats", "--dtrans_cfg",
+                     "--save_path")
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def recipe_argv(script):
+    """The training flags of a recipe script: the arguments after its
+    ``python train.py`` (or after the recipe it ``exec``s, whose flags
+    come first), ``${VAR:-default}`` taken at its default, "$@" dropped."""
+    import re
+    import shlex
+    with open(os.path.join(HERE, script)) as f:
+        text = f.read().replace("\\\n", " ")
+    text = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", text)
+    for line in text.splitlines():
+        words = shlex.split(line, comments=True)
+        if words[:2] == ["python", "train.py"]:
+            return [w for w in words[2:] if w != "$@"]
+        if words[:1] == ["exec"] and words[1].endswith(".sh"):
+            return recipe_argv(words[1]) + [w for w in words[2:]
+                                            if w != "$@"]
+    raise ValueError(f"{script}: no training command")
 
 
 def check(cond, msg):
@@ -1852,14 +1911,15 @@ def phase_overlap():
     return launches
 
 
-def _variant_step(fe_cfg, workers, raw, what, tmp):
+def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None):
     """One train step of a model variant on the card and on the CPU, the
     same weights, batch and injected draws. The CPU's PReLUs take the
     card's side of their kink and its near-tie VQ codes the card's
     (grad_parity.prelu_signs, vq_codes); outside the ties the codes must
-    agree. Per-worker losses ('vq' included) within 1e-4 relative,
-    gradients within 1e-3 of each group's largest. Returns the card's
-    launch counts of the step."""
+    agree. Per-worker losses ('vq' included; with a ``gan_cfg`` the G
+    term and 'd_loss') within 1e-4 relative, gradients within 1e-3 of
+    each group's largest; with a GAN, D's as ``_check_discriminator``
+    says. Returns the card's launch counts of the step."""
     import torch
     from pase_tpu_torch.grad_parity import (code_flips, group_errors,
                                             prelu_signs, sign_flips,
@@ -1868,21 +1928,29 @@ def _variant_step(fe_cfg, workers, raw, what, tmp):
     cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
                batch_size=2, chunk_size=16000, fe_lr=1e-4, min_lr=4e-4,
                lr_mode="step", save_path=tmp)
-    gpu = Trainer(fe_cfg, workers, cfg, device="cuda")
-    cpu = Trainer(fe_cfg, workers, cfg, device="cpu")
+    gpu = Trainer(fe_cfg, workers, cfg, device="cuda", gan_cfg=gan_cfg)
+    cpu = Trainer(fe_cfg, workers, cfg, device="cpu", gan_cfg=gan_cfg)
     cpu.model.load_state_dict(gpu.model.state_dict())
+    if gan_cfg is not None:
+        cpu.discriminator.load_state_dict(gpu.discriminator.state_dict())
     x_gpu, x_cpu, c_gpu, c_cpu, forced = {}, {}, {}, {}, {}
+    d_gpu, d_cpu = {}, {}
     reset_launches()                     # the variant's step starts here
     with prelu_signs(gpu.model, record=x_gpu), \
-            vq_codes(gpu.model, record=c_gpu):
+            vq_codes(gpu.model, record=c_gpu), \
+            _g_term_signs(gpu.discriminator, record=d_gpu):
         lg = gpu.train_step(raw)
     _sync("cuda")
     launches = read_launches()           # ... and ends here
     with prelu_signs(cpu.model, record=x_cpu,
                      force={k: x > 0 for k, x in x_gpu.items()}), \
             vq_codes(cpu.model, record=c_cpu, forced=forced,
-                     force={k: c for k, (c, _) in c_gpu.items()}):
+                     force={k: c for k, (c, _) in c_gpu.items()}), \
+            _g_term_signs(cpu.discriminator, record=d_cpu,
+                          force={k: x > 0 for k, x in d_gpu.items()}):
         lc = cpu.train_step(raw)
+    x_gpu.update({"discriminator." + k: x for k, x in d_gpu.items()})
+    x_cpu.update({"discriminator." + k: x for k, x in d_cpu.items()})
     names = [k for k in lg if k != "total"]
     loss_err = {k: abs(float(lg[k]) - float(lc[k])) / abs(float(lc[k]))
                 for k in names}
@@ -1922,25 +1990,110 @@ def _variant_step(fe_cfg, workers, raw, what, tmp):
                 "qrnn_pool_fwd_train": layers, "qrnn_pool_bwd": layers}
     print(f"[launches] {what} step: {launches} (expected {expected})")
     check(launches == expected, f"{what} step launches {launches}")
+    if gan_cfg is not None:
+        _check_discriminator(gpu, cpu, what)
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def _g_term_signs(d, record=None, force=None):
+    """grad_parity.prelu_signs for the first call of each of D's PReLUs in
+    the block: the G term's call on the fake, through which the model's
+    gradient flows (D's own step, which calls D again on the detached
+    real and fake, runs as it is). Nothing without a D."""
+    if d is None:
+        yield
+        return
+    import torch
+    from torch import nn
+    seen = set()
+
+    def hook(name):
+        def fn(mod, inputs, out):
+            if name in seen:
+                return None
+            seen.add(name)
+            x = inputs[0]
+            if record is not None:
+                record[name] = x.detach().cpu()
+            if force is None:
+                return None
+            slope = mod.weight.view(1, -1, *([1] * (x.dim() - 2)))
+            return torch.where(force[name].to(x.device), x, slope * x)
+        return fn
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in d.named_modules()
+             if isinstance(m, nn.PReLU)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _check_discriminator(gpu, cpu, what):
+    """D after one step on the card against the CPU: its gradients within
+    1e-3 of their largest; its parameters within 1e-4 of their largest
+    wherever the CPU's gradient is above D_LIVE_REL of its leaf's largest
+    (Adam's first step moves a weight by lr g / (|g| + 1e-8), so where g
+    lies within rounding of 0 either sign is right), else within 2 lr;
+    its u within 1e-5."""
+    dg = {k: p for k, p in gpu.discriminator.named_parameters()}
+    top_g = max(p.grad.abs().max().item()
+                for p in cpu.discriminator.parameters())
+    top_p = max(p.detach().abs().max().item()
+                for p in cpu.discriminator.parameters())
+    lr = gpu.gan_cfg.get("lr", 5e-4)
+    g_err = live_err = any_err = 0.0
+    for k, pc in cpu.discriminator.named_parameters():
+        pg = dg[k]
+        g_err = max(g_err, (pg.grad.cpu() - pc.grad).abs().max().item())
+        live = pc.grad.abs() >= D_LIVE_REL * pc.grad.abs().max()
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        live_err = max(live_err, diff[live].max().item())
+        any_err = max(any_err, diff.max().item())
+    u_err = max([(a.cpu() - b).abs().max().item() for a, b in zip(
+        gpu.discriminator.buffers(), cpu.discriminator.buffers())],
+        default=0.0)                    # ZDiscriminator has no SN conv
+    print(f"[gan] {what}: D card vs cpu: max|dg| / max|g| "
+          f"{g_err / top_g:.2e} (bound {TRAIN_GRAD_REL}); parameters after "
+          f"the step, where |g| >= {D_LIVE_REL} of its leaf's max: max|dp| "
+          f"/ max|p| {live_err / top_p:.2e} (bound {GAN_D_REL}), elsewhere "
+          f"max|dp| {any_err:.2e} (bound 2 lr = {2 * lr:.1e}); max|du| "
+          f"{u_err:.2e} (bound {GAN_U_ATOL})")
+    check(g_err <= TRAIN_GRAD_REL * top_g, f"{what}: D gradients {g_err}")
+    check(live_err <= GAN_D_REL * top_p, f"{what}: D parameters "
+          f"{live_err}")
+    check(any_err <= 2 * lr + GAN_D_REL * top_p,
+          f"{what}: D parameters beyond 2 lr: {any_err}")
+    check(u_err <= GAN_U_ATOL, f"{what}: D's u {u_err}")
 
 
 def _variant_cli(fe_cfg, net_cfg, what, tmp, extra=()):
     """The training CLI on a variant at batch 32 x 32000 for one epoch;
     returns (trainer, launch counts, the perf line, the last train
     line)."""
-    import math
-    import torch
-    from pase_tpu_torch import train as train_cli
-    reset_launches()                     # the variant's training starts
-    t0 = time.perf_counter()
-    tr = train_cli.main([
+    return _cli_run([
         "--synthetic", "--net_cfg", net_cfg, "--fe_cfg", fe_cfg,
         "--batch_size", str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK),
         "--epoch", "1", "--log_freq", "25", "--save_path", tmp]
-        + list(extra))
+        + list(extra), what, tmp)
+
+
+def _cli_run(argv, what, tmp):
+    """``python -m pase_tpu_torch.train`` in this process for one epoch:
+    every logged loss finite, the training kernels once per QRNN layer
+    per train step and qrnn_pool_fwd once per layer per eval step.
+    Returns (trainer, launch counts, the perf line, the last train
+    line)."""
+    import math
+    import torch
+    from pase_tpu_torch import train as train_cli
+    reset_launches()                     # the CLI's training starts
+    t0 = time.perf_counter()
+    tr = train_cli.main(argv)
     torch.cuda.synchronize()
     launches = read_launches()           # ... and ends here
     wall = time.perf_counter() - t0
@@ -1966,9 +2119,8 @@ def _variant_cli(fe_cfg, net_cfg, what, tmp, extra=()):
           f"{expected}: {layers} QRNN layer(s) x {steps} train steps, x "
           f"{evals} eval steps)")
     check(launches == expected, f"{what} CLI launches {launches}")
-    flags = "".join(f" {a}" for a in extra)
-    print(f"[variants-train] {what}: python -m pase_tpu_torch.train "
-          f"--synthetic at batch {TRAIN_BATCH} x {TRAIN_CHUNK}{flags}, 1 "
+    flags = " ".join(argv)
+    print(f"[cli] {what}: python -m pase_tpu_torch.train {flags}: 1 "
           f"epoch of {steps} steps + {evals} eval "
           f"batches: {wall:.1f} s in all; {perf[0]['steps_per_sec']:.3f} "
           f"steps/s, {perf[0]['audio_sec_per_sec']:.1f} audio-s/s; step "
@@ -2028,6 +2180,142 @@ def phase_variants_train(tmp, bf16_rate):
     paths["gap_step"] = _variant_step(PASEP_CFG, workers, gap,
                                       "PASE+ workers+ plus gap",
                                       os.path.join(tmp, "gap_step"))
+    return paths
+
+
+def _recipe_cli_argv(tmp, gan=True):
+    """The GAN recipe's flags for a --synthetic run of one epoch: the
+    corpus, statistics and distortion flags dropped (their files are not
+    in the repository), cfg paths under this checkout, and without
+    ``gan`` the --gan_cfg dropped too."""
+    argv, out = recipe_argv(GAN_RECIPE), []
+    drop = RECIPE_DATA_FLAGS + (() if gan else ("--gan_cfg",))
+    i = 0
+    while i < len(argv):
+        flag = argv[i]
+        if flag in drop:
+            i += 2
+            continue
+        if flag == "--epoch":
+            out += [flag, "1"]
+            i += 2
+            continue
+        value = argv[i + 1] if i + 1 < len(argv) else None
+        if value is not None and value.startswith("cfg/"):
+            out += [flag, os.path.join(HERE, value)]
+            i += 2
+            continue
+        out.append(flag)
+        i += 1
+    return out + ["--synthetic", "--log_freq", "25", "--save_path", tmp]
+
+
+def phase_gan(tmp):
+    """Phase 18: the GAN workers on the card. Returns {path: launch
+    counts}."""
+    import torch
+    from pase_tpu_torch.checkpoint import train_state_to_tree
+    from pase_tpu_torch.data.dataset import (DeviceSyntheticBatcher,
+                                             SyntheticChunkBatcher)
+    from pase_tpu_torch.profiling import profile_train_steps
+    from pase_tpu_torch.trainer import Trainer
+    paths = {}
+    argv = recipe_argv(GAN_RECIPE)
+    gan = json.loads(argv[argv.index("--gan_cfg") + 1])
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=8)))
+    # (a) the recipe's wave GAN at full width, one step card vs cpu
+    paths["gan_step"] = _variant_step(
+        PASEP_CFG, WORKERSP_CFG, raw, "PASE+ workers+ wave GAN (the "
+        "recipe's gan_cfg)", os.path.join(tmp, "gan_step"), gan_cfg=gan)
+    # (b) the z GAN with the cchunk prior
+    paths["gan_z_step"] = _variant_step(
+        PASEP_CFG, WORKERSP_CFG, raw, "PASE+ workers+ z GAN, cchunk prior",
+        os.path.join(tmp, "gan_z_step"), gan_cfg=GAN_Z_CFG)
+    # (c) the recipe through the CLI, with and without its gan_cfg, in
+    # turns in this process; (f) three steps of each profiled: D's span
+    # against the rest
+    rates, profs = {}, {}
+    for label, with_gan in (("recipe + gan_cfg", True),
+                            ("recipe without gan_cfg", False)):
+        run = os.path.join(tmp, "cli_gan" if with_gan else "cli_plain")
+        torch.cuda.reset_peak_memory_stats()
+        tr, launches, perf, last = _cli_run(
+            _recipe_cli_argv(run, with_gan), label, run)
+        paths["gan_cli" if with_gan else "gan_cli_plain"] = launches
+        rates[label] = perf["steps_per_sec"]
+        batcher = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
+                                         seed=7)
+        profs[label] = profile_train_steps(tr, [batcher.make_batch()
+                                                for _ in range(5)])
+        print_profile(profs[label], f"{label}: a train step (batch "
+                      f"{tr.batch_size} x {tr.chunk_size}, bf16)")
+        if with_gan:
+            check(tr.discriminator is not None and "d_loss" in last
+                  and "cchunk_g" in last, "the recipe ran without its GAN")
+            print(f"[gan] recipe step {last['step']}: cchunk_g "
+                  f"{last['cchunk_g']:.4f}, d_loss {last['d_loss']:.4f}")
+            gan_tr = tr
+        else:
+            del tr
+    gan_rate, plain_rate = (rates["recipe + gan_cfg"],
+                            rates["recipe without gan_cfg"])
+    prof = profs["recipe + gan_cfg"]
+    d_ms = sum(prof["split"].get("pase.discriminator", {}).values())
+    share = d_ms / prof["busy_ms"]
+    print(f"[gan] the recipe (batch 16 x 32000, bf16): {gan_rate:.3f} "
+          f"steps/s with its gan_cfg, {plain_rate:.3f} without "
+          f"({gan_rate / plain_rate:.3f}x); D's span pase.discriminator "
+          f"{d_ms:.2f} of {prof['busy_ms']:.2f} busy ms per step "
+          f"({share:.3f}); busy ms with / without "
+          f"{prof['busy_ms']:.2f} / "
+          f"{profs['recipe without gan_cfg']['busy_ms']:.2f}, idle share "
+          f"{prof['idle_share']:.3f} / "
+          f"{profs['recipe without gan_cfg']['idle_share']:.3f}, kernels "
+          f"launched per step {sum(prof['launches'].values()):.0f} / "
+          f"{sum(profs['recipe without gan_cfg']['launches'].values()):.0f}"
+          f", {prof['launches'].get('pase.discriminator', 0):.0f} of them "
+          "in D's span")
+    check(d_ms > 0, "no device time in the discriminator's span")
+    # (d) save / resume of the GAN train state
+    gan_tr.save(0)
+    back = Trainer(PASEP_CFG, WORKERSP_CFG, gan_tr.cfg, device="cuda",
+                   gan_cfg=gan)
+    check(back.try_resume() == gan_tr.step, "resume step")
+    a, b = train_state_to_tree(gan_tr), train_state_to_tree(back)
+    differ = [k for k in a if k not in b or not np.array_equal(a[k], b[k])]
+    check(set(a) == set(b) and not differ,
+          f"resumed GAN state differs at {differ[:5]}")
+    d_keys = sum(k.startswith("d_") for k in a)
+    nxt = DeviceSyntheticBatcher(gan_tr.batch_size, gan_tr.chunk_size,
+                                 seed=9).make_batch()
+    la, lb = gan_tr.train_step(nxt), back.train_step(nxt)
+    cont = max(abs(float(la[k]) - float(lb[k])) / max(abs(float(la[k])),
+                                                      1e-30) for k in la)
+    print(f"[gan] save / resume at step {back.step - 1}: {len(a)} leaves "
+          f"({d_keys} of D: params, u, Adam) bit for bit; the next step "
+          f"resumed vs uninterrupted: max relative loss difference "
+          f"{cont:.2e} (bound {TRAIN_LOSS_REL}; cuDNN's run-to-run "
+          "spread)")
+    check(cont <= TRAIN_LOSS_REL, f"resumed GAN step: {cont:.3e}")
+    del gan_tr, back
+    torch.cuda.empty_cache()
+    # (e) PASE+ with spectral- and weight-normalized FeBlocks
+    with open(PASEP_CFG) as f:
+        base = json.load(f)
+    for norm in ("snorm", "wnorm"):
+        cfg = dict(base, norm_type=norm, sincnet=False)
+        reset_launches()                 # this encoder's path starts
+        enc, calls = phase_encoder("cuda", cfg=cfg, reps=3)
+        launches = read_launches()       # ... and ends here
+        layers = len(enc.module.rnn.layers)
+        expected = {**{k: 0 for k in launches},
+                    "qrnn_pool_fwd_chunked": layers * calls}
+        print(f"[gan] PASE+ with {norm} FeBlocks (no sinc layer: it takes "
+              f"no reparameterization): launches {launches}")
+        check(launches == expected, f"{norm} encoder launches {launches}")
+        paths[f"{norm}_serving"] = launches
+        del enc
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -2274,6 +2562,7 @@ def main():
             os.path.join(tmp, "variants"),
             dist_perf["bfloat16"]["steps_per_sec"]))
         paths.update(phase_variants_serve())
+        paths.update(phase_gan(os.path.join(tmp, "gan")))
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

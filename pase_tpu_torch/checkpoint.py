@@ -25,7 +25,10 @@ that layout loads with ``load_state_dict(strict=True)``.
   ``running_mean``/``running_var``. The VQ quantizer's buffers ``emb``
   [K, D], ``ema_cluster_size`` and ``ema_w`` keep their names and layout
   and live in ``batch_stats`` (``batch_stats/quantizer/emb``): the
-  codebook is state, not a kernel, and is never transposed.
+  codebook is state, not a kernel, and is never transposed. A weight-norm
+  conv's ``v`` [K, Cin, Cout] <-> [Cout, Cin, K] (``g`` and ``bias`` as
+  they are); a spectral-norm conv's kernel is a conv's, its ``u`` lives
+  in ``batch_stats`` like the codebook.
 * ``load_frontend_ckpt`` loads either format into a module, strictly.
 * ``model_variables_to_state_dict`` / ``model_state_dict_to_variables``
   do the same for the whole PASE model (``model.PASE``): the JAX
@@ -49,8 +52,15 @@ _LEAF_TO_TORCH = {"low_hz": "low_hz_", "band_hz": "band_hz_",
                   "mean": "running_mean", "var": "running_var"}
 _LEAF_TO_JAX = {v: k for k, v in _LEAF_TO_TORCH.items()}
 # the leaves of the JAX 'batch_stats' collection: BatchNorm's running
-# statistics and the VQ quantizer's codebook and EMA state
-_BATCH_STATS = {"mean", "var", "emb", "ema_cluster_size", "ema_w"}
+# statistics, the VQ quantizer's codebook and EMA state, and a
+# spectral-norm conv's power-iteration vector u
+_BATCH_STATS = {"mean", "var", "emb", "ema_cluster_size", "ema_w", "u"}
+
+
+def _flip_conv(arr):
+    """A conv kernel [K, Cin, Cout] <-> weight [Cout, Cin, K] (the same
+    transpose both ways), a Dense kernel [in, out] <-> weight [out, in]."""
+    return arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
 
 
 def save_variables(path, flat, step=0):
@@ -103,9 +113,9 @@ def variables_to_state_dict(flat):
         *path, leaf = parts[1:]
         arr = np.asarray(arr)
         if leaf == "kernel":
-            # conv [K, Cin, Cout] -> [Cout, Cin, K]; Dense [in, out] -> [out, in]
-            arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
-            leaf = "weight"
+            arr, leaf = _flip_conv(arr), "weight"
+        elif leaf == "v" and arr.ndim == 3:
+            arr = _flip_conv(arr)         # a weight-norm conv's direction
         else:
             leaf = _LEAF_TO_TORCH.get(leaf, leaf)
         tkey = ".".join(_module_path_to_torch(path) + [leaf])
@@ -145,8 +155,9 @@ def state_dict_to_variables(state_dict):
         if leaf in _LEAF_TO_JAX:
             leaf = _LEAF_TO_JAX[leaf]
         elif leaf == "weight" and arr.ndim >= 2:
-            arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
-            leaf = "kernel"
+            arr, leaf = _flip_conv(arr), "kernel"
+        elif leaf == "v" and arr.ndim == 3:
+            arr = _flip_conv(arr)
         col = "batch_stats" if leaf in _BATCH_STATS else "params"
         flat["/".join([col] + _module_path_to_jax(path) + [leaf])] = \
             np.ascontiguousarray(arr)
@@ -262,24 +273,83 @@ def rng_key(seed, step):
                     np.uint32)
 
 
+def _adam_moments(opt, params, to_variables, head):
+    """Adam's exp_avg / exp_avg_sq of ``params`` ({name: parameter}; zeros
+    before its first step) as ``{head}{mu|nu}/<JAX path>`` leaves;
+    ``to_variables`` maps a state dict to JAX variables."""
+    flat = {}
+    for leaf, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        sd = {}
+        for n, p in params.items():
+            st = opt.state.get(p, {})
+            sd[n] = st[key] if key in st else torch.zeros_like(p)
+        for k, v in to_variables(sd).items():
+            flat[f"{head}{leaf}/{k.partition('/')[2]}"] = v
+    return flat
+
+
+def _set_adam(opt, params, flat, head, count, to_state_dict, device):
+    """The inverse: Adam's state of ``params`` from the
+    ``{head}{mu|nu}/...`` leaves of ``flat``, at step ``count``."""
+    moments = {}
+    for leaf in ("mu", "nu"):
+        pre = f"{head}{leaf}/"
+        moments[leaf] = to_state_dict(
+            {"params/" + k[len(pre):]: v for k, v in flat.items()
+             if k.startswith(pre)})
+    for n, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moments["mu"][n].to(device).contiguous(),
+            "exp_avg_sq": moments["nu"][n].to(device).contiguous()}
+
+
+def _d_count(trainer):
+    """D's Adam updates so far (0 before its first step)."""
+    for st in trainer.d_opt.state.values():
+        return int(st["step"])
+    return 0
+
+
+def _discriminator_tree(trainer):
+    """The GAN discriminator's leaves: ``d_params/``, ``d_batch_stats/``
+    (each SN conv's u) and optax.adam's state ``d_opt_state/0/{count, mu,
+    nu}`` (its ``d_opt_state/1``, the lr scale, holds no leaf)."""
+    d = trainer.discriminator
+    flat = {"d_" + k: v
+            for k, v in state_dict_to_variables(d.state_dict()).items()}
+    flat.update(_adam_moments(trainer.d_opt, dict(d.named_parameters()),
+                              state_dict_to_variables, "d_opt_state/0/"))
+    flat["d_opt_state/0/count"] = np.asarray(_d_count(trainer), np.int32)
+    return flat
+
+
+def _restore_discriminator(trainer, flat):
+    d = trainer.discriminator
+    d.load_state_dict(variables_to_state_dict(
+        {k[2:]: v for k, v in flat.items()
+         if k.startswith(("d_params/", "d_batch_stats/"))}), strict=True)
+    _set_adam(trainer.d_opt, dict(d.named_parameters()), flat,
+              "d_opt_state/0/", int(flat["d_opt_state/0/count"]),
+              variables_to_state_dict, trainer.device)
+
+
 def train_state_to_tree(trainer):
     """A ``Trainer``'s full state as flat JAX TrainState keys: ``params/``
     and ``batch_stats/`` (the weight bridge), ``opt_state/`` (per group
     Adam's ``count``, ``mu`` = exp_avg and ``nu`` = exp_avg_sq in the
     params' layout, and the schedule's ``count``), ``policy_state/``,
-    ``alpha``, ``rng`` (``rng_key``), ``step``, and ``torch/seed``, the
-    seed the port's per-step streams derive from."""
+    ``alpha``, ``rng`` (``rng_key``), ``step``, with a GAN the
+    discriminator's ``d_params/``, ``d_batch_stats/`` and
+    ``d_opt_state/``, and ``torch/seed``, the seed the port's per-step
+    streams derive from."""
     flat = model_state_dict_to_variables(trainer.model.state_dict())
     count = np.asarray(trainer.opt_count, np.int32)
     for group, params in _group_params(trainer).items():
         pre = _adam_prefix(group)
-        for leaf, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            sd = {}
-            for n, p in params.items():
-                st = trainer.opt.state.get(p, {})
-                sd[n] = st[key] if key in st else torch.zeros_like(p)
-            for k, v in model_state_dict_to_variables(sd).items():
-                flat[f"{pre}/0/{leaf}/{k.partition('/')[2]}"] = v
+        flat.update(_adam_moments(trainer.opt, params,
+                                  model_state_dict_to_variables,
+                                  f"{pre}/0/"))
         flat[f"{pre}/0/count"] = count
         flat[f"{pre}/1/count"] = count
     for f in _POLICY_FIELDS:
@@ -288,6 +358,8 @@ def train_state_to_tree(trainer):
     flat["alpha"] = trainer.alpha.detach().cpu().numpy()
     flat["rng"] = rng_key(trainer.seed, trainer.step)
     flat["step"] = np.asarray(trainer.step, np.int32)
+    if trainer.discriminator is not None:
+        flat.update(_discriminator_tree(trainer))
     flat["torch/seed"] = np.asarray(trainer.seed, np.int32)
     return flat
 
@@ -296,8 +368,9 @@ def restore_train_state(trainer, flat):
     """Load a flat TrainState tree (``train_state_to_tree``'s keys, from
     either package) into ``trainer``. Strict: every key of the trainer's
     own tree but ``torch/`` ones must be present (a partial optimizer
-    state would silently perturb optimization); the error names up to 8
-    missing keys. Without ``torch/seed`` (a JAX checkpoint) the trainer
+    state would silently perturb optimization), and a tree with
+    discriminator leaves needs a trainer with a GAN; the error names up to
+    8 missing keys. Without ``torch/seed`` (a JAX checkpoint) the trainer
     keeps its configured seed."""
     want = [k for k in train_state_to_tree(trainer)
             if not k.startswith("torch/")]
@@ -306,30 +379,27 @@ def restore_train_state(trainer, flat):
         raise ValueError(
             "checkpoint is missing TrainState leaves (refusing a partial "
             f"resume): {missing[:8]}{'...' if len(missing) > 8 else ''}")
+    if trainer.discriminator is None and any(
+            k.startswith(("d_params/", "d_opt_state/")) for k in flat):
+        raise ValueError("checkpoint holds a GAN discriminator's state; "
+                         "the trainer has no gan_cfg")
     load_model_variables(trainer.model, {
         k: v for k, v in flat.items()
         if k.startswith(("params/", "batch_stats/"))})
     dev = trainer.device
     for group, params in _group_params(trainer).items():
         pre = _adam_prefix(group)
-        count = int(flat[f"{pre}/0/count"])
-        moments = {}
-        for leaf in ("mu", "nu"):
-            head = f"{pre}/0/{leaf}/"
-            moments[leaf] = model_variables_to_state_dict(
-                {"params/" + k[len(head):]: v for k, v in flat.items()
-                 if k.startswith(head)})
-        for n, p in params.items():
-            trainer.opt.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": moments["mu"][n].to(dev).contiguous(),
-                "exp_avg_sq": moments["nu"][n].to(dev).contiguous()}
+        _set_adam(trainer.opt, params, flat, f"{pre}/0/",
+                  int(flat[f"{pre}/0/count"]),
+                  model_variables_to_state_dict, dev)
     trainer.opt_count = int(flat[f"{_adam_prefix(GROUPS[0])}/0/count"])
     trainer.policy_state = type(trainer.policy_state)(*(
         torch.as_tensor(np.asarray(flat[f"policy_state/{f}"]), device=dev)
         for f in _POLICY_FIELDS))
     trainer.alpha = torch.as_tensor(np.asarray(flat["alpha"]), device=dev)
     trainer.step = int(flat["step"])
+    if trainer.discriminator is not None:
+        _restore_discriminator(trainer, flat)
     if "torch/seed" in flat:
         trainer.seed = int(flat["torch/seed"])
     return trainer

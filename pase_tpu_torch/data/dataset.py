@@ -66,7 +66,8 @@ class LibriSpeechTupleDataset:
     """Samples (raw, raw_ctxt, raw_rand) wav tuples of one split of a
     data cfg: the context from a neighbor (a file of the same name prefix,
     the trailing ``<digits>.wav`` removed), the random one from another
-    utterance. Wavs are read on first use and kept (``cache_on_load``)."""
+    utterance. Wavs are read on first use and kept (``cache_on_load``);
+    ``preload_wav`` reads them all at construction."""
 
     def __init__(self, data_root, data_cfg_file, split, preload_wav=False,
                  cache_on_load=True, zero_speech_p=0.0, seed=0):
@@ -86,6 +87,9 @@ class LibriSpeechTupleDataset:
             fname = wav["filename"]
             prefix = self.rec.sub("", fname)
             self.neighbor_prefixes.setdefault(prefix, []).append(fname)
+        if preload_wav and cache_on_load:
+            for wav in self.wavs:
+                self._load(wav["filename"])
 
     def __len__(self):
         return len(self.wavs)

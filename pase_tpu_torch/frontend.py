@@ -6,7 +6,8 @@ strided FeBlocks (stride product 160 -> 100 Hz frames at 16 kHz), or with
 decimation), optional dense skips (mean-pooled to the output rate, then a
 bias-free 1x1 projection, summed or concatenated), optional window-2 QRNN
 context layer, 1x1 projection ``W`` to ``emb_dim``, optional affine-free
-BatchNorm output normalization, optional tanh, and with ``vq_K`` the
+output normalization (BatchNorm with norm_type bnorm, else InstanceNorm,
+as in JAX), optional tanh, and with ``vq_K`` the
 VQ-EMA quantizer (``nn.VQEMA``) last. The quantizer's commitment loss and
 code perplexity of the last call are ``vq_loss`` and ``vq_perplexity``
 (the JAX module sows them as intermediates).
@@ -23,7 +24,8 @@ import torch
 from torch import nn
 
 from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, VQEMA, BatchNorm1d,
-                               Conv1D, FeBlock, FeResBlock, QRNN)
+                               Conv1D, FeBlock, FeResBlock, InstanceNorm1d,
+                               QRNN)
 
 
 def pool_to(skip, out_len):
@@ -73,10 +75,6 @@ class WaveFe(nn.Module):
                     f"WaveFe rnn_type={rnn_type!r} is not ported yet: "
                     f"{ROADMAP_OFF_SLICE}")
             raise TypeError(f"Unrecognized rnn type: {rnn_type}")
-        if norm_out and norm_type != "bnorm":
-            raise NotImplementedError(
-                f"norm_out with norm_type={norm_type!r} is not ported yet: "
-                f"{ROADMAP_OFF_SLICE}")
         if densemerge not in ("sum", "concat"):
             raise TypeError(f"Unknown densemerge: {densemerge}")
         if generator is None:
@@ -120,8 +118,13 @@ class WaveFe(nn.Module):
         self.denseskips = nn.ModuleList(
             [Conv1D(fm, emb_dim, 1, bias=False, generator=generator)
              for fm in fmaps[:nblocks - 1]] if denseskips else [])
-        self.norm_out = (BatchNorm1d(self.output_dim, affine=False)
-                         if norm_out else None)
+        # the output norm: affine-free BatchNorm with bnorm, else an
+        # affine-free InstanceNorm (whatever the norm type), as in JAX
+        self.norm_out = None
+        if norm_out:
+            self.norm_out = (BatchNorm1d(self.output_dim, affine=False)
+                             if norm_type == "bnorm" else
+                             InstanceNorm1d(self.output_dim))
         self.quantizer = (VQEMA(vq_K, self.output_dim, vq_beta, vq_gamma,
                                 generator=generator)
                           if vq_K is not None and vq_K > 0 else None)

@@ -113,11 +113,18 @@ class PASE(nn.Module):
     'chunk_ctxt', 'chunk_rand' [B, T], 'cchunk' [B, T], '<worker>'
     [B, F, D] targets) and returns (hidden dict [B, emb, F] per stream,
     chunk hidden, preds, labels). ``alpha`` is a float or a
-    [num_workers] tensor of per-worker encoder-gradient scales.
+    [num_workers] tensor of per-worker encoder-gradient scales. With
+    ``force_cchunk`` the encoder also reads 'cchunk' (a fourth stream of
+    its batch, and of its BatchNorm statistics), as the JAX model does
+    for the z-GAN's cchunk prior.
     """
 
-    def __init__(self, frontend_cfg, workers_meta, generator=None):
+    def __init__(self, frontend_cfg, workers_meta, generator=None,
+                 force_cchunk=False):
         super().__init__()
+        # the z-GAN's cchunk prior reads PASE(cchunk): the clean chunk then
+        # joins the encoder's batch as a fourth stream
+        self.fwd_cchunk = bool(force_cchunk)
         if workers_meta.get("regu"):
             raise NotImplementedError(
                 f"regularizer workers are not ported yet: {ROADMAP_HEADS}")
@@ -150,6 +157,8 @@ class PASE(nn.Module):
         """``generator`` draws the SPC and Gap frame indices that the batch
         does not inject."""
         keys = ["chunk", "chunk_ctxt", "chunk_rand"]
+        if self.fwd_cchunk:
+            keys.append("cchunk")
         x = torch.cat([batch[k] for k in keys], dim=0)
         hcat = self.frontend(x).transpose(1, 2)          # [3B, emb, F]
         h = dict(zip(keys, torch.split(hcat, batch["chunk"].shape[0])))
@@ -220,7 +229,18 @@ def worker_losses(model_meta, preds, labels):
     return losses
 
 
-def build_pase(frontend_cfg, workers_cfg, generator=None):
+def materialize_pred(pred):
+    """A fused head's ("linear", hidden, weight, bias) prediction made
+    [B, F, out]; any other prediction as it is."""
+    if isinstance(pred, tuple) and pred[0] == "linear":
+        _, hid, w, b = pred
+        return hid @ w[:, :, 0].t().to(hid.dtype) + b.to(hid.dtype)
+    return pred
+
+
+def build_pase(frontend_cfg, workers_cfg, generator=None,
+               force_cchunk=False):
     """(model, worker metadata) from JSON cfgs (paths or dicts)."""
     meta = parse_workers_cfg(workers_cfg)
-    return PASE(frontend_cfg, meta, generator=generator), meta
+    return PASE(frontend_cfg, meta, generator=generator,
+                force_cchunk=force_cchunk), meta

@@ -10,7 +10,16 @@ reference layout loads with ``load_state_dict(strict=True)``:
                     from a ``torch.Generator``, through ``conv1d``.
 * ``SincConv``    — SincNet band-pass layer: filters synthesized every
                     forward, one plain conv1d on the reflect-padded input.
-* ``FeBlock``     — pad(reflect) -> conv/sinc -> BatchNorm -> PReLU (init 0).
+* ``SNConv1D`` / ``WNConv1D`` — the weight reparameterizations of a conv:
+                    spectral norm (one power iteration a call, ``u`` a
+                    buffer, updated in train mode) and weight norm
+                    (w = g v / (|v| + 1e-12) per output channel).
+* ``LayerNorm1d`` / ``InstanceNorm1d`` — over channels per frame; per
+                    sample and channel over time (affine optional).
+* ``split_norm`` / ``build_norm`` — a reference norm_type as (conv
+                    reparameterization, post-conv norm layer).
+* ``FeBlock``     — pad(reflect) -> conv/sinc -> norm -> PReLU (init 0) or
+                    glu.
 * ``FeResBlock``  — residual block of the resblocks trunk: nearest
                     decimation, two zero-padded stride-1 convs (dilations
                     1, 2) with BatchNorm / PReLU, plus the (1x1-projected)
@@ -27,7 +36,7 @@ reference layout loads with ``load_state_dict(strict=True)``:
                     0.25) -> dropout.
 * ``Deconv1D`` / ``GDeconv1DBlock`` — transposed-conv upsampling block of
                     the waveform decoder: ConvTranspose1d -> (trim) ->
-                    PReLU (init 0).
+                    norm -> PReLU (init 0) or glu.
 
 BatchNorm is torch's BatchNorm1d: in train mode it normalizes with the
 biased batch variance and updates the running stats with the unbiased one
@@ -196,32 +205,198 @@ class SincConv(nn.Module):
         return conv1d(x, self.filters()[:, None, :], stride=self.stride)
 
 
+class SNConv1D(Conv1D):
+    """Conv1d with spectral weight normalization (``pase_tpu/nn.py``
+    SNConv1D): one power iteration per call on the [F, Cin*K] matrix W of
+    the weight, with u [F] a buffer (``batch_stats/.../u`` in the JAX
+    layout): v = W^T u / (|.| + 1e-12), u' = W v / (|.| + 1e-12),
+    sigma = v . (W^T u'), and the conv runs weight / max(sigma, 1e-12).
+    The gradient flows through v, u' and sigma; in train mode u becomes
+    u' (detached). sigma does not depend on the order of W's columns, so
+    the JAX kernel's [K*Cin, F] rows give the same sigma up to rounding.
+
+    u is rebound to a new tensor, never written in place: autograd saved
+    the old one for W^T u."""
+
+    def __init__(self, in_channels, out_channels, kwidth, stride=1,
+                 dilation=1, bias=True, generator=None):
+        super().__init__(in_channels, out_channels, kwidth, stride,
+                         dilation, bias=bias, generator=generator)
+        self.register_buffer("u", torch.randn(out_channels,
+                                              generator=generator))
+
+    def normalized_weight(self):
+        """weight / sigma of the current u; in train mode u advances."""
+        w = self.weight.reshape(self.weight.shape[0], -1)
+        v = w.t() @ self.u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+        u_new = w @ v
+        u_new = u_new / (torch.linalg.vector_norm(u_new) + 1e-12)
+        sigma = torch.dot(v, w.t() @ u_new)
+        if self.training:
+            self.u = u_new.detach()
+        return self.weight / torch.clamp(sigma, min=1e-12)
+
+    def forward(self, x):
+        return conv1d(x, self.normalized_weight(), self.bias, self.stride[0],
+                      self.dilation[0])
+
+
+class WNConv1D(nn.Module):
+    """Conv1d with weight normalization (``pase_tpu/nn.py`` WNConv1D):
+    w = g v / (|v| + 1e-12), the norm per output channel over (Cin, K);
+    v [F, Cin, K] draws the torch-default uniform init and g starts at |v|,
+    so the initial function is the plain conv's. ``kernel_size``,
+    ``stride`` and ``dilation`` are nn.Conv1d's tuples."""
+
+    def __init__(self, in_channels, out_channels, kwidth, stride=1,
+                 dilation=1, bias=True, generator=None):
+        super().__init__()
+        self.kernel_size, self.stride = (kwidth,), (stride,)
+        self.dilation = (dilation,)
+        bound = 1.0 / math.sqrt(in_channels * kwidth)
+        self.v = nn.Parameter(torch.empty(out_channels, in_channels,
+                                          kwidth))
+        _uniform_(self.v, bound, generator)
+        with torch.no_grad():
+            g = torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2)))
+        self.g = nn.Parameter(g)
+        self.bias = None
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_channels))
+            _uniform_(self.bias, bound, generator)
+
+    def normalized_weight(self):
+        norm = torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2),
+                                    keepdim=True)) + 1e-12
+        return self.v / norm * self.g[:, None, None]
+
+    def forward(self, x):
+        return conv1d(x, self.normalized_weight(), self.bias, self.stride[0],
+                      self.dilation[0])
+
+
+def _affine(y, weight, bias):
+    return y * weight[:, None] + bias[:, None]
+
+
+class LayerNorm1d(nn.Module):
+    """LayerNorm over the channels of each frame of [B, C, T] (dim 1),
+    biased variance, eps 1e-5, affine (``pase_tpu/nn.py`` LayerNorm1d,
+    which is channel-last)."""
+
+    def __init__(self, features, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean = x.mean(dim=1, keepdim=True)
+        var = torch.square(x - mean).mean(dim=1, keepdim=True)
+        return _affine((x - mean) * torch.rsqrt(var + self.eps),
+                       self.weight, self.bias)
+
+
+class InstanceNorm1d(nn.Module):
+    """Per sample and channel over time, biased variance, eps 1e-5, no
+    running statistics; affine parameters with ``affine`` (``inorm`` has
+    none, ``affinorm`` has them)."""
+
+    def __init__(self, features, affine=False, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = self.bias = None
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean = x.mean(dim=2, keepdim=True)
+        var = torch.square(x - mean).mean(dim=2, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y if self.weight is None else _affine(y, self.weight,
+                                                     self.bias)
+
+
+def build_norm(norm_type, features):
+    """The post-conv norm layer of a norm type (``pase_tpu/nn.py``
+    build_norm): bnorm, lnorm, inorm, affinorm or None. A weight
+    reparameterization ('snorm', 'wnorm', 'bsnorm') raises: callers split
+    it off first with ``split_norm``."""
+    if norm_type == "bnorm":
+        return BatchNorm1d(features)
+    if norm_type == "lnorm":
+        return LayerNorm1d(features)
+    if norm_type in ("inorm", "affinorm"):
+        return InstanceNorm1d(features, affine=norm_type == "affinorm")
+    if norm_type is None:
+        return None
+    raise TypeError(f"Unrecognized norm type: {norm_type}")
+
+
+def split_norm(norm_type):
+    """(conv reparameterization, post-conv norm type) of a reference
+    norm_type: 'snorm' and 'wnorm' reparameterize the conv and add no norm
+    layer, 'bsnorm' is spectral norm plus BatchNorm."""
+    if norm_type in ("snorm", "wnorm"):
+        return norm_type, None
+    if norm_type == "bsnorm":
+        return "snorm", "bnorm"
+    return None, norm_type
+
+
+_REPARAM_CONV = {None: Conv1D, "snorm": SNConv1D, "wnorm": WNConv1D}
+
+
+def _activation(act, fmaps):
+    """The PReLU (init 0) of a block, or None for glu; other named
+    activations are refused."""
+    if act in (None, "prelu"):
+        return PReLU(fmaps, init=0.0)
+    if act == "glu":
+        return None
+    raise NotImplementedError(
+        f"activation {act!r} (a named activation) is not ported yet: "
+        f"{ROADMAP_OFF_SLICE}")
+
+
+def _glu(h):
+    z, g = torch.chunk(h, 2, dim=1)
+    return z * torch.sigmoid(g)
+
+
 class FeBlock(nn.Module):
-    """pad -> conv/sinc -> BatchNorm -> activation, on [B, C, T]."""
+    """pad -> conv/sinc -> norm -> activation, on [B, C, T]
+    (``pase_tpu/nn.py`` FeBlock). ``norm_type`` is split by
+    ``split_norm``: snorm / wnorm make the conv an ``SNConv1D`` /
+    ``WNConv1D`` (bsnorm: SN plus BatchNorm), the rest is the norm layer
+    after it. glu doubles the conv's channels and gates one half by the
+    other; the sinc layer takes no reparameterization (TypeError, as in
+    JAX)."""
 
     def __init__(self, in_channels, fmaps, kwidth, stride, dilation=1,
                  pad_mode="reflect", act=None, norm_type="bnorm",
                  sincnet=False, sr=16000, generator=None):
         super().__init__()
-        if act not in (None, "prelu"):
-            raise NotImplementedError(
-                f"FeBlock act={act!r} (glu or a named activation) is not "
-                f"ported yet: {ROADMAP_OFF_SLICE}")
-        if norm_type not in ("bnorm", None):
-            raise NotImplementedError(
-                f"FeBlock norm_type={norm_type!r} is not ported yet "
-                f"(snorm/wnorm/bsnorm/lnorm/inorm): {ROADMAP_OFF_SLICE}")
+        wfmaps = 2 * fmaps if act == "glu" else fmaps
+        reparam, post_norm = split_norm(norm_type)
         self.pad_mode = pad_mode
         if sincnet:
+            if reparam is not None:
+                raise TypeError(
+                    f"norm_type={norm_type!r} reparameterizes conv weights;"
+                    " the sinc layer has no weight tensor")
             self.pad = (0, 0)       # SincConv pads itself (SAME)
-            self.conv = SincConv(fmaps, kwidth, stride, sample_rate=sr,
+            self.conv = SincConv(wfmaps, kwidth, stride, sample_rate=sr,
                                  pad_mode=pad_mode)
         else:
             self.pad = feblock_pad(kwidth, stride, dilation)
-            self.conv = Conv1D(in_channels, fmaps, kwidth, stride, dilation,
-                               generator=generator)
-        self.norm = BatchNorm1d(fmaps) if norm_type == "bnorm" else None
-        self.act = PReLU(fmaps, init=0.0)
+            self.conv = _REPARAM_CONV[reparam](
+                in_channels, wfmaps, kwidth, stride, dilation,
+                generator=generator)
+        self.norm = build_norm(post_norm, wfmaps)
+        self.act = _activation(act, fmaps)
 
     def forward(self, x, do_pad=True):
         """``do_pad=False`` skips the SAME pad (the conv runs VALID), the
@@ -234,7 +409,7 @@ class FeBlock(nn.Module):
                           else x)
         if self.norm is not None:
             h = self.norm(h)
-        return self.act(h)
+        return _glu(h) if self.act is None else self.act(h)
 
 
 def decimate(x, factor):
@@ -252,7 +427,9 @@ class FeResBlock(nn.Module):
     first, then a symmetric zero pad of (kwidth // 2) * dilation, conv1,
     norm1, act1, the same pad, conv2, act2, plus the identity (the 1x1
     ``resproj`` where the widths differ), then norm2. Dilations (1, 2);
-    PReLUs start at 0.
+    PReLUs start at 0. The norm type splits as in ``FeBlock`` (conv1 and
+    conv2 take the reparameterization, resproj stays plain); glu raises
+    TypeError, as in JAX.
 
     The identity is decimated before its projection (the JAX block
     projects first: the same function, one order for the offline, the
@@ -264,17 +441,9 @@ class FeResBlock(nn.Module):
                  dilations=(1, 2), act=None, norm_type=None,
                  generator=None):
         super().__init__()
-        if act not in (None, "prelu"):
-            if act == "glu":
-                raise TypeError("FeResBlock does not support glu (broken "
-                                "in the reference as well)")
-            raise NotImplementedError(
-                f"FeResBlock act={act!r} is not ported yet: "
-                f"{ROADMAP_OFF_SLICE}")
-        if norm_type not in ("bnorm", None):
-            raise NotImplementedError(
-                f"FeResBlock norm_type={norm_type!r} is not ported yet "
-                f"(snorm/wnorm/bsnorm/lnorm/inorm): {ROADMAP_OFF_SLICE}")
+        if act == "glu":
+            raise TypeError("FeResBlock does not support glu (broken "
+                            "in the reference as well)")
         if kwidth % 2 == 0:
             raise ValueError(
                 f"FeResBlock kwidth={kwidth} (even) grows the conv's "
@@ -285,17 +454,18 @@ class FeResBlock(nn.Module):
         self.dilations = tuple(dilations)
         d1, d2 = self.dilations
         self.pads = ((kwidth // 2) * d1, (kwidth // 2) * d2)
-        self.conv1 = Conv1D(in_channels, fmaps, kwidth, dilation=d1,
-                            generator=generator)
-        self.conv2 = Conv1D(fmaps, fmaps, kwidth, dilation=d2,
-                            generator=generator)
+        reparam, post_norm = split_norm(norm_type)
+        conv = _REPARAM_CONV[reparam]
+        self.conv1 = conv(in_channels, fmaps, kwidth, dilation=d1,
+                          generator=generator)
+        self.conv2 = conv(fmaps, fmaps, kwidth, dilation=d2,
+                          generator=generator)
         self.resproj = (Conv1D(in_channels, fmaps, 1, generator=generator)
                         if in_channels != fmaps else None)
-        bnorm = norm_type == "bnorm"
-        self.norm1 = BatchNorm1d(fmaps) if bnorm else None
-        self.norm2 = BatchNorm1d(fmaps) if bnorm else None
-        self.act1 = PReLU(fmaps, init=0.0)
-        self.act2 = PReLU(fmaps, init=0.0)
+        self.norm1 = build_norm(post_norm, fmaps)
+        self.norm2 = build_norm(post_norm, fmaps)
+        self.act1 = _activation(act, fmaps)
+        self.act2 = _activation(act, fmaps)
 
     def stage1(self, x):
         """conv1 -> norm1 -> act1 on frames padded by the caller."""
@@ -450,25 +620,21 @@ class Deconv1D(nn.ConvTranspose1d):
 
 class GDeconv1DBlock(nn.Module):
     """Transposed-conv upsampling block on [B, C, T]: deconv -> trim one
-    sample where stride and kwidth differ in parity -> norm -> PReLU."""
+    sample where stride and kwidth differ in parity -> norm -> PReLU, or
+    glu over doubled channels. The norm is ``build_norm``'s (bnorm, lnorm,
+    inorm, affinorm); a weight reparameterization raises TypeError, as in
+    JAX."""
 
     def __init__(self, in_channels, fmaps, kwidth, stride=4, norm_type=None,
                  act=None, generator=None):
         super().__init__()
-        if act not in (None, "prelu"):
-            raise NotImplementedError(
-                f"GDeconv1DBlock act={act!r} is not ported yet: "
-                f"{ROADMAP_OFF_SLICE}")
-        if norm_type not in ("bnorm", None):
-            raise NotImplementedError(
-                f"GDeconv1DBlock norm_type={norm_type!r} is not ported yet: "
-                f"{ROADMAP_OFF_SLICE}")
+        wfmaps = 2 * fmaps if act == "glu" else fmaps
         pad = max(0, (stride - kwidth) // -2)
         self.trim = (stride % 2) != (kwidth % 2)
-        self.deconv = Deconv1D(in_channels, fmaps, kwidth, stride, pad,
+        self.deconv = Deconv1D(in_channels, wfmaps, kwidth, stride, pad,
                                generator=generator)
-        self.norm = BatchNorm1d(fmaps) if norm_type == "bnorm" else None
-        self.act = PReLU(fmaps, init=0.0)
+        self.norm = build_norm(norm_type, wfmaps)
+        self.act = _activation(act, fmaps)
 
     def forward(self, x):
         y = self.deconv(x)
@@ -476,7 +642,7 @@ class GDeconv1DBlock(nn.Module):
             y = y[:, :, :-1]
         if self.norm is not None:
             y = self.norm(y)
-        return self.act(y)
+        return _glu(y) if self.act is None else self.act(y)
 
 
 @contextlib.contextmanager

@@ -20,9 +20,11 @@ kernel's name:
 
 ``module_span`` puts a module's calls in a span of their own (the VQ
 quantizer's ``pase.quantizer`` inside ``pase.forward``); an op counts in
-the innermost span. ``profile_calls`` splits any function's device time
-the same way (an encoder forward: the quantizer beside the trunk,
-'other').
+the innermost span. The GAN discriminator's work (its call on the fake
+in the losses, and its own step) runs in ``pase.discriminator``.
+``profile_calls`` splits any function's device time the same way (an
+encoder forward: the quantizer beside the trunk, 'other'), and counts
+the kernels each span launched.
 
 A measurement helper: it needs a CUDA device and is used by
 ``chip_smoke.py``.
@@ -35,7 +37,7 @@ import torch
 from torch.profiler import record_function
 
 SPANS = ("pase.prepare", "pase.forward", "pase.losses", "pase.backward",
-         "pase.optimizer", "pase.quantizer")
+         "pase.optimizer", "pase.quantizer", "pase.discriminator")
 
 
 @contextlib.contextmanager
@@ -89,15 +91,21 @@ def kernel_kind(name):
     return "elementwise"
 
 
-def _span_of(evt):
-    """The ``pase.*`` span an op ran in. The autograd engine runs the
-    backward's ops on its own thread, outside the ``pase.backward`` span;
-    they sit under its ``evaluate_function`` frames."""
+def _span_of(evt, spans):
+    """The ``pase.*`` span an op ran in. The autograd engine runs a
+    backward's ops on its own thread, under its ``evaluate_function``
+    frames: they belong to the innermost span of ``spans`` ((start us, end
+    us, name) of every span) that was open when they started, the span
+    the caller of ``backward`` waited in (``pase.backward``, or
+    ``pase.discriminator`` for the GAN discriminator's own backward)."""
+    start = evt.time_range.start
     while evt is not None:
         if evt.name in SPANS:
             return evt.name
         if evt.name.startswith("autograd::engine::evaluate_function"):
-            return "pase.backward"
+            open_ = [(e - s, name) for s, e, name in spans
+                     if s <= start <= e]
+            return min(open_)[1] if open_ else "pase.backward"
         evt = evt.cpu_parent
     return "other"
 
@@ -106,7 +114,8 @@ def profile_train_steps(trainer, batches, warmup=2):
     """Profile ``trainer.train_step`` over ``batches`` (a list; the first
     ``warmup`` run unprofiled). Returns a dict: wall ms per step (host
     clock, synchronized), device busy ms per step (sum of kernel times),
-    the idle share, and {span: {kind: ms per step}}."""
+    the idle share, {span: {kind: ms per step}} and {span: kernels
+    launched per step}."""
     return profile_calls([lambda raw=raw: trainer.train_step(raw)
                           for raw in batches], warmup)
 
@@ -126,7 +135,7 @@ def profile_calls(calls, warmup=1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / len(measured)
-    split = {}
+    split, launches = {}, {}
     busy = 0.0
 
     def add(span_name, kernel_name, us):
@@ -135,10 +144,15 @@ def profile_calls(calls, warmup=1):
         span = split.setdefault(span_name, {})
         kind = kernel_kind(kernel_name)
         span[kind] = span.get(kind, 0.0) + ms
+        launches[span_name] = launches.get(span_name, 0) + 1 / len(measured)
         busy += ms
 
-    for evt in prof.events():
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.name in SPANS]
+    for evt in events:
         for k in evt.kernels:
-            add(_span_of(evt), k.name, k.duration)
+            add(_span_of(evt, spans), k.name, k.duration)
     return {"wall_ms": wall, "busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall), "split": split}
+            "idle_share": max(0.0, 1.0 - busy / wall), "split": split,
+            "launches": launches}

@@ -13,8 +13,10 @@ their own pad (``FeBlock.forward(x, do_pad=False)``). Dense skips are
 mean-pooled to the output rate by per-skip FIFOs (``_GroupStream``), then
 projected, and a fuse synchronizer emits the frames that every skip and
 the trunk have reached. The QRNN carries (x_{t-1}, c_t) per layer across
-chunks (``_QRNNStream``); BatchNorm (eval statistics), PReLU, ``W``,
-``norm_out`` and tanh are stateless.
+chunks (``_QRNNStream``); BatchNorm (eval statistics), LayerNorm (per
+frame), PReLU, glu, ``W``, ``norm_out`` and tanh are stateless. A
+spectral- or weight-normalized conv runs its eval-form kernel (SN's u is
+not advanced in eval mode), the same kernel at every push.
 
 The QRNN's first push is seeded with a zero carry. So every call of the
 pooling is seeded and takes a serial kernel (``qrnn_pool_fwd_seg``, or
@@ -39,8 +41,10 @@ complete group), the two stride-1 convs as ``_ConvStream``s in
 GEMM_FRAMES calls) in a FIFO, fused with the conv path's frames as both
 arrive, then the eval norm2. A VQ quantizer takes each emitted frame's
 nearest codebook row (the argmin and the gather, in GEMM_FRAMES calls)
-last. InstanceNorm and non-QRNN RNNs have no stream here: the port
-builds neither yet (ROADMAP.md, queue 1: off-path model variants).
+last. InstanceNorm (in a block or as ``norm_out``, which every norm
+type but bnorm takes) normalizes over the whole utterance and has no
+exact stream, as in JAX; non-QRNN RNNs are not ported yet (ROADMAP.md,
+queue 1: off-path model variants).
 
 Usage::
 
@@ -55,8 +59,8 @@ Usage::
 import numpy as np
 import torch
 
-from pase_tpu_torch.nn import (QRNN, ROADMAP_OFF_SLICE, BatchNorm1d,
-                               FeResBlock, SincConv, time_blocks)
+from pase_tpu_torch.nn import (QRNN, ROADMAP_OFF_SLICE, FeResBlock,
+                               InstanceNorm1d, SincConv, time_blocks)
 from pase_tpu_torch.ops.pad import pad_1d, sinc_same_pad
 
 # the output-rate GEMMs (the QRNN's linear, W, the skip projections) run in
@@ -315,14 +319,14 @@ class StreamingEncoder:
         if module.training:
             raise ValueError("StreamingEncoder needs the encoder in eval "
                              "mode (BatchNorm's running statistics)")
+        norms = [module.norm_out]
         for blk in module.blocks:
-            norms = ((blk.norm1, blk.norm2) if isinstance(blk, FeResBlock)
-                     else (blk.norm,))
-            if any(n is not None and not isinstance(n, BatchNorm1d)
-                   for n in norms):
-                raise NotImplementedError(
-                    "InstanceNorm normalizes over the whole utterance and "
-                    "has no exact streaming form")
+            norms += ((blk.norm1, blk.norm2) if isinstance(blk, FeResBlock)
+                      else (blk.norm,))
+        if any(isinstance(n, InstanceNorm1d) for n in norms):
+            raise NotImplementedError(
+                "InstanceNorm normalizes over the whole utterance and "
+                "has no exact streaming form")
         if module.rnn is not None and not isinstance(module.rnn, QRNN):
             raise NotImplementedError(
                 f"streaming rnn {type(module.rnn).__name__}: only the QRNN "

@@ -36,9 +36,19 @@ feed restarts its stream (as in the JAX CLI). ``--pretrained_ckpt``
 warm-starts the encoder from an encoder artifact. ``--compute_dtype
 bfloat16`` runs the JAX package's bf16 compute policy (``precision.py``).
 ``--dtrans_cfg`` turns on the distortion stack with the assets its cfg
-names (the first cfg that is not "None" wins). Flags of paths the port
-does not build yet raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+names (the first cfg that is not "None" wins). ``--gan_cfg '<json>'``
+(or the legacy z flags ``--warmup`` < ``--epoch``, ``--zinit_weight``,
+``--zinc``, ``--z_lr``, ``--adv_loss``, ``--cchunk_prior``) adds an
+adversarial worker (``trainer.py``), as in
+``recipes/run_pase_plus_gan.sh``.
+
+Every option string of the JAX CLI parses, with its type and default.
+The reference's dead flags and the compatibility flags print the JAX
+CLI's notes; ``--no-cuda`` is a note (``--device`` alone picks the
+CPU); the TPU-only ``--jax_cache_dir``, ``--no_fused_feed`` and
+``--loss_precision`` are accepted and not used. A flag of a path the
+port does not build yet raises ``NotImplementedError`` naming its
+ROADMAP.md item when it is used, not at its default.
 """
 
 import argparse
@@ -55,15 +65,55 @@ def str2bool(v):
     return str(v).lower() in ("true", "1", "yes")
 
 
-# flag -> (value that means "not used", ROADMAP.md item that ports it)
+_ITEM_9E_POLICIES = ("queue 1, item 9e: off-path model variants (the "
+                     "non-base policies)")
+_ITEM_9E_ATTENTION = "queue 1, item 9e: off-path model variants (attention)"
+_ITEM_10 = "queue 1, item 10: multi-GPU"
+_ITEM_11A = "queue 1, item 11a: probes (the AuxiliarSuperviser)"
+# flag -> (value that means "not used": the JAX CLI's default, ROADMAP.md
+# item that ports it)
 _UNPORTED = {
-    "gan_cfg": (None, "queue 1: off-path model variants (GAN workers)"),
     "att_cfg": (None, "queue 1: off-path model variants"),
     "chunking_K": (None, "queue 1: off-path model variants"),
-    "shard_device_corpus": (False, "queue 1, item 10: multi-GPU"),
+    "shard_device_corpus": (False, _ITEM_10),
     "ihm2sdm": (None, "queue 1, item 5: disk-fed training (the AMI "
                       "channel-key dataset)"),
+    "alpha": (None, _ITEM_9E_POLICIES),
+    "delta": (None, _ITEM_9E_POLICIES),
+    "temp": (None, _ITEM_9E_POLICIES),
+    "dropout_rate": (0.5, _ITEM_9E_POLICIES),
+    "rndmin_train": (False, _ITEM_9E_POLICIES),
+    "att_K": (None, _ITEM_9E_ATTENTION),
+    "att_mode": (None, _ITEM_9E_ATTENTION),
+    "avg_factor": (None, _ITEM_9E_ATTENTION),
+    "sup_exec": (None, _ITEM_11A),
+    "sup_freq": (1, _ITEM_11A),
+    "coordinator_address": (None, _ITEM_10),
+    "num_processes": (None, _ITEM_10),
+    "process_id": (None, _ITEM_10),
+    "n_model": (1, _ITEM_10),
 }
+# the reference's flags that its own trainer never reads (the JAX CLI's
+# _DEAD_REFERENCE_FLAGS): accepted, each use noted as a no-op
+DEAD_REFERENCE_FLAGS = [
+    ("--distortion_p", dict(type=float, default=None)),
+    ("--noise_folder", dict(type=str, default=None)),
+    ("--whisper_folder", dict(type=str, default=None)),
+    ("--net_ckpt", dict(type=str, default=None)),
+    ("--log_grad_keys", dict(type=str, nargs="+", default=None)),
+    ("--dout", dict(type=float, default=None)),
+    ("--nfft", dict(type=int, default=None)),
+    ("--fbank_filters", dict(type=int, default=None)),
+    ("--gtn_fmin", dict(type=float, default=None)),
+    ("--gtn_channels", dict(type=int, default=None)),
+    ("--lpc_order", dict(type=int, default=None)),
+    ("--hidden_layers", dict(type=int, default=None)),
+    ("--hidden_size", dict(type=int, default=None)),
+    ("--kaldi_root", dict(type=str, default=None)),
+]
+# the JAX CLI's compile cache default, which the port never reads
+JAX_CACHE_DEFAULT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
 ROADMAP_HOST_STAGE = ("ROADMAP.md, queue 1: the host distortion stage "
                       "(codec2, whisperize)")
 # steps per epoch of the synthetic path, as in the JAX CLI
@@ -100,9 +150,17 @@ def build_argparser():
     p.add_argument("--lrdecay", type=float, default=0,
                    help="step-mode LR gamma (0 keeps 0.1)")
     p.add_argument("--backprop_mode", type=str, default="base")
+    p.add_argument("--dropout_rate", type=float, default=0.5)
+    p.add_argument("--delta", type=float, default=None)
+    p.add_argument("--temp", type=float, default=None)
+    p.add_argument("--alpha", type=float, default=None)
     p.add_argument("--hop", type=int, default=160)
     p.add_argument("--no_continue", type=str, default="False")
     p.add_argument("--zero_speech_p", type=float, default=0.0)
+    p.add_argument("--sup_exec", type=str, default=None)
+    p.add_argument("--sup_freq", type=int, default=1)
+    p.add_argument("--preload_wav", action="store_true", default=False,
+                   help="read every wav of the corpus at start")
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="synthetic data drawn on the device")
     p.add_argument("--dataset", action="append", default=[],
@@ -122,6 +180,16 @@ def build_argparser():
     p.add_argument("--fast_loader", action="store_true", default=False,
                    help="decode and crop in native/libpase_wavio.so")
     p.add_argument("--compute_dtype", type=str, default=None)
+    p.add_argument("--loss_precision", type=str, default=None,
+                   help="TPU-only (the JAX CLI's fused-loss matmul "
+                        "precision): accepted, not used")
+    p.add_argument("--n_model", type=int, default=1)
+    p.add_argument("--no_fused_feed", action="store_true", default=False,
+                   help="TPU-only (the JAX CLI's feed fusion): accepted, "
+                        "not used")
+    p.add_argument("--jax_cache_dir", type=str, default=JAX_CACHE_DEFAULT,
+                   help="TPU-only (the JAX CLI's XLA compile cache): "
+                        "accepted, not used")
     p.add_argument("--device_corpus", action="store_true", default=False,
                    help="keep the corpus on the card as int16 and gather "
                         "the crops there")
@@ -131,16 +199,118 @@ def build_argparser():
                    choices=("float32", "int16"),
                    help="int16 sends host waveform batches as PCM16 "
                         "(lossless for PCM16 corpora)")
-    p.add_argument("--gan_cfg", type=str, default=None)
+    p.add_argument("--gan_cfg", type=str, default=None,
+                   help="JSON: {worker, loss, lr, weight} GAN worker; "
+                        "type 'z' also takes warmup / zinit_weight / zinc "
+                        "and cchunk_prior")
     p.add_argument("--att_cfg", type=str, default=None)
     p.add_argument("--chunking_K", type=int, default=None)
+    p.add_argument("--coordinator_address", type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--pretrained_ckpt", type=str, default=None,
                    help="warm-start the encoder from a native .npz or "
                         "torch .ckpt encoder artifact")
+    # the rest of the reference CLI's surface, as the JAX CLI takes it
+    g = p.add_argument_group("reference CLI compatibility")
+    g.add_argument("--warmup", type=int, default=1000000000,
+                   help="epoch to begin the legacy z-adversarial loss; "
+                        "< --epoch makes a z gan_cfg (compat_z_gan_cfg)")
+    g.add_argument("--zinit_weight", type=float, default=1.0)
+    g.add_argument("--zinc", type=float, default=0.0002)
+    g.add_argument("--z_lr", type=float, default=0.0004)
+    g.add_argument("--adv_loss", type=str, default="BCE",
+                   help="BCE or L2")
+    g.add_argument("--cchunk_prior", action="store_true", default=False)
+    g.add_argument("--rndmin_train", action="store_true", default=False)
+    g.add_argument("--att_K", type=int, default=None)
+    g.add_argument("--att_mode", type=str, default=None)
+    g.add_argument("--avg_factor", type=float, default=None)
+    g.add_argument("--do_eval", action="store_true", default=False)
+    g.add_argument("--tensorboard", type=str, default=None)
+    g.add_argument("--no-cuda", dest="no_cuda", action="store_true",
+                   default=False)
+    g.add_argument("--cache_on_load", action="store_true", default=False)
+    g.add_argument("--vq", action="store_true", default=False)
+    g.add_argument("--vq_K", type=int, default=None)
+    for flag, kw in DEAD_REFERENCE_FLAGS:
+        g.add_argument(flag, **kw)
     p.add_argument("--device", type=str, default="cuda",
                    choices=("cuda", "cpu"),
                    help="where the step runs (default: the card)")
     return p
+
+
+def compat_notes(opts):
+    """Print the JAX CLI's notes (``apply_reference_compat``) for the
+    reference flags that are accepted and do nothing here, and one for the
+    TPU-only switches."""
+    def note(msg):
+        print(f"[compat] {msg}")
+
+    for flag, _ in DEAD_REFERENCE_FLAGS:
+        name = flag.lstrip("-")
+        if getattr(opts, name) is not None:
+            note(f"--{name} accepted but a NO-OP: the reference itself "
+                 "never consumes it on the WorkerScheduler path. "
+                 "Worker-target parameters come from --net_cfg.")
+    if opts.no_cuda:
+        note("--no-cuda: accepted, not used; the device is --device's "
+             "(default: the card; --device cpu for the CPU)")
+    if opts.tensorboard is not None:
+        note("--tensorboard: metrics are always JSONL under save_path "
+             "(pase_tpu_torch/log.py); no TensorBoard dependency")
+    if opts.cache_on_load:
+        note("--cache_on_load: lazy wav caching is always on here "
+             "(LibriSpeechTupleDataset cache_on_load=True)")
+    if opts.do_eval:
+        note("--do_eval: the valid split is always evaluated once per "
+             "epoch here")
+    if opts.vq or opts.vq_K is not None:
+        note("--vq/--vq_K: VQ-EMA is configured in --fe_cfg here (e.g. "
+             "cfg/frontend/PASE+_resblocks_VQ8192.cfg)")
+    tpu_only = [f for f, used in (
+        ("--jax_cache_dir", opts.jax_cache_dir != JAX_CACHE_DEFAULT),
+        ("--no_fused_feed", opts.no_fused_feed),
+        ("--loss_precision", opts.loss_precision is not None)) if used]
+    if tpu_only:
+        note(f"{' '.join(tpu_only)}: TPU-only switches of the JAX CLI "
+             "(XLA compile cache, feed fusion, TPU matmul precision); "
+             "accepted, not used")
+
+
+def compat_z_gan_cfg(opts, bpe):
+    """The legacy z-adversarial flags -> a gan_cfg dict, or None (the JAX
+    CLI's ``compat_z_gan_cfg``): the z loss starts at epoch --warmup
+    (active when --warmup <= --epoch; the default 1e9 keeps it off), in
+    steps max(warmup - 1, 0) * bpe; --adv_loss BCE or L2 (-> LSGAN); not
+    together with --gan_cfg."""
+    active = opts.warmup <= opts.epoch
+    z_flags_given = (opts.zinit_weight != 1.0 or opts.zinc != 0.0002
+                     or opts.z_lr != 0.0004 or opts.adv_loss != "BCE"
+                     or opts.cchunk_prior)
+    if not active:
+        if z_flags_given:
+            print(f"[compat] z-adversarial flags given but --warmup "
+                  f"{opts.warmup} >= --epoch {opts.epoch}: the z loss "
+                  "never activates (core.py:302 'epoch to begin' "
+                  "semantics)")
+        return None
+    if opts.gan_cfg:
+        raise ValueError("pass either --gan_cfg or the legacy z flags "
+                         "(--warmup/--zinit_weight/--zinc/--z_lr/"
+                         "--adv_loss/--cchunk_prior), not both")
+    loss = {"BCE": "BCE", "L2": "LSGAN"}.get(opts.adv_loss)
+    if loss is None:
+        raise ValueError(f"--adv_loss {opts.adv_loss}: the reference "
+                         "supports BCE or L2 (train.py:406)")
+    cfg = {"type": "z",
+           "warmup": max(opts.warmup - 1, 0) * bpe,
+           "zinit_weight": opts.zinit_weight, "zinc": opts.zinc,
+           "lr": opts.z_lr, "loss": loss,
+           "cchunk_prior": bool(opts.cchunk_prior)}
+    print(f"[compat] legacy z-adversarial flags -> gan_cfg {cfg}")
+    return cfg
 
 
 def check_ported(opts):
@@ -170,6 +340,8 @@ def check_ported(opts):
         if opts.cache_feats_dir:
             raise ValueError("--trans_cache and --cache_feats_dir are "
                              "the same capability; pass one")
+        print(f"[compat] --trans_cache -> --cache_feats_dir "
+              f"{opts.trans_cache}")
         opts.cache_feats_dir = opts.trans_cache
     if not opts.synthetic and not (opts.data_root and opts.data_cfg):
         raise ValueError("--data_root and --data_cfg are required "
@@ -196,9 +368,11 @@ def build_datasets(opts):
         if name == "GenhancementDataset":
             return D.GenhancementDataset(opts.data_root[i], opts.clean_root,
                                          _nth(opts.data_cfg, i), split,
+                                         preload_wav=opts.preload_wav,
                                          seed=seed)
         return classes[name](opts.data_root[i], _nth(opts.data_cfg, i),
-                             split, zero_speech_p=opts.zero_speech_p
+                             split, preload_wav=opts.preload_wav,
+                             zero_speech_p=opts.zero_speech_p
                              if split == "train" else 0.0, seed=seed)
 
     def make_ds(split, seed):
@@ -336,6 +510,7 @@ def build_distortions(opts, chunk_size):
 
 
 def train(opts):
+    compat_notes(opts)
     check_ported(opts)
     from pase_tpu_torch.data.pipeline import load_stats_pkl
     from pase_tpu_torch.trainer import Trainer
@@ -362,9 +537,13 @@ def train(opts):
     cfg.update(bpe=bpe, va_bpe=max(bpe // 10, 1),
                random_scale=str2bool(opts.random_scale),
                ckpt_continue=not str2bool(opts.no_continue))
+    gan_cfg = json.loads(opts.gan_cfg) if opts.gan_cfg else None
+    z_compat = compat_z_gan_cfg(opts, bpe)
+    if z_compat is not None:
+        gan_cfg = z_compat
     tr = Trainer(fe_cfg, wk_cfg, cfg, stats=stats, dist_cfg=dist_cfg,
                  dist_assets=dist_assets, device=opts.device,
-                 zs_bank=zs_bank, zs_snrs=zs_snrs)
+                 zs_bank=zs_bank, zs_snrs=zs_snrs, gan_cfg=gan_cfg)
     try:
         if feed_info:
             tr.logger.log("feed", 0, feed_info)

@@ -24,11 +24,29 @@ alpha (``scale_grad``). The five parts run in
 ``pase.forward``, ``pase.losses``, ``pase.backward`` and
 ``pase.optimizer``, which ``profiling.py`` reads.
 
+With a ``gan_cfg`` (``pase_tpu/trainer.py``'s GAN worker) the step also
+trains a discriminator D, in the JAX order: (a) inside the main loss, D
+in eval mode with its pre-step parameters (detached: D gets no gradient
+from it) and u judges the fake (the GAN worker's prediction, type 'wave',
+the default; or the chunk embedding, type 'z'), and
+``weight * ramp(step) * g_loss`` joins the total (logged as
+'<worker>_g' or 'z_g'); ramp is 0 before ``warmup``, then
+min(1, zinit_weight + zinc (step - warmup)); (b) after the model's
+update, D in train mode on the real (the clean chunk; for 'z' N(0, 1)
+draws, or PASE(cchunk) with ``cchunk_prior``) and then on the detached
+fake, u advancing at each call, and D's own Adam (b1 0.9, b2 0.999, eps
+1e-8, as optax.adam) on 'd_loss', skipped before ``warmup``. A worker
+whose cfg loss is LSGAN, GAN or Hinge is routed to the GAN path (its
+reconstruction loss zeroed), as in JAX. D's work runs in the
+``pase.discriminator`` span.
+
 Randomness: step k's distortion draws come from a generator seeded with
 ``step_seed(seed + 1, k)`` (``data/dataset.py``), unless the caller hands
 the step its draws; the SPC and Gap heads' frame indices from one seeded
 with ``step_seed(seed + 2, k)``, unless the batch injects them
-(``spc_idx``, ``gap_idx``); the device batcher's batch k from
+(``spc_idx``, ``gap_idx``); the z-GAN's N(0, 1) draws from one seeded
+with ``step_seed(seed + 3, k)``, unless the caller hands them
+(``z_real``); the device batcher's batch k from
 ``step_seed(its seed, k)``. A resumed run therefore replays the
 uninterrupted run's batches and draws with no generator state in the
 checkpoint.
@@ -58,6 +76,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
+from pase_tpu_torch.adversarial import (WaveDiscriminator, ZDiscriminator,
+                                        d_loss_fn, g_loss_fn)
 from pase_tpu_torch.checkpoint import (Saver, load_frontend_ckpt,
                                        load_model_variables,
                                        restore_train_state,
@@ -66,7 +86,7 @@ from pase_tpu_torch.checkpoint import (Saver, load_frontend_ckpt,
 from pase_tpu_torch.data.dataset import step_seed
 from pase_tpu_torch.data.pipeline import INDEX_KEYS, make_prepare_fn
 from pase_tpu_torch.log import MetricLogger
-from pase_tpu_torch.model import build_pase, worker_losses
+from pase_tpu_torch.model import build_pase, materialize_pred, worker_losses
 from pase_tpu_torch.optim import build_optimizer, set_lr
 from pase_tpu_torch.precision import compute_dtype, resolve
 from pase_tpu_torch.scheduling import apply_policy, init_policy_state
@@ -75,6 +95,38 @@ from pase_tpu_torch.scheduling import apply_policy, init_policy_state
 NAME = "Pase_base"
 # the waveform entries of a batch, which the int16 wire sends as PCM16
 WAVE_KEYS = ("chunk", "chunk_ctxt", "chunk_rand", "cchunk")
+# worker cfg losses that route a worker to the GAN path (the reference's
+# worker_parser), and the GAN loss each names
+GAN_WORKER_LOSSES = {"LSGAN": "LSGAN", "GAN": "BCE", "Hinge": "Hinge"}
+
+
+def route_gan_workers(meta, gan_cfg, cfg):
+    """The gan_cfg of a run: ``gan_cfg`` when given; else a worker whose
+    cfg loss is LSGAN, GAN or Hinge becomes the GAN worker (the last one
+    found), at D lr ``cfg['z_lr']`` (default 5e-4), and every such
+    worker's reconstruction loss is zeroed (L1Loss at weight 0), as the
+    JAX Trainer does."""
+    if gan_cfg is not None:
+        return gan_cfg
+    for group in ("regr", "cls"):
+        for e in meta[group]:
+            if e.get("loss") in GAN_WORKER_LOSSES:
+                gan_cfg = {"worker": e["name"],
+                           "loss": GAN_WORKER_LOSSES[e["loss"]],
+                           "lr": cfg.get("z_lr", 5e-4)}
+                e["loss"] = "L1Loss"
+                e["loss_weight"] = 0.0
+    return gan_cfg
+
+
+def gan_ramp(gan_cfg, step):
+    """The G term's weight factor at ``step``: 0 before ``warmup``, then
+    min(1, zinit_weight + zinc (step - warmup)); 1 with the defaults."""
+    warmup = int(gan_cfg.get("warmup", 0) or 0)
+    if step < warmup:
+        return 0.0
+    return min(1.0, float(gan_cfg.get("zinit_weight", 1.0))
+               + float(gan_cfg.get("zinc", 0.0002)) * (step - warmup))
 
 
 class Staged(NamedTuple):
@@ -88,7 +140,7 @@ class Trainer:
 
     def __init__(self, frontend_cfg, workers_cfg, cfg, stats=None,
                  dist_cfg=None, dist_assets=None, device="cuda",
-                 zs_bank=None, zs_snrs=(0, 5, 10)):
+                 zs_bank=None, zs_snrs=(0, 5, 10), gan_cfg=None):
         self.cfg = dict(cfg)
         self.device = torch.device(device)
         self.compute_dtype = resolve(self.cfg.get("compute_dtype"))
@@ -98,9 +150,13 @@ class Trainer:
                 f"backprop_mode {self.mode!r} is not ported yet: ROADMAP.md,"
                 " queue 1: off-path model variants (non-base policies)")
         self.seed = int(self.cfg.get("seed", 0))
+        # the z-GAN's cchunk prior needs PASE(cchunk)
+        z_prior = bool(gan_cfg and gan_cfg.get("type") == "z"
+                       and gan_cfg.get("cchunk_prior"))
         self.model, self.meta = build_pase(
             frontend_cfg, workers_cfg,
-            generator=torch.Generator().manual_seed(self.seed))
+            generator=torch.Generator().manual_seed(self.seed),
+            force_cchunk=z_prior)
         if self.cfg.get("pretrained_ckpt"):
             load_frontend_ckpt(self.cfg["pretrained_ckpt"],
                                self.model.frontend)
@@ -140,10 +196,75 @@ class Trainer:
         self.alpha = torch.ones(self.num_workers, device=self.device)
         self.step = 0
         self.opt_count = 0          # optimizer updates: the lr schedule's
+        self.gan_cfg = route_gan_workers(self.meta, gan_cfg, self.cfg)
+        self.discriminator = self.d_opt = None
+        if self.gan_cfg is not None:
+            self._build_discriminator()
         self.logger = MetricLogger(self.save_path)
         self.saver = Saver(self.save_path,
                            max_ckpts=self.cfg.get("max_ckpts", 5),
                            prefix="PASE-")
+
+    def _build_discriminator(self):
+        """D (drawn from a generator seeded with seed + 3) on the device,
+        its Adam at gan_cfg's lr (or z_lr), and the z prior's generator."""
+        gen = torch.Generator().manual_seed(self.seed + 3)
+        if self.gan_cfg.get("type", "wave") == "z":
+            d = ZDiscriminator(self.model.frontend.output_dim,
+                               generator=gen)
+        else:
+            d = WaveDiscriminator(generator=gen)
+        self.discriminator = d.to(self.device)
+        lr = self.gan_cfg.get("lr", self.gan_cfg.get("z_lr", 5e-4))
+        self.d_opt = torch.optim.Adam(d.parameters(), lr=lr,
+                                      betas=(0.9, 0.999), eps=1e-8)
+        self.z_generator = torch.Generator(device=self.device)
+
+    def _gan_fake(self, h, chunk, preds):
+        """(fake, the z prior's real or None, the G term's log name)."""
+        gan = self.gan_cfg
+        if gan.get("type", "wave") == "z":
+            prior = h["cchunk"] if gan.get("cchunk_prior") else None
+            return chunk, prior, "z_g"
+        worker = gan.get("worker", "cchunk")
+        # the prediction [B, T, 1] -> the discriminator's [B, 1, T]
+        fake = materialize_pred(preds[worker]).transpose(1, 2)
+        return fake, None, f"{worker}_g"
+
+    def _gan_generator_loss(self, fake):
+        """g_loss of D in eval mode (its current u, not advanced) with its
+        parameters detached: the gradient reaches the fake only."""
+        d = self.discriminator.eval()
+        state = {k: p.detach() for k, p in d.named_parameters()}
+        state.update(d.named_buffers())
+        d_on_fake = torch.func.functional_call(d, state, (fake,))
+        return g_loss_fn(d_on_fake, self.gan_cfg.get("loss", "LSGAN"))
+
+    def _gan_discriminator_step(self, batch, fake, prior, z_real):
+        """D's loss on real then the detached fake (train mode, u
+        advancing at each call) and, from ``warmup`` on, its Adam step;
+        returns the detached d_loss."""
+        gan = self.gan_cfg
+        if gan.get("type", "wave") == "z":
+            if prior is not None:
+                real = prior.detach()
+            elif z_real is not None:
+                real = torch.as_tensor(z_real, device=self.device)
+            else:
+                self.z_generator.manual_seed(
+                    step_seed(self.seed + 3, self.step))
+                real = torch.randn(fake.shape, generator=self.z_generator,
+                                   device=self.device)
+        else:
+            real = batch["cchunk"][:, None, :]
+        d = self.discriminator.train()
+        d_loss = d_loss_fn(d(real), d(fake.detach()),
+                           gan.get("loss", "LSGAN"))
+        if self.step >= int(gan.get("warmup", 0) or 0):
+            self.d_opt.zero_grad(set_to_none=True)
+            d_loss.backward()
+            self.d_opt.step()
+        return d_loss.detach()
 
     def _host_tensor(self, key, v):
         """A host batch entry as the tensor that crosses the wire: int16
@@ -199,13 +320,14 @@ class Trainer:
                 v.record_stream(stream)
         return staged.batch
 
-    def train_step(self, raw_batch, draws=None, zs_draws=None):
+    def train_step(self, raw_batch, draws=None, zs_draws=None, z_real=None):
         """One optimizer step on a raw batch (host arrays, device tensors,
         or a ``Staged`` from ``stage``); returns the detached per-worker
-        losses and 'total'. ``draws`` (a ``DistortionDraws``) and
-        ``zs_draws`` (a ``ZeroSpeechDraws``) replace the step's own draws.
-        The parameters' ``.grad`` keep this step's gradients until the next
-        step."""
+        losses and 'total' (with a GAN, also the G term and 'd_loss').
+        ``draws`` (a ``DistortionDraws``) and ``zs_draws`` (a
+        ``ZeroSpeechDraws``) replace the step's own draws, ``z_real``
+        ([B, emb, F]) the z-GAN's N(0, 1) draw. The parameters' ``.grad``
+        keep this step's gradients until the next step."""
         self.model.train()
         self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
         self.sample_generator.manual_seed(
@@ -220,8 +342,8 @@ class Trainer:
                                      self.prep_generator, draws, zs_draws)
             set_lr(self.opt, self.scheds, self.opt_count)
             with record_function("pase.forward"):
-                _, _, preds, labels = self.model(batch, self.alpha,
-                                                 self.sample_generator)
+                h, chunk, preds, labels = self.model(batch, self.alpha,
+                                                     self.sample_generator)
             with record_function("pase.losses"):
                 losses = worker_losses(self.meta, preds, labels)
                 loss_vec = torch.stack([losses[n]
@@ -236,11 +358,23 @@ class Trainer:
                     losses["vq"] = fe.vq_loss
                     total = total + fe.vq_loss
                     losses["vq_perplexity"] = fe.vq_perplexity
+                if self.gan_cfg is not None:
+                    fake, prior, name_g = self._gan_fake(h, chunk, preds)
+                    with record_function("pase.discriminator"):
+                        losses[name_g] = self._gan_generator_loss(fake)
+                    total = total + (self.gan_cfg.get("weight", 1.0)
+                                     * gan_ramp(self.gan_cfg, self.step)
+                                     * losses[name_g])
         with record_function("pase.backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
         with record_function("pase.optimizer"):
             self.opt.step()
+        if self.gan_cfg is not None:
+            with record_function("pase.discriminator"), \
+                    compute_dtype(self.compute_dtype):
+                losses["d_loss"] = self._gan_discriminator_step(
+                    batch, fake, prior, z_real)
         self.alpha = alpha_next
         self.step += 1
         self.opt_count += 1

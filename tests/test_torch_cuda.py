@@ -304,9 +304,9 @@ def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):
         assert diff <= 1e-3 * top, (part, diff, top)
 
 
-def _small_trainer(device, save_path, compute_dtype=None):
+def _small_workers():
+    """workers+ at hidden_size 32, the cchunk decoder at [16, 16, 8]."""
     import json
-    from pase_tpu_torch.trainer import Trainer
     with open("cfg/workers/workers+.cfg") as f:
         wk = json.load(f)
     for group in ("regr", "cls"):
@@ -314,11 +314,17 @@ def _small_trainer(device, save_path, compute_dtype=None):
             e["hidden_size"] = 32
             if e["name"] == "cchunk":
                 e["fmaps"] = [16, 16, 8]
+    return wk
+
+
+def _small_trainer(device, save_path, compute_dtype=None, gan_cfg=None):
+    from pase_tpu_torch.trainer import Trainer
     fe = dict(NARROW_CFG, strides=[1, 10, 4, 4])
     cfg = dict(batch_size=2, chunk_size=4800, fe_lr=5e-4, min_lr=5e-4,
                lr_mode="poly", save_path=str(save_path),
                compute_dtype=compute_dtype)
-    return Trainer(fe, wk, cfg, device=device)
+    return Trainer(fe, _small_workers(), cfg, device=device,
+                   gan_cfg=gan_cfg)
 
 
 def test_bf16_step_launches_the_training_kernels(cuda_device, tmp_path):
@@ -660,3 +666,79 @@ def test_feresblock_on_the_card(cuda_device, cin):
         assert y_gpu.shape == (4, 24, 1500)
         err = (y_gpu - y_cpu).abs().max() / y_cpu.abs().max()
         assert err <= 1e-5, (train, err)
+
+
+def _gan_trainers(cuda_device, tmp_path, gan_cfg, compute_dtype=None):
+    """The card's and the CPU's small trainer with a GAN worker, the
+    same model and discriminator weights."""
+    gpu = _small_trainer(cuda_device, tmp_path / "gpu", compute_dtype,
+                         dict(gan_cfg))
+    cpu = _small_trainer("cpu", tmp_path / "cpu", compute_dtype,
+                         dict(gan_cfg))
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    cpu.discriminator.load_state_dict(gpu.discriminator.state_dict())
+    return gpu, cpu
+
+
+@pytest.mark.parametrize("gan_cfg", [
+    {"worker": "cchunk", "loss": "LSGAN", "lr": 4e-4, "weight": 1.0},
+    {"type": "z", "loss": "BCE", "lr": 5e-4, "weight": 0.1,
+     "cchunk_prior": True}], ids=["wave", "z_prior"])
+def test_gan_step_gpu_matches_cpu(cuda_device, tmp_path, gan_cfg):
+    """One small GAN step on the card vs the CPU: every loss, the G term
+    and d_loss within 1e-4 relative; the model's gradients within 1e-3 of
+    each part's largest; D's gradients within 1e-3 of its largest; u
+    within 1e-5; the training kernels once per QRNN layer, on the
+    encoder's one call of the step (four streams with the cchunk
+    prior)."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    gpu, cpu = _gan_trainers(cuda_device, tmp_path, gan_cfg)
+    raw = next(iter(SyntheticChunkBatcher(2, 4800, seed=3)))
+    cuda_qrnn.reset_launches()
+    lg = gpu.train_step(raw)
+    torch.cuda.synchronize()
+    layers = len(gpu.model.frontend.rnn.layers)
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_train"] == layers
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_bwd"] == layers
+    lc = cpu.train_step(raw)
+    assert set(lg) == set(lc)
+    for k in lc:
+        assert abs(float(lg[k]) - float(lc[k])) <= 1e-4 * abs(float(lc[k])), k
+    for part in ("frontend", "workers"):
+        g = [p.grad for p in getattr(gpu.model, part).parameters()]
+        c = [p.grad for p in getattr(cpu.model, part).parameters()]
+        top = max(x.abs().max().item() for x in c)
+        diff = max((a.cpu() - b).abs().max().item() for a, b in zip(g, c))
+        assert diff <= 1e-3 * top, (part, diff, top)
+    dg = [p.grad for p in gpu.discriminator.parameters()]
+    dc = [p.grad for p in cpu.discriminator.parameters()]
+    top = max(x.abs().max().item() for x in dc)
+    assert max((a.cpu() - b).abs().max().item()
+               for a, b in zip(dg, dc)) <= 1e-3 * top
+    for (k, a), b in zip(gpu.discriminator.named_buffers(),
+                         cpu.discriminator.buffers()):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5, k
+
+
+def test_bf16_gan_steps_launch_the_training_kernels(cuda_device, tmp_path):
+    """Two bf16 wave-GAN steps: the training kernels once per QRNN layer
+    per step (D adds none), every loss finite, D's Adam at count 2."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.ops import conv as conv_ops
+    gpu, _ = _gan_trainers(
+        cuda_device, tmp_path,
+        {"worker": "cchunk", "loss": "LSGAN", "lr": 4e-4}, "bfloat16")
+    it = iter(SyntheticChunkBatcher(2, 4800, seed=5))
+    cuda_qrnn.reset_launches()
+    conv_ops.reset_launches()
+    for _ in range(2):
+        losses = gpu.train_step(next(it))
+        assert all(bool(torch.isfinite(v)) for v in losses.values())
+    torch.cuda.synchronize()
+    layers = len(gpu.model.frontend.rnn.layers)
+    want = {k: 0 for k in cuda_qrnn.LAUNCHES}
+    want.update(qrnn_pool_fwd_train=2 * layers, qrnn_pool_bwd=2 * layers)
+    assert cuda_qrnn.LAUNCHES == want
+    assert all(v == 0 for v in conv_ops.LAUNCHES.values())
+    assert all(int(st["step"]) == 2
+               for st in gpu.d_opt.state.values())

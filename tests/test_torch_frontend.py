@@ -80,9 +80,9 @@ def test_encoder_is_seeded_and_refuses_train():
 
 
 @pytest.mark.parametrize("extra", [
-    {"resblocks": True, "norm_type": "snorm"}, {"rnn_type": "gru"},
+    {"resblocks": True, "activation": "relu"}, {"rnn_type": "gru"},
     {"rnn_type": "lstm"},
-    {"norm_type": "snorm"}, {"activation": "glu"}, {"name": "tdnn"}])
+    {"name": "asppRes"}, {"activation": "elu"}, {"name": "tdnn"}])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         wf_builder(dict(NARROW_CFG, **extra), device="cpu")

@@ -154,10 +154,12 @@ def test_feresblock_refuses_what_jax_refuses():
         pnn.FeResBlock(8, 8, 4)
     with pytest.raises(TypeError, match="glu"):
         pnn.FeResBlock(8, 8, 5, act="glu")
-    for norm in ("snorm", "wnorm", "bsnorm"):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1: off-path model variants"):
-            pnn.FeResBlock(8, 8, 5, norm_type=norm)
+    # the norm types JAX takes build (tests/test_torch_norms.py holds
+    # them to JAX); an unknown one raises as JAX's build_norm does
+    for norm in ("snorm", "wnorm", "bsnorm", "lnorm", "inorm", "affinorm"):
+        pnn.FeResBlock(8, 8, 5, norm_type=norm)
+    with pytest.raises(TypeError, match="Unrecognized norm type"):
+        pnn.FeResBlock(8, 8, 5, norm_type="gnorm")
 
 
 # ---------------------------------------------------------------------------
