@@ -190,6 +190,26 @@ Phases, each printed as it ends; any failure exits non-zero:
                PASE+ with snorm and with wnorm FeBlocks (the sinc layer
                off: it takes no reparameterization) at (8,1,160000), card
                vs CPU within 2e-4 of max|y|.
+ 19. probes  — the downstream probes (pase_tpu_torch/probes): (a) the
+               transfer gate's speaker corpus at its defaults (30 speakers
+               x 28 utterances of 2 s); (b) the PASE+ extractor at batch 1
+               (the 1600-sample bucket, avg_concat) on 16 of them, card vs
+               CPU within 2e-4 of max|y|, its ms per utterance and
+               audio-s/s, a torch.profiler split; (c) ``python -m
+               pase_tpu_torch.run_probe`` in this process, seeded PASE+
+               weights saved as a native .npz: utt with
+               recipes/probes/run_spkid_minivox.sh's flags over the whole
+               corpus (its MLP's training time apart), knn, kfold --folds
+               5, and frames and timit-full (cfg/probes/MLP_PASE.cfg, 4
+               epochs, decoder.cfg with a fake decode_dnn.sh: rc 0, its
+               WER read back) on a TIMIT-shaped corpus of 36 utterances;
+               (d) the training CLI with --sup_exec over 2 epochs at batch
+               4 x 16000: after each, a knn probe on the card and one on
+               the CPU (run_probe --device cpu), waited on, every return
+               code 0; (e) ``python -m pase_tpu_torch.transfer_gate`` at
+               the JAX record's settings (8 epochs x 250 steps): the
+               random-init probe below 1 and the pretrained one above it,
+               printed beside benchmarks/transfer_gate_r5.json.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -217,13 +237,20 @@ its serve-encode qrnn_pool_fwd_chunked once per layer per program call;
 phase 18's GAN steps (wave, z) the training kernels once per layer (D
 has no QRNN), each recipe CLI run the training kernels once per layer
 per train step and qrnn_pool_fwd once per layer per eval step, the snorm
-and wnorm encoders qrnn_pool_fwd_chunked once per layer per call.
+and wnorm encoders qrnn_pool_fwd_chunked once per layer per call;
+phase 19's probe runs (utt, knn, kfold, frames, timit-full)
+qrnn_pool_fwd_chunked once per layer per utterance encoded and nothing
+else, the superviser's training run the training kernels once per layer
+per train step and the chunked kernel once per layer per eval step (3 x
+4 rows), the transfer gate (its encoder has no QRNN) none.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
 16-17's vq_step, vq_training, v01_step, v01_training, gap_step,
-vq_serving, vq_stream, vq_export, and phase 18's gan_step, gan_z_step,
-gan_cli, gan_cli_plain, snorm_serving, wnorm_serving).
+vq_serving, vq_stream, vq_export, phase 18's gan_step, gan_z_step,
+gan_cli, gan_cli_plain, snorm_serving, wnorm_serving, and phase 19's
+probe (the utt run), probe_knn, probe_kfold, probe_frames, probe_timit,
+probe_sup, transfer_gate).
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -326,6 +353,14 @@ GAN_U_ATOL = 1e-5
 # distortion assets (not in the repository; the phase trains --synthetic)
 RECIPE_DATA_FLAGS = ("--data_root", "--data_cfg", "--stats", "--dtrans_cfg",
                      "--save_path")
+# phase 19: the MiniVoxCeleb probe recipe (its flags), the utterances
+# extracted on card and CPU, the TIMIT-shaped corpus (utterances, seconds),
+# the superviser's probe lists (the first speakers) and its training batch
+PROBE_RECIPE = "recipes/probes/run_spkid_minivox.sh"
+PROBE_CHECK_UTTS = 16
+TIMIT_TRAIN, TIMIT_TEST, TIMIT_SECONDS = 24, 12, 2.0
+SUP_SPEAKERS = 4
+SUP_BATCH = 4
 
 
 class SmokeFailure(Exception):
@@ -2494,6 +2529,343 @@ def phase_variants_serve():
     return paths
 
 
+def probe_recipe_flags(script):
+    """The probe flags of a recipe script's ``python run_probe.py`` line:
+    (task, flags), the flags that name its files ($...) and --out
+    dropped."""
+    import shlex
+    with open(os.path.join(HERE, script)) as f:
+        text = f.read().replace("\\\n", " ")
+    for line in text.splitlines():
+        words = shlex.split(line, comments=True)
+        if words[:2] == ["python", "run_probe.py"]:
+            flags = []
+            rest = words[3:]
+            for flag, value in zip(rest[::2], rest[1::2]):
+                if "$" not in value and flag != "--out":
+                    flags += [flag, value]
+            return words[2], flags
+    raise ValueError(f"{script}: no run_probe.py command")
+
+
+def write_timit_like(root, n_train=TIMIT_TRAIN, n_test=TIMIT_TEST,
+                     seconds=TIMIT_SECONDS):
+    """The TIMIT-shaped corpus of tests/test_timit_decode.py at a larger
+    size: speaker directories, harmonic wavs of three f0 classes, one
+    alignment label per 10 ms frame; train.lst / test.lst of ``wav ali``
+    lines. Returns the number of utterances."""
+    from pase_tpu_torch.data.io import write_wav
+    rng = np.random.RandomState(0)
+    n = int(seconds * SR)
+    for split, count in (("train", n_train), ("test", n_test)):
+        lines = []
+        for u in range(count):
+            spk = f"spk{u % 3}"
+            os.makedirs(os.path.join(root, spk), exist_ok=True)
+            f0 = [110, 180, 260][u % 3]
+            t = np.arange(n)
+            sig = sum(np.sin(2 * np.pi * f0 * k * t / SR) / k
+                      for k in range(1, 4))
+            wav = f"{spk}/{split}_{u}.wav"
+            write_wav(os.path.join(root, wav),
+                      (sig * 0.2 + rng.randn(n) * 0.01).astype(np.float32))
+            ali = wav.replace(".wav", ".ali")
+            np.savetxt(os.path.join(root, ali),
+                       np.full(n // 160, u % 3, np.int32), fmt="%d")
+            lines.append(f"{wav} {ali}\n")
+        with open(os.path.join(root, f"{split}.lst"), "w") as f:
+            f.writelines(lines)
+    return n_train + n_test
+
+
+def write_fake_decoder(root):
+    """A decode_dnn.sh that checks its inputs and writes a scoring file
+    (tests/test_timit_decode.py's); returns its folder."""
+    scripts = os.path.join(root, "kaldi_scripts")
+    os.makedirs(scripts, exist_ok=True)
+    path = os.path.join(scripts, "decode_dnn.sh")
+    with open(path, "w") as f:
+        f.write("#!/bin/bash\n"
+                "cfg=$1; out=$2; ark=$3\n"
+                "[ -f \"$cfg\" ] || exit 2\n"
+                "[ -f \"$ark\" ] || exit 3\n"
+                "grep -q '^\\[decoding\\]' \"$cfg\" || exit 4\n"
+                "mkdir -p \"$out/scoring_kaldi\"\n"
+                "echo '%WER 17.9 [ fake ]' > \"$out/scoring_kaldi/wer_4\"\n")
+    os.chmod(path, 0o755)
+    return scripts
+
+
+@contextlib.contextmanager
+def _timed(module, name, sink):
+    """module.name timed (host clock, synchronized) into sink while
+    inside."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        _sync("cuda")
+        sink.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _probe_run(argv, what, layers, n_utts, paths, path):
+    """``python -m pase_tpu_torch.run_probe`` in this process, its launch
+    counts reset just before and read just after: qrnn_pool_fwd_chunked
+    once per QRNN layer per utterance encoded, no other kernel. Returns
+    (metrics, seconds, seconds in train_mlp_probe)."""
+    from pase_tpu_torch import run_probe
+    from pase_tpu_torch.probes import tasks, timit_decode
+    fit_s = []
+    reset_launches()                     # the probe's path starts here
+    t0 = time.perf_counter()
+    with _timed(tasks, "train_mlp_probe", fit_s), \
+            _timed(timit_decode, "train_mlp_probe", fit_s):
+        metrics = run_probe.main(argv)
+    _sync("cuda")
+    wall = time.perf_counter() - t0
+    paths[path] = read_launches()        # ... and ends here
+    expected = {**{k: 0 for k in paths[path]},
+                "qrnn_pool_fwd_chunked": layers * n_utts}
+    print(f"[launches] {what}: {paths[path]} (expected {expected}: "
+          f"{layers} QRNN layer(s) x {n_utts} utterances)")
+    check(paths[path] == expected, f"{what} launches {paths[path]}")
+    bad = {k: v for k, v in metrics.items()
+           if isinstance(v, float) and not np.isfinite(v)}
+    check(not bad, f"{what}: non-finite metrics {bad}")
+    return metrics, wall, sum(fit_s)
+
+
+def phase_probes(tmp):
+    """Phase 19: the downstream probes, the superviser and the transfer
+    gate on the card. Returns {path: launch counts}."""
+    import torch
+    from pase_tpu_torch import train as train_cli
+    from pase_tpu_torch import transfer_gate, wf_builder
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    from pase_tpu_torch.data.io import read_wav
+    from pase_tpu_torch.ops import cuda_qrnn
+    from pase_tpu_torch.probes.extract import FeatureExtractor
+    from pase_tpu_torch.profiling import profile_calls
+    os.makedirs(tmp, exist_ok=True)
+    paths = {}
+    # (a) the gate's speaker corpus at its defaults
+    corpus = os.path.join(tmp, "spk")
+    t0 = time.perf_counter()
+    transfer_gate.build_probe_corpus(corpus)
+    lists = {s: [l.split() for l in open(os.path.join(corpus, f"{s}.lst"))]
+             for s in ("train", "test")}
+    n_utts = sum(len(v) for v in lists.values())
+    print(f"[probes] speaker corpus: {len(lists['train'])} train + "
+          f"{len(lists['test'])} test utterances of 2 s, "
+          f"{len({l for _, l in lists['train']})} speakers, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    enc = wf_builder(PASEP_CFG, device="cuda", seed=0)
+    layers = len(enc.module.rnn.layers)
+    npz = save_variables_npz(os.path.join(tmp, "FE_e0.npz"),
+                             enc.module.state_dict())
+    del enc
+
+    # (b) extraction card vs CPU, the rate at B=1 and a profile
+    gpu = FeatureExtractor(PASEP_CFG, npz, mode="avg_concat", device="cuda")
+    cpu = FeatureExtractor(PASEP_CFG, npz, mode="avg_concat", device="cpu")
+    wavs = [read_wav(os.path.join(corpus, p))[0]
+            for p, _ in lists["train"][:PROBE_CHECK_UTTS]]
+    worst, cpu_s = 0.0, 0.0
+    for w in wavs:
+        g = gpu.extract(w)
+        t0 = time.perf_counter()
+        c = cpu.extract(w)
+        cpu_s += time.perf_counter() - t0
+        check(g.shape == c.shape == (200, 2 * gpu.encoder.emb_dim),
+              f"extraction shape {g.shape}")
+        worst = max(worst, float(np.abs(g - c).max() / np.abs(c).max()))
+    del cpu
+    check(worst <= ENCODER_REL, f"probe extraction card vs cpu: "
+          f"{worst:.3e} > {ENCODER_REL}")
+    times = []
+    for w in wavs * 4:
+        t0 = time.perf_counter()
+        gpu.extract(w)                   # returns host numpy: synchronized
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    prof = profile_calls([lambda w=w: gpu.extract(w) for w in wavs], 2)
+    print(f"[probes] PASE+ extraction at B=1 (2 s utterances, the 1600-"
+          f"sample bucket, avg_concat, {PROBE_CHECK_UTTS} utterances): card"
+          f" vs cpu max|dy|/max|y_cpu| {worst:.3e} (bound {ENCODER_REL}); "
+          f"card {ms:.3f} ms per utterance (median of {len(times)}), "
+          f"{2.0 / (ms / 1e3):.1f} audio-s/s; cpu "
+          f"{2.0 * len(wavs) / cpu_s:.1f} audio-s/s")
+    print_profile(prof, "PASE+ extraction of one 2 s utterance at B=1")
+    del gpu
+    torch.cuda.empty_cache()
+
+    # (c) the probe CLI: utt with the MiniVoxCeleb recipe's flags, knn,
+    # kfold; frames and timit-full on a TIMIT-shaped corpus
+    common = ["--fe_cfg", PASEP_CFG, "--fe_ckpt", npz, "--data_root",
+              corpus]
+    task, flags = probe_recipe_flags(PROBE_RECIPE)
+    check(task == "utt", f"{PROBE_RECIPE}: task {task}")
+    m, wall, fit_s = _probe_run(
+        [task] + common + ["--train_list", os.path.join(corpus, "train.lst"),
+                           "--test_list", os.path.join(corpus, "test.lst")]
+        + flags, "probe utt", layers, n_utts, paths, "probe")
+    check(0.0 <= m["test_sentence_acc"] <= 1.0, f"utt metrics {m}")
+    print(f"[probes] run_probe utt {' '.join(flags)} "
+          f"({len({l for _, l in lists['train']})} speakers, "
+          f"{n_utts} utterances): {wall:.1f} s in all, the MLP's training "
+          f"{fit_s:.1f} s; frame acc {m['test_frame_acc']:.4f}, sentence "
+          f"acc {m['test_sentence_acc']:.4f} (seeded random PASE+ weights)")
+    m, wall, _ = _probe_run(
+        ["knn"] + common + ["--train_list",
+                            os.path.join(corpus, "train.lst"),
+                            "--test_list", os.path.join(corpus, "test.lst")],
+        "probe knn", layers, n_utts, paths, "probe_knn")
+    print(f"[probes] run_probe knn: {wall:.1f} s; acc "
+          f"{m['knn_test_acc']:.4f}")
+    with open(os.path.join(corpus, "all.lst"), "w") as f:
+        for s in ("train", "test"):
+            f.write(open(os.path.join(corpus, f"{s}.lst")).read())
+    m, wall, fit_s = _probe_run(
+        ["kfold", "--folds", "5"] + common
+        + ["--train_list", os.path.join(corpus, "all.lst")],
+        "probe kfold", layers, n_utts, paths, "probe_kfold")
+    print(f"[probes] run_probe kfold --folds 5: {wall:.1f} s, training "
+          f"{fit_s:.1f} s; sentence acc {m['sentence_acc_mean']:.4f} +- "
+          f"{m['sentence_acc_std']:.4f}")
+    timit = os.path.join(tmp, "timit")
+    n_timit = write_timit_like(timit)
+    tl = ["--fe_cfg", PASEP_CFG, "--fe_ckpt", npz, "--data_root", timit,
+          "--train_list", os.path.join(timit, "train.lst"), "--test_list",
+          os.path.join(timit, "test.lst")]
+    m, wall, _ = _probe_run(["frames", "--num_classes", "3"] + tl,
+                            "probe frames", layers, n_timit, paths,
+                            "probe_frames")
+    print(f"[probes] run_probe frames ({n_timit} utterances of "
+          f"{TIMIT_SECONDS:g} s, 3 classes): {wall:.1f} s; FER "
+          f"{m['test_fer']:.4f}")
+    with open(os.path.join(HERE, "cfg", "probes", "decoder.cfg")) as f:
+        dec = json.load(f)
+    dec["decoding_script_folder"] = write_fake_decoder(tmp)
+    dec_cfg = os.path.join(tmp, "decoder.json")
+    with open(dec_cfg, "w") as f:
+        json.dump(dec, f)
+    m, wall, _ = _probe_run(
+        ["timit-full", "--mlp_cfg",
+         os.path.join(HERE, "cfg", "probes", "MLP_PASE.cfg"), "--dec_cfg",
+         dec_cfg, "--out_folder", os.path.join(tmp, "timit_out"),
+         "--epochs", "4"] + tl,
+        "probe timit-full", layers, n_timit, paths, "probe_timit")
+    check(m["decode_rc"] == 0 and m["best_wer"] == 17.9,
+          f"timit-full with the fake decoder: {m}")
+    print(f"[probes] run_probe timit-full (cfg/probes/MLP_PASE.cfg, 4 "
+          f"epochs, the fake decode_dnn.sh): {wall:.1f} s; dev FER "
+          f"{m['dev_frame_error']:.4f}, decode rc {m['decode_rc']}, best "
+          f"WER {m['best_wer']}")
+
+    # (d) the training CLI's --sup_exec: a knn probe on the card and one on
+    # the CPU after each of 2 short epochs
+    sup_lists = {}
+    for s, n in (("train", 3), ("test", 2)):
+        sup_lists[s] = os.path.join(tmp, f"sup_{s}.lst")
+        with open(sup_lists[s], "w") as f:
+            for p, lab in lists[s]:
+                if lab < f"spk{SUP_SPEAKERS:02d}" and int(p[-6:-4]) < n:
+                    f.write(f"{p} {lab}\n")
+    cmds = os.path.join(tmp, "sup.cmds")
+    with open(cmds, "w") as f:
+        for dev in ("cuda", "cpu"):
+            f.write(f"cd {HERE} && {sys.executable} -m "
+                    f"pase_tpu_torch.run_probe knn --fe_cfg $cfg --fe_ckpt "
+                    f"$model --train_list {sup_lists['train']} --test_list "
+                    f"{sup_lists['test']} --data_root {corpus} --k 3 "
+                    f"--device {dev} --out $save_path/knn_{dev}_e$iteration"
+                    f".json\n")
+    save = os.path.join(tmp, "sup_run")
+    reset_launches()                     # the superviser's training starts
+    t0 = time.perf_counter()
+    tr = train_cli.main(["--synthetic", "--net_cfg", WORKERSP_CFG,
+                         "--fe_cfg", PASEP_CFG, "--batch_size",
+                         str(SUP_BATCH), "--chunk_size", "16000", "--epoch",
+                         "2", "--save_path", save, "--sup_exec", cmds,
+                         "--sup_freq", "1"])
+    _sync("cuda")
+    paths["probe_sup"] = read_launches()     # ... and ends here
+    train_s = time.perf_counter() - t0
+    done = tr.aux_sup.wait(timeout=600)
+    wait_s = time.perf_counter() - t0 - train_s
+    steps, evals = 2 * tr.bpe, 2 * tr.cfg["va_bpe"]
+    eval_kernel = cuda_qrnn.forward_entry(3 * SUP_BATCH * 512, False)
+    expected = {**{k: 0 for k in paths["probe_sup"]},
+                "qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps, eval_kernel: layers * evals}
+    print(f"[launches] superviser's training: {paths['probe_sup']} "
+          f"(expected {expected})")
+    check(paths["probe_sup"] == expected,
+          f"superviser training launches {paths['probe_sup']}")
+    rcs = [rc for _, rc in done]
+    check(len(done) == 4 and rcs == [0] * 4, f"superviser children {done}")
+    accs = {}
+    for dev in ("cuda", "cpu"):
+        for e in (0, 1):
+            with open(os.path.join(save, "sup_aux",
+                                   f"knn_{dev}_e{e}.json")) as f:
+                accs[f"{dev} e{e}"] = json.load(f)["knn_test_acc"]
+    print(f"[probes] train --sup_exec (2 epochs of {tr.bpe} steps at batch "
+          f"{SUP_BATCH} x 16000, {tr.cfg['va_bpe']} eval each): training "
+          f"{train_s:.1f} s, then {wait_s:.1f} s waiting for the children; "
+          f"{len(done)} children, return codes {rcs}; knn acc "
+          + ", ".join(f"{k} {v:.4f}" for k, v in accs.items()))
+    check(all(0.0 <= v <= 1.0 for v in accs.values()),
+          f"the superviser's knn probes: {accs}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (e) the transfer gate at the JAX record's settings
+    gate_json = os.path.join(tmp, "gate.json")
+    reset_launches()                     # the gate's path starts here
+    t0 = time.perf_counter()
+    rc = transfer_gate.main(["--workdir", os.path.join(tmp, "gate"),
+                             "--json", gate_json])
+    _sync("cuda")
+    paths["transfer_gate"] = read_launches()   # ... and ends here
+    gate_s = time.perf_counter() - t0
+    with open(gate_json) as f:
+        gate = json.load(f)
+    with open(os.path.join(HERE, "benchmarks", "transfer_gate_r5.json")) as f:
+        ref = json.load(f)
+    print(f"[gate] python -m pase_tpu_torch.transfer_gate ({gate['epochs']}"
+          f" epochs x {gate['bpe']} steps, batch {gate['batch_size']} x "
+          f"{gate['chunk_size']}, {gate['n_speakers']} speakers): "
+          f"{gate_s:.1f} s, rc {rc}; pretrained "
+          f"{gate['pretrained_final_acc']:.3f}, random "
+          f"{gate['random_encoder_acc']:.3f}, mfcc "
+          f"{gate['mfcc_baseline_acc']:.3f}; margin_final "
+          f"{gate['margin_final']:+.3f}, tail_margins_positive "
+          f"{gate['tail_margins_positive']}, ok {gate['ok']} (the JAX "
+          f"record benchmarks/transfer_gate_r5.json: pretrained "
+          f"{ref['pretrained_final_acc']:.3f}, random "
+          f"{ref['random_encoder_acc']:.3f}, mfcc "
+          f"{ref['mfcc_baseline_acc']:.3f}, ok {ref['ok']}); curve "
+          + ", ".join(f"e{c['epoch']} {c['acc']:.3f}" for c in gate["curve"]))
+    check(rc == (0 if gate["ok"] else 1), f"gate rc {rc} vs ok {gate['ok']}")
+    check(gate["random_encoder_acc"] < 1.0,
+          f"random-init probe at {gate['random_encoder_acc']}")
+    check(gate["pretrained_final_acc"] > gate["random_encoder_acc"],
+          "pretraining did not improve the probe: "
+          f"{gate['pretrained_final_acc']} <= {gate['random_encoder_acc']}")
+    check(all(v == 0 for v in paths["transfer_gate"].values()),
+          f"the gate's encoder has no QRNN: {paths['transfer_gate']}")
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -2563,6 +2935,7 @@ def main():
             dist_perf["bfloat16"]["steps_per_sec"]))
         paths.update(phase_variants_serve())
         paths.update(phase_gan(os.path.join(tmp, "gan")))
+        paths.update(phase_probes(os.path.join(tmp, "probes")))
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

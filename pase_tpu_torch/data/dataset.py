@@ -18,6 +18,8 @@ bit for bit):
   has them. ``FastChunkBatcher`` decodes and crops in the native C++
   library (``data/io.py``) where it can. ``ThreadedPrefetcher`` fans
   batch production out over N threads into one bounded queue.
+* ``FeatsClassDataset`` / ``WavClassDataset`` give (features or wav,
+  class id) items of a split list for the downstream probes.
 
 Every background thread is a daemon, re-checks a stop event on its
 bounded ``put``s, and hands a producer error to the consumer.
@@ -366,6 +368,88 @@ class GenhancementDataset(LibriSpeechTupleDataset):
             rindex += 1
         rwav = self._load(self.wavs[rindex]["filename"])
         return noisy, clean, rwav
+
+
+def _load_utt2class(utt2class):
+    """utt2class map from a .json file or a pickled / .npy dict."""
+    if utt2class.endswith(".json"):
+        import json
+        with open(utt2class) as f:
+            return json.load(f)
+    arr = np.load(utt2class, allow_pickle=True)
+    return dict(arr.item() if hasattr(arr, "item") and arr.ndim == 0
+                else arr.any())
+
+
+def _load_split_list(split_list):
+    """A list as it is, or the non-blank lines of a file."""
+    if isinstance(split_list, list):
+        return list(split_list)
+    with open(split_list) as f:
+        return [ln.rstrip() for ln in f if ln.strip()]
+
+
+class FeatsClassDataset:
+    """Precomputed features -> class id, for downstream probes: one
+    ``<name>.<ext>`` .npy file [T, D] per utterance of the split list, the
+    utt2class map, optional ZNorm from a stats pickle ({mean, std})."""
+
+    def __init__(self, data_root, utt2class, split_list, stats=None,
+                 ext="fb.npy"):
+        self.data_root = data_root
+        self.ext = ext
+        self.utt2class = _load_utt2class(utt2class)
+        self.split_list = _load_split_list(split_list)
+        self.stats = None
+        if stats is not None:
+            import pickle
+            with open(stats, "rb") as f:
+                st = pickle.load(f)
+            self.stats = {"mean": np.asarray(st["mean"], np.float32),
+                          "std": np.asarray(st["std"], np.float32)}
+
+    def __len__(self):
+        return len(self.split_list)
+
+    def __getitem__(self, index):
+        item = self.split_list[index]
+        bname = os.path.splitext(item)[0]
+        ft = np.asarray(np.load(os.path.join(self.data_root,
+                                             bname + "." + self.ext)),
+                        np.float32)
+        if self.stats is not None:
+            ft = (ft - self.stats["mean"]) / self.stats["std"]
+        return ft, int(self.utt2class[item])
+
+
+class WavClassDataset:
+    """Wav -> class id: the split list's ``<name>.wav`` under data_root,
+    the utt2class map; with ``chunk_size``, zero-padded to chunk_size + 1
+    samples, then a random ``crop_chunk`` (numpy RandomState(seed))."""
+
+    def __init__(self, data_root, utt2class, split_list, chunk_size=None,
+                 seed=0):
+        self.data_root = data_root
+        self.utt2class = _load_utt2class(utt2class)
+        self.split_list = _load_split_list(split_list)
+        self.chunk_size = chunk_size
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.split_list)
+
+    def __getitem__(self, index):
+        item = self.split_list[index]
+        bname = os.path.splitext(item)[0]
+        wav, _ = read_wav(os.path.join(self.data_root, bname + ".wav"))
+        wav = np.asarray(wav, np.float32)
+        if self.chunk_size is not None:
+            if len(wav) < self.chunk_size + 1:
+                wav = np.concatenate(
+                    [wav, np.zeros(self.chunk_size + 1 - len(wav),
+                                   np.float32)])
+            wav = crop_chunk(wav, self.chunk_size, self.rng)
+        return wav, int(self.utt2class[item])
 
 
 class MetaConcatDataset:

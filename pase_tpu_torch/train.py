@@ -48,7 +48,11 @@ CLI's notes; ``--no-cuda`` is a note (``--device`` alone picks the
 CPU); the TPU-only ``--jax_cache_dir``, ``--no_fused_feed`` and
 ``--loss_precision`` are accepted and not used. A flag of a path the
 port does not build yet raises ``NotImplementedError`` naming its
-ROADMAP.md item when it is used, not at its default.
+ROADMAP.md item when it is used, not at its default. ``--sup_exec FILE``
+launches the downstream probes of FILE's command templates
+($model, $cfg, $iteration, $save_path substituted) on each
+``FE_e{epoch}.npz`` every ``--sup_freq`` epochs and after the last
+(``utils.AuxiliarSuperviser``), without waiting for them.
 """
 
 import argparse
@@ -69,7 +73,6 @@ _ITEM_9E_POLICIES = ("queue 1, item 9e: off-path model variants (the "
                      "non-base policies)")
 _ITEM_9E_ATTENTION = "queue 1, item 9e: off-path model variants (attention)"
 _ITEM_10 = "queue 1, item 10: multi-GPU"
-_ITEM_11A = "queue 1, item 11a: probes (the AuxiliarSuperviser)"
 # flag -> (value that means "not used": the JAX CLI's default, ROADMAP.md
 # item that ports it)
 _UNPORTED = {
@@ -86,8 +89,6 @@ _UNPORTED = {
     "att_K": (None, _ITEM_9E_ATTENTION),
     "att_mode": (None, _ITEM_9E_ATTENTION),
     "avg_factor": (None, _ITEM_9E_ATTENTION),
-    "sup_exec": (None, _ITEM_11A),
-    "sup_freq": (1, _ITEM_11A),
     "coordinator_address": (None, _ITEM_10),
     "num_processes": (None, _ITEM_10),
     "process_id": (None, _ITEM_10),

@@ -65,6 +65,11 @@ pass and ``save``: the full train state through the ``Saver``
 (``weights_PASE-Pase_base-<step>.npz``, the JAX package's TrainState
 layout, readable by either package) and the encoder artifact
 ``FE_e{epoch}.npz``. ``cfg['pretrained_ckpt']`` warm-starts the encoder.
+With ``cfg['sup_exec']`` (a file of command templates) the downstream
+probes are launched asynchronously on the epoch's ``FE_e{epoch}.npz``
+after its save, every ``cfg['sup_freq']`` epochs and after the last
+(``utils.AuxiliarSuperviser``, in ``self.aux_sup``; their $save_path is
+``save_path/sup_aux``).
 """
 
 import math
@@ -90,6 +95,7 @@ from pase_tpu_torch.model import build_pase, materialize_pred, worker_losses
 from pase_tpu_torch.optim import build_optimizer, set_lr
 from pase_tpu_torch.precision import compute_dtype, resolve
 from pase_tpu_torch.scheduling import apply_policy, init_policy_state
+from pase_tpu_torch.utils import AuxiliarSuperviser
 
 # the run's name in its train-state files, the JAX Trainer's default
 NAME = "Pase_base"
@@ -200,6 +206,7 @@ class Trainer:
         self.discriminator = self.d_opt = None
         if self.gan_cfg is not None:
             self._build_discriminator()
+        self.aux_sup = None         # the sup_exec probes' launcher
         self.logger = MetricLogger(self.save_path)
         self.saver = Saver(self.save_path,
                            max_ckpts=self.cfg.get("max_ckpts", 5),
@@ -460,8 +467,26 @@ class Trainer:
                 if valid_batcher is not None:
                     self.evaluate(valid_batcher, epoch=e)
                 self.save(e)
+                self._supervise(e, epochs)
         finally:
             _close(it)
+
+    def _supervise(self, epoch, epochs):
+        """Launch the ``sup_exec`` probes on this epoch's encoder artifact
+        where ``(epoch + 1) % sup_freq == 0`` or it is the last epoch
+        (``utils.AuxiliarSuperviser``, its children's handles kept in
+        ``self.aux_sup``)."""
+        sup_exec = self.cfg.get("sup_exec")
+        sup_freq = self.cfg.get("sup_freq", 1)
+        if not sup_exec or not ((epoch + 1) % sup_freq == 0
+                                or (epoch + 1) >= epochs):
+            return
+        if self.aux_sup is None:
+            aux_path = os.path.join(self.save_path, "sup_aux")
+            os.makedirs(aux_path, exist_ok=True)
+            self.aux_sup = AuxiliarSuperviser(sup_exec, aux_path)
+        self.aux_sup(epoch, os.path.join(self.save_path, f"FE_e{epoch}.npz"),
+                     self.cfg.get("fe_cfg") or "")
 
     def evaluate(self, batcher, epoch=0, n_batches=None):
         n_batches = n_batches or self.cfg.get("va_bpe", 10)

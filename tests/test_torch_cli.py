@@ -2,7 +2,8 @@
 (repo-root train.py): every option string of the JAX parser parses with
 its type and default; the reference's dead flags and the compatibility
 flags print their notes; the flags of unported items raise naming their
-ROADMAP.md item when used and not at their default; the legacy z flags
+ROADMAP.md item when used and not at their default; the superviser's
+flags reach the Trainer's cfg; the legacy z flags
 make the JAX CLI's gan_cfg; the GAN recipe's command line parses and
 builds its trainer."""
 
@@ -105,8 +106,6 @@ UNPORTED = [
     ("--rndmin_train", [], "item 9e"), ("--att_K", ["4"], "item 9e"),
     ("--att_mode", ["concat"], "item 9e"),
     ("--avg_factor", ["0.5"], "item 9e"),
-    ("--sup_exec", ["./sup.sh"], "item 11a"),
-    ("--sup_freq", ["2"], "item 11a"),
     ("--coordinator_address", ["localhost:1"], "item 10"),
     ("--num_processes", ["2"], "item 10"),
     ("--process_id", ["0"], "item 10"), ("--n_model", ["2"], "item 10")]
@@ -126,9 +125,31 @@ def test_unported_flags_at_their_defaults_do_not_raise():
         action = _actions(jax_cli.build_argparser())[flag]
         if action.nargs != 0 and action.default is not None:
             defaults += [flag, str(action.default)]
-    assert defaults == ["--dropout_rate", "0.5", "--sup_freq", "1",
-                        "--n_model", "1"]
+    assert defaults == ["--dropout_rate", "0.5", "--n_model", "1"]
     port_cli.check_ported(_parse(defaults))
+
+
+@pytest.mark.parametrize("flag,value,key,want", [
+    ("--sup_exec", "sup.cmds", "sup_exec", "sup.cmds"),
+    ("--sup_freq", "2", "sup_freq", 2)])
+def test_sup_flags_reach_the_trainer_cfg(tmp_path, monkeypatch, flag,
+                                         value, key, want):
+    """--sup_exec / --sup_freq (the AuxiliarSuperviser's) parse, pass the
+    checks and reach the Trainer's cfg (the epoch loop is not run here;
+    tests/test_torch_probes.py runs the schedule)."""
+    from pase_tpu_torch.trainer import Trainer
+    from test_torch_train import small_workers
+    fe, wk = tmp_path / "fe.cfg", tmp_path / "wk.cfg"
+    fe.write_text(json.dumps(SMALL_FE))
+    wk.write_text(json.dumps(small_workers()))
+    monkeypatch.setattr(Trainer, "train_", lambda self, *a, **k: None)
+    port_cli.check_ported(_parse([flag, value]))
+    tr = port_cli.main(["--synthetic", "--device", "cpu", "--net_cfg",
+                        str(wk), "--fe_cfg", str(fe), "--batch_size", "2",
+                        "--chunk_size", "4800", "--epoch", "2",
+                        "--save_path", str(tmp_path / "run"), flag, value])
+    assert tr.cfg[key] == want
+    assert tr.cfg["fe_cfg"] == str(fe)
 
 
 Z_CASES = [

@@ -5,7 +5,8 @@ bit for bit; training forward, backward) and the stride-1 conv kernels
 (csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
 against their plain PyTorch versions, the encoder on the GPU against the
 same weights on the CPU, one small train
-step on the GPU against the CPU, the distortion stack on the GPU
+step on the GPU against the CPU, the probes' PASE+ extractor and MLP fit
+on the GPU against the CPU, the distortion stack on the GPU
 against the CPU with the same draws, and the residual VQ encoder's
 blocks (FeResBlock, the VQEMA quantizer) against the CPU.
 
@@ -742,3 +743,53 @@ def test_bf16_gan_steps_launch_the_training_kernels(cuda_device, tmp_path):
     assert all(v == 0 for v in conv_ops.LAUNCHES.values())
     assert all(int(st["step"]) == 2
                for st in gpu.d_opt.state.values())
+
+
+def test_probe_extraction_gpu_matches_cpu(cuda_device):
+    """The probes' PASE+ extractor at batch 1 on a 2 s utterance (the
+    1600-sample bucket, 'avg_concat'): the card within 2e-4 of max|y| of
+    the same weights on the CPU, K1's chunked kernel once per QRNN
+    layer."""
+    from pase_tpu_torch.probes.extract import FeatureExtractor
+    cfg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "cfg", "frontend", "PASE+.cfg")
+    gpu = FeatureExtractor(cfg, mode="avg_concat", device=cuda_device)
+    cpu = FeatureExtractor(cfg, mode="avg_concat", device="cpu")
+    cpu.encoder.module.load_state_dict(gpu.encoder.module.state_dict())
+    wav = (np.random.RandomState(0).randn(31000) * 0.1).astype(np.float32)
+    cuda_qrnn.reset_launches()
+    got = gpu.extract(wav)
+    layers = len(gpu.encoder.module.rnn.layers)
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == layers
+    want = cpu.extract(wav)
+    assert got.shape == want.shape == (194, 2 * gpu.encoder.emb_dim)
+    assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
+
+
+def test_probe_fit_gpu_matches_cpu(cuda_device):
+    """build_mlp_probe + fit, 3 epochs on tie-free clusters, on the card
+    and the CPU from the same init: the same dev errors and halvings,
+    parameters within 1e-4 of each leaf's largest (the bias that feeds
+    the BatchNorm, rounding noise about 0, within 1e-6)."""
+    from pase_tpu_torch.probes import classifier as pc
+    rng = np.random.RandomState(3)
+    centers = rng.randn(3, 6) * 4.0
+    y = rng.randint(0, 3, 600).astype(np.int32)
+    x = (centers[y] + rng.randn(600, 6) * 0.3).astype(np.float32)
+    yd = rng.randint(0, 3, 150)
+    xd = (centers[yd] + rng.randn(150, 6) * 0.3).astype(np.float32)
+    yd = np.where(rng.rand(150) < 0.1, (yd + 1) % 3, yd).astype(np.int32)
+    logs, models = {}, {}
+    for dev in (cuda_device, "cpu"):
+        key = str(dev)
+        models[key] = pc.build_mlp_probe(6, 3, (16,), seed=5, device=dev)
+        logs[key] = []
+        pc.fit(models[key], x, y, xd, yd, epochs=3, lr=0.1, batch_size=64,
+               seed=5, log=lambda s, k=key: logs[k].append(
+                   s.split(" nll ")[1].split(" ", 2)[2]))
+    assert logs[str(cuda_device)] == logs["cpu"]
+    got = models[str(cuda_device)].state_dict()
+    for k, w in models["cpu"].state_dict().items():
+        diff = (got[k].cpu() - w).abs().max().item()
+        bound = 1e-6 if k == "dense.0.bias" else 1e-4 * w.abs().max().item()
+        assert diff <= bound, (k, diff)

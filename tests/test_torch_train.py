@@ -424,7 +424,7 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--shard_device_corpus"], ["--ihm2sdm", "x"],
-    ["--chunking_K", "3"], ["--sup_exec", "x"],
+    ["--chunking_K", "3"], ["--num_processes", "2"],
     ["--backprop_mode", "softmax"], ["--att_cfg", "x"],
     ["--dataset", "AmiSegTupleWavDataset"]])
 def test_train_cli_refuses_unported_flags(tmp_path, flags):
