@@ -210,6 +210,32 @@ Phases, each printed as it ends; any failure exits non-zero:
                the JAX record's settings (8 epochs x 250 steps): the
                random-init probe below 1 and the pretrained one above it,
                printed beside benchmarks/transfer_gate_r5.json.
+ 20. recurrent — cuDNN's LSTM / GRU (float32, TF32 off): (a) PASE+ with
+               rnn_type lstm and gru (a BiRNN of 256 each way) at
+               (8,1,160000), card vs CPU within 2e-4 of max|y|, its
+               forward ms; the 16000 bucket exported and served against
+               the offline encoder (2e-5); the lstm encoder's workers+
+               step card vs CPU at 2 x 16000 (phase 16's rule) and its
+               rate at 32 x 32000; (b) workers+ with its prosody head a
+               GRU head, one step card vs CPU (phase 16's rule); (c) the
+               WaveRNN head at workers+wavernn.cfg's widths (rnn 512, fc
+               512, 9 bits, aux 32, scales 4 x 4 x 10), RAW and MOL, at 2 x
+               1600 in train mode: logits within 1e-4 of their largest,
+               the loss within 1e-4, the gradients (the smoothing kernels
+               too) under the CPU loss's cotangent by phase 7's rule;
+               (d) recipes/run_pase_wavernn.sh's step at its own shape
+               (16 x 32000, bf16, its flags through the CLI's parser) in
+               this process: 3 steps after 1, against the same with
+               workers+: steps/s, one profiled step's busy ms split into
+               cuDNN RNN, GEMM, conv and the rest, the idle share, the
+               peak memory, every loss finite; (e) the recipe's CLI
+               (--synthetic) for one epoch with its chunk cut to 3360 (the
+               epoch at 32000 would take minutes; 3360 is the least whole
+               number of frames the *_long targets' deltas allow); (f)
+               generate, RAW, at
+               the head's widths, 2 x 1600 samples: us per sample, and the
+               teacher-forced forward on its own samples against its
+               loop's logits within 1e-4 of their largest.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -242,7 +268,12 @@ phase 19's probe runs (utt, knn, kfold, frames, timit-full)
 qrnn_pool_fwd_chunked once per layer per utterance encoded and nothing
 else, the superviser's training run the training kernels once per layer
 per train step and the chunked kernel once per layer per eval step (3 x
-4 rows), the transfer gate (its encoder has no QRNN) none.
+4 rows), the transfer gate (its encoder has no QRNN) none; phase 20's
+lstm and gru encoders (serving) and the lstm encoder's step none (no
+QRNN), the GRU-head step and the WaveRNN recipe's steps the training
+kernels once per layer per step, its CLI the training kernels once per
+layer per train step and qrnn_pool_fwd once per layer per eval step,
+generate none.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -250,7 +281,8 @@ serving, training, stream (phase 13's four streams), stream_cli
 vq_serving, vq_stream, vq_export, phase 18's gan_step, gan_z_step,
 gan_cli, gan_cli_plain, snorm_serving, wnorm_serving, and phase 19's
 probe (the utt run), probe_knn, probe_kfold, probe_frames, probe_timit,
-probe_sup, transfer_gate).
+probe_sup, transfer_gate, and phase 20's lstm_serving, gru_serving,
+lstm_step, gru_head_step, wavernn_step, wavernn_cli, wavernn_generate).
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -289,18 +321,22 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float32 operations per lane-step, tanh / exp / divide counted as one each
 FWD_OPS, BWD_OPS = 14, 25
-# (B, T, H) of the train step's QRNN at batch 32 and 8 (3 streams x B
-# chunks of 32000 samples -> 200 frames, rnn_dim 512)
-TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512)]
+# (B, T, H) of the train step's QRNN at batch 32, 8 and 16 (3 streams x B
+# chunks of 32000 samples -> 200 frames, rnn_dim 512; 16: the WaveRNN
+# recipe's step), and at batch 16 x 3360 samples (21 frames, phase 20's
+# cut CLI, which also runs K1's loop there in eval)
+TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (48, 200, 512),
+                     (48, 21, 512)]
 TRAIN_SHAPE = (96, 200, 512)
 TRAIN_BATCH, TRAIN_CHUNK = 32, 32000
 # (B, T, H) of the QRNN pooling: the four shapes of benchmarks/bench_qrnn.py,
 # the serving batch (8 x 10 s windows at 100 frames/s), one window alone
-# (forward-chunk's file at a time), and 32 and 48 x 200, about the chunked
-# route's limit (cuda_qrnn.CHUNKED_LANES)
+# (forward-chunk's file at a time), 32 and 48 x 200, about the chunked
+# route's limit (cuda_qrnn.CHUNKED_LANES), and 48 x 21, the eval of phase
+# 20's cut WaveRNN CLI
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
-               (32, 200, 512), (48, 200, 512)]
+               (32, 200, 512), (48, 200, 512), (48, 21, 512)]
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
@@ -361,6 +397,20 @@ PROBE_CHECK_UTTS = 16
 TIMIT_TRAIN, TIMIT_TEST, TIMIT_SECONDS = 24, 12, 2.0
 SUP_SPEAKERS = 4
 SUP_BATCH = 4
+# phase 20: the WaveRNN recipe and its worker cfg, the head at the cfg's
+# widths, the card-vs-CPU check's batch and samples and its logit bound,
+# the CLI epoch's cut chunk (whole 160-sample frames, and at least the
+# 3328 samples the *_long targets' deltas need), generate's batch and
+# frames, and the encoder train step's batch
+WAVERNN_RECIPE = "recipes/run_pase_wavernn.sh"
+WAVERNN_CFG = os.path.join(HERE, "cfg", "workers", "workers+wavernn.cfg")
+WAVERNN_HEAD = dict(num_inputs=256, rnn_dims=512, fc_dims=512, bits=9,
+                    pad=2, upsample_scales=(4, 4, 10), res_out_dims=128)
+WAVERNN_CHECK = (2, 1600)
+WAVERNN_LOGIT_REL = 1e-4
+WAVERNN_CLI_CHUNK = 3360
+GENERATE_SHAPE = (2, 10)
+RNN_STEP_SHAPE = (32, 32000)
 
 
 class SmokeFailure(Exception):
@@ -384,6 +434,13 @@ def recipe_argv(script):
             return recipe_argv(words[1]) + [w for w in words[2:]
                                             if w != "$@"]
     raise ValueError(f"{script}: no training command")
+
+
+def qrnn_layers(module):
+    """The QRNN layers of an encoder module (0 without one, or with an
+    lstm / gru context layer)."""
+    from pase_tpu_torch.nn import QRNN
+    return len(module.rnn.layers) if isinstance(module.rnn, QRNN) else 0
 
 
 def check(cond, msg):
@@ -1006,7 +1063,8 @@ def phase_profile(tr, what="train step"):
 
 def print_profile(prof, what):
     print(f"[profile] {what}: wall"
-          f" {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms,"
+          f" {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms"
+          f" (kernel time; covered by a kernel {prof['covered_ms']:.2f}),"
           f" idle share {prof['idle_share']:.3f}")
     for span, kinds in sorted(prof["split"].items()):
         tot = sum(kinds.values())
@@ -2019,8 +2077,7 @@ def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None):
           f"{grad_err}")
     check(all(a <= TRAIN_GRAD_REL for _, a, _, _ in worst),
           f"{what}: gradient leaves beyond {TRAIN_GRAD_REL}: {worst}")
-    layers = (0 if gpu.model.frontend.rnn is None
-              else len(gpu.model.frontend.rnn.layers))
+    layers = qrnn_layers(gpu.model.frontend)
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers, "qrnn_pool_bwd": layers}
     print(f"[launches] {what} step: {launches} (expected {expected})")
@@ -2143,8 +2200,7 @@ def _cli_run(argv, what, tmp):
     bad = [x for x in logged if not math.isfinite(x[3])]
     check(logged and not bad, f"{what}: non-finite losses {bad[:5]}")
     last = [r for r in recs if r["split"] == "train"][-1]
-    layers = (0 if tr.model.frontend.rnn is None
-              else len(tr.model.frontend.rnn.layers))
+    layers = qrnn_layers(tr.model.frontend)
     steps, evals = tr.bpe, tr.cfg["va_bpe"]
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers * steps,
@@ -2218,21 +2274,23 @@ def phase_variants_train(tmp, bf16_rate):
     return paths
 
 
-def _recipe_cli_argv(tmp, gan=True):
-    """The GAN recipe's flags for a --synthetic run of one epoch: the
-    corpus, statistics and distortion flags dropped (their files are not
-    in the repository), cfg paths under this checkout, and without
-    ``gan`` the --gan_cfg dropped too."""
-    argv, out = recipe_argv(GAN_RECIPE), []
+def _recipe_cli_argv(tmp, gan=True, script=GAN_RECIPE, values=None):
+    """A recipe's flags for a --synthetic run of one epoch: the corpus,
+    statistics and distortion flags dropped (their files are not in the
+    repository), cfg paths under this checkout, without ``gan`` the
+    --gan_cfg dropped too, and ``values`` ({flag: value}) replacing the
+    recipe's."""
+    argv, out = recipe_argv(script), []
     drop = RECIPE_DATA_FLAGS + (() if gan else ("--gan_cfg",))
+    values = {"--epoch": "1", **(values or {})}
     i = 0
     while i < len(argv):
         flag = argv[i]
         if flag in drop:
             i += 2
             continue
-        if flag == "--epoch":
-            out += [flag, "1"]
+        if flag in values:
+            out += [flag, values[flag]]
             i += 2
             continue
         value = argv[i + 1] if i + 1 < len(argv) else None
@@ -2866,6 +2924,334 @@ def phase_probes(tmp):
     return paths
 
 
+def _rnn_encoder_cfg(tmp, rnn_type):
+    """PASE+.cfg with an lstm / gru context layer, written to ``tmp``."""
+    with open(PASEP_CFG) as f:
+        cfg = json.load(f)
+    path = os.path.join(tmp, f"PASE+_{rnn_type}.cfg")
+    with open(path, "w") as f:
+        json.dump(dict(cfg, rnn_type=rnn_type), f)
+    return path
+
+
+def _timed_steps(tr, batches, warm=1):
+    """(steps/s of ``tr.train_step`` over batches[warm:] after the first
+    ``warm`` steps, the last step's losses); every loss finite."""
+    import math
+    import torch
+    for raw in batches[:warm]:
+        tr.train_step(raw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [tr.train_step(raw) for raw in batches[warm:]]
+    torch.cuda.synchronize()
+    rate = (len(batches) - warm) / (time.perf_counter() - t0)
+    bad = [(k, float(v)) for ls in losses for k, v in ls.items()
+           if not math.isfinite(float(v))]
+    check(not bad, f"non-finite losses {bad[:5]}")
+    return rate, losses[-1]
+
+
+def _busy_split(kinds):
+    """Device ms per step by kind ({kind: ms}) as cuDNN's recurrent
+    kernels, GEMMs, convolutions and the rest."""
+    out = {"rnn": 0.0, "matmul": 0.0, "conv": 0.0, "rest": 0.0}
+    for kind, ms in kinds.items():
+        key = ("conv" if kind.startswith("conv") else
+               kind if kind in ("rnn", "matmul") else "rest")
+        out[key] += ms
+    return out
+
+
+def _wavernn_card_vs_cpu(mode):
+    """The WaveRNN head at the cfg's widths, train mode, on the card and
+    on the CPU from the same weights and inputs: the logits within
+    WAVERNN_LOGIT_REL of their largest, the loss within 1e-4, and the
+    gradients under the CPU loss's cotangent (MoL's branch at cdf_delta =
+    1e-5 is a kink) by phase 7's rule: relu inputs of opposite sign only
+    within FLIP_REL of their module's largest from 0, and the CPU's relus
+    on the card's side of their kink. Returns the card's head."""
+    import torch
+    from pase_tpu_torch.grad_parity import (group_errors, prelu_signs,
+                                            sign_flips, worst_leaves)
+    from pase_tpu_torch.wavernn import (WaveRNNMinion,
+                                        discretized_mix_logistic_loss,
+                                        raw_loss)
+    b, t = WAVERNN_CHECK
+    rng = np.random.RandomState(12)
+    mels = torch.from_numpy(rng.randn(b, 256, t // 160 + 4)
+                            .astype(np.float32))
+    wav = torch.from_numpy(np.clip(rng.randn(b, t) * 0.3, -1, 1)
+                           .astype(np.float32))
+    x_prev = torch.nn.functional.pad(wav, (1, 0))[:, :-1]
+    cpu = WaveRNNMinion(256, mode=mode, generator=torch.Generator()
+                        .manual_seed(13), **WAVERNN_HEAD).train()
+    gpu = WaveRNNMinion(256, mode=mode, **WAVERNN_HEAD).cuda().train()
+    gpu.load_state_dict(cpu.state_dict())
+
+    def loss_of(y, target):
+        return (raw_loss(y, target, bits=WAVERNN_HEAD["bits"])
+                if mode == "RAW" else discretized_mix_logistic_loss(y, target))
+
+    x_gpu, x_cpu = {}, {}
+    t0 = time.perf_counter()
+    with prelu_signs(gpu, record=x_gpu):
+        yg = gpu(x_prev.cuda(), mels.cuda())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with prelu_signs(cpu, record=x_cpu,
+                     force={k: x > 0 for k, x in x_gpu.items()}):
+        yc = cpu(x_prev, mels)
+    lc = yc.detach().requires_grad_()
+    loss_c = loss_of(lc, wav)
+    loss_c.backward()
+    yc.backward(lc.grad)
+    yg.backward(lc.grad.cuda())
+    flips = sign_flips(x_gpu, x_cpu)
+    far = max([r for _, r in flips.values()], default=0.0)
+    loss_g = loss_of(yg.detach(), wav.cuda()).item()
+    rel_y = ((yg.detach().cpu() - yc.detach()).abs().max()
+             / yc.abs().max()).item()
+    rel_l = abs(loss_g - loss_c.item()) / abs(loss_c.item())
+    gg = {f"w.{k}": p.grad.cpu() for k, p in gpu.named_parameters()}
+    gc = {f"w.{k}": p.grad for k, p in cpu.named_parameters()}
+    grad_err = group_errors(gg, gc)["minion"]
+    worst = worst_leaves(gg, gc, n=3)
+    print(f"[recurrent] WaveRNN head {mode} (256 in, rnn 512, fc 512, "
+          f"{gpu.n_classes} outputs), batch {b} x {t}, train mode, card "
+          f"vs cpu: max|dy| / max|y| {rel_y:.2e} (bound "
+          f"{WAVERNN_LOGIT_REL}); loss {loss_g:.6f} vs {loss_c.item():.6f}"
+          f" ({rel_l:.2e}, bound {TRAIN_LOSS_REL}); relu inputs of "
+          f"opposite sign {sum(n for n, _ in flips.values())}, the largest "
+          f"|x| {far:.2e} of its module's max (bound {FLIP_REL}); "
+          f"gradients under the cpu's cotangent, its relus on the card's "
+          f"side: max|dg| / max|g| {grad_err:.2e} (bound "
+          f"{TRAIN_GRAD_REL}); worst leaves: " + "; ".join(
+              f"{k[2:]} {a:.2e}" for k, a, _, _ in worst)
+          + f"; the card's forward {ms:.1f} ms (first call)")
+    check(far <= FLIP_REL, f"WaveRNN {mode}: a relu input {far:.3e} of "
+          f"its module's max from 0 has opposite signs: {flips}")
+    check(rel_y <= WAVERNN_LOGIT_REL, f"WaveRNN {mode} logits {rel_y:.3e}")
+    check(rel_l <= TRAIN_LOSS_REL, f"WaveRNN {mode} loss {rel_l:.3e}")
+    check(grad_err <= TRAIN_GRAD_REL, f"WaveRNN {mode} gradients "
+          f"{grad_err:.3e}")
+    check(all(a <= TRAIN_GRAD_REL for _, a, _, _ in worst),
+          f"WaveRNN {mode} gradient leaves {worst}")
+    check(all(gpu.upsample.get_parameter(f"up_{i}_kernel").grad.abs().max()
+              > 0 for i in range(3)), "no gradient reached up_i_kernel")
+    return gpu
+
+
+def _rnn_encoders(tmp, raw):
+    """Phase 20 (a): PASE+ with an lstm / gru context layer: serving card
+    vs cpu, an exported bucket against the offline encoder, the lstm
+    encoder's step card vs cpu and its rate at RNN_STEP_SHAPE."""
+    import torch
+    from pase_tpu_torch import serving
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.trainer import Trainer
+    paths = {}
+    for rt in ("lstm", "gru"):
+        cfg = _rnn_encoder_cfg(tmp, rt)
+        reset_launches()                 # this encoder's path starts
+        enc, _ = phase_encoder("cuda", cfg=cfg, reps=3)
+        launches = read_launches()       # ... and ends here
+        print(f"[recurrent] PASE+ {rt} (BiRNN 2 x 256): launches "
+              f"{launches}")
+        check(all(v == 0 for v in launches.values()),
+              f"{rt} encoder launched a QRNN kernel: {launches}")
+        paths[f"{rt}_serving"] = launches
+        out = os.path.join(tmp, f"art_{rt}")
+        t0 = time.perf_counter()
+        serving.export_encoder(enc, out, chunk_sizes=(EXPORT_CHUNK,))
+        export_s = time.perf_counter() - t0
+        wav = (np.random.RandomState(14).randn(EXPORT_CHUNK) * 0.1).astype(
+            np.float32)
+        got = serving.ServingEncoder(out).encode(wav)
+        want = enc(wav[None, None])[0].cpu().numpy()
+        err = float(np.abs(got - want).max())
+        print(f"[recurrent] PASE+ {rt}: export of the {EXPORT_CHUNK} "
+              f"bucket {export_s:.2f} s; serve-encode of a 1 s wav against "
+              f"the offline encoder max|dy| {err:.2e} (bound {SERVE_TOL})")
+        check(err <= SERVE_TOL, f"{rt} artifact vs offline {err:.3e}")
+        del enc
+    cfg = _rnn_encoder_cfg(tmp, "lstm")
+    paths["lstm_step"] = _variant_step(
+        cfg, WORKERSP_CFG, raw, "PASE+ lstm + workers+",
+        os.path.join(tmp, "lstm_step"))
+    b, t = RNN_STEP_SHAPE
+    tr = Trainer(cfg, WORKERSP_CFG, dict(
+        backprop_mode="base", hop=160, bpe=100, epoch=1, batch_size=b,
+        chunk_size=t, save_path=os.path.join(tmp, "lstm_rate")),
+        device="cuda")
+    batcher = DeviceSyntheticBatcher(b, t, seed=11)
+    rate, _ = _timed_steps(tr, [batcher.make_batch() for _ in range(4)])
+    print(f"[recurrent] PASE+ lstm + workers+ train step at {b} x {t}, "
+          f"float32: {rate:.3f} steps/s (3 steps after 1), every loss "
+          "finite")
+    del tr
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _gru_head_step(tmp, raw):
+    """Phase 20 (b): workers+ with its prosody head a GRU head (r 1: one
+    frame out), a full-width step card vs cpu."""
+    from pase_tpu_torch.model import parse_workers_cfg
+    workers = parse_workers_cfg(WORKERSP_CFG)
+    for e in workers["regr"]:
+        if e["name"] == "prosody":
+            e.update(type="gru", hidden_size=256, hidden_layers=2)
+            e.pop("r", None)
+    return {"gru_head_step": _variant_step(
+        PASEP_CFG, workers, raw, "PASE+ workers+, prosody a GRU head",
+        os.path.join(tmp, "gru_head_step"))}
+
+
+def _wavernn_recipe_step(tmp):
+    """Phase 20 (d): the WaveRNN recipe's step at its own shape in this
+    process (its flags through the CLI's parser), against the same
+    settings with workers+: steps/s, a profiled step's busy split, idle
+    share, peak memory, the training kernels once each per step."""
+    import torch
+    from pase_tpu_torch import train as train_cli
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.profiling import profile_calls
+    from pase_tpu_torch.trainer import Trainer
+    paths, rates, profs, peaks = {}, {}, {}, {}
+    for label, net in (("workers+wavernn", WAVERNN_CFG),
+                       ("workers+", WORKERSP_CFG)):
+        run = os.path.join(tmp, "rate_" + label)
+        opts = train_cli.build_argparser().parse_args(
+            _recipe_cli_argv(run, script=WAVERNN_RECIPE,
+                             values={"--net_cfg": net}))
+        cfg = dict(vars(opts), bpe=100, va_bpe=10,
+                   random_scale=train_cli.str2bool(opts.random_scale))
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(opts.fe_cfg, opts.net_cfg, cfg, device="cuda")
+        batcher = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
+                                         seed=15)
+        reset_launches()                 # the recipe's steps start here
+        rates[label], last = _timed_steps(
+            tr, [batcher.make_batch() for _ in range(4)])
+        launches = read_launches()       # ... and end here
+        peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = {**{k: 0 for k in launches},
+                    "qrnn_pool_fwd_train": 4, "qrnn_pool_bwd": 4}
+        check(launches == expected, f"{label} step launches {launches}")
+        if net == WAVERNN_CFG:
+            paths["wavernn_step"] = launches
+            check("wavernn" in last, "the recipe ran without its worker")
+            print(f"[recurrent] the recipe's step: wavernn loss "
+                  f"{float(last['wavernn']):.4f} (log 512 = "
+                  f"{np.log(512):.4f}), total {float(last['total']):.4f}")
+        raw = batcher.make_batch()
+        # the card's activity alone: per-op host events for a step of
+        # 325k kernels take minutes to read
+        profs[label] = profile_calls([lambda: tr.train_step(raw)],
+                                     warmup=0, spans=False)
+        del tr
+        torch.cuda.empty_cache()
+    split = {k: _busy_split(p["split"]["all"]) for k, p in profs.items()}
+    w, p = "workers+wavernn", "workers+"
+    # the profiled step's wall is longer than an unprofiled one (the
+    # profiler records every kernel): the idle share of the unprofiled
+    # step takes the covered time over the timed steps' wall
+    idle = {k: max(0.0, 1.0 - profs[k]["covered_ms"] * rates[k] / 1e3)
+            for k in profs}
+    print(f"[recurrent] the WaveRNN recipe (batch 16 x 32000, bf16): "
+          f"{rates[w]:.4f} steps/s, the same settings with workers+ "
+          f"{rates[p]:.3f} ({rates[w] / rates[p]:.4f}x); device busy ms "
+          f"per step: kernel time {profs[w]['busy_ms']:.2f} (cuDNN RNN "
+          f"{split[w]['rnn']:.2f}, GEMM {split[w]['matmul']:.2f}, conv "
+          f"{split[w]['conv']:.2f}, rest {split[w]['rest']:.2f}) against "
+          f"{profs[p]['busy_ms']:.2f}, covered by a kernel "
+          f"{profs[w]['covered_ms']:.2f} / {profs[p]['covered_ms']:.2f}; "
+          f"wall {profs[w]['wall_ms']:.1f} / "
+          f"{profs[p]['wall_ms']:.1f} ms profiled, {1e3 / rates[w]:.1f} / "
+          f"{1e3 / rates[p]:.1f} unprofiled; idle share 1 - covered / "
+          f"wall {idle[w]:.3f} / {idle[p]:.3f} (of the profiled wall "
+          f"{profs[w]['idle_share']:.3f} / {profs[p]['idle_share']:.3f}); "
+          f"kernels per step {profs[w]['launches']['all']:.0f} / "
+          f"{profs[p]['launches']['all']:.0f} (one profiled step each); peak "
+          f"memory "
+          f"{peaks[w]:.2f} / {peaks[p]:.2f} GiB")
+    check(split[w]["rnn"] > 0, "no cuDNN RNN time in the recipe's step")
+    return paths
+
+
+def _wavernn_cli(tmp):
+    """Phase 20 (e): the recipe's CLI for one epoch, its chunk cut to
+    WAVERNN_CLI_CHUNK so that the epoch fits the run."""
+    import torch
+    check((48, WAVERNN_CLI_CHUNK // 160, 512) in TRAIN_QRNN_SHAPES,
+          "phase 3 does not check K2 at the cut CLI's shape")
+    run = os.path.join(tmp, "cli_wavernn")
+    torch.cuda.reset_peak_memory_stats()
+    tr, launches, _, last = _cli_run(
+        _recipe_cli_argv(run, script=WAVERNN_RECIPE, values={
+            "--chunk_size": str(WAVERNN_CLI_CHUNK)}),
+        f"the WaveRNN recipe, chunk cut to {WAVERNN_CLI_CHUNK}", run)
+    check("wavernn" in last, "the recipe's CLI logged no wavernn loss")
+    print(f"[recurrent] the recipe's CLI: step {last['step']} wavernn "
+          f"{last['wavernn']:.4f}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"wavernn_cli": launches}
+
+
+def _wavernn_generate(head):
+    """Phase 20 (f): generate RAW with the card's head at GENERATE_SHAPE:
+    us per sample, and the teacher-forced forward on its own samples
+    against its loop's logits."""
+    import torch
+    from pase_tpu_torch.wavernn import generate
+    b, frames = GENERATE_SHAPE
+    mels = torch.from_numpy(np.random.RandomState(16).randn(
+        b, 256, frames + 4).astype(np.float32)).cuda()
+    reset_launches()                     # generate's path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav, fed, logits = generate(
+        head, mels, torch.Generator(device="cuda").manual_seed(17),
+        return_logits=True)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e6 / wav.shape[1]
+    launches = read_launches()           # ... and ends here
+    x_prev = torch.nn.functional.pad(fed, (1, 0))[:, :-1]
+    with torch.no_grad():
+        tf = head.eval()(x_prev, mels)
+    rel = ((tf - logits).abs().max() / logits.abs().max()).item()
+    print(f"[recurrent] generate RAW, batch {b} x {wav.shape[1]} samples: "
+          f"{us:.1f} us per sample (one Python-launched step each); the "
+          f"teacher-forced forward on its samples against its loop's "
+          f"logits {rel:.2e} of max|logits| (bound {WAVERNN_LOGIT_REL}); "
+          f"|wav| <= {wav.abs().max().item():.4f}")
+    check(rel <= WAVERNN_LOGIT_REL, f"generate vs teacher forcing {rel}")
+    check(wav.abs().max().item() <= 1 + 1e-5, "generate out of [-1, 1]")
+    check(all(v == 0 for v in launches.values()),
+          f"generate launched a QRNN kernel {launches}")
+    return {"wavernn_generate": launches}
+
+
+def phase_recurrent(tmp):
+    """Phase 20: the recurrent layers on the card (cuDNN's LSTM / GRU):
+    the lstm / gru encoders, a GRU head, the WaveRNN worker and its
+    recipe, and generate. Returns {path: launch counts}."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=10)))
+    paths = _rnn_encoders(tmp, raw)
+    paths.update(_gru_head_step(tmp, raw))
+    heads = {mode: _wavernn_card_vs_cpu(mode) for mode in ("RAW", "MOL")}
+    paths.update(_wavernn_recipe_step(tmp))
+    paths.update(_wavernn_cli(tmp))
+    paths.update(_wavernn_generate(heads["RAW"]))
+    print(f"[recurrent] phase 20 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -2886,12 +3272,19 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     tmp = tempfile.mkdtemp(prefix="pase_chip_train_")
+    t_start = time.perf_counter()
+
+    def clock(phases):
+        print(f"[clock] phase {phases} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     try:
         name = phase_device()
         import torch
         phase_build()
         rows = phase_kernel()
         train_rows = phase_kernel_train()
+        clock("1-3, 6")
         reset_launches()                    # the serving path starts here
         enc, enc_calls = phase_encoder("cuda")
         serve_calls = phase_serve(enc, "cuda")
@@ -2907,10 +3300,12 @@ def main():
               f"serving launches {serving_launches} != {expected}")
         phase_operator(enc)
         del enc
+        clock("4-5")
         phase_train_parity(os.path.join(tmp, "parity"))
         tr, train_launches, _ = phase_train_cli(os.path.join(tmp, "cli"))
         phase_profile(tr)
         del tr
+        clock(7)
         dist_perf = {}
         for dtype in ("bfloat16", "float32"):
             tr, _, dist_perf[dtype] = phase_train_dist(
@@ -2919,23 +3314,35 @@ def main():
             del tr
             torch.cuda.empty_cache()
         check_bench_distortions()
+        clock(8)
         convs = phase_conv()
+        clock(9)
         phase_trajectory(os.path.join(tmp, "trajectory"))
         torch.cuda.empty_cache()
+        clock(10)
         phase_resume()
+        clock(11)
         phase_disk(os.path.join(tmp, "disk"),
                    dist_perf["bfloat16"]["steps_per_sec"])
+        clock(12)
         paths = {"serving": serving_launches, "training": train_launches}
         stream_paths, k1 = phase_stream()
         paths.update(stream_paths)
+        clock(13)
         paths["export"] = phase_export()
         phase_overlap()
+        clock("14-15")
         paths.update(phase_variants_train(
             os.path.join(tmp, "variants"),
             dist_perf["bfloat16"]["steps_per_sec"]))
         paths.update(phase_variants_serve())
+        clock("16-17")
         paths.update(phase_gan(os.path.join(tmp, "gan")))
+        clock(18)
         paths.update(phase_probes(os.path.join(tmp, "probes")))
+        clock(19)
+        paths.update(phase_recurrent(os.path.join(tmp, "recurrent")))
+        clock(20)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -36,6 +36,14 @@ that layout loads with ``load_state_dict(strict=True)``.
   ``batch_stats/``) <-> ``frontend.*`` and ``workers.<worker>.*``. A
   transposed-conv kernel [K, Cout, Cin] <-> weight [Cin, Cout, K] is the
   same transpose as a conv's. ``load_model_variables`` loads strictly.
+* A BiRNN leaf ``l{k}_{fw,bw}_{w,b}_{ih,hh}`` <-> torch's
+  ``{weight,bias}_{ih,hh}_l{k}[_reverse]``, the same array: the JAX
+  module keeps torch's layout and gate order. A flax GRU / LSTM cell (its
+  Denses ``ir/kernel`` ... ``hn/bias`` under the cell's name: a GRU
+  head's ``gru_{i}``, WaveRNN's ``rnn1_cell`` / ``rnn2_cell``) <-> the
+  port's ``nn.FlaxRNN`` of that name (``weight_ih``, ``weight_hh``,
+  ``bias_ih`` + ``bias_hn`` or ``bias_hh``), kernels transposed and
+  stacked in torch's gate order. Adam's moments map the same way.
 """
 
 import json
@@ -45,8 +53,19 @@ import re
 import numpy as np
 import torch
 
+from pase_tpu_torch.nn import flax_cell_to_torch, torch_cell_to_flax
+
 _INDEXED = re.compile(r"^(blocks|denseskips)_(\d+)$")
 _QRNN_LAYER = re.compile(r"^layers_(\d+)_linear$")
+# a BiRNN leaf: JAX l{k}_{fw,bw}_{w,b}_{ih,hh} <-> torch's nn.LSTM / nn.GRU
+# {weight,bias}_{ih,hh}_l{k}[_reverse], the same array (no transpose)
+_BIRNN_JAX = re.compile(r"^l(\d+)_(fw|bw)_([wb])_(ih|hh)$")
+_BIRNN_TORCH = re.compile(r"^(weight|bias)_(ih|hh)_l(\d+)(_reverse)?$")
+# the leaves of a flax GRU / LSTM cell ('ir/kernel', ..., 'hn/bias') and
+# of its port, nn.FlaxRNN
+_CELL_DENSES = {"ir", "iz", "in", "hr", "hz", "hn",
+                "ii", "if", "ig", "io", "hi", "hf", "hg", "ho"}
+_CELL_TORCH = ("weight_ih", "weight_hh", "bias_ih", "bias_hn", "bias_hh")
 _COLLECTIONS = ("params", "batch_stats")
 _LEAF_TO_TORCH = {"low_hz": "low_hz_", "band_hz": "band_hz_",
                   "mean": "running_mean", "var": "running_var"}
@@ -102,17 +121,62 @@ def _module_path_to_torch(parts):
     return out
 
 
+def _cells_to_torch(flat):
+    """Pull the flax GRU / LSTM cells out of JAX flattened variables:
+    (the other leaves, {'<torch module path>.<FlaxRNN leaf>': tensor})."""
+    cells, rest = {}, {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if len(parts) >= 4 and parts[-2] in _CELL_DENSES:
+            cells.setdefault(tuple(parts[1:-2]), {}).setdefault(
+                parts[-2], {})[parts[-1]] = arr
+        else:
+            rest[key] = arr
+    sd = {}
+    for path, tree in cells.items():
+        cell = "gru" if "hn" in tree and "hr" in tree else "lstm"
+        pre = ".".join(_module_path_to_torch(list(path)))
+        for k, v in flax_cell_to_torch(tree, cell).items():
+            sd[f"{pre}.{k}"] = v
+    return rest, sd
+
+
+def _cells_to_jax(state_dict):
+    """The inverse: (the other entries, {'params/<JAX path>/<dense>/...':
+    array}) of a state dict whose ``FlaxRNN`` modules hold
+    ``weight_hh`` (a plain name: BiRNN's carry a layer suffix)."""
+    prefixes = {k[:-len(".weight_hh")] for k in state_dict
+                if k.endswith(".weight_hh")}
+    rest, flat = {}, {}
+    for pre in prefixes:
+        sd = {leaf: state_dict[f"{pre}.{leaf}"].detach().cpu().numpy()
+              for leaf in _CELL_TORCH if f"{pre}.{leaf}" in state_dict}
+        path = "/".join(_module_path_to_jax(pre.split(".")))
+        for k, v in torch_cell_to_flax(sd).items():
+            flat[f"params/{path}/{k}"] = v
+    for k, v in state_dict.items():
+        pre, _, leaf = k.rpartition(".")
+        if not (pre in prefixes and leaf in _CELL_TORCH):
+            rest[k] = v
+    return rest, flat
+
+
 def variables_to_state_dict(flat):
     """JAX flattened variables ({'params/blocks_1/conv/kernel': array, ...})
     -> the port's state dict ({'blocks.1.conv.weight': tensor, ...})."""
-    sd = {}
+    flat, sd = _cells_to_torch(flat)
     for key, arr in flat.items():
         parts = key.split("/")
         if parts[0] not in _COLLECTIONS:
             raise KeyError(f"unexpected collection in {key!r}")
         *path, leaf = parts[1:]
         arr = np.asarray(arr)
-        if leaf == "kernel":
+        birnn = _BIRNN_JAX.match(leaf)
+        if birnn:
+            k, d, kind, side = birnn.groups()
+            leaf = (f"{'weight' if kind == 'w' else 'bias'}_{side}_l{k}"
+                    f"{'_reverse' if d == 'bw' else ''}")
+        elif leaf == "kernel":
             arr, leaf = _flip_conv(arr), "weight"
         elif leaf == "v" and arr.ndim == 3:
             arr = _flip_conv(arr)         # a weight-norm conv's direction
@@ -146,13 +210,18 @@ def state_dict_to_variables(state_dict):
     """The port's state dict -> JAX flattened variables (numpy), the
     inverse of ``variables_to_state_dict``. ``num_batches_tracked`` has no
     JAX counterpart and is dropped."""
-    flat = {}
+    state_dict, flat = _cells_to_jax(state_dict)
     for tkey, t in state_dict.items():
         *path, leaf = tkey.split(".")
         if leaf == "num_batches_tracked":
             continue
         arr = t.detach().cpu().numpy()
-        if leaf in _LEAF_TO_JAX:
+        birnn = _BIRNN_TORCH.match(leaf)
+        if birnn:
+            kind, side, k, rev = birnn.groups()
+            leaf = (f"l{k}_{'bw' if rev else 'fw'}_"
+                    f"{'w' if kind == 'weight' else 'b'}_{side}")
+        elif leaf in _LEAF_TO_JAX:
             leaf = _LEAF_TO_JAX[leaf]
         elif leaf == "weight" and arr.ndim >= 2:
             arr, leaf = _flip_conv(arr), "kernel"
@@ -206,12 +275,14 @@ def model_variables_to_state_dict(flat):
     'params/lps/blocks_0/W/kernel': array, ...}) -> the state dict of
     ``model.PASE`` ({'frontend.W.weight': tensor,
     'workers.lps.blocks.0.W.weight': tensor, ...})."""
-    sd = {}
+    groups = {}
     for key, arr in flat.items():
         col, top, *rest = key.split("/")
+        groups.setdefault(top, {})["/".join([col] + rest)] = arr
+    sd = {}
+    for top, sub in groups.items():
         prefix = "frontend." if top == "frontend" else f"workers.{top}."
-        for k, v in variables_to_state_dict(
-                {"/".join([col] + rest): arr}).items():
+        for k, v in variables_to_state_dict(sub).items():
             sd[prefix + k] = v
     return sd
 
@@ -219,14 +290,17 @@ def model_variables_to_state_dict(flat):
 def model_state_dict_to_variables(state_dict):
     """The inverse of ``model_variables_to_state_dict``
     (``num_batches_tracked`` is dropped)."""
-    flat = {}
+    groups = {}
     for tkey, t in state_dict.items():
         top, _, rest = tkey.partition(".")
         if top == "workers":
             top, _, rest = rest.partition(".")
         elif top != "frontend":
             raise KeyError(f"unexpected PASE state-dict key {tkey!r}")
-        for k, v in state_dict_to_variables({rest: t}).items():
+        groups.setdefault(top, {})[rest] = t
+    flat = {}
+    for top, sub in groups.items():
+        for k, v in state_dict_to_variables(sub).items():
             col, _, path = k.partition("/")
             flat[f"{col}/{top}/{path}"] = v
     return flat

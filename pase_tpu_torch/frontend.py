@@ -4,9 +4,10 @@
 strided FeBlocks (stride product 160 -> 100 Hz frames at 16 kHz), or with
 ``resblocks`` FeResBlocks after the SincNet layer (the stride as nearest
 decimation), optional dense skips (mean-pooled to the output rate, then a
-bias-free 1x1 projection, summed or concatenated), optional window-2 QRNN
-context layer, 1x1 projection ``W`` to ``emb_dim``, optional affine-free
-output normalization (BatchNorm with norm_type bnorm, else InstanceNorm,
+bias-free 1x1 projection, summed or concatenated), an optional context
+layer (``rnn_type`` qrnn: the window-2 QRNN; lstm / gru: a bidirectional
+``nn.BiRNN`` of rnn_dim // 2 each way), 1x1 projection ``W`` to
+``emb_dim``, optional affine-free output normalization (BatchNorm with norm_type bnorm, else InstanceNorm,
 as in JAX), optional tanh, and with ``vq_K`` the
 VQ-EMA quantizer (``nn.VQEMA``) last. The quantizer's commitment loss and
 code perplexity of the last call are ``vq_loss`` and ``vq_perplexity``
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, VQEMA, BatchNorm1d,
+from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, VQEMA, BatchNorm1d, BiRNN,
                                Conv1D, FeBlock, FeResBlock, InstanceNorm1d,
                                QRNN)
 
@@ -69,11 +70,8 @@ class WaveFe(nn.Module):
                  tanh_out=False, resblocks=False, denseskips=False,
                  densemerge="sum", generator=None):
         super().__init__()
-        if rnn_pool and str(rnn_type).lower() != "qrnn":
-            if str(rnn_type).lower() in ("lstm", "gru"):
-                raise NotImplementedError(
-                    f"WaveFe rnn_type={rnn_type!r} is not ported yet: "
-                    f"{ROADMAP_OFF_SLICE}")
+        rnn_type = str(rnn_type).lower()
+        if rnn_pool and rnn_type not in ("qrnn", "lstm", "gru"):
             raise TypeError(f"Unrecognized rnn type: {rnn_type}")
         if densemerge not in ("sum", "concat"):
             raise TypeError(f"Unknown densemerge: {densemerge}")
@@ -108,8 +106,15 @@ class WaveFe(nn.Module):
         self.rnn = None
         if rnn_pool:
             rnn_dim = rnn_dim if rnn_dim is not None else emb_dim
-            self.rnn = QRNN(cin, rnn_dim, layers=rnn_layers,
-                            dropout=rnn_dropout, generator=generator)
+            if rnn_type == "qrnn":
+                self.rnn = QRNN(cin, rnn_dim, layers=rnn_layers,
+                                dropout=rnn_dropout, generator=generator)
+            else:
+                # the reference's torch LSTM / GRU branch: bidirectional,
+                # rnn_dim // 2 each way, rnn_dim features out
+                self.rnn = BiRNN(cin, rnn_dim // 2, layers=rnn_layers,
+                                 cell=rnn_type, dropout=rnn_dropout,
+                                 generator=generator)
             cin = rnn_dim
         self.W = Conv1D(cin, emb_dim, 1, generator=generator)
         # a skip after every block but the last; the bias-free projection

@@ -66,22 +66,24 @@ def group_of(name):
 
 @contextlib.contextmanager
 def prelu_signs(model, record=None, force=None):
-    """Within the block, each PReLU of ``model`` puts its input (detached,
-    on the CPU) into ``record`` under its module name; with ``force`` (name
-    -> bool mask), it computes where(mask, x, slope * x) instead, so its
-    derivative takes the mask's side of the kink rather than its own
-    input's sign."""
+    """Within the block, each PReLU (and ReLU module, slope 0) of ``model``
+    puts its input (detached, on the CPU) into ``record`` under its module
+    name; with ``force`` (name -> bool mask), it computes where(mask, x,
+    slope * x) instead, so its derivative takes the mask's side of the
+    kink rather than its own input's sign."""
     def hook(name):
         def fn(mod, inputs, out):
             x = inputs[0]
             if record is not None:
                 record[name] = x.detach().cpu()
             if force is not None:
-                slope = mod.weight.view(1, -1, *([1] * (x.dim() - 2)))
+                slope = (mod.weight.view(1, -1, *([1] * (x.dim() - 2)))
+                         if isinstance(mod, nn.PReLU) else 0.0)
                 return torch.where(force[name].to(x.device), x, slope * x)
         return fn
     hooks = [m.register_forward_hook(hook(n))
-             for n, m in model.named_modules() if isinstance(m, nn.PReLU)]
+             for n, m in model.named_modules()
+             if isinstance(m, (nn.PReLU, nn.ReLU))]
     try:
         yield
     finally:

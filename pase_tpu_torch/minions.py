@@ -13,19 +13,21 @@ names:
                       window) against (current frame, past window), BCE.
 * ``GapMinion``     — temporal gap regression: a frame pair per sample,
                       predicts |a - b| / (T - 1).
+* ``GRUMinion``     — ``hidden_layers`` flax-cell GRUs over time (one
+                      direction, from h = 0; ``nn.FlaxRNN``), then a 1x1
+                      conv.
 * ``make_mi_samples`` / ``make_mi_labels`` — LIM / GIM pair synthesis.
 * ``scale_grad``    — identity forward, gradient times alpha backward.
 
 The SPC and Gap frame indices are drawn on the tensor's device from the
 ``torch.Generator`` the caller passes (the trainer seeds one per step
-from (seed, step)), or injected (``idx``) by a parity harness. The GRU
-head is later work (ROADMAP.md, queue 1: off-path model variants).
+from (seed, step)), or injected (``idx``) by a parity harness.
 """
 
 import torch
 from torch import nn
 
-from pase_tpu_torch.nn import Conv1D, GDeconv1DBlock, MLPBlock
+from pase_tpu_torch.nn import Conv1D, FlaxRNN, GDeconv1DBlock, MLPBlock
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -117,6 +119,30 @@ class DecoderMinion(nn.Module):
         for block in self.blocks:
             h = block(h)
         return self.W(h)
+
+
+class GRUMinion(nn.Module):
+    """GRU head: [B, C, T] -> [B, num_outputs, T]. ``hidden_layers`` flax
+    GRU cells of ``hidden_size`` scanned over time (``gru_{i}``), then
+    the 1x1 conv ``W``. ``dropout`` and ``skip`` are accepted and unused,
+    as in JAX."""
+
+    def __init__(self, in_channels, num_outputs, hidden_size=256,
+                 hidden_layers=2, dropout=0.0, skip=True, generator=None):
+        super().__init__()
+        self.hidden_layers = hidden_layers
+        cin = in_channels
+        for i in range(hidden_layers):
+            self.add_module(f"gru_{i}", FlaxRNN(cin, hidden_size, "gru",
+                                                generator=generator))
+            cin = hidden_size
+        self.W = Conv1D(cin, num_outputs, 1, generator=generator)
+
+    def forward(self, x, alpha=1.0):
+        h = scale_grad(x, alpha).transpose(1, 2)
+        for i in range(self.hidden_layers):
+            h = getattr(self, f"gru_{i}")(h)
+        return self.W(h.transpose(1, 2))
 
 
 def _refuse(kwargs, who):

@@ -2,10 +2,14 @@
 
 The port of ``pase_tpu/model.py`` for the MLP and decoder heads of the
 workers+ bank, the overlap head (an MLP on the chunk stream, BCE on the
-overlap distortion's frame label) and the SPC and Gap heads of the PASE
+overlap distortion's frame label), the SPC and Gap heads of the PASE
 v0.1 bank (on the chunk stream; their frame draws come from the
 generator the caller passes, or from ``batch['spc_idx']`` /
-``batch['gap_idx']``). The encoder runs ONCE on the
+``batch['gap_idx']``), the GRU head and the WaveRNN vocoder worker
+(``wavernn.py``: the chunk stream's frames, edge-padded by ``pad``,
+condition it; it is teacher-forced on the clean chunk shifted by one
+sample, and its RAW (mu-law cross entropy) or MOL loss reads the clean
+chunk). The encoder runs ONCE on the
 concatenated {chunk, ctxt, rand} batch, so its BatchNorm statistics span
 the three streams together as in the JAX package; every worker reads the
 shared hidden, and the LIM / GIM pairs and labels are made in the
@@ -24,9 +28,11 @@ from torch import nn
 
 from pase_tpu_torch.frontend import build_frontend_module, load_cfg
 from pase_tpu_torch.losses import framed_mse_linear, make_loss
-from pase_tpu_torch.minions import (DecoderMinion, GapMinion, MLPMinion,
-                                    SPCMinion, make_mi_labels,
-                                    make_mi_samples)
+from pase_tpu_torch.minions import (DecoderMinion, GapMinion, GRUMinion,
+                                    MLPMinion, SPCMinion, make_mi_labels,
+                                    make_mi_samples, scale_grad)
+from pase_tpu_torch.wavernn import (WaveRNNMinion,
+                                    discretized_mix_logistic_loss, raw_loss)
 
 ROADMAP_HEADS = "ROADMAP.md, queue 1: off-path model variants"
 
@@ -38,12 +44,15 @@ _MINION_FIELDS = {
     "decoder": ("num_outputs", "fmaps", "strides", "kwidths", "hidden_size",
                 "hidden_layers", "dropout", "dropout_time", "norm_type",
                 "skip"),
+    "gru": ("num_outputs", "hidden_size", "hidden_layers", "dropout", "skip"),
     "spc": ("num_outputs", "hidden_size", "hidden_layers", "ctxt_frames",
             "seq_pad", "dropout", "skip"),
     "gap": ("num_outputs", "hidden_size", "hidden_layers", "dropout", "skip"),
+    "wavernn": ("num_inputs", "rnn_dims", "fc_dims", "bits", "hop_length",
+                "mode", "pad", "upsample_scales", "res_out_dims"),
 }
-_MINION_CLS = {"mlp": MLPMinion, "decoder": DecoderMinion,
-               "spc": SPCMinion, "gap": GapMinion}
+_MINION_CLS = {"mlp": MLPMinion, "decoder": DecoderMinion, "gru": GRUMinion,
+               "spc": SPCMinion, "gap": GapMinion, "wavernn": WaveRNNMinion}
 
 
 def parse_workers_cfg(cfg):
@@ -80,7 +89,7 @@ def _build_minion(cfg, in_channels, generator=None):
             f"worker {cfg['name']!r} (type {mtype!r}) is not ported yet: "
             f"{ROADMAP_HEADS}")
     kwargs = {k: cfg[k] for k in _MINION_FIELDS[mtype] if k in cfg}
-    for seq_key in ("fmaps", "strides", "kwidths"):
+    for seq_key in ("fmaps", "strides", "kwidths", "upsample_scales"):
         if seq_key in kwargs:
             kwargs[seq_key] = tuple(kwargs[seq_key])
     return _MINION_CLS[mtype](in_channels, generator=generator, **kwargs)
@@ -200,6 +209,19 @@ class PASE(nn.Module):
         for i, e in enumerate(self.regr_meta, start=len(self.cls_meta)):
             name = e["name"]
             worker = self.workers[name]
+            if e.get("type") == "wavernn":
+                # teacher-forced vocoder: the previous clean samples and
+                # the edge-padded frames -> per-sample logits; the target
+                # is the clean waveform
+                wav = batch.get("cchunk", batch["chunk"])
+                wav = wav[..., 0] if wav.dim() == 3 else wav
+                pad_f = int(e.get("pad", 2) or 2)
+                mels = nn.functional.pad(scale_grad(chunk, a_of(i)),
+                                         (pad_f, pad_f), mode="replicate")
+                x_prev = nn.functional.pad(wav, (1, 0))[:, :-1]
+                preds[name] = worker(x_prev, mels)
+                labels[name] = wav.detach()
+                continue
             if _fuse_eligible(e):
                 tag, hid, w, b = worker(chunk, a_of(i), return_linear=True)
                 preds[name] = (tag, hid.transpose(1, 2), w, b)
@@ -223,6 +245,13 @@ def worker_losses(model_meta, preds, labels):
             if isinstance(pred, tuple) and pred[0] == "linear":
                 _, hid, w, b = pred
                 val = framed_mse_linear(w, b, hid, labels[name], r)
+            elif e.get("type") == "wavernn":
+                logits = pred.float()
+                if e.get("mode", "RAW") == "MOL":
+                    val = discretized_mix_logistic_loss(logits, labels[name])
+                else:
+                    val = raw_loss(logits, labels[name],
+                                   bits=int(e.get("bits", 9)))
             else:
                 val = make_loss(e["loss"], r=r)(pred, labels[name])
             losses[name] = e.get("loss_weight", 1.0) * val

@@ -32,6 +32,12 @@ reference layout loads with ``load_state_dict(strict=True)``:
                     (ops/cuda_qrnn.py; an autograd Function with the
                     backward kernel when training) on CUDA tensors, the
                     plain versions on CPU tensors.
+* ``BiRNN``       — bidirectional LSTM / GRU context layer in torch's
+                    nn.LSTM / nn.GRU layout (cuDNN on the card).
+* ``FlaxRNN``     — a flax GRU / LSTM cell scanned over time, as torch's
+                    GRU / LSTM with flax's absent biases fixed at zero;
+                    ``flax_cell_to_torch`` / ``torch_cell_to_flax`` bridge
+                    its parameters.
 * ``MLPBlock``    — worker-head block: 1x1 (/context) conv -> PReLU (init
                     0.25) -> dropout.
 * ``Deconv1D`` / ``GDeconv1DBlock`` — transposed-conv upsampling block of
@@ -60,7 +66,9 @@ the owner moves the finished module to its device.
 
 import contextlib
 import math
+import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -567,6 +575,198 @@ def time_blocks(fn, x, frames, dim):
     return torch.cat([fn(x.narrow(dim, i, frames))
                       for i in range(0, t + pad, frames)],
                      dim=dim).narrow(dim, 0, t)
+
+
+def lecun_normal_(weight, generator=None):
+    """flax's default Dense kernel init: truncated normal (at 2 std) of
+    variance 1 / fan_in (torch weight [out, in])."""
+    std = math.sqrt(1.0 / weight.shape[1]) / .87962566103423978
+    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def flax_dense(n_in, n_out, generator=None, bias=True):
+    """A Linear with flax's Dense init: lecun-normal weight, zero bias."""
+    layer = nn.Linear(n_in, n_out, bias=bias)
+    with torch.no_grad():
+        lecun_normal_(layer.weight, generator)
+        if bias:
+            layer.bias.zero_()
+    return layer
+
+
+class BiRNN(nn.RNNBase):
+    """Bidirectional multi-layer LSTM / GRU context block (``pase_tpu/nn.py``
+    BiRNN, the reference's non-QRNN ``build_rnn_block``): NTC in, NTC out
+    with 2 * hidden features (forward ++ backward), zero initial state,
+    float32 whatever the compute policy (the input is cast).
+
+    It is ``nn.LSTM`` / ``nn.GRU``'s base, ``nn.RNNBase``, in their mode
+    (bidirectional, batch-first; one cuDNN call over all layers, the
+    weights flattened into one buffer): parameters ``{weight,bias}_{ih,hh}_l{k}[_reverse]``
+    ([G * H, in], gates i, f, g, o or r, z, n), both biases trained, as in
+    JAX and torch; in training, dropout between layers (not after the
+    last). Init is torch's uniform(+-1/sqrt(hidden)), drawn from
+    ``generator``."""
+
+    def __init__(self, input_size, hidden, layers=1, cell="lstm",
+                 dropout=0.0, generator=None):
+        if cell not in ("lstm", "gru"):
+            raise TypeError(f"Unrecognized rnn type: {cell}")
+        self._init_generator = generator   # read by reset_parameters
+        super().__init__(cell.upper(), input_size, hidden,
+                         num_layers=layers, batch_first=True,
+                         dropout=dropout, bidirectional=True)
+        del self._init_generator
+
+    def reset_parameters(self):
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        for p in self.parameters():
+            _uniform_(p, bound, getattr(self, "_init_generator", None))
+
+    def forward(self, x):
+        h = x.float()
+        zeros = h.new_zeros(2 * self.num_layers, h.shape[0],
+                            self.hidden_size)
+        # cuDNN's 'train' mode keeps the reserve space a backward needs:
+        # taken whenever autograd records, in eval too (no dropout then)
+        train = self.training or torch.is_grad_enabled()
+        p = self.dropout if self.training else 0.0
+        if self.mode == "LSTM":
+            return torch.lstm(h, (zeros, zeros), self._flat_weights, True,
+                              self.num_layers, p, train, True, True)[0]
+        return torch.gru(h, zeros, self._flat_weights, True,
+                         self.num_layers, p, train, True, True)[0]
+
+
+# flax's cell Denses in torch's gate order: (input, hidden) names
+FLAX_GATES = {"gru": (("ir", "hr"), ("iz", "hz"), ("in", "hn")),
+              "lstm": (("ii", "hi"), ("if", "hf"), ("ig", "hg"),
+                       ("io", "ho"))}
+
+
+class FlaxRNN(nn.Module):
+    """A flax ``nn.RNN`` of a ``GRUCell`` or ``LSTMCell`` (one direction,
+    from h = 0, batch-first [B, T, in] -> [B, T, hidden]), run as torch's
+    GRU / LSTM (cuDNN on the card).
+
+    flax's GRU equals torch's with the hidden r and z biases at 0 (its
+    'hr' and 'hz' Denses have no bias; 'hn''s sits inside the r product
+    as torch's does); its LSTM equals torch's with no input bias (the
+    'i*' Denses have none). Those absent biases are zeros made in
+    ``weights``, not parameters, so an optimizer never moves them. The
+    parameters: ``weight_ih`` [G * H, in], ``weight_hh`` [G * H, H] in
+    torch's gate order, and ``bias_ih`` [3H] with ``bias_hn`` [H] (GRU)
+    or ``bias_hh`` [4H] (LSTM). Init as flax's cells: lecun-normal input
+    kernels, orthogonal recurrent ones (per gate), zero biases, drawn
+    from ``generator``. Float32 whatever the compute policy (flax's
+    cells without a dtype promote to their float32 parameters)."""
+
+    def __init__(self, input_size, hidden, cell="gru", generator=None):
+        super().__init__()
+        if cell not in FLAX_GATES:
+            raise ValueError(f"cell {cell!r}: gru or lstm")
+        self.cell, self.hidden = cell, hidden
+        gates = len(FLAX_GATES[cell])
+        self.weight_ih = nn.Parameter(torch.empty(gates * hidden,
+                                                  input_size))
+        self.weight_hh = nn.Parameter(torch.empty(gates * hidden, hidden))
+        with torch.no_grad():
+            for g in range(gates):
+                rows = slice(g * hidden, (g + 1) * hidden)
+                lecun_normal_(self.weight_ih[rows], generator)
+                nn.init.orthogonal_(self.weight_hh[rows],
+                                    generator=generator)
+        if cell == "gru":
+            self.bias_ih = nn.Parameter(torch.zeros(3 * hidden))
+            self.bias_hn = nn.Parameter(torch.zeros(hidden))
+        else:
+            self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+
+    def weights(self):
+        """[w_ih, w_hh, b_ih, b_hh] in torch's layout, flax's absent
+        biases as zeros."""
+        if self.cell == "gru":
+            b_hh = torch.cat([self.bias_hn.new_zeros(2 * self.hidden),
+                              self.bias_hn])
+            return [self.weight_ih, self.weight_hh, self.bias_ih, b_hh]
+        return [self.weight_ih, self.weight_hh,
+                torch.zeros_like(self.bias_hh), self.bias_hh]
+
+    def forward(self, x):
+        """One cuDNN (or CPU) call over batch-first x. cuDNN keeps the
+        reserve space a backward needs only in its 'train' mode, taken
+        whenever autograd records. The weights are separate tensors,
+        which cuDNN copies into one buffer per call (a few MB; its
+        warning about it is silenced)."""
+        x = x.float()
+        h0 = x.new_zeros(1, x.shape[0], self.hidden)
+        train = torch.is_grad_enabled()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "RNN module weights are not",
+                                    UserWarning)
+            if self.cell == "lstm":
+                return torch.lstm(x, (h0, h0), self.weights(), True, 1,
+                                  0.0, train, False, True)[0]
+            return torch.gru(x, h0, self.weights(), True, 1, 0.0, train,
+                             False, True)[0]
+
+    def step(self, x, carry):
+        """One time step: x [B, in] and the carry (h for a GRU, (h, c)
+        for an LSTM) -> the new carry."""
+        if self.cell == "gru":
+            return torch.gru_cell(x.float(), carry, *self.weights())
+        return torch.lstm_cell(x.float(), carry, *self.weights())
+
+    def load_flax(self, tree):
+        """Copy a flax cell's params ({'ir': {'kernel', 'bias'}, ...},
+        numpy or jax arrays) into this module."""
+        sd = flax_cell_to_torch(tree, self.cell)
+        with torch.no_grad():
+            for k, v in sd.items():
+                getattr(self, k).copy_(v)
+        return self
+
+
+def flax_cell_to_torch(tree, cell):
+    """A flax GRU / LSTM cell's params -> this port's ``FlaxRNN`` tensors
+    (kernels [in, H] transposed and stacked in torch's gate order)."""
+    gates = FLAX_GATES[cell]
+
+    def kern(name):
+        return np.asarray(tree[name]["kernel"], np.float32).T
+
+    def bias(name):
+        return np.asarray(tree[name]["bias"], np.float32)
+
+    out = {"weight_ih": np.concatenate([kern(i) for i, _ in gates]),
+           "weight_hh": np.concatenate([kern(h) for _, h in gates])}
+    if cell == "gru":
+        out["bias_ih"] = np.concatenate([bias(i) for i, _ in gates])
+        out["bias_hn"] = bias("hn")
+    else:
+        out["bias_hh"] = np.concatenate([bias(h) for _, h in gates])
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def torch_cell_to_flax(sd):
+    """The inverse: {'weight_ih', 'weight_hh', 'bias_ih' and 'bias_hn' |
+    'bias_hh'} (numpy) -> {'<dense>/kernel' | '<dense>/bias': array}."""
+    cell = "gru" if "bias_hn" in sd else "lstm"
+    gates = FLAX_GATES[cell]
+    h = sd["weight_hh"].shape[1]
+    out = {}
+    for g, (i_name, h_name) in enumerate(gates):
+        rows = slice(g * h, (g + 1) * h)
+        out[f"{i_name}/kernel"] = sd["weight_ih"][rows].T
+        out[f"{h_name}/kernel"] = sd["weight_hh"][rows].T
+        if cell == "gru":
+            out[f"{i_name}/bias"] = sd["bias_ih"][rows]
+        else:
+            out[f"{h_name}/bias"] = sd["bias_hh"][rows]
+    if cell == "gru":
+        out["hn/bias"] = sd["bias_hn"]
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
 class MLPBlock(nn.Module):

@@ -21,8 +21,9 @@ _COMPUTE_DTYPE = None
 
 
 def full_precision():
-    """Feature extraction at full float32 precision (no TF32 matmuls or
-    convolutions), as the JAX package serves at 'highest'."""
+    """Float32 at full precision: no TF32 in matmuls, convolutions or
+    cuDNN's recurrences (``cudnn.allow_tf32`` covers its LSTM / GRU), as
+    the JAX package serves at 'highest'."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

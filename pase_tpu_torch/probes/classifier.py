@@ -13,12 +13,12 @@ with ``seed``) followed by ``fit``; ``mlp_from_jax`` and
 these modules, so both packages can start from the same weights.
 """
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pase_tpu_torch.nn import FlaxRNN, flax_dense
 
 BN_MOMENTUM = 0.95
 BN_EPS = 1e-5
@@ -32,23 +32,6 @@ def context_window(feats, left, right):
     idx = np.arange(t)[:, None] + np.arange(-left, right + 1)[None, :]
     idx = np.clip(idx, 0, t - 1)
     return feats[idx].reshape(t, d * (left + 1 + right))
-
-
-def _lecun_normal_(weight, generator):
-    """flax's default Dense kernel init: truncated normal (at 2 std) of
-    variance 1 / fan_in (torch weight [out, in])."""
-    std = math.sqrt(1.0 / weight.shape[1]) / .87962566103423978
-    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
-                                 generator=generator)
-
-
-def _dense(n_in, n_out, generator, bias=True):
-    layer = nn.Linear(n_in, n_out, bias=bias)
-    with torch.no_grad():
-        _lecun_normal_(layer.weight, generator)
-        if bias:
-            layer.bias.zero_()
-    return layer
 
 
 class FlaxBatchNorm(nn.Module):
@@ -90,11 +73,11 @@ class MLPClassifier(nn.Module):
         self.bn = nn.ModuleList()
         d = in_dim
         for h in hidden:
-            self.dense.append(_dense(d, h, generator))
+            self.dense.append(flax_dense(d, h, generator))
             if batch_norm:
                 self.bn.append(FlaxBatchNorm(h))
             d = h
-        self.out = _dense(d, num_classes, generator)
+        self.out = flax_dense(d, num_classes, generator)
         self.dropout_generator = None
 
     def forward(self, x):
@@ -118,10 +101,10 @@ class LiGRUCell(nn.Module):
     def __init__(self, in_dim, features, generator=None):
         super().__init__()
         self.features = features
-        self.wz = _dense(in_dim, features, generator)
-        self.uz = _dense(features, features, generator, bias=False)
-        self.wh = _dense(in_dim, features, generator)
-        self.uh = _dense(features, features, generator, bias=False)
+        self.wz = flax_dense(in_dim, features, generator)
+        self.uz = flax_dense(features, features, generator, bias=False)
+        self.wh = flax_dense(in_dim, features, generator)
+        self.uh = flax_dense(features, features, generator, bias=False)
 
     def forward(self, h, x):
         z = torch.sigmoid(self.wz(x) + self.uz(h))
@@ -146,23 +129,12 @@ class LiGRU(nn.Module):
 
 
 def _recurrent(cell_type, in_dim, hidden, generator):
-    """A batch-first recurrent layer of flax's cell semantics: torch's GRU
-    (its n gate's hidden bias inside the r product, as flax's 'hn') and
-    LSTM (gates i, f, g, o), or a LiGRU; input kernels lecun-normal,
-    recurrent ones orthogonal, biases 0 (flax's cell inits)."""
+    """A batch-first recurrent layer of flax's cell semantics: a GRU or
+    LSTM ``nn.FlaxRNN`` (flax's absent biases fixed at zero), or a
+    LiGRU."""
     if cell_type == "ligru":
         return LiGRU(in_dim, hidden, generator)
-    cls = {"gru": nn.GRU, "lstm": nn.LSTM}[cell_type]
-    rnn = cls(in_dim, hidden, batch_first=True)
-    n_gates = rnn.weight_ih_l0.shape[0] // hidden
-    with torch.no_grad():
-        for g in range(n_gates):
-            rows = slice(g * hidden, (g + 1) * hidden)
-            _lecun_normal_(rnn.weight_ih_l0[rows], generator)
-            nn.init.orthogonal_(rnn.weight_hh_l0[rows], generator=generator)
-        rnn.bias_ih_l0.zero_()
-        rnn.bias_hh_l0.zero_()
-    return rnn
+    return FlaxRNN(in_dim, hidden, cell_type, generator)
 
 
 class RNNClassifier(nn.Module):
@@ -180,13 +152,11 @@ class RNNClassifier(nn.Module):
         for _ in range(layers):
             self.rnns.append(_recurrent(cell_type, d, hidden, generator))
             d = hidden
-        self.out = _dense(d, num_classes, generator)
+        self.out = flax_dense(d, num_classes, generator)
 
     def forward(self, x):
         for rnn in self.rnns:
             x = rnn(x)
-            if isinstance(x, tuple):
-                x = x[0]
         return F.log_softmax(self.out(x), dim=-1)
 
 
@@ -236,40 +206,16 @@ def mlp_from_jax(variables, model):
 
 def rnn_classifier_from_jax(variables, model):
     """Load a flax ``RNNClassifier``'s params into ``model``; returns it.
-    GRU: torch's b_ih takes flax's input biases (ir, iz, in) and b_hh is
-    zero for r and z and flax's 'hn' bias for n. LSTM: flax's input
-    kernels (ii, if, ig, io) have no bias, its hidden ones do: b_ih is 0,
-    b_hh the hidden biases."""
+    A GRU / LSTM layer takes its cell's tree (``nn.FlaxRNN.load_flax``),
+    a LiGRU its four Denses."""
     flat = _flat(variables)
-
-    def k(name):
-        return flat[f"params/{name}/kernel"].T
-
-    def b(name):
-        return flat[f"params/{name}/bias"]
-
     for i, rnn in enumerate(model.rnns):
         if model.cell_type == "ligru":
             for part in ("wz", "uz", "wh", "uh"):
                 _set_dense(getattr(rnn.cell, part), flat,
                            f"ligru_{i}/{part}")
             continue
-        p = f"{model.cell_type}_{i}"
-        if model.cell_type == "gru":
-            gates = ("r", "z", "n")
-            zero = np.zeros_like(b(f"{p}/hn"))
-            b_ih = np.concatenate([b(f"{p}/i{g}") for g in gates])
-            b_hh = np.concatenate([zero, zero, b(f"{p}/hn")])
-        else:
-            gates = ("i", "f", "g", "o")
-            b_hh = np.concatenate([b(f"{p}/h{g}") for g in gates])
-            b_ih = np.zeros_like(b_hh)
-        _set(rnn.weight_ih_l0,
-             np.concatenate([k(f"{p}/i{g}") for g in gates]))
-        _set(rnn.weight_hh_l0,
-             np.concatenate([k(f"{p}/h{g}") for g in gates]))
-        _set(rnn.bias_ih_l0, b_ih)
-        _set(rnn.bias_hh_l0, b_hh)
+        rnn.load_flax(variables["params"][f"{model.cell_type}_{i}"])
     _set_dense(model.out, flat, "out")
     return model
 

@@ -199,7 +199,7 @@ def export_encoder(enc, out_dir, chunk_sizes=(8000, 16000, 32000, 64000),
     device = _device_of(module)
     full_precision()
     table = _input_table(module)
-    hop = StreamingEncoder(module).hop
+    hop = int(np.prod([block_geometry(b)[1] for b in module.blocks]))
     os.makedirs(out_dir, exist_ok=True)
     _save_params(module, out_dir, weights_dtype)
     params = _example_params(module, table, weights_dtype)

@@ -514,14 +514,15 @@ def train(opts):
     compat_notes(opts)
     check_ported(opts)
     from pase_tpu_torch.data.pipeline import load_stats_pkl
+    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.trainer import Trainer
     if opts.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device "
                            "(torch.cuda.is_available() is False)")
-    # no TF32 matmuls or convolutions: float32 is the JAX CLI's reference
-    # precision, and bf16 is chosen explicitly by --compute_dtype
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # no TF32 matmuls, convolutions or recurrences: float32 is the JAX
+    # CLI's reference precision, and bf16 is chosen explicitly by
+    # --compute_dtype
+    full_precision()
     with open(opts.fe_cfg) as f:
         fe_cfg = json.load(f)
     with open(opts.net_cfg) as f:

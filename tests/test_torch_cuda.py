@@ -7,8 +7,10 @@ against their plain PyTorch versions, the encoder on the GPU against the
 same weights on the CPU, one small train
 step on the GPU against the CPU, the probes' PASE+ extractor and MLP fit
 on the GPU against the CPU, the distortion stack on the GPU
-against the CPU with the same draws, and the residual VQ encoder's
-blocks (FeResBlock, the VQEMA quantizer) against the CPU.
+against the CPU with the same draws, the residual VQ encoder's
+blocks (FeResBlock, the VQEMA quantizer) against the CPU, and the
+recurrent layers (cuDNN's): BiRNN, an lstm / gru WaveFe, the WaveRNN
+head's forward and gradient, and generate against teacher forcing.
 
 This file imports no JAX, so it runs on a host without it. There the
 repository's conftest (which configures JAX) is left out:
@@ -793,3 +795,100 @@ def test_probe_fit_gpu_matches_cpu(cuda_device):
         diff = (got[k].cpu() - w).abs().max().item()
         bound = 1e-6 if k == "dense.0.bias" else 1e-4 * w.abs().max().item()
         assert diff <= bound, (k, diff)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent layers: BiRNN, the lstm WaveFe, the WaveRNN head, generate
+# (bounds: 1e-5 of the largest output for a layer, 2e-4 for the encoder,
+# 1e-4 of the largest logit for the head and for generate's loop against
+# the teacher-forced forward, 1e-3 of each leaf's largest gradient)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_birnn_gpu_matches_cpu(cuda_device, cell):
+    from pase_tpu_torch.nn import BiRNN
+    torch.manual_seed(0)
+    cpu = BiRNN(64, 32, layers=2, cell=cell,
+                generator=torch.Generator().manual_seed(1))
+    gpu = BiRNN(64, 32, layers=2, cell=cell).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(2).randn(3, 150, 64)
+                         .astype(np.float32))
+    r = torch.randn(3, 150, 64)
+    (cpu(x) * r).sum().backward()
+    y = gpu(x.to(cuda_device))
+    (y * r.to(cuda_device)).sum().backward()
+    with torch.no_grad():
+        want = cpu(x)
+    assert (y.detach().cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+    for (k, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        err = (pg.grad.cpu() - pc.grad).abs().max()
+        assert err <= 1e-3 * pc.grad.abs().max(), k
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_rnn_encoder_gpu_matches_cpu(cuda_device, rnn_type):
+    cfg = dict(NARROW_CFG, rnn_type=rnn_type)
+    gpu = wf_builder(cfg, device=cuda_device, seed=3)
+    cpu = wf_builder(cfg, device="cpu", seed=3)
+    x = (np.random.RandomState(4).randn(2, 1, 16000) * 0.1).astype(
+        np.float32)
+    cuda_qrnn.reset_launches()
+    y = gpu(x).cpu()
+    assert sum(cuda_qrnn.LAUNCHES.values()) == 0     # no QRNN there
+    want = cpu(x)
+    assert (y - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+def _wavernn_pair(cuda_device, mode):
+    from pase_tpu_torch.wavernn import WaveRNNMinion
+    kw = dict(rnn_dims=64, fc_dims=64, bits=9, mode=mode,
+              res_out_dims=32)
+    cpu = WaveRNNMinion(24, generator=torch.Generator().manual_seed(5),
+                        **kw)
+    gpu = WaveRNNMinion(24, **kw).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(6)
+    mels = torch.from_numpy(rng.randn(2, 24, 3 + 4).astype(np.float32))
+    x = torch.from_numpy(np.clip(rng.randn(2, 480) * 0.3, -1, 1)
+                         .astype(np.float32))
+    return cpu, gpu, mels, x
+
+
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_wavernn_head_gpu_matches_cpu(cuda_device, mode):
+    """Train-mode logits and the head's gradients under the CPU's loss
+    cotangent (MoL's branch at cdf_delta = 1e-5 is a kink)."""
+    from pase_tpu_torch.wavernn import (discretized_mix_logistic_loss,
+                                        raw_loss)
+    cpu, gpu, mels, x = _wavernn_pair(cuda_device, mode)
+    cpu.train()
+    gpu.train()
+    lc = cpu(x, mels).detach().requires_grad_()
+    loss = (raw_loss(lc, x) if mode == "RAW"
+            else discretized_mix_logistic_loss(lc, x))
+    loss.backward()
+    yc = cpu(x, mels)
+    yc.backward(lc.grad)
+    yg = gpu(x.to(cuda_device), mels.to(cuda_device))
+    yg.backward(lc.grad.to(cuda_device))
+    assert (yg.detach().cpu() - yc.detach()).abs().max() <= \
+        1e-4 * yc.abs().max()
+    for (k, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        err = (pg.grad.cpu() - pc.grad).abs().max()
+        assert err <= 1e-3 * pc.grad.abs().max(), k
+
+
+def test_generate_on_the_card_is_teacher_forcing(cuda_device):
+    from pase_tpu_torch.wavernn import generate
+    _, gpu, mels, _ = _wavernn_pair(cuda_device, "RAW")
+    m = mels.to(cuda_device)
+    wav, fed, logits = generate(
+        gpu, m, torch.Generator(device=cuda_device).manual_seed(0),
+        return_logits=True)
+    assert wav.shape == (2, 480) and wav.abs().max() <= 1 + 1e-5
+    x_prev = torch.nn.functional.pad(fed, (1, 0))[:, :-1]
+    with torch.no_grad():
+        tf = gpu.eval()(x_prev, m)
+    assert (tf - logits).abs().max() <= 1e-4 * logits.abs().max()

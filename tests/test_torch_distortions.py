@@ -462,7 +462,7 @@ def test_overlap_head_still_refuses():
     ported now (an MLP on the chunk stream, held to the JAX step by
     tests/test_torch_overlap.py): the bank builds with it, and with the
     contrastive heads beside it, SPC and Gap (tests/test_torch_spc_gap.py).
-    A GRU head still refuses, naming its ROADMAP item."""
+    A dropin MLP head still refuses, naming its ROADMAP item."""
     from pase_tpu_torch.model import build_pase
     from torch_port_common import NARROW_CFG
     wk = {"regr": [], "cls": [dict(_overlap_workers()["cls"][0],
@@ -476,4 +476,4 @@ def test_overlap_head_still_refuses():
                        match="ROADMAP.md, queue 1: off-path"):
         build_pase(NARROW_CFG,
                    dict(wk, cls=[dict(wk["cls"][0], name="mi",
-                                      type="gru")]))
+                                      dropin=0.5)]))

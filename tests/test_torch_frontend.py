@@ -80,8 +80,8 @@ def test_encoder_is_seeded_and_refuses_train():
 
 
 @pytest.mark.parametrize("extra", [
-    {"resblocks": True, "activation": "relu"}, {"rnn_type": "gru"},
-    {"rnn_type": "lstm"},
+    {"resblocks": True, "activation": "relu"}, {"name": "Resnet50"},
+    {"activation": "gelu"},
     {"name": "asppRes"}, {"activation": "elu"}, {"name": "tdnn"}])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

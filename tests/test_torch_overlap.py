@@ -135,13 +135,14 @@ def test_overlap_train_step_matches_jax(jax_run):
 
 
 @pytest.mark.parametrize("bank", [
-    {"cls": [dict(HEAD, name="mi", type="gru")], "regr": []},
+    {"cls": [dict(HEAD, name="mi", dropin=0.5)], "regr": []},
     {"cls": [], "regr": [], "regu": [dict(HEAD, name="cchunk_regu")]},
 ], ids=["gru_head", "regu_worker"])
 def test_unported_heads_still_raise(bank):
-    """SPC and Gap build since they were ported (tests/test_torch_spc_gap);
-    a GRU head and a regularizer worker still raise, naming their ROADMAP
-    item."""
+    """SPC and Gap build since they were ported (tests/test_torch_spc_gap),
+    the GRU head too (tests/test_torch_recurrent.py); a dropin MLP head
+    (item 9e; the case keeps its id) and a regularizer worker still
+    raise, naming their ROADMAP item."""
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md, queue 1: off-path model variants"):
         build_pase(SMALL_FE, bank)
