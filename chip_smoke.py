@@ -236,6 +236,28 @@ Phases, each printed as it ends; any failure exits non-zero:
                the head's widths, 2 x 1600 samples: us per sample, and the
                teacher-forced forward on its own samples against its
                loop's logits within 1e-4 of their largest.
+ 21. encoders — the alternative encoders (pase_tpu_torch/encoders.py):
+               (a) TDNNFe at cfg/frontend/TDNN.cfg, seeded weights,
+               float32, through phase 4's checks (the (1,1,100000)
+               contract, (8,1,160000) forward ms, card vs CPU within 2e-4
+               of max|y|); (d) its export (buckets 8000-64000: halo null,
+               hop 160), serve-encode over phase 5's four wavs within 2e-5
+               of forward-chunk --chunk_size 64000, the streaming export
+               refused with the JAX stream's TypeError; (b) one TDNN.cfg
+               / workers+ step at 2 x 16000 card vs CPU (phase 16's rule);
+               (c) recipes/run_pase_tdnn.sh's flags through the CLI with
+               --synthetic at 64 x 32000, bf16, one epoch, bench.py's
+               distortion stack in place of the recipe's pase+.cfg (whose
+               corpora are not in the repository): steps/s beside phase
+               8's bf16 rate, one profiled step's kernel time by kind and
+               idle share, peak memory; (e) ASPPResEncoder (without and
+               with its QRNN) and ResnetEncoder at the JAX modules'
+               defaults at (8,1,32000), card vs CPU within 2e-4, T / hop
+               frames (the ResNet's hop 40); a narrow ASPP (with its
+               QRNN) / workers+ step card vs CPU, dropout off on both
+               sides. Phase 3 holds K1 at the TDNN serving shape
+               [8,1000,256] and K1's loop and K2 at the recipe's
+               [192,200,256].
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -273,7 +295,12 @@ lstm and gru encoders (serving) and the lstm encoder's step none (no
 QRNN), the GRU-head step and the WaveRNN recipe's steps the training
 kernels once per layer per step, its CLI the training kernels once per
 layer per train step and qrnn_pool_fwd once per layer per eval step,
-generate none.
+generate none; phase 21's TDNN serving path and its serve-encode
+qrnn_pool_fwd_chunked once per encoder / program call and nothing else,
+the TDNN and narrow ASPP steps the training kernels once each, the TDNN
+recipe's CLI the training kernels once per train step and qrnn_pool_fwd
+once per eval step (192 x 256 lanes), ASPP with its QRNN the chunked
+kernel once per call, ASPP without it and the ResNet none.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -281,8 +308,12 @@ serving, training, stream (phase 13's four streams), stream_cli
 vq_serving, vq_stream, vq_export, phase 18's gan_step, gan_z_step,
 gan_cli, gan_cli_plain, snorm_serving, wnorm_serving, and phase 19's
 probe (the utt run), probe_knn, probe_kfold, probe_frames, probe_timit,
-probe_sup, transfer_gate, and phase 20's lstm_serving, gru_serving,
-lstm_step, gru_head_step, wavernn_step, wavernn_cli, wavernn_generate).
+probe_sup, transfer_gate, phase 20's lstm_serving, gru_serving,
+lstm_step, gru_head_step, wavernn_step, wavernn_cli, wavernn_generate,
+and phase 21's tdnn_serving, tdnn_export, tdnn_step, tdnn_cli,
+aspp_serving, aspp_rnn_serving, resnet_serving, aspp_step); the QRNN
+kernels' entries also give their time, plain time and bound at phase
+21's TDNN shape ("tdnn").
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -323,20 +354,24 @@ FP32_OPS_PER_S = 67e12
 FWD_OPS, BWD_OPS = 14, 25
 # (B, T, H) of the train step's QRNN at batch 32, 8 and 16 (3 streams x B
 # chunks of 32000 samples -> 200 frames, rnn_dim 512; 16: the WaveRNN
-# recipe's step), and at batch 16 x 3360 samples (21 frames, phase 20's
-# cut CLI, which also runs K1's loop there in eval)
+# recipe's step), at batch 16 x 3360 samples (21 frames, phase 20's cut
+# CLI, which also runs K1's loop there in eval), and the TDNN recipe's
+# 64 x 32000 (emb_dim 256; phase 21, which also runs K1's loop there in
+# eval)
 TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (48, 200, 512),
-                     (48, 21, 512)]
+                     (48, 21, 512), (192, 200, 256)]
 TRAIN_SHAPE = (96, 200, 512)
 TRAIN_BATCH, TRAIN_CHUNK = 32, 32000
 # (B, T, H) of the QRNN pooling: the four shapes of benchmarks/bench_qrnn.py,
 # the serving batch (8 x 10 s windows at 100 frames/s), one window alone
 # (forward-chunk's file at a time), 32 and 48 x 200, about the chunked
-# route's limit (cuda_qrnn.CHUNKED_LANES), and 48 x 21, the eval of phase
-# 20's cut WaveRNN CLI
+# route's limit (cuda_qrnn.CHUNKED_LANES), 48 x 21, the eval of phase
+# 20's cut WaveRNN CLI, and phase 21's TDNN shapes at H = 256: the serving
+# batch and the recipe's eval
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
-               (32, 200, 512), (48, 200, 512), (48, 21, 512)]
+               (32, 200, 512), (48, 200, 512), (48, 21, 512),
+               (8, 1000, 256), (192, 200, 256)]
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
@@ -411,6 +446,22 @@ WAVERNN_LOGIT_REL = 1e-4
 WAVERNN_CLI_CHUNK = 3360
 GENERATE_SHAPE = (2, 10)
 RNN_STEP_SHAPE = (32, 32000)
+# phase 21: the alternative encoders (pase_tpu_torch/encoders.py): the TDNN
+# recipe and its cfg, the K1 / K2 shapes its path sends (the serving batch
+# at H = 256, and the recipe's 3 x 64 rows of 200 frames), ASPP and the
+# ResNet at the JAX modules' defaults (ASPP also with its QRNN) and their
+# forward batch, and a narrow ASPP (with its QRNN) for the card-vs-CPU step
+TDNN_RECIPE = "recipes/run_pase_tdnn.sh"
+TDNN_CFG = os.path.join(HERE, "cfg", "frontend", "TDNN.cfg")
+TDNN_SERVING_SHAPE = (8, 1000, 256)
+TDNN_TRAIN_SHAPE = (192, 200, 256)
+ALT_ENCODERS = {"aspp": {"name": "asppRes"},
+                "aspp_rnn": {"name": "asppRes", "rnn_pool": True},
+                "resnet": {"name": "Resnet50"}}
+ALT_SHAPE = (8, 32000)
+ASPP_STEP_CFG = {"name": "asppRes", "sinc_out": 16, "hidden_dim": 64,
+                 "fmaps": [16, 16, 16, 16],
+                 "concat": [False, False, True, True], "rnn_pool": True}
 
 
 class SmokeFailure(Exception):
@@ -659,33 +710,36 @@ def phase_kernel():
     return rows
 
 
-def phase_encoder(device, cfg=PASEP_CFG, batch=8, samples=160000, reps=5):
-    """PASE+ forward on ``device`` vs the same weights on the CPU.
+def phase_encoder(device, cfg=PASEP_CFG, batch=8, samples=160000, reps=5,
+                  label="encoder"):
+    """PASE+ (or ``cfg``'s encoder) forward on ``device`` vs the same
+    weights on the CPU, a frame every ``hop`` samples of the module.
     Returns (encoder, number of encoder calls made on ``device``)."""
     import torch
     from pase_tpu_torch import wf_builder
     enc = wf_builder(cfg, device=device, seed=0)
+    hop = enc.module.hop
     rng = np.random.RandomState(0)
     calls = 0
     y = enc((rng.randn(1, 1, 100000) * 0.1).astype(np.float32))
     calls += 1
     _sync(device)
-    check(tuple(y.shape) == (1, enc.emb_dim, 100000 // 160),
+    check(tuple(y.shape) == (1, enc.emb_dim, 100000 // hop),
           f"contract: {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "contract output not finite")
-    print(f"[encoder] contract (1,1,100000) -> {tuple(y.shape)}")
+    print(f"[{label}] contract (1,1,100000) -> {tuple(y.shape)}")
 
     x = (rng.randn(batch, 1, samples) * 0.1).astype(np.float32)
     y = enc(x)
     calls += 1
     _sync(device)
-    check(tuple(y.shape) == (batch, enc.emb_dim, samples // 160),
+    check(tuple(y.shape) == (batch, enc.emb_dim, samples // hop),
           f"batch output {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "batch output not finite")
     ms = _wall_ms(lambda: enc(x), device, reps=reps)
     calls += 1 + reps
     audio_s = batch * samples / SR
-    print(f"[encoder] ({batch},1,{samples}) -> {tuple(y.shape)}: forward "
+    print(f"[{label}] ({batch},1,{samples}) -> {tuple(y.shape)}: forward "
           f"{ms:.2f} ms (synchronized, median of {reps}), "
           f"{audio_s / (ms / 1e3):.1f} audio-s/s")
 
@@ -695,7 +749,7 @@ def phase_encoder(device, cfg=PASEP_CFG, batch=8, samples=160000, reps=5):
     y_cpu = cpu(x)
     cpu_s = time.perf_counter() - t0
     rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
-    print(f"[encoder] {device} vs cpu (plain path, {cpu_s:.2f} s): "
+    print(f"[{label}] {device} vs cpu (plain path, {cpu_s:.2f} s): "
           f"max|dy|/max|y_cpu| {rel:.3e} (bound {ENCODER_REL})")
     check(rel <= ENCODER_REL, f"{device} vs cpu: {rel:.3e} > {ENCODER_REL}")
     return enc, calls
@@ -2004,9 +2058,11 @@ def phase_overlap():
     return launches
 
 
-def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None):
+def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None,
+                  setup=None):
     """One train step of a model variant on the card and on the CPU, the
-    same weights, batch and injected draws. The CPU's PReLUs take the
+    same weights, batch and injected draws (``setup``, when given, is
+    called on each trainer first). The CPU's PReLUs take the
     card's side of their kink and its near-tie VQ codes the card's
     (grad_parity.prelu_signs, vq_codes); outside the ties the codes must
     agree. Per-worker losses ('vq' included; with a ``gan_cfg`` the G
@@ -2023,6 +2079,8 @@ def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None):
                lr_mode="step", save_path=tmp)
     gpu = Trainer(fe_cfg, workers, cfg, device="cuda", gan_cfg=gan_cfg)
     cpu = Trainer(fe_cfg, workers, cfg, device="cpu", gan_cfg=gan_cfg)
+    for tr in (gpu, cpu) if setup is not None else ():
+        setup(tr)
     cpu.model.load_state_dict(gpu.model.state_dict())
     if gan_cfg is not None:
         cpu.discriminator.load_state_dict(gpu.discriminator.state_dict())
@@ -3252,6 +3310,201 @@ def phase_recurrent(tmp):
     return paths
 
 
+def _tdnn_serving():
+    """Phase 21 (a): TDNNFe at cfg/frontend/TDNN.cfg, seeded weights,
+    float32, through phase 4's checks; the chunked kernel once per call
+    and no other kernel. Returns (encoder, launch counts)."""
+    check(TDNN_SERVING_SHAPE in QRNN_SHAPES,
+          "phase 3 does not check K1 at the TDNN serving shape")
+    reset_launches()                     # the TDNN serving path starts
+    enc, calls = phase_encoder("cuda", cfg=TDNN_CFG, label="TDNN")
+    launches = read_launches()           # ... and ends here
+    layers = qrnn_layers(enc.module)
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_chunked": layers * calls}
+    print(f"[launches] TDNN serving: {launches} (expected {expected}: "
+          f"{layers} QRNN layer(s) x {calls} encoder calls)")
+    check(layers == 1 and launches == expected,
+          f"TDNN serving launches {launches}")
+    return enc, launches
+
+
+def _tdnn_export(enc, tmp):
+    """Phase 21 (d): ``util_scripts export`` of the TDNN encoder on the
+    card (halo null: every request takes the largest bucket), serve-encode
+    over phase 5's four wavs against forward-chunk --chunk_size 64000, and
+    the streaming export's refusal. Returns serve-encode's launches."""
+    from pase_tpu_torch import serving
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    root = os.path.join(tmp, "tdnn_export")
+    os.makedirs(root, exist_ok=True)
+    lengths = write_wavs(root)
+    npz = save_variables_npz(os.path.join(root, "FE_seed0.npz"),
+                             enc.module.state_dict())
+    art = os.path.join(root, "artifact")
+    common = ["--fe_cfg", TDNN_CFG, "--fe_ckpt", npz]
+    export_s = _cli_seconds(["export", "--device", "cuda", "--out_dir", art,
+                             "--chunk_sizes", EXPORT_BUCKETS] + common)
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    check(meta["halo"] is None and meta["hop"] == 160
+          and meta["device"] == "cuda", f"TDNN artifact meta {meta}")
+    try:
+        serving.export_streaming_encoder(enc, os.path.join(root, "stream"),
+                                         chunk=EXPORT_CHUNK)
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    check(refused is not None, "the TDNN stream was not refused")
+    lst = ["--wav_list", os.path.join(root, "list.txt"), "--files_root",
+           root]
+    fc_s = _cli_seconds(["forward-chunk", "--device", "cuda", "--chunk_size",
+                         "64000", "--out_dir", os.path.join(root, "fc")]
+                        + common + lst)
+    reset_launches()                     # the served programs start here
+    se_s = _cli_seconds(["serve-encode", "--export_dir", art, "--out_dir",
+                         os.path.join(root, "se")] + lst)
+    launches = read_launches()           # ... and end here
+    calls = sum(-(-m // 64000) for m in lengths.values())
+    expected = {**{k: 0 for k in launches}, "qrnn_pool_fwd_chunked": calls}
+    worst = 0.0
+    for k, m in lengths.items():
+        want = np.load(os.path.join(root, "fc", f"{k}.npy"))
+        got = np.load(os.path.join(root, "se", f"{k}.npy"))
+        check(got.shape == want.shape == (enc.emb_dim, m // 160),
+              f"TDNN serve-encode {k}: {got.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"[encoders] TDNN export (buckets {EXPORT_BUCKETS}, traced on the "
+          f"card) {export_s:.2f} s: halo {meta['halo']}, hop {meta['hop']}; "
+          f"the streaming export refused: {refused!r}; serve-encode of "
+          f"{len(lengths)} wavs {se_s:.3f} s against forward-chunk "
+          f"--chunk_size 64000 {fc_s:.3f} s: max|d| {worst:.3e} (bound "
+          f"{SERVE_TOL})")
+    print(f"[launches] TDNN serve-encode: {launches} (expected {expected}: "
+          f"{calls} program calls at the largest bucket)")
+    check(worst <= SERVE_TOL, f"TDNN serve-encode vs forward-chunk {worst}")
+    check(launches == expected, f"TDNN serve-encode launches {launches}")
+    return launches
+
+
+def _tdnn_recipe(tmp, bf16_rate):
+    """Phase 21 (c): recipes/run_pase_tdnn.sh through the CLI with
+    --synthetic for one epoch at its batch and chunk (64 x 32000, bf16):
+    steps/s beside phase 8's PASE+ bf16 rate, one profiled step's kernel
+    time by kind and idle share, peak memory. The recipe's
+    cfg/distortions/pase+.cfg names corpora that are not in the
+    repository: bench.py's stack on its seeded assets stands in (its
+    reverb .5, overlap .1, noise .4, clip .2 and chop .2 are pase+.cfg's;
+    the filter stages, downsample .25 and bandrop .35, are off)."""
+    import torch
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.profiling import profile_calls
+    check(TDNN_TRAIN_SHAPE in TRAIN_QRNN_SHAPES
+          and TDNN_TRAIN_SHAPE in QRNN_SHAPES,
+          "phase 3 does not check K1 / K2 at the TDNN recipe's shape")
+    run = os.path.join(tmp, "tdnn_cli")
+    torch.cuda.reset_peak_memory_stats()
+    dist = write_bench_dtrans_cfg(os.path.join(tmp, "tdnn_assets"))
+    tr, launches, perf, last = _cli_run(
+        _recipe_cli_argv(run, script=TDNN_RECIPE) + ["--dtrans_cfg", dist],
+        "the TDNN recipe", run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(tr.cfg["compute_dtype"] == "bfloat16"
+          and (tr.batch_size, tr.chunk_size) == (64, 32000),
+          f"the TDNN recipe's flags: {tr.cfg}")
+    rate = perf["steps_per_sec"]
+    raw = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
+                                 seed=19).make_batch()
+    prof = profile_calls([lambda: tr.train_step(raw)] * 2, warmup=1,
+                         spans=False)
+    kinds = prof["split"]["all"]
+    split = _busy_split(kinds)
+    idle = max(0.0, 1.0 - prof["covered_ms"] * rate / 1e3)
+    print(f"[encoders] the TDNN recipe (TDNN.cfg + workers+, batch 64 x "
+          f"32000, bf16, the bench stack): {rate:.3f} steps/s, "
+          f"{perf['audio_sec_per_sec']:.1f} audio-s/s, against phase 8's "
+          f"PASE+ bf16 bench step {bf16_rate:.3f} ({rate / bf16_rate:.3f}x);"
+          f" one profiled step: device busy {prof['busy_ms']:.2f} ms (GEMM "
+          f"{split['matmul']:.2f}, conv {split['conv']:.2f}, rest "
+          f"{split['rest']:.2f}; by kind: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(kinds.items(),
+                                                key=lambda kv: -kv[1]))
+          + f"), covered {prof['covered_ms']:.2f} ms, wall "
+          f"{prof['wall_ms']:.1f} ms profiled, {1e3 / rate:.1f} unprofiled;"
+          f" idle share 1 - covered / wall {idle:.3f} (of the profiled wall"
+          f" {prof['idle_share']:.3f}); kernels per step "
+          f"{prof['launches']['all']:.0f}; peak memory {peak:.2f} GiB; "
+          f"last step total {last['total']:.4f}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"tdnn_cli": launches}
+
+
+def _alt_encoders():
+    """Phase 21 (e): ASPPResEncoder (without and with its QRNN) and
+    ResnetEncoder at the JAX modules' defaults, seeded weights, through
+    phase 4's checks at ALT_SHAPE (T / hop frames: the ResNet's hop is
+    40); the chunked kernel once per call where there is a QRNN. Returns
+    {path: launch counts}."""
+    import torch
+    paths = {}
+    b, t = ALT_SHAPE
+    for label, cfg in ALT_ENCODERS.items():
+        reset_launches()                 # this encoder's path starts
+        enc, calls = phase_encoder("cuda", cfg=cfg, batch=b, samples=t,
+                                   reps=3, label=label)
+        launches = read_launches()       # ... and ends here
+        layers = qrnn_layers(enc.module)
+        expected = {**{k: 0 for k in launches},
+                    "qrnn_pool_fwd_chunked": layers * calls}
+        print(f"[launches] {label}: {launches} (expected {expected}: "
+              f"{layers} QRNN layer(s) x {calls} encoder calls); hop "
+              f"{enc.module.hop}")
+        check(label != "resnet" or enc.module.hop == 40,
+              f"the ResNet's hop {enc.module.hop}")
+        check(launches == expected and layers == (label == "aspp_rnn"),
+              f"{label} launches {launches}")
+        paths[f"{label}_serving"] = launches
+        del enc
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _dropout_off(tr):
+    """The ASPP dropout of a trainer's encoder at rate 0 (card and CPU
+    cannot draw the same masks)."""
+    from pase_tpu_torch.encoders import ASPP
+    for m in tr.model.frontend.modules():
+        if isinstance(m, ASPP):
+            m.dropout = 0.0
+
+
+def phase_encoders(tmp, bf16_rate):
+    """Phase 21: the alternative encoders of pase_tpu_torch/encoders.py on
+    the card. Returns {path: launch counts}."""
+    import torch
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = {}
+    enc, paths["tdnn_serving"] = _tdnn_serving()
+    paths["tdnn_export"] = _tdnn_export(enc, tmp)
+    del enc
+    torch.cuda.empty_cache()
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=18)))
+    paths["tdnn_step"] = _variant_step(
+        TDNN_CFG, WORKERSP_CFG, raw, "TDNN.cfg + workers+",
+        os.path.join(tmp, "tdnn_step"))
+    paths.update(_tdnn_recipe(tmp, bf16_rate))
+    paths.update(_alt_encoders())
+    paths["aspp_step"] = _variant_step(
+        ASPP_STEP_CFG, WORKERSP_CFG, raw,
+        "narrow ASPP (QRNN, dropout off) + workers+",
+        os.path.join(tmp, "aspp_step"), setup=_dropout_off)
+    print(f"[encoders] phase 21 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -3343,6 +3596,9 @@ def main():
         clock(19)
         paths.update(phase_recurrent(os.path.join(tmp, "recurrent")))
         clock(20)
+        paths.update(phase_encoders(os.path.join(tmp, "encoders"),
+                                    dist_perf["bfloat16"]["steps_per_sec"]))
+        clock(21)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -3357,12 +3613,26 @@ def main():
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
     push = k1[(1, 100)]
+    # phase 21's TDNN shapes (H = 256): the serving batch (K1 chunked), the
+    # recipe's eval (K1's loop) and its train step (K2)
+    tdnn_serve = next(r for r in rows
+                      if tuple(r["shape"]) == TDNN_SERVING_SHAPE)
+    tdnn_eval = next(r for r in rows if tuple(r["shape"]) == TDNN_TRAIN_SHAPE)
+    tdnn_train = next(r for r in train_rows
+                      if tuple(r["shape"]) == TDNN_TRAIN_SHAPE)
+
+    def tdnn(row, ms, plain, bnd):
+        return {"shape": row["shape"], "ms": row[ms],
+                "plain_ms": row[plain], "bound_ms": bnd[0],
+                "bound_by": bnd[1]}
+
     print(json.dumps({"kernels": [
         _row("qrnn_pool_fwd_chunked", src, "pase_tpu/ops/pallas_qrnn.py:63",
              serving_launches["qrnn_pool_fwd_chunked"],
              max(r["chunked_err"] for r in rows), serving["chunked_ms"],
              serving["plain_ms"], (serving["bound_ms"], serving["bound_by"]),
-             paths=paths),
+             paths=paths, tdnn=tdnn(tdnn_serve, "chunked_ms", "plain_ms", (
+                 tdnn_serve["bound_ms"], tdnn_serve["bound_by"]))),
         _row("qrnn_pool_fwd_seg", src, "pase_tpu/ops/pallas_qrnn.py:63",
              paths["stream"]["qrnn_pool_fwd_seg"],
              max([r["seg_err"] for r in rows]
@@ -3373,15 +3643,21 @@ def main():
              train_launches["qrnn_pool_fwd"],
              max(r["loop_err"] for r in rows), evals["loop_ms"],
              evals["plain_ms"], (evals["bound_ms"], evals["bound_by"]),
-             paths=paths, shape=list(TRAIN_SHAPE)),
+             paths=paths, shape=list(TRAIN_SHAPE),
+             tdnn=tdnn(tdnn_eval, "loop_ms", "plain_ms", (
+                 tdnn_eval["bound_ms"], tdnn_eval["bound_by"]))),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],
-             train["fwd_plain_ms"], train["fwd_bound"], paths=paths),
+             train["fwd_plain_ms"], train["fwd_bound"], paths=paths,
+             tdnn=tdnn(tdnn_train, "fwd_ms", "fwd_plain_ms",
+                       tdnn_train["fwd_bound"])),
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
-             train["bwd_plain_ms"], train["bwd_bound"], paths=paths)]
+             train["bwd_plain_ms"], train["bwd_bound"], paths=paths,
+             tdnn=tdnn(tdnn_train, "bwd_ms", "bwd_plain_ms",
+                       tdnn_train["bwd_bound"]))]
         + [_conv_summary(name, *convs[dt], paths=paths)
            for dt, name in (("bfloat16", "conv_s1_tc"),
                             ("float32", "conv_s1_tf32x3"))]}))

@@ -13,9 +13,12 @@ VQ-EMA quantizer (``nn.VQEMA``) last. The quantizer's commitment loss and
 code perplexity of the last call are ``vq_loss`` and ``vq_perplexity``
 (the JAX module sows them as intermediates).
 
-Internal layout is [B, C, T]; ``WaveFe`` returns [B, T', emb] like the JAX
-module, and ``Encoder`` exposes the reference (B, 1, T) -> (B, emb, T')
-contract ((1,1,100000) -> (1,256,625) for PASE+).
+The other encoder families (TDNN, ASPP-residual, ResNet) are in
+``encoders.py``; ``build_frontend_module`` dispatches on the cfg's
+``name``. Internal layout is [B, C, T]; every encoder returns
+[B, T', emb] like the JAX modules, and ``Encoder`` exposes the reference
+(B, 1, T) -> (B, emb, T') contract ((1,1,100000) -> (1,256,625) for
+PASE+).
 """
 
 import json
@@ -24,9 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from pase_tpu_torch.nn import (ROADMAP_OFF_SLICE, VQEMA, BatchNorm1d, BiRNN,
-                               Conv1D, FeBlock, FeResBlock, InstanceNorm1d,
-                               QRNN)
+from pase_tpu_torch.encoders import build_encoder
+from pase_tpu_torch.nn import (VQEMA, BatchNorm1d, BiRNN, Conv1D, FeBlock,
+                               FeResBlock, InstanceNorm1d, QRNN)
 
 
 def pool_to(skip, out_len):
@@ -78,6 +81,7 @@ class WaveFe(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.emb_dim = emb_dim
+        self.hop = int(np.prod(strides))      # samples per output frame
         self.densemerge = densemerge
         self.tanh_out = tanh_out
         nblocks = len(kwidths)
@@ -196,16 +200,17 @@ def build_wavefe(cfg, generator=None):
 
 def build_frontend_module(cfg, generator=None):
     """cfg -> encoder module (the 'name' dispatch of the reference
-    wf_builder). Only WaveFe is ported so far."""
+    wf_builder): WaveFe (no name), or ``encoders.py``'s TDNNFe ('tdnn'),
+    ASPPResEncoder ('asppRes') or ResnetEncoder ('Resnet50'), each from
+    the cfg's keys that are its fields."""
     cfg = load_cfg(cfg)
     name = cfg.get("name")
     if name in (None, "WaveFe"):
         return build_wavefe(cfg, generator)
-    if name in ("tdnn", "asppRes", "Resnet50"):
-        raise NotImplementedError(
-            f"frontend {name!r} (pase_tpu/encoders.py) is not ported yet: "
-            f"{ROADMAP_OFF_SLICE}")
-    raise TypeError(f"Unrecognized frontend type: {name}")
+    module = build_encoder(name, cfg, generator)
+    if module is None:
+        raise TypeError(f"Unrecognized frontend type: {name}")
+    return module
 
 
 def select_output(h, mode=None):
@@ -228,9 +233,10 @@ class Encoder:
         fe.load_pretrained('FE_e199.ckpt', load_last=True)
         y = fe(x)          # x: (B, 1, T) or (B, T) -> (B, emb, T')
 
-    Holds a WaveFe in eval mode on ``device`` (default: the card); its
-    parameters are drawn from a ``torch.Generator`` seeded with ``seed``.
-    Training goes through the WaveFe module itself, in train mode
+    Holds the cfg's encoder (``build_frontend_module``: WaveFe or a
+    family of ``encoders.py``) in eval mode on ``device`` (default: the
+    card); its parameters are drawn from a ``torch.Generator`` seeded with
+    ``seed``. Training goes through the module itself, in train mode
     (``model.PASE``, ``trainer.Trainer``).
     """
 

@@ -18,8 +18,9 @@ reference layout loads with ``load_state_dict(strict=True)``:
                     sample and channel over time (affine optional).
 * ``split_norm`` / ``build_norm`` — a reference norm_type as (conv
                     reparameterization, post-conv norm layer).
-* ``FeBlock``     — pad(reflect) -> conv/sinc -> norm -> PReLU (init 0) or
-                    glu.
+* ``FeBlock``     — pad(reflect) -> conv/sinc -> norm -> PReLU (init 0),
+                    glu, or an activation named as in jax.nn
+                    (``NamedActivation``: relu, elu, gelu, ...).
 * ``FeResBlock``  — residual block of the resblocks trunk: nearest
                     decimation, two zero-padded stride-1 convs (dilations
                     1, 2) with BatchNorm / PReLU, plus the (1x1-projected)
@@ -42,7 +43,7 @@ reference layout loads with ``load_state_dict(strict=True)``:
                     0.25) -> dropout.
 * ``Deconv1D`` / ``GDeconv1DBlock`` — transposed-conv upsampling block of
                     the waveform decoder: ConvTranspose1d -> (trim) ->
-                    norm -> PReLU (init 0) or glu.
+                    norm -> PReLU (init 0), glu or a named activation.
 
 BatchNorm is torch's BatchNorm1d: in train mode it normalizes with the
 biased batch variance and updates the running stats with the unbiased one
@@ -357,16 +358,102 @@ def split_norm(norm_type):
 _REPARAM_CONV = {None: Conv1D, "snorm": SNConv1D, "wnorm": WNConv1D}
 
 
+def _over_channels(fn):
+    """fn(x, dim) taken over the channels of [B, C, T] (the last axis of
+    the JAX package's [B, T, C])."""
+    return lambda x: fn(x, 1)
+
+
+def _standardize(x, dim, eps=1e-5):
+    """jax.nn.standardize: var = E[x^2] - E[x]^2 clipped at 0."""
+    mean = x.mean(dim=dim, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=dim, keepdim=True) - mean * mean,
+                      min=0.0)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def _log1mexp(x):
+    return torch.where(x < math.log(2.0), torch.log(-torch.expm1(-x)),
+                       torch.log1p(-torch.exp(-x)))
+
+
+# the jax.nn activations a block can take by name, with jax.nn's
+# definitions and defaults: gelu is the tanh approximation, leaky_relu's
+# slope 0.01, elu / celu's alpha 1, softplus log(1 + e^x) with no
+# threshold; softmax, log_softmax and standardize run over the channels.
+# Where torch's function differs from jax.nn's at a kink only in its
+# derivative (hard_tanh at +-1, leaky_relu at 0, sparse_sigmoid's clip),
+# jax.nn's formula is written out
+JAX_ACTIVATIONS = {
+    "celu": F.celu,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "hard_sigmoid": F.hardsigmoid,
+    "hard_silu": F.hardswish,
+    "hard_swish": F.hardswish,
+    "hard_tanh": lambda x: torch.where(
+        x > 1.0, torch.ones_like(x),
+        torch.where(x < -1.0, -torch.ones_like(x), x)),
+    "identity": lambda x: x,
+    "leaky_relu": lambda x: torch.where(x >= 0, x, 0.01 * x),
+    "log1mexp": _log1mexp,
+    "log_sigmoid": F.logsigmoid,
+    "log_softmax": _over_channels(torch.log_softmax),
+    "mish": F.mish,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "selu": F.selu,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "soft_sign": F.softsign,
+    "softmax": _over_channels(torch.softmax),
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "sparse_plus": lambda x: torch.where(
+        x <= -1.0, torch.zeros_like(x),
+        torch.where(x >= 1.0, x, (x + 1.0) ** 2 / 4)),
+    "sparse_sigmoid": lambda x: 0.5 * torch.minimum(
+        torch.maximum(x + 1.0, torch.zeros_like(x)),
+        torch.full_like(x, 2.0)),
+    "squareplus": lambda x: (x + torch.sqrt(x * x + 4)) / 2,
+    "standardize": _over_channels(_standardize),
+    "swish": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+class NamedActivation(nn.Module):
+    """A parameter-free activation named as in ``jax.nn`` (the JAX
+    blocks' ``getattr(jax.nn, act.lower())``), on [B, C, T]."""
+
+    def __init__(self, name):
+        super().__init__()
+        key = name.lower()
+        if key not in JAX_ACTIVATIONS:
+            # jax.nn's other names (glu, one_hot, logsumexp, ...) change
+            # the width or reduce the frames: no block output
+            raise AttributeError(
+                f"activation {name!r}: jax.nn has no activation {key!r} "
+                f"that keeps a block's shape")
+        self.name = key
+        self.fn = JAX_ACTIVATIONS[key]
+
+    def forward(self, x):
+        return self.fn(x)
+
+    def extra_repr(self):
+        return self.name
+
+
 def _activation(act, fmaps):
-    """The PReLU (init 0) of a block, or None for glu; other named
-    activations are refused."""
+    """The PReLU (init 0) of a block, None for glu, else the jax.nn
+    activation of that name (lower-cased, as the JAX blocks look it up);
+    a name that is not one raises AttributeError, as JAX's getattr
+    does."""
     if act in (None, "prelu"):
         return PReLU(fmaps, init=0.0)
     if act == "glu":
         return None
-    raise NotImplementedError(
-        f"activation {act!r} (a named activation) is not ported yet: "
-        f"{ROADMAP_OFF_SLICE}")
+    return NamedActivation(act)
 
 
 def _glu(h):

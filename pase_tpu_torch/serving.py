@@ -16,11 +16,15 @@ process serves with torch, numpy and the registered QRNN operator alone
   it plus the trunk's receptive halo (zero-padded, frames trimmed), windows
   longer ones at the largest bucket, and batches same-bucket utterances:
   the frames of ``util_scripts forward-chunk --chunk_size <largest>``.
+  The halo is WaveFe's; for the other families (``encoders.py``) it is
+  null and every request takes the largest bucket, as in JAX. The hop
+  is the module's own (``hop``: TDNN and ASPP 160, the ResNet 40).
 * ``export_streaming_encoder`` / ``ServingStreamingEncoder``: the exact
-  online encoder (``streaming.py``) as three programs, prime, step and
-  flush, with every FIFO and carry as explicit tensors (a flat list). The
-  state out of prime must be a fixed point of step, else the chunk is too
-  small and the export raises.
+  online encoder (``streaming.py``, WaveFe only: another family raises
+  its TypeError) as three programs, prime, step and flush, with every
+  FIFO and carry as explicit tensors (a flat list). The state out of
+  prime must be a fixed point of step, else the chunk is too small and
+  the export raises.
 
 The QRNN pooling in the programs is the registered operator
 ``pase_tpu_torch::qrnn_pool_fwd``: its CUDA implementation takes the
@@ -178,7 +182,16 @@ def _example_params(module, table, weights_dtype):
 
 
 def _device_of(module):
-    return module.W.weight.device
+    return next(module.parameters()).device
+
+
+def _halo(module):
+    """``time_shard_halo`` of a WaveFe trunk; None for another family
+    (its receptive extent is not derived here), so that the loader routes
+    every request to the largest bucket, which is exact."""
+    from pase_tpu_torch.frontend import WaveFe
+    return int(time_shard_halo(module)) if isinstance(module, WaveFe) \
+        else None
 
 
 def export_encoder(enc, out_dir, chunk_sizes=(8000, 16000, 32000, 64000),
@@ -187,8 +200,10 @@ def export_encoder(enc, out_dir, chunk_sizes=(8000, 16000, 32000, 64000),
     traced on the encoder's device, which the artifact then serves.
 
     Args:
-      enc: ``pase_tpu_torch.frontend.Encoder`` (or a WaveFe in eval).
-      chunk_sizes: the static time buckets (samples, multiples of the hop);
+      enc: ``pase_tpu_torch.frontend.Encoder`` (or an encoder module in
+        eval: WaveFe or a family of ``encoders.py``).
+      chunk_sizes: the static time buckets (samples, multiples of the
+        module's ``hop``: 160 for PASE+ and TDNN, 40 for the ResNet);
         each becomes one program with a symbolic batch.
       weights_dtype: None, or e.g. "bfloat16": the program takes its
         weights in that type and computes in float32 (they are stored as
@@ -199,7 +214,7 @@ def export_encoder(enc, out_dir, chunk_sizes=(8000, 16000, 32000, 64000),
     device = _device_of(module)
     full_precision()
     table = _input_table(module)
-    hop = int(np.prod([block_geometry(b)[1] for b in module.blocks]))
+    hop = int(module.hop)
     os.makedirs(out_dir, exist_ok=True)
     _save_params(module, out_dir, weights_dtype)
     params = _example_params(module, table, weights_dtype)
@@ -223,7 +238,7 @@ def export_encoder(enc, out_dir, chunk_sizes=(8000, 16000, 32000, 64000),
         "format": FORMAT,
         "buckets": buckets,
         "hop": hop,
-        "halo": int(time_shard_halo(module)),
+        "halo": _halo(module),
         "emb_dim": int(module.output_dim),
         "sr": 16000,
         "device": device.type,

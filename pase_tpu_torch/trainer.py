@@ -46,10 +46,11 @@ the step its draws; the SPC and Gap heads' frame indices from one seeded
 with ``step_seed(seed + 2, k)``, unless the batch injects them
 (``spc_idx``, ``gap_idx``); the z-GAN's N(0, 1) draws from one seeded
 with ``step_seed(seed + 3, k)``, unless the caller hands them
-(``z_real``); the device batcher's batch k from
-``step_seed(its seed, k)``. A resumed run therefore replays the
-uninterrupted run's batches and draws with no generator state in the
-checkpoint.
+(``z_real``); an encoder's dropout masks (the ASPP blocks of
+``encoders.ASPPResEncoder``) from one seeded with ``step_seed(seed + 4,
+k)``; the device batcher's batch k from ``step_seed(its seed, k)``. A
+resumed run therefore replays the uninterrupted run's batches and draws
+with no generator state in the checkpoint.
 
 Feeding: host batches (numpy arrays from a disk batcher) are staged one
 step ahead (``stage``): pinned host memory and a non_blocking copy on a
@@ -177,6 +178,10 @@ class Trainer:
             zs_bank=zs_bank, zs_snrs=zs_snrs)
         self.prep_generator = torch.Generator(device=self.device)
         self.sample_generator = torch.Generator(device=self.device)
+        self.dropout_generator = None
+        if hasattr(self.model.frontend, "dropout_generator"):
+            self.dropout_generator = torch.Generator(device=self.device)
+            self.model.frontend.dropout_generator = self.dropout_generator
         wire = str(self.cfg.get("wire_dtype") or "float32")
         if wire not in ("float32", "int16"):
             raise ValueError(f"wire_dtype {wire!r}: float32 or int16")
@@ -339,6 +344,9 @@ class Trainer:
         self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
         self.sample_generator.manual_seed(
             step_seed(self.seed + 2, self.step))
+        if self.dropout_generator is not None:
+            self.dropout_generator.manual_seed(
+                step_seed(self.seed + 4, self.step))
         if draws is not None:
             draws = draws.to(self.device)
         if zs_draws is not None:

@@ -10,7 +10,8 @@ on the GPU against the CPU, the distortion stack on the GPU
 against the CPU with the same draws, the residual VQ encoder's
 blocks (FeResBlock, the VQEMA quantizer) against the CPU, and the
 recurrent layers (cuDNN's): BiRNN, an lstm / gru WaveFe, the WaveRNN
-head's forward and gradient, and generate against teacher forcing.
+head's forward and gradient, and generate against teacher forcing, and
+the alternative encoders (TDNN, ASPP-residual, ResNet) against the CPU.
 
 This file imports no JAX, so it runs on a host without it. There the
 repository's conftest (which configures JAX) is left out:
@@ -892,3 +893,36 @@ def test_generate_on_the_card_is_teacher_forcing(cuda_device):
     with torch.no_grad():
         tf = gpu.eval()(x_prev, m)
     assert (tf - logits).abs().max() <= 1e-4 * logits.abs().max()
+
+
+# the alternative encoders (pase_tpu_torch.encoders) at narrow widths: the
+# frames they emit per 16000 samples and the QRNN layers they pool with
+ENCODER_CFGS = {
+    "tdnn": ({"name": "tdnn", "emb_dim": 16, "fmaps": 8, "kwidth": 161,
+              "rnn_pool": True}, 100, 1),
+    "asppRes": ({"name": "asppRes", "sinc_out": 4, "hidden_dim": 8,
+                 "sinc_kernel": 33, "fmaps": [4, 4, 4, 4],
+                 "concat": [False, True, False, True], "rnn_pool": True,
+                 "rnn_add": True}, 100, 1),
+    "Resnet50": ({"name": "Resnet50", "sinc_out": 4, "hidden_dim": 8,
+                  "sinc_kernel": 33, "stage_fmaps": [8, 8, 16, 16],
+                  "stage_blocks": [1, 1, 1, 1]}, 400, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODER_CFGS))
+def test_alternative_encoder_gpu_matches_cpu(cuda_device, name):
+    """TDNNFe, ASPPResEncoder and ResnetEncoder on the card against the
+    same weights on the CPU (2e-4 of the largest output); the QRNN of the
+    first two launches the chunked serving kernel once a call."""
+    cfg, frames, layers = ENCODER_CFGS[name]
+    gpu = wf_builder(cfg, device=cuda_device, seed=0)
+    cpu = wf_builder(cfg, device="cpu", seed=0)
+    x = (np.random.RandomState(1).randn(2, 1, 16000) * 0.1).astype(
+        np.float32)
+    before = cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"]
+    y = gpu(x)
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == before + layers
+    y_cpu = cpu(x)
+    assert tuple(y.shape) == tuple(y_cpu.shape) == (2, gpu.emb_dim, frames)
+    rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    assert rel <= 2e-4, rel

@@ -130,8 +130,9 @@ def test_wav_io_matches_jax(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every pase_tpu_torch module loads no jax, flax or
-    pase_tpu module (the card's host has no JAX)."""
+    """Importing every pase_tpu_torch module (the encoders of
+    pase_tpu_torch.encoders among them) loads no jax, flax or pase_tpu
+    module (the card's host has no JAX)."""
     code = (
         "import pkgutil, importlib, sys, pase_tpu_torch\n"
         "for m in pkgutil.walk_packages(pase_tpu_torch.__path__, "
@@ -139,6 +140,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pase_tpu')]\n"
+        "assert 'pase_tpu_torch.encoders' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('pase_tpu_torch')]))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

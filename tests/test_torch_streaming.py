@@ -193,3 +193,19 @@ def test_stream_refuses_what_it_cannot_stream(narrow):
             streaming.StreamingEncoder(port)
     finally:
         port.eval()
+
+
+@pytest.mark.parametrize("extra", [
+    {"activation": "relu"},
+    {"kwidths": [251, 21, 11, 11], "resblocks": True, "activation": "elu"}],
+    ids=["feblock_relu", "resblocks_elu"])
+def test_named_activations_stream_as_in_jax(extra):
+    """A WaveFe whose blocks take a named jax.nn activation streams, as
+    the JAX stream does: per push against JAX's, and against its own
+    offline forward."""
+    pair = _pair(dict(CFG, **extra), seed=4)
+    wav = _wav(2, 4800, seed=5)
+    got = _check_against_jax(pair, wav, [2000, 2800])
+    ref = _offline(pair[1], wav)
+    assert got.shape == ref.shape == (2, 8, 30)
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=2e-4)
