@@ -258,6 +258,36 @@ Phases, each printed as it ends; any failure exits non-zero:
                sides. Phase 3 holds K1 at the TDNN serving shape
                [8,1000,256] and K1's loop and K2 at the recipe's
                [192,200,256].
+ 22. options — the step's options: (a) recipes/run_pase_attention.sh's
+               flags (PASE+, workers+, cfg/attention.cfg: K 64,
+               avg_factor 0.3, avg_time, hidden [128]; 16 x 32000, bf16,
+               poly lr, --random_scale True) through the CLI with
+               --synthetic for one epoch, bench.py's distortion stack in
+               place of the recipe's pase+.cfg: steps/s beside phase 8's
+               bf16 rate, every loss finite, each running_dist summing to
+               1 within 1e-5 and each mask with exactly 64 ones, peak
+               memory, one profiled step's busy split and idle share;
+               (b) one attention step and one --chunking_K 64 step at
+               PASE+ / workers+ 2 x 16000, card vs CPU (phase 16's rule,
+               the masks equal); (c) one step of each of the eight
+               policies at 2 x 16000, card vs CPU (phase 16's rule), the
+               policy's weights and next alpha within 1e-5 of their
+               largest (MGD 1e-4), select_half's and dropout's masks
+               injected; then --backprop_mode MGD through the CLI at 32 x
+               32000 bf16 for 20 steps against the base policy's 20, the
+               MGD step's pase.mgda device time, and softmax's step (its
+               losses in float32) against base's; (d) one step of RAdam,
+               AdamW, SGD and RMSprop card vs CPU, the parameters after
+               it within 1e-5 of their group's largest where the CPU's
+               gradient is above 1e-4 of its leaf's largest (else within
+               2 lr max|u|), and phase 11's child resumes an RMSprop run;
+               (e) workers+ plus a regu_cchunk regularizer (MSELoss, the
+               clean chunk a fourth stream), an lpc worker and one head
+               with dropin 0.2 fixed_rand, tie_context_weights and a
+               context-3 dropout_time 0.1 (its masks the card's on the
+               CPU), one step card vs CPU at 2 x 16000. Phase 3 holds K1's
+               loop and K2 at [64,200,512] (the recipe's batch with the
+               regularizer's fourth stream) as well.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -311,9 +341,16 @@ probe (the utt run), probe_knn, probe_kfold, probe_frames, probe_timit,
 probe_sup, transfer_gate, phase 20's lstm_serving, gru_serving,
 lstm_step, gru_head_step, wavernn_step, wavernn_cli, wavernn_generate,
 and phase 21's tdnn_serving, tdnn_export, tdnn_step, tdnn_cli,
-aspp_serving, aspp_rnn_serving, resnet_serving, aspp_step); the QRNN
-kernels' entries also give their time, plain time and bound at phase
-21's TDNN shape ("tdnn").
+aspp_serving, aspp_rnn_serving, resnet_serving, aspp_step, and phase
+22's attention_cli, attention_step, chunking_step, policy_<mode>_step
+for the eight modes, mgd_cli, base_cli, opt_<rule>_step, regu_step:
+the steps the training kernels once per layer (MGD's per-worker
+gradients reuse the loss forward's graph: no second forward), the CLI
+runs once per layer per train step and qrnn_pool_fwd once per layer per
+eval step); the QRNN kernels' entries also give their time, plain time
+and bound at phase 21's TDNN shape ("tdnn"), and the loop and K2 at the
+attention recipe's [48,200,512] ("attention") and at [64,200,512]
+("regu").
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -359,7 +396,7 @@ FWD_OPS, BWD_OPS = 14, 25
 # 64 x 32000 (emb_dim 256; phase 21, which also runs K1's loop there in
 # eval)
 TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (48, 200, 512),
-                     (48, 21, 512), (192, 200, 256)]
+                     (48, 21, 512), (192, 200, 256), (64, 200, 512)]
 TRAIN_SHAPE = (96, 200, 512)
 TRAIN_BATCH, TRAIN_CHUNK = 32, 32000
 # (B, T, H) of the QRNN pooling: the four shapes of benchmarks/bench_qrnn.py,
@@ -367,11 +404,12 @@ TRAIN_BATCH, TRAIN_CHUNK = 32, 32000
 # (forward-chunk's file at a time), 32 and 48 x 200, about the chunked
 # route's limit (cuda_qrnn.CHUNKED_LANES), 48 x 21, the eval of phase
 # 20's cut WaveRNN CLI, and phase 21's TDNN shapes at H = 256: the serving
-# batch and the recipe's eval
+# batch and the recipe's eval, and phase 22's 4 x 16 rows (the attention
+# recipe's batch with a regularizer's fourth stream)
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
                (32, 200, 512), (48, 200, 512), (48, 21, 512),
-               (8, 1000, 256), (192, 200, 256)]
+               (8, 1000, 256), (192, 200, 256), (64, 200, 512)]
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
@@ -462,6 +500,33 @@ ALT_SHAPE = (8, 32000)
 ASPP_STEP_CFG = {"name": "asppRes", "sinc_out": 16, "hidden_dim": 64,
                  "fmaps": [16, 16, 16, 16],
                  "concat": [False, False, True, True], "rnn_pool": True}
+
+
+# phase 22: the attention recipe, its cfg and K; the attention recipe's K2
+# shape (3 x 16 rows) and with a regularizer's fourth stream; the
+# policies, the card-vs-CPU bounds of their weights and next alpha
+# (relative to the largest), the CLI's MGD / base steps; the optimizers
+# and the bound on their parameters after a step (relative to the
+# group's largest, where the gradient is live); the heads' options; the
+# rounds of the steady-state step rates (policies and optimizers beside
+# the base step, in turns)
+ATT_RECIPE = "recipes/run_pase_attention.sh"
+ATT_CFG = os.path.join(HERE, "cfg", "attention.cfg")
+ATT_K = 64
+ATT_DIST_REL = 1e-5
+ATT_TRAIN_SHAPE = (48, 200, 512)
+REGU_TRAIN_SHAPE = (64, 200, 512)
+POLICIES = ("base", "select_one", "select_half", "dropout", "hyper_volume",
+            "softmax", "adaptive", "MGD")
+POLICY_REL, MGD_REL = 1e-5, 1e-4
+POLICY_CLI_STEPS = 20
+OPTIMIZERS = ("RAdam", "AdamW", "SGD", "RMSprop")
+OPT_PARAM_REL = 1e-5
+OPT_LIVE_REL = 1e-4
+HEAD_OPTIONS = {"dropin": 0.2, "dropin_mode": "fixed_rand",
+                "ratio_fixed": 0.5, "tie_context_weights": True,
+                "context": 3, "dropout_time": 0.1}
+STEP_RATE_ROUNDS = 3
 
 
 class SmokeFailure(Exception):
@@ -1276,7 +1341,8 @@ def phase_resume():
 
 def resume_check():
     """2 steps, save, resume in a new Trainer, 2 more steps, against 4
-    uninterrupted steps run twice; float32 and bf16, the gate's model and
+    uninterrupted steps run twice; float32 and bf16 (Adam), and float32
+    with RMSprop in both groups (phase 22), the gate's model and
     distortion stack on device batches. Returns 0 when bit for bit, or
     within twice the uninterrupted runs' own spread where that is not 0."""
     import warnings
@@ -1290,11 +1356,16 @@ def resume_check():
     tmp = tempfile.mkdtemp(prefix="pase_chip_resume_")
     ok = True
     try:
-        for precision in ("f32", "bf16"):
+        for label, precision, opt in (("f32", "f32", {}),
+                                      ("bf16", "bf16", {}),
+                                      ("f32 RMSprop", "f32",
+                                       {"fe_opt": "RMSprop",
+                                        "min_opt": "RMSprop"})):
             def trainer(name, **over):
                 return T.make_trainer(precision, "cuda",
-                                      os.path.join(tmp, precision, name),
-                                      bpe=2, epoch=2, log_freq=1, **over)
+                                      os.path.join(tmp, label, name),
+                                      bpe=2, epoch=2, log_freq=1,
+                                      **opt, **over)
 
             def batcher():
                 return DeviceSyntheticBatcher(T.BATCH, T.CHUNK, seed=1)
@@ -1313,7 +1384,7 @@ def resume_check():
             for tr in runs + [cut]:
                 tr.logger.close()
             a, b_, r = ([logged[s] for s in (3, 4)] for logged in (
-                _logged(os.path.join(tmp, precision, n))
+                _logged(os.path.join(tmp, label, n))
                 for n in ("whole_a", "whole_b", "cut")))
             spread, diff = _max_rel(a, b_), _max_rel(a, r)
             same = all(torch.equal(runs[2].model.state_dict()[k], v)
@@ -1327,7 +1398,7 @@ def resume_check():
             ok = ok and good
             verdict = ("bit for bit" if bitwise else
                        "within 2x the spread" if good else "FAIL")
-            print(f"[resume] {precision}: resumed steps 3-4 against the "
+            print(f"[resume] {label}: resumed steps 3-4 against the "
                   f"uninterrupted run: max |loss diff| / |loss| {diff:.3e},"
                   f" parameters {'bit-identical' if same else 'differ'}; "
                   f"two uninterrupted runs differ by {spread:.3e} (the "
@@ -2059,10 +2130,15 @@ def phase_overlap():
 
 
 def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None,
-                  setup=None):
+                  setup=None, cfg_extra=None, step_kw=None, between=None,
+                  compare=None, stats=None):
     """One train step of a model variant on the card and on the CPU, the
     same weights, batch and injected draws (``setup``, when given, is
-    called on each trainer first). The CPU's PReLUs take the
+    called on each trainer first; ``cfg_extra`` updates the trainers'
+    cfg, ``stats`` are their ZNorm statistics, ``step_kw`` goes to both
+    train_step calls, ``between(gpu, cpu)`` runs after the card's step,
+    ``compare(gpu, cpu)`` after the checks below). The CPU's PReLUs take
+    the
     card's side of their kink and its near-tie VQ codes the card's
     (grad_parity.prelu_signs, vq_codes); outside the ties the codes must
     agree. Per-worker losses ('vq' included; with a ``gan_cfg`` the G
@@ -2074,11 +2150,14 @@ def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None,
                                             prelu_signs, sign_flips,
                                             vq_codes, worst_leaves)
     from pase_tpu_torch.trainer import Trainer
-    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
-               batch_size=2, chunk_size=16000, fe_lr=1e-4, min_lr=4e-4,
-               lr_mode="step", save_path=tmp)
-    gpu = Trainer(fe_cfg, workers, cfg, device="cuda", gan_cfg=gan_cfg)
-    cpu = Trainer(fe_cfg, workers, cfg, device="cpu", gan_cfg=gan_cfg)
+    cfg = {**dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
+                  batch_size=2, chunk_size=16000, fe_lr=1e-4, min_lr=4e-4,
+                  lr_mode="step", save_path=tmp), **(cfg_extra or {})}
+    step_kw = step_kw or {}
+    gpu = Trainer(fe_cfg, workers, cfg, device="cuda", gan_cfg=gan_cfg,
+                  stats=stats)
+    cpu = Trainer(fe_cfg, workers, cfg, device="cpu", gan_cfg=gan_cfg,
+                  stats=stats)
     for tr in (gpu, cpu) if setup is not None else ():
         setup(tr)
     cpu.model.load_state_dict(gpu.model.state_dict())
@@ -2090,16 +2169,18 @@ def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None,
     with prelu_signs(gpu.model, record=x_gpu), \
             vq_codes(gpu.model, record=c_gpu), \
             _g_term_signs(gpu.discriminator, record=d_gpu):
-        lg = gpu.train_step(raw)
+        lg = gpu.train_step(raw, **step_kw)
     _sync("cuda")
     launches = read_launches()           # ... and ends here
+    if between is not None:
+        between(gpu, cpu)
     with prelu_signs(cpu.model, record=x_cpu,
                      force={k: x > 0 for k, x in x_gpu.items()}), \
             vq_codes(cpu.model, record=c_cpu, forced=forced,
                      force={k: c for k, (c, _) in c_gpu.items()}), \
             _g_term_signs(cpu.discriminator, record=d_cpu,
                           force={k: x > 0 for k, x in d_gpu.items()}):
-        lc = cpu.train_step(raw)
+        lc = cpu.train_step(raw, **step_kw)
     x_gpu.update({"discriminator." + k: x for k, x in d_gpu.items()})
     x_cpu.update({"discriminator." + k: x for k, x in d_cpu.items()})
     names = [k for k in lg if k != "total"]
@@ -2142,6 +2223,8 @@ def _variant_step(fe_cfg, workers, raw, what, tmp, gan_cfg=None,
     check(launches == expected, f"{what} step launches {launches}")
     if gan_cfg is not None:
         _check_discriminator(gpu, cpu, what)
+    if compare is not None:
+        compare(gpu, cpu)
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
@@ -3505,6 +3588,371 @@ def phase_encoders(tmp, bf16_rate):
     return paths
 
 
+def _rel(a, b):
+    """max|a - b| / max|b| of two tensors (on any devices)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def _attention_masks(tr, raw):
+    """{block: its mask} of an eval step of ``tr`` on ``raw`` (forward
+    hooks on the attention blocks)."""
+    from pase_tpu_torch.attention import AttentionBlock
+    masks, hooks = {}, []
+    for name, m in tr.model.named_children():
+        if isinstance(m, AttentionBlock):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, name=name: masks.__setitem__(
+                    name, out[1].detach())))
+    try:
+        tr.eval_step(raw)
+    finally:
+        for h in hooks:
+            h.remove()
+    return masks
+
+
+def _attention_recipe(tmp, bf16_rate):
+    """Phase 22 (a): recipes/run_pase_attention.sh's flags through the CLI
+    with --synthetic for one epoch (16 x 32000, bf16), bench.py's
+    distortion stack for the recipe's pase+.cfg: steps/s beside phase 8's
+    bf16 rate, the blocks' running_dist sums and masks, one profiled
+    step's busy split and idle share, peak memory."""
+    import torch
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.profiling import profile_calls
+    check(ATT_TRAIN_SHAPE in TRAIN_QRNN_SHAPES
+          and ATT_TRAIN_SHAPE in QRNN_SHAPES,
+          "phase 3 does not check K1 / K2 at the attention recipe's shape")
+    run = os.path.join(tmp, "attention_cli")
+    torch.cuda.reset_peak_memory_stats()
+    dist = write_bench_dtrans_cfg(os.path.join(tmp, "attention_assets"))
+    tr, launches, perf, last = _cli_run(
+        _recipe_cli_argv(run, script=ATT_RECIPE) + ["--dtrans_cfg", dist],
+        "the attention recipe", run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(tr.cfg["compute_dtype"] == "bfloat16"
+          and (tr.batch_size, tr.chunk_size) == (16, 32000)
+          and tr.model.att_cfg["K"] == ATT_K,
+          f"the attention recipe's flags: {tr.cfg}")
+    raw = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
+                                 seed=22).make_batch()
+    sums = {n: float(b.running_dist.sum()) for n, b in
+            tr.model.named_children() if n.startswith("att_")}
+    masks = _attention_masks(tr, raw)
+    ones = {n: sorted(set(m.sum(dim=1).tolist())) for n, m in masks.items()}
+    print(f"[options] the attention recipe's blocks after training: "
+          f"running_dist sums " + ", ".join(
+              f"{n[4:]} {v:.7f}" for n, v in sums.items())
+          + "; ones per mask row " + ", ".join(
+              f"{n[4:]} {v}" for n, v in ones.items()))
+    check(len(sums) == len(tr.ordered_names) == len(masks),
+          f"attention blocks {list(sums)}")
+    check(all(abs(v - 1.0) <= 1e-5 for v in sums.values()),
+          f"running_dist sums {sums}")
+    check(all(v == [float(ATT_K)] for v in ones.values()),
+          f"mask rows {ones}")
+    rate = perf["steps_per_sec"]
+    prof = profile_calls([lambda: tr.train_step(raw)] * 2, warmup=1,
+                         spans=False)
+    kinds = prof["split"]["all"]
+    split = _busy_split(kinds)
+    idle = max(0.0, 1.0 - prof["covered_ms"] * rate / 1e3)
+    print(f"[options] the attention recipe (PASE+ + workers+ + "
+          f"cfg/attention.cfg, batch 16 x 32000, bf16, the bench stack): "
+          f"{rate:.3f} steps/s, {perf['audio_sec_per_sec']:.1f} audio-s/s, "
+          f"against phase 8's PASE+ bf16 bench step (32 x 32000) "
+          f"{bf16_rate:.3f} ({rate / bf16_rate:.3f}x); one profiled step: "
+          f"device busy {prof['busy_ms']:.2f} ms (GEMM {split['matmul']:.2f},"
+          f" conv {split['conv']:.2f}, rest {split['rest']:.2f}; by kind: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              kinds.items(), key=lambda kv: -kv[1]))
+          + f"), covered {prof['covered_ms']:.2f} ms, wall "
+          f"{prof['wall_ms']:.1f} ms profiled, {1e3 / rate:.1f} unprofiled;"
+          f" idle share 1 - covered / wall {idle:.3f}; kernels per step "
+          f"{prof['launches']['all']:.0f}; peak memory {peak:.2f} GiB; last "
+          f"step total {last['total']:.4f}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"attention_cli": launches}
+
+
+def _mask_compare(gpu, cpu):
+    """After the step: each attention block's running_dist on both sides
+    within ATT_DIST_REL of its largest; then, the CPU model given the
+    card's parameters and buffers, the attention / chunking masks of eval
+    forwards on a fresh batch must be equal. (Each side's own parameters
+    after the step differ by up to 2 lr where a gradient is within
+    rounding of 0, Adam's first step being +-lr: enough to move a channel
+    across the K-th place.)"""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    bufs = dict(cpu.model.named_buffers())
+    dist = {n[4:].split(".")[0]: _rel(b, bufs[n])
+            for n, b in gpu.model.named_buffers()
+            if n.endswith("running_dist")}
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=23)))
+    mg, mc = _attention_masks(gpu, raw), _attention_masks(cpu, raw)
+    differ = {n: int((m.cpu() != mc[n]).sum()) for n, m in mg.items()}
+    chunk = {n: int(b.sum()) for n, b in gpu.model.named_buffers()
+             if n.startswith("chunk_mask_")}
+    print(f"[options] card vs cpu: running_dist after the step, max|d| / "
+          f"max: " + (", ".join(f"{n} {v:.2e}" for n, v in dist.items())
+                      or "none (no attention)")
+          + f" (bound {ATT_DIST_REL}); masks of eval forwards from the "
+          f"card's parameters, entries differing "
+          f"{differ or 'none (no attention)'}; chunking masks' ones "
+          f"{chunk or 'none (no chunking)'}")
+    check(all(v <= ATT_DIST_REL for v in dist.values()),
+          f"running_dist differs: {dist}")
+    check(not any(differ.values()), f"attention masks differ: {differ}")
+    check(all(v == ATT_K for v in chunk.values()), f"chunk masks {chunk}")
+
+
+def _policy_compare(mode):
+    def compare(gpu, cpu):
+        bound = MGD_REL if mode == "MGD" else POLICY_REL
+        errs = {"weights": _rel(gpu.last_weights, cpu.last_weights),
+                "alpha": _rel(gpu.alpha, cpu.alpha)}
+        for f, a, b in zip(gpu.policy_state._fields, gpu.policy_state,
+                           cpu.policy_state):
+            errs[f] = _rel(a.float(), b.float()) if b.abs().max() > 0 \
+                else float((a.cpu() != b).any())
+        print(f"[options] policy {mode}: weights "
+              f"{gpu.last_weights.cpu().numpy().round(4).tolist()}, next "
+              f"alpha {gpu.alpha.cpu().numpy().round(4).tolist()}; card vs "
+              f"cpu max|d| / max: " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (bound {bound})")
+        check(all(v <= bound for v in errs.values()),
+              f"policy {mode}: card vs cpu {errs}")
+    return compare
+
+
+def _optimizer_compare(rule):
+    def compare(gpu, cpu):
+        import torch
+        from pase_tpu_torch import optim
+        worst = {}
+        for group_g, group_c in zip(gpu.opt.param_groups,
+                                    cpu.opt.param_groups):
+            check(group_g["rule"] == rule.lower(), f"rule {group_g}")
+            lr = group_c["lr"]
+            top = max(p.detach().abs().max().item()
+                      for p in group_c["params"])
+            live_err = any_err = 0.0
+            for pg, pc in zip(group_g["params"], group_c["params"]):
+                g = (pc.grad if pc.grad is not None
+                     else torch.zeros_like(pc))
+                live = g.abs() >= OPT_LIVE_REL * g.abs().max()
+                diff = (pg.detach().cpu() - pc.detach()).abs()
+                if live.any():
+                    live_err = max(live_err, diff[live].max().item())
+                any_err = max(any_err, diff.max().item())
+            # the largest |u| of a first step: RMSprop's 1 / sqrt(0.1),
+            # AdamW's 1 plus its decay; RAdam's and SGD's are g itself
+            umax = {"rmsprop": (1 - optim.RMS_DECAY) ** -0.5,
+                    "adamw": 1.0 + optim.ADAMW_DECAY * top}.get(
+                        rule.lower(), 0.0)
+            worst[group_c["name"]] = (live_err / top, any_err,
+                                      2 * lr * umax)
+            check(live_err <= OPT_PARAM_REL * top,
+                  f"{rule} {group_c['name']}: live parameters {live_err}")
+            check(any_err <= 2 * lr * umax + OPT_PARAM_REL * top,
+                  f"{rule} {group_c['name']}: parameters {any_err}")
+        print(f"[options] {rule} after one step, card vs cpu: " + "; ".join(
+            f"{g}: max|dp| / max|p| where |g| >= {OPT_LIVE_REL} of its "
+            f"leaf's max {a:.2e} (bound {OPT_PARAM_REL}), elsewhere max|dp|"
+            f" {b:.2e} (bound 2 lr max|u| = {c:.1e})"
+            for g, (a, b, c) in worst.items()))
+    return compare
+
+
+def _copy_head_masks(gpu, cpu):
+    """The card's dropin / dropout_time masks of its step, injected into
+    the CPU's modules (the two generators draw different bits)."""
+    cpu_mods = dict(cpu.model.named_modules())
+    n = 0
+    for name, m in gpu.model.named_modules():
+        if getattr(m, "last_keep", None) is not None:
+            cpu_mods[name].keep = m.last_keep.cpu()
+            n += 1
+        if getattr(m, "last_time_keep", None) is not None:
+            cpu_mods[name].time_keep = m.last_time_keep.cpu()
+            n += 1
+    print(f"[options] {n} dropin / dropout_time masks of the card's step "
+          f"injected into the CPU's")
+    check(n == 2, f"head masks found: {n}")
+
+
+def _policy_cli(tmp):
+    """Phase 22 (c): --backprop_mode MGD and base through the CLI at 32 x
+    32000 bf16 for POLICY_CLI_STEPS steps each (the epochs' rates, first
+    steps included); the MGD step's pase.mgda device time."""
+    import torch
+    from pase_tpu_torch import train as train_cli
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.profiling import profile_calls
+    paths, rates = {}, {}
+    bpe = train_cli.SYNTHETIC_BPE
+    train_cli.SYNTHETIC_BPE = POLICY_CLI_STEPS
+    try:
+        for mode in ("MGD", "base"):
+            run = os.path.join(tmp, f"{mode}_cli")
+            tr, paths[f"{mode.lower()}_cli"], perf, last = _variant_cli(
+                PASEP_CFG, WORKERSP_CFG, f"--backprop_mode {mode}", run,
+                ["--compute_dtype", "bfloat16", "--backprop_mode", mode])
+            rates[mode] = perf["steps_per_sec"]
+            if mode == "MGD":
+                raw = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
+                                             seed=24).make_batch()
+                prof = profile_calls([lambda: tr.train_step(raw)] * 3,
+                                     warmup=1)
+                mgda = prof["split"].get("pase.mgda", {})
+                alpha = tr.alpha.cpu().numpy()
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        train_cli.SYNTHETIC_BPE = bpe
+    print(f"[options] --backprop_mode MGD through the CLI (32 x 32000, "
+          f"bf16, {POLICY_CLI_STEPS} steps, the epoch's rate, first steps "
+          f"included): {rates['MGD']:.3f} steps/s against "
+          f"base {rates['base']:.3f} ({rates['MGD'] / rates['base']:.3f}x);"
+          f" a profiled MGD step: wall {prof['wall_ms']:.1f} ms, busy "
+          f"{prof['busy_ms']:.2f} ms, pase.mgda {sum(mgda.values()):.2f} ms"
+          f" (" + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              mgda.items(), key=lambda kv: -kv[1]))
+          + f"), pase.losses {sum(prof['split'].get('pase.losses', {}).values()):.2f} ms"
+          f"; the last alpha {alpha.round(3).tolist()} (sum "
+          f"{alpha.sum():.6f})")
+    check(sum(mgda.values()) > 0, "no device time in pase.mgda")
+    check(abs(alpha.sum() - 1) < 1e-5 and (alpha >= 0).all(),
+          f"MGD alpha off the simplex: {alpha}")
+    return paths
+
+
+def _step_rates(tmp):
+    """Phase 22 (c), (d): steady-state steps/s of the PASE+ / workers+
+    bf16 step at 32 x 32000 under the value-sensitive policies (their
+    losses in float32) and each optimizer, beside the base step (Adam in
+    both groups), in turns in this process: STEP_RATE_ROUNDS rounds of 4
+    timed steps after a warm one. The library's reference: the base step
+    with torch.optim.Adam (foreach) in place of the port's Adam."""
+    import torch
+    from pase_tpu_torch import optim
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.trainer import Trainer
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
+               batch_size=TRAIN_BATCH, chunk_size=TRAIN_CHUNK,
+               compute_dtype="bfloat16")
+    variants = {"base": {}, "MGD": {"backprop_mode": "MGD"},
+                "softmax": {"backprop_mode": "softmax"},
+                **{r: {"fe_opt": r, "min_opt": r} for r in OPTIMIZERS},
+                "torch.optim.Adam": {}}
+    trainers = {k: Trainer(PASEP_CFG, WORKERSP_CFG, dict(
+        cfg, save_path=os.path.join(tmp, f"rate_{k}"), **v), device="cuda")
+        for k, v in variants.items()}
+    lib = trainers["torch.optim.Adam"]
+    lib.opt = torch.optim.Adam(
+        [{"params": g["params"], "name": g["name"], "lr": g["lr"]}
+         for g in lib.opt.param_groups],
+        betas=(optim.B1, optim.B2), eps=optim.EPS, foreach=True)
+    batcher = DeviceSyntheticBatcher(TRAIN_BATCH, TRAIN_CHUNK, seed=25)
+    batches = [batcher.make_batch() for _ in range(5)]
+    rates = {k: [] for k in trainers}
+    for _ in range(STEP_RATE_ROUNDS):
+        for k, tr in trainers.items():
+            rates[k].append(_timed_steps(tr, batches, warm=1)[0])
+    del trainers, lib
+    torch.cuda.empty_cache()
+    base = rates["base"]
+    lines = []
+    for k, rs in rates.items():
+        ratio = [r / b for r, b in zip(rs, base)]
+        lines.append(
+            f"{k} {np.mean(rs):.3f} (rounds " + ", ".join(
+                f"{r:.3f}" for r in rs)
+            + f"; spread (max - min) / mean "
+            f"{(max(rs) - min(rs)) / np.mean(rs):.3f})"
+            + ("" if k == "base" else
+               f", against base {np.mean(ratio):.3f}x [{min(ratio):.3f}, "
+               f"{max(ratio):.3f}]"))
+    print(f"[options] steady-state steps/s, PASE+ / workers+ 32 x 32000 "
+          f"bf16, {STEP_RATE_ROUNDS} rounds of 4 steps after a warm one, "
+          f"in turns: " + "; ".join(lines))
+    check(all(r > 0 for rs in rates.values() for r in rs),
+          f"step rates {rates}")
+    return rates
+
+
+def phase_options(tmp, bf16_rate):
+    """Phase 22: the attention recipe, the variants' and policies' steps,
+    the optimizers and the other heads on the card. Returns {path: launch
+    counts}."""
+    import torch
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.data.pipeline import compute_stats
+    from pase_tpu_torch.model import parse_workers_cfg
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = _attention_recipe(tmp, bf16_rate)
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=22)))
+    for label, extra in (("attention", {"att_cfg": ATT_CFG}),
+                         ("chunking", {"chunking_K": ATT_K})):
+        paths[f"{label}_step"] = _variant_step(
+            PASEP_CFG, WORKERSP_CFG, raw, f"PASE+ workers+ {label}",
+            os.path.join(tmp, f"{label}_step"), cfg_extra=extra,
+            compare=_mask_compare)
+    rng = np.random.RandomState(22)
+    meta = parse_workers_cfg(WORKERSP_CFG)
+    n = len(meta["cls"] + meta["regr"])
+    # ZNorm'd targets: the losses the policies read are then O(1), so
+    # softmax / hyper_volume / adaptive do not saturate
+    stats = compute_stats(SyntheticChunkBatcher(8, 32000, seed=8), meta,
+                          max_batches=2, device="cuda")
+    for mode in POLICIES:
+        kw = {}
+        if mode in ("select_half", "dropout"):
+            w = np.zeros(n, np.float32)
+            w[rng.choice(n, 3 if mode == "select_half" else n // 2,
+                         replace=False)] = 1.0
+            kw = {"policy_weights": torch.from_numpy(w)}
+        paths[f"policy_{mode}_step"] = _variant_step(
+            PASEP_CFG, WORKERSP_CFG, raw, f"PASE+ workers+ policy {mode}",
+            os.path.join(tmp, f"policy_{mode}"),
+            cfg_extra={"backprop_mode": mode}, step_kw=kw,
+            compare=_policy_compare(mode), stats=stats)
+    paths.update(_policy_cli(tmp))
+    for rule in OPTIMIZERS:
+        paths[f"opt_{rule.lower()}_step"] = _variant_step(
+            PASEP_CFG, WORKERSP_CFG, raw, f"PASE+ workers+ {rule}",
+            os.path.join(tmp, f"opt_{rule}"),
+            cfg_extra={"fe_opt": rule, "min_opt": rule},
+            compare=_optimizer_compare(rule))
+    _step_rates(tmp)
+    workers = parse_workers_cfg(WORKERSP_CFG)
+    for e in workers["regr"]:
+        if e["name"] == "mfcc":
+            e.update(HEAD_OPTIONS)
+    workers["regr"].append({"name": "lpc", "type": "mlp",
+                            "num_outputs": 26, "hidden_size": 256,
+                            "hidden_layers": 1, "loss": "MSELoss",
+                            "skip": False, "loss_weight": 1.0})
+    workers["regu"] = [{"name": "regu_cchunk", "loss": "MSELoss",
+                        "type": "mlp", "loss_weight": 1.0}]
+    noisy = dict(raw, cchunk=raw["chunk"],
+                 chunk=raw["chunk"] + 0.05 * rng.randn(
+                     *raw["chunk"].shape).astype(np.float32))
+    paths["regu_step"] = _variant_step(
+        PASEP_CFG, workers, noisy,
+        "PASE+ workers+ with regu_cchunk, lpc and mfcc's dropin / tied "
+        "context / dropout_time", os.path.join(tmp, "regu_step"),
+        between=_copy_head_masks)
+    print(f"[options] phase 22 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -3599,6 +4047,9 @@ def main():
         paths.update(phase_encoders(os.path.join(tmp, "encoders"),
                                     dist_perf["bfloat16"]["steps_per_sec"]))
         clock(21)
+        paths.update(phase_options(os.path.join(tmp, "options"),
+                                   dist_perf["bfloat16"]["steps_per_sec"]))
+        clock(22)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -3620,6 +4071,13 @@ def main():
     tdnn_eval = next(r for r in rows if tuple(r["shape"]) == TDNN_TRAIN_SHAPE)
     tdnn_train = next(r for r in train_rows
                       if tuple(r["shape"]) == TDNN_TRAIN_SHAPE)
+    # phase 22's shapes: the attention recipe's (K1's loop in eval, K2)
+    # and with a regularizer's fourth stream
+    att_eval, regu_eval = (next(r for r in rows if tuple(r["shape"]) == sh)
+                           for sh in (ATT_TRAIN_SHAPE, REGU_TRAIN_SHAPE))
+    att_train, regu_train = (next(r for r in train_rows
+                                  if tuple(r["shape"]) == sh)
+                             for sh in (ATT_TRAIN_SHAPE, REGU_TRAIN_SHAPE))
 
     def tdnn(row, ms, plain, bnd):
         return {"shape": row["shape"], "ms": row[ms],
@@ -3645,19 +4103,31 @@ def main():
              evals["plain_ms"], (evals["bound_ms"], evals["bound_by"]),
              paths=paths, shape=list(TRAIN_SHAPE),
              tdnn=tdnn(tdnn_eval, "loop_ms", "plain_ms", (
-                 tdnn_eval["bound_ms"], tdnn_eval["bound_by"]))),
+                 tdnn_eval["bound_ms"], tdnn_eval["bound_by"])),
+             attention=tdnn(att_eval, "loop_ms", "plain_ms", (
+                 att_eval["bound_ms"], att_eval["bound_by"])),
+             regu=tdnn(regu_eval, "loop_ms", "plain_ms", (
+                 regu_eval["bound_ms"], regu_eval["bound_by"]))),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],
              train["fwd_plain_ms"], train["fwd_bound"], paths=paths,
              tdnn=tdnn(tdnn_train, "fwd_ms", "fwd_plain_ms",
-                       tdnn_train["fwd_bound"])),
+                       tdnn_train["fwd_bound"]),
+             attention=tdnn(att_train, "fwd_ms", "fwd_plain_ms",
+                            att_train["fwd_bound"]),
+             regu=tdnn(regu_train, "fwd_ms", "fwd_plain_ms",
+                       regu_train["fwd_bound"])),
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
              train["bwd_plain_ms"], train["bwd_bound"], paths=paths,
              tdnn=tdnn(tdnn_train, "bwd_ms", "bwd_plain_ms",
-                       tdnn_train["bwd_bound"]))]
+                       tdnn_train["bwd_bound"]),
+             attention=tdnn(att_train, "bwd_ms", "bwd_plain_ms",
+                            att_train["bwd_bound"]),
+             regu=tdnn(regu_train, "bwd_ms", "bwd_plain_ms",
+                       regu_train["bwd_bound"]))]
         + [_conv_summary(name, *convs[dt], paths=paths)
            for dt, name in (("bfloat16", "conv_s1_tc"),
                             ("float32", "conv_s1_tf32x3"))]}))

@@ -73,7 +73,8 @@ _LEAF_TO_JAX = {v: k for k, v in _LEAF_TO_TORCH.items()}
 # the leaves of the JAX 'batch_stats' collection: BatchNorm's running
 # statistics, the VQ quantizer's codebook and EMA state, and a
 # spectral-norm conv's power-iteration vector u
-_BATCH_STATS = {"mean", "var", "emb", "ema_cluster_size", "ema_w", "u"}
+_BATCH_STATS = {"mean", "var", "emb", "ema_cluster_size", "ema_w", "u",
+                "running_dist"}
 
 
 def _flip_conv(arr):
@@ -272,16 +273,20 @@ def load_frontend_ckpt(path, module, load_last=True):
 
 def model_variables_to_state_dict(flat):
     """JAX PASE variables ({'params/frontend/W/kernel': array,
-    'params/lps/blocks_0/W/kernel': array, ...}) -> the state dict of
-    ``model.PASE`` ({'frontend.W.weight': tensor,
-    'workers.lps.blocks.0.W.weight': tensor, ...})."""
+    'params/lps/blocks_0/W/kernel': array, 'params/att_lps/mlp_0/kernel':
+    array, ...}) -> the state dict of ``model.PASE``
+    ({'frontend.W.weight': tensor, 'workers.lps.blocks.0.W.weight':
+    tensor, 'att_lps.mlp_0.weight': tensor, ...})."""
     groups = {}
     for key, arr in flat.items():
         col, top, *rest = key.split("/")
         groups.setdefault(top, {})["/".join([col] + rest)] = arr
     sd = {}
     for top, sub in groups.items():
-        prefix = "frontend." if top == "frontend" else f"workers.{top}."
+        if top == "frontend" or top.startswith("att_"):
+            prefix = f"{top}."
+        else:
+            prefix = f"workers.{top}."
         for k, v in variables_to_state_dict(sub).items():
             sd[prefix + k] = v
     return sd
@@ -295,7 +300,7 @@ def model_state_dict_to_variables(state_dict):
         top, _, rest = tkey.partition(".")
         if top == "workers":
             top, _, rest = rest.partition(".")
-        elif top != "frontend":
+        elif top != "frontend" and not top.startswith("att_"):
             raise KeyError(f"unexpected PASE state-dict key {tkey!r}")
         groups.setdefault(top, {})[rest] = t
     flat = {}
@@ -322,19 +327,32 @@ def load_model_variables(model, flat):
 # the full train state in the JAX package's TrainState layout
 # ---------------------------------------------------------------------------
 
-GROUPS = ("frontend", "minion")
 _POLICY_FIELDS = ("q", "last_loss", "pi", "count")
 
 
 def _adam_prefix(group):
-    """optax ``multi_transform`` -> ``masked`` -> (adam, schedule) keys."""
+    """optax ``multi_transform`` -> ``masked`` -> (rule, ..., schedule)
+    keys."""
     return f"opt_state/inner_states/{group}/inner_state"
 
 
+# per optimizer rule: {optax leaf of chain element 0: the port's state
+# key}, and the index of the lr schedule's element (its 'count') in the
+# optax chain (adamw's add_decayed_weights, element 1, holds no leaf)
+_RULE_LEAVES = {"adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+                "radam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+                "adamw": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+                "rmsprop": {"nu": "square_avg"},
+                "sgd": {}}
+_SCHED_INDEX = {"adam": 1, "radam": 1, "adamw": 2, "rmsprop": 1, "sgd": 1}
+
+
 def _group_params(trainer):
-    """{group: {parameter name: parameter}} of the trainer's optimizer."""
+    """{group: ({parameter name: parameter}, its optimizer rule)} of the
+    trainer's optimizer."""
     named = {id(p): n for n, p in trainer.model.named_parameters()}
-    return {g["name"]: {named[id(p)]: p for p in g["params"]}
+    return {g["name"]: ({named[id(p)]: p for p in g["params"]},
+                        g.get("rule", "adam"))
             for g in trainer.opt.param_groups}
 
 
@@ -347,12 +365,14 @@ def rng_key(seed, step):
                     np.uint32)
 
 
-def _adam_moments(opt, params, to_variables, head):
-    """Adam's exp_avg / exp_avg_sq of ``params`` ({name: parameter}; zeros
-    before its first step) as ``{head}{mu|nu}/<JAX path>`` leaves;
-    ``to_variables`` maps a state dict to JAX variables."""
+def _moments(opt, params, to_variables, head, leaves=None):
+    """The optimizer's per-parameter state of ``params`` ({name:
+    parameter}; zeros before its first step) as ``{head}{leaf}/<JAX
+    path>`` leaves, ``leaves`` {optax leaf: state key} (Adam's mu / nu by
+    default); ``to_variables`` maps a state dict to JAX variables."""
     flat = {}
-    for leaf, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+    leaves = leaves if leaves is not None else _RULE_LEAVES["adam"]
+    for leaf, key in leaves.items():
         sd = {}
         for n, p in params.items():
             st = opt.state.get(p, {})
@@ -362,20 +382,27 @@ def _adam_moments(opt, params, to_variables, head):
     return flat
 
 
-def _set_adam(opt, params, flat, head, count, to_state_dict, device):
-    """The inverse: Adam's state of ``params`` from the
-    ``{head}{mu|nu}/...`` leaves of ``flat``, at step ``count``."""
+def _set_moments(opt, params, flat, head, count, to_state_dict, device,
+                 leaves=None):
+    """The inverse: the optimizer's state of ``params`` from the
+    ``{head}{leaf}/...`` leaves of ``flat``; with a count (Adam's,
+    AdamW's, RAdam's) at step ``count``."""
+    leaves = leaves if leaves is not None else _RULE_LEAVES["adam"]
     moments = {}
-    for leaf in ("mu", "nu"):
+    for leaf in leaves:
         pre = f"{head}{leaf}/"
         moments[leaf] = to_state_dict(
             {"params/" + k[len(pre):]: v for k, v in flat.items()
              if k.startswith(pre)})
     for n, p in params.items():
-        opt.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": moments["mu"][n].to(device).contiguous(),
-            "exp_avg_sq": moments["nu"][n].to(device).contiguous()}
+        st = {key: moments[leaf][n].to(device).contiguous()
+              for leaf, key in leaves.items()}
+        if "exp_avg" in st:
+            st["step"] = torch.tensor(float(count), dtype=torch.float32)
+        if st:
+            opt.state[p] = st
+        else:
+            opt.state.pop(p, None)
 
 
 def _d_count(trainer):
@@ -392,8 +419,8 @@ def _discriminator_tree(trainer):
     d = trainer.discriminator
     flat = {"d_" + k: v
             for k, v in state_dict_to_variables(d.state_dict()).items()}
-    flat.update(_adam_moments(trainer.d_opt, dict(d.named_parameters()),
-                              state_dict_to_variables, "d_opt_state/0/"))
+    flat.update(_moments(trainer.d_opt, dict(d.named_parameters()),
+                         state_dict_to_variables, "d_opt_state/0/"))
     flat["d_opt_state/0/count"] = np.asarray(_d_count(trainer), np.int32)
     return flat
 
@@ -403,29 +430,32 @@ def _restore_discriminator(trainer, flat):
     d.load_state_dict(variables_to_state_dict(
         {k[2:]: v for k, v in flat.items()
          if k.startswith(("d_params/", "d_batch_stats/"))}), strict=True)
-    _set_adam(trainer.d_opt, dict(d.named_parameters()), flat,
-              "d_opt_state/0/", int(flat["d_opt_state/0/count"]),
-              variables_to_state_dict, trainer.device)
+    _set_moments(trainer.d_opt, dict(d.named_parameters()), flat,
+                 "d_opt_state/0/", int(flat["d_opt_state/0/count"]),
+                 variables_to_state_dict, trainer.device)
 
 
 def train_state_to_tree(trainer):
     """A ``Trainer``'s full state as flat JAX TrainState keys: ``params/``
-    and ``batch_stats/`` (the weight bridge), ``opt_state/`` (per group
-    Adam's ``count``, ``mu`` = exp_avg and ``nu`` = exp_avg_sq in the
-    params' layout, and the schedule's ``count``), ``policy_state/``,
+    and ``batch_stats/`` (the weight bridge), ``opt_state/`` (per group,
+    its optax chain's leaves: Adam / RAdam / AdamW ``0/count``, ``0/mu``
+    = exp_avg and ``0/nu`` = exp_avg_sq in the params' layout, RMSprop
+    ``0/nu`` = square_avg, SGD none; then the schedule's ``count``, at
+    ``2/`` for AdamW, ``1/`` for the others), ``policy_state/``,
     ``alpha``, ``rng`` (``rng_key``), ``step``, with a GAN the
     discriminator's ``d_params/``, ``d_batch_stats/`` and
     ``d_opt_state/``, and ``torch/seed``, the seed the port's per-step
     streams derive from."""
     flat = model_state_dict_to_variables(trainer.model.state_dict())
     count = np.asarray(trainer.opt_count, np.int32)
-    for group, params in _group_params(trainer).items():
+    for group, (params, rule) in _group_params(trainer).items():
         pre = _adam_prefix(group)
-        flat.update(_adam_moments(trainer.opt, params,
-                                  model_state_dict_to_variables,
-                                  f"{pre}/0/"))
-        flat[f"{pre}/0/count"] = count
-        flat[f"{pre}/1/count"] = count
+        flat.update(_moments(trainer.opt, params,
+                             model_state_dict_to_variables, f"{pre}/0/",
+                             _RULE_LEAVES[rule]))
+        if "mu" in _RULE_LEAVES[rule]:            # a count beside mu / nu
+            flat[f"{pre}/0/count"] = count
+        flat[f"{pre}/{_SCHED_INDEX[rule]}/count"] = count
     for f in _POLICY_FIELDS:
         flat[f"policy_state/{f}"] = getattr(trainer.policy_state,
                                             f).cpu().numpy()
@@ -461,16 +491,18 @@ def restore_train_state(trainer, flat):
         k: v for k, v in flat.items()
         if k.startswith(("params/", "batch_stats/"))})
     dev = trainer.device
-    for group, params in _group_params(trainer).items():
+    counts = []
+    for group, (params, rule) in _group_params(trainer).items():
         pre = _adam_prefix(group)
-        _set_adam(trainer.opt, params, flat, f"{pre}/0/",
-                  int(flat[f"{pre}/0/count"]),
-                  model_variables_to_state_dict, dev)
-    trainer.opt_count = int(flat[f"{_adam_prefix(GROUPS[0])}/0/count"])
+        counts.append(int(flat[f"{pre}/{_SCHED_INDEX[rule]}/count"]))
+        _set_moments(trainer.opt, params, flat, f"{pre}/0/", counts[-1],
+                     model_variables_to_state_dict, dev,
+                     _RULE_LEAVES[rule])
+    trainer.opt_count = counts[0]
     trainer.policy_state = type(trainer.policy_state)(*(
-        torch.as_tensor(np.asarray(flat[f"policy_state/{f}"]), device=dev)
+        torch.as_tensor(np.array(flat[f"policy_state/{f}"]), device=dev)
         for f in _POLICY_FIELDS))
-    trainer.alpha = torch.as_tensor(np.asarray(flat["alpha"]), device=dev)
+    trainer.alpha = torch.as_tensor(np.array(flat["alpha"]), device=dev)
     trainer.step = int(flat["step"])
     if trainer.discriminator is not None:
         _restore_discriminator(trainer, flat)

@@ -49,7 +49,7 @@ def _window_counts(t, r, device):
     return _COUNTS[key]
 
 
-def framed_mse_linear(weight, bias, h, target, r):
+def framed_mse_linear(weight, bias, h, target, r, float32=False):
     """r-framed MSE of a linear head WITHOUT materializing the prediction.
 
     Computes mean((h @ W + b - frame_r(target))^2), the composition of a
@@ -70,6 +70,9 @@ def framed_mse_linear(weight, bias, h, target, r):
     and every sum, cross term and bias term is float32, as in
     ``pase_tpu/losses.py``: the Grams take float32 copies of the bf16
     values, the r shifted products round to h's type before their sums.
+    With ``float32`` the shifted products take float32 copies of h and W
+    too (the JAX step's HIGH precision for the policies that read loss
+    values).
     """
     kernel = weight[:, :, 0].t() if weight.dim() == 3 else weight
     rr = int(r) if r else 1
@@ -95,7 +98,10 @@ def framed_mse_linear(weight, bias, h, target, r):
     cross = 0.0
     bmat = None if bias is None else bias.reshape(d, rr)
     for j in range(rr):
-        qj = (_shift_time(h, pad_l - j) @ wc[:, :, j]).float()  # [B,T,D]
+        if float32:
+            qj = _shift_time(hf, pad_l - j) @ wcf[:, :, j]
+        else:
+            qj = (_shift_time(h, pad_l - j) @ wc[:, :, j]).float()
         cross = cross + torch.sum(qj * target)
         if bmat is not None:
             lo, hi = max(0, j - pad_l), min(t, t + j - pad_l)
@@ -120,25 +126,41 @@ def bce_with_logits(pred, target):
                       + torch.log1p(torch.exp(-torch.abs(pred))))
 
 
+def cross_entropy(pred, target):
+    """The mean negative log-likelihood of integer ``target`` under the
+    logits ``pred`` [..., C]."""
+    logp = torch.log_softmax(pred, dim=-1)
+    return -torch.mean(torch.gather(logp, -1, target.long()[..., None]))
+
+
+def smooth_l1(pred, target):
+    """0.5 d^2 where |d| < 1, |d| - 0.5 elsewhere; the mean."""
+    d = torch.abs(pred - target)
+    return torch.mean(torch.where(d < 1, 0.5 * d * d, d - 0.5))
+
+
 _LOSSES = {
     "MSELoss": mse_loss,
     "L1Loss": l1_loss,
     "BCEWithLogitsLoss": bce_with_logits,
+    "CrossEntropyLoss": cross_entropy,
+    "SmoothL1Loss": smooth_l1,
 }
 
 
 def make_loss(name, r=None):
     """Loss factory with the ContextualizedLoss wrapping: for r > 1 the
-    [B, T, D] target is framed to [B, T, D*r] before the criterion."""
-    if name not in _LOSSES:
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet: ROADMAP.md, queue 1: "
-            "off-path model variants")
+    [B, T, D] target is framed to [B, T, D*r] before the criterion.
+    Floating predictions and targets are taken in float32; integer targets
+    (CrossEntropyLoss's) stay integers. An unknown name raises KeyError,
+    as in the JAX package."""
     base = _LOSSES[name]
 
     def loss_fn(pred, target):
         if r is not None and r > 1:
             target = contextualize_r(target, r)
-        return base(pred.float(), target.float())
+        if target.is_floating_point():
+            target = target.float()
+        return base(pred.float(), target)
 
     return loss_fn

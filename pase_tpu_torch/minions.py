@@ -7,7 +7,9 @@ names:
 * ``MLPMinion``     — 1x1 (/context) conv MLP head with r-frame outputs;
                       ``return_linear=True`` hands the last hidden
                       activation and the final 1x1 conv's weight to a fused
-                      head+loss (``losses.framed_mse_linear``).
+                      head+loss (``losses.framed_mse_linear``); dropin
+                      (``nn.PatternedDropout``), tied context and
+                      ``dropout_time`` (``time_dropout``) as in JAX.
 * ``DecoderMinion`` — transposed-conv stack back to the waveform rate.
 * ``SPCMinion``     — sequence predictive coding: (current frame, future
                       window) against (current frame, past window), BCE.
@@ -21,7 +23,9 @@ names:
 
 The SPC and Gap frame indices are drawn on the tensor's device from the
 ``torch.Generator`` the caller passes (the trainer seeds one per step
-from (seed, step)), or injected (``idx``) by a parity harness.
+from (seed, step)), or injected (``idx``) by a parity harness; the
+dropin and ``dropout_time`` masks from each module's
+``dropout_generator`` (the trainer's head generator), or injected.
 """
 
 import torch
@@ -48,23 +52,45 @@ def scale_grad(x, alpha=1.0):
     return _ScaleGrad.apply(x, alpha)
 
 
+def time_dropout(x, rate, minion):
+    """x [B, C, T] times a [B, 1, T] keep-mask (a frame is kept where its
+    uniform draw exceeds ``rate``; ``pase_tpu/minions.py`` dropout_time),
+    drawn from ``minion.dropout_generator`` or injected as
+    ``minion.time_keep``; the mask is kept in ``minion.last_time_keep``."""
+    keep = minion.time_keep
+    if keep is None:
+        u = torch.rand((x.shape[0], 1, x.shape[2]),
+                       generator=minion.dropout_generator, device=x.device)
+        keep = u > rate
+    minion.last_time_keep = keep
+    return x * keep.to(x.dtype)
+
+
 class MLPMinion(nn.Module):
-    """Conv-MLP head: [B, C, T] -> [B, num_outputs * r, T]."""
+    """Conv-MLP head: [B, C, T] -> [B, num_outputs * r, T]. The first
+    block takes ``context`` (``tie_context_weights``: a 1x1 conv averaged
+    over it) and the dropin options; with ``context`` > 1,
+    ``dropout_time`` zeroes whole input frames in train mode
+    (``time_dropout``)."""
 
     def __init__(self, in_channels, num_outputs, hidden_size=256,
                  hidden_layers=2, context=1, dropout=0.0, dropout_time=0.0,
-                 r=1, skip=True, generator=None, **unported):
+                 r=1, skip=True, generator=None, tie_context_weights=False,
+                 dropin=0.0, dropin_mode="std", ratio_fixed=None,
+                 range_fixed=None, drop_channels=False):
         super().__init__()
-        _refuse(unported, "MLPMinion")
-        if dropout_time > 0 and context > 1:
-            raise NotImplementedError(
-                "MLPMinion dropout_time is not ported yet: ROADMAP.md, "
-                "queue 1: off-path model variants")
+        self.dropout_time = dropout_time if context > 1 else 0.0
+        self.dropout_generator = None
+        self.time_keep = self.last_time_keep = None
         blocks = []
         cin, ctx = in_channels, context
         for _ in range(hidden_layers):
-            blocks.append(MLPBlock(cin, hidden_size, context=ctx,
-                                   dout=dropout, generator=generator))
+            blocks.append(MLPBlock(
+                cin, hidden_size, context=ctx, dout=dropout,
+                generator=generator, din=dropin, dropin_mode=dropin_mode,
+                ratio_fixed=ratio_fixed, range_fixed=range_fixed,
+                drop_channels=drop_channels,
+                tie_context_weights=tie_context_weights))
             cin, ctx = hidden_size, 1
         self.blocks = nn.ModuleList(blocks)
         self.context = ctx
@@ -72,6 +98,8 @@ class MLPMinion(nn.Module):
 
     def forward(self, x, alpha=1.0, return_linear=False):
         h = scale_grad(x, alpha)
+        if self.dropout_time > 0 and self.training:
+            h = time_dropout(h, self.dropout_time, self)
         for block in self.blocks:
             h = block(h)
         if return_linear:
@@ -88,7 +116,8 @@ class MLPMinion(nn.Module):
 class DecoderMinion(nn.Module):
     """Waveform decoder head: [B, C, T] -> [B, num_outputs,
     T * prod(strides)]. workers+ ``cchunk``: fmaps (512, 256, 128), strides
-    (4, 4, 10), kwidth 30, one hidden MLP block, L1 loss."""
+    (4, 4, 10), kwidth 30, one hidden MLP block, L1 loss. ``dropout_time``
+    zeroes whole input frames in train mode (``time_dropout``)."""
 
     def __init__(self, in_channels, num_outputs,
                  fmaps=(256, 256, 128, 128, 128, 64, 64),
@@ -97,10 +126,9 @@ class DecoderMinion(nn.Module):
                  dropout_time=0.0, norm_type=None, skip=False,
                  generator=None):
         super().__init__()
-        if dropout_time > 0:
-            raise NotImplementedError(
-                "DecoderMinion dropout_time is not ported yet: ROADMAP.md, "
-                "queue 1: off-path model variants")
+        self.dropout_time = dropout_time
+        self.dropout_generator = None
+        self.time_keep = self.last_time_keep = None
         blocks = []
         cin = in_channels
         for fm, kw, st in zip(fmaps, kwidths, strides):
@@ -116,6 +144,8 @@ class DecoderMinion(nn.Module):
 
     def forward(self, x, alpha=1.0):
         h = scale_grad(x, alpha)
+        if self.dropout_time > 0 and self.training:
+            h = time_dropout(h, self.dropout_time, self)
         for block in self.blocks:
             h = block(h)
         return self.W(h)
@@ -143,21 +173,6 @@ class GRUMinion(nn.Module):
         for i in range(self.hidden_layers):
             h = getattr(self, f"gru_{i}")(h)
         return self.W(h.transpose(1, 2))
-
-
-def _refuse(kwargs, who):
-    """Raise for a head option the port does not build; accept the
-    reference defaults."""
-    defaults = {"tie_context_weights": False, "dropin": 0.0,
-                "dropin_mode": "std", "ratio_fixed": None,
-                "range_fixed": None, "drop_channels": False}
-    for k, v in kwargs.items():
-        if k not in defaults:
-            raise TypeError(f"{who}: unexpected argument {k!r}")
-        if v != defaults[k]:
-            raise NotImplementedError(
-                f"{who} {k}={v!r} is not ported yet: ROADMAP.md, queue 1: "
-                "off-path model variants")
 
 
 def _mlp_head(in_channels, num_outputs, hidden_size, hidden_layers,

@@ -15,6 +15,15 @@ the three streams together as in the JAX package; every worker reads the
 shared hidden, and the LIM / GIM pairs and labels are made in the
 forward.
 
+The attention variant (``att_cfg``: an ``attention.AttentionBlock``
+``att_{worker}`` per cls and regr worker) and the chunking variant
+(``chunking_K``: fixed random channel masks) give each worker its own
+view of the chunk stream; LIM / GIM also mask the ctxt and rand streams
+with the worker's mask. The regularizer workers (the 'regu' group) have
+no parameters: their prediction is the chunk stream and their label the
+detached PASE(cchunk), which the encoder then reads as a fourth stream
+(when a regu name contains "cchunk").
+
 Worker configs are the reference JSON worker cfgs (cfg/workers/*.cfg).
 Layout: the encoder returns [B, T, emb] (NTC); the heads run in the
 reference torch layout [B, C, T]; predictions, labels and targets handed
@@ -26,6 +35,7 @@ import json
 import torch
 from torch import nn
 
+from pase_tpu_torch.attention import AttentionBlock, make_chunk_masks
 from pase_tpu_torch.frontend import build_frontend_module, load_cfg
 from pase_tpu_torch.losses import framed_mse_linear, make_loss
 from pase_tpu_torch.minions import (DecoderMinion, GapMinion, GRUMinion,
@@ -33,8 +43,6 @@ from pase_tpu_torch.minions import (DecoderMinion, GapMinion, GRUMinion,
                                     make_mi_samples, scale_grad)
 from pase_tpu_torch.wavernn import (WaveRNNMinion,
                                     discretized_mix_logistic_loss, raw_loss)
-
-ROADMAP_HEADS = "ROADMAP.md, queue 1: off-path model variants"
 
 _MINION_FIELDS = {
     "mlp": ("num_outputs", "hidden_size", "hidden_layers", "context",
@@ -84,10 +92,6 @@ def minion_type(cfg):
 
 def _build_minion(cfg, in_channels, generator=None):
     mtype = minion_type(cfg)
-    if mtype not in _MINION_CLS:
-        raise NotImplementedError(
-            f"worker {cfg['name']!r} (type {mtype!r}) is not ported yet: "
-            f"{ROADMAP_HEADS}")
     kwargs = {k: cfg[k] for k in _MINION_FIELDS[mtype] if k in cfg}
     for seq_key in ("fmaps", "strides", "kwidths", "upsample_scales"):
         if seq_key in kwargs:
@@ -116,32 +120,35 @@ def _fuse_eligible(e):
 
 
 class PASE(nn.Module):
-    """Encoder + regression / classification worker bank.
+    """Encoder + regression / classification / regularizer worker bank.
 
     ``forward(batch, alpha)`` takes a prepared batch dict ('chunk',
     'chunk_ctxt', 'chunk_rand' [B, T], 'cchunk' [B, T], '<worker>'
     [B, F, D] targets) and returns (hidden dict [B, emb, F] per stream,
     chunk hidden, preds, labels). ``alpha`` is a float or a
-    [num_workers] tensor of per-worker encoder-gradient scales. With
-    ``force_cchunk`` the encoder also reads 'cchunk' (a fourth stream of
-    its batch, and of its BatchNorm statistics), as the JAX model does
-    for the z-GAN's cchunk prior.
+    [num cls + regr workers] tensor of per-worker encoder-gradient
+    scales. With ``force_cchunk`` (the z-GAN's cchunk prior) or a
+    regularizer named '*cchunk*' the encoder also reads 'cchunk' (a
+    fourth stream of its batch, and of its BatchNorm statistics), as the
+    JAX model does. ``att_cfg`` ({K, avg_factor, att_mode, hidden}) or
+    ``chunking_K`` (``attention.make_chunk_masks``) select the
+    variants; 'concat' attention needs ``frames``, the encoder's frames
+    per chunk.
     """
 
     def __init__(self, frontend_cfg, workers_meta, generator=None,
-                 force_cchunk=False):
+                 force_cchunk=False, att_cfg=None, chunking_K=None,
+                 frames=None):
         super().__init__()
-        # the z-GAN's cchunk prior reads PASE(cchunk): the clean chunk then
-        # joins the encoder's batch as a fourth stream
-        self.fwd_cchunk = bool(force_cchunk)
-        if workers_meta.get("regu"):
-            raise NotImplementedError(
-                f"regularizer workers are not ported yet: {ROADMAP_HEADS}")
         self.frontend = build_frontend_module(load_cfg(frontend_cfg),
                                               generator)
         emb = self.frontend.output_dim
         self.cls_meta = list(workers_meta.get("cls", []))
         self.regr_meta = list(workers_meta.get("regr", []))
+        self.regu_meta = list(workers_meta.get("regu", []))
+        # PASE(cchunk) joins the encoder's batch as a fourth stream
+        self.fwd_cchunk = bool(force_cchunk) or any(
+            "cchunk" in e["name"] for e in self.regu_meta)
         self.workers = nn.ModuleDict()
         for e in self.cls_meta:
             # LIM / GIM heads read a pos/neg pair concatenated on channels,
@@ -156,11 +163,39 @@ class PASE(nn.Module):
             self.workers[e["name"]] = _build_minion(e, cin, generator)
         for e in self.regr_meta:
             self.workers[e["name"]] = _build_minion(e, emb, generator)
+        viewed = [e["name"] for e in self.cls_meta + self.regr_meta]
+        self.att_cfg = att_cfg
+        self.chunking = chunking_K is not None and att_cfg is None
+        if att_cfg is not None:
+            for name in viewed:
+                self.add_module(f"att_{name}", AttentionBlock(
+                    emb, K=att_cfg.get("K", 40),
+                    avg_factor=att_cfg.get("avg_factor", 0.0),
+                    att_mode=att_cfg.get("att_mode", "avg_time"),
+                    hidden=tuple(att_cfg.get("hidden", (256,))),
+                    frames=frames, generator=generator))
+        elif self.chunking:
+            masks = make_chunk_masks(viewed, emb, int(chunking_K))
+            for name, m in masks.items():
+                self.register_buffer(f"chunk_mask_{name}", m,
+                                     persistent=False)
 
     @property
     def worker_names(self):
-        """Loss order: cls first, then regr."""
-        return [e["name"] for e in self.cls_meta + self.regr_meta]
+        """cls, then regr, then regu (the loss vector is cls + regr)."""
+        return [e["name"] for e in self.cls_meta + self.regr_meta
+                + self.regu_meta]
+
+    def worker_view(self, name, chunk):
+        """(worker ``name``'s view of the chunk stream, its channel mask
+        [B, emb] or None): the identity for the base model."""
+        if self.att_cfg is not None:
+            return getattr(self, f"att_{name}")(chunk)
+        if self.chunking:
+            m = getattr(self, f"chunk_mask_{name}")
+            return (chunk * m[None, :, None],
+                    m[None, :].expand(chunk.shape[0], -1))
+        return chunk, None
 
     def forward(self, batch, alpha=1.0, generator=None):
         """``generator`` draws the SPC and Gap frame indices that the batch
@@ -182,8 +217,9 @@ class PASE(nn.Module):
         for i, e in enumerate(self.cls_meta):
             name = e["name"]
             kind = minion_type(e)
+            wchunk, wmask = self.worker_view(name, chunk)
             if kind in ("spc", "gap"):
-                y = self.workers[name](chunk, a_of(i), generator,
+                y = self.workers[name](wchunk, a_of(i), generator,
                                        batch.get(f"{name}_idx"))
                 if kind == "gap":
                     y, labels[name] = y
@@ -193,12 +229,15 @@ class PASE(nn.Module):
                 continue
             if name == "overlap":
                 # the frame label of the overlap distortion, [B, F, 1]
-                preds[name] = self.workers[name](chunk, a_of(i)).transpose(
+                preds[name] = self.workers[name](wchunk, a_of(i)).transpose(
                     1, 2)
                 labels[name] = batch["overlap"][..., None]
                 continue
-            pos, neg = make_mi_samples(chunk, h["chunk_ctxt"],
-                                       h["chunk_rand"],
+            hc, hr = h["chunk_ctxt"], h["chunk_rand"]
+            if wmask is not None:
+                hc = hc * wmask[:, :, None]
+                hr = hr * wmask[:, :, None]
+            pos, neg = make_mi_samples(wchunk, hc, hr,
                                        bool(e.get("augment", False)))
             xin = torch.cat([pos, neg], dim=0)
             if name == "cmi":
@@ -209,6 +248,7 @@ class PASE(nn.Module):
         for i, e in enumerate(self.regr_meta, start=len(self.cls_meta)):
             name = e["name"]
             worker = self.workers[name]
+            wchunk, _ = self.worker_view(name, chunk)
             if e.get("type") == "wavernn":
                 # teacher-forced vocoder: the previous clean samples and
                 # the edge-padded frames -> per-sample logits; the target
@@ -216,35 +256,42 @@ class PASE(nn.Module):
                 wav = batch.get("cchunk", batch["chunk"])
                 wav = wav[..., 0] if wav.dim() == 3 else wav
                 pad_f = int(e.get("pad", 2) or 2)
-                mels = nn.functional.pad(scale_grad(chunk, a_of(i)),
+                mels = nn.functional.pad(scale_grad(wchunk, a_of(i)),
                                          (pad_f, pad_f), mode="replicate")
                 x_prev = nn.functional.pad(wav, (1, 0))[:, :-1]
                 preds[name] = worker(x_prev, mels)
                 labels[name] = wav.detach()
                 continue
             if _fuse_eligible(e):
-                tag, hid, w, b = worker(chunk, a_of(i), return_linear=True)
+                tag, hid, w, b = worker(wchunk, a_of(i), return_linear=True)
                 preds[name] = (tag, hid.transpose(1, 2), w, b)
             else:
-                preds[name] = worker(chunk, a_of(i)).transpose(1, 2)
+                preds[name] = worker(wchunk, a_of(i)).transpose(1, 2)
             target = batch[name]
             if name in ("chunk", "cchunk") and target.dim() == 2:
                 target = target[..., None]      # the waveform itself
             labels[name] = target.detach()
+        for e in self.regu_meta:
+            # parameterless: tie PASE(chunk) to PASE(cchunk)
+            preds[e["name"]] = chunk
+            labels[e["name"]] = h["cchunk"].detach()
         return h, chunk, preds, labels
 
 
-def worker_losses(model_meta, preds, labels):
-    """Per-worker losses {name: loss_weight * loss}, cls then regr."""
+def worker_losses(model_meta, preds, labels, float32=False):
+    """Per-worker losses {name: loss_weight * loss}, cls, regr, regu.
+    ``float32``: the fused heads' products in float32 under a bf16
+    policy (``losses.framed_mse_linear``)."""
     losses = {}
-    for group in ("cls", "regr"):
+    for group in ("cls", "regr", "regu"):
         for e in model_meta[group]:
             name = e["name"]
             r = e.get("r") if group == "regr" else None
             pred = preds[name]
             if isinstance(pred, tuple) and pred[0] == "linear":
                 _, hid, w, b = pred
-                val = framed_mse_linear(w, b, hid, labels[name], r)
+                val = framed_mse_linear(w, b, hid, labels[name], r,
+                                        float32=float32)
             elif e.get("type") == "wavernn":
                 logits = pred.float()
                 if e.get("mode", "RAW") == "MOL":
@@ -268,8 +315,14 @@ def materialize_pred(pred):
 
 
 def build_pase(frontend_cfg, workers_cfg, generator=None,
-               force_cchunk=False):
-    """(model, worker metadata) from JSON cfgs (paths or dicts)."""
+               force_cchunk=False, att_cfg=None, chunking_K=None,
+               frames=None):
+    """(model, worker metadata) from JSON cfgs (paths or dicts); an
+    ``att_cfg`` path is read as JSON."""
     meta = parse_workers_cfg(workers_cfg)
+    if isinstance(att_cfg, str):
+        with open(att_cfg) as f:
+            att_cfg = json.load(f)
     return PASE(frontend_cfg, meta, generator=generator,
-                force_cchunk=force_cchunk), meta
+                force_cchunk=force_cchunk, att_cfg=att_cfg,
+                chunking_K=chunking_K, frames=frames), meta

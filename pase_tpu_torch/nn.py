@@ -40,7 +40,8 @@ reference layout loads with ``load_state_dict(strict=True)``:
                     ``flax_cell_to_torch`` / ``torch_cell_to_flax`` bridge
                     its parameters.
 * ``MLPBlock``    — worker-head block: 1x1 (/context) conv -> PReLU (init
-                    0.25) -> dropout.
+                    0.25) -> dropout; optionally a ``PatternedDropout``
+                    on its input (dropin) and a context-tied conv.
 * ``Deconv1D`` / ``GDeconv1DBlock`` — transposed-conv upsampling block of
                     the waveform decoder: ConvTranspose1d -> (trim) ->
                     norm -> PReLU (init 0), glu or a named activation.
@@ -856,24 +857,118 @@ def torch_cell_to_flax(sd):
     return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
+class PatternedDropout(nn.Module):
+    """Dropout restricted to a fixed channel subset for the whole run
+    (``pase_tpu/nn.py`` PatternedDropout), on [B, C, T] in train mode:
+    'fixed_rand' may drop only C - int(C ratio_fixed) channels, picked
+    with ``np.random.RandomState(0)`` (the JAX package's channels);
+    'fixed_given' every channel outside ``range_fixed`` "beg:end"; 'std'
+    every channel (plain dropout). A droppable value is kept with
+    probability 1 - p and scaled by 1 / (1 - p); ``drop_whole_channels``
+    draws one keep per (sample, channel) instead of per (sample, channel,
+    frame), except in 'std' mode, as in JAX. As in JAX, the channels are
+    picked (and a 'fixed_rand' without ``ratio_fixed`` or an unknown mode
+    refused) at the first train call with p > 0, into ``droppable``
+    [C, 1] (1 = droppable).
+
+    The keep draws come from ``dropout_generator`` (None: torch's global
+    generator), or from ``keep`` when a harness injects it (a bool tensor
+    of the draw's shape, [B, C, T] or [B, C, 1]); the last call's is kept
+    in ``last_keep``."""
+
+    def __init__(self, emb_size, p=0.5, dropout_mode="fixed_rand",
+                 ratio_fixed=None, range_fixed=None,
+                 drop_whole_channels=False):
+        super().__init__()
+        self.emb_size = emb_size
+        self.p = p
+        self.dropout_mode = dropout_mode
+        self.ratio_fixed = ratio_fixed
+        self.range_fixed = range_fixed
+        self.drop_whole_channels = drop_whole_channels
+        self.droppable = None
+        self.dropout_generator = None
+        self.keep = self.last_keep = None
+
+    def _droppable(self, device):
+        c = self.emb_size
+        if self.dropout_mode == "fixed_rand":
+            assert self.ratio_fixed is not None
+            n_drop = int(c - c * self.ratio_fixed)
+            sel = np.sort(np.random.RandomState(0).choice(
+                c, size=n_drop, replace=False))
+        elif self.dropout_mode == "fixed_given":
+            beg, end = (int(v) for v in self.range_fixed.split(":")[:2])
+            sel = np.setdiff1d(np.arange(c), np.arange(beg, end))
+        else:
+            raise ValueError(self.dropout_mode)
+        chan = np.zeros((c,), np.float32)
+        chan[sel] = 1.0
+        return torch.from_numpy(chan)[:, None].to(device)
+
+    def forward(self, x):
+        if self.p <= 0 or not self.training:
+            return x
+        b, c, t = x.shape
+        keep = self.keep
+        if keep is None:
+            whole = (self.drop_whole_channels
+                     and self.dropout_mode != "std")
+            shape = (b, c, 1) if whole else (b, c, t)
+            keep = torch.rand(shape, generator=self.dropout_generator,
+                              device=x.device) < 1.0 - self.p
+        self.last_keep = keep
+        if self.dropout_mode == "std":
+            return torch.where(keep, x / (1.0 - self.p), 0.0).to(x.dtype)
+        if self.droppable is None or self.droppable.device != x.device:
+            self.droppable = self._droppable(x.device)
+        scale = 1.0 / (1.0 - self.p)
+        factor = torch.where(self.droppable > 0, keep.to(x.dtype) * scale,
+                             1.0).to(x.dtype)
+        return x * factor
+
+
 class MLPBlock(nn.Module):
     """Conv1d (kwidth ``context``, zero-padded to keep T) -> PReLU (init
-    0.25) -> dropout, on [B, C, T]."""
+    0.25) -> dropout, on [B, C, T]. ``din`` > 0 puts a
+    ``PatternedDropout`` (``dropin_mode``, ``ratio_fixed``,
+    ``range_fixed``, ``drop_channels``) on the input in train mode;
+    ``tie_context_weights`` replaces the context conv by a 1x1 conv and a
+    mean over the ``context`` frames around each frame (the frames
+    outside T not counted)."""
 
     def __init__(self, in_channels, fmaps, context=1, dout=0.0,
-                 generator=None):
+                 generator=None, din=0.0, dropin_mode="std",
+                 ratio_fixed=None, range_fixed=None, drop_channels=False,
+                 tie_context_weights=False):
         super().__init__()
         if context % 2 == 0:
             raise ValueError(f"MLPBlock context must be odd, got {context}")
         self.context = context
-        self.W = Conv1D(in_channels, fmaps, context, generator=generator)
+        self.tie = tie_context_weights
+        if din > 0:
+            self.din = PatternedDropout(
+                in_channels, din, dropin_mode, ratio_fixed, range_fixed,
+                drop_channels)
+        else:
+            self.din = None
+        self.W = Conv1D(in_channels, fmaps, 1 if self.tie else context,
+                        generator=generator)
         self.act = PReLU(fmaps, init=0.25)
         self.dout = dout
 
     def forward(self, x):
-        if self.context > 1:
-            x = F.pad(x, (self.context // 2, self.context // 2))
-        h = self.act(self.W(x))
+        if self.din is not None:
+            x = self.din(x)
+        if self.tie:
+            h = F.avg_pool1d(self.W(x), self.context, stride=1,
+                             padding=self.context // 2,
+                             count_include_pad=False)
+        else:
+            if self.context > 1:
+                x = F.pad(x, (self.context // 2, self.context // 2))
+            h = self.W(x)
+        h = self.act(h)
         if self.dout > 0:
             h = F.dropout(h, self.dout, training=self.training)
         return h
@@ -933,7 +1028,7 @@ class GDeconv1DBlock(nn.Module):
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """Float32 matmuls without TF32 within the block (the flag is global;
     it is restored after)."""
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -983,7 +1078,7 @@ class VQEMA(nn.Module):
     def distances(self, flat):
         """[N, K] squared distances of [N, D] rows to the codebook."""
         e = self.emb
-        with _no_tf32():
+        with no_tf32():
             return (torch.sum(flat * flat, dim=1, keepdim=True)
                     + torch.sum(e * e, dim=1) - 2.0 * (flat @ e.t()))
 
@@ -1014,7 +1109,7 @@ class VQEMA(nn.Module):
                 size = self.ema_cluster_size * g + (1 - g) * counts
                 n = size.sum()
                 size = (size + self.eps) / (n + self.emb_K * self.eps) * n
-                with _no_tf32():
+                with no_tf32():
                     dw = enc.t() @ flat
                 new_w = self.ema_w * g + (1 - g) * dw
                 self.ema_cluster_size.copy_(size)

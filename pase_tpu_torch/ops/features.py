@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from pase_tpu_torch.nn import conv1d
 from pase_tpu_torch.ops.signal import (frame_signal, framed_box_mean_ntc,
-                                       stft_mag)
+                                       levinson, stft_mag)
 
 # ---------------------------------------------------------------------------
 # deltas (librosa.feature.delta parity)
@@ -335,6 +335,31 @@ def prosody(wav, hop=160, win=320, f0_min=60, f0_max=300, sr=16000,
     return add_deltas(torch.stack([lf0, uv, egy, zcr], dim=-1), der_order)
 
 
+@functools.lru_cache(maxsize=4)
+def sptk_hamming(n):
+    """SPTK's (pysptk.hamming) symmetric Hamming window."""
+    return (0.54 - 0.46 * np.cos(2 * np.pi * np.arange(n) / (n - 1))
+            ).astype(np.float32)
+
+
+def lpc(wav, order=25, hop=160, win=320, **_):
+    """Linear prediction per frame: frames of ``win`` at k * hop
+    (zero-padded at the end), SPTK's Hamming window, the autocorrelation
+    as the irfft of the power spectrum at nfft = 2^ceil(log2(2 win)),
+    r + 1e-9 r[0] + 1e-12, Levinson-Durbin; [gain sqrt(max(e, 1e-20)),
+    a_1 .. a_order] per frame. [B, T] -> [B, T // hop, order + 1]."""
+    n_frames = wav.shape[-1] // hop
+    frames = frame_signal(wav, win, hop, n_frames=n_frames, pad_end=True)
+    frames = frames * _const(sptk_hamming, win, like=wav)
+    nfft = int(2 ** np.ceil(np.log2(2 * win)))
+    spec = torch.abs(torch.fft.rfft(frames, n=nfft)) ** 2
+    r = torch.fft.irfft(spec, n=nfft)[..., :order + 1]
+    r = r + 1e-9 * r[..., :1] + 1e-12
+    a, e = levinson(r, order)
+    gain = torch.sqrt(torch.clamp(e, min=1e-20))
+    return torch.cat([gain[..., None], a[..., 1:]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # worker-name dispatch
 # ---------------------------------------------------------------------------
@@ -346,8 +371,10 @@ _FEATURE_BUILDERS = {
     "gtn": gammatone,
     "mfcc": mfcc,
     "prosody": prosody,
+    "lpc": lpc,
 }
-_UNPORTED = ("kaldimfcc", "kaldiplp", "lpc")
+# the Kaldi targets (ROADMAP.md queue 1, item 11b)
+_UNPORTED = ("kaldimfcc", "kaldiplp")
 
 
 def feature_fn_for_worker(name, transform_cfg=None, hop=160):
@@ -361,7 +388,7 @@ def feature_fn_for_worker(name, transform_cfg=None, hop=160):
         if key in name:
             raise NotImplementedError(
                 f"worker feature {name!r} is not ported yet: ROADMAP.md, "
-                "queue 1: off-path model variants")
+                "queue 1, item 11b: the Kaldi targets")
     cfg = dict(transform_cfg or {})
     cfg["hop"] = hop
     for key, fn in _FEATURE_BUILDERS.items():
@@ -384,4 +411,6 @@ def feature_dim_for_worker(name, transform_cfg=None, der_order=2):
         return cfg.get("order", 13) * mult
     if "prosody" in name:
         return 4 * mult
+    if "lpc" in name:
+        return cfg.get("order", 25) + 1
     return None

@@ -109,3 +109,25 @@ def fft_convolve_full(x, h):
     y = torch.fft.irfft(torch.fft.rfft(x, n=nfft) * torch.fft.rfft(h, n=nfft),
                         n=nfft)
     return y[..., :n]
+
+
+def levinson(r, order):
+    """Levinson-Durbin recursion on r [..., order + 1] (the caller
+    regularizes r[0]): (a [..., order + 1] with a[0] = 1, the final
+    prediction error e [...]). The reflection sums run in the JAX
+    package's order (``pase_tpu/ops/signal.py`` levinson)."""
+    a = torch.zeros(r.shape[:-1] + (order + 1,), dtype=r.dtype,
+                    device=r.device)
+    a[..., 0] = 1.0
+    e = r[..., 0]
+    for i in range(1, order + 1):
+        acc = r[..., i]
+        for j in range(1, i):
+            acc = acc + a[..., j] * r[..., i - j]
+        k = -acc / e
+        new_a = a.clone()
+        new_a[..., 1:i] = a[..., 1:i] + k[..., None] * a[..., 1:i].flip(-1)
+        new_a[..., i] = k
+        a = new_a
+        e = e * (1.0 - k * k)
+    return a, e

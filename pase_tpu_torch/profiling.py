@@ -24,7 +24,9 @@ kernel's name:
 ``module_span`` puts a module's calls in a span of their own (the VQ
 quantizer's ``pase.quantizer`` inside ``pase.forward``); a kernel counts
 in the innermost span. The GAN discriminator's work (its call on the
-fake in the losses, and its own step) runs in ``pase.discriminator``.
+fake in the losses, and its own step) runs in ``pase.discriminator``;
+the MGD policy's per-worker gradients and min-norm weights in
+``pase.mgda`` inside ``pase.losses``.
 ``profile_calls`` splits any function's device time the same way (an
 encoder forward: the quantizer beside the trunk, 'other'), and counts
 the kernels each span launched; with ``spans=False`` it records the
@@ -48,7 +50,8 @@ from torch.profiler import record_function
 # in CUTLASS's convolution kernels ('...Congruous...')
 _RECURRENT = re.compile(r"RNN|(?<![A-Za-z])(GRU|LSTM)_|(gru|lstm)_cell")
 SPANS = ("pase.prepare", "pase.forward", "pase.losses", "pase.backward",
-         "pase.optimizer", "pase.quantizer", "pase.discriminator")
+         "pase.optimizer", "pase.quantizer", "pase.discriminator",
+         "pase.mgda")
 
 
 @contextlib.contextmanager

@@ -40,7 +40,13 @@ names (the first cfg that is not "None" wins). ``--gan_cfg '<json>'``
 (or the legacy z flags ``--warmup`` < ``--epoch``, ``--zinit_weight``,
 ``--zinc``, ``--z_lr``, ``--adv_loss``, ``--cchunk_prior``) adds an
 adversarial worker (``trainer.py``), as in
-``recipes/run_pase_plus_gan.sh``.
+``recipes/run_pase_plus_gan.sh``. ``--att_cfg FILE`` (with --att_K,
+--att_mode, --avg_factor overriding its keys) trains the attention
+variant, as ``recipes/run_pase_attention.sh`` does; ``--chunking_K K``
+the chunking variant. ``--backprop_mode`` takes every policy of
+``scheduling.py`` (with --alpha, --delta, --temp, --dropout_rate;
+--rndmin_train is select_one), ``--fe_opt`` / ``--min_opt`` Adam,
+RAdam, AdamW, SGD or RMSprop in optax's form (``optim.py``).
 
 Every option string of the JAX CLI parses, with its type and default.
 The reference's dead flags and the compatibility flags print the JAX
@@ -69,26 +75,13 @@ def str2bool(v):
     return str(v).lower() in ("true", "1", "yes")
 
 
-_ITEM_9E_POLICIES = ("queue 1, item 9e: off-path model variants (the "
-                     "non-base policies)")
-_ITEM_9E_ATTENTION = "queue 1, item 9e: off-path model variants (attention)"
 _ITEM_10 = "queue 1, item 10: multi-GPU"
 # flag -> (value that means "not used": the JAX CLI's default, ROADMAP.md
 # item that ports it)
 _UNPORTED = {
-    "att_cfg": (None, "queue 1: off-path model variants"),
-    "chunking_K": (None, "queue 1: off-path model variants"),
     "shard_device_corpus": (False, _ITEM_10),
     "ihm2sdm": (None, "queue 1, item 5: disk-fed training (the AMI "
                       "channel-key dataset)"),
-    "alpha": (None, _ITEM_9E_POLICIES),
-    "delta": (None, _ITEM_9E_POLICIES),
-    "temp": (None, _ITEM_9E_POLICIES),
-    "dropout_rate": (0.5, _ITEM_9E_POLICIES),
-    "rndmin_train": (False, _ITEM_9E_POLICIES),
-    "att_K": (None, _ITEM_9E_ATTENTION),
-    "att_mode": (None, _ITEM_9E_ATTENTION),
-    "avg_factor": (None, _ITEM_9E_ATTENTION),
     "coordinator_address": (None, _ITEM_10),
     "num_processes": (None, _ITEM_10),
     "process_id": (None, _ITEM_10),
@@ -280,6 +273,44 @@ def compat_notes(opts):
              "accepted, not used")
 
 
+def resolve_variant_flags(opts):
+    """The JAX CLI's handling of the variant flags
+    (``apply_reference_compat``): --rndmin_train is --backprop_mode
+    select_one (a ValueError with any mode but base / select_one);
+    --att_K / --att_mode / --avg_factor override --att_cfg's file, which
+    ``opts.att_cfg`` then holds as a dict (a ValueError without
+    --att_cfg). Prints the JAX CLI's notes."""
+    def note(msg):
+        print(f"[compat] {msg}")
+
+    if opts.rndmin_train:
+        if opts.backprop_mode not in ("base", "select_one"):
+            raise ValueError("--rndmin_train (legacy random-minion "
+                             "training = select_one) conflicts with "
+                             f"--backprop_mode {opts.backprop_mode}")
+        note("--rndmin_train -> --backprop_mode select_one")
+        opts.backprop_mode = "select_one"
+    if (opts.att_K is not None or opts.att_mode is not None
+            or opts.avg_factor is not None):
+        if not opts.att_cfg:
+            raise ValueError(
+                "--att_K/--att_mode/--avg_factor require --att_cfg (the "
+                "reference reads them only for the attention variant, "
+                "WorkerScheduler/trainer.py:56-62)")
+        with open(opts.att_cfg) as f:
+            acfg = json.load(f)
+        if opts.att_K is not None:
+            acfg["K"] = opts.att_K
+        if opts.att_mode is not None:
+            acfg["att_mode"] = opts.att_mode
+        if opts.avg_factor is not None:
+            acfg["avg_factor"] = opts.avg_factor
+        opts.att_cfg = acfg
+        note(f"attention overrides applied: K={acfg.get('K')} "
+             f"att_mode={acfg.get('att_mode')} "
+             f"avg_factor={acfg.get('avg_factor')}")
+
+
 def compat_z_gan_cfg(opts, bpe):
     """The legacy z-adversarial flags -> a gan_cfg dict, or None (the JAX
     CLI's ``compat_z_gan_cfg``): the z loss starts at epoch --warmup
@@ -330,11 +361,6 @@ def check_ported(opts):
                 "channel-key dataset)")
         if name not in DATASETS:
             raise ValueError(f"--dataset {name}: one of {DATASETS}")
-    if opts.backprop_mode != "base":
-        raise NotImplementedError(
-            f"--backprop_mode {opts.backprop_mode} is not ported yet: "
-            "ROADMAP.md, queue 1: off-path model variants (non-base "
-            "policies)")
     if opts.net_cfg is None or opts.fe_cfg is None:
         raise ValueError("--net_cfg and --fe_cfg are required")
     if opts.trans_cache:
@@ -512,6 +538,7 @@ def build_distortions(opts, chunk_size):
 
 def train(opts):
     compat_notes(opts)
+    resolve_variant_flags(opts)
     check_ported(opts)
     from pase_tpu_torch.data.pipeline import load_stats_pkl
     from pase_tpu_torch.precision import full_precision

@@ -1,20 +1,24 @@
 """Trainer: the PASE+ multi-task training step and epoch loop in PyTorch.
 
-The port of ``pase_tpu/trainer.py`` for the base policy. One step:
+The port of ``pase_tpu/trainer.py``. One step:
   1. prepare the raw batch on the device (targets from the clean chunk,
      ZNorm, the distortion stack on the encoder's chunk when a
      ``DistortionConfig`` and its assets are given; ``data/pipeline.py``);
   2. forward the model in train mode: the three streams through the
      encoder as one batch (BatchNorm statistics over all three, running
      stats updated), then every worker head;
-  3. per-worker losses, base policy (weights and alpha all ones), the
-     summed total, plus the encoder's VQ commitment loss where it has a
+  3. per-worker losses; the backprop policy (``cfg['backprop_mode']``,
+     ``scheduling.py``) turns the cls + regr loss vector into this step's
+     weights and the next step's per-worker alpha; the total is the
+     weighted sum plus the regularizer workers' losses (outside the
+     weights), plus the encoder's VQ commitment loss where it has a
      quantizer (reported as 'vq', with 'vq_perplexity', which is not
      summed);
   4. backward (the QRNN layer through its CUDA forward/backward kernels on
-     the card) and one Adam step over the 'frontend' and 'minion' groups,
-     the lr of an update being sched(count), count the updates before it
-     (optax's schedule count).
+     the card) and one optimizer step over the 'frontend' and 'minion'
+     groups (``optim.py``: Adam, or ``--fe_opt`` / ``--min_opt``'s rule
+     in optax's form), the lr of an update being sched(count), count the
+     updates before it (optax's schedule count).
 Steps 1-3 (and the eval step) run under ``cfg['compute_dtype']``
 (``precision.py``: None / 'float32' or 'bfloat16'), as the JAX step runs
 its whole body under the policy. Each worker's parameters get gradients
@@ -23,6 +27,19 @@ alpha (``scale_grad``). The five parts run in
 ``torch.profiler.record_function`` spans named ``pase.prepare``,
 ``pase.forward``, ``pase.losses``, ``pase.backward`` and
 ``pase.optimizer``, which ``profiling.py`` reads.
+
+Policies: the loss vector the policy reads is detached; the policy
+state (``policy_state``) and alpha live in the train state and its
+checkpoint. 'softmax', 'adaptive', 'hyper_volume' and 'MGD' read loss
+values: for them the losses are taken without TF32 and, under bf16, the
+fused wide heads' products in float32 (the JAX step's HIGH precision).
+MGD's alpha is the min-norm (Frank-Wolfe) weights of each worker's
+gradient of its loss with respect to the chunk representation (through
+``scale_grad`` at the current alpha), taken from the loss forward's own
+graph by one ``torch.autograd.grad`` per worker (``retain_graph``): the
+JAX step's second forward with the same draws gives the same values, and
+here the running statistics move once per step without one. It runs in
+the ``pase.mgda`` span.
 
 With a ``gan_cfg`` (``pase_tpu/trainer.py``'s GAN worker) the step also
 trains a discriminator D, in the JAX order: (a) inside the main loss, D
@@ -48,7 +65,11 @@ with ``step_seed(seed + 2, k)``, unless the batch injects them
 with ``step_seed(seed + 3, k)``, unless the caller hands them
 (``z_real``); an encoder's dropout masks (the ASPP blocks of
 ``encoders.ASPPResEncoder``) from one seeded with ``step_seed(seed + 4,
-k)``; the device batcher's batch k from ``step_seed(its seed, k)``. A
+k)``; the select_half / dropout policies' masks from one seeded with
+``step_seed(seed + 5, k)``, unless the caller hands them
+(``policy_weights``); the heads' dropin and ``dropout_time`` masks from
+one seeded with ``step_seed(seed + 6, k)``; the device batcher's batch k
+from ``step_seed(its seed, k)``. A
 resumed run therefore replays the uninterrupted run's batches and draws
 with no generator state in the checkpoint.
 
@@ -73,6 +94,7 @@ after its save, every ``cfg['sup_freq']`` epochs and after the last
 ``save_path/sup_aux``).
 """
 
+import contextlib
 import math
 import os
 import sys
@@ -93,9 +115,12 @@ from pase_tpu_torch.data.dataset import step_seed
 from pase_tpu_torch.data.pipeline import INDEX_KEYS, make_prepare_fn
 from pase_tpu_torch.log import MetricLogger
 from pase_tpu_torch.model import build_pase, materialize_pred, worker_losses
-from pase_tpu_torch.optim import build_optimizer, set_lr
+from pase_tpu_torch.nn import no_tf32
+from pase_tpu_torch.optim import OptaxOptimizer, build_optimizer, set_lr
 from pase_tpu_torch.precision import compute_dtype, resolve
-from pase_tpu_torch.scheduling import apply_policy, init_policy_state
+from pase_tpu_torch.scheduling import (POLICIES, VALUE_SENSITIVE,
+                                       apply_policy, init_policy_state,
+                                       mgda_rep_weights)
 from pase_tpu_torch.utils import AuxiliarSuperviser
 
 # the run's name in its train-state files, the JAX Trainer's default
@@ -152,25 +177,35 @@ class Trainer:
         self.device = torch.device(device)
         self.compute_dtype = resolve(self.cfg.get("compute_dtype"))
         self.mode = self.cfg.get("backprop_mode", "base")
-        if self.mode != "base":
-            raise NotImplementedError(
-                f"backprop_mode {self.mode!r} is not ported yet: ROADMAP.md,"
-                " queue 1: off-path model variants (non-base policies)")
+        if self.mode not in POLICIES:
+            raise NotImplementedError(self.mode)
+        # the JAX Trainer's defaults, with its 'or': 0 means the default
+        self.pol_kwargs = dict(
+            dropout_rate=self.cfg.get("dropout_rate", 0.5) or 0.5,
+            delta=self.cfg.get("delta", 1.5) or 1.5,
+            temp=self.cfg.get("temp", 1.0) or 1.0,
+            alpha_ema=self.cfg.get("alpha", 0.5) or 0.5)
         self.seed = int(self.cfg.get("seed", 0))
+        self.hop = self.cfg.get("hop", 160)
         # the z-GAN's cchunk prior needs PASE(cchunk)
         z_prior = bool(gan_cfg and gan_cfg.get("type") == "z"
                        and gan_cfg.get("cchunk_prior"))
         self.model, self.meta = build_pase(
             frontend_cfg, workers_cfg,
             generator=torch.Generator().manual_seed(self.seed),
-            force_cchunk=z_prior)
+            force_cchunk=z_prior, att_cfg=self.cfg.get("att_cfg"),
+            chunking_K=self.cfg.get("chunking_K"),
+            frames=self.cfg.get("chunk_size", 16000) // self.hop)
         if self.cfg.get("pretrained_ckpt"):
             load_frontend_ckpt(self.cfg["pretrained_ckpt"],
                                self.model.frontend)
         self.model.to(self.device)
-        self.ordered_names = self.model.worker_names
+        # the loss vector (and alpha) is cls + regr; the regularizers'
+        # losses join the total outside the policy's weights
+        self.ordered_names = [e["name"] for e in self.meta["cls"]
+                              + self.meta["regr"]]
+        self.regu_names = [e["name"] for e in self.meta["regu"]]
         self.num_workers = len(self.ordered_names)
-        self.hop = self.cfg.get("hop", 160)
         self.prepare = make_prepare_fn(
             self.meta, stats=stats, dist_cfg=dist_cfg, assets=dist_assets,
             hop=self.hop,
@@ -182,6 +217,12 @@ class Trainer:
         if hasattr(self.model.frontend, "dropout_generator"):
             self.dropout_generator = torch.Generator(device=self.device)
             self.model.frontend.dropout_generator = self.dropout_generator
+        self.policy_generator = torch.Generator(device=self.device)
+        self.head_generator = torch.Generator(device=self.device)
+        for m in self.model.workers.modules():
+            if hasattr(m, "dropout_generator"):
+                m.dropout_generator = self.head_generator
+        self.last_weights = None    # the policy's weights of the last step
         wire = str(self.cfg.get("wire_dtype") or "float32")
         if wire not in ("float32", "int16"):
             raise ValueError(f"wire_dtype {wire!r}: float32 or int16")
@@ -228,8 +269,8 @@ class Trainer:
             d = WaveDiscriminator(generator=gen)
         self.discriminator = d.to(self.device)
         lr = self.gan_cfg.get("lr", self.gan_cfg.get("z_lr", 5e-4))
-        self.d_opt = torch.optim.Adam(d.parameters(), lr=lr,
-                                      betas=(0.9, 0.999), eps=1e-8)
+        self.d_opt = OptaxOptimizer([{"params": list(d.parameters()),
+                                      "lr": lr, "rule": "adam"}])
         self.z_generator = torch.Generator(device=self.device)
 
     def _gan_fake(self, h, chunk, preds):
@@ -332,14 +373,27 @@ class Trainer:
                 v.record_stream(stream)
         return staged.batch
 
-    def train_step(self, raw_batch, draws=None, zs_draws=None, z_real=None):
+    def mgda_alpha(self, loss_vec, chunk):
+        """MGDA-UB weights [n]: each worker's gradient of its loss with
+        respect to the chunk representation, from the loss forward's
+        graph (kept for the step's backward), then ``mgda_rep_weights``
+        in float32 without TF32."""
+        grads = [torch.autograd.grad(loss_vec[i], chunk, retain_graph=True)[0]
+                 for i in range(loss_vec.shape[0])]
+        with no_tf32():
+            return mgda_rep_weights(torch.stack(grads).float())
+
+    def train_step(self, raw_batch, draws=None, zs_draws=None, z_real=None,
+                   policy_weights=None):
         """One optimizer step on a raw batch (host arrays, device tensors,
         or a ``Staged`` from ``stage``); returns the detached per-worker
         losses and 'total' (with a GAN, also the G term and 'd_loss').
         ``draws`` (a ``DistortionDraws``) and ``zs_draws`` (a
         ``ZeroSpeechDraws``) replace the step's own draws, ``z_real``
-        ([B, emb, F]) the z-GAN's N(0, 1) draw. The parameters' ``.grad``
-        keep this step's gradients until the next step."""
+        ([B, emb, F]) the z-GAN's N(0, 1) draw, ``policy_weights`` ([n])
+        select_half's / dropout's mask. The parameters' ``.grad`` keep
+        this step's gradients until the next step, ``last_weights`` the
+        policy's weights."""
         self.model.train()
         self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
         self.sample_generator.manual_seed(
@@ -347,6 +401,10 @@ class Trainer:
         if self.dropout_generator is not None:
             self.dropout_generator.manual_seed(
                 step_seed(self.seed + 4, self.step))
+        self.policy_generator.manual_seed(
+            step_seed(self.seed + 5, self.step))
+        self.head_generator.manual_seed(step_seed(self.seed + 6, self.step))
+        value_sensitive = self.mode in VALUE_SENSITIVE
         if draws is not None:
             draws = draws.to(self.device)
         if zs_draws is not None:
@@ -359,13 +417,25 @@ class Trainer:
             with record_function("pase.forward"):
                 h, chunk, preds, labels = self.model(batch, self.alpha,
                                                      self.sample_generator)
-            with record_function("pase.losses"):
-                losses = worker_losses(self.meta, preds, labels)
+            with record_function("pase.losses"), (
+                    no_tf32() if value_sensitive
+                    else contextlib.nullcontext()):
+                losses = worker_losses(self.meta, preds, labels,
+                                       float32=value_sensitive)
                 loss_vec = torch.stack([losses[n]
                                         for n in self.ordered_names])
+                mg_alpha = None
+                if self.mode == "MGD":
+                    with record_function("pase.mgda"):
+                        mg_alpha = self.mgda_alpha(loss_vec, chunk)
                 weights, alpha_next, self.policy_state = apply_policy(
-                    self.mode, loss_vec.detach(), self.policy_state)
+                    self.mode, loss_vec.detach(), self.policy_state,
+                    self.policy_generator, mgda_alpha=mg_alpha,
+                    weights=policy_weights, **self.pol_kwargs)
+                self.last_weights = weights
                 total = torch.sum(weights * loss_vec)
+                for n in self.regu_names:
+                    total = total + losses[n]
                 fe = self.model.frontend
                 if fe.vq_loss is not None:
                     # the commitment loss trains the encoder toward the

@@ -2,12 +2,15 @@
 (repo-root train.py): every option string of the JAX parser parses with
 its type and default; the reference's dead flags and the compatibility
 flags print their notes; the flags of unported items raise naming their
-ROADMAP.md item when used and not at their default; the superviser's
+ROADMAP.md item when used and not at their default; the policy and
+attention flags reach the Trainer as the JAX CLI routes them; the
+superviser's
 flags reach the Trainer's cfg; the legacy z flags
 make the JAX CLI's gan_cfg; the GAN recipe's command line parses and
 builds its trainer."""
 
 import json
+import re
 
 import pytest
 
@@ -101,11 +104,6 @@ def test_no_cuda_does_not_move_the_run():
 
 
 UNPORTED = [
-    ("--alpha", ["0.3"], "item 9e"), ("--delta", ["1.2"], "item 9e"),
-    ("--temp", ["2"], "item 9e"), ("--dropout_rate", ["0.2"], "item 9e"),
-    ("--rndmin_train", [], "item 9e"), ("--att_K", ["4"], "item 9e"),
-    ("--att_mode", ["concat"], "item 9e"),
-    ("--avg_factor", ["0.5"], "item 9e"),
     ("--coordinator_address", ["localhost:1"], "item 10"),
     ("--num_processes", ["2"], "item 10"),
     ("--process_id", ["0"], "item 10"), ("--n_model", ["2"], "item 10")]
@@ -125,8 +123,74 @@ def test_unported_flags_at_their_defaults_do_not_raise():
         action = _actions(jax_cli.build_argparser())[flag]
         if action.nargs != 0 and action.default is not None:
             defaults += [flag, str(action.default)]
-    assert defaults == ["--dropout_rate", "0.5", "--n_model", "1"]
+    assert defaults == ["--n_model", "1"]
     port_cli.check_ported(_parse(defaults))
+
+
+ATT_CFG = "cfg/attention.cfg"
+# the policy and attention flags (formerly refused): each case's flag, its
+# value, and what it must make of the Trainer the CLI builds
+VARIANT_FLAGS = [
+    ("--alpha", ["0.3"], lambda tr: tr.pol_kwargs["alpha_ema"] == 0.3),
+    ("--delta", ["1.2"], lambda tr: tr.pol_kwargs["delta"] == 1.2),
+    ("--temp", ["2"], lambda tr: tr.pol_kwargs["temp"] == 2.0),
+    ("--dropout_rate", ["0.2"],
+     lambda tr: tr.pol_kwargs["dropout_rate"] == 0.2),
+    ("--rndmin_train", [], lambda tr: tr.mode == "select_one"),
+    ("--att_K", ["4", "--att_cfg", ATT_CFG],
+     lambda tr: tr.model.att_mi.K == 4),
+    ("--att_mode", ["concat", "--att_cfg", ATT_CFG],
+     lambda tr: tr.model.att_mi.att_mode == "concat"
+     and tr.model.att_mi.mlp_0.in_features == 16 * 30),
+    ("--avg_factor", ["0.5", "--att_cfg", ATT_CFG],
+     lambda tr: tr.model.att_lps.avg_factor == 0.5)]
+
+
+@pytest.mark.parametrize("flag,value,want", VARIANT_FLAGS,
+                         ids=[f for f, _, _ in VARIANT_FLAGS])
+def test_variant_flags_reach_the_trainer(tmp_path, monkeypatch, capsys,
+                                         flag, value, want):
+    """Each policy / attention flag passes the checks, prints the JAX
+    CLI's note, leaves the options as the JAX CLI's
+    ``apply_reference_compat`` leaves them (backprop_mode, att_cfg) and
+    reaches the Trainer (the epoch loop is not run here)."""
+    from pase_tpu_torch.trainer import Trainer
+    from test_torch_train import small_workers
+    jopts = jax_cli.build_argparser().parse_args(
+        ["--net_cfg", "w.cfg", flag] + value)
+    jax_cli.apply_reference_compat(jopts)
+    want_notes = [line for line in capsys.readouterr().out.splitlines()
+                  if "rndmin" in line or "attention" in line]
+    fe, wk = tmp_path / "fe.cfg", tmp_path / "wk.cfg"
+    fe.write_text(json.dumps(SMALL_FE))
+    wk.write_text(json.dumps(small_workers()))
+    monkeypatch.setattr(Trainer, "train_", lambda self, *a, **k: None)
+    tr = port_cli.main(["--synthetic", "--device", "cpu", "--net_cfg",
+                        str(wk), "--fe_cfg", str(fe), "--batch_size", "2",
+                        "--chunk_size", "4800", "--epoch", "1",
+                        "--save_path", str(tmp_path / "run"), flag] + value)
+    notes = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[compat]")]
+    assert notes == want_notes
+    assert tr.cfg["backprop_mode"] == jopts.backprop_mode
+    assert tr.cfg["att_cfg"] == jopts.att_cfg
+    assert want(tr)
+
+
+def test_attention_overrides_need_att_cfg_as_in_jax():
+    jopts = jax_cli.build_argparser().parse_args(
+        ["--net_cfg", "w.cfg", "--att_K", "4"])
+    with pytest.raises(ValueError) as e:
+        jax_cli.apply_reference_compat(jopts)
+    with pytest.raises(ValueError, match=re.escape(str(e.value))):
+        port_cli.resolve_variant_flags(_parse(["--att_K", "4"]))
+    for mode in ("softmax", "MGD"):
+        argv = ["--rndmin_train", "--backprop_mode", mode]
+        with pytest.raises(ValueError) as e:
+            jax_cli.apply_reference_compat(jax_cli.build_argparser(
+            ).parse_args(["--net_cfg", "w.cfg"] + argv))
+        with pytest.raises(ValueError, match=re.escape(str(e.value))):
+            port_cli.resolve_variant_flags(_parse(argv))
 
 
 @pytest.mark.parametrize("flag,value,key,want", [

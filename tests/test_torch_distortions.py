@@ -462,7 +462,11 @@ def test_overlap_head_still_refuses():
     ported now (an MLP on the chunk stream, held to the JAX step by
     tests/test_torch_overlap.py): the bank builds with it, and with the
     contrastive heads beside it, SPC and Gap (tests/test_torch_spc_gap.py).
-    A dropin MLP head still refuses, naming its ROADMAP item."""
+    A dropin MLP head builds too since item 9e (tests/test_torch_heads.py
+    holds it to JAX); a 'fixed_rand' dropin without ratio_fixed builds in
+    both packages and raises at its first train call, as the JAX module
+    asserts there."""
+    from pase_tpu import nn as jax_nn
     from pase_tpu_torch.model import build_pase
     from torch_port_common import NARROW_CFG
     wk = {"regr": [], "cls": [dict(_overlap_workers()["cls"][0],
@@ -472,8 +476,22 @@ def test_overlap_head_still_refuses():
     heads = [dict(wk["cls"][0], name=name) for name in ("spc", "gap")]
     model, _ = build_pase(NARROW_CFG, dict(wk, cls=wk["cls"] + heads))
     assert {"overlap", "spc", "gap"} <= set(model.workers)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1: off-path"):
-        build_pase(NARROW_CFG,
-                   dict(wk, cls=[dict(wk["cls"][0], name="mi",
-                                      dropin=0.5)]))
+    model, _ = build_pase(NARROW_CFG, dict(wk, cls=[dict(
+        wk["cls"][0], name="mi", dropin=0.5)]))
+    assert model.workers["mi"].blocks[0].din.p == 0.5
+    key = jax.random.PRNGKey(0)
+    blk = jax_nn.MLPBlock(8, din=0.5, dropin_mode="fixed_rand")
+    x = jnp.zeros((2, 5, 16))
+    jv = blk.init(key, x, train=False)
+    blk.apply(jv, x, train=False)
+    with pytest.raises(AssertionError):
+        blk.apply(jv, x, train=True, rngs={"dropout": key})
+    model, _ = build_pase(NARROW_CFG,
+                          dict(wk, cls=[dict(wk["cls"][0], name="mi",
+                                             dropin=0.5,
+                                             dropin_mode="fixed_rand")]))
+    din = model.workers["mi"].blocks[0].din
+    x = torch.zeros(2, din.emb_size, 5)
+    assert torch.equal(din.eval()(x), x)
+    with pytest.raises(AssertionError):
+        din.train()(x)

@@ -139,10 +139,41 @@ def test_overlap_train_step_matches_jax(jax_run):
     {"cls": [], "regr": [], "regu": [dict(HEAD, name="cchunk_regu")]},
 ], ids=["gru_head", "regu_worker"])
 def test_unported_heads_still_raise(bank):
-    """SPC and Gap build since they were ported (tests/test_torch_spc_gap),
-    the GRU head too (tests/test_torch_recurrent.py); a dropin MLP head
-    (item 9e; the case keeps its id) and a regularizer worker still
-    raise, naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1: off-path model variants"):
-        build_pase(SMALL_FE, bank)
+    """The two heads this test once held refused (the name and ids are
+    kept) build since item 9e: a dropin MLP head (ids 'gru_head': the GRU
+    head case it first held) and a regularizer worker. Their variables
+    are the JAX model's (the same keys and shapes through the bridge); a
+    'fixed_rand' dropin without ratio_fixed builds in both packages and
+    raises at its first train call, as the JAX module asserts there."""
+    from flax.core import unfreeze
+    from flax.traverse_util import flatten_dict
+    from pase_tpu.model import build_pase as jax_build_pase
+    model, _ = build_pase(SMALL_FE, bank)
+    jmodel, _ = jax_build_pase(SMALL_FE, bank)
+    batch = {k: jnp.zeros((BATCH, CHUNK))
+             for k in ("chunk", "chunk_ctxt", "chunk_rand", "cchunk")}
+    key = jax.random.PRNGKey(0)
+    v = jax.jit(lambda b: jmodel.init(
+        {"params": key, "sample": key, "dropout": key}, b, train=False))(
+        batch)
+    want = {k: tuple(a.shape) for k, a in
+            flatten_dict(unfreeze(v), sep="/").items()}
+    got = {k: tuple(a.shape) for k, a in
+           model_state_dict_to_variables(model.state_dict()).items()}
+    assert got == want
+    assert model.fwd_cchunk == bool(bank.get("regu"))
+    if bank["cls"]:
+        bad = {"cls": [dict(HEAD, name="mi", dropin=0.5,
+                            dropin_mode="fixed_rand")], "regr": []}
+        from pase_tpu import nn as jax_nn
+        blk = jax_nn.MLPBlock(8, din=0.5, dropin_mode="fixed_rand")
+        x = jnp.zeros((BATCH, 5, 16))
+        jv = blk.init(key, x, train=False)
+        blk.apply(jv, x, train=False)
+        with pytest.raises(AssertionError):
+            blk.apply(jv, x, train=True, rngs={"dropout": key})
+        din = build_pase(SMALL_FE, bad)[0].workers["mi"].blocks[0].din
+        x = torch.zeros(BATCH, din.emb_size, 5)
+        assert torch.equal(din.eval()(x), x)
+        with pytest.raises(AssertionError):
+            din.train()(x)

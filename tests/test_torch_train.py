@@ -380,9 +380,19 @@ def test_prelu_signs_record_and_force():
 
 
 def test_trainer_refuses_unported_modes(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An unknown backprop mode raises NotImplementedError naming it, as
+    the JAX package's apply_policy does; the eight JAX modes build."""
+    from pase_tpu.scheduling import apply_policy as jax_apply_policy
+    from pase_tpu_torch.scheduling import POLICIES
+    with pytest.raises(NotImplementedError, match="bogus"):
+        jax_apply_policy("bogus", jnp.ones(3), init_policy_state(3),
+                         jax.random.PRNGKey(0))
+    with pytest.raises(NotImplementedError, match="bogus"):
         Trainer(SMALL_FE, small_workers(),
-                dict(_cfg(tmp_path), backprop_mode="softmax"), device="cpu")
+                dict(_cfg(tmp_path), backprop_mode="bogus"), device="cpu")
+    tr = Trainer(SMALL_FE, small_workers(),
+                 dict(_cfg(tmp_path), backprop_mode="softmax"), device="cpu")
+    assert tr.mode == "softmax" and len(POLICIES) == 8
 
 
 def test_train_loop_logs_checks_and_saves(tmp_path):
@@ -424,9 +434,7 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--shard_device_corpus"], ["--ihm2sdm", "x"],
-    ["--chunking_K", "3"], ["--num_processes", "2"],
-    ["--backprop_mode", "softmax"], ["--att_cfg", "x"],
-    ["--dataset", "AmiSegTupleWavDataset"]])
+    ["--num_processes", "2"], ["--dataset", "AmiSegTupleWavDataset"]])
 def test_train_cli_refuses_unported_flags(tmp_path, flags):
     from pase_tpu_torch import train as port_train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -434,6 +442,30 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags):
                          "cfg/workers/workers+.cfg", "--fe_cfg",
                          "cfg/frontend/PASE+.cfg", "--save_path",
                          str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--chunking_K", "3"],
+     lambda tr: int(tr.model.chunk_mask_lps.sum()) == 3),
+    (["--backprop_mode", "softmax"], lambda tr: tr.mode == "softmax"),
+    (["--att_cfg", "cfg/attention.cfg"],
+     lambda tr: tr.model.att_lps.K == 64 and tr.model.att_lps.hidden
+     == (128,) and tr.cfg["att_cfg"] == "cfg/attention.cfg")],
+    ids=["chunking_K", "backprop_mode", "att_cfg"])
+def test_train_cli_takes_the_variant_flags(tmp_path, monkeypatch, flags,
+                                           want):
+    """The formerly refused --chunking_K, --backprop_mode and --att_cfg
+    reach the Trainer (the epoch loop is not run here)."""
+    from pase_tpu_torch import train as port_train
+    fe, wk = tmp_path / "fe.cfg", tmp_path / "wk.cfg"
+    fe.write_text(json.dumps(SMALL_FE))
+    wk.write_text(json.dumps(small_workers()))
+    monkeypatch.setattr(Trainer, "train_", lambda self, *a, **k: None)
+    tr = port_train.main(["--synthetic", "--device", "cpu", "--net_cfg",
+                          str(wk), "--fe_cfg", str(fe), "--batch_size", "2",
+                          "--chunk_size", "4800", "--epoch", "1",
+                          "--save_path", str(tmp_path / "run")] + flags)
+    assert want(tr)
 
 
 def test_train_cli_without_a_card_refuses(tmp_path):
