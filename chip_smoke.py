@@ -288,6 +288,38 @@ Phases, each printed as it ends; any failure exits non-zero:
                CPU), one step card vs CPU at 2 x 16000. Phase 3 holds K1's
                loop and K2 at [64,200,512] (the recipe's batch with the
                regularizer's fourth stream) as well.
+ 23. ami     — AMI pretraining and the step-level tools: (a) a seeded AMI
+               meeting tree (4 meetings of 330 s, 4 headsets, 8 Array1
+               channels each a delayed, attenuated mix of the headsets plus
+               noise) through the port's data_prep ami-segment and ami-cfg
+               (--map_ihm2sdm 1,3,5,7; about 1 h of headset segments), then
+               recipes/run_pase_libri_ami.sh's flags through the CLI for one
+               epoch (PASE+, workers.cfg, 32 x 32000, bf16; a seeded 1 h
+               LibriSpeech-layout corpus with bench.py's stack for its
+               pase+.cfg, the AMI part in tree mode with --dtrans_cfg None
+               and the headset segments as --clean_root): steps/s against
+               the same flags with --synthetic in this process, the feed
+               wait and staging per step, the share of rows whose
+               distortion mask was off against the AMI share of the corpus
+               (within 5 binomial sd); then a shorter epoch (every 4th
+               train utterance) in channel-key mode (--ihm2sdm 1,3,5,7) and
+               one of the AMI part alone in tree mode from --device_corpus;
+               (b) util_scripts profile-step at PASE+ / workers+ 32 x 32000
+               in bf16 and float32 beside phase 8's rates, eval-ckpts over
+               (a)'s three FE_e0.npz, precompute-feats over the cut
+               LibriSpeech part and a --cache_feats_dir epoch; (c)
+               export-torch of (a)'s artifact loaded back
+               (load_frontend_ckpt): the forward on the card bit for bit;
+               a reference-keyed PASE+ / workers+ state dict
+               (load_reference_pase_ckpt) into another seed's model: one
+               step's losses bit for bit; (d) log_histograms /
+               log_grad_norms rows of one PASE+ / workers+ step at 2 x
+               16000 card vs CPU (the same CPU-computed targets: lo / hi
+               within 1e-4 of the row's largest, counts moved only by
+               values within 1e-4 (hi - lo) of an edge, grad norms within
+               1e-3 relative), and the bf16 step at 32 x 32000 with
+               fused_heads=False against the fused default in turns (3
+               rounds of 4 steps after a warm one).
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -330,7 +362,12 @@ qrnn_pool_fwd_chunked once per encoder / program call and nothing else,
 the TDNN and narrow ASPP steps the training kernels once each, the TDNN
 recipe's CLI the training kernels once per train step and qrnn_pool_fwd
 once per eval step (192 x 256 lanes), ASPP with its QRNN the chunked
-kernel once per call, ASPP without it and the ResNet none.
+kernel once per call, ASPP without it and the ResNet none; phase 23's
+CLI epochs (the AMI recipe, its --synthetic twin, channel-key, device
+corpus, the feature cache) the training kernels once per train step and
+qrnn_pool_fwd once per eval step, profile-step the training kernels once
+per step (3 warm-up and 20 timed, each dtype), eval-ckpts qrnn_pool_fwd
+once per eval batch.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -343,7 +380,9 @@ lstm_step, gru_head_step, wavernn_step, wavernn_cli, wavernn_generate,
 and phase 21's tdnn_serving, tdnn_export, tdnn_step, tdnn_cli,
 aspp_serving, aspp_rnn_serving, resnet_serving, aspp_step, and phase
 22's attention_cli, attention_step, chunking_step, policy_<mode>_step
-for the eight modes, mgd_cli, base_cli, opt_<rule>_step, regu_step:
+for the eight modes, mgd_cli, base_cli, opt_<rule>_step, regu_step, and
+phase 23's ami_cli, ami_channel_key, ami_device_corpus, profile_step,
+eval_ckpts, cache_feats:
 the steps the training kernels once per layer (MGD's per-worker
 gradients reuse the loss forward's graph: no second forward), the CLI
 runs once per layer per train step and qrnn_pool_fwd once per layer per
@@ -527,28 +566,47 @@ HEAD_OPTIONS = {"dropin": 0.2, "dropin_mode": "fixed_rand",
                 "ratio_fixed": 0.5, "tie_context_weights": True,
                 "context": 3, "dropout_time": 0.1}
 STEP_RATE_ROUNDS = 3
+# phase 23: the AMI recipe; the seeded meeting tree (about 1 h of
+# headset segments), its distant channels and the LibriSpeech part's
+# seconds; the shorter epochs keep every AMI_CUT-th utterance; the
+# eval-ckpts batches; the card-vs-CPU bounds of the trainer's rows
+# (histogram lo / hi relative to the row's largest, its counts allowed to
+# move only for values within HIST_EDGE_REL (hi - lo) of an edge; grad
+# norms relative)
+AMI_RECIPE = "recipes/run_pase_libri_ami.sh"
+AMI_MEETINGS, AMI_MEETING_S = 4, 330.0
+AMI_CHANS = "1,3,5,7"
+AMI_LIBRI_S = 3600
+AMI_CUT = 4
+EVAL_CKPT_BATCHES = 5
+HIST_REL, HIST_EDGE_REL, GRAD_NORM_REL = 1e-4, 1e-4, 1e-3
+# the repeated flags that name one corpus of a concatenation
+CORPUS_FLAGS = ("--data_root", "--data_cfg", "--dtrans_cfg", "--dataset")
 
 
 class SmokeFailure(Exception):
     pass
 
 
-def recipe_argv(script):
+def recipe_argv(script, env=None):
     """The training flags of a recipe script: the arguments after its
     ``python train.py`` (or after the recipe it ``exec``s, whose flags
-    come first), ``${VAR:-default}`` taken at its default, "$@" dropped."""
+    come first), ``${VAR:-default}`` taken from ``env`` ({VAR: value}) or
+    at its default, "$@" dropped."""
     import re
     import shlex
+    env = env or {}
     with open(os.path.join(HERE, script)) as f:
         text = f.read().replace("\\\n", " ")
-    text = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", text)
+    text = re.sub(r"\$\{(\w+):-([^}]*)\}",
+                  lambda m: env.get(m.group(1), m.group(2)), text)
     for line in text.splitlines():
         words = shlex.split(line, comments=True)
         if words[:2] == ["python", "train.py"]:
             return [w for w in words[2:] if w != "$@"]
         if words[:1] == ["exec"] and words[1].endswith(".sh"):
-            return recipe_argv(words[1]) + [w for w in words[2:]
-                                            if w != "$@"]
+            return recipe_argv(words[1], env) + [w for w in words[2:]
+                                                 if w != "$@"]
     raise ValueError(f"{script}: no training command")
 
 
@@ -3953,6 +4011,515 @@ def phase_options(tmp, bf16_rate):
     return paths
 
 
+def _ami_corpus(tmp):
+    """Phase 23 (a): the seeded AMI meeting tree written by the port's
+    synthetic_corpus, segmented and described by its data_prep
+    (ami-segment, ami-cfg --map_ihm2sdm 1,3,5,7; the last meeting the
+    test split), and a tree-mode sdm tree: channel 1's segment under each
+    headset segment's name. Returns {seg, cfg, sdm}."""
+    import glob
+    from pase_tpu_torch import data_prep
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_ami
+    t0 = time.perf_counter()
+    tree = os.path.join(tmp, "amicorpus")
+    meetings = write_synthetic_ami(tree, AMI_MEETINGS, AMI_MEETING_S, seed=0)
+    t1 = time.perf_counter()
+    ids = os.path.join(tmp, "meetings.txt")
+    with open(ids, "w") as f:
+        f.write("\n".join(meetings))
+    seg = os.path.join(tmp, "ami_seg")
+    data_prep.main(["ami-segment", "--data_root", tree, "--out_root", seg,
+                    "--ami_meeting_ids", ids, "--map_ihm2sdm", AMI_CHANS])
+    t2 = time.perf_counter()
+    scps = {}
+    for split, meets in (("train", meetings[:-1]), ("test", meetings[-1:])):
+        scps[split] = os.path.join(tmp, f"ami_{split}.scp")
+        with open(scps[split], "w") as f:
+            f.write("\n".join(sorted(p for m in meets for p in glob.glob(
+                os.path.join(seg, m, "audio", "*.wav")))))
+    cfg = os.path.join(tmp, "ami_data_ihm_sdm.cfg")
+    data_prep.main(["ami-cfg", "--data_root", seg, "--train_scp",
+                    scps["train"], "--test_scp", scps["test"], "--cfg_file",
+                    cfg, "--map_ihm2sdm", AMI_CHANS])
+    sdm = os.path.join(tmp, "ami_sdm")
+    with open(cfg) as f:
+        js = json.load(f)
+    for split in ("train", "valid", "test"):
+        for e in js[split]["data"]:
+            dst = os.path.join(sdm, e["filename"])
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            os.link(os.path.join(seg, e["1"]), dst)
+    shutil.rmtree(tree)
+    hours = {s: js[s]["total_wav_dur"] / SR / 3600 for s in js
+             if isinstance(js[s], dict)}
+    check(all(set(e) == {"filename", "spk", "1", "3", "5", "7"}
+              for s in hours for e in js[s]["data"]),
+          "ami-cfg entries without the four distant channels")
+    print(f"[ami] corpus: {AMI_MEETINGS} meetings of {AMI_MEETING_S:.0f} s "
+          f"(4 headsets, 8 Array1 channels) written in {t1 - t0:.1f} s; "
+          f"python -m pase_tpu_torch.data_prep ami-segment --map_ihm2sdm "
+          f"{AMI_CHANS}: {len(glob.glob(os.path.join(seg, '*', 'audio', '*.wav')))} "
+          f"segment wavs in {t2 - t1:.1f} s; ami-cfg: " + ", ".join(
+              f"{s} {len(js[s]['data'])} segments {h:.3f} h"
+              for s, h in hours.items())
+          + f" of headset audio ({time.perf_counter() - t2:.1f} s)")
+    return {"seg": seg, "cfg": cfg, "sdm": sdm, "n_train": len(
+        js["train"]["data"])}
+
+
+def _cut_cfg(src, dst, root, every=AMI_CUT):
+    """A data cfg keeping every ``every``-th utterance of its train split,
+    its total_wav_dur recounted from the wavs."""
+    from pase_tpu_torch.data.io import wav_len
+    with open(src) as f:
+        cfg = json.load(f)
+    cfg["train"]["data"] = cfg["train"]["data"][::every]
+    cfg["train"]["total_wav_dur"] = sum(
+        wav_len(os.path.join(root, e["filename"]))
+        for e in cfg["train"]["data"])
+    with open(dst, "w") as f:
+        json.dump(cfg, f)
+    return dst
+
+
+def _corpus_dropped(argv, index):
+    """``argv`` without the ``index``-th corpus of its concatenation: the
+    index-th value of each of CORPUS_FLAGS (and --clean_root with the AMI
+    part, the second)."""
+    seen, out, i = {}, [], 0
+    while i < len(argv):
+        flag = argv[i]
+        width = 2 if i + 1 < len(argv) and not argv[i + 1].startswith(
+            "--") else 1
+        n = seen.get(flag, 0)
+        seen[flag] = n + 1
+        if (flag in CORPUS_FLAGS and n == index) or (
+                flag == "--clean_root" and index == 1):
+            i += width
+            continue
+        out += argv[i:i + width]
+        i += width
+    return out
+
+
+def _ami_recipe_argv(save, env, dist, values=None):
+    """recipes/run_pase_libri_ami.sh's flags with the recipe's variables
+    from ``env``, one epoch, cfg paths under this checkout, the
+    distortion cfg whose assets are absent (cfg/distortions/pase+.cfg)
+    replaced by bench.py's stack ``dist``, ``values`` ({flag: value})
+    replacing the recipe's."""
+    argv = recipe_argv(AMI_RECIPE, dict(env, SAVE_PATH=save))
+    values = {"--epoch": "1", **(values or {})}
+    out = []
+    for i, w in enumerate(argv):
+        if i and argv[i - 1] in values:
+            out.append(values[argv[i - 1]])
+        elif w == "cfg/distortions/pase+.cfg":
+            out.append(dist)
+        elif w.startswith("cfg/"):
+            out.append(os.path.join(HERE, w))
+        else:
+            out.append(w)
+    return out + ["--log_freq", "25"]
+
+
+def _ami_recipe(tmp, ami, bf16_rate):
+    """Phase 23 (a): the recipe through the CLI for one epoch at its width
+    (PASE+, workers.cfg, 32 x 32000, bf16): the LibriSpeech part with the
+    bench stack, the AMI part in tree mode with --dtrans_cfg None and the
+    headset tree as --clean_root; the share of rows whose distortion mask
+    was off against the AMI share of the corpus; the same flags with
+    --synthetic in this process; then a shorter epoch in channel-key mode
+    and one in tree mode from the device corpus. Returns (paths, the
+    runs' save paths, the LibriSpeech wav root and its cut cfg, and the
+    recipe's argv)."""
+    import torch
+    from pase_tpu_torch import make_trainset_statistics
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_corpus
+    from pase_tpu_torch.trainer import Trainer
+    check(TRAIN_SHAPE in TRAIN_QRNN_SHAPES and TRAIN_SHAPE in QRNN_SHAPES,
+          "phase 3 does not check K1 / K2 at the recipe's [96,200,512]")
+    t0 = time.perf_counter()
+    libri_root, libri_cfg = write_synthetic_corpus(
+        os.path.join(tmp, "libri"), AMI_LIBRI_S, 60, seed=1)
+    stats = os.path.join(tmp, "libri_ami_ihm_stats.pkl")
+    net_cfg = os.path.join(HERE, "cfg", "workers", "workers.cfg")
+    make_trainset_statistics.main([
+        "--data_root", libri_root, "--data_cfg", libri_cfg, "--net_cfg",
+        net_cfg, "--out_file", stats, "--batch_size", str(TRAIN_BATCH),
+        "--chunk_size", str(TRAIN_CHUNK), "--max_batches", "2"])
+    dist = write_bench_dtrans_cfg(os.path.join(tmp, "ami_assets"))
+    print(f"[ami] the LibriSpeech part ({AMI_LIBRI_S} s, seeded) and its "
+          f"statistics (make_trainset_statistics, workers.cfg) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    env = {"STATS": stats, "LIBRI_ROOT": libri_root, "LIBRI_CFG": libri_cfg,
+           "AMI_SDM_ROOT": ami["sdm"], "AMI_CFG": ami["cfg"],
+           "AMI_IHM_ROOT": ami["seg"]}
+    saves = {k: os.path.join(tmp, k) for k in (
+        "ami_cli", "ami_synthetic", "ami_channel_key", "ami_device_corpus")}
+    argv = _ami_recipe_argv(saves["ami_cli"], env, dist)
+    masks = []
+    step = Trainer.train_step
+
+    def counting(self, raw, *a, **k):
+        batch = self.ready(raw)
+        if "dist_mask" in batch:         # a device sum: no synchronization
+            masks.append((batch["dist_mask"] == 0).sum())
+        return step(self, batch, *a, **k)
+
+    Trainer.train_step = counting
+    try:
+        tr, launches, perf, _ = _cli_run(argv, "the AMI recipe",
+                                         saves["ami_cli"])
+    finally:
+        Trainer.train_step = step
+    check(tr.cfg["compute_dtype"] == "bfloat16" and (tr.batch_size,
+          tr.chunk_size) == (TRAIN_BATCH, TRAIN_CHUNK)
+          and tr.cfg["dataset"] == ["LibriSpeechSegTupleWavDataset",
+                                    "AmiSegTupleWavDataset"]
+          and tr.cfg["dtrans_cfg"] == [dist, "None"],
+          f"the AMI recipe's flags: {tr.cfg}")
+    rows = TRAIN_BATCH * len(masks)
+    off = float(sum(int(m) for m in masks)) / rows
+    with open(libri_cfg) as f:
+        n_libri = len(json.load(f)["train"]["data"])
+    share = ami["n_train"] / (ami["n_train"] + n_libri)
+    sd = (share * (1 - share) / rows) ** 0.5
+    print(f"[ami] distortion mask off on {off:.4f} of the {rows} rows the "
+          f"steps read; the AMI share of the concatenated train corpus "
+          f"{share:.4f} ({ami['n_train']} of {ami['n_train'] + n_libri} "
+          f"utterances, drawn uniformly); binomial sd {sd:.4f}")
+    check(len(masks) == tr.bpe and abs(off - share) <= 5 * sd,
+          f"mask-off share {off} against the AMI share {share}")
+    del tr
+    # the same flags with --synthetic: the corpora dropped, the bench stack
+    # and the statistics kept
+    sargv = _corpus_dropped(argv, 1)
+    for flag in ("--data_root", "--data_cfg", "--dataset"):
+        k = sargv.index(flag)
+        del sargv[k:k + 2]
+    sargv[sargv.index("--save_path") + 1] = saves["ami_synthetic"]
+    trs, synth_launches, sperf, _ = _cli_run(
+        sargv + ["--synthetic"], "the AMI recipe's flags, --synthetic",
+        saves["ami_synthetic"])
+    del trs
+    rate, srate = perf["steps_per_sec"], sperf["steps_per_sec"]
+    print(f"[ami] the AMI recipe (PASE+, workers.cfg, 32 x 32000, bf16, "
+          f"LibriSpeech with the bench stack + AMI tree mode undistorted): "
+          f"{rate:.3f} steps/s = {rate / srate:.3f} x the same flags with "
+          f"--synthetic ({srate:.3f}) = {rate / bf16_rate:.3f} x phase 8's "
+          f"PASE+ / workers+ bf16 bench step ({bf16_rate:.3f}); host wait "
+          f"for the next batch {perf['feed_wait_ms']:.2f} ms/step, staging "
+          f"{perf['stage_ms']:.2f} ms/step (--synthetic: "
+          f"{sperf['feed_wait_ms']:.2f}, {sperf['stage_ms']:.2f})")
+    torch.cuda.empty_cache()
+    # the shorter epochs: every AMI_CUT-th utterance of each corpus
+    cut_libri = _cut_cfg(libri_cfg, os.path.join(tmp, "libri_cut.cfg"),
+                         libri_root)
+    cut_ami = _cut_cfg(ami["cfg"], os.path.join(tmp, "ami_cut.cfg"),
+                       ami["seg"])
+    ck_argv = _ami_recipe_argv(saves["ami_channel_key"], dict(
+        env, LIBRI_CFG=cut_libri, AMI_CFG=cut_ami, AMI_SDM_ROOT=ami["seg"]),
+        dist) + ["--ihm2sdm", AMI_CHANS]
+    tr, ck_launches, ck_perf, _ = _cli_run(
+        ck_argv, "the AMI recipe, channel-key mode (--ihm2sdm 1,3,5,7)",
+        saves["ami_channel_key"])
+    check(tr.cfg["ihm2sdm"] == AMI_CHANS, "--ihm2sdm did not reach the CLI")
+    del tr
+    dc_argv = _corpus_dropped(_ami_recipe_argv(
+        saves["ami_device_corpus"], dict(env, AMI_CFG=cut_ami), dist), 0)
+    tr, dc_launches, dc_perf, _ = _cli_run(
+        dc_argv + ["--device_corpus"],
+        "the AMI part alone, tree mode, --device_corpus",
+        saves["ami_device_corpus"])
+    check(tr.cfg["dataset"] == ["AmiSegTupleWavDataset"]
+          and tr.cfg["device_corpus"], f"device corpus flags {tr.cfg}")
+    del tr
+    torch.cuda.empty_cache()
+    print(f"[ami] shorter epochs: channel-key mode {ck_perf['steps_per_sec']:.3f} "
+          f"steps/s (feed wait {ck_perf['feed_wait_ms']:.2f} ms/step), the "
+          f"device corpus in tree mode {dc_perf['steps_per_sec']:.3f} "
+          f"steps/s (feed wait {dc_perf['feed_wait_ms']:.2f} ms/step)")
+    return ({"ami_cli": launches, "ami_channel_key": ck_launches,
+             "ami_device_corpus": dc_launches}, saves,
+            (libri_root, cut_libri), argv)
+
+
+def _tools(tmp, saves, libri, recipe, dist_perf):
+    """Phase 23 (b): profile-step at PASE+ / workers+ 32 x 32000 in bf16
+    and float32 against phase 8's rates; eval-ckpts over (a)'s three
+    encoder artifacts; precompute-feats over the cut LibriSpeech part,
+    then a --cache_feats_dir epoch. Returns the paths."""
+    import torch
+    from pase_tpu_torch import util_scripts
+    libri_root, cut_libri = libri
+    with open(PASEP_CFG) as f:
+        layers = json.load(f).get("rnn_layers", 1)
+    paths = {}
+    reset_launches()                         # profile-step starts here
+    lines = {}
+    for dtype in ("bfloat16", "float32"):
+        lines[dtype] = util_scripts.main([
+            "profile-step", "--fe_cfg", PASEP_CFG, "--net_cfg",
+            WORKERSP_CFG, "--batch_size", str(TRAIN_BATCH), "--chunk_size",
+            str(TRAIN_CHUNK), "--compute_dtype", dtype])
+    torch.cuda.synchronize()
+    paths["profile_step"] = read_launches()  # ... and ends here
+    steps = 2 * (3 + 20)                     # warm-up and timed, each dtype
+    expected = {**{k: 0 for k in paths["profile_step"]},
+                "qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps}
+    check(paths["profile_step"] == expected,
+          f"profile-step launches {paths['profile_step']} != {expected}")
+    for dtype, line in lines.items():
+        ref = dist_perf[dtype]["steps_per_sec"]
+        print(f"[tools] python -m pase_tpu_torch.util_scripts profile-step "
+              f"(PASE+ / workers+, 32 x 32000, {dtype}, the bench stack): "
+              f"{json.dumps(line)}; against phase 8's {dtype} rate "
+              f"{ref:.3f}: {line['steps_per_sec'] / ref:.3f}x")
+        check(set(line) == {"prepare_ms", "step_ms", "model_opt_ms",
+                            "steps_per_sec", "audio_sec_per_sec"}
+              and line["step_ms"] > line["prepare_ms"] > 0,
+              f"profile-step line {line}")
+    ckpts = os.path.join(tmp, "ami_ckpts")
+    os.makedirs(ckpts)
+    runs = ("ami_cli", "ami_channel_key", "ami_device_corpus")
+    for e, run in enumerate(runs):
+        shutil.copy(os.path.join(saves[run], "FE_e0.npz"),
+                    os.path.join(ckpts, f"FE_e{e}.npz"))
+    out = os.path.join(tmp, "ckpt_losses.json")
+    reset_launches()                         # eval-ckpts starts here
+    t0 = time.perf_counter()
+    results = util_scripts.main([
+        "eval-ckpts", "--fe_cfg", PASEP_CFG, "--net_cfg",
+        os.path.join(HERE, "cfg", "workers", "workers.cfg"), "--ckpt_dir",
+        ckpts, "--data_root", libri_root, "--data_cfg", cut_libri,
+        "--batch_size", str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK),
+        "--n_batches", str(EVAL_CKPT_BATCHES), "--out_file", out,
+        "--save_path", os.path.join(tmp, "eval_log")])
+    torch.cuda.synchronize()
+    paths["eval_ckpts"] = read_launches()    # ... and ends here
+    expected = {**{k: 0 for k in paths["eval_ckpts"]},
+                "qrnn_pool_fwd": layers * EVAL_CKPT_BATCHES * len(runs)}
+    check(paths["eval_ckpts"] == expected,
+          f"eval-ckpts launches {paths['eval_ckpts']} != {expected}")
+    with open(out) as f:
+        written = json.load(f)
+    check(written == results and list(written) == [
+        f"FE_e{e}.npz" for e in range(len(runs))] and all(
+        np.isfinite(v) for v in written.values()),
+          f"eval-ckpts output {written}")
+    print(f"[tools] eval-ckpts over the AMI runs' artifacts ({', '.join(runs)}"
+          f"), {EVAL_CKPT_BATCHES} batches of 32 x 32000 of the LibriSpeech "
+          f"valid split each, in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(written)}")
+    cache = os.path.join(tmp, "feats")
+    t0 = time.perf_counter()
+    n = util_scripts.main(["precompute-feats", "--net_cfg", os.path.join(
+        HERE, "cfg", "workers", "workers.cfg"), "--data_root", libri_root,
+        "--data_cfg", cut_libri, "--out_dir", cache])
+    size = sum(os.path.getsize(os.path.join(cache, f))
+               for f in os.listdir(cache))
+    print(f"[tools] precompute-feats over the cut LibriSpeech part: {n} "
+          f"caches, {size / 1e6:.1f} MB, in {time.perf_counter() - t0:.1f} s")
+    run = os.path.join(tmp, "cache_feats")
+    argv = _corpus_dropped(recipe, 1)
+    argv[argv.index("--data_cfg") + 1] = cut_libri
+    argv[argv.index("--random_scale") + 1] = "False"
+    argv[argv.index("--save_path") + 1] = run
+    tr, paths["cache_feats"], perf, _ = _cli_run(
+        argv + ["--cache_feats_dir", cache],
+        "the recipe's LibriSpeech part from the feature cache", run)
+    print(f"[tools] --cache_feats_dir epoch: {perf['steps_per_sec']:.3f} "
+          f"steps/s, feed wait {perf['feed_wait_ms']:.2f} ms/step, staging "
+          f"{perf['stage_ms']:.2f} ms/step")
+    del tr
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _reference_pase_sd(model, meta):
+    """A port PASE's state dict under the reference ``pase`` model's keys
+    (frontend., regression_workers.{i}., classification_workers.{i}.minion.)."""
+    regr = [e["name"] for e in meta["regr"]]
+    cls = [e["name"] for e in meta["cls"]]
+    out = {}
+    for k, v in model.state_dict().items():
+        top, _, rest = k.partition(".")
+        if top == "frontend":
+            out[k] = v.cpu()
+            continue
+        name, _, leaf = rest.partition(".")
+        out[(f"regression_workers.{regr.index(name)}." if name in regr else
+             f"classification_workers.{cls.index(name)}.minion.")
+            + leaf] = v.cpu()
+    return out
+
+
+def _layouts(tmp, saves):
+    """Phase 23 (c): export-torch of the AMI recipe's artifact, loaded
+    back (load_frontend_ckpt): the encoder's forward on the card equals
+    the original's bit for bit; a reference-keyed whole-model state dict
+    of a seeded PASE+ / workers+ loaded into another seed's model
+    (load_reference_pase_ckpt): one step's losses equal the original's
+    bit for bit."""
+    import torch
+    from pase_tpu_torch import util_scripts, wf_builder
+    from pase_tpu_torch.checkpoint import load_reference_pase_ckpt
+    from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
+    from pase_tpu_torch.trainer import Trainer
+    npz = os.path.join(saves["ami_cli"], "FE_e0.npz")
+    ckpt = os.path.join(tmp, "FE_e0.ckpt")
+    out = util_scripts.main(["export-torch", "--in_ckpt", npz, "--out_ckpt",
+                             ckpt])
+    a = wf_builder(PASEP_CFG).load_pretrained(npz)
+    b = wf_builder(PASEP_CFG, seed=7).load_pretrained(ckpt)
+    x = np.random.RandomState(23).randn(4, 1, TRAIN_CHUNK).astype(np.float32)
+    ya, yb = a(x), b(x)
+    check(torch.equal(ya, yb), "export-torch round trip: the forwards differ "
+          f"by {(ya - yb).abs().max().item()}")
+    print(f"[layouts] export-torch of the AMI recipe's FE_e0.npz: "
+          f"{len(out)} tensors "
+          f"({sum(k.endswith('num_batches_tracked') for k in out)} "
+          f"num_batches_tracked); loaded back with load_frontend_ckpt, the "
+          f"forward at (4,1,32000) on the card equals the original's bit "
+          f"for bit")
+    del a, b
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
+               batch_size=4, chunk_size=TRAIN_CHUNK)
+    src = Trainer(PASEP_CFG, WORKERSP_CFG, dict(cfg, seed=0, save_path=
+                  os.path.join(tmp, "ref_src")), device="cuda")
+    dst = Trainer(PASEP_CFG, WORKERSP_CFG, dict(cfg, seed=1, save_path=
+                  os.path.join(tmp, "ref_dst")), device="cuda")
+    sd = _reference_pase_sd(src.model, src.meta)
+    path = os.path.join(tmp, "PASE-ref.ckpt")
+    torch.save(sd, path)
+    load_reference_pase_ckpt(path, dst.model, dst.meta)
+    raw = DeviceSyntheticBatcher(4, TRAIN_CHUNK, seed=23).make_batch()
+    la, lb = src.train_step(raw), dst.train_step(raw)
+    bad = [k for k in la if not torch.equal(la[k], lb[k])]
+    check(not bad, f"reference-layout model: losses differ at {bad}")
+    print(f"[layouts] a reference-keyed PASE+ / workers+ state dict "
+          f"({len(sd)} keys, {len(src.meta['regr'])} regression and "
+          f"{len(src.meta['cls'])} classification workers) loaded with "
+          f"load_reference_pase_ckpt into a model of another seed: one step "
+          f"at 4 x 32000 gives the original's {len(la)} losses bit for bit "
+          f"(total {float(la['total']):.6f})")
+    del src, dst
+    torch.cuda.empty_cache()
+
+
+def _trainer_rows(tmp):
+    """Phase 23 (d): one PASE+ / workers+ step at 2 x 16000 with
+    log_histograms and log_grad_norms on the card and on the CPU, from the
+    same weights and the same (CPU-computed) regression targets: the
+    histogram rows' lo / hi within HIST_REL, their counts moved only by
+    values within HIST_EDGE_REL (hi - lo) of an edge, the grad norms
+    within GRAD_NORM_REL; then the bf16 step at 32 x 32000 with
+    fused_heads=False against the fused default in turns, 3 rounds of 4
+    steps after a warm one."""
+    import torch
+    from pase_tpu_torch import trainer as port_trainer
+    from pase_tpu_torch.data.dataset import (DeviceSyntheticBatcher,
+                                             SyntheticChunkBatcher)
+    from pase_tpu_torch.data.pipeline import make_prepare_fn
+    from pase_tpu_torch.model import parse_workers_cfg
+    from pase_tpu_torch.trainer import Trainer
+    meta = parse_workers_cfg(WORKERSP_CFG)
+    raw = next(iter(SyntheticChunkBatcher(2, 16000, seed=23)))
+    with torch.no_grad():
+        prep = make_prepare_fn(meta)(
+            {k: torch.from_numpy(v) for k, v in raw.items()})
+    raw.update({e["name"]: prep[e["name"]].numpy() for e in meta["regr"]
+                if e["name"] != "cchunk"})
+    rows, values = {}, {}
+    hist = port_trainer.hist_row
+    for device in ("cuda", "cpu"):
+        tr = Trainer(PASEP_CFG, WORKERSP_CFG, dict(
+            batch_size=2, chunk_size=16000, log_histograms=True,
+            log_grad_norms=True, save_path=os.path.join(tmp, f"rows_{device}")),
+            device=device)
+        seen = values.setdefault(device, [])
+
+        def recording(x, bins=24, seen=seen):
+            seen.append(x.detach().reshape(-1).double().cpu().numpy())
+            return hist(x, bins)
+
+        port_trainer.hist_row = recording
+        try:
+            rows[device] = {k: v.cpu().numpy() for k, v in
+                            tr.train_step(raw).items()}
+        finally:
+            port_trainer.hist_row = hist
+        del tr
+    gpu, cpu = rows["cuda"], rows["cpu"]
+    names = [k for k in cpu if k.startswith("hist/")]
+    check(len(names) == 2 * len(meta["regr"] + meta["cls"])
+          and set(gpu) == set(cpu), f"rows {sorted(gpu)}")
+    worst = {"lohi": 0.0, "moved": 0, "near": 0, "norm": 0.0}
+    for i, k in enumerate(names):
+        lo, hi = cpu[k][0], cpu[k][1]
+        worst["lohi"] = max(worst["lohi"], float(
+            np.abs(gpu[k][:2] - cpu[k][:2]).max() / max(abs(lo), abs(hi))))
+        edges = lo + (hi - lo + 1e-9) * np.arange(25) / 24
+        near = int((np.abs(values["cpu"][i][:, None] - edges[None, 1:-1])
+                    <= HIST_EDGE_REL * (hi - lo)).any(axis=1).sum())
+        moved = int(np.abs(gpu[k][2:] - cpu[k][2:]).sum())
+        worst["moved"] += moved
+        worst["near"] += near
+        check(moved <= 2 * near, f"{k}: {moved} counts moved, {near} values "
+              "near an edge")
+    for k in (k for k in cpu if k.startswith("grad_norm/")):
+        worst["norm"] = max(worst["norm"], abs(float(gpu[k]) - float(
+            cpu[k])) / float(cpu[k]))
+    check(worst["lohi"] <= HIST_REL and worst["norm"] <= GRAD_NORM_REL,
+          f"trainer rows card vs CPU: {worst}")
+    print(f"[f2] log_histograms / log_grad_norms, PASE+ / workers+ 2 x 16000,"
+          f" card vs CPU: {len(names)} histogram rows, lo / hi within "
+          f"{worst['lohi']:.2e} of the row's largest, {worst['moved']} counts "
+          f"moved in all ({worst['near']} values within {HIST_EDGE_REL} "
+          f"(hi - lo) of an edge); {sum(k.startswith('grad_norm/') for k in cpu)}"
+          f" grad norms within {worst['norm']:.2e} relative")
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=1,
+               batch_size=TRAIN_BATCH, chunk_size=TRAIN_CHUNK,
+               compute_dtype="bfloat16")
+    trainers = {k: Trainer(PASEP_CFG, WORKERSP_CFG, dict(
+        cfg, fused_heads=k == "fused", save_path=os.path.join(tmp, k)),
+        device="cuda") for k in ("fused", "unfused")}
+    batches = [DeviceSyntheticBatcher(TRAIN_BATCH, TRAIN_CHUNK,
+                                      seed=24).make_batch() for _ in range(5)]
+    rates = {k: [] for k in trainers}
+    for _ in range(STEP_RATE_ROUNDS):
+        for k, tr in trainers.items():
+            rates[k].append(_timed_steps(tr, batches, warm=1)[0])
+    del trainers
+    torch.cuda.empty_cache()
+    ratio = [u / f for u, f in zip(rates["unfused"], rates["fused"])]
+    print(f"[f2] fused_heads=False against the fused default, PASE+ / "
+          f"workers+ 32 x 32000 bf16, steady state ({STEP_RATE_ROUNDS} rounds"
+          f" of 4 steps after a warm one, in turns): unfused " + ", ".join(
+              f"{r:.3f}" for r in rates["unfused"]) + " steps/s, fused "
+          + ", ".join(f"{r:.3f}" for r in rates["fused"])
+          + f"; ratio {np.mean(ratio):.3f}x [{min(ratio):.3f}, "
+          f"{max(ratio):.3f}]; ms per step {1e3 / np.mean(rates['unfused']):.2f}"
+          f" against {1e3 / np.mean(rates['fused']):.2f}")
+
+
+def phase_ami(tmp, dist_perf):
+    """Phase 23: AMI pretraining end to end, the step-level tools, the
+    reference layouts and the trainer's rows."""
+    t0 = time.perf_counter()
+    ami = _ami_corpus(tmp)
+    paths, saves, libri, recipe = _ami_recipe(
+        tmp, ami, dist_perf["bfloat16"]["steps_per_sec"])
+    shutil.rmtree(ami["sdm"])
+    paths.update(_tools(tmp, saves, libri, recipe, dist_perf))
+    _layouts(tmp, saves)
+    _trainer_rows(tmp)
+    print(f"[ami] phase 23 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -4050,6 +4617,8 @@ def main():
         paths.update(phase_options(os.path.join(tmp, "options"),
                                    dist_perf["bfloat16"]["steps_per_sec"]))
         clock(22)
+        paths.update(phase_ami(os.path.join(tmp, "ami"), dist_perf))
+        clock(23)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

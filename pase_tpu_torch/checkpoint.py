@@ -8,6 +8,16 @@
 * ``Saver``: the rolling checkpoint index with ``max_ckpts`` retention.
 * ``load_frontend_ckpt``: an encoder artifact (native .npz or reference
   torch .ckpt) into a module.
+* The reference torch layouts (``pase_tpu/checkpoint.py``'s):
+  ``torch_to_variables`` fills JAX-layout variables from a reference
+  state dict through ``_map_torch_key`` (weight_norm's weight_g /
+  weight_v, spectral_norm's weight_orig / weight_u, the BiRNN's torch
+  leaves, the conv / linear / transposed-conv transposes; a partial load
+  raises unless ``strict=False``); ``load_reference_pase_ckpt`` imports a
+  whole reference ``pase`` model (``rename_reference_pase_keys``: the
+  encoder and every worker); ``torch_gru_params`` maps an nn.GRU layer
+  onto the GRU head's cell; ``export_torch_state_dict`` is ``util_scripts
+  export-torch``'s writer.
 
 The weight bridge between the JAX package's checkpoints and the port:
 
@@ -247,28 +257,266 @@ def _load_torch_state_dict(path):
     return dict(st)
 
 
+def _map_torch_key(tkey):
+    """A reference torch state-dict key -> (collection, JAX path tuple,
+    transform tag), or None for ``num_batches_tracked`` (the JAX
+    package's ``_map_torch_key``): 'blocks.0' -> 'blocks_0',
+    'rnn.layers.0.linear' -> ('rnn', 'layers_0_linear'); torch's
+    nn.LSTM / nn.GRU leaves -> the BiRNN's; weight_norm's weight_g /
+    weight_v -> 'g' (squeezed) / 'v' (conv layout); spectral_norm's
+    weight_orig -> 'kernel', weight_u -> batch_stats 'u'; low_hz_ /
+    band_hz_, running_mean / running_var -> their JAX names; 'weight'
+    -> a kernel or an elementwise weight, by what the destination has."""
+    parts = tkey.split(".")
+    if parts[-1] == "num_batches_tracked":
+        return None
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if i + 1 < len(parts) - 1 and parts[i + 1].isdigit():
+            if p == "layers" and i + 2 < len(parts) \
+                    and parts[i + 2] == "linear":
+                path.append(f"layers_{parts[i + 1]}_linear")
+                i += 3
+                continue
+            path.append(f"{p}_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(p)
+            i += 1
+    path = tuple(path)
+    leaf = parts[-1]
+    m = _BIRNN_TORCH.match(leaf)
+    if m:
+        kind, side, lnum, rev = m.groups()
+        return ("params", path + (f"l{lnum}_{'bw' if rev else 'fw'}_"
+                                  f"{'w' if kind == 'weight' else 'b'}_"
+                                  f"{side}",), "id")
+    special = {"weight_g": ("params", "g", "squeeze"),
+               "weight_v": ("params", "v", "conv_kernel"),
+               "weight_u": ("batch_stats", "u", "id"),
+               "weight_orig": ("params", "kernel", "conv_kernel"),
+               "low_hz_": ("params", "low_hz", "id"),
+               "band_hz_": ("params", "band_hz", "id"),
+               "running_mean": ("batch_stats", "mean", "id"),
+               "running_var": ("batch_stats", "var", "id")}
+    if leaf in special:
+        col, name, tag = special[leaf]
+        return (col, path + (name,), tag)
+    if leaf == "weight":
+        return ("params", path, "weight")
+    return ("params", path + (leaf,), "id")
+
+
+def torch_to_variables(state_dict, ref, load_last=True, strict=True):
+    """Fill a copy of ``ref`` (JAX flattened variables, {'params/...':
+    array, 'batch_stats/...': array}: the destination's layout and
+    shapes) from a reference torch state dict, key by key through
+    ``_map_torch_key`` with the layout transposes (a conv weight [O, I, K]
+    -> [K, I, O], a transposed conv's [I, O, K] -> [K, O, I], a linear's
+    [O, I] -> [I, O]); keys whose destination is missing or of another
+    shape are skipped. The JAX package's ``torch_to_variables``: with
+    ``strict`` a skipped key raises, and so (unless ``load_last`` is
+    False, which drops the file's last two keys) does a 'params' entry
+    left unfilled. One addition: a leaf the map puts under 'params' whose
+    destination lives in 'batch_stats' only (the VQ codebook and its EMA
+    state, a spectral-norm conv's ``u`` under its own name) goes there."""
+    out = {k: np.asarray(v) for k, v in ref.items()}
+    keys = list(state_dict)
+    if not load_last:
+        keys = keys[:-2]
+    skipped, filled = [], set()
+    for tkey in keys:
+        mapped = _map_torch_key(tkey)
+        if mapped is None:
+            continue
+        col, path, tag = mapped
+        arr = state_dict[tkey]
+        arr = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
+               else np.asarray(arr))
+        base = "/".join(path)
+        if tag == "weight":
+            dest = next((f"{col}/{base}/{leaf}"
+                         for leaf in ("kernel", "weight", "scale")
+                         if f"{col}/{base}/{leaf}" in out), None)
+            if dest is None:
+                skipped.append(tkey)
+                continue
+            if dest.endswith("/kernel"):
+                if arr.ndim == 3:
+                    a = arr.transpose(2, 1, 0)
+                    if a.shape != out[dest].shape and \
+                            arr.transpose(2, 0, 1).shape == out[dest].shape:
+                        a = arr.transpose(2, 0, 1)
+                    arr = a
+                elif arr.ndim == 2:
+                    arr = arr.T
+        else:
+            dest = f"{col}/{base}"
+            if dest not in out and col == "params" and \
+                    f"batch_stats/{base}" in out:
+                dest = f"batch_stats/{base}"
+            if dest not in out:
+                skipped.append(tkey)
+                continue
+            if tag == "squeeze":
+                arr = arr.reshape(-1)
+            elif tag == "conv_kernel":
+                arr = _flip_conv(arr) if arr.ndim in (2, 3) else arr
+            elif arr.ndim == 2 and out[dest].ndim == 2 and \
+                    arr.shape == out[dest].shape[::-1] and \
+                    arr.shape != out[dest].shape:
+                arr = arr.T
+        if out[dest].shape != arr.shape:
+            skipped.append(tkey)
+            continue
+        out[dest] = np.ascontiguousarray(arr)
+        filled.add(dest)
+    if skipped and strict:
+        raise ValueError(
+            f"torch checkpoint load skipped {len(skipped)} keys "
+            f"({skipped[:8]}{'...' if len(skipped) > 8 else ''}); pass "
+            "strict=False to allow a partial load")
+    if strict and load_last:
+        unfilled = [k for k in out
+                    if k.startswith("params/") and k not in filled]
+        if unfilled:
+            raise ValueError(
+                f"torch checkpoint covers only {len(filled)} of the "
+                f"model's param entries; {len(unfilled)} remain at init "
+                f"({unfilled[:8]}{'...' if len(unfilled) > 8 else ''}); "
+                "pass strict=False to allow a partial load")
+    return out
+
+
 def load_frontend_ckpt(path, module, load_last=True):
     """Load a native .npz or a reference torch .ckpt state dict into
     ``module`` with ``load_state_dict(strict=True)``. Only a
     ``num_batches_tracked`` buffer the file lacks (the native format has
     none) keeps the module's value.
 
-    ``load_last=False`` drops the last two entries of a torch .ckpt (the
-    reference's ``load_pretrained_ckpt``, as ``pase_tpu/checkpoint.py``
-    does); the module keeps its own values there, and every other key
-    must still be the module's. A native .npz always loads whole."""
+    A torch .ckpt goes through ``torch_to_variables`` into the module's
+    own layout, so the reference's names load (weight-norm / spectral-norm
+    leaves, the BiRNN's, the encoders' convs), a partial file raises, and
+    ``load_last=False`` drops the file's last two
+    entries (the reference's ``load_pretrained_ckpt``, as
+    ``pase_tpu/checkpoint.py`` does): the module keeps its own values
+    there. A native .npz always loads whole."""
     if path.endswith(".npz"):
         sd = variables_to_state_dict(load_variables_npz(path))
     else:
-        sd = _load_torch_state_dict(path)
-        if not load_last:
-            sd = dict(list(sd.items())[:-2])
+        ref = state_dict_to_variables(module.state_dict())
+        sd = variables_to_state_dict(torch_to_variables(
+            _load_torch_state_dict(path), ref, load_last=load_last))
     for k, v in module.state_dict().items():
-        if k not in sd and (k.endswith("num_batches_tracked")
-                            or not load_last):
+        if k not in sd and k.endswith("num_batches_tracked"):
             sd[k] = v
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def export_torch_state_dict(flat):
+    """A native encoder artifact's flattened variables -> the reference
+    torch state dict that ``util_scripts.py export-torch`` writes: the
+    collection dropped, 'blocks_N' / 'denseskips_N' / 'layers_0_linear'
+    dotted, kernels transposed to torch's conv [O, I, K] / linear [O, I]
+    layout and named 'weight', the BiRNN's leaves as torch's nn.LSTM /
+    nn.GRU ones, low_hz_ / band_hz_, running_mean / running_var, and a
+    zero ``num_batches_tracked`` per norm (the reference's loader counts
+    them)."""
+    out = {}
+    # in the order of the JAX writer's key walk: its tree's keys sorted
+    # at every level
+    for k in sorted(flat, key=lambda key: key.split("/")):
+        arr = np.asarray(flat[k])
+        tk = (k.replace("/", ".").replace("params.", "")
+              .replace("batch_stats.", "").replace("blocks_", "blocks.")
+              .replace("denseskips_", "denseskips."))
+        tk = tk.replace("layers_0_linear", "layers.0.linear")
+        m = re.search(r"\.l(\d+)_(fw|bw)_([wb])_(ih|hh)$", tk)
+        if m:
+            lnum, d, kind, side = m.groups()
+            out[tk[:m.start()]
+                + f".{'weight' if kind == 'w' else 'bias'}_{side}_l{lnum}"
+                + ("_reverse" if d == "bw" else "")] = torch.tensor(arr)
+            continue
+        for jax_leaf, torch_leaf in (("kernel", "weight"),
+                                     ("low_hz", "low_hz_"),
+                                     ("band_hz", "band_hz_"),
+                                     ("mean", "running_mean"),
+                                     ("var", "running_var")):
+            if tk.endswith("." + jax_leaf):
+                if jax_leaf == "kernel":
+                    arr = _flip_conv(arr) if arr.ndim in (2, 3) else arr
+                tk = tk[:-len(jax_leaf)] + torch_leaf
+                break
+        out[tk] = torch.tensor(arr)
+    for tk in [k for k in out if k.endswith(".running_mean")]:
+        out[tk[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.tensor(0, dtype=torch.long)
+    return out
+
+
+def rename_reference_pase_keys(state_dict, regr_names, cls_names):
+    """A reference ``pase`` model state dict (``frontend.``,
+    ``regression_workers.{i}.``, ``classification_workers.{i}.minion.``)
+    -> keys under the workers' names ('frontend.' kept): the JAX
+    package's ``rename_reference_pase_keys``."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("frontend."):
+            out[k] = v
+        elif k.startswith("regression_workers."):
+            parts = k.split(".")
+            out[regr_names[int(parts[1])] + "." + ".".join(parts[2:])] = v
+        elif k.startswith("classification_workers."):
+            parts = k.split(".")
+            rest = parts[2:]
+            if rest and rest[0] == "minion":
+                rest = rest[1:]
+            out[cls_names[int(parts[1])] + "." + ".".join(rest)] = v
+    return out
+
+
+def load_reference_pase_ckpt(ckpt, model, workers_meta):
+    """Load a whole reference ``pase`` checkpoint (a path to a torch state
+    dict, or the dict) into ``model`` (a ``model.PASE``): the encoder and
+    every worker, through ``rename_reference_pase_keys`` and
+    ``torch_to_variables`` (strict: a partial load raises), as the JAX
+    package's ``load_reference_pase_ckpt`` fills its variables."""
+    sd = _load_torch_state_dict(ckpt) if isinstance(ckpt, str) else ckpt
+    sd = rename_reference_pase_keys(
+        sd, [e["name"] for e in workers_meta["regr"]],
+        [e["name"] for e in workers_meta["cls"]])
+    ref = model_state_dict_to_variables(model.state_dict())
+    return load_model_variables(model, torch_to_variables(sd, ref))
+
+
+def torch_gru_params(state_dict, prefix, layer=0):
+    """One layer of a torch nn.GRU (``{prefix}.weight_ih_l{layer}`` ...)
+    -> the tensors of the GRU head's ``nn.FlaxRNN`` cell: ``weight_ih``
+    and ``weight_hh`` as they are ([r|z|n] rows, torch's gate order),
+    ``bias_ih`` with torch's hidden r and z biases folded into the input
+    ones (flax's 'hr' and 'hz' have none), ``bias_hn`` torch's b_hn. The
+    counterpart of the JAX package's ``torch_gru_params`` (which gives
+    the same cell as flax Dense kernels)."""
+    def get(name):
+        v = state_dict.get(f"{prefix}.{name}_l{layer}")
+        if v is None:
+            return None
+        return (v.detach().cpu() if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v))).float()
+
+    wih, whh = get("weight_ih"), get("weight_hh")
+    h = wih.shape[0] // 3
+    out = {"weight_ih": wih.clone(), "weight_hh": whh.clone()}
+    bih, bhh = get("bias_ih"), get("bias_hh")
+    if bih is None:
+        bih, bhh = torch.zeros(3 * h), torch.zeros(3 * h)
+    out["bias_ih"] = torch.cat([bih[:2 * h] + bhh[:2 * h], bih[2 * h:]])
+    out["bias_hn"] = bhh[2 * h:].clone()
+    return out
 
 
 def model_variables_to_state_dict(flat):

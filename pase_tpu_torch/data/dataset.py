@@ -9,8 +9,10 @@ bit for bit):
   (``{spk}-{chap}-``), the random one another utterance; with
   ``zero_speech_p`` a draw is replaced by near-silence (``zerospeech``).
   ``PairWavDataset`` has no neighbor context, ``GenhancementDataset``
-  reads a parallel clean tree, ``MetaConcatDataset`` concatenates corpora
-  with per-corpus distortion flags.
+  reads a parallel clean tree, ``AmiSegTupleWavDataset`` AMI's far-field
+  segments against their headset ones (a parallel tree, or per-channel
+  cfg keys), ``MetaConcatDataset`` concatenates corpora with per-corpus
+  distortion flags.
 * ``ChunkBatcher`` crops [B, T] float32 {chunk, chunk_ctxt, chunk_rand}
   batches (``crop_chunk``: reflect-tail or tile padding of short
   utterances) in a background thread, with 'cchunk' (the aligned clean
@@ -450,6 +452,67 @@ class WavClassDataset:
                                    np.float32)])
             wav = crop_chunk(wav, self.chunk_size, self.rng)
         return wav, int(self.utt2class[item])
+
+
+class AmiSegTupleWavDataset(GenhancementDataset):
+    """AMI's far-field (sdm) segments trained against their headset (ihm)
+    ones, in one of two layouts:
+
+    * tree mode (``ihm2sdm`` None): 'chunk' from the sdm tree
+      (data_root), the clean 'cchunk' from the ihm tree (clean_root) at
+      the same relative path and window: ``GenhancementDataset``'s tuple;
+    * channel-key mode (``ihm2sdm="1,3,5,7"``): the cfg entries (the
+      ``data_prep ami-cfg`` output) carry the distant-mic segments under
+      per-channel keys beside the headset 'filename'. Entries that lack a
+      requested channel are dropped (with a message). Each sample draws
+      one distant channel, shared by chunk, context and rand; 'cchunk' is
+      the headset segment; the context is a same-prefix neighbour in that
+      channel, or the sample's own segment there when the prefix has no
+      other. The neighbours are drawn without removing them from the
+      prefix's pool (the reference's ``neighbors.remove`` shrinks the
+      pool at each visit; the JAX package samples as here).
+
+    The tuples, and the draws of ``rng`` that make them, are the JAX
+    class's."""
+
+    def __init__(self, data_root, clean_root, data_cfg_file, split,
+                 ihm2sdm=None, **kwargs):
+        super().__init__(data_root, clean_root or data_root, data_cfg_file,
+                         split, **kwargs)
+        self.ihm2sdm = ([c for c in ihm2sdm.split(",") if c]
+                        if ihm2sdm else None)
+        if self.ihm2sdm:
+            kept = [w for w in self.wavs
+                    if all(c in w for c in self.ihm2sdm)]
+            n_lost = len(self.wavs) - len(kept)
+            if n_lost:
+                print(f"AmiSegTupleWavDataset: dropped {n_lost} segments "
+                      f"missing sdm channels {self.ihm2sdm}")
+            self.wavs = kept
+            # prefix -> cfg entries, so a neighbour reads in any channel
+            self.neighbor_entries = {}
+            for wav in self.wavs:
+                prefix = self.rec.sub("", wav["filename"])
+                self.neighbor_entries.setdefault(prefix, []).append(wav)
+
+    def sample_tuple(self, index, rng=None, info=None):
+        if not self.ihm2sdm:
+            return super().sample_tuple(index, rng, info)
+        rng = self.rng if rng is None else rng
+        entry = self.wavs[index]
+        chan = self.ihm2sdm[rng.randint(len(self.ihm2sdm))]
+        noisy = self._load(entry[chan])
+        clean = self._load_clean(entry["filename"])
+        prefix = self.rec.sub("", entry["filename"])
+        neighbors = [e for e in self.neighbor_entries[prefix]
+                     if e["filename"] != entry["filename"]]
+        ctxt = (self._load(neighbors[rng.randint(len(neighbors))][chan])
+                if neighbors else noisy)
+        rindex = rng.randint(len(self.wavs) - 1)
+        if rindex >= index:
+            rindex += 1
+        rwav = self._load(self.wavs[rindex][chan])
+        return noisy, clean, rwav, ctxt
 
 
 class MetaConcatDataset:

@@ -2,7 +2,8 @@
 
 The port of ``pase_tpu/log.py``: one JSON object per line in
 ``<save_path>/metrics.jsonl``, {"t", "split", "step", <scalars>}; the
-'perf' split carries steps_per_sec and audio_sec_per_sec.
+'perf' split carries steps_per_sec and audio_sec_per_sec. A value with
+elements (a histogram row) is written as a JSON list.
 """
 
 import json
@@ -23,14 +24,18 @@ class MetricLogger:
     def log(self, split, step, scalars):
         rec = {"t": time.time(), "split": split, "step": int(step)}
         for k, v in scalars.items():
-            rec[k] = float(v)
+            if isinstance(v, (list, tuple)) or getattr(v, "ndim", 0) > 0:
+                rec[k] = [float(x) for x in v]
+            else:
+                rec[k] = float(v)
         if self._f is None:
             self._f = open(self.path, "a")
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
         if self.echo:
             msg = " ".join(f"{k}={v:.4f}" for k, v in rec.items()
-                           if k not in ("t", "split", "step"))
+                           if k not in ("t", "split", "step")
+                           and isinstance(v, float))
             print(f"[{split} @ {step}] {msg}", file=sys.stderr)
 
     def close(self):

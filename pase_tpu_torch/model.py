@@ -101,14 +101,15 @@ def _build_minion(cfg, in_channels, generator=None):
 
 # the fused head+loss (losses.framed_mse_linear) for MLP regression heads
 # of at least this many output channels: the PASE+ lps / lps_long heads
+# (the Trainer's default; cfg fused_heads=False passes 0)
 FUSED_MIN_CH = 4096
 
 
-def _fuse_eligible(e):
+def _fuse_eligible(e, min_ch=FUSED_MIN_CH):
     """A regr worker takes the fused linear-head MSE when its head is a
     plain MLP ending in a kwidth-1 conv, the loss is MSE, and the output
-    width clears ``FUSED_MIN_CH``."""
-    if e.get("type", "mlp") != "mlp":
+    width clears ``min_ch`` (0: no head is fused)."""
+    if min_ch <= 0 or e.get("type", "mlp") != "mlp":
         return False
     if e.get("loss") != "MSELoss" or e["name"] in ("chunk", "cchunk"):
         return False
@@ -116,7 +117,7 @@ def _fuse_eligible(e):
             int(e.get("hidden_layers", 2) or 0) < 1:
         return False
     r = int(e.get("r", 1) or 1)
-    return int(e.get("num_outputs", 1)) * max(r, 1) >= FUSED_MIN_CH
+    return int(e.get("num_outputs", 1)) * max(r, 1) >= min_ch
 
 
 class PASE(nn.Module):
@@ -133,13 +134,15 @@ class PASE(nn.Module):
     JAX model does. ``att_cfg`` ({K, avg_factor, att_mode, hidden}) or
     ``chunking_K`` (``attention.make_chunk_masks``) select the
     variants; 'concat' attention needs ``frames``, the encoder's frames
-    per chunk.
+    per chunk. A regr head of at least ``fused_min_ch`` outputs takes the
+    fused head + loss (``_fuse_eligible``; 0 fuses none).
     """
 
     def __init__(self, frontend_cfg, workers_meta, generator=None,
                  force_cchunk=False, att_cfg=None, chunking_K=None,
-                 frames=None):
+                 frames=None, fused_min_ch=FUSED_MIN_CH):
         super().__init__()
+        self.fused_min_ch = int(fused_min_ch)
         self.frontend = build_frontend_module(load_cfg(frontend_cfg),
                                               generator)
         emb = self.frontend.output_dim
@@ -262,7 +265,7 @@ class PASE(nn.Module):
                 preds[name] = worker(x_prev, mels)
                 labels[name] = wav.detach()
                 continue
-            if _fuse_eligible(e):
+            if _fuse_eligible(e, self.fused_min_ch):
                 tag, hid, w, b = worker(wchunk, a_of(i), return_linear=True)
                 preds[name] = (tag, hid.transpose(1, 2), w, b)
             else:
@@ -316,7 +319,7 @@ def materialize_pred(pred):
 
 def build_pase(frontend_cfg, workers_cfg, generator=None,
                force_cchunk=False, att_cfg=None, chunking_K=None,
-               frames=None):
+               frames=None, fused_min_ch=FUSED_MIN_CH):
     """(model, worker metadata) from JSON cfgs (paths or dicts); an
     ``att_cfg`` path is read as JSON."""
     meta = parse_workers_cfg(workers_cfg)
@@ -325,4 +328,5 @@ def build_pase(frontend_cfg, workers_cfg, generator=None,
             att_cfg = json.load(f)
     return PASE(frontend_cfg, meta, generator=generator,
                 force_cchunk=force_cchunk, att_cfg=att_cfg,
-                chunking_K=chunking_K, frames=frames), meta
+                chunking_K=chunking_K, frames=frames,
+                fused_min_ch=fused_min_ch), meta

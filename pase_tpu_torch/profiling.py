@@ -35,6 +35,11 @@ by kind only.
 
 A measurement helper: it needs a CUDA device and is used by
 ``chip_smoke.py``.
+
+``profile_train_step`` is ``util_scripts profile-step``'s timer (the JAX
+package's ``profiling.profile_train_step``): the prepare alone and the
+whole step in sustained loops, synchronized at both ends (on the card
+with ``torch.cuda.synchronize``; it also runs on the CPU).
 """
 
 import bisect
@@ -235,3 +240,48 @@ def _union(intervals):
             total += b - end
             end = b
     return total
+
+
+def device_timeit(fn, device, n_warm=3, n_meas=20):
+    """Mean wall ms per call of ``fn()`` over ``n_meas`` calls after
+    ``n_warm``, the device synchronized before and after the loop."""
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(n_warm):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n_meas):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / n_meas * 1e3
+
+
+def profile_train_step(trainer, batch_size, chunk_size, seed=0, n_meas=20):
+    """{prepare_ms, step_ms, model_opt_ms, steps_per_sec,
+    audio_sec_per_sec} of ``trainer``'s step on the first batch of
+    ``SyntheticChunkBatcher(batch_size, chunk_size, seed)``: the prepare
+    (distortions, targets, ZNorm) timed alone under the step's compute
+    dtype, the whole step in a sustained loop (its optimizer updates
+    carried through), model + optimizer as their difference."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.precision import compute_dtype
+    raw = trainer.ready(next(iter(SyntheticChunkBatcher(
+        batch_size, chunk_size, seed=seed))))
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+
+    def prepare():
+        with torch.no_grad(), compute_dtype(trainer.compute_dtype):
+            return trainer.prepare(raw, gen)
+
+    prepare_ms = device_timeit(prepare, trainer.device, n_meas=n_meas)
+    step_ms = device_timeit(lambda: trainer.train_step(raw), trainer.device,
+                            n_meas=n_meas)
+    return {"prepare_ms": round(prepare_ms, 3),
+            "step_ms": round(step_ms, 3),
+            "model_opt_ms": round(step_ms - prepare_ms, 3),
+            "steps_per_sec": round(1e3 / step_ms, 3),
+            "audio_sec_per_sec": round(1e3 / step_ms * batch_size
+                                       * chunk_size / 16000, 1)}

@@ -20,7 +20,11 @@ batcher's own thread when 1), ``--fast_loader`` in the native decoder;
 (``data/device_corpus.py``). Repeated ``--data_root`` / ``--data_cfg`` /
 ``--dataset`` concatenate corpora (a ``--dtrans_cfg`` of "None" leaves one
 undistorted); ``--dataset GenhancementDataset --clean_root R`` reads a
-parallel clean tree, ``PairWavDataset`` has no neighbor context.
+parallel clean tree, ``PairWavDataset`` has no neighbor context,
+``AmiSegTupleWavDataset`` AMI's far-field segments against the headset
+tree ``--clean_root`` (or, with ``--ihm2sdm 1,3,5,7``, against the
+per-channel keys of a ``data_prep ami-cfg`` cfg), as
+``recipes/run_pase_libri_ami.sh`` runs it beside LibriSpeech.
 ``--zero_speech_p`` injects near-silent rows (``--zerospeech_cfg`` adds
 noise to them), ``--cache_feats_dir`` (alias ``--trans_cache``) reads the
 worker targets from a feature cache (``data/cache.py``). Synthetic data
@@ -80,8 +84,6 @@ _ITEM_10 = "queue 1, item 10: multi-GPU"
 # item that ports it)
 _UNPORTED = {
     "shard_device_corpus": (False, _ITEM_10),
-    "ihm2sdm": (None, "queue 1, item 5: disk-fed training (the AMI "
-                      "channel-key dataset)"),
     "coordinator_address": (None, _ITEM_10),
     "num_processes": (None, _ITEM_10),
     "process_id": (None, _ITEM_10),
@@ -114,7 +116,7 @@ ROADMAP_HOST_STAGE = ("ROADMAP.md, queue 1: the host distortion stage "
 SYNTHETIC_BPE = 100
 DEFAULT_DATASET = "LibriSpeechSegTupleWavDataset"
 DATASETS = ("LibriSpeechSegTupleWavDataset", "PairWavDataset",
-            "GenhancementDataset")
+            "GenhancementDataset", "AmiSegTupleWavDataset")
 
 
 def build_argparser():
@@ -159,11 +161,16 @@ def build_argparser():
                    help="synthetic data drawn on the device")
     p.add_argument("--dataset", action="append", default=[],
                    help="LibriSpeechSegTupleWavDataset (default) | "
-                        "PairWavDataset | GenhancementDataset, per "
-                        "--data_root")
+                        "PairWavDataset | GenhancementDataset | "
+                        "AmiSegTupleWavDataset, per --data_root")
     p.add_argument("--clean_root", type=str, default=None,
-                   help="the clean tree of GenhancementDataset")
-    p.add_argument("--ihm2sdm", type=str, default=None)
+                   help="the clean tree of GenhancementDataset and of "
+                        "AmiSegTupleWavDataset's tree mode (AMI's ihm "
+                        "segments)")
+    p.add_argument("--ihm2sdm", type=str, default=None,
+                   help="AmiSegTupleWavDataset's channel-key mode: the "
+                        "distant channels of the cfg entries, e.g. "
+                        "1,3,5,7")
     p.add_argument("--cache_feats_dir", type=str, default=None,
                    help="precomputed worker-target cache (data/cache.py)")
     p.add_argument("--trans_cache", type=str, default=None,
@@ -354,11 +361,6 @@ def check_ported(opts):
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md, {item}")
     for name in opts.dataset:
-        if name == "AmiSegTupleWavDataset":
-            raise NotImplementedError(
-                "--dataset AmiSegTupleWavDataset is not ported yet: "
-                "ROADMAP.md, queue 1, item 5: disk-fed training (the AMI "
-                "channel-key dataset)")
         if name not in DATASETS:
             raise ValueError(f"--dataset {name}: one of {DATASETS}")
     if opts.net_cfg is None or opts.fe_cfg is None:
@@ -392,6 +394,11 @@ def build_datasets(opts):
 
     def make_one(i, split, seed):
         name = _nth(opts.dataset, i, DEFAULT_DATASET)
+        if name == "AmiSegTupleWavDataset":
+            return D.AmiSegTupleWavDataset(
+                opts.data_root[i], opts.clean_root, _nth(opts.data_cfg, i),
+                split, ihm2sdm=opts.ihm2sdm, preload_wav=opts.preload_wav,
+                seed=seed)
         if name == "GenhancementDataset":
             return D.GenhancementDataset(opts.data_root[i], opts.clean_root,
                                          _nth(opts.data_cfg, i), split,
@@ -445,13 +452,16 @@ def build_feeds(opts, wk_cfg):
         print(f"Cached targets: {names} from {opts.cache_feats_dir}")
     info = {}
     if opts.device_corpus:
+        ds0 = _nth(opts.dataset, 0, DEFAULT_DATASET)
         if len(opts.data_root) != 1 or opts.cache_feats_dir or \
-                _nth(opts.dataset, 0, DEFAULT_DATASET) not in (
-                    DEFAULT_DATASET, "GenhancementDataset"):
+                ds0 not in (DEFAULT_DATASET, "GenhancementDataset",
+                            "AmiSegTupleWavDataset") or \
+                (opts.ihm2sdm and ds0 == "AmiSegTupleWavDataset"):
             raise ValueError(
                 "--device_corpus supports a single corpus: "
                 "LibriSpeechSegTupleWavDataset, or a parallel clean/noisy "
-                "tree (GenhancementDataset); no MetaConcat / "
+                "tree (GenhancementDataset / AMI tree mode — channel-key "
+                "--ihm2sdm stays on the host path); no MetaConcat / "
                 "--cache_feats_dir")
         from pase_tpu_torch.data.device_corpus import DeviceCorpusBatcher
         t0 = time.perf_counter()

@@ -28,6 +28,16 @@ alpha (``scale_grad``). The five parts run in
 ``pase.forward``, ``pase.losses``, ``pase.backward`` and
 ``pase.optimizer``, which ``profiling.py`` reads.
 
+Observability, as the JAX Trainer's cfg keys: ``log_histograms`` adds a
+``hist/{worker}`` and a ``hist/gtruth_{worker}`` row per cls / regr
+worker to the step's losses ([lo, hi, 24 bin counts] of the materialized
+prediction and of the target, ``hist_row``); ``log_grad_norms`` a
+``grad_norm/{group}`` per top-level parameter group (the encoder
+'frontend', each worker, each 'att_{worker}'), the L2 norm of the
+group's gradients after the backward and before the optimizer.
+``fused_heads=False`` materializes the wide lps heads' predictions
+instead of fusing the head with its loss (``model._fuse_eligible``).
+
 Policies: the loss vector the policy reads is detached; the policy
 state (``policy_state``) and alpha live in the train state and its
 checkpoint. 'softmax', 'adaptive', 'hyper_volume' and 'MGD' read loss
@@ -114,7 +124,8 @@ from pase_tpu_torch.checkpoint import (Saver, load_frontend_ckpt,
 from pase_tpu_torch.data.dataset import step_seed
 from pase_tpu_torch.data.pipeline import INDEX_KEYS, make_prepare_fn
 from pase_tpu_torch.log import MetricLogger
-from pase_tpu_torch.model import build_pase, materialize_pred, worker_losses
+from pase_tpu_torch.model import (FUSED_MIN_CH, build_pase, materialize_pred,
+                                  worker_losses)
 from pase_tpu_torch.nn import no_tf32
 from pase_tpu_torch.optim import OptaxOptimizer, build_optimizer, set_lr
 from pase_tpu_torch.precision import compute_dtype, resolve
@@ -130,6 +141,43 @@ WAVE_KEYS = ("chunk", "chunk_ctxt", "chunk_rand", "cchunk")
 # worker cfg losses that route a worker to the GAN path (the reference's
 # worker_parser), and the GAN loss each names
 GAN_WORKER_LOSSES = {"LSGAN": "LSGAN", "GAN": "BCE", "Hinge": "Hinge"}
+# the bins of a log_histograms row
+HIST_BINS = 24
+
+
+def hist_row(x, bins=HIST_BINS):
+    """[lo, hi, bin counts] (float32, bins + 2) of x's values over bins
+    equal bins of [lo, hi + 1e-9): the JAX Trainer's ``_hist``."""
+    x = x.detach().reshape(-1).float()
+    lo, hi = x.min(), x.max()
+    edges = lo + (hi - lo + 1e-9) * torch.arange(
+        bins + 1, dtype=torch.float32, device=x.device) / bins
+    idx = torch.clamp(torch.searchsorted(edges, x, right=True) - 1,
+                      0, bins - 1)
+    counts = torch.bincount(idx, minlength=bins).float()
+    return torch.cat([torch.stack([lo, hi]), counts])
+
+
+def param_group(name):
+    """The JAX top-level parameter group of a ``model.PASE`` parameter:
+    'frontend', a worker's name or 'att_{worker}'."""
+    top, _, rest = name.partition(".")
+    return rest.partition(".")[0] if top == "workers" else top
+
+
+def grad_norms(model):
+    """{'grad_norm/{group}': the L2 norm of the group's gradients} (a
+    parameter without a gradient counts as zeros, as JAX's are)."""
+    groups = {}
+    for name, p in model.named_parameters():
+        g = groups.setdefault(param_group(name), [])
+        if p.grad is not None:
+            g.append(p.grad.detach().reshape(-1).float())
+    # sqrt of the sum of squares, as jnp.linalg.norm: torch's CPU
+    # vector_norm loses about 1e-4 relative over 10^5-10^6 float32 values
+    return {f"grad_norm/{k}": (torch.sqrt(torch.sum(torch.cat(v) ** 2)) if v
+                               else torch.zeros(()))
+            for k, v in groups.items()}
 
 
 def route_gan_workers(meta, gan_cfg, cfg):
@@ -195,7 +243,11 @@ class Trainer:
             generator=torch.Generator().manual_seed(self.seed),
             force_cchunk=z_prior, att_cfg=self.cfg.get("att_cfg"),
             chunking_K=self.cfg.get("chunking_K"),
-            frames=self.cfg.get("chunk_size", 16000) // self.hop)
+            frames=self.cfg.get("chunk_size", 16000) // self.hop,
+            fused_min_ch=(FUSED_MIN_CH if self.cfg.get("fused_heads", True)
+                          else 0))
+        self.log_hists = bool(self.cfg.get("log_histograms", False))
+        self.log_grads = bool(self.cfg.get("log_grad_norms", False))
         if self.cfg.get("pretrained_ckpt"):
             load_frontend_ckpt(self.cfg["pretrained_ckpt"],
                                self.model.frontend)
@@ -443,6 +495,12 @@ class Trainer:
                     losses["vq"] = fe.vq_loss
                     total = total + fe.vq_loss
                     losses["vq_perplexity"] = fe.vq_perplexity
+                if self.log_hists:
+                    with torch.no_grad():
+                        for n in self.ordered_names:
+                            losses[f"hist/{n}"] = hist_row(
+                                materialize_pred(preds[n]))
+                            losses[f"hist/gtruth_{n}"] = hist_row(labels[n])
                 if self.gan_cfg is not None:
                     fake, prior, name_g = self._gan_fake(h, chunk, preds)
                     with record_function("pase.discriminator"):
@@ -453,6 +511,8 @@ class Trainer:
         with record_function("pase.backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
+        if self.log_grads:
+            losses.update(grad_norms(self.model))
         with record_function("pase.optimizer"):
             self.opt.step()
         if self.gan_cfg is not None:
@@ -527,7 +587,8 @@ class Trainer:
                     staged = (None if e == epochs - 1 and bidx == bpe
                               else self._fetch(it, clock))
                     if bidx % self.log_freq == 0 or bidx >= bpe:
-                        host = {k: float(v) for k, v in losses.items()}
+                        host = {k: float(v) if v.dim() == 0 else v.tolist()
+                                for k, v in losses.items()}
                         gstep = e * bpe + bidx
                         self.logger.log("train", gstep, host)
                         if not math.isfinite(host["total"]):

@@ -9,13 +9,27 @@
                    (``serving.py``; the counterpart of ``export-jax``)
   serve-encode   — encode wavs with such an artifact, no model code (same
                    [emb, F] .npy contract as forward-chunk)
+  eval-ckpts     — the trainer's eval loss of each FE_e*.npz of a run
+                   (the workers at their seeded init), one JSON file
+  precompute-feats — every regression worker's target features of whole
+                   utterances into a .feats.npz cache (``data/cache.py``)
+  profile-step   — one JSON line: the train step's prepare vs model +
+                   optimizer ms, steps/s, audio-s/s (bench.py's
+                   distortion stack and ZNorm unless --bare)
+  export-torch   — a native FE_e*.npz as a reference-keyed torch state
+                   dict (``checkpoint.export_torch_state_dict``)
 
-Run as ``python -m pase_tpu_torch.util_scripts forward-chunk
+The flags and outputs are those of ``util_scripts.py``'s subcommands of
+the same names; ``--device`` picks the card (default) or the CPU. Run as
+``python -m pase_tpu_torch.util_scripts forward-chunk
 --fe_cfg cfg/frontend/PASE+.cfg --fe_ckpt FE_e199.ckpt --wav_list ...``.
 """
 
 import argparse
+import glob
+import json
 import os
+import tempfile
 
 import numpy as np
 
@@ -166,6 +180,121 @@ def serve_encode(opts):
     one(opts.in_wav, opts.out_file)
 
 
+def _cfgs(opts):
+    with open(opts.fe_cfg) as f:
+        fe_cfg = json.load(f)
+    with open(opts.net_cfg) as f:
+        wk_cfg = json.load(f)
+    return fe_cfg, wk_cfg
+
+
+def eval_ckpts(opts):
+    """The eval loss of every FE_e*.npz in --ckpt_dir (sorted by name),
+    each loaded into the encoder of one Trainer whose workers keep their
+    seeded init: --n_batches batches of the valid split of --data_root /
+    --data_cfg (or --synthetic batches), written to --out_file as {name:
+    total}."""
+    from pase_tpu_torch.checkpoint import load_frontend_ckpt
+    from pase_tpu_torch.data.dataset import (ChunkBatcher,
+                                             LibriSpeechTupleDataset,
+                                             SyntheticChunkBatcher)
+    from pase_tpu_torch.precision import full_precision
+    from pase_tpu_torch.trainer import Trainer
+    full_precision()
+    fe_cfg, wk_cfg = _cfgs(opts)
+    cfg = dict(backprop_mode="base", hop=160, bpe=opts.n_batches, epoch=1,
+               batch_size=opts.batch_size, chunk_size=opts.chunk_size,
+               log_freq=100, save_path=opts.save_path
+               or tempfile.mkdtemp(prefix="eval_ckpts_"))
+    tr = Trainer(fe_cfg, wk_cfg, cfg, device=opts.device)
+    if opts.synthetic:
+        batcher = SyntheticChunkBatcher(opts.batch_size, opts.chunk_size)
+    else:
+        batcher = ChunkBatcher(LibriSpeechTupleDataset(
+            opts.data_root, opts.data_cfg, "valid"), opts.batch_size,
+            opts.chunk_size)
+    results = {}
+    for ck in sorted(glob.glob(os.path.join(opts.ckpt_dir, "FE_e*.npz"))):
+        load_frontend_ckpt(ck, tr.model.frontend)
+        m = tr.evaluate(batcher, n_batches=opts.n_batches)
+        results[os.path.basename(ck)] = m["total"]
+        print(f"{ck}: total loss {m['total']:.4f}")
+    tr.logger.close()
+    with open(opts.out_file, "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
+def precompute_feats(opts):
+    """Cache every regression worker's target features of the utterances
+    of --wav_list (first column) or of --data_cfg's train and valid
+    splits under --out_dir (``data/cache.precompute_features``)."""
+    from pase_tpu_torch.data.cache import precompute_features
+    from pase_tpu_torch.model import parse_workers_cfg
+    meta = parse_workers_cfg(opts.net_cfg)
+    if opts.wav_list:
+        with open(opts.wav_list) as f:
+            files = [ln.split()[0] for ln in f if ln.strip()]
+    else:
+        from pase_tpu_torch.data.io import load_data_cfg
+        cfg = load_data_cfg(opts.data_cfg)
+        files = [d["filename"] for split in ("train", "valid")
+                 if split in cfg for d in cfg[split]["data"]]
+    n = precompute_features(opts.data_root, files, meta, opts.out_dir,
+                            hop=opts.hop, overwrite=opts.overwrite,
+                            device=opts.device)
+    print(f"Cached features for {n} new / {len(files)} listed utts "
+          f"in {opts.out_dir}")
+    return n
+
+
+def profile_step(opts):
+    """Print one JSON line of ``profiling.profile_train_step``: a fresh
+    Trainer of --fe_cfg / --net_cfg at --batch_size x --chunk_size under
+    --compute_dtype, with bench.py's distortion stack on its seeded
+    assets and ZNorm statistics of 2 synthetic batches of 8 unless
+    --bare (model and targets only)."""
+    from pase_tpu_torch.precision import full_precision
+    from pase_tpu_torch.profiling import profile_train_step
+    from pase_tpu_torch.trainer import Trainer
+    full_precision()
+    fe_cfg, wk_cfg = _cfgs(opts)
+    cfg = dict(backprop_mode="base", hop=160, bpe=1, epoch=1,
+               batch_size=opts.batch_size, chunk_size=opts.chunk_size,
+               log_freq=100, compute_dtype=opts.compute_dtype,
+               save_path=tempfile.mkdtemp(prefix="profile_step_"))
+    dcfg = assets = stats = None
+    if not opts.bare:
+        from pase_tpu_torch.bench import bench_assets
+        from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+        from pase_tpu_torch.data.pipeline import compute_stats
+        from pase_tpu_torch.model import parse_workers_cfg
+        dcfg, assets = bench_assets(opts.chunk_size)
+        stats = compute_stats(SyntheticChunkBatcher(8, opts.chunk_size,
+                                                    seed=11),
+                              parse_workers_cfg(wk_cfg), max_batches=2,
+                              device=opts.device)
+    tr = Trainer(fe_cfg, wk_cfg, cfg, stats=stats, dist_cfg=dcfg,
+                 dist_assets=assets, device=opts.device)
+    out = profile_train_step(tr, opts.batch_size, opts.chunk_size,
+                             n_meas=opts.n_meas)
+    tr.logger.close()
+    print(json.dumps(out))
+    return out
+
+
+def export_torch(opts):
+    """Write the native encoder artifact --in_ckpt as a reference-keyed
+    torch state dict --out_ckpt."""
+    import torch
+    from pase_tpu_torch.checkpoint import (export_torch_state_dict,
+                                           load_variables_npz)
+    out = export_torch_state_dict(load_variables_npz(opts.in_ckpt))
+    torch.save(out, opts.out_ckpt)
+    print(f"Exported {len(out)} tensors -> {opts.out_ckpt}")
+    return out
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="python -m pase_tpu_torch.util_scripts")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -226,13 +355,64 @@ def build_parser():
     se.add_argument("--streaming", action="store_true",
                     help="drive the streaming (prime/step/flush) programs "
                          "instead of the offline buckets")
+
+    def device_flag(parser):
+        parser.add_argument("--device", default="cuda",
+                            choices=("cuda", "cpu"),
+                            help="where it runs (default: the card)")
+
+    ec = sub.add_parser("eval-ckpts")
+    ec.add_argument("--fe_cfg", required=True)
+    ec.add_argument("--net_cfg", required=True)
+    ec.add_argument("--ckpt_dir", required=True)
+    ec.add_argument("--data_root", default=None)
+    ec.add_argument("--data_cfg", default=None)
+    ec.add_argument("--out_file", default="ckpt_losses.json")
+    ec.add_argument("--batch_size", type=int, default=16)
+    ec.add_argument("--chunk_size", type=int, default=16000)
+    ec.add_argument("--n_batches", type=int, default=10)
+    ec.add_argument("--save_path", default=None,
+                    help="where the eval's metrics.jsonl goes (default: a "
+                         "new temporary directory)")
+    ec.add_argument("--synthetic", action="store_true")
+    device_flag(ec)
+
+    pc = sub.add_parser("precompute-feats")
+    pc.add_argument("--net_cfg", required=True)
+    pc.add_argument("--data_root", required=True)
+    pc.add_argument("--wav_list", default=None)
+    pc.add_argument("--data_cfg", default=None,
+                    help="alternative to --wav_list: cache every "
+                         "train+valid utterance of a data cfg")
+    pc.add_argument("--out_dir", required=True)
+    pc.add_argument("--hop", type=int, default=160)
+    pc.add_argument("--overwrite", action="store_true", default=False)
+    device_flag(pc)
+
+    ps = sub.add_parser("profile-step")
+    ps.add_argument("--fe_cfg", required=True)
+    ps.add_argument("--net_cfg", required=True)
+    ps.add_argument("--batch_size", type=int, default=32)
+    ps.add_argument("--chunk_size", type=int, default=32000)
+    ps.add_argument("--compute_dtype", default=None)
+    ps.add_argument("--n_meas", type=int, default=20)
+    ps.add_argument("--bare", action="store_true", default=False,
+                    help="skip distortions + ZNorm (model+targets only)")
+    device_flag(ps)
+
+    et = sub.add_parser("export-torch")
+    et.add_argument("--in_ckpt", required=True)
+    et.add_argument("--out_ckpt", required=True)
     return p
 
 
 def main(argv=None):
     opts = build_parser().parse_args(argv)
-    {"forward-chunk": forward_chunk, "export": export,
-     "serve-encode": serve_encode}[opts.cmd](opts)
+    return {"forward-chunk": forward_chunk, "export": export,
+            "serve-encode": serve_encode, "eval-ckpts": eval_ckpts,
+            "precompute-feats": precompute_feats,
+            "profile-step": profile_step,
+            "export-torch": export_torch}[opts.cmd](opts)
 
 
 if __name__ == "__main__":

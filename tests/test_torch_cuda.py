@@ -926,3 +926,184 @@ def test_alternative_encoder_gpu_matches_cpu(cuda_device, name):
     assert tuple(y.shape) == tuple(y_cpu.shape) == (2, gpu.emb_dim, frames)
     rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
     assert rel <= 2e-4, rel
+
+
+# ---------------------------------------------------------------------------
+# AMI, the step-level tools, the reference layouts and the trainer's rows
+# ---------------------------------------------------------------------------
+
+SLICE_FE = dict(NARROW_CFG, strides=[1, 10, 4, 4])   # hop 160, a QRNN
+SLICE_WK = {"regr": [{"name": "mfcc", "num_outputs": 39, "hidden_size": 32,
+                      "hidden_layers": 1, "r": 1, "loss": "MSELoss",
+                      "dropout": 0, "skip": False}],
+            "cls": [{"name": "mi", "num_outputs": 1, "hidden_size": 32,
+                     "hidden_layers": 1, "loss": "BCEWithLogitsLoss",
+                     "dropout": 0, "skip": False}]}
+
+
+def _slice_cfgs(tmp_path):
+    import json
+    paths = []
+    for name, cfg in (("fe.cfg", SLICE_FE), ("wk.cfg", SLICE_WK)):
+        paths.append(str(tmp_path / name))
+        with open(paths[-1], "w") as f:
+            json.dump(cfg, f)
+    return paths
+
+
+def test_ami_cli_steps_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A seeded AMI meeting, segmented and described by the port's
+    data_prep, trained by the CLI on the card in tree mode (the far-field
+    channel 1 against the headsets) for two steps: the training kernels
+    once per QRNN layer per step, every loss finite, FE_e0.npz written."""
+    import glob
+    import json
+    from pase_tpu_torch import data_prep, train as port_train
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_ami
+    from pase_tpu_torch.trainer import Trainer
+    # 40 s meetings: enough headset segments for a valid split of two
+    meetings = write_synthetic_ami(str(tmp_path / "ami"), 2, 40.0, seed=2)
+    ids = tmp_path / "meetings.txt"
+    ids.write_text("\n".join(meetings))
+    seg = str(tmp_path / "seg")
+    data_prep.main(["ami-segment", "--data_root", str(tmp_path / "ami"),
+                    "--out_root", seg, "--ami_meeting_ids", str(ids)])
+    for split, meets in (("train", meetings[:1]), ("test", meetings[1:])):
+        (tmp_path / f"{split}.scp").write_text("\n".join(sorted(
+            f for m in meets for f in glob.glob(f"{seg}/{m}/audio/*.wav"))))
+    cfg = str(tmp_path / "ami.cfg")
+    data_prep.main(["ami-cfg", "--data_root", seg, "--train_scp",
+                    str(tmp_path / "train.scp"), "--test_scp",
+                    str(tmp_path / "test.scp"), "--cfg_file", cfg])
+    sdm = tmp_path / "sdm"
+    for f in glob.glob(f"{seg}/*/audio/*.Headset-?-*.wav"):
+        if ".Arr1-" not in f:
+            dst = sdm / os.path.relpath(f, seg)
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            os.link(f.replace(".wav", ".Arr1-01.wav"), dst)
+    orig = Trainer.train_
+
+    def two_steps(self, *a, **k):
+        self.bpe = 2
+        self.cfg["va_bpe"] = 1
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(Trainer, "train_", two_steps)
+    fe, wk = _slice_cfgs(tmp_path)
+    cuda_qrnn.reset_launches()
+    tr = port_train.main(["--net_cfg", wk, "--fe_cfg", fe, "--data_root",
+                          str(sdm), "--data_cfg", cfg, "--dtrans_cfg",
+                          "None", "--dataset", "AmiSegTupleWavDataset",
+                          "--clean_root", seg, "--batch_size", "4",
+                          "--chunk_size", "4800", "--epoch", "1",
+                          "--log_freq", "1", "--save_path",
+                          str(tmp_path / "run")])
+    torch.cuda.synchronize()
+    layers = len(tr.model.frontend.rnn.layers)
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_train"] == 2 * layers
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_bwd"] == 2 * layers
+    with open(tmp_path / "run" / "metrics.jsonl") as f:
+        recs = [json.loads(ln) for ln in f]
+    assert all(np.isfinite(v) for r in recs for k, v in r.items()
+               if k not in ("t", "split", "step"))
+    assert (tmp_path / "run" / "FE_e0.npz").exists()
+
+
+def test_profile_step_on_the_card(cuda_device, tmp_path, capsys):
+    import json
+    from pase_tpu_torch import util_scripts
+    fe, wk = _slice_cfgs(tmp_path)
+    cuda_qrnn.reset_launches()
+    out = util_scripts.main(["profile-step", "--fe_cfg", fe, "--net_cfg",
+                             wk, "--batch_size", "4", "--chunk_size",
+                             "4800", "--n_meas", "3",
+                             "--compute_dtype", "bfloat16"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out and set(line) == {
+        "prepare_ms", "step_ms", "model_opt_ms", "steps_per_sec",
+        "audio_sec_per_sec"}
+    assert line["step_ms"] > line["prepare_ms"] > 0
+    # 3 warm-up steps and 3 timed ones, one QRNN layer
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_train"] == 6
+
+
+def test_export_torch_round_trip_on_the_card(cuda_device, tmp_path):
+    """export-torch of a native artifact, loaded back with
+    load_frontend_ckpt: the encoder's forward on the card equals the
+    original's bit for bit."""
+    from pase_tpu_torch import util_scripts
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    enc = wf_builder(SLICE_FE, device="cuda", seed=3)
+    npz = save_variables_npz(str(tmp_path / "FE_e0.npz"),
+                             enc.module.state_dict())
+    ckpt = str(tmp_path / "FE_e0.ckpt")
+    util_scripts.main(["export-torch", "--in_ckpt", npz, "--out_ckpt",
+                       ckpt])
+    back = wf_builder(SLICE_FE, device="cuda", seed=7).load_pretrained(ckpt)
+    x = np.random.RandomState(0).randn(4, 1, 16000).astype(np.float32)
+    with torch.no_grad():
+        assert torch.equal(back(x), enc(x))
+
+
+def test_trainer_rows_gpu_match_cpu(cuda_device, tmp_path):
+    """log_histograms and log_grad_norms on the card against the CPU from
+    the same weights and targets: lo / hi within 1e-4 relative of the
+    row's largest, counts equal but for values within 1e-5 (hi - lo) of
+    an edge, grad norms within 1e-3 relative; fused_heads=False gives the
+    fused step's losses within 1e-4."""
+    from pase_tpu_torch import trainer as port_trainer
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.data.pipeline import make_prepare_fn
+    from pase_tpu_torch.model import parse_workers_cfg
+    from pase_tpu_torch.trainer import Trainer
+    wk = _small_workers()
+    raw = next(iter(SyntheticChunkBatcher(2, 4800, seed=3)))
+    with torch.no_grad():
+        prep = make_prepare_fn(parse_workers_cfg(wk))(
+            {k: torch.from_numpy(v) for k, v in raw.items()})
+    raw.update({e["name"]: prep[e["name"]].numpy() for e in wk["regr"]
+                if e["name"] != "cchunk"})
+    out, seen = {}, {}
+    orig = port_trainer.hist_row
+    for fused in (True, False):
+        for device in ("cpu", "cuda"):
+            cfg = dict(batch_size=2, chunk_size=4800, fe_lr=5e-4,
+                       min_lr=5e-4, lr_mode="poly",
+                       save_path=str(tmp_path / f"{device}{fused}"),
+                       log_histograms=True, log_grad_norms=True,
+                       fused_heads=fused)
+            tr = Trainer(SLICE_FE, wk, cfg, device=device)
+            rec = seen.setdefault((device, fused), [])
+            port_trainer.hist_row = (
+                lambda x, bins=24, rec=rec: (rec.append(
+                    x.detach().reshape(-1).double().cpu().numpy()),
+                    orig(x, bins))[1])
+            try:
+                out[(device, fused)] = {k: v.cpu().numpy() for k, v in
+                                        tr.train_step(raw).items()}
+            finally:
+                port_trainer.hist_row = orig
+    for fused in (True, False):
+        g, c = out[("cuda", fused)], out[("cpu", fused)]
+        for k, want in c.items():
+            got = g[k]
+            if k.startswith("hist/"):
+                lo, hi = want[0], want[1]
+                scale = max(abs(lo), abs(hi))
+                assert abs(got[:2] - want[:2]).max() <= 1e-4 * scale, k
+                vals = seen[("cpu", fused)][
+                    [n for n in c if n.startswith("hist/")].index(k)]
+                edges = lo + (hi - lo + 1e-9) * np.arange(25) / 24
+                near = int((np.abs(vals[:, None] - edges[None, 1:-1])
+                            <= 1e-5 * (hi - lo)).any(axis=1).sum())
+                assert np.abs(got[2:] - want[2:]).sum() <= 2 * near, k
+            elif k.startswith("grad_norm/"):
+                assert abs(float(got) - float(want)) <= 1e-3 * float(want), k
+            else:
+                assert abs(float(got) - float(want)) <= \
+                    1e-4 * abs(float(want)), k
+    for k in out[("cuda", True)]:
+        if not k.startswith(("hist/", "grad_norm/")):
+            a, b = float(out[("cuda", False)][k]), float(out[("cuda",
+                                                              True)][k])
+            assert abs(a - b) <= 1e-4 * abs(b), k

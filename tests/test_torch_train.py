@@ -433,8 +433,7 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard_device_corpus"], ["--ihm2sdm", "x"],
-    ["--num_processes", "2"], ["--dataset", "AmiSegTupleWavDataset"]])
+    ["--shard_device_corpus"], ["--num_processes", "2"]])
 def test_train_cli_refuses_unported_flags(tmp_path, flags):
     from pase_tpu_torch import train as port_train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -450,12 +449,16 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags):
     (["--backprop_mode", "softmax"], lambda tr: tr.mode == "softmax"),
     (["--att_cfg", "cfg/attention.cfg"],
      lambda tr: tr.model.att_lps.K == 64 and tr.model.att_lps.hidden
-     == (128,) and tr.cfg["att_cfg"] == "cfg/attention.cfg")],
-    ids=["chunking_K", "backprop_mode", "att_cfg"])
+     == (128,) and tr.cfg["att_cfg"] == "cfg/attention.cfg"),
+    (["--ihm2sdm", "1,3,5,7"], lambda tr: tr.cfg["ihm2sdm"] == "1,3,5,7"),
+    (["--dataset", "AmiSegTupleWavDataset"],
+     lambda tr: tr.cfg["dataset"] == ["AmiSegTupleWavDataset"])],
+    ids=["chunking_K", "backprop_mode", "att_cfg", "ihm2sdm", "ami"])
 def test_train_cli_takes_the_variant_flags(tmp_path, monkeypatch, flags,
                                            want):
-    """The formerly refused --chunking_K, --backprop_mode and --att_cfg
-    reach the Trainer (the epoch loop is not run here)."""
+    """The formerly refused --chunking_K, --backprop_mode, --att_cfg,
+    --ihm2sdm and --dataset AmiSegTupleWavDataset reach the Trainer (the
+    epoch loop is not run here; tests/test_torch_ami.py trains on AMI)."""
     from pase_tpu_torch import train as port_train
     fe, wk = tmp_path / "fe.cfg", tmp_path / "wk.cfg"
     fe.write_text(json.dumps(SMALL_FE))
