@@ -48,8 +48,8 @@ Phases, each printed as it ends; any failure exits non-zero:
                group, and per leaf within 1e-3 of the CPU leaf's largest
                (leaves above 1e-3 of their group's largest). Then the
                training CLI, ``python -m pase_tpu_torch.train
-               --synthetic`` at batch 32 x 32000 for one epoch (100
-               steps, a 10-batch eval, FE_e0.npz), and a torch.profiler
+               --synthetic`` at batch 32 x 32000 for one epoch (CLI_STEPS
+               steps, a 2-batch eval, FE_e0.npz), and a torch.profiler
                split of three further steps.
   8. train-dist — bench.py's step (pase_tpu_torch/bench.py's build and
                measure): PASE+ / workers+ at batch 32 x 32000 with ZNorm
@@ -206,10 +206,11 @@ Phases, each printed as it ends; any failure exits non-zero:
                (d) the training CLI with --sup_exec over 2 epochs at batch
                4 x 16000: after each, a knn probe on the card and one on
                the CPU (run_probe --device cpu), waited on, every return
-               code 0; (e) ``python -m pase_tpu_torch.transfer_gate`` at
-               the JAX record's settings (8 epochs x 250 steps): the
-               random-init probe below 1 and the pretrained one above it,
-               printed beside benchmarks/transfer_gate_r5.json.
+               code 0; (e) ``python -m pase_tpu_torch.transfer_gate``
+               cut to GATE_EPOCHS epochs of the JAX record's 250 steps:
+               the random-init probe below 1 and the pretrained one above
+               it, printed beside benchmarks/transfer_gate_r5.json (8
+               epochs).
  20. recurrent — cuDNN's LSTM / GRU (float32, TF32 off): (a) PASE+ with
                rnn_type lstm and gru (a BiRNN of 256 each way) at
                (8,1,160000), card vs CPU within 2e-4 of max|y|, its
@@ -274,7 +275,7 @@ Phases, each printed as it ends; any failure exits non-zero:
                policy's weights and next alpha within 1e-5 of their
                largest (MGD 1e-4), select_half's and dropout's masks
                injected; then --backprop_mode MGD through the CLI at 32 x
-               32000 bf16 for 20 steps against the base policy's 20, the
+               32000 bf16 for CLI_STEPS steps against the base policy's, the
                MGD step's pase.mgda device time, and softmax's step (its
                losses in float32) against base's; (d) one step of RAdam,
                AdamW, SGD and RMSprop card vs CPU, the parameters after
@@ -320,6 +321,30 @@ Phases, each printed as it ends; any failure exits non-zero:
                1e-3 relative), and the bf16 step at 32 x 32000 with
                fused_heads=False against the fused default in turns (3
                rounds of 4 steps after a warm one).
+ 24. kaldi   — the Kaldi worker targets and the other tools: (a)
+               workers+.cfg plus kaldimfcc (39 outputs, num_ceps 13,
+               der_order 2) and kaldiplp (20, num_ceps 20, der_order 0)
+               heads shaped like its mfcc head, their ZNorm statistics from
+               make_trainset_statistics --synthetic, one epoch of the
+               training CLI with PASE+ at 32 x 32000, bf16, bench.py's
+               stack as --dtrans_cfg; the Kaldi targets of one clean batch
+               card vs CPU (within 1e-4 of each target's largest); the step
+               against phase 8's bench step in this process in turns (3
+               rounds of 4 steps after a warm one), each profiled:
+               pase.prepare device ms and device activities a step; (b) on
+               a seeded corpus of 200 utterances of 2 s, util_scripts
+               clusterize (k 128, (a)'s encoder; the CPU's KMeans of the
+               same features from the same initial rows, the frames
+               assigned otherwise counted; the Lloyd steps replayed side
+               by side on card and CPU, every frame assigned otherwise a
+               rounding tie, the card's replay clusterize's output),
+               project-features
+               (2 components), prosodic-eval ((a)'s weights_PASE-*.npz and
+               statistics), make-fbanks, vadproc, make-contaminated (the
+               bench stack) and select-ckpt, each's seconds, audio-s/s and
+               K1 launches; (c) data_prep segment, iemocap-segment with
+               probe-lists --holdout and chime5-cfg on seeded trees, their
+               files checked.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -367,7 +392,11 @@ CLI epochs (the AMI recipe, its --synthetic twin, channel-key, device
 corpus, the feature cache) the training kernels once per train step and
 qrnn_pool_fwd once per eval step, profile-step the training kernels once
 per step (3 warm-up and 20 timed, each dtype), eval-ckpts qrnn_pool_fwd
-once per eval batch.
+once per eval batch; phase 24's CLI epoch the training kernels once per
+train step and qrnn_pool_fwd once per eval step, its profiled steps the
+training kernels once each, clusterize, project-features and
+prosodic-eval qrnn_pool_fwd_chunked once per utterance, the other tools
+none.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -382,7 +411,8 @@ aspp_serving, aspp_rnn_serving, resnet_serving, aspp_step, and phase
 22's attention_cli, attention_step, chunking_step, policy_<mode>_step
 for the eight modes, mgd_cli, base_cli, opt_<rule>_step, regu_step, and
 phase 23's ami_cli, ami_channel_key, ami_device_corpus, profile_step,
-eval_ckpts, cache_feats:
+eval_ckpts, cache_feats, and phase 24's kaldi_cli, kaldi_step,
+clusterize, project_features, prosodic_eval:
 the steps the training kernels once per layer (MGD's per-worker
 gradients reuse the loss forward's graph: no second forward), the CLI
 runs once per layer per train step and qrnn_pool_fwd once per layer per
@@ -416,6 +446,9 @@ VQ_CFG = os.path.join(HERE, "cfg", "frontend", "PASE+_resblocks_VQ8192.cfg")
 V01_CFG = os.path.join(HERE, "cfg", "frontend", "PASE.cfg")
 V01_WORKERS = os.path.join(HERE, "cfg", "workers", "workers.cfg")
 KERNEL_ATOL = 1e-5
+# the steps of every --synthetic training CLI epoch in this run (the CLI's
+# own default is 100; the eval takes a tenth, at least one batch)
+CLI_STEPS = 20
 ENCODER_REL = 2e-4
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
@@ -460,8 +493,9 @@ TRAJECTORY = os.path.join(HERE, "tests", "fixtures",
 # float32 sums taken in another order; float32 sums in another order
 CONV_REL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 CONV_L3 = 2                 # L3: (1600, 11, 1, 128, 128)
-# phase 12: the corpus (seconds of train and valid audio) and the feeds
-DISK_TRAIN_S, DISK_VALID_S = 7200, 120
+# phase 12: the corpus (seconds of train and valid audio: 28 steps and one
+# eval batch an epoch) and the feeds
+DISK_TRAIN_S, DISK_VALID_S = 1800, 120
 DISK_FEEDS = (("host ChunkBatcher", ["--num_workers", "1"]),
               ("4 host threads", ["--num_workers", "4"]),
               ("4 host threads int16 wire", ["--num_workers", "4",
@@ -509,6 +543,9 @@ PROBE_CHECK_UTTS = 16
 TIMIT_TRAIN, TIMIT_TEST, TIMIT_SECONDS = 24, 12, 2.0
 SUP_SPEAKERS = 4
 SUP_BATCH = 4
+# the transfer gate's pretraining: epochs of the JAX record's 250 steps
+# (the record has 8; at 4 the final margin read +0.046, under its 0.05)
+GATE_EPOCHS, GATE_BPE = 6, 250
 # phase 20: the WaveRNN recipe and its worker cfg, the head at the cfg's
 # widths, the card-vs-CPU check's batch and samples and its logit bound,
 # the CLI epoch's cut chunk (whole 160-sample frames, and at least the
@@ -558,7 +595,6 @@ REGU_TRAIN_SHAPE = (64, 200, 512)
 POLICIES = ("base", "select_one", "select_half", "dropout", "hyper_volume",
             "softmax", "adaptive", "MGD")
 POLICY_REL, MGD_REL = 1e-5, 1e-4
-POLICY_CLI_STEPS = 20
 OPTIMIZERS = ("RAdam", "AdamW", "SGD", "RMSprop")
 OPT_PARAM_REL = 1e-5
 OPT_LIVE_REL = 1e-4
@@ -566,22 +602,36 @@ HEAD_OPTIONS = {"dropin": 0.2, "dropin_mode": "fixed_rand",
                 "ratio_fixed": 0.5, "tie_context_weights": True,
                 "context": 3, "dropout_time": 0.1}
 STEP_RATE_ROUNDS = 3
-# phase 23: the AMI recipe; the seeded meeting tree (about 1 h of
-# headset segments), its distant channels and the LibriSpeech part's
+# phase 23: the AMI recipe; the seeded meeting tree (about half an hour
+# of headset segments), its distant channels and the LibriSpeech part's
 # seconds; the shorter epochs keep every AMI_CUT-th utterance; the
 # eval-ckpts batches; the card-vs-CPU bounds of the trainer's rows
 # (histogram lo / hi relative to the row's largest, its counts allowed to
 # move only for values within HIST_EDGE_REL (hi - lo) of an edge; grad
 # norms relative)
 AMI_RECIPE = "recipes/run_pase_libri_ami.sh"
-AMI_MEETINGS, AMI_MEETING_S = 4, 330.0
+AMI_MEETINGS, AMI_MEETING_S = 4, 165.0
 AMI_CHANS = "1,3,5,7"
-AMI_LIBRI_S = 3600
+AMI_LIBRI_S = 1800
 AMI_CUT = 4
 EVAL_CKPT_BATCHES = 5
 HIST_REL, HIST_EDGE_REL, GRAD_NORM_REL = 1e-4, 1e-4, 1e-3
 # the repeated flags that name one corpus of a concatenation
 CORPUS_FLAGS = ("--data_root", "--data_cfg", "--dtrans_cfg", "--dataset")
+# phase 24: the Kaldi MFCC / PLP heads added to workers+ (each shaped like
+# its mfcc head; der_order explicit), their targets' card-vs-CPU bound
+# (each target's largest value); the tools' seeded corpus (utterances of
+# TOOL_SECONDS), clusterize's k and Lloyd steps, and the rounding tie of
+# a Lloyd step replayed on card and CPU from shared centres: a frame's
+# two chosen centres within KMEANS_TIE_REL (|x|^2 + |c|^2) of each other
+# in float64 (float32 expansion and means sum in other orders)
+KALDI_HEADS = (("kaldimfcc", 39, {"num_ceps": 13, "der_order": 2}),
+               ("kaldiplp", 20, {"num_ceps": 20, "der_order": 0}))
+KALDI_REL = 1e-4
+TOOL_UTTS, TOOL_SECONDS = 200, 2.0
+TOOL_K = 128
+KMEANS_ITERS = 50
+KMEANS_TIE_REL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -3085,12 +3135,13 @@ def phase_probes(tmp):
     del tr
     torch.cuda.empty_cache()
 
-    # (e) the transfer gate at the JAX record's settings
+    # (e) the transfer gate, cut to GATE_EPOCHS of the JAX record's epochs
     gate_json = os.path.join(tmp, "gate.json")
     reset_launches()                     # the gate's path starts here
     t0 = time.perf_counter()
     rc = transfer_gate.main(["--workdir", os.path.join(tmp, "gate"),
-                             "--json", gate_json])
+                             "--json", gate_json, "--epochs",
+                             str(GATE_EPOCHS), "--bpe", str(GATE_BPE)])
     _sync("cuda")
     paths["transfer_gate"] = read_launches()   # ... and ends here
     gate_s = time.perf_counter() - t0
@@ -3846,36 +3897,31 @@ def _copy_head_masks(gpu, cpu):
 
 def _policy_cli(tmp):
     """Phase 22 (c): --backprop_mode MGD and base through the CLI at 32 x
-    32000 bf16 for POLICY_CLI_STEPS steps each (the epochs' rates, first
+    32000 bf16 for CLI_STEPS steps each (the epochs' rates, first
     steps included); the MGD step's pase.mgda device time."""
     import torch
     from pase_tpu_torch import train as train_cli
     from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
     from pase_tpu_torch.profiling import profile_calls
     paths, rates = {}, {}
-    bpe = train_cli.SYNTHETIC_BPE
-    train_cli.SYNTHETIC_BPE = POLICY_CLI_STEPS
-    try:
-        for mode in ("MGD", "base"):
-            run = os.path.join(tmp, f"{mode}_cli")
-            tr, paths[f"{mode.lower()}_cli"], perf, last = _variant_cli(
-                PASEP_CFG, WORKERSP_CFG, f"--backprop_mode {mode}", run,
-                ["--compute_dtype", "bfloat16", "--backprop_mode", mode])
-            rates[mode] = perf["steps_per_sec"]
-            if mode == "MGD":
-                raw = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
-                                             seed=24).make_batch()
-                prof = profile_calls([lambda: tr.train_step(raw)] * 3,
-                                     warmup=1)
-                mgda = prof["split"].get("pase.mgda", {})
-                alpha = tr.alpha.cpu().numpy()
-            del tr
-            torch.cuda.empty_cache()
-    finally:
-        train_cli.SYNTHETIC_BPE = bpe
+    for mode in ("MGD", "base"):
+        run = os.path.join(tmp, f"{mode}_cli")
+        tr, paths[f"{mode.lower()}_cli"], perf, last = _variant_cli(
+            PASEP_CFG, WORKERSP_CFG, f"--backprop_mode {mode}", run,
+            ["--compute_dtype", "bfloat16", "--backprop_mode", mode])
+        rates[mode] = perf["steps_per_sec"]
+        if mode == "MGD":
+            raw = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
+                                         seed=24).make_batch()
+            prof = profile_calls([lambda: tr.train_step(raw)] * 3,
+                                 warmup=1)
+            mgda = prof["split"].get("pase.mgda", {})
+            alpha = tr.alpha.cpu().numpy()
+        del tr
+        torch.cuda.empty_cache()
     print(f"[options] --backprop_mode MGD through the CLI (32 x 32000, "
-          f"bf16, {POLICY_CLI_STEPS} steps, the epoch's rate, first steps "
-          f"included): {rates['MGD']:.3f} steps/s against "
+          f"bf16, {train_cli.SYNTHETIC_BPE} steps, the epoch's rate, first "
+          f"steps included): {rates['MGD']:.3f} steps/s against "
           f"base {rates['base']:.3f} ({rates['MGD'] / rates['base']:.3f}x);"
           f" a profiled MGD step: wall {prof['wall_ms']:.1f} ms, busy "
           f"{prof['busy_ms']:.2f} ms, pase.mgda {sum(mgda.values()):.2f} ms"
@@ -4520,6 +4566,398 @@ def phase_ami(tmp, dist_perf):
     return paths
 
 
+def write_kaldi_workers_cfg(root):
+    """workers+.cfg with the two Kaldi heads, each a copy of its mfcc head
+    (hidden 256, one layer, r 7, MSE) with its outputs and transform."""
+    with open(WORKERSP_CFG) as f:
+        wk = json.load(f)
+    mfcc = next(e for e in wk["regr"] if e["name"] == "mfcc")
+    for name, n_out, transform in KALDI_HEADS:
+        wk["regr"].append(dict(mfcc, name=name, num_outputs=n_out,
+                               transform=dict(transform)))
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "workers+kaldi.cfg")
+    with open(path, "w") as f:
+        json.dump(wk, f)
+    return path
+
+
+def _kaldi_targets_card_vs_cpu():
+    """The two Kaldi targets of one clean 32 x 32000 batch on the card and
+    on the CPU: max|diff| / max|cpu| of each."""
+    import torch
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.ops.features import feature_fn_for_worker
+    wav = torch.from_numpy(next(iter(SyntheticChunkBatcher(
+        TRAIN_BATCH, TRAIN_CHUNK, seed=24)))["chunk"])
+    errs = {}
+    for name, n_out, transform in KALDI_HEADS:
+        fn = feature_fn_for_worker(name, transform)
+        cpu, card = fn(wav), fn(wav.cuda()).cpu()
+        check(cpu.shape == card.shape == (TRAIN_BATCH, TRAIN_CHUNK // 160,
+                                          n_out)
+              and torch.isfinite(card).all(), f"{name} target {card.shape}")
+        errs[name] = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    return errs
+
+
+def _kaldi_step(tmp, bf16_rate):
+    """Phase 24 (a): the PASE+ / workers+ + Kaldi heads recipe through the
+    training CLI (32 x 32000, bf16, the bench stack, ZNorm statistics of
+    make_trainset_statistics), then its step against phase 8's bench step
+    in this process: steady-state steps/s in turns, each one's pase.prepare
+    device ms and launches per step; the Kaldi targets card vs CPU.
+    Returns (paths, the CLI run's save path, stats, worker cfg, bench
+    distortion cfg)."""
+    import torch
+    from pase_tpu_torch import bench, make_trainset_statistics
+    from pase_tpu_torch.data.dataset import (DeviceSyntheticBatcher,
+                                             SyntheticChunkBatcher)
+    from pase_tpu_torch.data.pipeline import compute_stats, load_stats_pkl
+    from pase_tpu_torch.model import parse_workers_cfg
+    from pase_tpu_torch.trainer import Trainer
+    net_cfg = write_kaldi_workers_cfg(os.path.join(tmp, "cfg"))
+    stats = os.path.join(tmp, "kaldi_stats.pkl")
+    t0 = time.perf_counter()
+    make_trainset_statistics.main([
+        "--synthetic", "--net_cfg", net_cfg, "--out_file", stats,
+        "--batch_size", str(TRAIN_BATCH), "--chunk_size", str(TRAIN_CHUNK),
+        "--max_batches", "2"])
+    st = load_stats_pkl(stats)
+    check(all(np.isfinite(st[k][m]).all() and (st[k]["std"] > 0).all()
+              for k, _, _ in KALDI_HEADS for m in ("mean", "std"))
+          and [st[k]["mean"].shape[0] for k, _, _ in KALDI_HEADS]
+          == [n for _, n, _ in KALDI_HEADS],
+          f"Kaldi statistics {[(k, st.get(k)) for k, _, _ in KALDI_HEADS]}")
+    print(f"[kaldi] make_trainset_statistics --synthetic (workers+ and the "
+          f"Kaldi heads, 2 batches of 32 x 32000): {len(st)} targets in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dist = write_bench_dtrans_cfg(os.path.join(tmp, "assets"))
+    save = os.path.join(tmp, "kaldi_cli")
+    argv = ["--synthetic", "--fe_cfg", PASEP_CFG, "--net_cfg", net_cfg,
+            "--batch_size", str(TRAIN_BATCH), "--chunk_size",
+            str(TRAIN_CHUNK), "--epoch", "1", "--compute_dtype", "bfloat16",
+            "--dtrans_cfg", dist, "--stats", stats, "--save_path", save]
+    tr, launches, perf, last = _cli_run(argv, "PASE+ / workers+ with the "
+                                        "Kaldi heads", save)
+    check({"kaldimfcc", "kaldiplp"} <= set(last),
+          f"the CLI logged no Kaldi loss: {sorted(last)}")
+    print(f"[kaldi] the Kaldi heads' losses at step {last['step']}: "
+          f"kaldimfcc {last['kaldimfcc']:.4f}, kaldiplp "
+          f"{last['kaldiplp']:.4f}; K2 (qrnn_pool_fwd_train, qrnn_pool_bwd) "
+          f"{launches['qrnn_pool_fwd_train']}, {launches['qrnn_pool_bwd']} "
+          f"launches at [96,200,512], K1's loop (qrnn_pool_fwd) "
+          f"{launches['qrnn_pool_fwd']} in the eval")
+    del tr
+    torch.cuda.empty_cache()
+    errs = _kaldi_targets_card_vs_cpu()
+    print(f"[kaldi] the Kaldi targets of one clean 32 x 32000 batch, card "
+          f"against CPU, max|diff| / max|cpu|: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {KALDI_REL:g})")
+    check(all(v <= KALDI_REL for v in errs.values()),
+          f"Kaldi targets card vs CPU {errs}")
+    # the step against phase 8's bench step, in turns in this process
+    dcfg, assets = bench.bench_assets(TRAIN_CHUNK)
+    bench_stats = compute_stats(SyntheticChunkBatcher(8, TRAIN_CHUNK,
+                                                      seed=11),
+                                parse_workers_cfg(WORKERSP_CFG),
+                                max_batches=2, device="cuda")
+    cfg = dict(backprop_mode="base", hop=160, bpe=100, epoch=400,
+               batch_size=TRAIN_BATCH, chunk_size=TRAIN_CHUNK, log_freq=100,
+               fe_lr=1e-3, min_lr=5e-4, lr_mode="poly",
+               compute_dtype="bfloat16")
+    trainers = {
+        "bench": Trainer(PASEP_CFG, WORKERSP_CFG, dict(
+            cfg, save_path=os.path.join(tmp, "rate_bench")),
+            stats=bench_stats, dist_cfg=dcfg, dist_assets=assets,
+            device="cuda"),
+        "kaldi": Trainer(PASEP_CFG, net_cfg, dict(
+            cfg, save_path=os.path.join(tmp, "rate_kaldi")), stats=st,
+            dist_cfg=dcfg, dist_assets=assets, device="cuda")}
+    batcher = DeviceSyntheticBatcher(TRAIN_BATCH, TRAIN_CHUNK, seed=24)
+    batches = [batcher.make_batch() for _ in range(5)]
+    rates = {k: [] for k in trainers}
+    for _ in range(STEP_RATE_ROUNDS):
+        for k, tr in trainers.items():
+            rates[k].append(_timed_steps(tr, batches, warm=1)[0])
+    ratio = [a / b for a, b in zip(rates["kaldi"], rates["bench"])]
+    mean = {k: float(np.mean(v)) for k, v in rates.items()}
+    print(f"[kaldi] steady-state steps/s, 32 x 32000 bf16 with the bench "
+          f"stack, {STEP_RATE_ROUNDS} rounds of 4 steps after a warm one, "
+          f"in turns: workers+ {mean['bench']:.3f} (rounds " + ", ".join(
+              f"{r:.3f}" for r in rates["bench"]) + f"), with the Kaldi "
+          f"heads {mean['kaldi']:.3f} (rounds " + ", ".join(
+              f"{r:.3f}" for r in rates["kaldi"]) + f"); ratio "
+          f"{np.mean(ratio):.3f}x [{min(ratio):.3f}, {max(ratio):.3f}], "
+          f"spread (max - min) / mean of the Kaldi step "
+          f"{(max(rates['kaldi']) - min(rates['kaldi'])) / mean['kaldi']:.3f}"
+          f"; ms per step {1e3 / mean['kaldi']:.2f} against "
+          f"{1e3 / mean['bench']:.2f}; the CLI epoch's own rate "
+          f"{perf['steps_per_sec']:.3f} = {perf['steps_per_sec'] / bf16_rate:.3f}"
+          f" x phase 8's bench rate ({bf16_rate:.3f})")
+    profs = {}
+    for k, tr in trainers.items():
+        if k == "kaldi":
+            reset_launches()              # the profiled Kaldi steps start
+        profs[k] = phase_profile(tr, f"the {k} step")
+    step_launches = read_launches()       # ... and end here
+    layers = qrnn_layers(trainers["kaldi"].model.frontend)
+    steps = 5                             # phase_profile's batches
+    expected = {**{k: 0 for k in step_launches},
+                "qrnn_pool_fwd_train": layers * steps,
+                "qrnn_pool_bwd": layers * steps}
+    check(step_launches == expected,
+          f"Kaldi step launches {step_launches} != {expected}")
+    prep = {k: sum(p["split"].get("pase.prepare", {}).values())
+            for k, p in profs.items()}
+    n_launch = {k: sum(p["launches"].values()) for k, p in profs.items()}
+    n_prep = {k: p["launches"].get("pase.prepare", 0)
+              for k, p in profs.items()}
+    print(f"[kaldi] pase.prepare device ms per step: with the Kaldi heads "
+          f"{prep['kaldi']:.2f}, without {prep['bench']:.2f} (+"
+          f"{prep['kaldi'] - prep['bench']:.2f}); device activities per "
+          f"step: {n_launch['kaldi']:.0f} against {n_launch['bench']:.0f} "
+          f"(pase.prepare {n_prep['kaldi']:.0f} against "
+          f"{n_prep['bench']:.0f}); busy {profs['kaldi']['busy_ms']:.2f} "
+          f"against {profs['bench']['busy_ms']:.2f} ms, idle share "
+          f"{profs['kaldi']['idle_share']:.3f} against "
+          f"{profs['bench']['idle_share']:.3f}")
+    del trainers
+    torch.cuda.empty_cache()
+    return ({"kaldi_cli": launches, "kaldi_step": step_launches}, save,
+            stats, net_cfg, dist)
+
+
+def _tool(argv, what, audio_s=None, utts=None, layers=None):
+    """One util_scripts subcommand on the card, its K1 launches counted
+    from 0 (the chunked kernel once per QRNN layer per utterance where
+    ``utts`` is given, no kernel otherwise). Returns (result, launches)."""
+    import torch
+    from pase_tpu_torch import util_scripts
+    reset_launches()                          # the tool starts here
+    t0 = time.perf_counter()
+    out = util_scripts.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()                # ... and ends here
+    sec = time.perf_counter() - t0
+    expected = {k: 0 for k in launches}
+    if utts is not None:
+        expected["qrnn_pool_fwd_chunked"] = layers * utts
+    check(launches == expected, f"{what} launches {launches} != {expected}")
+    print(f"[tools24] python -m pase_tpu_torch.util_scripts {argv[0]}: "
+          f"{sec:.2f} s" + (f", {audio_s / sec:.1f} audio-s/s"
+                            if audio_s else "")
+          + f"; K1 launches {launches.get('qrnn_pool_fwd_chunked', 0)} "
+          f"chunked ({what})")
+    return out, launches
+
+
+def _kmeans_lockstep(xc, xg, init):
+    """util_scripts.kmeans's Lloyd steps side by side on the CPU's rows
+    ``xc`` [N, D] and on ``xg``, the same rows on another device (or with
+    their columns in another order), from the rows ``init``: at each step
+    a row the two assign otherwise must be a rounding tie (its two
+    centres, the CPU's, within KMEANS_TIE_REL (|x|^2 + |c|^2) of each
+    other in float64), and there the CPU takes the other side's centre, so
+    that the two runs stay together. Returns (the other side's last
+    assignments, row-steps forced at ties, row-steps differing outside
+    ties)."""
+    import torch
+    from pase_tpu_torch import util_scripts as U
+    idx = torch.as_tensor(np.array(init))
+    cc, cg = xc[idx], xg[idx.to(xg.device)]
+    sqc, sqg = (torch.sum(v ** 2, 1)[:, None] for v in (xc, xg))
+    x64 = xc.double()
+    ties = outside = 0
+    for _ in range(KMEANS_ITERS):
+        ag = U.kmeans_assign(xg, cg, sqg).cpu()
+        ac = U.kmeans_assign(xc, cc, sqc)
+        rows = torch.nonzero(ag != ac)[:, 0]
+        if len(rows):
+            c64 = cc.double()
+            d = [torch.sum((x64[rows] - c64[a[rows]]) ** 2, 1)
+                 for a in (ag, ac)]
+            scale = (torch.sum(x64[rows] ** 2, 1)
+                     + torch.sum(c64[ac[rows]] ** 2, 1))
+            tie = torch.abs(d[0] - d[1]) <= KMEANS_TIE_REL * scale
+            ties += int(tie.sum())
+            outside += int((~tie).sum())
+            ac = ag.clone()
+        cg = U.kmeans_means(xg, ag.to(xg.device), cg)
+        cc = U.kmeans_means(xc, ac, cc)
+    return ag.numpy(), ties, outside
+
+
+def _tools24(tmp, save, stats, net_cfg, dist):
+    """Phase 24 (b): the other util_scripts tools at PASE+ width on a
+    seeded corpus of TOOL_UTTS utterances of TOOL_SECONDS: clusterize
+    (k TOOL_K, (a)'s encoder) held to the CPU's KMeans of the same
+    features from the same initial rows, project-features, prosodic-eval
+    with (a)'s checkpoint and statistics, make-fbanks, vadproc,
+    make-contaminated with the bench stack, select-ckpt. Returns the
+    paths."""
+    import glob
+    import torch
+    from pase_tpu_torch import util_scripts
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_corpus
+    wav_root, data_cfg = write_synthetic_corpus(
+        os.path.join(tmp, "corpus"), TOOL_UTTS * TOOL_SECONDS, 4.0, seed=24,
+        min_seconds=TOOL_SECONDS, max_seconds=TOOL_SECONDS)
+    with open(data_cfg) as f:
+        names = [e["filename"] for e in json.load(f)["train"]["data"]]
+    lst = os.path.join(tmp, "wavs.lst")
+    with open(lst, "w") as f:
+        f.write("\n".join(names) + "\n")
+    audio_s = len(names) * TOOL_SECONDS
+    with open(PASEP_CFG) as f:
+        layers = json.load(f).get("rnn_layers", 1)
+    fe_ckpt = os.path.join(save, "FE_e0.npz")
+    enc = ["--fe_cfg", PASEP_CFG, "--fe_ckpt", fe_ckpt, "--wav_list", lst,
+           "--data_root", wav_root]
+    paths = {}
+    clusters = os.path.join(tmp, "clusters.npz")
+    (centers, assign), paths["clusterize"] = _tool(
+        ["clusterize", *enc, "--k", str(TOOL_K), "--out_file", clusters],
+        "clusterize", audio_s, len(names), layers)
+    x = util_scripts._frame_features(util_scripts.build_parser().parse_args(
+        ["clusterize", *enc]))
+    init = util_scripts.kmeans_init(len(x), TOOL_K)
+    _, cpu_assign = util_scripts.kmeans(torch.from_numpy(x), TOOL_K,
+                                        iters=KMEANS_ITERS, init_idx=init)
+    flips = int((cpu_assign != assign).sum())
+    replay, ties, outside = _kmeans_lockstep(
+        torch.from_numpy(x), torch.from_numpy(x).to("cuda"), init)
+    print(f"[tools24] clusterize: {len(x)} frames of {len(names)} "
+          f"utterances, k {TOOL_K}, "
+          f"{int((np.bincount(assign, minlength=TOOL_K) > 0).sum())} clusters"
+          f" used; the CPU's KMeans of the same features from the same "
+          f"initial rows: {flips} frames assigned otherwise "
+          f"({flips / len(x):.4%}; {KMEANS_ITERS} Lloyd steps amplify "
+          f"rounding); replayed step by step from shared centres: {ties} "
+          f"frame-steps differ at rounding ties (within "
+          f"{KMEANS_TIE_REL:g} (|x|^2 + |c|^2) in float64; the CPU takes "
+          f"the card's centre there), {outside} outside ties; the card's "
+          f"replay equals clusterize's assignments: "
+          f"{np.array_equal(replay, assign)}")
+    check(centers.shape == (TOOL_K, x.shape[1]) and np.isfinite(
+        centers).all() and outside == 0 and np.array_equal(replay, assign),
+          f"clusterize: {outside} card-vs-CPU differences outside rounding "
+          f"ties; the replay differs from clusterize on "
+          f"{int((replay != assign).sum())} frames")
+    proj_file = os.path.join(tmp, "proj.npy")
+    (proj, w), paths["project_features"] = _tool(
+        ["project-features", *enc, "--out_file", proj_file],
+        "project-features", audio_s, len(names), layers)
+    check(proj.shape == (len(x), 2) and np.isfinite(proj).all()
+          and w[-1] > w[-2] > 0, f"project-features {proj.shape}")
+    ckpt = sorted(glob.glob(os.path.join(save, "weights_PASE-*.npz")))[-1]
+    pe_out = os.path.join(tmp, "prosody.json")
+    res, paths["prosodic_eval"] = _tool(
+        ["prosodic-eval", "--fe_cfg", PASEP_CFG, "--net_cfg", net_cfg,
+         "--ckpt", ckpt, "--wav_list", lst, "--data_root", wav_root,
+         "--stats", stats, "--out_file", pe_out], "prosodic-eval",
+        audio_s, len(names), layers)
+    check(res["n_utts"] == len(names) and all(
+        np.isfinite(v) for v in res.values()), f"prosodic-eval {res}")
+    print(f"[tools24] prosodic-eval of {os.path.basename(ckpt)}: "
+          f"{json.dumps(res)}")
+    fb = os.path.join(tmp, "fbanks")
+    n, _ = _tool(["make-fbanks", "--wav_list", lst, "--data_root", wav_root,
+                  "--out_dir", fb], "make-fbanks", audio_s)
+    shapes = {np.load(os.path.join(fb, f)).shape for f in os.listdir(fb)}
+    check(n == len(names) and shapes == {(int(TOOL_SECONDS * SR) // 160,
+                                          120)},
+          f"make-fbanks {n} files of {shapes}")
+    vad = os.path.join(tmp, "vad")
+    n, _ = _tool(["vadproc", "--wav_list", lst, "--data_root", wav_root,
+                  "--out_dir", vad], "vadproc (host)", audio_s)
+    regions = sum(len(open(os.path.join(vad, f)).read().split("\n")) - 1
+                  for f in os.listdir(vad))
+    check(n == len(names) and regions >= len(names),
+          f"vadproc: {regions} regions in {n} files")
+    dirty = os.path.join(tmp, "dirty")
+    n, _ = _tool(["make-contaminated", "--wav_list", lst, "--data_root",
+                  wav_root, "--out_dir", dirty, "--dtrans_cfg", dist,
+                  "--chunk_size", str(TRAIN_CHUNK)],
+                 "make-contaminated, the bench stack", audio_s)
+    from pase_tpu_torch.data.io import read_wav
+    changed = sum(not np.array_equal(read_wav(os.path.join(dirty, os.path.basename(
+        p)))[0], read_wav(os.path.join(wav_root, p))[0]) for p in names)
+    check(n == len(names) and changed > 0,
+          f"make-contaminated: {changed} of {n} files changed")
+    for i, v in enumerate((res["uv_acc"], 0.5, None)):
+        with open(os.path.join(tmp, f"probe{i}.json"), "w") as f:
+            json.dump({} if v is None else {"uv_acc": v}, f)
+    best, _ = _tool(["select-ckpt", "--metrics_glob",
+                     os.path.join(tmp, "probe*.json"), "--metric", "uv_acc"],
+                    "select-ckpt (host)")
+    check(best["uv_acc"] == max(res["uv_acc"], 0.5), f"select-ckpt {best}")
+    print(f"[tools24] {len(names)} utterances of {TOOL_SECONDS:g} s: "
+          f"vadproc {regions} regions; make-contaminated changed {changed} "
+          f"of {n} files; select-ckpt {json.dumps(best)}")
+    return paths
+
+
+def _builders24(tmp):
+    """Phase 24 (c): data_prep segment, iemocap-segment then probe-lists
+    (--class_from dirname, a session held out) and chime5-cfg on seeded
+    trees; the files they write checked."""
+    from pase_tpu_torch import data_prep
+    from pase_tpu_torch.data import synthetic_corpus as S
+    t0 = time.perf_counter()
+    long_wavs = S.write_synthetic_long_wavs(os.path.join(tmp, "long"), 3,
+                                            40.0, seed=24)
+    seg = os.path.join(tmp, "seg")
+    data_prep.main(["segment", "--data_root", os.path.join(tmp, "long"),
+                    "--out_root", seg])
+    n_seg = len(os.listdir(seg))
+    check(n_seg >= 2 * len(long_wavs) and all(
+        f.rsplit("-", 1)[0] + ".wav" in long_wavs for f in os.listdir(seg)),
+          f"segment wrote {sorted(os.listdir(seg))}")
+    emo = os.path.join(tmp, "emo")
+    data_prep.main(["iemocap-segment", "--iemocap_root",
+                    S.write_synthetic_iemocap(os.path.join(tmp, "iemocap"),
+                                              seed=24), "--out_dir", emo])
+    lists = os.path.join(tmp, "lists")
+    data_prep.main(["probe-lists", "--data_root", emo, "--class_from",
+                    "dirname", "--holdout", "session2", "--out_dir", lists])
+    with open(os.path.join(lists, "te.lst")) as f:
+        te = f.read().split()
+    check(sorted(os.listdir(lists)) == ["class_map.json", "te.lst", "tr.lst",
+                                        "utt2class.json"]
+          and te and all(w.startswith("session2") for w in te[::2]),
+          f"probe-lists wrote {os.listdir(lists)}")
+    worn, array = S.write_synthetic_chime5(os.path.join(tmp, "chime5"),
+                                           seed=24)
+    c5 = os.path.join(tmp, "chime5_seg")
+    data_prep.main(["chime5-cfg", "--ihm_dir", worn, "--sdm_dir", array,
+                    "--out_dir", c5, "--cfg_file",
+                    os.path.join(tmp, "chime5.cfg")])
+    with open(os.path.join(tmp, "chime5.cfg")) as f:
+        cfg = json.load(f)
+    entries = [e for s in ("train", "valid", "test") for e in cfg[s]["data"]]
+    check(entries and len(os.listdir(c5)) == 2 * len(entries) and all(
+        os.path.exists(os.path.join(c5, e[k])) for e in entries
+        for k in ("filename", "1")), f"chime5-cfg wrote {len(entries)} pairs")
+    print(f"[builders] data_prep segment ({n_seg} segments of 3 seeded 40 s "
+          f"recordings), iemocap-segment + probe-lists --holdout session2 "
+          f"({len(te) // 2} test utterances), chime5-cfg ({len(entries)} "
+          f"worn / array pairs cut): {time.perf_counter() - t0:.1f} s on "
+          f"Python {sys.version.split()[0]}")
+
+
+def phase_kaldi(tmp, bf16_rate):
+    """Phase 24: the Kaldi MFCC / PLP worker targets trained at full width,
+    the other util_scripts tools and the other corpus builders."""
+    t0 = time.perf_counter()
+    paths, save, stats, net_cfg, dist = _kaldi_step(tmp, bf16_rate)
+    paths.update(_tools24(tmp, save, stats, net_cfg, dist))
+    _builders24(os.path.join(tmp, "builders"))
+    print(f"[kaldi] phase 24 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -4539,6 +4977,8 @@ def main():
               flush=True)
         return 1
     sys.path.insert(0, HERE)
+    from pase_tpu_torch import train as train_cli
+    train_cli.SYNTHETIC_BPE = CLI_STEPS     # every --synthetic CLI epoch
     tmp = tempfile.mkdtemp(prefix="pase_chip_train_")
     t_start = time.perf_counter()
 
@@ -4619,6 +5059,9 @@ def main():
         clock(22)
         paths.update(phase_ami(os.path.join(tmp, "ami"), dist_perf))
         clock(23)
+        paths.update(phase_kaldi(os.path.join(tmp, "kaldi"),
+                                 dist_perf["bfloat16"]["steps_per_sec"]))
+        clock(24)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

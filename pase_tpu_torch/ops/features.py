@@ -11,6 +11,8 @@ extractor maps ``wav [B, T] -> [B, T//hop, dim]`` (NTC).
                   compute-dtype policy), windowed RMS.
 * ``prosody``   — [interp log F0, uv, energy, zcr]; the F0 tracker's
                   autocorrelation goes through ``torch.fft``.
+* ``kaldimfcc`` / ``kaldiplp`` — Kaldi-style MFCC / PLP
+                  (``ops/kaldi_feats.py``).
 
 All add librosa deltas ([x, d1, d2]) through exact [T, T] Savitzky-Golay
 operators. The host-side constant matrices (mel, psf, DCT, gammatone
@@ -364,17 +366,28 @@ def lpc(wav, order=25, hop=160, win=320, **_):
 # worker-name dispatch
 # ---------------------------------------------------------------------------
 
-# dict order matters for substring dispatch
+# imported at the call: ops/kaldi_feats.py imports this module
+def _kaldimfcc(*a, **k):
+    from pase_tpu_torch.ops.kaldi_feats import kaldi_mfcc
+    return kaldi_mfcc(*a, **k)
+
+
+def _kaldiplp(*a, **k):
+    from pase_tpu_torch.ops.kaldi_feats import kaldi_plp
+    return kaldi_plp(*a, **k)
+
+
+# dict order matters for substring dispatch: "mfcc" is in "kaldimfcc"
 _FEATURE_BUILDERS = {
     "lps": lps,
     "fbank": fbanks,
     "gtn": gammatone,
+    "kaldimfcc": _kaldimfcc,
+    "kaldiplp": _kaldiplp,
     "mfcc": mfcc,
     "prosody": prosody,
     "lpc": lpc,
 }
-# the Kaldi targets (ROADMAP.md queue 1, item 11b)
-_UNPORTED = ("kaldimfcc", "kaldiplp")
 
 
 def feature_fn_for_worker(name, transform_cfg=None, hop=160):
@@ -384,11 +397,6 @@ def feature_fn_for_worker(name, transform_cfg=None, hop=160):
     skip = ("mi", "cmi", "spc", "gap", "overlap", "chunk", "cchunk")
     if name in skip or "regu" in name or "wavernn" in name:
         return None
-    for key in _UNPORTED:
-        if key in name:
-            raise NotImplementedError(
-                f"worker feature {name!r} is not ported yet: ROADMAP.md, "
-                "queue 1, item 11b: the Kaldi targets")
     cfg = dict(transform_cfg or {})
     cfg["hop"] = hop
     for key, fn in _FEATURE_BUILDERS.items():
@@ -407,6 +415,10 @@ def feature_dim_for_worker(name, transform_cfg=None, der_order=2):
         return cfg.get("n_filters", 40) * mult
     if "gtn" in name:
         return cfg.get("n_channels", 40) * mult
+    if "kaldimfcc" in name:
+        return cfg.get("num_ceps", 13) * mult
+    if "kaldiplp" in name:
+        return cfg.get("num_ceps", 20) * mult
     if "mfcc" in name:
         return cfg.get("order", 13) * mult
     if "prosody" in name:

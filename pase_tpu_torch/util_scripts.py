@@ -18,6 +18,19 @@
                    distortion stack and ZNorm unless --bare)
   export-torch   — a native FE_e*.npz as a reference-keyed torch state
                    dict (``checkpoint.export_torch_state_dict``)
+  clusterize     — KMeans over the frame embeddings of a wav list (.npz of
+                   centers and assignments)
+  project-features — PCA of the frame embeddings to --n_components (.npy)
+  prosodic-eval  — the prosody head of a weights_PASE-*.npz against the
+                   prosody targets: logF0 / energy / zcr RMSE, U/V accuracy
+  make-fbanks    — a <stem>.npy of fbank features per wav of a list
+  vadproc        — a <stem>.vad file of `beg end` speech regions (samples)
+                   per wav of a list (frame-energy VAD)
+  make-contaminated — the distortion stack of a --dtrans_cfg applied to
+                   each whole wav of a list
+  select-ckpt    — the best of a glob of probe-metric JSONs
+  encode-codec2  — parses; raises (the host distortion stage, ROADMAP.md
+                   queue 1, item 12)
 
 The flags and outputs are those of ``util_scripts.py``'s subcommands of
 the same names; ``--device`` picks the card (default) or the CPU. Run as
@@ -295,6 +308,272 @@ def export_torch(opts):
     return out
 
 
+def _wav_paths(opts):
+    """The first column of each non-empty line of --wav_list."""
+    with open(opts.wav_list) as f:
+        return [ln.split()[0] for ln in f if ln.strip()]
+
+
+def kmeans_init(n, k, seed=0):
+    """``k`` distinct rows of ``n``, drawn by a CPU torch.Generator seeded
+    with ``seed`` (JAX's draw, ``jax.random.choice``, cannot be reproduced
+    here)."""
+    import torch
+    return torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:k]
+
+
+def kmeans_assign(x, centers, sq):
+    """The first nearest of ``centers`` [k, D] to each row of ``x`` [N, D]
+    by |x|^2 + |c|^2 - 2 x c^T (``sq``: |x|^2 as [N, 1])."""
+    import torch
+    d = sq + torch.sum(centers ** 2, 1)[None] - 2 * x @ centers.T
+    return torch.argmin(d, dim=1)
+
+
+def kmeans_means(x, assign, centers):
+    """Lloyd's update: each centre the mean of its rows (one-hot sums); an
+    empty cluster keeps its centre."""
+    import torch
+    onehot = torch.nn.functional.one_hot(assign, centers.shape[0]).to(x.dtype)
+    counts = onehot.sum(0)
+    new = (onehot.T @ x) / torch.clamp(counts[:, None], min=1)
+    return torch.where(counts[:, None] > 0, new, centers)
+
+
+def kmeans(x, k, iters=50, seed=0, init_idx=None):
+    """Lloyd's KMeans of the rows of ``x`` [N, D] on its device, as the JAX
+    package's ``util_scripts.kmeans``: ``kmeans_assign`` then
+    ``kmeans_means``, ``iters`` times. The ``k`` initial centres are the
+    rows ``init_idx``, or ``kmeans_init(N, k, seed)``'s. Returns (centers
+    [k, D], the last step's assignments [N]) as numpy."""
+    import torch
+    if init_idx is None:
+        init_idx = kmeans_init(x.shape[0], k, seed)
+    centers = x[torch.as_tensor(np.array(init_idx), device=x.device)]
+    sq = torch.sum(x ** 2, 1)[:, None]
+    for _ in range(iters):
+        assign = kmeans_assign(x, centers, sq)
+        centers = kmeans_means(x, assign, centers)
+    return centers.cpu().numpy(), assign.cpu().numpy()
+
+
+def _frame_features(opts):
+    """The frame embeddings [sum of frames, D] of the first --max_utts
+    wavs of --wav_list (``probes.extract.FeatureExtractor``)."""
+    from pase_tpu_torch.precision import full_precision
+    from pase_tpu_torch.probes.extract import FeatureExtractor
+    full_precision()
+    ex = FeatureExtractor(opts.fe_cfg, opts.fe_ckpt, device=opts.device)
+    return np.concatenate([
+        ex.extract_file(os.path.join(opts.data_root, p))
+        for p in _wav_paths(opts)[:opts.max_utts or None]], axis=0)
+
+
+def clusterize(opts, init_idx=None):
+    """KMeans (--k centres, 50 steps) of the frame embeddings of a wav
+    list on --device; writes --out_file (.npz: centers, assignments).
+    ``init_idx``: the initial centres' rows (default: ``kmeans``'s
+    seeded draw)."""
+    import torch
+    x = torch.as_tensor(_frame_features(opts), device=opts.device)
+    centers, assign = kmeans(x, opts.k, init_idx=init_idx)
+    np.savez(opts.out_file, centers=centers, assignments=assign)
+    print(f"KMeans k={opts.k}: inertia counts "
+          f"{np.bincount(assign, minlength=opts.k)}")
+    return centers, assign
+
+
+def project_features(opts):
+    """PCA of the frame embeddings of a wav list: centred frames, their
+    covariance and its eigenvectors on the host (numpy), the frames
+    projected on the --n_components largest; writes --out_file (.npy)."""
+    x = _frame_features(opts)
+    x = x - x.mean(axis=0)
+    w, v = np.linalg.eigh(x.T @ x / len(x))
+    proj = x @ v[:, ::-1][:, :opts.n_components]
+    np.save(opts.out_file, proj)
+    ev = w[::-1][:opts.n_components] / w.sum()
+    print(f"projected {x.shape} -> {proj.shape}; explained var "
+          f"{ev.round(3).tolist()}")
+    return proj, w
+
+
+def prosodic_eval(opts):
+    """The prosody head of a full PASE checkpoint (weights_PASE-*.npz, of
+    either package) against the prosody targets of each wav of a list (cut
+    to whole 160-sample frames): the encoder in eval mode, then the head;
+    with r > 1 the centre offset of its d-major frames (channel c = d r +
+    j); de-normalized with --stats. Prints and returns {lf0_rmse,
+    egy_rmse, zcr_rmse, uv_acc, n_utts} (columns [lf0, uv, egy, zcr])."""
+    import torch
+    from pase_tpu_torch.checkpoint import (load_model_variables,
+                                           load_variables)
+    from pase_tpu_torch.data.io import read_wav
+    from pase_tpu_torch.data.pipeline import load_stats_pkl
+    from pase_tpu_torch.model import build_pase
+    from pase_tpu_torch.ops.features import prosody
+    from pase_tpu_torch.precision import full_precision
+    full_precision()
+    fe_cfg, wk_cfg = _cfgs(opts)
+    model, meta = build_pase(fe_cfg, wk_cfg)
+    flat, _ = load_variables(opts.ckpt)
+    load_model_variables(model, {k: v for k, v in flat.items() if
+                                 k.startswith(("params/", "batch_stats/"))})
+    model.to(opts.device).eval()
+    stats = load_stats_pkl(opts.stats) if opts.stats else None
+    entry = next(e for e in meta["regr"] if e["name"] == "prosody")
+    head, r = model.workers["prosody"], int(entry.get("r", 1) or 1)
+    rmse = {"lf0": [], "egy": [], "zcr": []}
+    uv_acc = []
+    paths = _wav_paths(opts)[:opts.max_utts]
+    for p in paths:
+        wav, _ = read_wav(os.path.join(opts.data_root, p))
+        t = (len(wav) // HOP) * HOP
+        x = torch.as_tensor(wav[None, :t], dtype=torch.float32,
+                            device=opts.device)
+        with torch.no_grad():
+            h = model.frontend(x).transpose(1, 2)            # [1, emb, F]
+            pred = head(h, 1.0).transpose(1, 2)[0].cpu().numpy()
+            truth = prosody(x)[0].cpu().numpy()              # [F, D]
+        if r > 1:
+            pred = pred.reshape(len(pred), -1, r)[..., r // 2]
+        if stats and "prosody" in stats:
+            mean = np.asarray(stats["prosody"]["mean"]).reshape(-1)
+            std = np.asarray(stats["prosody"]["std"]).reshape(-1)
+            pred = pred * std[:pred.shape[1]] + mean[:pred.shape[1]]
+        n = min(len(pred), len(truth))
+        pred, truth = pred[:n], truth[:n]
+        for col, name in ((0, "lf0"), (2, "egy"), (3, "zcr")):
+            rmse[name].append(
+                float(np.sqrt(np.mean((pred[:, col] - truth[:, col]) ** 2))))
+        uv_acc.append(float((np.round(np.clip(pred[:, 1], 0, 1))
+                             == truth[:, 1]).mean()))
+    res = {f"{k}_rmse": float(np.mean(v)) for k, v in rmse.items()}
+    res["uv_acc"] = float(np.mean(uv_acc))
+    res["n_utts"] = len(paths)
+    print(json.dumps(res))
+    if opts.out_file:
+        with open(opts.out_file, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def make_fbanks(opts):
+    """python_speech_features log fbanks (``ops.features.fbanks``,
+    --n_filters, with deltas) of each wav of a list on --device, one
+    <out_dir>/<stem>.npy [T // 160, 3 n_filters] each."""
+    import torch
+    from pase_tpu_torch.data.io import read_wav
+    from pase_tpu_torch.ops.features import fbanks
+    os.makedirs(opts.out_dir, exist_ok=True)
+    paths = _wav_paths(opts)
+    for p in paths:
+        wav, _ = read_wav(os.path.join(opts.data_root, p))
+        with torch.no_grad():
+            y = fbanks(torch.as_tensor(wav[None], device=opts.device),
+                       n_filters=opts.n_filters)[0].cpu().numpy()
+        np.save(os.path.join(opts.out_dir, os.path.splitext(
+            os.path.basename(p))[0] + ".npy"), y)
+    print(f"Wrote {len(paths)} fbank files to {opts.out_dir}")
+    return len(paths)
+
+
+def vadproc(opts):
+    """Frame-energy VAD of each wav of a list (on the host): 160-sample
+    frames, speech where the frame's energy in dB exceeds max(the loudest
+    frame's + --thresh_db, -55); writes <out_dir>/<stem>.vad, one `beg end`
+    line (samples) per speech region."""
+    from pase_tpu_torch.data.io import read_wav
+    os.makedirs(opts.out_dir, exist_ok=True)
+    paths = _wav_paths(opts)
+    win = HOP
+    for p in paths:
+        wav, _ = read_wav(os.path.join(opts.data_root, p))
+        n = len(wav) // win
+        fe = 10 * np.log10(
+            np.mean(wav[:n * win].reshape(n, win) ** 2, axis=1) + 1e-12)
+        thresh = max(fe.max() + opts.thresh_db, -55.0)
+        regions, beg = [], None
+        for i, s in enumerate(fe > thresh):
+            if s and beg is None:
+                beg = i
+            elif not s and beg is not None:
+                regions.append((beg * win, i * win))
+                beg = None
+        if beg is not None:
+            regions.append((beg * win, n * win))
+        out = os.path.join(opts.out_dir,
+                           os.path.splitext(os.path.basename(p))[0] + ".vad")
+        with open(out, "w") as f:
+            for b, e in regions:
+                f.write(f"{b} {e}\n")
+    print(f"Wrote VAD regions for {len(paths)} files to {opts.out_dir}")
+    return len(paths)
+
+
+def make_contaminated(opts):
+    """The distortion stack of --dtrans_cfg (its assets built for
+    --chunk_size, as ``train.build_distortions`` builds them) applied on
+    --device to each whole wav of a list, cut to whole 160-sample frames;
+    each file's draws from one torch.Generator seeded with --seed, in list
+    order. Writes <out_dir>/<basename>. A wav longer than the noise or
+    overlap bank (2 x --chunk_size) has no slice of it to take: refused,
+    as the JAX tool's slice is."""
+    import torch
+    from pase_tpu_torch.data import distortions
+    from pase_tpu_torch.data.io import read_wav, write_wav
+    from pase_tpu_torch.train import build_distortions
+    cfg, assets = build_distortions(argparse.Namespace(
+        dtrans_cfg=[opts.dtrans_cfg]), opts.chunk_size)
+    if cfg is None:
+        raise ValueError(f"--dtrans_cfg {opts.dtrans_cfg!r} names no stack")
+    assets = assets.to(opts.device)
+    banks = [b.shape[1] for b in (assets.noise_bank, assets.overlap_bank)
+             if b is not None]
+    os.makedirs(opts.out_dir, exist_ok=True)
+    paths = _wav_paths(opts)
+    gen = torch.Generator(device=opts.device).manual_seed(opts.seed)
+    for p in paths:
+        wav, sr = read_wav(os.path.join(opts.data_root, p))
+        t = (len(wav) // HOP) * HOP
+        if banks and t > min(banks):
+            raise ValueError(
+                f"{p}: {t} samples, longer than the {min(banks)}-sample "
+                f"noise / overlap bank of --chunk_size {opts.chunk_size}")
+        x = torch.as_tensor(wav[None, :t], device=opts.device)
+        draws = distortions.draw_distortions(gen, 1, t, cfg, assets)
+        with torch.no_grad():
+            y, _ = distortions.apply_distortions(x, draws, cfg, assets)
+        write_wav(os.path.join(opts.out_dir, os.path.basename(p)),
+                  y[0].cpu().numpy(), sr)
+    print(f"Contaminated {len(paths)} files -> {opts.out_dir}")
+    return len(paths)
+
+
+def select_ckpt(opts):
+    """The file of --metrics_glob whose --metric is best (largest: JAX's
+    --maximize is store_true with default True, so it cannot be turned
+    off); prints {"best": path, metric: value}."""
+    best, best_v = None, None
+    for f in glob.glob(opts.metrics_glob):
+        with open(f) as fh:
+            m = json.load(fh)
+        v = m.get(opts.metric)
+        if v is None:
+            continue
+        if best_v is None or (v > best_v if opts.maximize else v < best_v):
+            best, best_v = f, v
+    out = {"best": best, opts.metric: best_v}
+    print(json.dumps(out))
+    return out
+
+
+def encode_codec2(opts):
+    raise NotImplementedError(
+        "encode-codec2 needs the codec2 round trip of the host distortion "
+        "stage, which is not ported yet: ROADMAP.md, queue 1, item 12")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="python -m pase_tpu_torch.util_scripts")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -403,6 +682,72 @@ def build_parser():
     et = sub.add_parser("export-torch")
     et.add_argument("--in_ckpt", required=True)
     et.add_argument("--out_ckpt", required=True)
+
+    cl = sub.add_parser("clusterize")
+    cl.add_argument("--fe_cfg", required=True)
+    cl.add_argument("--fe_ckpt", default=None)
+    cl.add_argument("--wav_list", required=True)
+    cl.add_argument("--data_root", default="")
+    cl.add_argument("--k", type=int, default=128)
+    cl.add_argument("--max_utts", type=int, default=None)
+    cl.add_argument("--out_file", default="clusters.npz")
+    device_flag(cl)
+
+    mf = sub.add_parser("make-fbanks")
+    mf.add_argument("--wav_list", required=True)
+    mf.add_argument("--data_root", default="")
+    mf.add_argument("--out_dir", required=True)
+    mf.add_argument("--n_filters", type=int, default=40)
+    device_flag(mf)
+
+    vp = sub.add_parser("vadproc")
+    vp.add_argument("--wav_list", required=True)
+    vp.add_argument("--data_root", default="")
+    vp.add_argument("--out_dir", required=True)
+    vp.add_argument("--thresh_db", type=float, default=-40.0)
+
+    mc = sub.add_parser("make-contaminated")
+    mc.add_argument("--wav_list", required=True)
+    mc.add_argument("--data_root", default="")
+    mc.add_argument("--out_dir", required=True)
+    mc.add_argument("--dtrans_cfg", required=True)
+    mc.add_argument("--chunk_size", type=int, default=32000)
+    mc.add_argument("--seed", type=int, default=0)
+    device_flag(mc)
+
+    sc = sub.add_parser("select-ckpt")
+    sc.add_argument("--metrics_glob", required=True)
+    sc.add_argument("--metric", default="test_sentence_acc")
+    sc.add_argument("--maximize", action="store_true", default=True,
+                    help="always on, as in the JAX CLI")
+
+    pf = sub.add_parser("project-features")
+    pf.add_argument("--fe_cfg", required=True)
+    pf.add_argument("--fe_ckpt", default=None)
+    pf.add_argument("--wav_list", required=True)
+    pf.add_argument("--data_root", default="")
+    pf.add_argument("--n_components", type=int, default=2)
+    pf.add_argument("--max_utts", type=int, default=None)
+    pf.add_argument("--out_file", default="projected.npy")
+    device_flag(pf)
+
+    c2 = sub.add_parser("encode-codec2", help="not ported yet (raises)")
+    c2.add_argument("input_dir")
+    c2.add_argument("output_dir")
+    c2.add_argument("--kbps", type=int, default=1600)
+    c2.add_argument("--num_workers", type=int, default=8)
+
+    pe = sub.add_parser("prosodic-eval")
+    pe.add_argument("--fe_cfg", required=True)
+    pe.add_argument("--net_cfg", required=True)
+    pe.add_argument("--ckpt", required=True,
+                    help="full PASE checkpoint (weights_PASE-*.npz)")
+    pe.add_argument("--wav_list", required=True)
+    pe.add_argument("--data_root", default="")
+    pe.add_argument("--stats", default=None)
+    pe.add_argument("--max_utts", type=int, default=None)
+    pe.add_argument("--out_file", default=None)
+    device_flag(pe)
     return p
 
 
@@ -412,7 +757,13 @@ def main(argv=None):
             "serve-encode": serve_encode, "eval-ckpts": eval_ckpts,
             "precompute-feats": precompute_feats,
             "profile-step": profile_step,
-            "export-torch": export_torch}[opts.cmd](opts)
+            "export-torch": export_torch, "clusterize": clusterize,
+            "make-fbanks": make_fbanks, "vadproc": vadproc,
+            "make-contaminated": make_contaminated,
+            "select-ckpt": select_ckpt,
+            "project-features": project_features,
+            "encode-codec2": encode_codec2,
+            "prosodic-eval": prosodic_eval}[opts.cmd](opts)
 
 
 if __name__ == "__main__":

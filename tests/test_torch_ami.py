@@ -25,6 +25,7 @@ from pase_tpu_torch.data import dataset as D
 from pase_tpu_torch.data import prep
 from pase_tpu_torch.data.io import read_wav
 from pase_tpu_torch.data.synthetic_corpus import (write_synthetic_ami,
+                                                  write_synthetic_chime5,
                                                   write_synthetic_corpus)
 from torch_port_common import port_test_guard  # noqa: F401
 
@@ -203,9 +204,40 @@ def test_vad_segment_and_build_cfg_match_jax(ami, tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["segment", "chime5-cfg"])
-def test_data_prep_unported_subcommands_name_their_item(cmd):
-    with pytest.raises(NotImplementedError, match="item 11b part 4"):
-        port_data_prep.main([cmd, "--data_root", "x"])
+def test_data_prep_unported_subcommands_name_their_item(cmd, ami, tmp_path):
+    """The two subcommands that raised naming ROADMAP item 11b part 4
+    until it was ported now write the JAX CLI's files, byte for byte:
+    segment on the seeded meetings' headsets, chime5-cfg on a seeded
+    CHiME-5 session's worn / array Kaldi dirs."""
+    sys.path.insert(0, REPO)
+    import data_prep as jax_data_prep
+    out = {side: str(tmp_path / side) for side in ("port", "jax")}
+    if cmd == "segment":
+        heads = str(tmp_path / "heads")
+        os.makedirs(heads)
+        for f in glob.glob(os.path.join(ami.tree, "*", "audio",
+                                        "*.Headset-*.wav")):
+            os.link(f, os.path.join(heads, os.path.basename(f)))
+        port_data_prep.main(["segment", "--data_root", heads, "--out_root",
+                             out["port"], "--seg_len", "4.0"])
+        jax_data_prep.segment(argparse.Namespace(
+            data_root=heads, out_root=out["jax"], seg_len=4.0))
+    else:
+        worn, array = write_synthetic_chime5(str(tmp_path / "chime5"),
+                                             seconds=10.0, seed=2)
+        port_data_prep.main(["chime5-cfg", "--ihm_dir", worn, "--sdm_dir",
+                             array, "--out_dir", out["port"], "--cfg_file",
+                             os.path.join(out["port"], "c5.cfg")])
+        jax_data_prep.chime5_cmd(argparse.Namespace(
+            ihm_dir=worn, sdm_dir=array, out_dir=out["jax"],
+            cfg_file=os.path.join(out["jax"], "c5.cfg"), valid_spk="P42",
+            test_spk="P41", no_cut=False))
+    files = _files(out["port"])
+    assert files == _files(out["jax"]) and len(files) > 10
+    for f in files:
+        with open(os.path.join(out["port"], f), "rb") as a, \
+                open(os.path.join(out["jax"], f), "rb") as b:
+            assert a.read() == b.read(), f
 
 
 def _ami_datasets(ami, mode, split="train", seed=4):

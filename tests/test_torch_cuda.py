@@ -1107,3 +1107,67 @@ def test_trainer_rows_gpu_match_cpu(cuda_device, tmp_path):
             a, b = float(out[("cuda", False)][k]), float(out[("cuda",
                                                               True)][k])
             assert abs(a - b) <= 1e-4 * abs(b), k
+
+
+KALDI_HEADS = (("kaldimfcc", 39, {"num_ceps": 13, "der_order": 2}),
+               ("kaldiplp", 20, {"num_ceps": 20, "der_order": 0}))
+
+
+@pytest.mark.parametrize("name,n_out,transform", KALDI_HEADS)
+def test_kaldi_targets_gpu_match_cpu(cuda_device, name, n_out, transform):
+    """The Kaldi MFCC / PLP targets of speech-like chunks on the card
+    within 1e-4 of each target's largest value on the CPU (cuFFT against
+    pocketfft, sums in another order)."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.ops.features import feature_fn_for_worker
+    wav = torch.from_numpy(next(iter(SyntheticChunkBatcher(
+        4, 16000, seed=5)))["chunk"])
+    fn = feature_fn_for_worker(name, transform)
+    cpu, gpu = fn(wav), fn(wav.to(cuda_device)).cpu()
+    assert cpu.shape == gpu.shape == (4, 100, n_out)
+    assert (gpu - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+def test_kaldi_head_step_gpu_matches_cpu(cuda_device, tmp_path):
+    """One narrow PASE+ step with workers+ and both Kaldi heads on the card
+    against the CPU, same weights and batch: the losses within 1e-4
+    relative, the training kernels launched once per QRNN layer."""
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.trainer import Trainer
+    wk = _small_workers()
+    mfcc = next(e for e in wk["regr"] if e["name"] == "mfcc")
+    for name, n_out, transform in KALDI_HEADS:
+        wk["regr"].append(dict(mfcc, name=name, num_outputs=n_out,
+                               transform=dict(transform)))
+    fe = dict(NARROW_CFG, strides=[1, 10, 4, 4])
+    cfg = dict(batch_size=2, chunk_size=4800, fe_lr=5e-4, min_lr=5e-4,
+               lr_mode="poly", save_path=str(tmp_path))
+    gpu = Trainer(fe, wk, cfg, device=cuda_device)
+    cpu = Trainer(fe, wk, cfg, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    raw = next(iter(SyntheticChunkBatcher(2, 4800, seed=3)))
+    before = dict(cuda_qrnn.LAUNCHES)
+    lg, lc = gpu.train_step(raw), cpu.train_step(raw)
+    layers = len(gpu.model.frontend.rnn.layers)
+    for k in ("qrnn_pool_fwd_train", "qrnn_pool_bwd"):
+        assert cuda_qrnn.LAUNCHES[k] == before[k] + layers
+    assert {"kaldimfcc", "kaldiplp"} <= set(gpu.ordered_names)
+    for k in gpu.ordered_names:
+        assert abs(float(lg[k]) - float(lc[k])) <= 1e-4 * abs(float(lc[k])), k
+
+
+def test_kmeans_gpu_matches_cpu(cuda_device):
+    """util_scripts.kmeans on the card against the CPU from the same
+    initial rows: the same assignments, the centres within 1e-5 of their
+    largest."""
+    from pase_tpu_torch import util_scripts
+    rng = np.random.RandomState(0)
+    centers = rng.randn(16, 32) * 3
+    x = np.concatenate([c + rng.randn(200, 32) for c in centers]).astype(
+        np.float32)
+    idx = util_scripts.kmeans_init(len(x), 16, seed=1)
+    cg, ag = util_scripts.kmeans(torch.from_numpy(x).to(cuda_device), 16,
+                                 init_idx=idx)
+    cc, ac = util_scripts.kmeans(torch.from_numpy(x), 16, init_idx=idx)
+    np.testing.assert_array_equal(ag, ac)
+    assert np.abs(cg - cc).max() <= 1e-5 * np.abs(cc).max()

@@ -128,8 +128,6 @@ def test_feature_dims_match_jax():
             "transform")) == jax_features.feature_dim_for_worker(
             e["name"], e.get("transform")), e["name"]
     assert features.feature_fn_for_worker("mi") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        features.feature_fn_for_worker("kaldimfcc")
 
 
 @pytest.mark.parametrize("with_stats", [False, True])

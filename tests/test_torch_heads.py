@@ -220,5 +220,3 @@ def test_lpc_worker_dispatch_and_dim():
     assert fn(torch.zeros(1, 1600) + 1e-3).shape == (1, 10, 13)
     assert features.feature_dim_for_worker("lpc", cfg) == \
         jax_features.feature_dim_for_worker("lpc", cfg) == 13
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        features.feature_fn_for_worker("kaldiplp")
