@@ -33,14 +33,23 @@ is drawn from ``step_seed(seed + 77, k)``, so ``batches(k)`` replays an
 uninterrupted run's batches from step k on (JAX's ``feed_state(k)``);
 and the offset, length and neighbor tables are int64 on the card, so the
 JAX batcher's cap of 2^31 samples per buffer (its int32 gather) does not
-apply. Not supported: zero-speech on a parallel corpus (raises), and the
-sharded multi-card corpus.
+apply. Not supported: zero-speech on a parallel corpus (raises).
+
+``ShardedDeviceCorpusBatcher`` is the port of the JAX package's sharded
+corpus for data parallelism: the corpus is split into one shard per rank
+(JAX's seeded partition of the filename-prefix groups, from the wav
+headers alone), each rank decodes and uploads only its own shard, and
+samples its B / D rows of the global batch from it.
 """
+
+import os
 
 import numpy as np
 import torch
 
 from pase_tpu_torch.data.dataset import crop_at, step_seed, zerospeech
+from pase_tpu_torch.data.io import wav_len
+from pase_tpu_torch.parallel import mesh
 
 # the exclusive upper end of the raw draws reduced modulo a count or span
 _DRAW_HIGH = 1 << 62
@@ -61,17 +70,25 @@ class DeviceCorpusBatcher:
 
     def __init__(self, dataset, batch_size, chunk_size, seed=0,
                  zero_speech_bank=16, device="cuda"):
+        self.bpe = max((dataset.total_wav_dur // chunk_size) // batch_size, 1)
+        self._build(dataset, [w["filename"] for w in dataset.wavs],
+                    batch_size, chunk_size, seed, zero_speech_bank,
+                    device)
+
+    def _build(self, dataset, names, batch_size, chunk_size, seed,
+               zero_speech_bank=16, device="cuda", header_lengths=None):
+        """Pack the utterances ``names`` of the dataset into the card's
+        buffers; ``header_lengths``: {tree: [n] samples the headers gave},
+        which each decoded utterance must match."""
         self.batch_size = batch_size
         self.chunk_size = chunk_size
         self.seed = seed + 77
         self.device = torch.device(device)
-        self.bpe = max((dataset.total_wav_dur // chunk_size) // batch_size, 1)
         self.zero_speech_p = float(getattr(dataset, "zero_speech_p", 0.0))
         self.parallel = bool(getattr(dataset, "parallel", False))
         if self.parallel and self.zero_speech_p > 0:
             raise ValueError("zero-speech injection is not supported on "
                              "parallel (clean/noisy) device corpora")
-        names = [w["filename"] for w in dataset.wavs]
         n = len(names)
         self.n_utts = n
         name_pos = {f: i for i, f in enumerate(names)}
@@ -86,6 +103,7 @@ class DeviceCorpusBatcher:
 
         def pack_tree(load, cache_prefix=""):
             """One wav tree -> (offsets, lengths, int16 parts, total)."""
+            want = (header_lengths or {}).get(cache_prefix)
             offs = np.empty(n, dtype=np.int64)
             lens = np.empty(n, dtype=np.int64)
             parts = []
@@ -96,6 +114,10 @@ class DeviceCorpusBatcher:
                     wav = crop_at(wav, 0, chunk_size)
                 dataset.wav_cache.pop(cache_prefix + f, None)
                 pcm = _to_pcm16(wav)
+                if want is not None and len(pcm) != want[i]:
+                    raise ValueError(
+                        f"{f}: decoded {len(pcm)} samples but the header "
+                        f"said {want[i]}")
                 offs[i] = pos
                 lens[i] = len(pcm)
                 parts.append(pcm)
@@ -217,3 +239,92 @@ class DeviceCorpusBatcher:
 
     def __iter__(self):
         return self.batches(0)
+
+
+class ShardedDeviceCorpusBatcher(DeviceCorpusBatcher):
+    """The corpus sharded over the ranks of a process group (the JAX
+    package's ``ShardedDeviceCorpusBatcher``): rank r holds shard r on its
+    card and yields its B / D rows of each global batch of ``batch_size``.
+
+    The partition is the JAX package's, in numpy: the filename-prefix
+    groups, shuffled by ``np.random.RandomState(seed + 13)``, are placed
+    largest first on the least-loaded shard, sized from the wav headers
+    alone (max(header length, chunk_size) per utterance), so every rank
+    computes the same ``shard_names`` without decoding. The rank decodes
+    and uploads only its own shard (``owned_rows`` == [rank]), checking
+    each utterance against its header. Its rows are sampled as the
+    single-buffer batcher samples, within the shard: chunk from an
+    utterance of the shard, chunk_ctxt from a same-prefix sibling (groups
+    are kept whole), chunk_rand from another utterance of the shard; a
+    parallel clean/noisy corpus shards both trees. Batch k comes from a
+    generator seeded by (seed, k, rank), so ``batches(k)`` (and
+    ``feed_state(k)``) replays an uninterrupted run's batches from step k.
+
+    Raises, as the JAX batcher does, for zero-speech injection, a batch
+    that does not divide by the shards, fewer prefix groups than shards,
+    and a shard of 2^31 samples or more. ``buf_gb`` is the corpus's
+    int16 gigabytes at D times the largest shard (the JAX figure);
+    ``nbytes`` this rank's bytes on its card.
+    """
+
+    def __init__(self, dataset, batch_size, chunk_size, seed=0,
+                 device="cuda", rank=None, world=None):
+        if getattr(dataset, "zero_speech_p", 0.0) > 0:
+            raise ValueError("sharded device corpus does not support "
+                             "zero-speech injection")
+        rank = mesh.rank() if rank is None else int(rank)
+        D = mesh.world() if world is None else int(world)
+        if batch_size % D != 0:
+            raise ValueError(f"batch {batch_size} not divisible by the "
+                             f"{D} shards")
+        self.n_shards = D
+        self.global_batch = batch_size
+        names = [w["filename"] for w in dataset.wavs]
+        groups = {}
+        for f in names:
+            groups.setdefault(dataset.rec.sub("", f), []).append(f)
+        glist = list(groups.values())
+        if len(glist) < D:
+            raise ValueError(
+                f"corpus has {len(glist)} filename-prefix groups but there "
+                f"are {D} shards; every shard needs at least one group "
+                "(use the single-buffer --device_corpus)")
+        np.random.RandomState(seed + 13).shuffle(glist)
+
+        def header_lengths(root):
+            return {f: max(wav_len(os.path.join(root, f)), chunk_size)
+                    for f in names}
+
+        hdr = header_lengths(dataset.data_root)
+        sizes = [sum(hdr[f] for f in g) for g in glist]
+        shard_files = [[] for _ in range(D)]
+        load = np.zeros(D, dtype=np.int64)
+        for gi in np.argsort(sizes)[::-1]:
+            d = int(np.argmin(load))
+            shard_files[d].extend(glist[gi])
+            load[d] += sizes[gi]
+        self.shard_names = shard_files
+        trees = {"": hdr}
+        if getattr(dataset, "parallel", False):
+            trees["clean::"] = header_lengths(dataset.clean_root)
+        self.buf_gb = 0.0
+        for tree, lens in trees.items():
+            totals = [sum(lens[f] for f in fl) for fl in shard_files]
+            if max(totals) >= 1 << 31:
+                raise ValueError(
+                    f"one corpus shard is {max(totals)} samples (> 2^31 "
+                    "int32 cap); use more shards")
+            self.buf_gb += D * max(max(totals), 1) * 2 / 1e9
+        self.owned_rows = [rank]
+        own = shard_files[rank]
+        self.bpe = max(
+            (dataset.total_wav_dur // chunk_size) // batch_size, 1)
+        self._build(dataset, own, batch_size // D, chunk_size,
+                    seed + 100003 * rank, device=device,
+                    header_lengths={tree: [lens[f] for f in own]
+                                    for tree, lens in trees.items()})
+
+    def feed_state(self, start_step=0):
+        """The batches from ``start_step`` on (the JAX batcher's resume
+        entry)."""
+        return self.batches(start_step)

@@ -33,6 +33,7 @@ import torch
 from pase_tpu_torch.data.distortions import (additive, apply_distortions,
                                              draw_distortions)
 from pase_tpu_torch.ops.features import feature_fn_for_worker
+from pase_tpu_torch.parallel.mesh import draw_rows
 from pase_tpu_torch.precision import get_compute_dtype
 
 # integer batch entries that pass through the prepare to the model
@@ -66,9 +67,15 @@ def draw_zero_speech(generator, b, t, bank, snrs):
 def norm_and_scale(wav, generator=None):
     """wav / max|wav| * U[0, 1) per sample."""
     mx = wav.abs().amax(dim=-1, keepdim=True)
-    g = torch.rand((wav.shape[0], 1), generator=generator, dtype=wav.dtype,
-                   device=wav.device)
-    return wav / torch.clamp(mx, min=1e-12) * g
+    return wav / torch.clamp(mx, min=1e-12) * _gains(wav, generator)
+
+
+def _gains(wav, generator):
+    """U[0, 1) per row of wav [B, T], [B, 1] (drawn for the global batch
+    under a ``row_shard``)."""
+    return draw_rows(lambda m: torch.rand(
+        (m, 1), generator=generator, dtype=wav.dtype, device=wav.device),
+        wav.shape[0])
 
 
 def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
@@ -84,9 +91,10 @@ def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
     bank and its SNRs in dB, applied to the encoder input of the rows the
     batch's zs_mask flags (their targets and cchunk stay the silence).
     ``generator`` draws, in this order, the random gains of
-    ``random_scale``, the distortions and the zero-speech additive;
-    ``draws`` (a ``DistortionDraws``) and ``zs_draws`` (a
-    ``ZeroSpeechDraws``) replace the latter two."""
+    ``random_scale``, the distortions and the zero-speech additive (each
+    for the global batch under a ``parallel.mesh.row_shard``, of which
+    the rank keeps its rows); ``draws`` (a ``DistortionDraws``) and
+    ``zs_draws`` (a ``ZeroSpeechDraws``) replace the latter two."""
     feat_fns = {}
     for e in workers_meta.get("regr", []):
         fn = feature_fn_for_worker(e["name"], e.get("transform"), hop=hop)
@@ -124,8 +132,7 @@ def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
                 # one gain for the noisy chunk and its aligned clean one
                 mx = torch.clamp(chunk.abs().amax(dim=-1, keepdim=True),
                                  min=1e-12)
-                g = torch.rand((b, 1), generator=generator,
-                               dtype=chunk.dtype, device=chunk.device)
+                g = _gains(chunk, generator)
                 chunk, clean = chunk / mx * g, clean / mx * g
             else:
                 chunk = norm_and_scale(chunk, generator)
@@ -146,8 +153,8 @@ def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
                 dev_assets = cached(("assets", chunk.device),
                                     lambda: assets.to(chunk.device))
                 if draws is None:
-                    draws = draw_distortions(generator, b, t, dist_cfg,
-                                             dev_assets)
+                    draws = draw_rows(lambda m: draw_distortions(
+                        generator, m, t, dist_cfg, dev_assets), b)
                 dchunk, overlap = apply_distortions(chunk, draws, dist_cfg,
                                                     dev_assets, dec_res=hop)
                 if "dist_mask" in batch:
@@ -164,8 +171,8 @@ def make_prepare_fn(workers_meta, stats=None, dist_cfg=None, assets=None,
                                   zs_bank, dtype=torch.float32).to(
                                       chunk.device))
                 if zs_draws is None:
-                    zs_draws = draw_zero_speech(generator, b, t, bank,
-                                                zs_snrs)
+                    zs_draws = draw_rows(lambda m: draw_zero_speech(
+                        generator, m, t, bank, zs_snrs), b)
                 noisy = additive(chunk, zs_draws.row, zs_draws.beg,
                                  zs_draws.snr, bank, tuple(zs_snrs))
                 chunk = torch.where(zs_m[:, None] > 0, noisy, chunk)

@@ -49,6 +49,7 @@ from torch import nn
 
 from pase_tpu_torch.nn import (BatchNorm1d, BiRNN, Conv1D, FeBlock, QRNN,
                                SincConv)
+from pase_tpu_torch.parallel.mesh import draw_rows
 
 # TDNN's stages: (fmaps, kwidth, dilation, zero pad each side)
 TDNN_SPECS = ((512, 5, 1, 2), (512, 3, 2, 2), (512, 3, 3, 3),
@@ -240,8 +241,9 @@ class ASPP(nn.Module):
         h = self.act1(self.bn1(self.conv1(h)))
         if self.dropout > 0 and self.training:
             keep = 1.0 - self.dropout
-            mask = torch.rand(h.shape, generator=self.dropout_generator,
-                              device=h.device) < keep
+            mask = draw_rows(lambda m: torch.rand(
+                (m,) + h.shape[1:], generator=self.dropout_generator,
+                device=h.device), h.shape[0]) < keep
             h = torch.where(mask, h / keep, torch.zeros_like(h))
         return h
 

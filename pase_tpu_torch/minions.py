@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from pase_tpu_torch.nn import Conv1D, FlaxRNN, GDeconv1DBlock, MLPBlock
+from pase_tpu_torch.parallel.mesh import draw_rows
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -59,8 +60,9 @@ def time_dropout(x, rate, minion):
     ``minion.time_keep``; the mask is kept in ``minion.last_time_keep``."""
     keep = minion.time_keep
     if keep is None:
-        u = torch.rand((x.shape[0], 1, x.shape[2]),
-                       generator=minion.dropout_generator, device=x.device)
+        u = draw_rows(lambda m: torch.rand(
+            (m, 1, x.shape[2]), generator=minion.dropout_generator,
+            device=x.device), x.shape[0])
         keep = u > rate
     minion.last_time_keep = keep
     return x * keep.to(x.dtype)
@@ -247,8 +249,8 @@ class SPCMinion(nn.Module):
 
 def gap_draw(batch, frames, generator=None, device=None):
     """[2, B] frame pairs (a, b), each uniform in [0, T) (int64)."""
-    return torch.randint(0, frames, (2, batch), generator=generator,
-                         device=device)
+    return draw_rows(lambda m: torch.randint(
+        0, frames, (2, m), generator=generator, device=device), batch, dim=1)
 
 
 class GapMinion(nn.Module):

@@ -50,6 +50,9 @@ BatchNorm is torch's BatchNorm1d: in train mode it normalizes with the
 biased batch variance and updates the running stats with the unbiased one
 at momentum 0.1, as ``pase_tpu/nn.py`` BatchNorm1d does (which takes the
 variance in one pass, E[x^2] - E[x]^2; torch in two: equal to rounding).
+Under a process group of more than one rank, BatchNorm and the VQ-EMA
+quantizer take their batch statistics over the global batch
+(``parallel/mesh.py``), as the JAX package's data-parallel step does.
 
 Under a bfloat16 compute policy (``precision.compute_dtype``) the blocks
 mirror the JAX package's cast points: a conv casts a float32 x to bf16 and
@@ -80,6 +83,7 @@ from pase_tpu_torch.ops.pad import feblock_pad, pad_1d, sinc_same_pad
 from pase_tpu_torch.ops.qrnn import shift_right
 from pase_tpu_torch.ops.sinc import (build_sinc_filters, mel_init_hz,
                                      sinc_time_axes)
+from pase_tpu_torch.parallel import mesh
 from pase_tpu_torch.precision import get_compute_dtype
 
 ROADMAP_OFF_SLICE = "ROADMAP.md, queue 1: off-path model variants"
@@ -135,14 +139,82 @@ class Conv1D(nn.Conv1d):
                       self.dilation[0])
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization of [B, C, T] over the global batch of
+    a process group: the forward gathers each rank's count, mean and sum
+    of squared deviations (one all_reduce) and combines them (Chan et
+    al.'s pairwise update) into the global mean and biased variance, in
+    float32; the backward all-reduces sum(dy) and sum(dy x_hat) (one
+    all_reduce), which give each rank's rows their gradient through the
+    global statistics. The weight and bias get this rank's sums: the
+    trainer's gradient all-reduce adds the ranks'. Returns (y, mean, var),
+    the last two not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        m_loc = xf.mean(dim=(0, 2))
+        m2_loc = torch.square(xf - m_loc[:, None]).sum(dim=(0, 2))
+        c = m_loc.shape[0]
+        per = mesh.gather(torch.cat([
+            m_loc.new_full((1,), float(x.shape[0] * x.shape[2])), m_loc,
+            m2_loc]))
+        ns, ms, m2s = per[:, :1], per[:, 1:c + 1], per[:, c + 1:]
+        n = ns.sum()
+        mean = (ns * ms).sum(dim=0) / n
+        var = (m2s + ns * torch.square(ms - mean)).sum(dim=0) / n
+        invstd = torch.rsqrt(var + eps)
+        if x.dtype == torch.float32:
+            y = (xf - mean[:, None]) * invstd[:, None]
+            if weight is not None:
+                y = y * weight[:, None] + bias[:, None]
+        else:
+            def col(v):
+                return v.to(x.dtype)[:, None]
+
+            y = (x - col(mean)) * col(invstd)
+            if weight is not None:
+                y = y * col(weight) + col(bias)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n = float(n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        xhat = (x.float() - mean[:, None]) * invstd[:, None]
+        dyf = dy.float()
+        s_dy = dyf.sum(dim=(0, 2))
+        s_dyx = (dyf * xhat).sum(dim=(0, 2))
+        dw = db = None
+        if weight is not None:
+            dw, db = s_dyx.to(weight.dtype), s_dy.to(weight.dtype)
+        sums = torch.cat([s_dy, s_dyx])
+        mesh.all_reduce_([sums])
+        g_dy, g_dyx = sums.split(s_dy.shape[0])
+        scale = invstd if weight is None else weight.float() * invstd
+        n = ctx.n
+        dx = scale[:, None] * (dyf - g_dy[:, None] / n
+                               - xhat * (g_dyx[:, None] / n))
+        return dx.to(x.dtype), dw, db, None
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """torch's BatchNorm1d for a float32 x. For a bf16 x (under the
     compute-dtype policy) the JAX package's: batch statistics in float32
     in one pass, var = E[x^2] - E[x]^2, the running stats updated in
     float32 with the unbiased variance, then (x - mean) * rsqrt(var + eps)
-    and the affine in x's type, mean, inv, weight and bias cast to it."""
+    and the affine in x's type, mean, inv, weight and bias cast to it.
+
+    In train mode under a process group of more than one rank the
+    statistics are those of the global batch (``_GlobalBatchNorm``), as
+    the JAX package's jitted step on a batch-sharded array takes them;
+    the running stats move by the global mean and unbiased variance."""
 
     def forward(self, x):
+        if self.training and mesh.world() > 1:
+            return self._global(x)
         if x.dtype == torch.float32:
             return super().forward(x)
         if self.training:
@@ -166,6 +238,17 @@ class BatchNorm1d(nn.BatchNorm1d):
         y = (x - col(mean)) * col(torch.rsqrt(var + self.eps))
         if self.affine:
             y = y * col(self.weight) + col(self.bias)
+        return y
+
+    def _global(self, x):
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps)
+        n = x.shape[0] * x.shape[2] * mesh.world()
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
         return y
 
 
@@ -590,6 +673,15 @@ class FeResBlock(nn.Module):
         return self.finish(h, self.identity(xd))
 
 
+def qrnn_linear(src, weight, bias):
+    """A QRNN layer's linear over src [B, T, 2C] -> [B, T, 3H]; under a
+    compute dtype in it (bias added in it), returned as float32."""
+    cd = get_compute_dtype()
+    if cd is None:
+        return F.linear(src, weight, bias)
+    return (F.linear(src.to(cd), weight.to(cd)) + bias.to(cd)).float()
+
+
 class _QRNNLayer(nn.Module):
     def __init__(self, input_size, hidden, generator=None):
         super().__init__()
@@ -615,12 +707,7 @@ class QRNN(nn.Module):
 
     @staticmethod
     def _linear(layer, src):
-        cd = get_compute_dtype()
-        lin = layer.linear
-        if cd is None:
-            return lin(src)
-        return (F.linear(src.to(cd), lin.weight.to(cd))
-                + lin.bias.to(cd)).float()
+        return qrnn_linear(src, layer.linear.weight, layer.linear.bias)
 
     def forward(self, x):
         h = x
@@ -915,8 +1002,9 @@ class PatternedDropout(nn.Module):
             whole = (self.drop_whole_channels
                      and self.dropout_mode != "std")
             shape = (b, c, 1) if whole else (b, c, t)
-            keep = torch.rand(shape, generator=self.dropout_generator,
-                              device=x.device) < 1.0 - self.p
+            keep = mesh.draw_rows(lambda m: torch.rand(
+                (m,) + shape[1:], generator=self.dropout_generator,
+                device=x.device), b) < 1.0 - self.p
         self.last_keep = keep
         if self.dropout_mode == "std":
             return torch.where(keep, x / (1.0 - self.p), 0.0).to(x.dtype)
@@ -1054,7 +1142,9 @@ class VQEMA(nn.Module):
     codebook. The output passes x's gradient straight through (x + sg(q -
     x)); the commitment loss beta * mean((sg(q) - x)^2) and the code
     perplexity of the last call are kept in ``loss`` and ``perplexity``,
-    its codes in ``codes``.
+    its codes in ``codes``. Under a process group of more than one rank
+    the counts and code sums of a train call are the global batch's (one
+    all_reduce), and so are the EMA update and the perplexity.
 
     ``pick``, when set, is called as pick(rows, dist, codes) -> codes: a
     parity harness forces a side's codes with it
@@ -1100,17 +1190,21 @@ class VQEMA(nn.Module):
     def forward(self, x):
         b, t, d = x.shape
         flat = x.reshape(-1, d)
+        rows = flat.shape[0]
         with torch.no_grad():
             idx = self.nearest(flat)
             if self.training:
                 enc = F.one_hot(idx, self.emb_K).to(flat.dtype)
                 counts = enc.sum(dim=0)
+                with no_tf32():
+                    dw = enc.t() @ flat
+                # the global batch's counts and sums under a process group
+                mesh.all_reduce_([counts, dw])
+                rows *= mesh.world()
                 g = self.gamma
                 size = self.ema_cluster_size * g + (1 - g) * counts
                 n = size.sum()
                 size = (size + self.eps) / (n + self.emb_K * self.eps) * n
-                with no_tf32():
-                    dw = enc.t() @ flat
                 new_w = self.ema_w * g + (1 - g) * dw
                 self.ema_cluster_size.copy_(size)
                 self.ema_w.copy_(new_w)
@@ -1119,7 +1213,7 @@ class VQEMA(nn.Module):
                 counts = torch.bincount(idx, minlength=self.emb_K).to(
                     flat.dtype)
             q = self.emb[idx].reshape(b, t, d)
-            p = counts / flat.shape[0]
+            p = counts / rows
             self.perplexity = torch.exp(-torch.sum(p * torch.log(p + 1e-10)))
         self.codes = idx
         self.loss = self.beta * torch.mean(torch.square(q - x))

@@ -118,7 +118,21 @@ def min_norm_weights(grads):
     d'Gd <= 1e-12)."""
     norms = torch.linalg.norm(grads, dim=1, keepdim=True)
     g = grads / torch.clamp(norms, min=1e-8)
-    gram = g @ g.t()
+    return _frank_wolfe(g @ g.t())
+
+
+def min_norm_weights_gram(raw_gram):
+    """``min_norm_weights`` from the Gram matrix grads grads^T of the
+    unnormalized rows (data parallelism: the sum over the ranks of each
+    rank's Gram matrix of its rows)."""
+    norms = torch.sqrt(torch.clamp(torch.diagonal(raw_gram), min=0.0))
+    inv = 1.0 / torch.clamp(norms, min=1e-8)
+    return _frank_wolfe(raw_gram * inv[:, None] * inv[None, :])
+
+
+def _frank_wolfe(gram):
+    """The Frank-Wolfe iterations of ``min_norm_weights`` on the Gram
+    matrix of the normalized rows."""
     n = gram.shape[0]
     w = torch.full((n,), 1.0 / n, dtype=gram.dtype, device=gram.device)
     for _ in range(FW_ITERS):

@@ -63,6 +63,19 @@ launches the downstream probes of FILE's command templates
 ($model, $cfg, $iteration, $save_path substituted) on each
 ``FE_e{epoch}.npz`` every ``--sup_freq`` epochs and after the last
 (``utils.AuxiliarSuperviser``), without waiting for them.
+
+Several cards: one process per card, each started with
+``--coordinator_address HOST:PORT --num_processes N --process_id R``
+(``parallel/mesh.py``). ``--batch_size`` is the global batch; each
+process feeds its rows of it and the step is the global batch's, as in
+the JAX CLI's multi-host run; only process 0 writes the checkpoints,
+``FE_e*.npz`` and ``metrics.jsonl``. ``--device_corpus
+--shard_device_corpus`` shards the corpus over the processes (the
+single-buffer device corpus is single-process only). The process group
+runs NCCL on the card and gloo on the CPU; the environment variable
+PASE_TORCH_DIST_BACKEND=gloo lets several processes share one card.
+``--n_model`` > 1 (the JAX CLI's column-parallel model axis) raises
+NotImplementedError (ROADMAP.md queue 1, item 10b).
 """
 
 import argparse
@@ -79,15 +92,11 @@ def str2bool(v):
     return str(v).lower() in ("true", "1", "yes")
 
 
-_ITEM_10 = "queue 1, item 10: multi-GPU"
 # flag -> (value that means "not used": the JAX CLI's default, ROADMAP.md
 # item that ports it)
 _UNPORTED = {
-    "shard_device_corpus": (False, _ITEM_10),
-    "coordinator_address": (None, _ITEM_10),
-    "num_processes": (None, _ITEM_10),
-    "process_id": (None, _ITEM_10),
-    "n_model": (1, _ITEM_10),
+    "n_model": (1, "queue 1, item 10b: --n_model (column-parallel "
+                   "compute)"),
 }
 # the reference's flags that its own trainer never reads (the JAX CLI's
 # _DEAD_REFERENCE_FLAGS): accepted, each use noted as a no-op
@@ -112,6 +121,9 @@ JAX_CACHE_DEFAULT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".jax_cache")
 ROADMAP_HOST_STAGE = ("ROADMAP.md, queue 1: the host distortion stage "
                       "(codec2, whisperize)")
+# names the process group's backend (nccl or gloo) over the default, nccl
+# on the card and gloo on the CPU: gloo lets several processes share a card
+DIST_BACKEND_ENV = "PASE_TORCH_DIST_BACKEND"
 # steps per epoch of the synthetic path, as in the JAX CLI
 SYNTHETIC_BPE = 100
 DEFAULT_DATASET = "LibriSpeechSegTupleWavDataset"
@@ -360,6 +372,8 @@ def check_ported(opts):
         if getattr(opts, flag) != unused:
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md, {item}")
+    if opts.shard_device_corpus and not opts.device_corpus:
+        raise ValueError("--shard_device_corpus requires --device_corpus")
     for name in opts.dataset:
         if name not in DATASETS:
             raise ValueError(f"--dataset {name}: one of {DATASETS}")
@@ -423,13 +437,21 @@ def build_datasets(opts):
 def build_feeds(opts, wk_cfg):
     """(train batcher, valid batcher, steps per epoch, {facts of the feed
     for the log}) of the options: synthetic batches drawn on the device,
-    the device corpus, or a host feed of ``--num_workers`` threads."""
+    the device corpus (sharded over the processes with
+    --shard_device_corpus), or a host feed of ``--num_workers`` threads.
+    In a multi-process run each process feeds its ``host_batch_slice`` of
+    the global --batch_size, its batchers seeded seed + 1000 x the
+    slice's first row (the JAX CLI's per-host seeds); the sharded corpus
+    takes the global batch and the base seed."""
     from pase_tpu_torch.data import dataset as D
-    bs, t = opts.batch_size, opts.chunk_size
+    from pase_tpu_torch.parallel.mesh import host_batch_slice, world
+    sl = host_batch_slice(opts.batch_size)
+    bs, t = sl.stop - sl.start, opts.chunk_size
+    seed0 = opts.seed + 1000 * sl.start
     if opts.synthetic:
-        return (D.DeviceSyntheticBatcher(bs, t, seed=opts.seed,
+        return (D.DeviceSyntheticBatcher(bs, t, seed=seed0,
                                          device=opts.device),
-                D.DeviceSyntheticBatcher(bs, t, seed=opts.seed + 1,
+                D.DeviceSyntheticBatcher(bs, t, seed=seed0 + 1,
                                          device=opts.device),
                 SYNTHETIC_BPE, {})
     ds, va_ds = build_datasets(opts)
@@ -463,24 +485,50 @@ def build_feeds(opts, wk_cfg):
                 "tree (GenhancementDataset / AMI tree mode — channel-key "
                 "--ihm2sdm stays on the host path); no MetaConcat / "
                 "--cache_feats_dir")
-        from pase_tpu_torch.data.device_corpus import DeviceCorpusBatcher
+        if world() > 1 and not opts.shard_device_corpus:
+            raise ValueError(
+                "single-buffer --device_corpus is single-process only; "
+                "multi-process runs use --shard_device_corpus (the corpus "
+                "sharded over the processes) or --wire_dtype int16")
+        from pase_tpu_torch.data.device_corpus import (
+            DeviceCorpusBatcher, ShardedDeviceCorpusBatcher)
         t0 = time.perf_counter()
-        batcher = DeviceCorpusBatcher(ds, bs, t, seed=opts.seed,
-                                      device=opts.device)
+        if opts.shard_device_corpus:
+            batcher = ShardedDeviceCorpusBatcher(
+                ds, opts.batch_size, t, seed=opts.seed, device=opts.device)
+            try:
+                va_batcher = ShardedDeviceCorpusBatcher(
+                    va_ds, opts.batch_size, t, seed=opts.seed + 1,
+                    device=opts.device)
+            except ValueError as e:
+                # only a valid split with too few prefix groups falls
+                # back, and only in a single process
+                if "prefix groups" not in str(e) or world() > 1:
+                    raise
+                va_batcher = DeviceCorpusBatcher(va_ds, bs, t,
+                                                 seed=seed0 + 1,
+                                                 device=opts.device)
+            print(f"Sharded device corpus: {batcher.buf_gb:.3f} GB int16 "
+                  f"over {batcher.n_shards} shard(s); this rank's shard "
+                  f"{batcher.owned_rows}: {batcher.nbytes} bytes on "
+                  f"{opts.device}")
+        else:
+            batcher = DeviceCorpusBatcher(ds, bs, t, seed=seed0,
+                                          device=opts.device)
+            va_batcher = DeviceCorpusBatcher(va_ds, bs, t, seed=seed0 + 1,
+                                             device=opts.device)
         info = {"corpus_bytes": batcher.nbytes,
                 "corpus_build_s": time.perf_counter() - t0}
-        va_batcher = DeviceCorpusBatcher(va_ds, bs, t, seed=opts.seed + 1,
-                                         device=opts.device)
         print(f"Device corpus: {batcher.nbytes / 1e9:.3f} GB int16 on "
               f"{opts.device}, built in {info['corpus_build_s']:.1f} s")
     else:
-        batcher = batcher_cls(ds, bs, t, seed=opts.seed)
-        va_batcher = batcher_cls(va_ds, bs, t, seed=opts.seed + 1)
+        batcher = batcher_cls(ds, bs, t, seed=seed0)
+        va_batcher = batcher_cls(va_ds, bs, t, seed=seed0 + 1)
     bpe = batcher.bpe
     if not opts.device_corpus and opts.num_workers > 1:
         # N producers, each with its own batcher and seed, into one queue
         batcher = D.ThreadedPrefetcher(
-            lambda tid: iter(batcher_cls(ds, bs, t, seed=opts.seed
+            lambda tid: iter(batcher_cls(ds, bs, t, seed=seed0
                                          + 13 * tid)._make_batch, None),
             n_threads=opts.num_workers, bpe=bpe)
     print(f"Dataset: {ds.total_wav_dur / 16000 / 3600.0:.1f} h train "
@@ -550,12 +598,34 @@ def train(opts):
     compat_notes(opts)
     resolve_variant_flags(opts)
     check_ported(opts)
-    from pase_tpu_torch.data.pipeline import load_stats_pkl
-    from pase_tpu_torch.precision import full_precision
-    from pase_tpu_torch.trainer import Trainer
     if opts.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device "
                            "(torch.cuda.is_available() is False)")
+    from pase_tpu_torch.parallel.mesh import (host_batch_slice,
+                                              init_distributed, rank,
+                                              rank_device, world)
+    # one process per card: the process group comes up first; each process
+    # then trains on its own card and feeds its rows of the global batch
+    multi = init_distributed(opts.coordinator_address, opts.num_processes,
+                             opts.process_id, device=opts.device,
+                             backend=os.environ.get(DIST_BACKEND_ENV) or None)
+    try:
+        if multi:
+            opts.device = str(rank_device(opts.device))
+            sl = host_batch_slice(opts.batch_size)
+            print(f"multi-process: process {rank()}/{world()} on "
+                  f"{opts.device} loads batch rows [{sl.start}:{sl.stop}] "
+                  f"of {opts.batch_size}")
+        return _train(opts)
+    finally:
+        if multi:
+            torch.distributed.destroy_process_group()
+
+
+def _train(opts):
+    from pase_tpu_torch.data.pipeline import load_stats_pkl
+    from pase_tpu_torch.precision import full_precision
+    from pase_tpu_torch.trainer import Trainer
     # no TF32 matmuls, convolutions or recurrences: float32 is the JAX
     # CLI's reference precision, and bf16 is chosen explicitly by
     # --compute_dtype

@@ -83,6 +83,27 @@ from ``step_seed(its seed, k)``. A
 resumed run therefore replays the uninterrupted run's batches and draws
 with no generator state in the checkpoint.
 
+Data parallelism (``parallel/mesh.py``): under a process group of more
+than one rank, a rank is fed its ``host_batch_slice`` of the global
+``batch_size`` and computes the global batch's step, as the JAX step on
+a batch-sharded array does. Every draw above is made for the global
+batch from the shared seed and the rank keeps its rows
+(``mesh.draw_rows``); BatchNorm and VQ-EMA take their statistics over
+the global batch (``nn.py``); the policy reads the ranks' mean loss
+vector; MGD's Gram matrix of the per-worker gradients is summed over the
+ranks; the gradients (the model's and D's) are averaged by bucketed
+all_reduces of the flattened gradients after the backward (the step is
+not one wrapped forward: MGD's per-worker gradients and the GAN's two
+optimizers run between the forward and the update, so torch's
+DistributedDataParallel does not fit it); the returned and logged
+losses, the eval means, the ``hist/*`` rows (global lo / hi, summed
+counts) and the ``grad_norm/*`` rows (after the all-reduce) are the
+global batch's, the same bits on every rank. Only rank 0 writes the
+metrics log, checkpoints and ``FE_e*.npz`` and launches the superviser;
+every rank resumes from the same files. The attention variant (its
+running distribution is a batch statistic) raises with more than one
+rank (ROADMAP.md, queue 1, item 10).
+
 Feeding: host batches (numpy arrays from a disk batcher) are staged one
 step ahead (``stage``): pinned host memory and a non_blocking copy on a
 side stream, whose event the step waits on before it reads the batch;
@@ -128,10 +149,12 @@ from pase_tpu_torch.model import (FUSED_MIN_CH, build_pase, materialize_pred,
                                   worker_losses)
 from pase_tpu_torch.nn import no_tf32
 from pase_tpu_torch.optim import OptaxOptimizer, build_optimizer, set_lr
+from pase_tpu_torch.parallel import mesh
 from pase_tpu_torch.precision import compute_dtype, resolve
 from pase_tpu_torch.scheduling import (POLICIES, VALUE_SENSITIVE,
                                        apply_policy, init_policy_state,
-                                       mgda_rep_weights)
+                                       mgda_rep_weights,
+                                       min_norm_weights_gram)
 from pase_tpu_torch.utils import AuxiliarSuperviser
 
 # the run's name in its train-state files, the JAX Trainer's default
@@ -143,18 +166,25 @@ WAVE_KEYS = ("chunk", "chunk_ctxt", "chunk_rand", "cchunk")
 GAN_WORKER_LOSSES = {"LSGAN": "LSGAN", "GAN": "BCE", "Hinge": "Hinge"}
 # the bins of a log_histograms row
 HIST_BINS = 24
+ITEM_10 = "ROADMAP.md, queue 1, item 10"
 
 
 def hist_row(x, bins=HIST_BINS):
     """[lo, hi, bin counts] (float32, bins + 2) of x's values over bins
-    equal bins of [lo, hi + 1e-9): the JAX Trainer's ``_hist``."""
+    equal bins of [lo, hi + 1e-9): the JAX Trainer's ``_hist``. Under a
+    process group, of the global batch: the ranks' lo / hi gathered, the
+    counts summed."""
     x = x.detach().reshape(-1).float()
     lo, hi = x.min(), x.max()
+    if mesh.world() > 1:
+        lohi = mesh.gather(torch.stack([lo, hi]))
+        lo, hi = lohi[:, 0].min(), lohi[:, 1].max()
     edges = lo + (hi - lo + 1e-9) * torch.arange(
         bins + 1, dtype=torch.float32, device=x.device) / bins
     idx = torch.clamp(torch.searchsorted(edges, x, right=True) - 1,
                       0, bins - 1)
     counts = torch.bincount(idx, minlength=bins).float()
+    mesh.all_reduce_([counts])
     return torch.cat([torch.stack([lo, hi]), counts])
 
 
@@ -223,6 +253,18 @@ class Trainer:
                  zs_bank=None, zs_snrs=(0, 5, 10), gan_cfg=None):
         self.cfg = dict(cfg)
         self.device = torch.device(device)
+        # data parallelism: this rank's rows of the global batch
+        self.world = mesh.world()
+        self.rows = None
+        if self.world > 1:
+            if self.cfg.get("att_cfg"):
+                raise NotImplementedError(
+                    "the attention variant's running distribution is a "
+                    "statistic of the batch and is not yet taken over the "
+                    f"global batch with {self.world} processes: {ITEM_10}")
+            sl = mesh.host_batch_slice(self.cfg.get("batch_size", 32))
+            self.rows = mesh.RowShard(sl.start, sl.stop,
+                                      self.cfg.get("batch_size", 32))
         self.compute_dtype = resolve(self.cfg.get("compute_dtype"))
         self.mode = self.cfg.get("backprop_mode", "base")
         if self.mode not in POLICIES:
@@ -252,6 +294,7 @@ class Trainer:
             load_frontend_ckpt(self.cfg["pretrained_ckpt"],
                                self.model.frontend)
         self.model.to(self.device)
+        mesh.replicate(self.model)
         # the loss vector (and alpha) is cls + regr; the regularizers'
         # losses join the total outside the policy's weights
         self.ordered_names = [e["name"] for e in self.meta["cls"]
@@ -305,7 +348,7 @@ class Trainer:
         if self.gan_cfg is not None:
             self._build_discriminator()
         self.aux_sup = None         # the sup_exec probes' launcher
-        self.logger = MetricLogger(self.save_path)
+        self.logger = MetricLogger(self.save_path, rank=mesh.rank())
         self.saver = Saver(self.save_path,
                            max_ckpts=self.cfg.get("max_ckpts", 5),
                            prefix="PASE-")
@@ -319,7 +362,7 @@ class Trainer:
                                generator=gen)
         else:
             d = WaveDiscriminator(generator=gen)
-        self.discriminator = d.to(self.device)
+        self.discriminator = mesh.replicate(d.to(self.device))
         lr = self.gan_cfg.get("lr", self.gan_cfg.get("z_lr", 5e-4))
         self.d_opt = OptaxOptimizer([{"params": list(d.parameters()),
                                       "lr": lr, "rule": "adam"}])
@@ -358,8 +401,9 @@ class Trainer:
             else:
                 self.z_generator.manual_seed(
                     step_seed(self.seed + 3, self.step))
-                real = torch.randn(fake.shape, generator=self.z_generator,
-                                   device=self.device)
+                real = mesh.draw_rows(lambda m: torch.randn(
+                    (m,) + fake.shape[1:], generator=self.z_generator,
+                    device=self.device), fake.shape[0])
         else:
             real = batch["cchunk"][:, None, :]
         d = self.discriminator.train()
@@ -368,6 +412,7 @@ class Trainer:
         if self.step >= int(gan.get("warmup", 0) or 0):
             self.d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
+            mesh.all_reduce_([p.grad for p in d.parameters()], "mean")
             self.d_opt.step()
         return d_loss.detach()
 
@@ -429,14 +474,30 @@ class Trainer:
         """MGDA-UB weights [n]: each worker's gradient of its loss with
         respect to the chunk representation, from the loss forward's
         graph (kept for the step's backward), then ``mgda_rep_weights``
-        in float32 without TF32."""
+        in float32 without TF32. Under a process group the Gram matrix of
+        the gradients is summed over the ranks (each holds its rows)
+        before the min-norm solve."""
         grads = [torch.autograd.grad(loss_vec[i], chunk, retain_graph=True)[0]
                  for i in range(loss_vec.shape[0])]
+        g = torch.stack(grads).float()
         with no_tf32():
-            return mgda_rep_weights(torch.stack(grads).float())
+            if self.world == 1:
+                return mgda_rep_weights(g)
+            flat = g.reshape(g.shape[0], -1)
+            gram = flat @ flat.t()
+            mesh.all_reduce_([gram])
+            return min_norm_weights_gram(gram)
 
     def train_step(self, raw_batch, draws=None, zs_draws=None, z_real=None,
                    policy_weights=None):
+        """``_train_step`` with this rank's rows of the global batch (the
+        step's draws made for the global batch, ``mesh.draw_rows``)."""
+        with mesh.row_shard(self.rows):
+            return self._train_step(raw_batch, draws, zs_draws, z_real,
+                                    policy_weights)
+
+    def _train_step(self, raw_batch, draws=None, zs_draws=None, z_real=None,
+                    policy_weights=None):
         """One optimizer step on a raw batch (host arrays, device tensors,
         or a ``Staged`` from ``stage``); returns the detached per-worker
         losses and 'total' (with a GAN, also the G term and 'd_loss').
@@ -445,7 +506,11 @@ class Trainer:
         ([B, emb, F]) the z-GAN's N(0, 1) draw, ``policy_weights`` ([n])
         select_half's / dropout's mask. The parameters' ``.grad`` keep
         this step's gradients until the next step, ``last_weights`` the
-        policy's weights."""
+        policy's weights. Under a process group the step is the global
+        batch's: the injected draws are this rank's rows, the policy reads
+        the ranks' mean loss vector, the gradients are averaged over the
+        ranks before the optimizer, and the returned losses are the ranks'
+        means (the same bits on every rank)."""
         self.model.train()
         self.prep_generator.manual_seed(step_seed(self.seed + 1, self.step))
         self.sample_generator.manual_seed(
@@ -480,8 +545,12 @@ class Trainer:
                 if self.mode == "MGD":
                     with record_function("pase.mgda"):
                         mg_alpha = self.mgda_alpha(loss_vec, chunk)
+                global_vec = loss_vec.detach()
+                if self.world > 1:
+                    global_vec = global_vec.clone()
+                    mesh.all_reduce_([global_vec], "mean")
                 weights, alpha_next, self.policy_state = apply_policy(
-                    self.mode, loss_vec.detach(), self.policy_state,
+                    self.mode, global_vec, self.policy_state,
                     self.policy_generator, mgda_alpha=mg_alpha,
                     weights=policy_weights, **self.pol_kwargs)
                 self.last_weights = weights
@@ -511,6 +580,8 @@ class Trainer:
         with record_function("pase.backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
+            mesh.all_reduce_([p.grad for p in self.model.parameters()],
+                             "mean")
         if self.log_grads:
             losses.update(grad_norms(self.model))
         with record_function("pase.optimizer"):
@@ -525,13 +596,25 @@ class Trainer:
         self.opt_count += 1
         out = {k: v.detach() for k, v in losses.items()}
         out["total"] = total.detach()
-        return out
+        return self._global_means(out)
+
+    def _global_means(self, losses):
+        """The ranks' mean of each scalar loss (one all_reduce); the rows
+        and norms that are already the global batch's stay as they are."""
+        if self.world == 1:
+            return losses
+        local = {k: v for k, v in losses.items()
+                 if v.dim() == 0 and k != "vq_perplexity"
+                 and not k.startswith("grad_norm/")}
+        return {**losses, **mesh.all_reduce_dict(local, "mean")}
 
     def eval_step(self, raw_batch):
         """Per-worker losses and their sum in eval mode (running BatchNorm
-        statistics, no gradient), under the training compute dtype."""
+        statistics, no gradient), under the training compute dtype; under
+        a process group the ranks' means."""
         self.model.eval()
-        with torch.no_grad(), compute_dtype(self.compute_dtype):
+        with torch.no_grad(), compute_dtype(self.compute_dtype), \
+                mesh.row_shard(self.rows):
             batch = self.prepare(self.ready(raw_batch),
                                  self.prep_generator)
             _, _, preds, labels = self.model(batch, 1.0,
@@ -543,7 +626,7 @@ class Trainer:
                 # the train step's objective: the commitment term too
                 losses["vq"] = vq
                 losses["total"] = losses["total"] + vq
-        return losses
+        return self._global_means(losses)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -617,8 +700,8 @@ class Trainer:
         ``self.aux_sup``)."""
         sup_exec = self.cfg.get("sup_exec")
         sup_freq = self.cfg.get("sup_freq", 1)
-        if not sup_exec or not ((epoch + 1) % sup_freq == 0
-                                or (epoch + 1) >= epochs):
+        if not sup_exec or mesh.rank() != 0 or not (
+                (epoch + 1) % sup_freq == 0 or (epoch + 1) >= epochs):
             return
         if self.aux_sup is None:
             aux_path = os.path.join(self.save_path, "sup_aux")
@@ -646,11 +729,14 @@ class Trainer:
         stats, Adam moments and counts, policy state, alpha, rng, step),
         then the encoder-only artifact ``FE_e{epoch}.npz`` (the JAX
         package's native format, which ``wf_builder(...).load_pretrained``
-        reads). Returns the artifact's path."""
+        reads). Returns the artifact's path. Under a process group only rank
+        0 writes (every rank holds the same state)."""
+        path = os.path.join(self.save_path, f"FE_e{epoch}.npz")
+        if mesh.rank() != 0:
+            return path
         self.saver.save(NAME, train_state_to_tree(self), self.step)
-        return save_variables_npz(
-            os.path.join(self.save_path, f"FE_e{epoch}.npz"),
-            self.model.frontend.state_dict(), self.step)
+        return save_variables_npz(path, self.model.frontend.state_dict(),
+                                  self.step)
 
     def try_resume(self):
         """Load the Saver's current checkpoint into this trainer; returns

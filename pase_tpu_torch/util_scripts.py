@@ -2,9 +2,11 @@
 
   forward-chunk  — encode wavs of any length with a frozen encoder in
                    independent windows, or with ``--streaming`` through
-                   the exact online encoder in pieces of ``--chunk_size``
-                   (same flags and semantics as ``util_scripts.py
-                   forward-chunk`` of the JAX package)
+                   the exact online encoder in pieces of ``--chunk_size``,
+                   or with ``--time_shard`` in one forward of each whole
+                   wav over the visible cards (same flags and semantics
+                   as ``util_scripts.py forward-chunk`` of the JAX
+                   package)
   export         — write a ``torch.export`` serving artifact of the encoder
                    (``serving.py``; the counterpart of ``export-jax``)
   serve-encode   — encode wavs with such an artifact, no model code (same
@@ -75,14 +77,24 @@ def _needs_input(opts, cmd):
         raise SystemExit(f"{cmd} needs --in_wav + --out_file, or --wav_list")
 
 
+def _time_shard_devices(device):
+    """The devices of --time_shard: every visible card on the card, the
+    CPU once on the CPU."""
+    import torch
+    if torch.device(device).type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(device)]
+
+
 def forward_chunk(opts):
     """Encode each wav in independent windows of --chunk_size samples (the
     tail zero-padded), or with --streaming through the online encoder in
-    pieces of --chunk_size; concatenate, trim to len(wav)//160 frames and
-    save an [emb, F] .npy."""
-    if opts.time_shard:
-        raise NotImplementedError(
-            "--time_shard is not ported yet: ROADMAP.md, queue 1: multi-GPU")
+    pieces of --chunk_size, or with --time_shard in one forward of the
+    whole file with its time axis over the visible cards
+    (``parallel/sp.py``; the wav zero-padded to the grid of D x 160
+    samples); concatenate, trim to len(wav)//160 frames and save an
+    [emb, F] .npy."""
     _needs_input(opts, "forward-chunk")
     from pase_tpu_torch.data.io import read_wav
     from pase_tpu_torch.precision import full_precision
@@ -93,6 +105,18 @@ def forward_chunk(opts):
 
     def encode_one(in_wav, out_file):
         wav, _ = read_wav(in_wav)
+        if opts.time_shard:
+            from pase_tpu_torch.parallel.sp import encode_time_sharded
+            devices = _time_shard_devices(opts.device)
+            grid = len(devices) * HOP
+            n = -(-len(wav) // grid) * grid
+            piece = np.pad(wav.astype(np.float32), (0, n - len(wav)))
+            y = encode_time_sharded(enc, piece[None], devices)
+            out = y[0, :len(wav) // HOP].T.cpu().numpy()
+            np.save(out_file, out)
+            print(f"{in_wav}: {out.shape} -> {out_file} (time-sharded "
+                  f"over {len(devices)} devices)")
+            return
         if opts.streaming:
             # the exact online encoder: the frames of one forward of the
             # whole file, fed in pieces of --chunk_size
@@ -599,7 +623,8 @@ def build_parser():
                          "in pieces of --chunk_size (pase_tpu_torch/"
                          "streaming.py)")
     fc.add_argument("--time_shard", action="store_true", default=False,
-                    help="not ported yet (raises)")
+                    help="one forward of each whole wav with its time "
+                         "axis over the visible cards (parallel/sp.py)")
 
     ex = sub.add_parser("export")
     ex.add_argument("--fe_cfg", required=True)

@@ -103,10 +103,12 @@ def test_no_cuda_does_not_move_the_run():
         ["--no-cuda"]).device == "cuda"
 
 
-UNPORTED = [
-    ("--coordinator_address", ["localhost:1"], "item 10"),
-    ("--num_processes", ["2"], "item 10"),
-    ("--process_id", ["0"], "item 10"), ("--n_model", ["2"], "item 10")]
+UNPORTED = [("--n_model", ["2"], "item 10b")]
+# the multi-process flags, ported (tests/test_torch_parallel.py,
+# tests/test_torch_sharded_corpus.py run them)
+MULTI_PROCESS = [("--coordinator_address", ["localhost:1"]),
+                 ("--num_processes", ["2"]), ("--process_id", ["0"]),
+                 ("--shard_device_corpus", ["--device_corpus"])]
 
 
 @pytest.mark.parametrize("flag,value,item", UNPORTED)
@@ -115,6 +117,11 @@ def test_unported_flags_raise_naming_their_item(flag, value, item):
                        match=f"{flag} is not ported yet: ROADMAP.md, "
                              f"queue 1, {item}"):
         port_cli.check_ported(_parse([flag] + value))
+
+
+@pytest.mark.parametrize("flag,value", MULTI_PROCESS)
+def test_multi_process_flags_pass_the_check(flag, value):
+    port_cli.check_ported(_parse([flag] + value))
 
 
 def test_unported_flags_at_their_defaults_do_not_raise():

@@ -111,9 +111,15 @@ def test_forward_chunk_streaming_matches_jax(corpus):
 
 @pytest.mark.parametrize("flag", ["--time_shard"])
 def test_later_slices_raise(corpus, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """--time_shard runs (tests/test_torch_time_shard.py); what it cannot
+    shard exactly raises as in JAX: here a bidirectional LSTM context
+    layer."""
+    cfg = tmp_path / "lstm.cfg"
+    cfg.write_text(json.dumps(dict(FC_CFG, rnn_pool=True, rnn_type="lstm",
+                                   rnn_dim=16)))
+    with pytest.raises(NotImplementedError, match="rnn_type='lstm'"):
         port_cli.main(["forward-chunk", "--device", "cpu", flag,
-                       "--fe_cfg", str(corpus / "fe.cfg"),
+                       "--fe_cfg", str(cfg),
                        "--in_wav", str(corpus / "spk1/a.wav"),
                        "--out_file", str(tmp_path / "x.npy")])
 
@@ -131,8 +137,9 @@ def test_wav_io_matches_jax(tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every pase_tpu_torch module (the encoders of
-    pase_tpu_torch.encoders among them) loads no jax, flax or pase_tpu
-    module (the card's host has no JAX)."""
+    pase_tpu_torch.encoders, parallel.mesh, parallel.sp and
+    data.device_corpus among them) loads no jax, flax or pase_tpu module
+    (the card's host has no JAX)."""
     code = (
         "import pkgutil, importlib, sys, pase_tpu_torch\n"
         "for m in pkgutil.walk_packages(pase_tpu_torch.__path__, "
@@ -141,6 +148,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pase_tpu')]\n"
         "assert 'pase_tpu_torch.encoders' in sys.modules\n"
+        "for m in ('parallel.mesh', 'parallel.sp', 'data.device_corpus'):\n"
+        "    assert 'pase_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('pase_tpu_torch')]))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

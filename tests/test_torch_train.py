@@ -433,7 +433,7 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard_device_corpus"], ["--num_processes", "2"]])
+    ["--n_model", "2"], ["--n_model", "4"]])
 def test_train_cli_refuses_unported_flags(tmp_path, flags):
     from pase_tpu_torch import train as port_train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
