@@ -370,6 +370,30 @@ Phases, each printed as it ends; any failure exits non-zero:
                --time_shard over a 10 s file against the offline forward,
                and the forward ms of both. A rank that exits non-zero or
                outlives DP_TIMEOUT fails the phase.
+ 26. host-stage — the host distortion stage, the decoders, and the
+               repairs of the attention variant's ranks and the dropout
+               masks: (a) ``python -m pase_tpu_torch.train`` on phase 12's
+               corpus (PASE+, workers+, 32 x 32000, bf16, --num_workers 4)
+               with bench.py's stack plus codec2_p 0.2 (codec2_kbps 1600:
+               the vendored vocoder, pase_tpu_torch/csrc/codec2_lite.cc,
+               built by g++) and whisper_p 0.1 (identity: ahocoder is
+               absent), against the same command without the two keys, in
+               turns (STEP_RATE_ROUNDS rounds): steps/s, feed wait, the
+               stage's ms a batch and the share of rows through codec2
+               (within 5 binomial sd of 0.2), every loss finite; (b)
+               ``util_scripts encode-codec2`` over 100 seeded 2 s wavs: s,
+               audio-s/s, each output bit for bit the in-process
+               Codec2RoundTrip's; (c) SpectrogramDecoder at [8,1000,256] ->
+               [8,1000,513] and SpectrumLM (2 x LSTM 512, out 513, B=8,
+               100 closed-loop steps, a forced frame) card vs CPU within
+               1e-4 of max|y|, with ms; (d) phase 25 (a)'s two gloo ranks
+               at the attention recipe's width (cfg/attention.cfg, 16 x
+               32000; the blocks' batch means over the global batch)
+               against one process, by its rule, the running_dist buffers
+               within 1e-6; (e) dropout masks from a CUDA generator at
+               [96,200,512]: one seed bit for bit, the keep share within 5
+               sd of 0.75, two ranks' rows of the one global draw bit for
+               bit.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -428,7 +452,11 @@ train step and qrnn_pool_fwd once per layer per rank per eval step (48
 rows x 512 lanes), the time shard qrnn_pool_fwd_chunked on D - 1 shards
 (pass 1) and qrnn_pool_fwd_seg on D (pass 2) per layer, its gradient
 qrnn_pool_fwd_train and qrnn_pool_bwd 2 D - 1 times per layer, and
-forward-chunk --time_shard (D = the visible cards) as the time shard.
+forward-chunk --time_shard (D = the visible cards) as the time shard;
+phase 26's CLI epochs with and without the host stage the training
+kernels once per layer per train step and qrnn_pool_fwd once per layer
+per eval step, encode-codec2 and the decoders none, the attention
+variant's ranks the training kernels once per layer per rank per step.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -445,14 +473,17 @@ for the eight modes, mgd_cli, base_cli, opt_<rule>_step, regu_step, and
 phase 23's ami_cli, ami_channel_key, ami_device_corpus, profile_step,
 eval_ckpts, cache_feats, and phase 24's kaldi_cli, kaldi_step,
 clusterize, project_features, prosodic_eval, and phase 25's dp_step,
-dp_cli, sharded_corpus, time_shard, time_shard_grad, time_shard_cli:
+dp_cli, sharded_corpus, time_shard, time_shard_grad, time_shard_cli, and
+phase 26's host_stage_cli, host_stage_plain, encode_codec2, decoders,
+dp_attention:
 the steps the training kernels once per layer (MGD's per-worker
 gradients reuse the loss forward's graph: no second forward), the CLI
 runs once per layer per train step and qrnn_pool_fwd once per layer per
 eval step); the QRNN kernels' entries also give their time, plain time
 and bound at phase 21's TDNN shape ("tdnn"), and the loop and K2 at the
 attention recipe's [48,200,512] ("attention") and at [64,200,512]
-("regu"), and at the data-parallel step's per-rank [48,200,512] ("dp").
+("regu"), and at the data-parallel step's per-rank [48,200,512] ("dp"),
+K2 at the attention variant's per-rank [24,200,512] ("dp_attention").
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -511,6 +542,21 @@ DP_TIMEOUT = 300
 # update is near sign(g), so rounding-level gradient differences move a
 # weight by up to 2 lr (tests/test_torch_train.py's three-step bound)
 DP_STEP2_REL = 1e-3
+# phase 26: the host stage's keys added to bench.py's stack on phase 12's
+# corpus (whisperize is identity without ahocoder); encode-codec2's seeded
+# 2 s wavs; the decoders' shapes (SpectrogramDecoder at its defaults:
+# nfft 1024, three 256-map stride-1 stages; SpectrumLM 2 x LSTM 512, out
+# 513); the card-vs-CPU bound of both; the attention recipe's batch on two
+# ranks (d), its running_dist against one process; the masks' p and shape
+# (e: the QRNN's [3 x 32, 200, 512] hidden)
+CODEC2_P, CODEC2_KBPS, WHISPER_P = 0.2, 1600, 0.1
+CODEC2_WAVS = 100
+SPEC_DEC_SHAPE = (8, 1000, 256)
+LM_BATCH, LM_STEPS, LM_RNN, LM_LAYERS, LM_OUT = 8, 100, 512, 2, 513
+DEC_REL = 1e-4
+ATT_BATCH = 16
+DP_RUNNING_ATOL = 1e-6
+MASK_P, MASK_SHAPE = 0.25, (96, 200, 512)
 # the sharded corpus's train and valid seconds (at least 8 prefix groups)
 SHARD_CORPUS_S = (360.0, 80.0)
 # the time shard: D shards on cuda:0, the forward at 60 s, the gradient at
@@ -1726,7 +1772,8 @@ def _disk_run(args, label, synthetic_rate):
 
 
 def phase_disk(tmp, synthetic_rate):
-    """Disk-fed training at full width from a seeded corpus on disk."""
+    """Disk-fed training at full width from a seeded corpus on disk.
+    Returns ({feed: steps/s}, the CLI's corpus arguments)."""
     import torch
     from pase_tpu_torch import make_trainset_statistics
     from pase_tpu_torch.data import device_corpus as DC
@@ -1834,7 +1881,7 @@ def phase_disk(tmp, synthetic_rate):
           "uninterrupted feed bit for bit")
     del tr, ref, batch
     torch.cuda.empty_cache()
-    return rates
+    return rates, common
 
 
 def _stream_run(enc, wav, chunk):
@@ -5063,9 +5110,9 @@ def _dp_cfg(tmp):
                 save_path=tmp)
 
 
-def _dp_batches():
+def _dp_batches(batch=TRAIN_BATCH):
     from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
-    it = iter(SyntheticChunkBatcher(TRAIN_BATCH, TRAIN_CHUNK, seed=0))
+    it = iter(SyntheticChunkBatcher(batch, TRAIN_CHUNK, seed=0))
     return [next(it) for _ in range(2)]
 
 
@@ -5099,8 +5146,8 @@ def dp_child(mode, spec_path, rank, world, port, out):
         assert init_distributed(f"127.0.0.1:{port}", world, rank,
                                 device="cuda", backend="gloo")
         tr = Trainer(PASEP_CFG, WORKERSP_CFG, spec["cfg"], device="cuda")
-        sl = host_batch_slice(TRAIN_BATCH)
-        losses, ms, record = [], [], {}
+        sl = host_batch_slice(spec["cfg"]["batch_size"])
+        losses, ms, record, running = [], [], {}, {}
         for i, raw in enumerate(spec["batches"]):
             local = {k: v[sl] for k, v in raw.items()}
             torch.cuda.synchronize()
@@ -5111,10 +5158,13 @@ def dp_child(mode, spec_path, rank, world, port, out):
             ms.append(1e3 * (time.perf_counter() - t0))
             losses.append({k: float(v) for k, v in out_i.items()})
             if i == 0:
-                grads = ({k: p.grad.double().cpu() for k, p in
-                          tr.model.named_parameters()} if rank == 0
-                         else None)
+                # an attention block's scoring MLP has no gradient: zeros
+                grads = _grads(tr.model) if rank == 0 else None
+                running = {k: b.double().cpu() for k, b in
+                           tr.model.named_buffers()
+                           if k.endswith("running_dist")}
         result = {"losses": losses, "ms": ms, "grads": grads,
+                  "running": running,
                   "signs": {k: (np.packbits((x > 0).numpy()), tuple(x.shape))
                             for k, x in record.items()}}
         dist.destroy_process_group()
@@ -5124,13 +5174,13 @@ def dp_child(mode, spec_path, rank, world, port, out):
     return 0
 
 
-def _global_signs(ranks):
+def _global_signs(ranks, batch=TRAIN_BATCH):
     """The one-process PReLU masks of the ranks' signs: a module's input
     holds k blocks of each rank's rows side by side (the encoder's chunk,
     ctxt and rand; a MI head's positives and negatives), put back in the
     global batch's order."""
     import torch
-    per = TRAIN_BATCH // DP_RANKS
+    per = batch // DP_RANKS
     masks = {}
     for name in ranks[0]["signs"]:
         parts = []
@@ -5147,12 +5197,23 @@ def _global_signs(ranks):
 def _dp_step(tmp):
     """(a): two gloo ranks on the card, each 16 of the 32 x 32000 rows,
     two steps; against the one-process step on the card."""
+    return _dp_compare(tmp, _dp_cfg(os.path.join(tmp, "ranks")),
+                       _dp_batches(), "(a) data-parallel step", "dp_step")
+
+
+def _dp_compare(tmp, cfg, batches, what, path):
+    """Two gloo ranks on the card, each half the rows of ``batches``
+    (cfg['batch_size'] rows each), two steps of PASE+ / workers+ under
+    ``cfg``; against the one-process step on the card: per-worker losses,
+    the ranks' losses bit for bit, rank 0's all-reduced step-1 gradient
+    with the one process's PReLUs on the ranks' side of the kink, any
+    attention block's running_dist after step 1 (1e-6). Returns the
+    ranks' summed launches."""
     import torch
     from pase_tpu_torch.grad_parity import (group_errors, prelu_signs,
                                             worst_leaves)
     from pase_tpu_torch.trainer import Trainer
-    cfg = _dp_cfg(os.path.join(tmp, "ranks"))
-    batches = _dp_batches()
+    batch = cfg["batch_size"]
     ranks = [r for r, _ in _ranks("--dp-step", {"cfg": cfg,
                                                 "batches": batches},
                                   os.path.join(tmp, "ranks"))]
@@ -5173,7 +5234,10 @@ def _dp_step(tmp):
         one_losses.append({k: float(v) for k, v in out.items()})
         if i == 0:
             natural = _grads(one.model)
-    masks = _global_signs(ranks)
+            running = {k: b.double().cpu() for k, b in
+                       one.model.named_buffers()
+                       if k.endswith("running_dist")}
+    masks = _global_signs(ranks, batch)
     with prelu_signs(signed.model, force=masks):
         signed.train_step(batches[0])
     g_dp = ranks[0]["grads"]
@@ -5192,8 +5256,13 @@ def _dp_step(tmp):
                 for i in range(2)]
     same = all(ranks[0]["losses"][i] == ranks[1]["losses"][i]
                for i in range(2))
-    print(f"[parallel] (a) data-parallel step, 2 gloo ranks on one card "
-          f"(PASE+, workers+, global batch {TRAIN_BATCH} x {TRAIN_CHUNK}, "
+    run_err = max([(r["running"][k] - v).abs().max().item()
+                   for r in ranks for k, v in running.items()], default=0.0)
+    check(all(set(r["running"]) == set(running) for r in ranks),
+          f"{what}: running_dist buffers differ")
+    print(f"[parallel] {what}, 2 gloo ranks on one card "
+          f"(PASE+, workers+{', ' + os.path.relpath(cfg['att_cfg'], HERE) if cfg.get('att_cfg') else ''}, "
+          f"global batch {batch} x {TRAIN_CHUNK}, "
           f"float32, TF32 off, random_scale): step ms rank 0 "
           f"{', '.join(f'{t:.1f}' for t in ranks[0]['ms'])}, rank 1 "
           f"{', '.join(f'{t:.1f}' for t in ranks[1]['ms'])}; one process "
@@ -5202,9 +5271,12 @@ def _dp_step(tmp):
           + ", ".join(f"{k} {v:.2e}" for k, v in loss_err[0].items())
           + f" (bound {TRAIN_LOSS_REL}); step 2 max "
           f"{max(loss_err[1].values()):.2e} (bound {DP_STEP2_REL}); the "
-          f"ranks' losses bit for bit equal: {same}")
-    print(f"[parallel] (a) PReLU inputs of opposite sign in the ranks and "
-          f"in one process: {sum(n for n, _ in flips.values())} in "
+          f"ranks' losses bit for bit equal: {same}"
+          + (f"; {len(running)} running_dist buffers after step 1, max "
+             f"|ranks - one process| {run_err:.2e} (bound "
+             f"{DP_RUNNING_ATOL})" if running else ""))
+    print(f"[parallel] {what}: PReLU inputs of opposite sign in the ranks "
+          f"and in one process: {sum(n for n, _ in flips.values())} in "
           f"{len(flips)} PReLU(s), the largest |x| {far:.2e} of its "
           f"module's max (bound {FLIP_REL}); rank 0's all-reduced step-1 "
           f"gradient, max|g_dp - g_one| / max|g_one| per group: "
@@ -5213,24 +5285,25 @@ def _dp_step(tmp):
           + ", ".join(f"{g} {v:.2e}" for g, v in grad_err.items())
           + f" (bound {TRAIN_GRAD_REL}); worst leaves: " + "; ".join(
               f"{k} {a:.2e} of its max" for k, a, _, _ in worst))
-    check(same, "the two ranks' losses differ")
+    check(same, f"{what}: the two ranks' losses differ")
     check(all(v <= TRAIN_LOSS_REL for v in loss_err[0].values()),
-          f"data-parallel step 1 losses beyond {TRAIN_LOSS_REL}: "
-          f"{loss_err[0]}")
+          f"{what} step 1 losses beyond {TRAIN_LOSS_REL}: {loss_err[0]}")
     check(all(v <= DP_STEP2_REL for v in loss_err[1].values()),
-          f"data-parallel step 2 losses beyond {DP_STEP2_REL}: "
-          f"{loss_err[1]}")
-    check(far <= FLIP_REL, f"a PReLU input {far:.3e} of its module's max "
-          f"from 0 has opposite signs in the ranks and one process")
+          f"{what} step 2 losses beyond {DP_STEP2_REL}: {loss_err[1]}")
+    check(far <= FLIP_REL, f"{what}: a PReLU input {far:.3e} of its "
+          f"module's max from 0 has opposite signs in the ranks and one "
+          f"process")
     check(all(v <= TRAIN_GRAD_REL for v in grad_err.values()),
-          f"data-parallel gradients beyond {TRAIN_GRAD_REL}: {grad_err}")
+          f"{what} gradients beyond {TRAIN_GRAD_REL}: {grad_err}")
+    check(run_err <= DP_RUNNING_ATOL,
+          f"{what}: running_dist {run_err:.3e} from one process's")
     layers = len(one.model.frontend.rnn.layers)
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": DP_RANKS * 2 * layers,
                 "qrnn_pool_bwd": DP_RANKS * 2 * layers}
-    print(f"[launches] dp_step: {launches} (expected {expected}: "
+    print(f"[launches] {path}: {launches} (expected {expected}: "
           f"{DP_RANKS} ranks x 2 steps x {layers} QRNN layer(s))")
-    check(launches == expected, f"dp_step launches {launches} != "
+    check(launches == expected, f"{path} launches {launches} != "
           f"{expected}")
     del one, signed
     torch.cuda.empty_cache()
@@ -5465,6 +5538,229 @@ def phase_parallel(tmp):
     return paths
 
 
+def _host_stage_cli(tmp, common, synthetic_rate):
+    """(a): the training CLI on phase 12's corpus with bench.py's stack
+    plus the host stage's keys, and the same command without them, in
+    turns (STEP_RATE_ROUNDS rounds, 4 feed threads, bf16); the stage's
+    ms a batch and the share of rows it degraded. Returns {path:
+    launches} of the first round."""
+    dist = common[common.index("--dtrans_cfg") + 1]
+    with open(dist) as f:
+        js = json.load(f)
+    js.update(codec2_p=CODEC2_P, codec2_kbps=CODEC2_KBPS,
+              whisper_p=WHISPER_P)
+    staged_cfg = os.path.join(tmp, "bench_dist_codec2.cfg")
+    os.makedirs(tmp, exist_ok=True)
+    with open(staged_cfg, "w") as f:
+        json.dump(js, f)
+    staged = list(common)
+    staged[staged.index("--dtrans_cfg") + 1] = staged_cfg
+    runs = {"host stage": staged, "no host stage": common}
+    rates = {k: [] for k in runs}
+    waits = {k: [] for k in runs}
+    paths, stats = {}, []
+    for r in range(STEP_RATE_ROUNDS):
+        for label, args in runs.items():
+            save = os.path.join(tmp, f"{label.replace(' ', '_')}_{r}")
+            tr, perf, _ = _disk_run(
+                args + ["--num_workers", "4", "--epoch", "1",
+                        "--save_path", save],
+                f"{label}, round {r + 1}", synthetic_rate)
+            launches = read_launches()          # _disk_run's, checked
+            rates[label].append(perf["steps_per_sec"])
+            waits[label].append(perf["feed_wait_ms"])
+            if r == 0:
+                paths["host_stage_cli" if label == "host stage"
+                      else "host_stage_plain"] = launches
+            if label == "host stage":
+                with open(os.path.join(save, "metrics.jsonl")) as f:
+                    recs = [json.loads(line) for line in f if line.strip()]
+                hs = [x for x in recs if x["split"] == "host_stage"]
+                check(len(hs) == 1, f"host stage run {r + 1}: no "
+                      "host_stage line logged")
+                stats.append(hs[0])
+            del tr
+    rows = int(sum(x["rows"] for x in stats))
+    fired = int(sum(x["fired_Codec2RoundTrip"] for x in stats))
+    whisper = int(sum(x["fired_Whisperize"] for x in stats))
+    sd = (rows * CODEC2_P * (1 - CODEC2_P)) ** 0.5
+    stage_ms = statistics.mean(x["ms_per_batch"] for x in stats)
+    with_r, without_r = (statistics.median(rates[k]) for k in runs)
+    print(f"[host-stage] (a) python -m pase_tpu_torch.train on phase 12's "
+          f"corpus (PASE+, workers+, {TRAIN_BATCH} x {TRAIN_CHUNK}, bf16, "
+          f"--num_workers 4), bench.py's stack plus codec2_p {CODEC2_P} "
+          f"(codec2_kbps {CODEC2_KBPS}, the vendored vocoder) and "
+          f"whisper_p {WHISPER_P} (ahocoder absent: Whisperize is "
+          f"identity, {whisper} rows passed through it unchanged), "
+          f"against the same command without the two keys, in turns "
+          f"({STEP_RATE_ROUNDS} rounds): steps/s "
+          + ", ".join(f"{v:.3f}" for v in rates["host stage"])
+          + " against " + ", ".join(f"{v:.3f}"
+                                    for v in rates["no host stage"])
+          + f" (medians {with_r:.3f} / {without_r:.3f} = "
+          f"{with_r / without_r:.3f}x); feed wait ms/step "
+          + ", ".join(f"{v:.2f}" for v in waits["host stage"]) + " against "
+          + ", ".join(f"{v:.2f}" for v in waits["no host stage"])
+          + f"; the stage {stage_ms:.2f} ms a batch (consuming thread), "
+          f"{fired} of {rows} rows through codec2 ({fired / rows:.4f}; "
+          f"expected {CODEC2_P} +- 5 sd = {5 * sd / rows:.4f})")
+    check(abs(fired - CODEC2_P * rows) <= 5 * sd,
+          f"codec2 degraded {fired} of {rows} rows, beyond 5 sd of "
+          f"{CODEC2_P}")
+    return paths
+
+
+def _encode_codec2(tmp):
+    """(b): util_scripts encode-codec2 over CODEC2_WAVS seeded 2 s wavs;
+    each output against the in-process Codec2RoundTrip written as the
+    tool writes it, bit for bit."""
+    from pase_tpu_torch import util_scripts
+    from pase_tpu_torch.data.dataset import SyntheticChunkBatcher
+    from pase_tpu_torch.data.host_distortions import Codec2RoundTrip
+    from pase_tpu_torch.data.io import read_wav, write_wav
+    src, out = os.path.join(tmp, "wavs"), os.path.join(tmp, "coded")
+    os.makedirs(src)
+    rows = next(iter(SyntheticChunkBatcher(CODEC2_WAVS, TRAIN_CHUNK,
+                                           seed=26)))["chunk"]
+    names = [f"utt{i:03d}.wav" for i in range(CODEC2_WAVS)]
+    for name, row in zip(names, rows):
+        write_wav(os.path.join(src, name), row)
+    reset_launches()
+    t0 = time.perf_counter()
+    n = util_scripts.main(["encode-codec2", src, out, "--kbps",
+                           str(CODEC2_KBPS)])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    c2 = Codec2RoundTrip(kbps=CODEC2_KBPS)
+    bad = []
+    for name in names:
+        x, _ = read_wav(os.path.join(src, name))
+        want = (np.clip(c2(x).astype(np.float64), -1, 1)
+                * 32767.0).astype("<i2")
+        got, _ = read_wav(os.path.join(out, name))
+        if not np.array_equal(got * 32768, want):
+            bad.append(name)
+    audio_s = CODEC2_WAVS * TRAIN_CHUNK / SR
+    print(f"[host-stage] (b) util_scripts encode-codec2 --kbps "
+          f"{CODEC2_KBPS} (8 threads) over {CODEC2_WAVS} seeded 2 s wavs: "
+          f"{wall:.2f} s, {audio_s / wall:.1f} audio-s/s; outputs equal to "
+          f"the in-process Codec2RoundTrip bit for bit: "
+          f"{CODEC2_WAVS - len(bad)} of {CODEC2_WAVS}")
+    check(n == CODEC2_WAVS and not bad,
+          f"encode-codec2: {n} files, {bad[:3]} differ")
+    check(not any(launches.values()), f"encode-codec2 launched {launches}")
+    return launches
+
+
+def _decoders():
+    """(c): SpectrogramDecoder at SPEC_DEC_SHAPE and the SpectrumLM
+    rollout (LM_LAYERS x LSTM LM_RNN, LM_OUT bins, LM_BATCH rows,
+    LM_STEPS steps, a forced frame, the state passed in) on the card
+    against the CPU, float32 (TF32 off), with ms. Returns the launches
+    (none: no QRNN)."""
+    import torch
+    from pase_tpu_torch import decoders
+    gen = torch.Generator().manual_seed(26)
+    b, t, c = SPEC_DEC_SHAPE
+    dec = decoders.SpectrogramDecoder(c, generator=gen).eval()
+    lm = decoders.SpectrumLM(LM_RNN, LM_LAYERS, LM_OUT,
+                             generator=gen).eval()
+    x = torch.randn(b, t, c, generator=gen)
+    seed = torch.randn(LM_BATCH, LM_OUT, generator=gen)
+    state = lm.init_state(LM_BATCH, gen)
+    cps = {LM_STEPS // 2: torch.randn(LM_BATCH, LM_OUT, generator=gen)}
+    with torch.no_grad():
+        y_cpu = dec(x)
+        f_cpu, _ = lm(seed, LM_STEPS, state=state, dec_cps=cps)
+    dec.to("cuda")
+    lm.to("cuda")
+    xg, sg = x.cuda(), seed.cuda()
+    stg = tuple(tuple(v.cuda() for v in s) for s in state)
+    cg = {k: v.cuda() for k, v in cps.items()}
+    reset_launches()
+    with torch.no_grad():
+        y = dec(xg)
+        f, _ = lm(sg, LM_STEPS, state=stg, dec_cps=cg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        dec_ms = _wall_ms(lambda: dec(xg), "cuda", reps=5)
+        lm_ms = _wall_ms(lambda: lm(sg, LM_STEPS, state=stg, dec_cps=cg),
+                         "cuda", reps=3)
+    errs = [((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item(),
+            ((f.cpu() - f_cpu).abs().max() / f_cpu.abs().max()).item()]
+    print(f"[host-stage] (c) SpectrogramDecoder {list(SPEC_DEC_SHAPE)} -> "
+          f"{list(y.shape)}: card vs CPU {errs[0]:.2e} of max|y| (bound "
+          f"{DEC_REL}), {dec_ms:.3f} ms on the card; SpectrumLM "
+          f"{LM_LAYERS} x LSTM {LM_RNN}, out {LM_OUT}, B={LM_BATCH}, "
+          f"{LM_STEPS} closed-loop steps -> {list(f.shape)}: {errs[1]:.2e} "
+          f"of max|y|, {lm_ms:.2f} ms ({lm_ms / LM_STEPS:.3f} ms a step); "
+          f"launches {launches}")
+    check(tuple(y.shape) == (b, t, 513) and tuple(f.shape) == (
+        LM_BATCH, LM_STEPS, LM_OUT), f"decoder shapes {y.shape} {f.shape}")
+    check(all(e <= DEC_REL for e in errs), f"decoders card vs CPU {errs}")
+    check(not any(launches.values()), f"the decoders launched {launches}")
+    return launches
+
+
+def _dropout_masks():
+    """(e): nn.dropout's masks on the card from a CUDA generator at
+    MASK_SHAPE: the same seed bit for bit, the keep share within 5
+    binomial sd of 1 - MASK_P, and two ranks' rows (row_shard, 3 streams
+    of 16 of 32 rows) of the one global draw, bit for bit."""
+    import torch
+    from pase_tpu_torch.nn import dropout
+    from pase_tpu_torch.parallel import mesh
+    x = torch.rand(MASK_SHAPE, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    x = x + 0.5
+    gen = torch.Generator(device="cuda")
+    a = dropout(x, MASK_P, gen.manual_seed(7))
+    b = dropout(x, MASK_P, gen.manual_seed(7))
+    n = x.numel()
+    kept = int((a != 0).sum())
+    sd = (n * MASK_P * (1 - MASK_P)) ** 0.5
+    per, total = MASK_SHAPE[0] // 6, MASK_SHAPE[0] // 3
+    rows_ok = []
+    for r in range(2):
+        idx = torch.cat([torch.arange(s * total + r * per,
+                                      s * total + (r + 1) * per)
+                         for s in range(3)]).cuda()
+        with mesh.row_shard(mesh.RowShard(r * per, (r + 1) * per, total)):
+            got = dropout(x[idx], MASK_P, gen.manual_seed(7))
+        rows_ok.append(torch.equal(got, a[idx]))
+    print(f"[host-stage] (e) dropout masks on the card ({list(MASK_SHAPE)}, "
+          f"p {MASK_P}, a CUDA generator): the same seed bit for bit "
+          f"{torch.equal(a, b)}; kept {kept / n:.5f} (expected "
+          f"{1 - MASK_P} +- 5 sd = {5 * sd / n:.5f}); two ranks' rows of "
+          f"the one global draw bit for bit: {rows_ok}")
+    check(torch.equal(a, b), "dropout: one seed, two masks")
+    check(abs(kept - (1 - MASK_P) * n) <= 5 * sd,
+          f"dropout kept {kept} of {n}")
+    check(all(rows_ok), "dropout: a rank's rows are not the global draw's")
+
+
+def phase_host_stage(tmp, common, synthetic_rate):
+    """Phase 26: the host distortion stage, encode-codec2, the decoders,
+    the attention variant on two ranks, the dropout masks. Returns
+    {path: launches}."""
+    import torch
+    paths = _host_stage_cli(os.path.join(tmp, "cli"), common,
+                            synthetic_rate)
+    torch.cuda.empty_cache()
+    paths["encode_codec2"] = _encode_codec2(os.path.join(tmp, "codec2"))
+    paths["decoders"] = _decoders()
+    torch.cuda.empty_cache()
+    tmp_dp = os.path.join(tmp, "dp_attention")
+    paths["dp_attention"] = _dp_compare(
+        tmp_dp, dict(_dp_cfg(os.path.join(tmp_dp, "ranks")),
+                     batch_size=ATT_BATCH, att_cfg=ATT_CFG),
+        _dp_batches(ATT_BATCH), "(d) the attention variant's step",
+        "dp_attention")
+    _dropout_masks()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
          library_ms=None, paths=None, **extra):
     """A kernel's summary; ``paths``: {path: its launches there}, each
@@ -5537,8 +5833,8 @@ def main():
         clock(10)
         phase_resume()
         clock(11)
-        phase_disk(os.path.join(tmp, "disk"),
-                   dist_perf["bfloat16"]["steps_per_sec"])
+        _, disk_common = phase_disk(os.path.join(tmp, "disk"),
+                                    dist_perf["bfloat16"]["steps_per_sec"])
         clock(12)
         paths = {"serving": serving_launches, "training": train_launches}
         stream_paths, k1 = phase_stream()
@@ -5571,6 +5867,10 @@ def main():
         clock(24)
         paths.update(phase_parallel(os.path.join(tmp, "parallel")))
         clock(25)
+        paths.update(phase_host_stage(
+            os.path.join(tmp, "host_stage"), disk_common,
+            dist_perf["bfloat16"]["steps_per_sec"]))
+        clock(26)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -5599,6 +5899,11 @@ def main():
     att_train, regu_train = (next(r for r in train_rows
                                   if tuple(r["shape"]) == sh)
                              for sh in (ATT_TRAIN_SHAPE, REGU_TRAIN_SHAPE))
+
+    # phase 26 (d)'s per-rank shape: 8 rows x 3 streams
+    dpa_train = next(r for r in train_rows
+                     if tuple(r["shape"]) == (3 * ATT_BATCH // DP_RANKS,
+                                              200, 512))
 
     def tdnn(row, ms, plain, bnd):
         return {"shape": row["shape"], "ms": row[ms],
@@ -5641,6 +5946,8 @@ def main():
                             att_train["fwd_bound"]),
              dp=tdnn(att_train, "fwd_ms", "fwd_plain_ms",
                      att_train["fwd_bound"]),
+             dp_attention=tdnn(dpa_train, "fwd_ms", "fwd_plain_ms",
+                               dpa_train["fwd_bound"]),
              regu=tdnn(regu_train, "fwd_ms", "fwd_plain_ms",
                        regu_train["fwd_bound"])),
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
@@ -5653,6 +5960,8 @@ def main():
                             att_train["bwd_bound"]),
              dp=tdnn(att_train, "bwd_ms", "bwd_plain_ms",
                      att_train["bwd_bound"]),
+             dp_attention=tdnn(dpa_train, "bwd_ms", "bwd_plain_ms",
+                               dpa_train["bwd_bound"]),
              regu=tdnn(regu_train, "bwd_ms", "bwd_plain_ms",
                        regu_train["bwd_bound"]))]
         + [_conv_summary(name, *convs[dt], paths=paths)

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from pase_tpu_torch.nn import flax_dense
+from pase_tpu_torch.parallel.mesh import global_mean
 
 ATT_MODES = ("concat", "avg_time", "avg_time_batch")
 
@@ -36,7 +37,10 @@ class AttentionBlock(nn.Module):
     * (1 - avg_factor); in train mode the buffer ``running_dist``
     (initially 1 / D) becomes the batch mean of the blend. The top-K
     channels are taken by a stable descending sort, so a tie at the K-th
-    place keeps the lower index, as ``jax.lax.top_k`` does."""
+    place keeps the lower index, as ``jax.lax.top_k`` does. Under a
+    process group both batch means ('avg_time_batch''s pooled view and
+    the running distribution's update) are the global batch's
+    (``mesh.global_mean``), as in the JAX data-parallel step."""
 
     def __init__(self, emb_dim, K=40, avg_factor=0.0, att_mode="avg_time",
                  hidden=(256,), frames=None, generator=None):
@@ -66,7 +70,7 @@ class AttentionBlock(nn.Module):
         elif self.att_mode == "avg_time":
             x = x.mean(dim=2)
         else:
-            x = x.mean(dim=2).mean(dim=0, keepdim=True)
+            x = global_mean(x.mean(dim=2))
         for i in range(len(self.hidden)):
             x = torch.relu(getattr(self, f"mlp_{i}")(x))
         dist = torch.softmax(self.mlp_out(x), dim=-1)
@@ -74,7 +78,7 @@ class AttentionBlock(nn.Module):
                 + dist * (1.0 - self.avg_factor))
         if self.training:
             with torch.no_grad():
-                self.running_dist.copy_(dist.mean(dim=0))
+                self.running_dist.copy_(global_mean(dist)[0])
         dist = dist.detach().expand(b, d)
         idx = torch.sort(dist, dim=-1, descending=True,
                          stable=True).indices[:, :self.K]

@@ -50,10 +50,15 @@ that layout loads with ``load_state_dict(strict=True)``.
   ``{weight,bias}_{ih,hh}_l{k}[_reverse]``, the same array: the JAX
   module keeps torch's layout and gate order. A flax GRU / LSTM cell (its
   Denses ``ir/kernel`` ... ``hn/bias`` under the cell's name: a GRU
-  head's ``gru_{i}``, WaveRNN's ``rnn1_cell`` / ``rnn2_cell``) <-> the
+  head's ``gru_{i}``, WaveRNN's ``rnn1_cell`` / ``rnn2_cell``, the
+  spectrum LM's scanned ``step/l{i}`` LSTM / GRU cells) <-> the
   port's ``nn.FlaxRNN`` of that name (``weight_ih``, ``weight_hh``,
   ``bias_ih`` + ``bias_hn`` or ``bias_hh``), kernels transposed and
   stacked in torch's gate order. Adam's moments map the same way.
+* The decoders (``decoders.py``) keep the JAX trees' names: a
+  ``SpectrogramDecoder``'s ``dec_{i}/conv`` | ``deconv``, ``act``,
+  ``norm`` and ``out``, a ``SpectrumLM``'s ``step/l{i}`` cells and
+  ``step/out_fc`` Dense load through the rules above.
 """
 
 import json

@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pase_tpu_torch.nn import (BatchNorm1d, BiRNN, Conv1D, FeBlock, QRNN,
+from pase_tpu_torch.nn import (BatchNorm1d, BiRNN, Conv1D,
+                               DropoutGenerators, FeBlock, QRNN,
                                SincConv)
 from pase_tpu_torch.parallel.mesh import draw_rows
 
@@ -72,9 +73,10 @@ def _wav_nct(wav):
     return wav[:, None, :] if wav.dim() == 2 else wav
 
 
-class _Encoder(nn.Module):
+class _Encoder(DropoutGenerators, nn.Module):
     """What the trainer and the serving code read of any encoder: no VQ
-    quantizer, so no commitment loss."""
+    quantizer, so no commitment loss; one ``dropout_generator`` for its
+    dropout masks."""
 
     quantizer = None
     vq_loss = None
@@ -303,20 +305,6 @@ class ASPPResEncoder(_Encoder):
             cin = hidden_dim
         self.rnn = (QRNN(self.output_dim, self.output_dim,
                          generator=generator) if rnn_pool else None)
-        self._dropout_generator = None
-
-    @property
-    def dropout_generator(self):
-        """The generator of the ASPP dropout masks (None: torch's global
-        one)."""
-        return self._dropout_generator
-
-    @dropout_generator.setter
-    def dropout_generator(self, generator):
-        self._dropout_generator = generator
-        for m in self.modules():
-            if isinstance(m, ASPP):
-                m.dropout_generator = generator
 
     def forward(self, wav):
         h = self.sinc(_wav_nct(wav))

@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from pase_tpu_torch.encoders import build_encoder
-from pase_tpu_torch.nn import (VQEMA, BatchNorm1d, BiRNN, Conv1D, FeBlock,
+from pase_tpu_torch.nn import (VQEMA, BatchNorm1d, BiRNN, Conv1D,
+                               DropoutGenerators, FeBlock,
                                FeResBlock, InstanceNorm1d, QRNN)
 
 
@@ -53,12 +54,13 @@ def fuse_skip(y, skip, densemerge="sum"):
     raise TypeError(f"Unknown densemerge: {densemerge}")
 
 
-class WaveFe(nn.Module):
+class WaveFe(DropoutGenerators, nn.Module):
     """Convolutional front-end: waveform [B, T] -> features [B, T//160, emb].
 
     Constructor arguments mirror the reference JSON configs
     (cfg/frontend/*.cfg). Parameters are drawn from ``generator`` on the
-    CPU; move the module to its device afterwards.
+    CPU; move the module to its device afterwards. ``rnn_dropout``'s masks
+    between the context layers come from ``dropout_generator``.
     """
 
     def __init__(self, num_inputs=1, sincnet=True,

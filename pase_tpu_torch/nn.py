@@ -42,6 +42,11 @@ reference layout loads with ``load_state_dict(strict=True)``:
 * ``MLPBlock``    — worker-head block: 1x1 (/context) conv -> PReLU (init
                     0.25) -> dropout; optionally a ``PatternedDropout``
                     on its input (dropin) and a context-tied conv.
+* ``dropout``     — inverted dropout whose keep mask is drawn from an
+                    explicit ``torch.Generator`` for the global batch
+                    (``mesh.draw_rows``): the QRNN's and BiRNN's between
+                    layers, the MLP block's; never torch's global
+                    generator (a module without one raises).
 * ``Deconv1D`` / ``GDeconv1DBlock`` — transposed-conv upsampling block of
                     the waveform decoder: ConvTranspose1d -> (trim) ->
                     norm -> PReLU (init 0), glu or a named activation.
@@ -673,6 +678,44 @@ class FeResBlock(nn.Module):
         return self.finish(h, self.identity(xd))
 
 
+def dropout(x, p, generator, training=True):
+    """x [B, ...] with each value kept where a uniform draw is below
+    1 - p and scaled by 1 / (1 - p), else 0, in train mode with p > 0
+    (else x). The draw comes from ``generator`` for the global batch
+    (``mesh.draw_rows``: row i of the global batch gets draw i whatever
+    the number of processes); without one it raises: no mask is drawn
+    from torch's global generator."""
+    if p <= 0 or not training:
+        return x
+    if generator is None:
+        raise ValueError(
+            f"dropout {p} in train mode needs a torch.Generator (the "
+            "module's dropout_generator; the Trainer sets it)")
+    keep = mesh.draw_rows(lambda m: torch.rand(
+        (m,) + tuple(x.shape[1:]), generator=generator, device=x.device),
+        x.shape[0]) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
+
+class DropoutGenerators:
+    """Mixin of an encoder: setting its ``dropout_generator`` sets it on
+    every submodule that draws dropout masks (a ``QRNN``, ``BiRNN``, an
+    ASPP block); the Trainer seeds the one generator per step."""
+
+    _dropout_generator = None
+
+    @property
+    def dropout_generator(self):
+        return self._dropout_generator
+
+    @dropout_generator.setter
+    def dropout_generator(self, generator):
+        self._dropout_generator = generator
+        for m in self.modules():
+            if m is not self and hasattr(m, "dropout_generator"):
+                m.dropout_generator = generator
+
+
 def qrnn_linear(src, weight, bias):
     """A QRNN layer's linear over src [B, T, 2C] -> [B, T, 3H]; under a
     compute dtype in it (bias added in it), returned as float32."""
@@ -701,6 +744,7 @@ class QRNN(nn.Module):
                  generator=None):
         super().__init__()
         self.dropout = dropout
+        self.dropout_generator = None   # the masks' between the layers
         self.layers = nn.ModuleList(
             [_QRNNLayer(input_size if i == 0 else hidden, hidden, generator)
              for i in range(layers)])
@@ -715,8 +759,9 @@ class QRNN(nn.Module):
             src = torch.cat([h, shift_right(h, dim=1)], dim=-1)
             y = self._linear(layer, src)
             h, _ = cuda_qrnn.qrnn_pool(y.contiguous())
-            if self.dropout > 0 and i < len(self.layers) - 1:
-                h = F.dropout(h, self.dropout, training=self.training)
+            if i < len(self.layers) - 1:
+                h = dropout(h, self.dropout, self.dropout_generator,
+                            self.training)
         return h
 
     def layer_step(self, i, x, prev, c0, frames):
@@ -781,8 +826,9 @@ class BiRNN(nn.RNNBase):
     weights flattened into one buffer): parameters ``{weight,bias}_{ih,hh}_l{k}[_reverse]``
     ([G * H, in], gates i, f, g, o or r, z, n), both biases trained, as in
     JAX and torch; in training, dropout between layers (not after the
-    last). Init is torch's uniform(+-1/sqrt(hidden)), drawn from
-    ``generator``."""
+    last), its masks from ``dropout_generator`` (``dropout``): the layers
+    then run one call each. Init is torch's uniform(+-1/sqrt(hidden)),
+    drawn from ``generator``."""
 
     def __init__(self, input_size, hidden, layers=1, cell="lstm",
                  dropout=0.0, generator=None):
@@ -793,25 +839,42 @@ class BiRNN(nn.RNNBase):
                          num_layers=layers, batch_first=True,
                          dropout=dropout, bidirectional=True)
         del self._init_generator
+        self.dropout_generator = None   # the masks' between the layers
 
     def reset_parameters(self):
         bound = 1.0 / math.sqrt(self.hidden_size)
         for p in self.parameters():
             _uniform_(p, bound, getattr(self, "_init_generator", None))
 
+    def _run(self, h, weights, layers):
+        zeros = h.new_zeros(2 * layers, h.shape[0], self.hidden_size)
+        # cuDNN's 'train' mode keeps the reserve space a backward needs:
+        # taken whenever autograd records, in eval too
+        train = self.training or torch.is_grad_enabled()
+        if self.mode == "LSTM":
+            return torch.lstm(h, (zeros, zeros), weights, True, layers, 0.0,
+                              train, True, True)[0]
+        return torch.gru(h, zeros, weights, True, layers, 0.0, train, True,
+                         True)[0]
+
     def forward(self, x):
         h = x.float()
-        zeros = h.new_zeros(2 * self.num_layers, h.shape[0],
-                            self.hidden_size)
-        # cuDNN's 'train' mode keeps the reserve space a backward needs:
-        # taken whenever autograd records, in eval too (no dropout then)
-        train = self.training or torch.is_grad_enabled()
-        p = self.dropout if self.training else 0.0
-        if self.mode == "LSTM":
-            return torch.lstm(h, (zeros, zeros), self._flat_weights, True,
-                              self.num_layers, p, train, True, True)[0]
-        return torch.gru(h, zeros, self._flat_weights, True,
-                         self.num_layers, p, train, True, True)[0]
+        if not (self.training and self.dropout > 0 and self.num_layers > 1):
+            return self._run(h, self._flat_weights, self.num_layers)
+        # dropout between the layers: one call a layer, the mask from
+        # dropout_generator between them (cuDNN's own dropout would draw
+        # from its global state); a layer's weights are a slice of the
+        # flat buffer, which cuDNN copies (its warning silenced)
+        per = len(self._flat_weights) // self.num_layers
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "RNN module weights are not",
+                                    UserWarning)
+            for i in range(self.num_layers):
+                if i:
+                    h = dropout(h, self.dropout, self.dropout_generator)
+                h = self._run(h, self._flat_weights[i * per:(i + 1) * per],
+                              1)
+        return h
 
 
 # flax's cell Denses in torch's gate order: (input, hidden) names
@@ -1044,6 +1107,7 @@ class MLPBlock(nn.Module):
                         generator=generator)
         self.act = PReLU(fmaps, init=0.25)
         self.dout = dout
+        self.dropout_generator = None   # the dout masks'
 
     def forward(self, x):
         if self.din is not None:
@@ -1056,10 +1120,8 @@ class MLPBlock(nn.Module):
             if self.context > 1:
                 x = F.pad(x, (self.context // 2, self.context // 2))
             h = self.W(x)
-        h = self.act(h)
-        if self.dout > 0:
-            h = F.dropout(h, self.dout, training=self.training)
-        return h
+        return dropout(self.act(h), self.dout, self.dropout_generator,
+                       self.training)
 
 
 class Deconv1D(nn.ConvTranspose1d):

@@ -45,13 +45,34 @@ def find_nvcc():
     return nvcc
 
 
-def library_path(source, build_dir=BUILD_DIR):
-    """Where the library built from ``source`` with NVCC_FLAGS lives."""
+def library_path(source, build_dir=BUILD_DIR, flags=NVCC_FLAGS):
+    """Where the library built from ``source`` with ``flags`` lives."""
     with open(source, "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            f.read() + " ".join(flags).encode()).hexdigest()[:16]
     name = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(build_dir, f"lib{name}_{digest}.so")
+
+
+def compile_library(cmd, so, verbose=False):
+    """Build a library into a private name beside ``so`` (``cmd(out)``
+    is the compiler's command line that writes ``out``), then rename it to
+    ``so``: a concurrent process never loads a half-written library.
+    Raises with the compiler's output when it fails."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+    os.close(fd)
+    full = cmd(tmp)
+    proc = subprocess.run(full, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"{os.path.basename(full[0])} failed ({proc.returncode}): "
+            f"{' '.join(full)}\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(" ".join(full) + "\n" + (proc.stdout + proc.stderr).strip(),
+              flush=True)
+    os.replace(tmp, so)
 
 
 def load(source, argtypes, build_dir=BUILD_DIR, verbose=False):
@@ -61,22 +82,8 @@ def load(source, argtypes, build_dir=BUILD_DIR, verbose=False):
     so = library_path(source, build_dir)
     if not os.path.isfile(so):
         nvcc = find_nvcc()
-        os.makedirs(build_dir, exist_ok=True)
-        # compile to a private name, then rename: a concurrent process never
-        # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, source]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(" ".join(cmd) + "\n" + (proc.stdout + proc.stderr).strip(),
-                  flush=True)
-        os.replace(tmp, so)
+        compile_library(lambda out: [nvcc, *NVCC_FLAGS, "-Xptxas", "-v",
+                                     "-o", out, source], so, verbose)
     lib = ctypes.CDLL(so)
     for name, types in argtypes.items():
         fn = getattr(lib, name)

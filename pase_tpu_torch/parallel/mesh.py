@@ -18,7 +18,9 @@ explicit:
   other collective on CUDA tensors): ``all_reduce_`` sums or averages a
   list of tensors through flat buckets (one call a bucket), ``gather``
   is an all-gather made of one all-reduce of a zero-padded buffer;
-* ``replicate`` broadcasts a module's parameters and buffers from rank 0.
+* ``replicate`` broadcasts a module's parameters and buffers from rank 0;
+* ``global_mean`` is a batch mean over the global batch (the attention
+  variant's channel statistics).
 
 With no process group (or one rank) every helper is the identity and the
 port takes exactly its single-process path. ``--n_model`` (the JAX
@@ -207,6 +209,22 @@ def _narrow(x, dim, rows, k):
     parts = [x.narrow(dim, s * rows.total + rows.start, b)
              for s in range(k)]
     return (parts[0] if k == 1 else torch.cat(parts, dim)).contiguous()
+
+
+@torch.no_grad()
+def global_mean(x):
+    """[1, ...]: the mean of x over its rows (axis 0). Under a
+    ``row_shard`` of a process group, the rows are this rank's part of the
+    global batch and the mean is the global batch's: one all_reduce of
+    the ranks' row sums and row counts (float32), the same bits on every
+    rank. Elsewhere ``x.mean(0, keepdim=True)``. Not differentiated: its
+    callers take statistics that no gradient flows through."""
+    if _ROWS.get() is None or world() < 2:
+        return x.mean(dim=0, keepdim=True)
+    flat = torch.cat([x.float().sum(dim=0).reshape(-1),
+                      x.new_full((1,), float(x.shape[0]), dtype=torch.float32)])
+    all_reduce_([flat])
+    return (flat[:-1] / flat[-1]).view((1,) + tuple(x.shape[1:])).to(x.dtype)
 
 
 def draw_rows(draw, n, dim=0):

@@ -319,14 +319,23 @@ class StreamingEncoder:
         if module.training:
             raise ValueError("StreamingEncoder needs the encoder in eval "
                              "mode (BatchNorm's running statistics)")
-        norms = [module.norm_out]
-        for blk in module.blocks:
-            norms += ((blk.norm1, blk.norm2) if isinstance(blk, FeResBlock)
-                      else (blk.norm,))
-        if any(isinstance(n, InstanceNorm1d) for n in norms):
+        # what the JAX stream admits: affinorm FeBlocks without norm_out,
+        # each push's frames normalized on their own (not the offline
+        # result); refused: inorm, norm_out's InstanceNorm, and
+        # InstanceNorm inside resblocks
+        inorm = [isinstance(blk.norm, InstanceNorm1d)
+                 and blk.norm.weight is None for blk in module.blocks
+                 if not isinstance(blk, FeResBlock)]
+        if any(inorm) or isinstance(module.norm_out, InstanceNorm1d):
             raise NotImplementedError(
                 "InstanceNorm normalizes over the whole utterance and "
                 "has no exact streaming form")
+        if any(isinstance(n, InstanceNorm1d) for blk in module.blocks
+               if isinstance(blk, FeResBlock)
+               for n in (blk.norm1, blk.norm2)):
+            raise NotImplementedError(
+                "InstanceNorm inside resblocks normalizes over the whole "
+                "utterance and has no exact streaming form")
         if module.rnn is not None and not isinstance(module.rnn, QRNN):
             raise NotImplementedError(
                 f"streaming rnn {type(module.rnn).__name__}: only the QRNN "

@@ -28,7 +28,13 @@ per-channel keys of a ``data_prep ami-cfg`` cfg), as
 ``--zero_speech_p`` injects near-silent rows (``--zerospeech_cfg`` adds
 noise to them), ``--cache_feats_dir`` (alias ``--trans_cache``) reads the
 worker targets from a feature cache (``data/cache.py``). Synthetic data
-is drawn on the device with 100 steps per epoch and a 10-batch eval.
+is drawn on the device with 100 steps per epoch and a 10-batch eval. A
+``--dtrans_cfg`` with ``codec2_p`` / ``whisper_p`` adds the host stage
+(``data/host_distortions.py``: the codec2 round trip, whisperization) to
+the train feed's numpy batches in the consuming thread, after the
+prefetch threads; it needs a host feed (not --synthetic or
+--device_corpus), and logs a 'host_stage' line (rows degraded, ms a
+batch) after training.
 
 Each epoch writes the full train state
 (``weights_PASE-Pase_base-<step>.npz``, at most ``--max_ckpts`` kept, in
@@ -119,8 +125,6 @@ DEAD_REFERENCE_FLAGS = [
 # the JAX CLI's compile cache default, which the port never reads
 JAX_CACHE_DEFAULT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".jax_cache")
-ROADMAP_HOST_STAGE = ("ROADMAP.md, queue 1: the host distortion stage "
-                      "(codec2, whisperize)")
 # names the process group's backend (nccl or gloo) over the default, nccl
 # on the card and gloo on the CPU: gloo lets several processes share a card
 DIST_BACKEND_ENV = "PASE_TORCH_DIST_BACKEND"
@@ -575,23 +579,40 @@ def build_zerospeech(opts, chunk_size):
 
 
 def build_distortions(opts, chunk_size):
-    """(DistortionConfig, DistortionAssets) of the first ``--dtrans_cfg``
-    that is not the sentinel "None" (which disables a corpus's stack), or
-    (None, None). The host stage (codec2, whisperize) is not ported and
-    raises."""
+    """(DistortionConfig, DistortionAssets, HostDistortionStage) of the
+    first ``--dtrans_cfg`` that is not the sentinel "None" (which disables
+    a corpus's stack), or (None, None, None). The host stage (codec2_p,
+    whisper_p: ``data.host_distortions.build_host_stage``, seeded with
+    --seed as in the JAX CLI) is None when the cfg sets neither."""
     from pase_tpu_torch.data.distortions import build_assets, config_from_json
+    from pase_tpu_torch.data.host_distortions import build_host_stage
     real = [c for c in (opts.dtrans_cfg or [])
             if str(c) not in ("None", "none", "")]
     if not real:
-        return None, None
+        return None, None, None
     with open(real[0]) as f:
         dcfg_json = json.load(f)
     cfg = config_from_json(dcfg_json)
-    for key in ("codec2_p", "whisper_p"):
-        if float(dcfg_json.get(key, 0) or 0) > 0:
-            raise NotImplementedError(
-                f"{key} > 0 in {real[0]}: {ROADMAP_HOST_STAGE}")
-    return cfg, build_assets(dcfg_json, cfg, chunk_size)
+    host_stage = build_host_stage(dcfg_json, seed=getattr(opts, "seed", 0))
+    return cfg, build_assets(dcfg_json, cfg, chunk_size), host_stage
+
+
+def check_host_stage(opts, host_stage):
+    """The host stage runs on host waveforms: refused with --device_corpus
+    (the JAX CLI's ValueError) and with --synthetic (its batches are drawn
+    on the device)."""
+    if host_stage is None:
+        return
+    if opts.device_corpus:
+        raise ValueError("--device_corpus is incompatible with host-stage "
+                         "distortions (codec2/whisperize need host "
+                         "waveforms); drop them from --dtrans_cfg")
+    if opts.synthetic:
+        raise ValueError("--synthetic is incompatible with host-stage "
+                         "distortions (codec2/whisperize need host "
+                         "waveforms; the synthetic batches are drawn on "
+                         "the device); drop them from --dtrans_cfg or "
+                         "train from --data_root / --data_cfg")
 
 
 def train(opts):
@@ -634,9 +655,17 @@ def _train(opts):
         fe_cfg = json.load(f)
     with open(opts.net_cfg) as f:
         wk_cfg = json.load(f)
-    dist_cfg, dist_assets = build_distortions(opts, opts.chunk_size)
+    dist_cfg, dist_assets, host_stage = build_distortions(opts,
+                                                          opts.chunk_size)
+    check_host_stage(opts, host_stage)
     zs_bank, zs_snrs = build_zerospeech(opts, opts.chunk_size)
     batcher, va_batcher, bpe, feed_info = build_feeds(opts, wk_cfg)
+    if host_stage is not None:
+        from pase_tpu_torch.data.host_distortions import StagedBatcher
+        # the train feed only, after its prefetch threads: the stage's
+        # draws are made in the consuming thread, in the JAX CLI's order
+        print(f"Host distortion stage enabled (probs={host_stage.probs})")
+        batcher = StagedBatcher(batcher, host_stage)
     if opts.wire_dtype == "int16" and opts.zero_speech_p > 0:
         print("WARNING: --wire_dtype int16 quantizes zero-speech samples "
               "(~1e-5 amplitude) to silence; prefer float32 here")
@@ -657,6 +686,8 @@ def _train(opts):
         if feed_info:
             tr.logger.log("feed", 0, feed_info)
         tr.train_(batcher, va_batcher, resume=cfg["ckpt_continue"])
+        if host_stage is not None:
+            tr.logger.log("host_stage", tr.step, host_stage.summary())
     finally:
         tr.logger.close()
     return tr

@@ -100,9 +100,9 @@ losses, the eval means, the ``hist/*`` rows (global lo / hi, summed
 counts) and the ``grad_norm/*`` rows (after the all-reduce) are the
 global batch's, the same bits on every rank. Only rank 0 writes the
 metrics log, checkpoints and ``FE_e*.npz`` and launches the superviser;
-every rank resumes from the same files. The attention variant (its
-running distribution is a batch statistic) raises with more than one
-rank (ROADMAP.md, queue 1, item 10).
+every rank resumes from the same files. The attention variant takes its
+batch means (the running distribution, 'avg_time_batch''s pooled view)
+over the global batch (``mesh.global_mean``).
 
 Feeding: host batches (numpy arrays from a disk batcher) are staged one
 step ahead (``stage``): pinned host memory and a non_blocking copy on a
@@ -166,7 +166,6 @@ WAVE_KEYS = ("chunk", "chunk_ctxt", "chunk_rand", "cchunk")
 GAN_WORKER_LOSSES = {"LSGAN": "LSGAN", "GAN": "BCE", "Hinge": "Hinge"}
 # the bins of a log_histograms row
 HIST_BINS = 24
-ITEM_10 = "ROADMAP.md, queue 1, item 10"
 
 
 def hist_row(x, bins=HIST_BINS):
@@ -257,11 +256,6 @@ class Trainer:
         self.world = mesh.world()
         self.rows = None
         if self.world > 1:
-            if self.cfg.get("att_cfg"):
-                raise NotImplementedError(
-                    "the attention variant's running distribution is a "
-                    "statistic of the batch and is not yet taken over the "
-                    f"global batch with {self.world} processes: {ITEM_10}")
             sl = mesh.host_batch_slice(self.cfg.get("batch_size", 32))
             self.rows = mesh.RowShard(sl.start, sl.stop,
                                       self.cfg.get("batch_size", 32))

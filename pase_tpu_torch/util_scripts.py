@@ -31,8 +31,8 @@
   make-contaminated — the distortion stack of a --dtrans_cfg applied to
                    each whole wav of a list
   select-ckpt    — the best of a glob of probe-metric JSONs
-  encode-codec2  — parses; raises (the host distortion stage, ROADMAP.md
-                   queue 1, item 12)
+  encode-codec2  — every wav of a directory through the codec2 round trip
+                   of the host distortion stage (a cache for codec2_cachedir)
 
 The flags and outputs are those of ``util_scripts.py``'s subcommands of
 the same names; ``--device`` picks the card (default) or the CPU. Run as
@@ -547,7 +547,7 @@ def make_contaminated(opts):
     from pase_tpu_torch.data import distortions
     from pase_tpu_torch.data.io import read_wav, write_wav
     from pase_tpu_torch.train import build_distortions
-    cfg, assets = build_distortions(argparse.Namespace(
+    cfg, assets, _ = build_distortions(argparse.Namespace(
         dtrans_cfg=[opts.dtrans_cfg]), opts.chunk_size)
     if cfg is None:
         raise ValueError(f"--dtrans_cfg {opts.dtrans_cfg!r} names no stack")
@@ -593,9 +593,29 @@ def select_ckpt(opts):
 
 
 def encode_codec2(opts):
-    raise NotImplementedError(
-        "encode-codec2 needs the codec2 round trip of the host distortion "
-        "stage, which is not ported yet: ROADMAP.md, queue 1, item 12")
+    """Pre-encode every ``*.wav`` of --input_dir through the codec2 round
+    trip (``data.host_distortions.Codec2RoundTrip`` at --kbps) into
+    --output_dir under the same names, in a pool of --num_workers threads:
+    the tool that fills the distortion cache (the JAX tool; the reference's
+    util_scripts/encode_codec2.py). Each wav is treated as 16 kHz, as
+    there. Returns the number of files."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pase_tpu_torch.data.host_distortions import Codec2RoundTrip
+    from pase_tpu_torch.data.io import read_wav, write_wav
+    c2 = Codec2RoundTrip(kbps=opts.kbps)
+    wavs = sorted(glob.glob(os.path.join(opts.input_dir, "*.wav")))
+    os.makedirs(opts.output_dir, exist_ok=True)
+
+    def one(path):
+        x, sr = read_wav(path)
+        y = c2(x.astype(np.float32))
+        write_wav(os.path.join(opts.output_dir, os.path.basename(path)),
+                  y, sr)
+
+    with ThreadPoolExecutor(max_workers=opts.num_workers) as pool:
+        list(pool.map(one, wavs))
+    print(f"encoded {len(wavs)} wavs -> {opts.output_dir}")
+    return len(wavs)
 
 
 def build_parser():
@@ -756,7 +776,7 @@ def build_parser():
     pf.add_argument("--out_file", default="projected.npy")
     device_flag(pf)
 
-    c2 = sub.add_parser("encode-codec2", help="not ported yet (raises)")
+    c2 = sub.add_parser("encode-codec2")
     c2.add_argument("input_dir")
     c2.add_argument("output_dir")
     c2.add_argument("--kbps", type=int, default=1600)

@@ -14,7 +14,9 @@ head's forward and gradient, and generate against teacher forcing, and
 the alternative encoders (TDNN, ASPP-residual, ResNet) against the CPU,
 the global BatchNorm of data parallelism under a one-rank NCCL group
 (the single-process layer's bits) and the time-sharded encoder against
-the offline one on the card.
+the offline one on the card, the training CLI with the host distortion
+stage, the spectrum decoders against the CPU and the dropout masks drawn
+from a generator on the card.
 
 This file imports no JAX, so it runs on a host without it. There the
 repository's conftest (which configures JAX) is left out:
@@ -1277,3 +1279,91 @@ def test_time_shard_matches_offline_on_the_card(cuda_device, layers):
     for a, b in zip(g_sp, g_off):
         if b is not None:
             torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+def test_host_stage_cli_on_the_card(cuda_device, tmp_path):
+    """The training CLI on the card from a seeded corpus with a
+    --dtrans_cfg of codec2_p 0.5 / whisper_p 0.1: the host stage (the
+    vocoder built from csrc/codec2_lite.cc) on the feed's numpy batches,
+    two steps, the training kernels once per QRNN layer per step, every
+    loss finite, the 'host_stage' line."""
+    import json
+    from pase_tpu_torch import train as port_train
+    from pase_tpu_torch.data.synthetic_corpus import write_synthetic_corpus
+    root, cfg = write_synthetic_corpus(str(tmp_path / "corpus"), 1.2, 0.5,
+                                       seed=7, utts_per_chapter=3,
+                                       min_seconds=0.1, max_seconds=0.6)
+    fe, wk = _slice_cfgs(tmp_path)
+    dist = tmp_path / "dist.cfg"
+    dist.write_text(json.dumps({"codec2_p": 0.5, "whisper_p": 0.1}))
+    cuda_qrnn.reset_launches()
+    tr = port_train.main(["--net_cfg", wk, "--fe_cfg", fe, "--data_root",
+                          root, "--data_cfg", cfg, "--dtrans_cfg",
+                          str(dist), "--batch_size", "2", "--chunk_size",
+                          "4800", "--epoch", "1", "--log_freq", "1",
+                          "--save_path", str(tmp_path / "run")])
+    torch.cuda.synchronize()
+    layers = len(tr.model.frontend.rnn.layers)
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_train"] == tr.bpe * layers
+    assert cuda_qrnn.LAUNCHES["qrnn_pool_bwd"] == tr.bpe * layers
+    with open(tmp_path / "run" / "metrics.jsonl") as f:
+        recs = [json.loads(ln) for ln in f]
+    assert all(np.isfinite(v) for r in recs for k, v in r.items()
+               if isinstance(v, float))
+    assert recs[-1]["split"] == "host_stage"
+    assert recs[-1]["rows"] == 2 * tr.bpe
+
+
+def test_decoders_gpu_match_cpu(cuda_device):
+    """SpectrogramDecoder (an upsampling stage, bnorm, eval) and the
+    SpectrumLM rollout (2 x LSTM, 30 steps, a forced frame) on the card
+    against the CPU with the same weights and state: within 1e-4 of the
+    largest output."""
+    from pase_tpu_torch import decoders
+    gen = torch.Generator().manual_seed(0)
+    dec = decoders.SpectrogramDecoder(32, nfft=64, strides=(1, 2),
+                                      kwidths=(3, 4), fmaps=(24, 16),
+                                      norm_type="bnorm", generator=gen).eval()
+    x = torch.randn(3, 50, 32, generator=gen)
+    with torch.no_grad():
+        want = dec(x)
+        got = dec.to(cuda_device)(x.to(cuda_device)).cpu()
+    assert got.shape == (3, 100, 33)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+    lm = decoders.SpectrumLM(64, 2, 33, generator=gen).eval()
+    seed = torch.randn(3, 33, generator=gen)
+    state = lm.init_state(3, gen)
+    cps = {7: torch.randn(3, 33, generator=gen)}
+    with torch.no_grad():
+        want, _ = lm(seed, 30, state=state, dec_cps=cps)
+        got, _ = lm.to(cuda_device)(
+            seed.to(cuda_device), 30,
+            state=tuple(tuple(t.to(cuda_device) for t in s) for s in state),
+            dec_cps={k: v.to(cuda_device) for k, v in cps.items()})
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+def test_dropout_masks_on_the_card(cuda_device):
+    """nn.dropout with a generator on the card: the same seed the same
+    mask bit for bit, the keep share within 5 binomial sd of 1 - p; the
+    QRNN's dropout between its layers draws from its generator there."""
+    from pase_tpu_torch.nn import QRNN, dropout
+    x = torch.rand(64, 50, 40, device=cuda_device) + 0.5
+    gen = torch.Generator(device=cuda_device)
+    a = dropout(x, 0.3, gen.manual_seed(4))
+    b = dropout(x, 0.3, gen.manual_seed(4))
+    assert torch.equal(a, b)
+    n = x.numel()
+    kept = int((a != 0).sum())
+    assert abs(kept - 0.7 * n) <= 5 * (n * 0.21) ** 0.5
+    q = QRNN(6, 8, layers=2, dropout=0.5).to(cuda_device).train()
+    q.dropout_generator = gen
+    y = torch.randn(4, 30, 6, device=cuda_device)
+    with torch.no_grad():
+        gen.manual_seed(1)
+        r = q(y)
+        gen.manual_seed(1)
+        s = q(y)
+        gen.manual_seed(2)
+        t = q(y)
+    assert torch.equal(r, s) and not torch.equal(r, t)

@@ -411,8 +411,8 @@ def test_build_distortions_loads_every_asset(tmp_path):
     path, js = _write_cfg(tmp_path)
     opts = port_train.build_argparser().parse_args(
         ["--dtrans_cfg", "None", "--dtrans_cfg", path])
-    cfg, assets = port_train.build_distortions(opts, 3000)
-    assert cfg == D.config_from_json(js)
+    cfg, assets, host_stage = port_train.build_distortions(opts, 3000)
+    assert cfg == D.config_from_json(js) and host_stage is None
     on = D.enabled_stages(cfg, assets)
     assert [s for s in D.STAGES if on[s]] == [
         "reverb", "overlap", "noises", "resample", "clip", "chop", "bandrop"]
@@ -420,15 +420,38 @@ def test_build_distortions_loads_every_asset(tmp_path):
     assert tuple(assets.overlap_bank.shape) == (2, 6000)
     assert tuple(assets.ir_bank.shape) == (2, 300)
     opts = port_train.build_argparser().parse_args(["--dtrans_cfg", "None"])
-    assert port_train.build_distortions(opts, 3000) == (None, None)
+    assert port_train.build_distortions(opts, 3000) == (None, None, None)
 
 
-def test_host_distortion_stage_refuses(tmp_path):
+def test_host_distortion_stage_is_built(tmp_path):
+    """codec2_p / whisper_p build the host stage (seeded with --seed, the
+    cfg's kbps); it needs host waveforms: --device_corpus raises the JAX
+    CLI's ValueError, --synthetic one of its own."""
     from pase_tpu_torch import train as port_train
-    path, _ = _write_cfg(tmp_path, codec2_p=0.3)
-    opts = port_train.build_argparser().parse_args(["--dtrans_cfg", path])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*host distortion"):
-        port_train.build_distortions(opts, 3000)
+    from pase_tpu_torch.data.host_distortions import (Codec2RoundTrip,
+                                                      HostDistortionStage,
+                                                      Whisperize)
+    path, _ = _write_cfg(tmp_path, codec2_p=0.3, codec2_kbps=1300,
+                         whisper_p=0.1)
+    opts = port_train.build_argparser().parse_args(
+        ["--dtrans_cfg", path, "--seed", "9"])
+    cfg, assets, stage = port_train.build_distortions(opts, 3000)
+    assert cfg is not None and assets is not None
+    assert isinstance(stage, HostDistortionStage)
+    assert stage.probs == [0.3, 0.1]
+    c2, wh = stage.transforms
+    assert isinstance(c2, Codec2RoundTrip) and c2.kbps == 1300
+    assert isinstance(wh, Whisperize)
+    assert stage.rng.rand() == np.random.RandomState(9).rand()
+    opts.device_corpus = True
+    with pytest.raises(ValueError, match="--device_corpus is incompatible"):
+        port_train.check_host_stage(opts, stage)
+    opts.device_corpus, opts.synthetic = False, True
+    with pytest.raises(ValueError, match="--synthetic.*host waveforms"):
+        port_train.check_host_stage(opts, stage)
+    opts.synthetic = False
+    port_train.check_host_stage(opts, stage)
+    port_train.check_host_stage(opts, None)
 
 
 def test_train_cli_with_dtrans_cfg(tmp_path, monkeypatch):

@@ -337,10 +337,16 @@ def test_stream_matches_offline_for_norm_types(norm_type):
 
 @pytest.mark.parametrize("cfg", [
     dict(NARROW_FE, norm_type="inorm"),
-    dict(NARROW_FE, norm_type="affinorm"),
-    dict(NARROW_FE, norm_type="lnorm", norm_out=True)],
-    ids=["inorm", "affinorm", "lnorm_norm_out"])
+    dict(NARROW_FE, norm_type="affinorm", norm_out=True),
+    dict(NARROW_FE, norm_type="lnorm", norm_out=True),
+    dict(NARROW_FE, norm_type="affinorm", resblocks=True,
+         kwidths=[31, 21, 11, 11])],
+    ids=["inorm", "affinorm", "lnorm_norm_out", "affinorm_resblocks"])
 def test_stream_refuses_instance_norm(cfg):
+    """What JAX's stream refuses: inorm FeBlocks, norm_out's InstanceNorm
+    (affinorm and lnorm with norm_out), InstanceNorm inside resblocks.
+    affinorm FeBlocks without norm_out stream (tests/
+    test_torch_parallel.py holds them to JAX's stream)."""
     enc = build_wavefe(cfg).eval()
     with pytest.raises(NotImplementedError, match="InstanceNorm"):
         StreamingEncoder(enc)

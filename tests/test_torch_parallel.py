@@ -168,8 +168,8 @@ def test_prepare_draws_follow_the_row():
 
 def test_two_rank_collectives(tmp_path):
     """all_reduce_ (sum, mean, buckets), gather, all_reduce_dict,
-    replicate, and the trainer's refusal of the attention variant (a
-    batch statistic not yet global) under two gloo ranks."""
+    replicate, and global_mean (the global batch's within a row_shard,
+    the rank's rows outside one) under two gloo ranks."""
     outs = run_ranks(tmp_path, "collectives", {})
     x = [np.arange(3) + 10 * r for r in range(2)]
     for r, o in enumerate(outs):
@@ -180,7 +180,9 @@ def test_two_rank_collectives(tmp_path):
         np.testing.assert_array_equal(o["gather"], np.stack(x))
         np.testing.assert_array_equal(o["replicated"], np.zeros((2, 3)))
         assert o["dict"] == {"a": 0.5, "b": 1.0}
-        assert "item 10" in o["att_refused"]
+        np.testing.assert_array_equal(o["global_mean"], [[3.0, 4.0]])
+        np.testing.assert_array_equal(o["local_mean"],
+                                      [[1.0 + 4 * r, 2.0 + 4 * r]])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -234,8 +236,14 @@ def jax_run(tmp_path_factory):
     """The JAX Trainer's two steps on the global batch from randomized
     weights: (variables, [losses], first step's gradients, its BatchNorm
     stats)."""
-    tmp = tmp_path_factory.mktemp("dp_jax")
-    jtr = JaxTrainer(FE, WORKERS, _cfg(tmp / "jax"),
+    return _jax_steps(tmp_path_factory.mktemp("dp_jax"), {})
+
+
+def _jax_steps(tmp, extra):
+    """The JAX Trainer of ``_cfg(**extra)``, two steps on the global
+    batch from randomized weights (an attention block's running_dist a
+    random distribution)."""
+    jtr = JaxTrainer(FE, WORKERS, _cfg(tmp / "jax", **extra),
                      mesh=get_mesh(devices=jax.devices()[:1]))
     key = jax.random.PRNGKey(0)
     dummy = {k: jnp.zeros((2, CHUNK))
@@ -254,6 +262,15 @@ def jax_run(tmp_path_factory):
             params[k] = rng.uniform(0.0, 0.3, v.shape).astype(np.float32)
     p_tree = unflatten_dict({k: jnp.asarray(v) for k, v in params.items()},
                             sep="/")
+    bstats = _np_tree(variables["batch_stats"])
+    for k, v in bstats.items():
+        if k.endswith("running_dist"):
+            d = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            bstats[k] = d / d.sum()
+    variables = {"params": variables["params"],
+                 "batch_stats": unflatten_dict(
+                     {k: jnp.asarray(v) for k, v in bstats.items()},
+                     sep="/")}
     cfg = jtr.cfg
     jtr._tx, jtr._scheds = build_optimizer(
         p_tree, fe_lr=cfg["fe_lr"], min_lr=cfg["min_lr"],
@@ -329,6 +346,46 @@ def test_two_rank_step_matches_the_jax_global_step(tmp_path, jax_run):
             assert err <= 1e-6, (k, err)
 
 
+ATT_CFGS = {mode: {"K": 8, "avg_factor": 0.3, "att_mode": mode,
+                   "hidden": [16]}
+            for mode in ("avg_time", "avg_time_batch")}
+
+
+@pytest.mark.parametrize("mode", sorted(ATT_CFGS))
+def test_two_rank_attention_step_matches_the_jax_global_step(tmp_path,
+                                                            mode):
+    """The attention variant on two ranks (its batch means, the running
+    distribution's update and avg_time_batch's pooled view, over the
+    global batch) against the JAX step on the global batch: losses of
+    step 1 within 1e-5 relative (step 2: 1e-3), the gradients within
+    1e-4 of each leaf's largest (the scoring MLPs' exactly 0: the mask is
+    not differentiated), the running distributions within 1e-6, the
+    ranks' losses bit for bit."""
+    att = ATT_CFGS[mode]
+    variables, jlosses, jgrads, jstats = _jax_steps(tmp_path,
+                                                    {"att_cfg": att})
+    assert any(k.endswith("running_dist") for k in jstats)
+    outs = run_ranks(tmp_path, "train_steps", dict(
+        fe_cfg=FE, wk_cfg=WORKERS, cfg=_cfg(tmp_path / "port", att_cfg=att),
+        variables=variables, batches=_batches()))
+    _ranks_equal(outs)
+    names = ["mfcc", "mi", "total"]
+    _check_losses(outs[0]["losses"][0], jlosses[0], names, 1e-5)
+    _check_losses(outs[0]["losses"][1], jlosses[1], names, 1e-3)
+    att_grads = {k for k in jgrads if k.startswith("att_")}
+    assert att_grads
+    for k in att_grads:
+        # the port's scoring MLPs get no gradient at all (grad None)
+        assert not np.any(jgrads[k]) and not np.any(
+            outs[0]["grads"].get("params/" + k, 0.0)), k
+    _check_grads(outs[0]["grads"], {k: g for k, g in jgrads.items()
+                                    if k not in att_grads})
+    for k, v in jstats.items():
+        for o in outs:
+            err = np.abs(o["state"]["batch_stats/" + k] - v).max()
+            assert err <= 1e-6, (k, err)
+
+
 VARIANTS = {
     "vq": (dict(FE, rnn_pool=True, rnn_dim=16, vq_K=16), {}, None),
     "mgd": (FE, {"backprop_mode": "MGD"}, None),
@@ -375,3 +432,138 @@ def test_n_model_raises_naming_item_10b(tmp_path):
         port_train.main(["--synthetic", "--device", "cpu", "--net_cfg",
                          str(wk), "--fe_cfg", str(fe), "--n_model", "2",
                          "--save_path", str(tmp_path / "run")])
+
+
+# ---------------------------------------------------------------------------
+# dropout masks from explicit generators, drawn for the global batch
+# ---------------------------------------------------------------------------
+
+
+def test_dropout_masks_law_and_generator():
+    """nn.dropout: the keep share within 5 binomial sd of 1 - p, kept
+    values scaled by 1 / (1 - p), the same seed the same mask whatever
+    torch's global generator does, identity in eval or at p = 0, and no
+    generator raises."""
+    from pase_tpu_torch.nn import dropout
+    x = torch.rand(64, 20, 40) + 0.5
+    gen = torch.Generator().manual_seed(3)
+    torch.manual_seed(0)
+    y = dropout(x, 0.3, gen)
+    n = x.numel()
+    kept = int((y != 0).sum())
+    assert abs(kept - 0.7 * n) <= 5 * np.sqrt(n * 0.3 * 0.7)
+    torch.testing.assert_close(y[y != 0], (x / 0.7)[y != 0])
+    gen.manual_seed(3)
+    torch.manual_seed(1)
+    assert torch.equal(dropout(x, 0.3, gen), y)
+    assert dropout(x, 0.3, gen, training=False) is x
+    assert dropout(x, 0.0, None) is x
+    with pytest.raises(ValueError, match="torch.Generator"):
+        dropout(x, 0.3, None)
+
+
+def _rnn_dropout_modules():
+    from pase_tpu_torch.nn import QRNN, BiRNN, MLPBlock
+    gen = torch.Generator().manual_seed(1)
+    return {"qrnn": (QRNN(6, 5, layers=3, dropout=0.4, generator=gen),
+                     lambda m: (m, 1)),
+            "birnn": (BiRNN(6, 5, layers=2, cell="gru", dropout=0.4,
+                            generator=gen), lambda m: (m, 1)),
+            "mlp_block": (MLPBlock(6, 7, dout=0.4, generator=gen),
+                          lambda m: (m, 6))}
+
+
+@pytest.mark.parametrize("kind", ["qrnn", "birnn", "mlp_block"])
+def test_dropout_rows_are_one_global_draw(kind):
+    """A module whose dropout sits between its layers (QRNN, BiRNN) or
+    after its activation (MLPBlock), in train mode on k = 3 streams side
+    by side: each of two ranks' rows (under a row_shard) get the
+    one-process draw of those rows, so the ranks' outputs are the
+    one-process output's rows; a seed changes the masks."""
+    module, _ = _rnn_dropout_modules()[kind]
+    module.train()
+    rng = np.random.RandomState(4)
+    shape = (3 * 8, 9, 6) if kind != "mlp_block" else (3 * 8, 6, 9)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    gen = torch.Generator()
+    module.dropout_generator = gen
+
+    def run(inp, seed):
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            return module(inp)
+
+    want = run(x, 5)
+    assert not torch.equal(run(x, 6), want)
+    for r in range(2):
+        rows = mesh.RowShard(4 * r, 4 * r + 4, 8)
+        idx = torch.cat([torch.arange(s * 8 + 4 * r, s * 8 + 4 * r + 4)
+                         for s in range(3)])
+        with mesh.row_shard(rows):
+            got = run(x[idx], 5)
+        # the masks equal; the values within rounding (a conv's sums
+        # depend on the batch it is given)
+        assert torch.equal(got == 0, want[idx] == 0)
+        torch.testing.assert_close(got, want[idx], rtol=1e-5, atol=1e-6)
+
+
+def test_trainer_gives_the_dropout_modules_their_generators(tmp_path):
+    """The trainer's encoder generator reaches the QRNN (rnn_dropout
+    between its layers) and its head generator each MLPBlock (the heads'
+    dropout): a step draws no mask from torch's global generator, so two
+    trainers of one seed give the same losses whatever that generator's
+    state."""
+    from pase_tpu_torch.trainer import Trainer
+    fe = dict(FE, rnn_pool=True, rnn_dim=16, rnn_layers=2, rnn_dropout=0.3)
+    wk = json.loads(json.dumps(WORKERS))
+    for e in wk["regr"] + wk["cls"]:
+        e["dropout"] = 0.2
+    raw = {k: v[:2] for k, v in _batches(1)[0].items()}
+    losses = []
+    for seed in (0, 1):
+        tr = Trainer(fe, wk, _cfg(tmp_path / f"t{seed}", batch_size=2),
+                     device="cpu")
+        assert tr.model.frontend.rnn.dropout_generator is \
+            tr.dropout_generator is not None
+        blocks = [m for m in tr.model.workers.modules()
+                  if hasattr(m, "dout")]
+        assert blocks and all(m.dropout_generator is tr.head_generator
+                              for m in blocks)
+        torch.manual_seed(seed)
+        losses.append({k: float(v) for k, v in tr.train_step(raw).items()})
+    assert losses[0] == losses[1]
+
+
+# ---------------------------------------------------------------------------
+# the stream with affinorm FeBlocks (per-push statistics, as in JAX)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sizes", [[4000, 4000, 8000], [1000, 777, 13, 5000,
+                                                       9210]],
+                         ids=["even", "uneven"])
+def test_affinorm_stream_matches_the_jax_stream(sizes):
+    """The JAX stream admits affinorm FeBlocks without norm_out and
+    normalizes each push's frames on their own: the port's stream emits
+    the same frames per push (atol = rtol = 2e-5). Per-push statistics
+    are not the offline encoder's (the offline forward normalizes over
+    the whole utterance): the streamed result differs from it."""
+    import jax.numpy as jnp
+    from pase_tpu.streaming import StreamingEncoder as JaxStream
+    from pase_tpu_torch import streaming
+    from test_torch_streaming import CFG, _emissions, _np, _pair, _wav
+    jenc, port = _pair(dict(CFG, norm_type="affinorm", norm_out=False))
+    assert any(type(m).__name__ == "InstanceNorm1d" and m.weight is not None
+               for m in port.modules())
+    wav = _wav(2, sum(sizes), seed=3)
+    want = _emissions(JaxStream(jenc), jnp.asarray(wav), sizes, _np)
+    got = _emissions(streaming.StreamingEncoder(port), wav, sizes, _np)
+    assert [None if p is None else p.shape for p in got] == \
+        [None if p is None else p.shape for p in want]
+    for g, w in zip(got, want):
+        if w is not None:
+            np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
+    with torch.no_grad():
+        off = port(torch.from_numpy(wav)).transpose(1, 2).numpy()
+    cat = np.concatenate([g for g in got if g is not None], axis=2)
+    assert cat.shape == off.shape and not np.allclose(cat, off, atol=1e-3)

@@ -144,15 +144,20 @@ def test_birnn_is_torch_rnn_in_its_layout(cell):
 
 
 def test_birnn_dropout_between_layers_only():
-    """Train-mode dropout (torch's, from the global RNG) falls between
-    layers, so two seeds differ and one seed repeats; eval ignores it; one
-    layer has none."""
+    """Train-mode dropout falls between layers, its masks drawn from the
+    module's dropout_generator (not torch's global RNG): two seeds differ,
+    one seed repeats whatever the global RNG does; with p = 0 the
+    layer-by-layer path is the one cuDNN-style call; eval ignores it; one
+    layer has none; no generator raises."""
     pm = BiRNN(6, 5, layers=2, cell="lstm", dropout=0.5).train()
     x = torch.from_numpy(np.random.RandomState(5).randn(2, 9, 6)
                          .astype(np.float32))
+    gen = torch.Generator()
+    pm.dropout_generator = gen
 
     def run(seed):
-        torch.manual_seed(seed)
+        gen.manual_seed(seed)
+        torch.manual_seed(seed + 100)
         with torch.no_grad():
             return pm(x)
 
@@ -160,9 +165,16 @@ def test_birnn_dropout_between_layers_only():
     assert torch.equal(run(0), run(0))
     with torch.no_grad():
         assert torch.equal(pm.eval()(x), pm(x))
+        whole = pm.train()._run(x, pm._flat_weights, 2)
+        pm.dropout = 1e-30
+        torch.testing.assert_close(pm(x), whole, rtol=1e-6, atol=1e-7)
+        pm.dropout = 0.5
     one = BiRNN(6, 5, layers=1, cell="lstm", dropout=0.5)
     with torch.no_grad():
         assert torch.equal(one.train()(x), one.eval()(x))
+    pm.dropout_generator = None
+    with pytest.raises(ValueError, match="torch.Generator"):
+        pm(x)
 
 
 def test_unknown_rnn_type_raises():

@@ -420,9 +420,28 @@ def test_make_contaminated_matches_jax(tmp_path, capsys, monkeypatch):
         util_scripts.main(argv + ["--out_dir", str(tmp_path / "q")])
 
 
-def test_encode_codec2_names_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        util_scripts.main(["encode-codec2", str(tmp_path), str(tmp_path / "o"),
-                           "--kbps", "1300", "--num_workers", "2"])
+def test_encode_codec2_runs_and_keeps_the_jax_defaults(tmp_path):
+    """encode-codec2 writes each wav of the directory, under its name,
+    through the codec2 round trip at --kbps (tests/
+    test_torch_host_distortions.py holds it to the JAX tool byte for
+    byte); its parser keeps the JAX tool's defaults."""
+    from pase_tpu_torch.data.host_distortions import Codec2RoundTrip
+    rng = np.random.RandomState(4)
+    (tmp_path / "in").mkdir()
+    for i in range(2):
+        write_wav(str(tmp_path / "in" / f"u{i}.wav"), rng.randn(8000) * 0.1)
+    n = util_scripts.main(["encode-codec2", str(tmp_path / "in"),
+                           str(tmp_path / "o"), "--kbps", "1300",
+                           "--num_workers", "2"])
+    assert n == 2 and sorted(os.listdir(tmp_path / "o")) == ["u0.wav",
+                                                             "u1.wav"]
+    c2 = Codec2RoundTrip(kbps=1300)
+    for i in range(2):
+        x, _ = read_wav(str(tmp_path / "in" / f"u{i}.wav"))
+        want = (np.clip(c2(x).astype(np.float64), -1, 1)
+                * 32767.0).astype("<i2")
+        got, _ = read_wav(str(tmp_path / "o" / f"u{i}.wav"))
+        np.testing.assert_array_equal(got * 32768, want)
+        assert not np.array_equal(got, x)
     opts = _opts(["encode-codec2", "in", "out"])
     assert (opts.kbps, opts.num_workers) == (1600, 8)

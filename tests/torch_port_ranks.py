@@ -151,8 +151,8 @@ def train_steps(rank, world, fe_cfg, wk_cfg, cfg, variables, batches,
 
 
 def collectives(rank, world):
-    """The mesh helpers' results on this rank, and the Trainer's refusal
-    of the attention variant."""
+    """The mesh helpers' results on this rank (global_mean of its two
+    rows of a 4-row batch, within and outside a row_shard)."""
     import torch
     from pase_tpu_torch.parallel import mesh
     x = torch.arange(3, dtype=torch.float32) + 10 * rank
@@ -164,14 +164,14 @@ def collectives(rank, world):
     with torch.no_grad():
         lin.weight.fill_(rank)
     mesh.replicate(lin)
-    from pase_tpu_torch.trainer import Trainer
-    try:
-        Trainer({}, {}, {"att_cfg": "cfg/attention.cfg", "batch_size": 4},
-                device="cpu")
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    return {"att_refused": refused, "sum": _np(s[0]), "sum2": _np(s[1]), "mean": _np(m[0]),
+    g = mesh.RowShard(2 * rank, 2 * rank + 2, 4)
+    rows = torch.arange(8, dtype=torch.float32).view(4, 2)[2 * rank:
+                                                            2 * rank + 2]
+    with mesh.row_shard(g):
+        gmean = mesh.global_mean(rows)
+    return {"global_mean": _np(gmean), "local_mean": _np(
+        mesh.global_mean(rows)), "sum": _np(s[0]), "sum2": _np(s[1]),
+            "mean": _np(m[0]),
             "gather": _np(mesh.gather(x)), "world": mesh.world(),
             "rank": mesh.rank(), "replicated": _np(lin.weight),
             "dict": {k: float(v) for k, v in mesh.all_reduce_dict(
