@@ -49,7 +49,7 @@ Phases, each printed as it ends; any failure exits non-zero:
                (leaves above 1e-3 of their group's largest). Then the
                training CLI, ``python -m pase_tpu_torch.train
                --synthetic`` at batch 32 x 32000 for one epoch (CLI_STEPS
-               steps, a 2-batch eval, FE_e0.npz), and a torch.profiler
+               steps, a 1-batch eval, FE_e0.npz), and a torch.profiler
                split of three further steps.
   8. train-dist — bench.py's step (pase_tpu_torch/bench.py's build and
                measure): PASE+ / workers+ at batch 32 x 32000 with ZNorm
@@ -165,8 +165,8 @@ Phases, each printed as it ends; any failure exits non-zero:
                encoder where the codes agree (codes may differ only at the
                offline encoder's ties; counted); ms per 1 s push at B=1
                and a steady push profiled as in phase 13;
-               export (buckets 8000-64000, a 16000 streaming chunk) and
-               serve-encode over the four wavs within 2e-5 of forward-chunk
+               export (buckets 32000 and 64000, a 16000 streaming chunk)
+               and serve-encode over the four wavs within 2e-5 of forward-chunk
                --chunk_size 64000, the streaming artifact bit for bit
                equal to the in-process stream.
  18. gan     — the GAN workers: (a) one full-width PASE+ / workers+ step
@@ -200,14 +200,16 @@ Phases, each printed as it ends; any failure exits non-zero:
                weights saved as a native .npz: utt with
                recipes/probes/run_spkid_minivox.sh's flags over the whole
                corpus (its MLP's training time apart), knn, kfold --folds
-               5, and frames and timit-full (cfg/probes/MLP_PASE.cfg, 4
+               3, and frames and timit-full (cfg/probes/MLP_PASE.cfg, 4
                epochs, decoder.cfg with a fake decode_dnn.sh: rc 0, its
                WER read back) on a TIMIT-shaped corpus of 36 utterances;
                (d) the training CLI with --sup_exec over 2 epochs at batch
                4 x 16000: after each, a knn probe on the card and one on
                the CPU (run_probe --device cpu), waited on, every return
                code 0; (e) ``python -m pase_tpu_torch.transfer_gate``
-               cut to GATE_EPOCHS epochs of the JAX record's 250 steps:
+               (a process of its own, run beside phases 10-11, which
+               time nothing) cut to GATE_EPOCHS epochs of the JAX
+               record's 250 steps:
                the random-init probe below 1 and the pretrained one above
                it, printed beside benchmarks/transfer_gate_r5.json (8
                epochs).
@@ -394,6 +396,26 @@ Phases, each printed as it ends; any failure exits non-zero:
                [96,200,512]: one seed bit for bit, the keep share within 5
                sd of 0.75, two ranks' rows of the one global draw bit for
                bit.
+ 27. n-model — column-parallel compute (--n_model, parallel/tp.py), held
+               to one one-process run of the step (phase 25's first batch
+               in float32, then bf16 steps: its rate): (a) that step on a
+               1 x 2 grid (two gloo ranks on the card holding the
+               parameters' column shards; the QRNN split by lanes, K2 at
+               [96,200,256] on each) against it by phase 25's rule for
+               step 1 (the PReLU masks assembled by rows and channels);
+               (b) the same
+               on a 2 x 2 grid (four ranks, 16 rows each: K2 at
+               [48,200,256]), then each rank's steady bf16 steps/s
+               (TP_RATE_STEPS after one warm-up); (c) ``python -m
+               pase_tpu_torch.train --n_model 2`` in two gloo processes
+               (--cli-rank) at 32 x 32000 bf16 for TP_CLI_STEPS steps
+               (K1's loop at [96,200,256] in its eval; each step logged:
+               the 1 x 2 grid's steady bf16 steps/s from its rows), its
+               checkpoint resumed in one process (strict) and its
+               FE_e0.npz that process's encoder bit for bit; (d) the
+               parameter and Adam bytes per rank of (a) and (b) against
+               one process's: the sharded leaves' 1 / n_model plus the
+               whole replicated ones.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -456,7 +478,10 @@ forward-chunk --time_shard (D = the visible cards) as the time shard;
 phase 26's CLI epochs with and without the host stage the training
 kernels once per layer per train step and qrnn_pool_fwd once per layer
 per eval step, encode-codec2 and the decoders none, the attention
-variant's ranks the training kernels once per layer per rank per step.
+variant's ranks the training kernels once per layer per rank per step;
+phase 27's grid steps (every rank) the training kernels once per layer
+per rank per step, its CLI once per layer per rank per train step and
+qrnn_pool_fwd once per layer per rank per eval step.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -475,7 +500,7 @@ eval_ckpts, cache_feats, and phase 24's kaldi_cli, kaldi_step,
 clusterize, project_features, prosodic_eval, and phase 25's dp_step,
 dp_cli, sharded_corpus, time_shard, time_shard_grad, time_shard_cli, and
 phase 26's host_stage_cli, host_stage_plain, encode_codec2, decoders,
-dp_attention:
+dp_attention, and phase 27's tp_step_1x2, tp_step_2x2, tp_cli:
 the steps the training kernels once per layer (MGD's per-worker
 gradients reuse the loss forward's graph: no second forward), the CLI
 runs once per layer per train step and qrnn_pool_fwd once per layer per
@@ -483,7 +508,9 @@ eval step); the QRNN kernels' entries also give their time, plain time
 and bound at phase 21's TDNN shape ("tdnn"), and the loop and K2 at the
 attention recipe's [48,200,512] ("attention") and at [64,200,512]
 ("regu"), and at the data-parallel step's per-rank [48,200,512] ("dp"),
-K2 at the attention variant's per-rank [24,200,512] ("dp_attention").
+K2 at the attention variant's per-rank [24,200,512] ("dp_attention"),
+and the loop and K2 at phase 27's lane shards [96,200,256] ("tp") and
+[48,200,256] ("tp_2x2").
 No other path launches a conv kernel. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
@@ -512,7 +539,7 @@ V01_WORKERS = os.path.join(HERE, "cfg", "workers", "workers.cfg")
 KERNEL_ATOL = 1e-5
 # the steps of every --synthetic training CLI epoch in this run (the CLI's
 # own default is 100; the eval takes a tenth, at least one batch)
-CLI_STEPS = 20
+CLI_STEPS = 10
 ENCODER_REL = 2e-4
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
@@ -530,11 +557,22 @@ FWD_OPS, BWD_OPS = 14, 25
 # recipe's step), at batch 16 x 3360 samples (21 frames, phase 20's cut
 # CLI, which also runs K1's loop there in eval), and the TDNN recipe's
 # 64 x 32000 (emb_dim 256; phase 21, which also runs K1's loop there in
-# eval)
+# eval), and phase 27's lane shards (TP_SHAPES)
 TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (48, 200, 512),
-                     (48, 21, 512), (192, 200, 256), (64, 200, 512)]
+                     (48, 21, 512), (192, 200, 256), (64, 200, 512),
+                     (96, 200, 256), (48, 200, 256)]
 TRAIN_SHAPE = (96, 200, 512)
 TRAIN_BATCH, TRAIN_CHUNK = 32, 32000
+# phase 27: the grids {name: (processes, n_model)} of PASE+ / workers+ at
+# TRAIN_BATCH x TRAIN_CHUNK, their per-rank K2 / K1 shapes (3 streams x
+# the data index's rows, rnn_dim 512 / n_model lanes), the bf16 steps a
+# rank times after one warm-up, the CLI's n_model and its epoch's steps
+# (every column layer's channels cross the gloo loopback between the ranks
+# sharing the card: a step takes seconds)
+TP_GRIDS = {"1x2": (2, 2), "2x2": (4, 2)}
+TP_SHAPES = {"1x2": (96, 200, 256), "2x2": (48, 200, 256)}
+TP_RATE_STEPS = 1
+TP_CLI_MODEL, TP_CLI_STEPS = 2, 2
 # phase 25: two ranks share the card (gloo); a rank that runs longer fails
 DP_RANKS = 2
 DP_TIMEOUT = 300
@@ -572,11 +610,13 @@ TS_GRAD_ATOL, TS_GRAD_RTOL = 1e-5, 1e-4
 # route's limit (cuda_qrnn.CHUNKED_LANES), 48 x 21, the eval of phase
 # 20's cut WaveRNN CLI, and phase 21's TDNN shapes at H = 256: the serving
 # batch and the recipe's eval, and phase 22's 4 x 16 rows (the attention
-# recipe's batch with a regularizer's fourth stream)
+# recipe's batch with a regularizer's fourth stream), and phase 27's lane
+# shards
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
                (32, 200, 512), (48, 200, 512), (48, 21, 512),
-               (8, 1000, 256), (192, 200, 256), (64, 200, 512)]
+               (8, 1000, 256), (192, 200, 256), (64, 200, 512),
+               (96, 200, 256), (48, 200, 256)]
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
@@ -605,6 +645,9 @@ SERVE_TOL = 2e-5
 STREAM_SECONDS = 10
 STREAM_PUSHES = (("1 s", 16000), ("100 ms", 1600))
 EXPORT_BUCKETS = "8000,16000,32000,64000"
+# the VQ8192 artifact's buckets (phase 17; a window takes the smallest
+# bucket that holds it and its halo, exact at any set)
+VQ_EXPORT_BUCKETS = "32000,64000"
 EXPORT_CHUNK = 16000
 # a batch above the chunked route's lanes (40 x 512 >= 16384)
 EXPORT_WIDE_BATCH = 40
@@ -640,8 +683,9 @@ SUP_SPEAKERS = 4
 SUP_BATCH = 4
 # the transfer gate's pretraining: epochs of the JAX record's 250 steps
 # (the record has 8; at 4 the final margin has read +0.046 and +0.067
-# about its 0.05, so `ok` may read either way; the script checks the
-# pretrained probe above the random-init one)
+# about its 0.05, so `ok` may read either way; after 3 the curve has read
+# 0.929 to 0.958 against the random-init probe's 0.921; the script checks
+# the pretrained probe above the random-init one)
 GATE_EPOCHS, GATE_BPE = 4, 250
 # phase 20: the WaveRNN recipe and its worker cfg, the head at the cfg's
 # widths, the card-vs-CPU check's batch and samples and its logit bound,
@@ -698,7 +742,7 @@ OPT_LIVE_REL = 1e-4
 HEAD_OPTIONS = {"dropin": 0.2, "dropin_mode": "fixed_rand",
                 "ratio_fixed": 0.5, "tie_context_weights": True,
                 "context": 3, "dropout_time": 0.1}
-STEP_RATE_ROUNDS = 2
+STEP_RATE_ROUNDS = 1
 # phase 23: the AMI recipe; the seeded meeting tree (about half an hour
 # of headset segments), its distant channels and the LibriSpeech part's
 # seconds; the shorter epochs keep every AMI_CUT-th utterance; the
@@ -1225,6 +1269,14 @@ def phase_kernel_train():
         del y, c0, dh, dct, c
     torch.cuda.empty_cache()
     return rows
+
+
+def _state_bytes(tr):
+    """(parameter bytes, Adam moment bytes) a trainer's process holds."""
+    params = sum(p.numel() * p.element_size() for p in tr.model.parameters())
+    moments = sum(v.numel() * v.element_size() for st in tr.opt.state.values()
+                  for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    return params, moments
 
 
 def _grads(model):
@@ -2886,7 +2938,7 @@ def phase_variants_serve():
         common = ["--fe_cfg", VQ_CFG, "--fe_ckpt", npz]
         export_s = _cli_seconds(
             ["export", "--device", "cuda", "--out_dir", art, "--chunk_sizes",
-             EXPORT_BUCKETS, "--streaming_chunk", str(EXPORT_CHUNK)]
+             VQ_EXPORT_BUCKETS, "--streaming_chunk", str(EXPORT_CHUNK)]
             + common)
         lst = ["--wav_list", os.path.join(tmp, "list.txt"), "--files_root",
                tmp]
@@ -2919,7 +2971,7 @@ def phase_variants_serve():
         swant = stream_frames(enc, torch.from_numpy(w).cuda(),
                               EXPORT_CHUNK).cpu().numpy()
         ssame = sgot.shape == swant.shape and np.array_equal(sgot, swant)
-        print(f"[variants-serve] VQ8192 export (buckets {EXPORT_BUCKETS}, "
+        print(f"[variants-serve] VQ8192 export (buckets {VQ_EXPORT_BUCKETS}, "
               f"streaming chunk {EXPORT_CHUNK}) {export_s:.2f} s; "
               f"serve-encode {len(lengths)} requests {serve_s:.3f} s, max|"
               f"serve - forward-chunk| {worst:.3e} (bound {SERVE_TOL}); "
@@ -3048,9 +3100,10 @@ def _probe_run(argv, what, layers, n_utts, paths, path):
     return metrics, wall, sum(fit_s)
 
 
-def phase_probes(tmp):
+def phase_probes(tmp, gate):
     """Phase 19: the downstream probes, the superviser and the transfer
-    gate on the card. Returns {path: launch counts}."""
+    gate on the card (``gate``: its process's result, ``_gate_join``).
+    Returns {path: launch counts}."""
     import torch
     from pase_tpu_torch import train as train_cli
     from pase_tpu_torch import transfer_gate, wf_builder
@@ -3139,10 +3192,10 @@ def phase_probes(tmp):
         for s in ("train", "test"):
             f.write(open(os.path.join(corpus, f"{s}.lst")).read())
     m, wall, fit_s = _probe_run(
-        ["kfold", "--folds", "5"] + common
+        ["kfold", "--folds", "3"] + common
         + ["--train_list", os.path.join(corpus, "all.lst")],
         "probe kfold", layers, n_utts, paths, "probe_kfold")
-    print(f"[probes] run_probe kfold --folds 5: {wall:.1f} s, training "
+    print(f"[probes] run_probe kfold --folds 3: {wall:.1f} s, training "
           f"{fit_s:.1f} s; sentence acc {m['sentence_acc_mean']:.4f} +- "
           f"{m['sentence_acc_std']:.4f}")
     timit = os.path.join(tmp, "timit")
@@ -3234,17 +3287,12 @@ def phase_probes(tmp):
     torch.cuda.empty_cache()
 
     # (e) the transfer gate, cut to GATE_EPOCHS of the JAX record's epochs
-    gate_json = os.path.join(tmp, "gate.json")
-    reset_launches()                     # the gate's path starts here
-    t0 = time.perf_counter()
-    rc = transfer_gate.main(["--workdir", os.path.join(tmp, "gate"),
-                             "--json", gate_json, "--epochs",
-                             str(GATE_EPOCHS), "--bpe", str(GATE_BPE)])
-    _sync("cuda")
-    paths["transfer_gate"] = read_launches()   # ... and ends here
-    gate_s = time.perf_counter() - t0
-    with open(gate_json) as f:
-        gate = json.load(f)
+    # (run beside phases 10-11: gate_child)
+    for line in gate["lines"]:
+        print(line)
+    rc, gate_s = gate["rc"], gate["seconds"]
+    paths["transfer_gate"] = gate["launches"]
+    gate = gate["json"]
     with open(os.path.join(HERE, "benchmarks", "transfer_gate_r5.json")) as f:
         ref = json.load(f)
     print(f"[gate] python -m pase_tpu_torch.transfer_gate ({gate['epochs']}"
@@ -3270,6 +3318,55 @@ def phase_probes(tmp):
     check(all(v == 0 for v in paths["transfer_gate"].values()),
           f"the gate's encoder has no QRNN: {paths['transfer_gate']}")
     return paths
+
+
+def gate_child(tmp, out):
+    """Phase 19 (e) in a process of its own: ``python -m
+    pase_tpu_torch.transfer_gate`` cut to GATE_EPOCHS; its rc, launch
+    counts and seconds go to ``out`` (JSON)."""
+    import torch
+    from pase_tpu_torch import transfer_gate
+    reset_launches()                     # the gate's path starts here
+    t0 = time.perf_counter()
+    rc = transfer_gate.main(["--workdir", os.path.join(tmp, "gate"),
+                             "--json", os.path.join(tmp, "gate.json"),
+                             "--epochs", str(GATE_EPOCHS), "--bpe",
+                             str(GATE_BPE)])
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": read_launches(),  # ... and ends
+                   "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def _gate_start(tmp):
+    """The transfer gate's process (``gate_child``), started after phase
+    9: it runs beside phases 10-11, which time nothing, and the host's
+    and the card's share of it does not touch their checks."""
+    os.makedirs(tmp, exist_ok=True)
+    out = os.path.join(tmp, "gate_result.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gate", tmp, out],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    _CHILDREN.append(proc)
+    return tmp, proc, out
+
+
+def _gate_join(started):
+    """The gate's result: {'rc', 'launches', 'seconds', 'json' (its
+    record), 'lines' (its [transfer] lines)}."""
+    tmp, proc, out = started
+    text = proc.communicate(timeout=900)[0]
+    check(proc.returncode == 0, f"the gate's process exited "
+          f"{proc.returncode}: {text[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    with open(os.path.join(tmp, "gate.json")) as f:
+        res["json"] = json.load(f)
+    res["lines"] = [line for line in text.splitlines()
+                    if line.startswith("[transfer]")]
+    return res
 
 
 def _rnn_encoder_cfg(tmp, rnn_type):
@@ -5063,25 +5160,44 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _ranks(mode, spec, tmp):
-    """DP_RANKS processes of this script in ``mode`` (--dp-step: the
+# the processes this script started and has not joined yet: main() ends
+# any still running when a phase fails
+_CHILDREN = []
+
+
+def _ranks(mode, spec, tmp, world=DP_RANKS):
+    """``world`` processes of this script in ``mode`` (--dp-step: the
     trainer's step; --cli-rank: the training CLI), gloo ranks on the one
     card, joined on a free loopback port. A rank that exits non-zero or
     outlives DP_TIMEOUT fails the phase. Returns [(its result, its
     output)] in rank order."""
+    return _join_ranks(_start_ranks(mode, spec, tmp, world))
+
+
+def _start_ranks(mode, spec, tmp, world=DP_RANKS):
+    """``_ranks``'s processes, started; ``_join_ranks`` waits for them."""
     import pickle
     os.makedirs(tmp, exist_ok=True)
     spec_path = os.path.join(tmp, "spec.pkl")
     with open(spec_path, "wb") as f:
         pickle.dump(spec, f)
     port = str(_free_port())
-    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(DP_RANKS)]
+    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(world)]
     env = dict(os.environ, PASE_TORCH_DIST_BACKEND="gloo")
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), mode, spec_path, str(r),
-         str(DP_RANKS), port, outs[r]], cwd=HERE, env=env,
+         str(world), port, outs[r]], cwd=HERE, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(DP_RANKS)]
+        for r in range(world)]
+    _CHILDREN.extend(procs)
+    return mode, procs, outs
+
+
+def _join_ranks(started):
+    """[(result, output)] of ``_start_ranks``'s processes, in rank
+    order."""
+    import pickle
+    mode, procs, outs = started
     texts = []
     try:
         for p in procs:
@@ -5117,10 +5233,12 @@ def _dp_batches(batch=TRAIN_BATCH):
 
 
 def dp_child(mode, spec_path, rank, world, port, out):
-    """A rank of phase 25: --dp-step runs the trainer's two steps on its
-    rows (recording its PReLU signs, its step-1 gradient on rank 0, its
-    losses and step ms); --cli-rank runs the training CLI. Each returns
-    its launch counts."""
+    """A rank of phases 25-27: --dp-step runs the trainer's two steps on
+    its rows (recording its PReLU signs, its step-1 gradient, gathered
+    whole under the cfg's n_model, on rank 0, its losses and step ms),
+    then ``spec['rate_steps']`` timed bf16 steps after one warm-up, and
+    gives its parameter and Adam bytes; --cli-rank runs the training CLI.
+    Each returns its launch counts."""
     import pickle
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5130,7 +5248,7 @@ def dp_child(mode, spec_path, rank, world, port, out):
     reset_launches()
     if mode == "--cli-rank":
         from pase_tpu_torch import train as train_cli
-        train_cli.SYNTHETIC_BPE = CLI_STEPS
+        train_cli.SYNTHETIC_BPE = spec.get("steps", CLI_STEPS)
         tr = train_cli.main(spec["argv"] + [
             "--coordinator_address", f"127.0.0.1:{port}",
             "--num_processes", str(world), "--process_id", str(rank)])
@@ -5140,8 +5258,10 @@ def dp_child(mode, spec_path, rank, world, port, out):
     else:
         import torch.distributed as dist
         from pase_tpu_torch.grad_parity import prelu_signs
+        from pase_tpu_torch.parallel import tp
         from pase_tpu_torch.parallel.mesh import (host_batch_slice,
                                                   init_distributed)
+        from pase_tpu_torch.precision import resolve
         from pase_tpu_torch.trainer import Trainer
         assert init_distributed(f"127.0.0.1:{port}", world, rank,
                                 device="cuda", backend="gloo")
@@ -5158,13 +5278,29 @@ def dp_child(mode, spec_path, rank, world, port, out):
             ms.append(1e3 * (time.perf_counter() - t0))
             losses.append({k: float(v) for k, v in out_i.items()})
             if i == 0:
-                # an attention block's scoring MLP has no gradient: zeros
-                grads = _grads(tr.model) if rank == 0 else None
+                # an attention block's scoring MLP has no gradient: zeros;
+                # the leaves held as parts gathered whole (every rank)
+                specs, grads = tp.leaf_specs(tr.model), None
+                if rank == 0 or specs:
+                    grads = tp.full_tensors(_grads(tr.model), specs)
+                grads = grads if rank == 0 else None
                 running = {k: b.double().cpu() for k, b in
                            tr.model.named_buffers()
                            if k.endswith("running_dist")}
+        rate_ms = []
+        if spec.get("rate_steps"):
+            tr.compute_dtype = resolve("bfloat16")
+            for i in range(spec["rate_steps"] + 1):
+                local = {k: v[sl] for k, v in
+                         spec["batches"][i % len(spec["batches"])].items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(local)
+                torch.cuda.synchronize()
+                rate_ms.append(1e3 * (time.perf_counter() - t0))
         result = {"losses": losses, "ms": ms, "grads": grads,
-                  "running": running,
+                  "running": running, "rate_ms": rate_ms[1:],
+                  "bytes": _state_bytes(tr),
                   "signs": {k: (np.packbits((x > 0).numpy()), tuple(x.shape))
                             for k, x in record.items()}}
         dist.destroy_process_group()
@@ -5174,20 +5310,28 @@ def dp_child(mode, spec_path, rank, world, port, out):
     return 0
 
 
-def _global_signs(ranks, batch=TRAIN_BATCH):
+def _global_signs(ranks, batch=TRAIN_BATCH, n_model=1, channels=None):
     """The one-process PReLU masks of the ranks' signs: a module's input
-    holds k blocks of each rank's rows side by side (the encoder's chunk,
-    ctxt and rand; a MI head's positives and negatives), put back in the
-    global batch's order."""
+    holds k blocks of each data rank's rows side by side (the encoder's
+    chunk, ctxt and rand; a MI head's positives and negatives), put back
+    in the global batch's order; on a grid of ``n_model`` model ranks a
+    column-parallel module's input is its rank's channels (axis 1; fewer
+    than the one process's ``channels[name]``), put side by side, a
+    replicated one's is whole on each."""
     import torch
-    per = batch // DP_RANKS
+    per = batch // (len(ranks) // n_model)
     masks = {}
     for name in ranks[0]["signs"]:
         parts = []
-        for res in ranks:
-            bits, shape = res["signs"][name]
-            n = int(np.prod(shape))
-            parts.append(np.unpackbits(bits)[:n].astype(bool).reshape(shape))
+        for d in range(len(ranks) // n_model):
+            group = []
+            for res in ranks[d * n_model:(d + 1) * n_model]:
+                bits, shape = res["signs"][name]
+                n = int(np.prod(shape))
+                group.append(np.unpackbits(bits)[:n].astype(bool).reshape(
+                    shape))
+            column = n_model > 1 and group[0].shape[1] != channels[name]
+            parts.append(np.concatenate(group, 1) if column else group[0])
         k = parts[0].shape[0] // per
         masks[name] = torch.from_numpy(np.concatenate(
             [p[s * per:(s + 1) * per] for s in range(k) for p in parts]))
@@ -5198,46 +5342,101 @@ def _dp_step(tmp):
     """(a): two gloo ranks on the card, each 16 of the 32 x 32000 rows,
     two steps; against the one-process step on the card."""
     return _dp_compare(tmp, _dp_cfg(os.path.join(tmp, "ranks")),
-                       _dp_batches(), "(a) data-parallel step", "dp_step")
+                       _dp_batches(), "(a) data-parallel step", "dp_step")[0]
 
 
-def _dp_compare(tmp, cfg, batches, what, path):
-    """Two gloo ranks on the card, each half the rows of ``batches``
-    (cfg['batch_size'] rows each), two steps of PASE+ / workers+ under
-    ``cfg``; against the one-process step on the card: per-worker losses,
-    the ranks' losses bit for bit, rank 0's all-reduced step-1 gradient
-    with the one process's PReLUs on the ranks' side of the kink, any
-    attention block's running_dist after step 1 (1e-6). Returns the
-    ranks' summed launches."""
+def _one_process(tmp, cfg, batches, rate_steps=0, n_models=()):
+    """The one-process step on the card that phases 25-27 hold their ranks
+    to: two steps of PASE+ / workers+ under ``cfg`` on ``batches`` (the
+    PReLU inputs of step 1 recorded), then with ``rate_steps`` that many
+    timed bf16 steps after one warm-up; {'losses', 'ms', 'x', 'grads' (step
+    1's), 'running', 'names', 'layers', 'rate_ms', 'bytes', 'want_bytes'
+    ({n_model: a rank's parameter bytes: a leaf the rule shards 1 /
+    n_model, a replicated one whole})}."""
+    import torch
+    from pase_tpu_torch.grad_parity import prelu_signs
+    from pase_tpu_torch.parallel import tp
+    from pase_tpu_torch.precision import resolve
+    from pase_tpu_torch.trainer import Trainer
+    one = Trainer(PASEP_CFG, WORKERSP_CFG, dict(
+        cfg, n_model=1, save_path=os.path.join(tmp, "one")), device="cuda")
+    ref = {"x": {}, "losses": [], "ms": [], "rate_ms": [],
+           "names": one.ordered_names,
+           "layers": len(one.model.frontend.rnn.layers)}
+    for i, raw in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prelu_signs(one.model, record=ref["x"] if i == 0 else None):
+            out = one.train_step(raw)
+        torch.cuda.synchronize()
+        ref["ms"].append(1e3 * (time.perf_counter() - t0))
+        ref["losses"].append({k: float(v) for k, v in out.items()})
+        if i == 0:
+            ref["grads"] = _grads(one.model)
+            ref["running"] = {k: b.double().cpu() for k, b in
+                              one.model.named_buffers()
+                              if k.endswith("running_dist")}
+    if rate_steps:
+        one.compute_dtype = resolve("bfloat16")
+        for i in range(rate_steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.train_step(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            ref["rate_ms"].append(1e3 * (time.perf_counter() - t0))
+        ref["rate_ms"] = ref["rate_ms"][1:]
+    ref["bytes"] = _state_bytes(one)
+    ref["want_bytes"] = {}
+    for n in n_models:
+        sharded = tp.rule_sharded(one.model, n)
+        ref["want_bytes"][n] = sum(
+            p.numel() * p.element_size() // (n if k in sharded else 1)
+            for k, p in one.model.named_parameters())
+    del one
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _dp_spec(cfg, batches, rate_steps=0):
+    return {"cfg": cfg, "batches": batches, "rate_steps": rate_steps}
+
+
+def _dp_compare(tmp, cfg, batches, what, path, world=DP_RANKS,
+                rate_steps=0, ref=None, joined=None):
+    """``world`` gloo ranks on the card (a grid of cfg['n_model'] model
+    ranks, default 1: each data rank its share of the rows of
+    ``batches``, cfg['batch_size'] rows each), two steps of PASE+ /
+    workers+ under ``cfg``; against the one-process step on the card:
+    per-worker losses, every rank's losses bit for bit, rank 0's
+    all-reduced (and gathered) step-1 gradient with the one process's
+    PReLUs on the ranks' side of the kink, any attention block's
+    running_dist after step 1 (1e-6). With ``rate_steps`` each rank then
+    times that many bf16 steps after one warm-up. ``ref``: the one
+    process's run (``_one_process``), made here when None; ``joined``:
+    the ranks' (result, output) when the caller ran them
+    (``_start_ranks`` of ``_dp_spec``). Returns (the ranks' summed
+    launches, the ranks' results)."""
     import torch
     from pase_tpu_torch.grad_parity import (group_errors, prelu_signs,
                                             worst_leaves)
     from pase_tpu_torch.trainer import Trainer
     batch = cfg["batch_size"]
-    ranks = [r for r, _ in _ranks("--dp-step", {"cfg": cfg,
-                                                "batches": batches},
-                                  os.path.join(tmp, "ranks"))]
+    n_model = cfg.get("n_model", 1)
+    if joined is None:
+        joined = _ranks("--dp-step", _dp_spec(cfg, batches, rate_steps),
+                        os.path.join(tmp, "ranks"), world)
+    ranks = [r for r, _ in joined]
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
-    one = Trainer(PASEP_CFG, WORKERSP_CFG, dict(cfg, save_path=os.path.join(
-        tmp, "one")), device="cuda")
-    signed = Trainer(PASEP_CFG, WORKERSP_CFG, dict(cfg, save_path=os.path.join(
-        tmp, "signed")), device="cuda")
-    x_one, one_losses, one_ms = {}, [], []
-    for i, raw in enumerate(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with prelu_signs(one.model, record=x_one if i == 0 else None):
-            out = one.train_step(raw)
-        torch.cuda.synchronize()
-        one_ms.append(1e3 * (time.perf_counter() - t0))
-        one_losses.append({k: float(v) for k, v in out.items()})
-        if i == 0:
-            natural = _grads(one.model)
-            running = {k: b.double().cpu() for k, b in
-                       one.model.named_buffers()
-                       if k.endswith("running_dist")}
-    masks = _global_signs(ranks, batch)
+    if ref is None:
+        ref = _one_process(tmp, cfg, batches)
+    x_one, one_losses, one_ms = ref["x"], ref["losses"], ref["ms"]
+    natural, running = ref["grads"], ref["running"]
+    signed = Trainer(PASEP_CFG, WORKERSP_CFG, dict(
+        cfg, n_model=1, save_path=os.path.join(tmp, "signed")),
+        device="cuda")
+    masks = _global_signs(ranks, batch, n_model,
+                          {k: x.shape[1] for k, x in x_one.items()})
     with prelu_signs(signed.model, force=masks):
         signed.train_step(batches[0])
     g_dp = ranks[0]["grads"]
@@ -5251,27 +5450,31 @@ def _dp_compare(tmp, cfg, batches, what, path):
     nat_err = group_errors(g_dp, natural)
     grad_err = group_errors(g_dp, _grads(signed.model))
     worst = worst_leaves(g_dp, _grads(signed.model), n=3)
+    n_steps = len(batches)
     loss_err = [{k: abs(ranks[0]["losses"][i][k] - one_losses[i][k])
-                 / abs(one_losses[i][k]) for k in one.ordered_names}
-                for i in range(2)]
-    same = all(ranks[0]["losses"][i] == ranks[1]["losses"][i]
-               for i in range(2))
+                 / abs(one_losses[i][k]) for k in ref["names"]}
+                for i in range(n_steps)]
+    same = all(r["losses"][i] == ranks[0]["losses"][i]
+               for r in ranks[1:] for i in range(n_steps))
     run_err = max([(r["running"][k] - v).abs().max().item()
                    for r in ranks for k, v in running.items()], default=0.0)
     check(all(set(r["running"]) == set(running) for r in ranks),
           f"{what}: running_dist buffers differ")
-    print(f"[parallel] {what}, 2 gloo ranks on one card "
+    grid = (f"a {world // n_model} x {n_model} grid of " if n_model > 1
+            else "")
+    print(f"[parallel] {what}, {grid}{world} gloo ranks on one card "
           f"(PASE+, workers+{', ' + os.path.relpath(cfg['att_cfg'], HERE) if cfg.get('att_cfg') else ''}, "
           f"global batch {batch} x {TRAIN_CHUNK}, "
-          f"float32, TF32 off, random_scale): step ms rank 0 "
-          f"{', '.join(f'{t:.1f}' for t in ranks[0]['ms'])}, rank 1 "
-          f"{', '.join(f'{t:.1f}' for t in ranks[1]['ms'])}; one process "
+          f"float32, TF32 off, random_scale): step ms "
+          + ", ".join(f"rank {i} " + ", ".join(f"{t:.1f}" for t in r["ms"])
+                      for i, r in enumerate(ranks)) + "; one process "
           f"{', '.join(f'{t:.1f}' for t in one_ms)} (first steps, no "
           f"bound); per-worker |loss_dp - loss_one| / |loss_one|, step 1: "
           + ", ".join(f"{k} {v:.2e}" for k, v in loss_err[0].items())
-          + f" (bound {TRAIN_LOSS_REL}); step 2 max "
-          f"{max(loss_err[1].values()):.2e} (bound {DP_STEP2_REL}); the "
-          f"ranks' losses bit for bit equal: {same}"
+          + f" (bound {TRAIN_LOSS_REL})"
+          + (f"; step 2 max {max(loss_err[1].values()):.2e} (bound "
+             f"{DP_STEP2_REL})" if n_steps > 1 else "")
+          + f"; the ranks' losses bit for bit equal: {same}"
           + (f"; {len(running)} running_dist buffers after step 1, max "
              f"|ranks - one process| {run_err:.2e} (bound "
              f"{DP_RUNNING_ATOL})" if running else ""))
@@ -5285,11 +5488,12 @@ def _dp_compare(tmp, cfg, batches, what, path):
           + ", ".join(f"{g} {v:.2e}" for g, v in grad_err.items())
           + f" (bound {TRAIN_GRAD_REL}); worst leaves: " + "; ".join(
               f"{k} {a:.2e} of its max" for k, a, _, _ in worst))
-    check(same, f"{what}: the two ranks' losses differ")
+    check(same, f"{what}: the ranks' losses differ")
     check(all(v <= TRAIN_LOSS_REL for v in loss_err[0].values()),
           f"{what} step 1 losses beyond {TRAIN_LOSS_REL}: {loss_err[0]}")
-    check(all(v <= DP_STEP2_REL for v in loss_err[1].values()),
-          f"{what} step 2 losses beyond {DP_STEP2_REL}: {loss_err[1]}")
+    step2 = loss_err[1] if n_steps > 1 else {}
+    check(all(v <= DP_STEP2_REL for v in step2.values()),
+          f"{what} step 2 losses beyond {DP_STEP2_REL}: {step2}")
     check(far <= FLIP_REL, f"{what}: a PReLU input {far:.3e} of its "
           f"module's max from 0 has opposite signs in the ranks and one "
           f"process")
@@ -5297,17 +5501,18 @@ def _dp_compare(tmp, cfg, batches, what, path):
           f"{what} gradients beyond {TRAIN_GRAD_REL}: {grad_err}")
     check(run_err <= DP_RUNNING_ATOL,
           f"{what}: running_dist {run_err:.3e} from one process's")
-    layers = len(one.model.frontend.rnn.layers)
+    layers = ref["layers"]
+    steps = n_steps + (rate_steps + 1 if rate_steps else 0)
     expected = {**{k: 0 for k in launches},
-                "qrnn_pool_fwd_train": DP_RANKS * 2 * layers,
-                "qrnn_pool_bwd": DP_RANKS * 2 * layers}
+                "qrnn_pool_fwd_train": world * steps * layers,
+                "qrnn_pool_bwd": world * steps * layers}
     print(f"[launches] {path}: {launches} (expected {expected}: "
-          f"{DP_RANKS} ranks x 2 steps x {layers} QRNN layer(s))")
+          f"{world} ranks x {steps} steps x {layers} QRNN layer(s))")
     check(launches == expected, f"{path} launches {launches} != "
           f"{expected}")
-    del one, signed
+    del signed
     torch.cuda.empty_cache()
-    return launches
+    return launches, ranks
 
 
 def _dp_cli(tmp):
@@ -5755,9 +5960,171 @@ def phase_host_stage(tmp, common, synthetic_rate):
         tmp_dp, dict(_dp_cfg(os.path.join(tmp_dp, "ranks")),
                      batch_size=ATT_BATCH, att_cfg=ATT_CFG),
         _dp_batches(ATT_BATCH), "(d) the attention variant's step",
-        "dp_attention")
+        "dp_attention")[0]
     _dropout_masks()
     torch.cuda.empty_cache()
+    return paths
+
+
+def _tp_cfg(tmp, name):
+    return dict(_dp_cfg(os.path.join(tmp, "ranks")),
+                n_model=TP_GRIDS[name][1])
+
+
+def _tp_batches():
+    """The grids' compare step: phase 25's first batch."""
+    return _dp_batches()[:1]
+
+
+def _tp_start(tmp, name):
+    """The ranks of the grid ``name``, started (``_tp_step`` joins them)."""
+    world = TP_GRIDS[name][0]
+    rate_steps = 0 if name == "1x2" else TP_RATE_STEPS
+    return _start_ranks("--dp-step", _dp_spec(_tp_cfg(tmp, name),
+                                              _tp_batches(), rate_steps),
+                        os.path.join(tmp, "ranks"), world)
+
+
+def _tp_step(tmp, name, ref, joined):
+    """(a) / (b): PASE+ / workers+ on the grid ``name`` of TP_GRIDS against
+    the one process ``ref`` (phase 25's rule); (b)'s ranks then time
+    TP_RATE_STEPS bf16 steps after one warm-up ((a)'s bf16 rate is its
+    CLI's, (c)); (d) the bytes a rank holds. Returns the ranks' summed
+    launches."""
+    import statistics
+    world, n_model = TP_GRIDS[name]
+    part = "(a)" if name == "1x2" else "(b)"
+    rate_steps = 0 if name == "1x2" else TP_RATE_STEPS
+    launches, ranks = _dp_compare(
+        tmp, _tp_cfg(tmp, name), _tp_batches(),
+        f"{part} the {name} grid's step", f"tp_step_{name}", world=world,
+        rate_steps=rate_steps, ref=ref, joined=joined)
+    if rate_steps:
+        print(f"[n-model] {part} the {name} grid, bf16: steady steps/s per "
+              f"rank (the median of {rate_steps} after one warm-up; the "
+              f"{world} ranks share the card) " + ", ".join(
+                  f"{1e3 / statistics.median(r['rate_ms']):.3f}"
+                  for r in ranks)
+              + f"; one process {1e3 / statistics.median(ref['rate_ms']):.3f}"
+              f" (K2 at {list(TP_SHAPES[name])} per rank)")
+    params, moments = zip(*(r["bytes"] for r in ranks))
+    one_p, one_m = ref["bytes"]
+    want = ref["want_bytes"][n_model]
+    print(f"[n-model] (d) the {name} grid: parameter bytes per rank "
+          f"{list(params)} (expected {want}: a sharded leaf's 1 / {n_model}, "
+          f"a replicated one whole), Adam moment bytes {list(moments)}; one "
+          f"process {one_p} and {one_m}: {params[0] / one_p:.4f}x")
+    check(all(p == want for p in params),
+          f"{name}: a rank holds {params} parameter bytes, not {want}")
+    check(all(m == 2 * p for p, m in zip(params, moments)),
+          f"{name}: the Adam moments {moments} are not twice the parameters")
+    return launches
+
+
+def _tp_cli_start(tmp):
+    """(c)'s CLI ranks, started (``_tp_cli`` joins them)."""
+    argv = ["--synthetic", "--net_cfg", WORKERSP_CFG, "--fe_cfg", PASEP_CFG,
+            "--batch_size", str(TRAIN_BATCH), "--chunk_size",
+            str(TRAIN_CHUNK), "--compute_dtype", "bfloat16", "--epoch", "1",
+            "--log_freq", "1", "--save_path", os.path.join(tmp, "run"),
+            "--n_model", str(TP_CLI_MODEL)]
+    return time.perf_counter(), _start_ranks(
+        "--cli-rank", {"argv": argv, "steps": TP_CLI_STEPS},
+        os.path.join(tmp, "ranks"), TP_CLI_MODEL)
+
+
+def _tp_cli(tmp, ref, started):
+    """(c): the training CLI at --n_model TP_CLI_MODEL in gloo processes
+    (--cli-rank) for a TP_CLI_STEPS epoch (each step logged: a rank's bf16
+    steady step is the time from the second row to the last, (a)'s rate);
+    its checkpoint resumed in one process and its FE_e0.npz that
+    process's encoder bit for bit. Returns the ranks' summed launches."""
+    import math
+    import statistics
+    import torch
+    from pase_tpu_torch.frontend import wf_builder
+    from pase_tpu_torch.trainer import Trainer
+    save = os.path.join(tmp, "run")
+    t0, started = started
+    ranks = _join_ranks(started)
+    wall = time.perf_counter() - t0
+    launches = {k: sum(r["launches"][k] for r, _ in ranks)
+                for k in ranks[0][0]["launches"]}
+    res, text = ranks[0]
+    grid = f"mesh: {{'data': 1, 'model': {TP_CLI_MODEL}}}"
+    check(grid in text, f"tp_cli: rank 0 did not print {grid!r}")
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    vals = [v for r in recs if r["split"] in ("train", "eval")
+            for k, v in r.items() if k not in ("t", "split", "step")]
+    check(vals and all(math.isfinite(v) for v in vals),
+          "tp_cli: a logged loss is not finite")
+    rates = []
+    for rank, (_, out) in enumerate(ranks):
+        rows = recs if rank == 0 else _rank_rows(out, rank)
+        t = [r["t"] for r in rows if r["split"] == "train"]
+        rates.append((len(t) - 1) / (t[-1] - t[0]))
+    one = Trainer(PASEP_CFG, WORKERSP_CFG, _dp_cfg(save), device="cuda")
+    step = one.try_resume()
+    check(step == res["bpe"], f"tp_cli: one process resumed at {step}, not "
+          f"{res['bpe']}")
+    enc = wf_builder(PASEP_CFG, device="cuda")
+    enc.load_pretrained(os.path.join(save, "FE_e0.npz"))
+    mine = one.model.frontend.state_dict()
+    same = all(torch.equal(v, mine[k])
+               for k, v in enc.module.state_dict().items())
+    layers, steps, evals = res["layers"], res["bpe"], res["va_bpe"]
+    print(f"[n-model] (c) python -m pase_tpu_torch.train --synthetic "
+          f"--n_model {TP_CLI_MODEL} in {TP_CLI_MODEL} gloo processes on the "
+          f"card ({TRAIN_BATCH} x {TRAIN_CHUNK}, bf16, {steps} steps + "
+          f"{evals} eval): {wall:.1f} s; every logged loss finite; its "
+          f"checkpoint resumed in one process at step {step} (strict), "
+          f"FE_e0.npz that process's encoder bit for bit: {same}")
+    print(f"[n-model] (a) the 1x2 grid, bf16: steady steps/s per rank (its "
+          f"CLI's steps after the first; the {TP_CLI_MODEL} ranks share the "
+          "card) "
+          + ", ".join(f"{v:.3f}" for v in rates)
+          + f"; one process {1e3 / statistics.median(ref['rate_ms']):.3f} "
+          f"(K2 at {list(TP_SHAPES['1x2'])} per rank)")
+    check(same, "tp_cli: FE_e0.npz is not the resumed encoder")
+    expected = {**{k: 0 for k in launches},
+                "qrnn_pool_fwd_train": TP_CLI_MODEL * layers * steps,
+                "qrnn_pool_bwd": TP_CLI_MODEL * layers * steps,
+                "qrnn_pool_fwd": TP_CLI_MODEL * layers * evals}
+    print(f"[launches] tp_cli: {launches} (expected {expected})")
+    check(launches == expected, f"tp_cli launches {launches} != {expected}")
+    del one, enc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rank_rows(text, rank):
+    """The metric records a rank > 0 printed (``log.MetricLogger``)."""
+    tag = f"[rank {rank}] "
+    return [json.loads(line[len(tag):]) for line in text.splitlines()
+            if line.startswith(tag)]
+
+
+def phase_tp(tmp):
+    """Phase 27: column-parallel compute (--n_model) on gloo ranks sharing
+    the card, the grids held to one one-process run. Each set of ranks
+    starts while this process works on the last (the one-process run, a
+    comparison); the rates come from steps no other process shares.
+    Returns {path: launches}."""
+    import torch
+    tmps = {name: os.path.join(tmp, name) for name in TP_GRIDS}
+    started = _tp_start(tmps["1x2"], "1x2")
+    ref = _one_process(os.path.join(tmp, "one"),
+                       _dp_cfg(os.path.join(tmp, "one")), _tp_batches(),
+                       TP_RATE_STEPS, {n for _, n in TP_GRIDS.values()})
+    joined = _join_ranks(started)
+    started = _tp_start(tmps["2x2"], "2x2")
+    paths = {"tp_step_1x2": _tp_step(tmps["1x2"], "1x2", ref, joined)}
+    joined = _join_ranks(started)
+    cli = _tp_cli_start(os.path.join(tmp, "cli"))
+    paths["tp_step_2x2"] = _tp_step(tmps["2x2"], "2x2", ref, joined)
+    torch.cuda.empty_cache()
+    paths["tp_cli"] = _tp_cli(os.path.join(tmp, "cli"), ref, cli)
     return paths
 
 
@@ -5828,10 +6195,12 @@ def main():
         clock(8)
         convs = phase_conv()
         clock(9)
+        gate = _gate_start(os.path.join(tmp, "gate"))
         phase_trajectory(os.path.join(tmp, "trajectory"))
         torch.cuda.empty_cache()
         clock(10)
         phase_resume()
+        gate = _gate_join(gate)
         clock(11)
         _, disk_common = phase_disk(os.path.join(tmp, "disk"),
                                     dist_perf["bfloat16"]["steps_per_sec"])
@@ -5850,7 +6219,7 @@ def main():
         clock("16-17")
         paths.update(phase_gan(os.path.join(tmp, "gan")))
         clock(18)
-        paths.update(phase_probes(os.path.join(tmp, "probes")))
+        paths.update(phase_probes(os.path.join(tmp, "probes"), gate))
         clock(19)
         paths.update(phase_recurrent(os.path.join(tmp, "recurrent")))
         clock(20)
@@ -5871,10 +6240,16 @@ def main():
             os.path.join(tmp, "host_stage"), disk_common,
             dist_perf["bfloat16"]["steps_per_sec"]))
         clock(26)
+        paths.update(phase_tp(os.path.join(tmp, "tp")))
+        clock(27)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
     # the chunked kernel at the serving shape; the one-thread-a-lane one at
@@ -5904,6 +6279,12 @@ def main():
     dpa_train = next(r for r in train_rows
                      if tuple(r["shape"]) == (3 * ATT_BATCH // DP_RANKS,
                                               200, 512))
+    # phase 27's lane shards: K1's loop and K2 at [96,200,256] (1 x 2) and
+    # [48,200,256] (2 x 2)
+    tp_eval = {g: next(r for r in rows if tuple(r["shape"]) == sh)
+               for g, sh in TP_SHAPES.items()}
+    tp_train = {g: next(r for r in train_rows if tuple(r["shape"]) == sh)
+                for g, sh in TP_SHAPES.items()}
 
     def tdnn(row, ms, plain, bnd):
         return {"shape": row["shape"], "ms": row[ms],
@@ -5935,7 +6316,10 @@ def main():
              dp=tdnn(att_eval, "loop_ms", "plain_ms", (
                  att_eval["bound_ms"], att_eval["bound_by"])),
              regu=tdnn(regu_eval, "loop_ms", "plain_ms", (
-                 regu_eval["bound_ms"], regu_eval["bound_by"]))),
+                 regu_eval["bound_ms"], regu_eval["bound_by"])),
+             **{("tp" if g == "1x2" else f"tp_{g}"): tdnn(
+                 r, "loop_ms", "plain_ms", (r["bound_ms"], r["bound_by"]))
+                for g, r in tp_eval.items()}),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],
@@ -5949,7 +6333,10 @@ def main():
              dp_attention=tdnn(dpa_train, "fwd_ms", "fwd_plain_ms",
                                dpa_train["fwd_bound"]),
              regu=tdnn(regu_train, "fwd_ms", "fwd_plain_ms",
-                       regu_train["fwd_bound"])),
+                       regu_train["fwd_bound"]),
+             **{("tp" if g == "1x2" else f"tp_{g}"): tdnn(
+                 r, "fwd_ms", "fwd_plain_ms", r["fwd_bound"])
+                for g, r in tp_train.items()}),
         _row("qrnn_pool_bwd", src, "pase_tpu/ops/pallas_qrnn.py:87",
              train_launches["qrnn_pool_bwd"],
              max(r["dy_abs"] for r in train_rows), train["bwd_ms"],
@@ -5963,7 +6350,10 @@ def main():
              dp_attention=tdnn(dpa_train, "bwd_ms", "bwd_plain_ms",
                                dpa_train["bwd_bound"]),
              regu=tdnn(regu_train, "bwd_ms", "bwd_plain_ms",
-                       regu_train["bwd_bound"]))]
+                       regu_train["bwd_bound"]),
+             **{("tp" if g == "1x2" else f"tp_{g}"): tdnn(
+                 r, "bwd_ms", "bwd_plain_ms", r["bwd_bound"])
+                for g, r in tp_train.items()})]
         + [_conv_summary(name, *convs[dt], paths=paths)
            for dt, name in (("bfloat16", "conv_s1_tc"),
                             ("float32", "conv_s1_tf32x3"))]}))
@@ -5977,6 +6367,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--resume-check"]:        # phase 11's own process
         sys.path.insert(0, HERE)
         sys.exit(resume_check())
+    if sys.argv[1:2] == ["--gate"]:               # phase 19's gate
+        sys.path.insert(0, HERE)
+        sys.exit(gate_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] in (["--dp-step"], ["--cli-rank"]):   # phase 25's ranks
         sys.path.insert(0, HERE)
         sys.exit(dp_child(sys.argv[1], sys.argv[2], int(sys.argv[3]),

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from pase_tpu_torch.nn import flax_cell_to_torch, torch_cell_to_flax
+from pase_tpu_torch.parallel import tp
 
 _INDEXED = re.compile(r"^(blocks|denseskips)_(\d+)$")
 _QRNN_LAYER = re.compile(r"^layers_(\d+)_linear$")
@@ -247,6 +248,29 @@ def state_dict_to_variables(state_dict):
         flat["/".join([col] + _module_path_to_jax(path) + [leaf])] = \
             np.ascontiguousarray(arr)
     return flat
+
+
+def jax_leaf_layout(module, leaf, tensor):
+    """(JAX shape, torch axis, blocks) of the leaf ``leaf`` of ``module``
+    under the bridge above: the leaf's shape in the JAX layout (of one
+    gate, for a ``FlaxRNN`` cell's stacked gates), and the torch axis that
+    holds JAX's trailing axis, in ``blocks`` equal blocks (the gates). A
+    kernel, a Dense or a weight-norm direction is transposed (its JAX
+    trailing axis is torch's axis 0: a conv's Cout, a transposed conv's
+    Cin); a BiRNN leaf, a codebook, ``low_hz`` [C, 1] and every other leaf
+    keep their layout (trailing axis last). A scalar has no axis (None)."""
+    shape = tuple(tensor.shape)
+    if not shape:
+        return shape, None, 1
+    if leaf in _CELL_TORCH and isinstance(
+            getattr(module, "weight_hh", None), torch.Tensor):
+        hidden = module.weight_hh.shape[1]
+        jax_shape = (shape[1], hidden) if len(shape) == 2 else (hidden,)
+        return jax_shape, 0, shape[0] // hidden
+    if (leaf == "weight" and len(shape) >= 2) or (leaf == "v"
+                                                   and len(shape) == 3):
+        return shape[::-1], 0, 1
+    return shape, len(shape) - 1, 1
 
 
 def save_variables_npz(path, state_dict, step=0):
@@ -567,8 +591,10 @@ def model_state_dict_to_variables(state_dict):
 def load_model_variables(model, flat):
     """Load JAX PASE variables into ``model`` with
     ``load_state_dict(strict=True)``; only ``num_batches_tracked``
-    buffers keep the model's value."""
-    sd = model_variables_to_state_dict(flat)
+    buffers keep the model's value. A model laid out over --n_model's
+    model ranks (``parallel/tp.py``) takes its parts of the leaves."""
+    sd = tp.local_tensors(model_variables_to_state_dict(flat),
+                          tp.leaf_specs(model))
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked") and k not in sd:
             sd[k] = v
@@ -618,11 +644,13 @@ def rng_key(seed, step):
                     np.uint32)
 
 
-def _moments(opt, params, to_variables, head, leaves=None):
+def _moments(opt, params, to_variables, head, leaves=None, specs=None):
     """The optimizer's per-parameter state of ``params`` ({name:
     parameter}; zeros before its first step) as ``{head}{leaf}/<JAX
     path>`` leaves, ``leaves`` {optax leaf: state key} (Adam's mu / nu by
-    default); ``to_variables`` maps a state dict to JAX variables."""
+    default); ``to_variables`` maps a state dict to JAX variables. The
+    state of a parameter held as a part (``specs``: ``tp.leaf_specs``) is
+    gathered whole."""
     flat = {}
     leaves = leaves if leaves is not None else _RULE_LEAVES["adam"]
     for leaf, key in leaves.items():
@@ -630,23 +658,25 @@ def _moments(opt, params, to_variables, head, leaves=None):
         for n, p in params.items():
             st = opt.state.get(p, {})
             sd[n] = st[key] if key in st else torch.zeros_like(p)
+        sd = tp.full_tensors(sd, specs)
         for k, v in to_variables(sd).items():
             flat[f"{head}{leaf}/{k.partition('/')[2]}"] = v
     return flat
 
 
 def _set_moments(opt, params, flat, head, count, to_state_dict, device,
-                 leaves=None):
+                 leaves=None, specs=None):
     """The inverse: the optimizer's state of ``params`` from the
-    ``{head}{leaf}/...`` leaves of ``flat``; with a count (Adam's,
-    AdamW's, RAdam's) at step ``count``."""
+    ``{head}{leaf}/...`` leaves of ``flat`` (cut to the parts of
+    ``specs``); with a count (Adam's, AdamW's, RAdam's) at step
+    ``count``."""
     leaves = leaves if leaves is not None else _RULE_LEAVES["adam"]
     moments = {}
     for leaf in leaves:
         pre = f"{head}{leaf}/"
-        moments[leaf] = to_state_dict(
+        moments[leaf] = tp.local_tensors(to_state_dict(
             {"params/" + k[len(pre):]: v for k, v in flat.items()
-             if k.startswith(pre)})
+             if k.startswith(pre)}), specs)
     for n, p in params.items():
         st = {key: moments[leaf][n].to(device).contiguous()
               for leaf, key in leaves.items()}
@@ -670,22 +700,25 @@ def _discriminator_tree(trainer):
     (each SN conv's u) and optax.adam's state ``d_opt_state/0/{count, mu,
     nu}`` (its ``d_opt_state/1``, the lr scale, holds no leaf)."""
     d = trainer.discriminator
-    flat = {"d_" + k: v
-            for k, v in state_dict_to_variables(d.state_dict()).items()}
+    flat = {"d_" + k: v for k, v in
+            state_dict_to_variables(tp.full_state_dict(d)).items()}
     flat.update(_moments(trainer.d_opt, dict(d.named_parameters()),
-                         state_dict_to_variables, "d_opt_state/0/"))
+                         state_dict_to_variables, "d_opt_state/0/",
+                         specs=tp.leaf_specs(d)))
     flat["d_opt_state/0/count"] = np.asarray(_d_count(trainer), np.int32)
     return flat
 
 
 def _restore_discriminator(trainer, flat):
     d = trainer.discriminator
-    d.load_state_dict(variables_to_state_dict(
+    specs = tp.leaf_specs(d)
+    d.load_state_dict(tp.local_tensors(variables_to_state_dict(
         {k[2:]: v for k, v in flat.items()
-         if k.startswith(("d_params/", "d_batch_stats/"))}), strict=True)
+         if k.startswith(("d_params/", "d_batch_stats/"))}), specs),
+        strict=True)
     _set_moments(trainer.d_opt, dict(d.named_parameters()), flat,
                  "d_opt_state/0/", int(flat["d_opt_state/0/count"]),
-                 variables_to_state_dict, trainer.device)
+                 variables_to_state_dict, trainer.device, specs=specs)
 
 
 def train_state_to_tree(trainer):
@@ -698,14 +731,18 @@ def train_state_to_tree(trainer):
     ``alpha``, ``rng`` (``rng_key``), ``step``, with a GAN the
     discriminator's ``d_params/``, ``d_batch_stats/`` and
     ``d_opt_state/``, and ``torch/seed``, the seed the port's per-step
-    streams derive from."""
-    flat = model_state_dict_to_variables(trainer.model.state_dict())
+    streams derive from. Leaves held as parts over --n_model's model ranks
+    are gathered whole (every rank calls it): the tree is the n_model = 1
+    layout."""
+    flat = model_state_dict_to_variables(
+        tp.full_state_dict(trainer.model))
+    specs = tp.leaf_specs(trainer.model)
     count = np.asarray(trainer.opt_count, np.int32)
     for group, (params, rule) in _group_params(trainer).items():
         pre = _adam_prefix(group)
         flat.update(_moments(trainer.opt, params,
                              model_state_dict_to_variables, f"{pre}/0/",
-                             _RULE_LEAVES[rule]))
+                             _RULE_LEAVES[rule], specs))
         if "mu" in _RULE_LEAVES[rule]:            # a count beside mu / nu
             flat[f"{pre}/0/count"] = count
         flat[f"{pre}/{_SCHED_INDEX[rule]}/count"] = count
@@ -744,13 +781,14 @@ def restore_train_state(trainer, flat):
         k: v for k, v in flat.items()
         if k.startswith(("params/", "batch_stats/"))})
     dev = trainer.device
+    specs = tp.leaf_specs(trainer.model)
     counts = []
     for group, (params, rule) in _group_params(trainer).items():
         pre = _adam_prefix(group)
         counts.append(int(flat[f"{pre}/{_SCHED_INDEX[rule]}/count"]))
         _set_moments(trainer.opt, params, flat, f"{pre}/0/", counts[-1],
                      model_variables_to_state_dict, dev,
-                     _RULE_LEAVES[rule])
+                     _RULE_LEAVES[rule], specs)
     trainer.opt_count = counts[0]
     trainer.policy_state = type(trainer.policy_state)(*(
         torch.as_tensor(np.array(flat[f"policy_state/{f}"]), device=dev)

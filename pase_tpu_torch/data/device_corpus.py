@@ -242,8 +242,9 @@ class DeviceCorpusBatcher:
 
 
 class ShardedDeviceCorpusBatcher(DeviceCorpusBatcher):
-    """The corpus sharded over the ranks of a process group (the JAX
-    package's ``ShardedDeviceCorpusBatcher``): rank r holds shard r on its
+    """The corpus sharded over the data ranks of a process group (the JAX
+    package's ``ShardedDeviceCorpusBatcher``; under --n_model the ranks of
+    a model group hold the same shard): rank r holds shard r on its
     card and yields its B / D rows of each global batch of ``batch_size``.
 
     The partition is the JAX package's, in numpy: the filename-prefix
@@ -272,8 +273,8 @@ class ShardedDeviceCorpusBatcher(DeviceCorpusBatcher):
         if getattr(dataset, "zero_speech_p", 0.0) > 0:
             raise ValueError("sharded device corpus does not support "
                              "zero-speech injection")
-        rank = mesh.rank() if rank is None else int(rank)
-        D = mesh.world() if world is None else int(world)
+        rank = mesh.data_rank() if rank is None else int(rank)
+        D = mesh.data_world() if world is None else int(world)
         if batch_size % D != 0:
             raise ValueError(f"batch {batch_size} not divisible by the "
                              f"{D} shards")

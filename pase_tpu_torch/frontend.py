@@ -31,6 +31,7 @@ from pase_tpu_torch.encoders import build_encoder
 from pase_tpu_torch.nn import (VQEMA, BatchNorm1d, BiRNN, Conv1D,
                                DropoutGenerators, FeBlock,
                                FeResBlock, InstanceNorm1d, QRNN)
+from pase_tpu_torch.parallel import tp
 
 
 def pool_to(skip, out_len):
@@ -60,8 +61,13 @@ class WaveFe(DropoutGenerators, nn.Module):
     Constructor arguments mirror the reference JSON configs
     (cfg/frontend/*.cfg). Parameters are drawn from ``generator`` on the
     CPU; move the module to its device afterwards. ``rnn_dropout``'s masks
-    between the context layers come from ``dropout_generator``.
+    between the context layers come from ``dropout_generator``. Under
+    --n_model its output may compute column-parallel (``tp_column``,
+    ``parallel/tp.py``): ``W`` and the dense-skip projections of the
+    rank's own channels, summed, ``norm_out`` on them, then gathered.
     """
+
+    tp_column = None
 
     def __init__(self, num_inputs=1, sincnet=True,
                  kwidths=(251, 10, 5, 5, 5, 5, 5, 5),
@@ -160,15 +166,15 @@ class WaveFe(DropoutGenerators, nn.Module):
                 dskips.append(h)
         if self.rnn is not None:
             h = self.rnn(h.transpose(1, 2)).transpose(1, 2)
-        y = self.W(h)
+        y = self.W(tp.enter(self, h))
         for proj, dskip in zip(self.denseskips, dskips):
-            y = fuse_skip(y, proj(pool_to(dskip, y.shape[2])),
+            y = fuse_skip(y, proj(tp.enter(self, pool_to(dskip, y.shape[2]))),
                           self.densemerge)
         if self.norm_out is not None:
             y = self.norm_out(y)
         if self.tanh_out:
             y = torch.tanh(y)
-        y = y.transpose(1, 2)
+        y = tp.leave(self, y).transpose(1, 2)
         return y if self.quantizer is None else self.quantizer(y)
 
 

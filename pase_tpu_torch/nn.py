@@ -56,8 +56,11 @@ biased batch variance and updates the running stats with the unbiased one
 at momentum 0.1, as ``pase_tpu/nn.py`` BatchNorm1d does (which takes the
 variance in one pass, E[x^2] - E[x]^2; torch in two: equal to rounding).
 Under a process group of more than one rank, BatchNorm and the VQ-EMA
-quantizer take their batch statistics over the global batch
-(``parallel/mesh.py``), as the JAX package's data-parallel step does.
+quantizer take their batch statistics over the global batch of the data
+group (``parallel/mesh.py``), as the JAX package's data-parallel step
+does. Under --n_model the FeBlock, MLP-block, decoder-block, head-conv
+and QRNN layers may compute column-parallel (``tp_column``:
+``parallel/tp.py``'s ``enter`` / ``leave`` around them).
 
 Under a bfloat16 compute policy (``precision.compute_dtype``) the blocks
 mirror the JAX package's cast points: a conv casts a float32 x to bf16 and
@@ -88,7 +91,7 @@ from pase_tpu_torch.ops.pad import feblock_pad, pad_1d, sinc_same_pad
 from pase_tpu_torch.ops.qrnn import shift_right
 from pase_tpu_torch.ops.sinc import (build_sinc_filters, mel_init_hz,
                                      sinc_time_axes)
-from pase_tpu_torch.parallel import mesh
+from pase_tpu_torch.parallel import mesh, tp
 from pase_tpu_torch.precision import get_compute_dtype
 
 ROADMAP_OFF_SLICE = "ROADMAP.md, queue 1: off-path model variants"
@@ -128,7 +131,11 @@ def _low_precision(conv, x, w, *args, **kwargs):
 
 class Conv1D(nn.Conv1d):
     """Conv1d (VALID) with torch-default uniform(+-1/sqrt(Cin*K)) init for
-    weight and bias, drawn from ``generator``; runs ``conv1d``."""
+    weight and bias, drawn from ``generator``; runs ``conv1d``. A worker
+    head's final conv may compute column-parallel (``tp_column``,
+    ``parallel/tp.py``): its own output channels, gathered."""
+
+    tp_column = None
 
     def __init__(self, in_channels, out_channels, kwidth, stride=1,
                  dilation=1, bias=True, generator=None):
@@ -140,13 +147,16 @@ class Conv1D(nn.Conv1d):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
-        return conv1d(x, self.weight, self.bias, self.stride[0],
-                      self.dilation[0])
+        return tp.leave(self, conv1d(tp.enter(self, x), self.weight,
+                                     self.bias, self.stride[0],
+                                     self.dilation[0]))
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch normalization of [B, C, T] over the global batch of
-    a process group: the forward gathers each rank's count, mean and sum
+    the data group (``mesh.data_group``: the world, or with --n_model the
+    ranks that hold the same channels of other rows): the forward gathers
+    each rank's count, mean and sum
     of squared deviations (one all_reduce) and combines them (Chan et
     al.'s pairwise update) into the global mean and biased variance, in
     float32; the backward all-reduces sum(dy) and sum(dy x_hat) (one
@@ -218,7 +228,7 @@ class BatchNorm1d(nn.BatchNorm1d):
     the running stats move by the global mean and unbiased variance."""
 
     def forward(self, x):
-        if self.training and mesh.world() > 1:
+        if self.training and mesh.data_world() > 1:
             return self._global(x)
         if x.dtype == torch.float32:
             return super().forward(x)
@@ -248,7 +258,7 @@ class BatchNorm1d(nn.BatchNorm1d):
     def _global(self, x):
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
                                               self.eps)
-        n = x.shape[0] * x.shape[2] * mesh.world()
+        n = x.shape[0] * x.shape[2] * mesh.data_world()
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
@@ -265,7 +275,11 @@ class PReLU(nn.PReLU):
 
 
 class SincConv(nn.Module):
-    """SincNet band-pass conv layer on a single-channel [B, 1, T] input."""
+    """SincNet band-pass conv layer on a single-channel [B, 1, T] input.
+    In a column-parallel ``FeBlock`` (``tp_column``) it synthesizes the
+    filters of its own channels from its rows of the whole bands."""
+
+    tp_column = None
 
     def __init__(self, features, kwidth, stride=1, sample_rate=16000,
                  pad_mode="reflect", min_low_hz=50.0, min_band_hz=50.0):
@@ -287,7 +301,8 @@ class SincConv(nn.Module):
 
     def filters(self):
         """The [C, K] filterbank of the current parameters."""
-        return build_sinc_filters(self.low_hz_, self.band_hz_, self.n_,
+        return build_sinc_filters(tp.own_part(self, self.low_hz_),
+                                  tp.own_part(self, self.band_hz_), self.n_,
                                   self.window_, self.sample_rate,
                                   self.min_low_hz, self.min_band_hz)
 
@@ -557,7 +572,11 @@ class FeBlock(nn.Module):
     ``WNConv1D`` (bsnorm: SN plus BatchNorm), the rest is the norm layer
     after it. glu doubles the conv's channels and gates one half by the
     other; the sinc layer takes no reparameterization (TypeError, as in
-    JAX)."""
+    JAX). Under --n_model it may compute column-parallel (``tp_column``,
+    ``parallel/tp.py``): its input copied in, its own channels out of the
+    conv, norm and activation, then gathered."""
+
+    tp_column = None
 
     def __init__(self, in_channels, fmaps, kwidth, stride, dilation=1,
                  pad_mode="reflect", act=None, norm_type="bnorm",
@@ -586,6 +605,7 @@ class FeBlock(nn.Module):
         """``do_pad=False`` skips the SAME pad (the conv runs VALID), the
         JAX package's ``do_pad=False`` form: the streaming encoder supplies
         each block's left and right frames itself."""
+        x = tp.enter(self, x)
         if isinstance(self.conv, SincConv):
             h = self.conv(x, do_pad=do_pad)
         else:
@@ -593,7 +613,7 @@ class FeBlock(nn.Module):
                           else x)
         if self.norm is not None:
             h = self.norm(h)
-        return _glu(h) if self.act is None else self.act(h)
+        return tp.leave(self, _glu(h) if self.act is None else self.act(h))
 
 
 def decimate(x, factor):
@@ -678,22 +698,27 @@ class FeResBlock(nn.Module):
         return self.finish(h, self.identity(xd))
 
 
-def dropout(x, p, generator, training=True):
+def dropout(x, p, generator, training=True, layer=None):
     """x [B, ...] with each value kept where a uniform draw is below
     1 - p and scaled by 1 / (1 - p), else 0, in train mode with p > 0
     (else x). The draw comes from ``generator`` for the global batch
     (``mesh.draw_rows``: row i of the global batch gets draw i whatever
-    the number of processes); without one it raises: no mask is drawn
-    from torch's global generator."""
+    the number of processes) and, where x is a column-parallel ``layer``'s
+    own channels (axis 1), for all its channels (``tp.channel_draw``);
+    without a generator it raises: no mask is drawn from torch's global
+    generator."""
     if p <= 0 or not training:
         return x
     if generator is None:
         raise ValueError(
             f"dropout {p} in train mode needs a torch.Generator (the "
             "module's dropout_generator; the Trainer sets it)")
-    keep = mesh.draw_rows(lambda m: torch.rand(
-        (m,) + tuple(x.shape[1:]), generator=generator, device=x.device),
-        x.shape[0]) < 1.0 - p
+    def draw(m):
+        return tp.channel_draw(layer, lambda c: torch.rand(
+            (m, c) + tuple(x.shape[2:]), generator=generator,
+            device=x.device), x)
+
+    keep = mesh.draw_rows(draw, x.shape[0]) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
@@ -738,7 +763,12 @@ class QRNN(nn.Module):
     """Window-2 QRNN stack, NTC in/out: per layer y = Linear([x_t, x_{t-1}])
     then pooling (ops/cuda_qrnn.py: the kernel on CUDA, plain on CPU).
     Under a compute dtype the linear runs in it (bias added in it) and y
-    reaches the pooling as float32."""
+    reaches the pooling as float32. Under --n_model a layer may run split
+    by lanes (``tp_column``, ``parallel/tp.py``): its linear holds the z,
+    f and o rows of its own lanes, the pooling runs on them, and h is
+    gathered."""
+
+    tp_column = None
 
     def __init__(self, input_size, hidden, layers=1, dropout=0.0,
                  generator=None):
@@ -756,9 +786,11 @@ class QRNN(nn.Module):
     def forward(self, x):
         h = x
         for i, layer in enumerate(self.layers):
-            src = torch.cat([h, shift_right(h, dim=1)], dim=-1)
+            src = tp.enter(self, torch.cat([h, shift_right(h, dim=1)],
+                                           dim=-1))
             y = self._linear(layer, src)
             h, _ = cuda_qrnn.qrnn_pool(y.contiguous())
+            h = tp.leave(self, h, dim=-1)
             if i < len(self.layers) - 1:
                 h = dropout(h, self.dropout, self.dropout_generator,
                             self.training)
@@ -1086,7 +1118,10 @@ class MLPBlock(nn.Module):
     ``range_fixed``, ``drop_channels``) on the input in train mode;
     ``tie_context_weights`` replaces the context conv by a 1x1 conv and a
     mean over the ``context`` frames around each frame (the frames
-    outside T not counted)."""
+    outside T not counted). Under --n_model it may compute
+    column-parallel (``tp_column``, ``parallel/tp.py``)."""
+
+    tp_column = None
 
     def __init__(self, in_channels, fmaps, context=1, dout=0.0,
                  generator=None, din=0.0, dropin_mode="std",
@@ -1112,6 +1147,7 @@ class MLPBlock(nn.Module):
     def forward(self, x):
         if self.din is not None:
             x = self.din(x)
+        x = tp.enter(self, x)
         if self.tie:
             h = F.avg_pool1d(self.W(x), self.context, stride=1,
                              padding=self.context // 2,
@@ -1120,8 +1156,9 @@ class MLPBlock(nn.Module):
             if self.context > 1:
                 x = F.pad(x, (self.context // 2, self.context // 2))
             h = self.W(x)
-        return dropout(self.act(h), self.dout, self.dropout_generator,
-                       self.training)
+        return tp.leave(self, dropout(self.act(h), self.dout,
+                                      self.dropout_generator, self.training,
+                                      self))
 
 
 class Deconv1D(nn.ConvTranspose1d):
@@ -1155,7 +1192,10 @@ class GDeconv1DBlock(nn.Module):
     sample where stride and kwidth differ in parity -> norm -> PReLU, or
     glu over doubled channels. The norm is ``build_norm``'s (bnorm, lnorm,
     inorm, affinorm); a weight reparameterization raises TypeError, as in
-    JAX."""
+    JAX. Under --n_model it may compute column-parallel (``tp_column``,
+    ``parallel/tp.py``)."""
+
+    tp_column = None
 
     def __init__(self, in_channels, fmaps, kwidth, stride=4, norm_type=None,
                  act=None, generator=None):
@@ -1169,12 +1209,12 @@ class GDeconv1DBlock(nn.Module):
         self.act = _activation(act, fmaps)
 
     def forward(self, x):
-        y = self.deconv(x)
+        y = self.deconv(tp.enter(self, x))
         if self.trim:
             y = y[:, :, :-1]
         if self.norm is not None:
             y = self.norm(y)
-        return _glu(y) if self.act is None else self.act(y)
+        return tp.leave(self, _glu(y) if self.act is None else self.act(y))
 
 
 @contextlib.contextmanager
@@ -1262,7 +1302,7 @@ class VQEMA(nn.Module):
                     dw = enc.t() @ flat
                 # the global batch's counts and sums under a process group
                 mesh.all_reduce_([counts, dw])
-                rows *= mesh.world()
+                rows *= mesh.data_world()
                 g = self.gamma
                 size = self.ema_cluster_size * g + (1 - g) * counts
                 n = size.sum()

@@ -62,9 +62,7 @@ Every option string of the JAX CLI parses, with its type and default.
 The reference's dead flags and the compatibility flags print the JAX
 CLI's notes; ``--no-cuda`` is a note (``--device`` alone picks the
 CPU); the TPU-only ``--jax_cache_dir``, ``--no_fused_feed`` and
-``--loss_precision`` are accepted and not used. A flag of a path the
-port does not build yet raises ``NotImplementedError`` naming its
-ROADMAP.md item when it is used, not at its default. ``--sup_exec FILE``
+``--loss_precision`` are accepted and not used. ``--sup_exec FILE``
 launches the downstream probes of FILE's command templates
 ($model, $cfg, $iteration, $save_path substituted) on each
 ``FE_e{epoch}.npz`` every ``--sup_freq`` epochs and after the last
@@ -80,8 +78,14 @@ the JAX CLI's multi-host run; only process 0 writes the checkpoints,
 single-buffer device corpus is single-process only). The process group
 runs NCCL on the card and gloo on the CPU; the environment variable
 PASE_TORCH_DIST_BACKEND=gloo lets several processes share one card.
-``--n_model`` > 1 (the JAX CLI's column-parallel model axis) raises
-NotImplementedError (ROADMAP.md queue 1, item 10b).
+``--n_model M`` (the JAX CLI's column-parallel 'model' axis) lays the
+processes out as an n_data x M grid (``mesh.set_grid``; the run prints
+``mesh: {'data': D, 'model': M}``): the M ranks of a model group load
+the same rows (the global batch over the D data ranks, not over every
+process as the JAX CLI slices it) and hold their parts of the
+parameters and optimizer state (``parallel/tp.py``); M must divide
+--num_processes (ValueError otherwise, also for M > 1 in one process).
+The checkpoints and ``FE_e*.npz`` are the n_model = 1 layout.
 """
 
 import argparse
@@ -98,12 +102,6 @@ def str2bool(v):
     return str(v).lower() in ("true", "1", "yes")
 
 
-# flag -> (value that means "not used": the JAX CLI's default, ROADMAP.md
-# item that ports it)
-_UNPORTED = {
-    "n_model": (1, "queue 1, item 10b: --n_model (column-parallel "
-                   "compute)"),
-}
 # the reference's flags that its own trainer never reads (the JAX CLI's
 # _DEAD_REFERENCE_FLAGS): accepted, each use noted as a no-op
 DEAD_REFERENCE_FLAGS = [
@@ -369,13 +367,11 @@ def compat_z_gan_cfg(opts, bpe):
 
 
 def check_ported(opts):
-    """Raise for a flag whose path the port does not build yet, for a
-    dataset name it does not know and for a missing corpus; resolve the
-    --trans_cache alias."""
-    for flag, (unused, item) in _UNPORTED.items():
-        if getattr(opts, flag) != unused:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP.md, {item}")
+    """Raise for a --n_model that does not divide --num_processes, for a
+    dataset name the port does not know and for a missing corpus; resolve
+    the --trans_cache alias."""
+    from pase_tpu_torch.parallel.mesh import grid_shape
+    grid_shape(opts.num_processes or 1, opts.n_model)
     if opts.shard_device_corpus and not opts.device_corpus:
         raise ValueError("--shard_device_corpus requires --device_corpus")
     for name in opts.dataset:
@@ -448,7 +444,7 @@ def build_feeds(opts, wk_cfg):
     slice's first row (the JAX CLI's per-host seeds); the sharded corpus
     takes the global batch and the base seed."""
     from pase_tpu_torch.data import dataset as D
-    from pase_tpu_torch.parallel.mesh import host_batch_slice, world
+    from pase_tpu_torch.parallel.mesh import data_world, host_batch_slice
     sl = host_batch_slice(opts.batch_size)
     bs, t = sl.stop - sl.start, opts.chunk_size
     seed0 = opts.seed + 1000 * sl.start
@@ -489,7 +485,7 @@ def build_feeds(opts, wk_cfg):
                 "tree (GenhancementDataset / AMI tree mode — channel-key "
                 "--ihm2sdm stays on the host path); no MetaConcat / "
                 "--cache_feats_dir")
-        if world() > 1 and not opts.shard_device_corpus:
+        if data_world() > 1 and not opts.shard_device_corpus:
             raise ValueError(
                 "single-buffer --device_corpus is single-process only; "
                 "multi-process runs use --shard_device_corpus (the corpus "
@@ -507,7 +503,7 @@ def build_feeds(opts, wk_cfg):
             except ValueError as e:
                 # only a valid split with too few prefix groups falls
                 # back, and only in a single process
-                if "prefix groups" not in str(e) or world() > 1:
+                if "prefix groups" not in str(e) or data_world() > 1:
                     raise
                 va_batcher = DeviceCorpusBatcher(va_ds, bs, t,
                                                  seed=seed0 + 1,
@@ -624,13 +620,17 @@ def train(opts):
                            "(torch.cuda.is_available() is False)")
     from pase_tpu_torch.parallel.mesh import (host_batch_slice,
                                               init_distributed, rank,
-                                              rank_device, world)
+                                              rank_device, set_grid, world)
     # one process per card: the process group comes up first; each process
     # then trains on its own card and feeds its rows of the global batch
     multi = init_distributed(opts.coordinator_address, opts.num_processes,
                              opts.process_id, device=opts.device,
                              backend=os.environ.get(DIST_BACKEND_ENV) or None)
     try:
+        grid = set_grid(opts.n_model)
+        if opts.n_model > 1:
+            print(f"mesh: {dict(data=grid.n_data, model=grid.n_model)} "
+                  "(data x model)")
         if multi:
             opts.device = str(rank_device(opts.device))
             sl = host_batch_slice(opts.batch_size)

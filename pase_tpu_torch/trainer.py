@@ -104,6 +104,21 @@ every rank resumes from the same files. The attention variant takes its
 batch means (the running distribution, 'avg_time_batch''s pooled view)
 over the global batch (``mesh.global_mean``).
 
+Column parallelism (``cfg['n_model']``, the JAX CLI's --n_model): the
+processes form an n_data x n_model grid (``mesh.set_grid``); "the ranks"
+above are the data ranks (the data group), and the n_model ranks of a
+model group load the same rows. The model and D are laid out by
+``parallel/tp.py`` after their seeded init: each rank holds its part of
+every leaf JAX's ``state_shardings`` shards, and the optimizers are built
+on those parts (the moments follow, the count stays whole); the layers
+compute by output channel or lane and gather where a consumer reads
+across channels, so the losses are the same bits on every model rank.
+The gradients are averaged over the data group, the whole leaves' made
+the first model rank's bits; ``grad_norm/*`` sums the parts' squares
+over the model group; ``save`` gathers the state to the n_model = 1
+layout (every rank takes part, rank 0 writes), and a resume cuts it to
+the parts, so a checkpoint resumes at any n_model.
+
 Feeding: host batches (numpy arrays from a disk batcher) are staged one
 step ahead (``stage``): pinned host memory and a non_blocking copy on a
 side stream, whose event the step waits on before it reads the batch;
@@ -149,7 +164,7 @@ from pase_tpu_torch.model import (FUSED_MIN_CH, build_pase, materialize_pred,
                                   worker_losses)
 from pase_tpu_torch.nn import no_tf32
 from pase_tpu_torch.optim import OptaxOptimizer, build_optimizer, set_lr
-from pase_tpu_torch.parallel import mesh
+from pase_tpu_torch.parallel import mesh, tp
 from pase_tpu_torch.precision import compute_dtype, resolve
 from pase_tpu_torch.scheduling import (POLICIES, VALUE_SENSITIVE,
                                        apply_policy, init_policy_state,
@@ -175,7 +190,7 @@ def hist_row(x, bins=HIST_BINS):
     counts summed."""
     x = x.detach().reshape(-1).float()
     lo, hi = x.min(), x.max()
-    if mesh.world() > 1:
+    if mesh.data_world() > 1:
         lohi = mesh.gather(torch.stack([lo, hi]))
         lo, hi = lohi[:, 0].min(), lohi[:, 1].max()
     edges = lo + (hi - lo + 1e-9) * torch.arange(
@@ -196,17 +211,41 @@ def param_group(name):
 
 def grad_norms(model):
     """{'grad_norm/{group}': the L2 norm of the group's gradients} (a
-    parameter without a gradient counts as zeros, as JAX's are)."""
-    groups = {}
+    parameter without a gradient counts as zeros, as JAX's are). Under
+    --n_model the squares of the leaves held as parts are summed over the
+    model group; a leaf every model rank holds whole counts once."""
+    groups, parts = {}, {}
+    sharded = tp.sharded_params(model)
     for name, p in model.named_parameters():
-        g = groups.setdefault(param_group(name), [])
+        key = param_group(name)
+        g = groups.setdefault(key, [])
+        parts.setdefault(key, [])
         if p.grad is not None:
-            g.append(p.grad.detach().reshape(-1).float())
+            (parts[key] if id(p) in sharded else g).append(
+                p.grad.detach().reshape(-1).float())
+
     # sqrt of the sum of squares, as jnp.linalg.norm: torch's CPU
     # vector_norm loses about 1e-4 relative over 10^5-10^6 float32 values
-    return {f"grad_norm/{k}": (torch.sqrt(torch.sum(torch.cat(v) ** 2)) if v
-                               else torch.zeros(()))
-            for k, v in groups.items()}
+    dev = next(model.parameters()).device
+
+    def sq(v):
+        return (torch.sum(torch.cat(v) ** 2) if v
+                else torch.zeros((), device=dev))
+
+    sums = {k: sq(v) for k, v in groups.items()}
+    if sharded:
+        shard_sq = torch.stack([sq(parts[k]) for k in groups])
+        mesh.all_reduce_([shard_sq], "sum", mesh.grid().model_group)
+        sums = {k: sums[k] + shard_sq[i] for i, k in enumerate(groups)}
+    return {f"grad_norm/{k}": torch.sqrt(v) for k, v in sums.items()}
+
+
+def reduce_grads(module):
+    """The gradients of ``module``'s parameters averaged over the data
+    ranks (bucketed all_reduces); under --n_model the leaves every model
+    rank holds whole take the first model rank's bits."""
+    mesh.all_reduce_([p.grad for p in module.parameters()], "mean")
+    tp.sync_replicated_grads(module)
 
 
 def route_gan_workers(meta, gan_cfg, cfg):
@@ -252,8 +291,10 @@ class Trainer:
                  zs_bank=None, zs_snrs=(0, 5, 10), gan_cfg=None):
         self.cfg = dict(cfg)
         self.device = torch.device(device)
-        # data parallelism: this rank's rows of the global batch
-        self.world = mesh.world()
+        # the n_data x n_model grid (--n_model); data parallelism over the
+        # data ranks: this rank's rows of the global batch
+        self.grid = mesh.set_grid(self.cfg.get("n_model", 1) or 1)
+        self.world = self.grid.n_data
         self.rows = None
         if self.world > 1:
             sl = mesh.host_batch_slice(self.cfg.get("batch_size", 32))
@@ -289,6 +330,7 @@ class Trainer:
                                self.model.frontend)
         self.model.to(self.device)
         mesh.replicate(self.model)
+        tp.shard_model(self.model, self.grid)
         # the loss vector (and alpha) is cls + regr; the regularizers'
         # losses join the total outside the policy's weights
         self.ordered_names = [e["name"] for e in self.meta["cls"]
@@ -357,6 +399,7 @@ class Trainer:
         else:
             d = WaveDiscriminator(generator=gen)
         self.discriminator = mesh.replicate(d.to(self.device))
+        tp.shard_model(d, self.grid)
         lr = self.gan_cfg.get("lr", self.gan_cfg.get("z_lr", 5e-4))
         self.d_opt = OptaxOptimizer([{"params": list(d.parameters()),
                                       "lr": lr, "rule": "adam"}])
@@ -406,7 +449,7 @@ class Trainer:
         if self.step >= int(gan.get("warmup", 0) or 0):
             self.d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
-            mesh.all_reduce_([p.grad for p in d.parameters()], "mean")
+            reduce_grads(d)
             self.d_opt.step()
         return d_loss.detach()
 
@@ -574,8 +617,7 @@ class Trainer:
         with record_function("pase.backward"):
             self.opt.zero_grad(set_to_none=True)
             total.backward()
-            mesh.all_reduce_([p.grad for p in self.model.parameters()],
-                             "mean")
+            reduce_grads(self.model)
         if self.log_grads:
             losses.update(grad_norms(self.model))
         with record_function("pase.optimizer"):
@@ -726,11 +768,16 @@ class Trainer:
         reads). Returns the artifact's path. Under a process group only rank
         0 writes (every rank holds the same state)."""
         path = os.path.join(self.save_path, f"FE_e{epoch}.npz")
+        if mesh.rank() != 0 and self.grid.n_model == 1:
+            return path
+        # under --n_model every rank gathers its parts (the n_model = 1
+        # layout), rank 0 writes
+        tree = train_state_to_tree(self)
+        fe = tp.full_state_dict(self.model.frontend)
         if mesh.rank() != 0:
             return path
-        self.saver.save(NAME, train_state_to_tree(self), self.step)
-        return save_variables_npz(path, self.model.frontend.state_dict(),
-                                  self.step)
+        self.saver.save(NAME, tree, self.step)
+        return save_variables_npz(path, fe, self.step)
 
     def try_resume(self):
         """Load the Saver's current checkpoint into this trainer; returns

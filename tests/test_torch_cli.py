@@ -103,20 +103,30 @@ def test_no_cuda_does_not_move_the_run():
         ["--no-cuda"]).device == "cuda"
 
 
-UNPORTED = [("--n_model", ["2"], "item 10b")]
 # the multi-process flags, ported (tests/test_torch_parallel.py,
-# tests/test_torch_sharded_corpus.py run them)
+# tests/test_torch_sharded_corpus.py, tests/test_torch_tensor_parallel.py
+# run them)
 MULTI_PROCESS = [("--coordinator_address", ["localhost:1"]),
                  ("--num_processes", ["2"]), ("--process_id", ["0"]),
                  ("--shard_device_corpus", ["--device_corpus"])]
 
 
-@pytest.mark.parametrize("flag,value,item", UNPORTED)
-def test_unported_flags_raise_naming_their_item(flag, value, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag} is not ported yet: ROADMAP.md, "
-                             f"queue 1, {item}"):
-        port_cli.check_ported(_parse([flag] + value))
+@pytest.mark.parametrize("n_model,processes", [(2, 2), (4, 4), (2, 4)])
+def test_n_model_grids_pass_the_check(n_model, processes):
+    """--n_model that divides --num_processes passes (the grid n_data x
+    n_model), as the JAX CLI takes the flag."""
+    port_cli.check_ported(_parse(["--n_model", str(n_model),
+                                  "--num_processes", str(processes)]))
+
+
+@pytest.mark.parametrize("n_model,processes", [(2, None), (4, 2), (3, 4)])
+def test_n_model_that_does_not_divide_raises(n_model, processes):
+    argv = ["--n_model", str(n_model)]
+    if processes:
+        argv += ["--num_processes", str(processes)]
+    with pytest.raises(ValueError, match=f"--n_model {n_model} must divide "
+                                         "the number of processes"):
+        port_cli.check_ported(_parse(argv))
 
 
 @pytest.mark.parametrize("flag,value", MULTI_PROCESS)
@@ -124,11 +134,12 @@ def test_multi_process_flags_pass_the_check(flag, value):
     port_cli.check_ported(_parse([flag] + value))
 
 
-def test_unported_flags_at_their_defaults_do_not_raise():
+def test_jax_cli_defaults_pass_the_check():
+    """Every JAX CLI flag at its default passes (--n_model 1 among
+    them)."""
     defaults = []
-    for flag, _, _ in UNPORTED:
-        action = _actions(jax_cli.build_argparser())[flag]
-        if action.nargs != 0 and action.default is not None:
+    for flag, action in _actions(jax_cli.build_argparser()).items():
+        if flag == "--n_model":
             defaults += [flag, str(action.default)]
     assert defaults == ["--n_model", "1"]
     port_cli.check_ported(_parse(defaults))

@@ -1367,3 +1367,84 @@ def test_dropout_masks_on_the_card(cuda_device):
         gen.manual_seed(2)
         t = q(y)
     assert torch.equal(r, s) and not torch.equal(r, t)
+
+
+@pytest.mark.parametrize("shape", [(96, 200, 256), (48, 200, 256)])
+def test_lane_shard_kernels_match_plain(cuda_device, shape):
+    """The QRNN's lane shards under --n_model (PASE+ at 32 x 2 s on a 1 x 2
+    and a 2 x 2 grid): K2 (fwd_train + bwd through QRNNPool) against the
+    plain version's autograd and K1's loop against the plain forward,
+    each launched once."""
+    y, _ = _inputs(*shape, cuda_device, seed=21)
+    dh = torch.from_numpy(np.random.RandomState(22).randn(*shape).astype(
+        np.float32)).to(cuda_device)
+    before = dict(cuda_qrnn.LAUNCHES)
+    grads = []
+    for fn in (cuda_qrnn.qrnn_pool, plain.qrnn_pool):
+        yg = y.clone().requires_grad_()
+        h, _ = fn(yg)
+        grads.append((h.detach(), torch.autograd.grad(
+            torch.sum(h * dh), [yg])[0]))
+    h_loop, _ = cuda_qrnn.qrnn_pool_fwd_loop(y)
+    torch.cuda.synchronize()
+    (h, dy), (h_ref, dy_ref) = grads
+    assert (h - h_ref).abs().max().item() <= 1e-5
+    assert (h_loop - h_ref).abs().max().item() <= 1e-5
+    assert (dy - dy_ref).abs().max().item() <= \
+        1e-5 * max(1.0, dy_ref.abs().max().item())
+    after = cuda_qrnn.LAUNCHES
+    for k, n in (("qrnn_pool_fwd_train", 1), ("qrnn_pool_bwd", 1),
+                 ("qrnn_pool_fwd", 1)):
+        assert after[k] == before[k] + n, k
+
+
+TP_FE = {"kwidths": [65, 10, 5, 5], "strides": [1, 10, 4, 4],
+         "fmaps": [64, 64, 128, 128], "emb_dim": 128, "norm_out": True,
+         "rnn_pool": True, "rnn_dim": 128, "denseskips": True}
+TP_WORKERS = {"regr": [{"num_outputs": 39, "dropout": 0,
+                        "hidden_size": 128, "hidden_layers": 1,
+                        "name": "mfcc", "r": 1, "loss": "MSELoss",
+                        "skip": False}],
+              "cls": [{"num_outputs": 1, "dropout": 0, "hidden_size": 128,
+                       "hidden_layers": 1, "name": "mi",
+                       "loss": "BCEWithLogitsLoss", "skip": False}]}
+
+
+def test_tensor_parallel_step_on_the_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card as a 1 x 2 grid (--n_model 2: the
+    column shards of parallel/tp.py, the QRNN by lanes, K2 on each) against
+    one process on the card: per-worker losses within 1e-4 relative (step
+    2: 1e-3), the ranks' losses bit for bit, the gathered gradients within
+    1e-3 of each group's largest."""
+    from torch_port_ranks import run_ranks, train_steps
+    rng = np.random.RandomState(5)
+    batches = [{k: rng.randn(4, 8000).astype(np.float32) * 0.1
+                for k in ("chunk", "chunk_ctxt", "chunk_rand")}
+               for _ in range(2)]
+
+    def cfg(n_model, path):
+        return dict(backprop_mode="base", hop=160, bpe=100, epoch=10,
+                    batch_size=4, chunk_size=8000, fe_lr=5e-4, min_lr=5e-4,
+                    lr_mode="poly", n_model=n_model, save_path=str(path))
+
+    kw = dict(fe_cfg=TP_FE, wk_cfg=TP_WORKERS, variables=None,
+              batches=batches, device="cuda")
+    one = train_steps(0, 1, cfg=cfg(1, tmp_path / "one"), **kw)
+    outs = run_ranks(tmp_path, "train_steps",
+                     dict(kw, cfg=cfg(2, tmp_path / "tp")), world=2)
+    assert outs[0]["routes"]["frontend.rnn"] == "lanes"
+    for a, b in zip(outs[0]["losses"], outs[1]["losses"]):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    for step, rel in ((0, 1e-4), (1, 1e-3)):
+        for k, v in one["losses"][step].items():
+            got = outs[0]["losses"][step][k]
+            assert abs(got - v) <= rel * abs(v), (step, k, got, v)
+    groups = {}
+    for k, g in one["grads"].items():
+        top = k.split("/")[1]
+        err = np.abs(outs[0]["grads"][k] - g).max()
+        groups.setdefault(top, [0.0, 0.0])
+        groups[top][0] = max(groups[top][0], err)
+        groups[top][1] = max(groups[top][1], np.abs(g).max())
+    for top, (err, big) in groups.items():
+        assert err <= 1e-3 * big, (top, err, big)

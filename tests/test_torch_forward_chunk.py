@@ -137,7 +137,7 @@ def test_wav_io_matches_jax(tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every pase_tpu_torch module (the encoders of
-    pase_tpu_torch.encoders, parallel.mesh, parallel.sp,
+    pase_tpu_torch.encoders, parallel.mesh, parallel.sp, parallel.tp,
     data.device_corpus, data.host_distortions and decoders among them)
     loads no jax, flax or pase_tpu module (the card's host has no JAX)."""
     code = (
@@ -148,7 +148,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pase_tpu')]\n"
         "assert 'pase_tpu_torch.encoders' in sys.modules\n"
-        "for m in ('parallel.mesh', 'parallel.sp', 'data.device_corpus',\n"
+        "for m in ('parallel.mesh', 'parallel.sp', 'parallel.tp',\n"
+        "          'data.device_corpus',\n"
         "          'data.host_distortions', 'decoders'):\n"
         "    assert 'pase_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('pase_tpu_torch')]))\n"

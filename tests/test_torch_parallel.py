@@ -424,11 +424,14 @@ def test_two_rank_step_matches_the_one_process_step(tmp_path, variant):
 
 
 def test_n_model_raises_naming_item_10b(tmp_path):
+    """--n_model 2 (item 10b) in one process: a grid of 1 process does not
+    divide into model ranks of 2, a ValueError naming the rule."""
     from pase_tpu_torch import train as port_train
     fe, wk = tmp_path / "fe.cfg", tmp_path / "wk.cfg"
     fe.write_text(json.dumps(FE))
     wk.write_text(json.dumps(WORKERS))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10b"):
+    with pytest.raises(ValueError, match="must divide the number of "
+                                         "processes"):
         port_train.main(["--synthetic", "--device", "cpu", "--net_cfg",
                          str(wk), "--fe_cfg", str(fe), "--n_model", "2",
                          "--save_path", str(tmp_path / "run")])

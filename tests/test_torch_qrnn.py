@@ -6,7 +6,12 @@ custom VJP; and the CUDA wrapper's CPU path. The kernels themselves are
 tested on the card by tests/test_torch_cuda.py.
 
 Tolerance: atol 2e-5, as tests/test_qrnn.py holds the Pallas kernel to the
-scan (float32 recurrences summed in different orders)."""
+scan (float32 recurrences summed in different orders).
+
+Every interpret-mode reference runs as one jitted call (``_interpret``):
+run op by op, an eager dispatch of the main thread can wait on the CPU
+device while the interpreted kernel's io_callbacks of the call before it
+wait on the main thread, a hang seen under a loaded 6-worker run."""
 
 import numpy as np
 import pytest
@@ -28,6 +33,19 @@ ATOL = 2e-5
 SHAPES = [(3, 200, 16), (9, 131, 8), (1, 7, 24)]
 
 
+def _interpret(fn, *args):
+    """fn(*args) of the JAX package in TPU interpret mode, traced and run
+    as one jitted call, its result on the host."""
+    with pltpu.force_tpu_interpret_mode():
+        return jax.device_get(jax.jit(fn)(*args))
+
+
+def _pallas_pool(y, c0=None):
+    """qrnn_pool_pallas(y, c0) of numpy inputs (``_interpret``)."""
+    return _interpret(jax_pallas.qrnn_pool_pallas, jnp.asarray(y),
+                      None if c0 is None else jnp.asarray(c0))
+
+
 def _inputs(b, t, h, seed):
     rng = np.random.RandomState(seed)
     y = rng.randn(b, t, 3 * h).astype(np.float32)
@@ -40,9 +58,7 @@ def _inputs(b, t, h, seed):
 def test_qrnn_pool_matches_pallas_interpret(shape, seeded):
     y, c0 = _inputs(*shape, seed=sum(shape))
     c0 = c0 if seeded else None
-    with pltpu.force_tpu_interpret_mode():
-        h_ref, c_ref = jax_pallas.qrnn_pool_pallas(
-            jnp.asarray(y), None if c0 is None else jnp.asarray(c0))
+    h_ref, c_ref = _pallas_pool(y, c0)
     h, c = torch_qrnn.qrnn_pool(torch.from_numpy(y),
                                 None if c0 is None else torch.from_numpy(c0))
     np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=ATOL)
@@ -80,10 +96,8 @@ def test_block_streaming_matches_full_and_pallas():
     np.testing.assert_allclose(torch.cat([h1, h2], 1).numpy(),
                                h_full.numpy(), atol=1e-6)
     np.testing.assert_allclose(c2.numpy(), c_full.numpy(), atol=1e-6)
-    with pltpu.force_tpu_interpret_mode():
-        p1, pc1 = jax_pallas.qrnn_pool_pallas(jnp.asarray(y[:, :12]),
-                                              jnp.asarray(c0))
-        p2, _ = jax_pallas.qrnn_pool_pallas(jnp.asarray(y[:, 12:]), pc1)
+    p1, pc1 = _pallas_pool(y[:, :12], c0)
+    p2, _ = _pallas_pool(y[:, 12:], pc1)
     np.testing.assert_allclose(torch.cat([h1, h2], 1).numpy(),
                                np.concatenate([p1, p2], 1), atol=ATOL)
 
@@ -131,12 +145,11 @@ def _jax_pool_grads(y, c0, wh, wc):
         h, c_last = jax_pallas.qrnn_pool_pallas(y_, c0_)
         return jnp.sum(h * wh) + jnp.sum(c_last * wc)
 
-    with pltpu.force_tpu_interpret_mode():
-        if c0 is None:
-            return jax.grad(lambda y_: loss(y_, None))(jnp.asarray(y)), None
-        gy, gc = jax.grad(loss, argnums=(0, 1))(jnp.asarray(y),
-                                                  jnp.asarray(c0))
-    return gy, gc
+    if c0 is None:
+        return _interpret(jax.grad(lambda y_: loss(y_, None)),
+                          jnp.asarray(y)), None
+    return _interpret(jax.grad(loss, argnums=(0, 1)), jnp.asarray(y),
+                      jnp.asarray(c0))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -200,9 +213,7 @@ def test_chunked_plain_matches_serial_and_pallas(t, chunk, chunks, seeded):
     h, c = torch_qrnn.qrnn_pool_chunked_plain(torch.from_numpy(y), c0t,
                                               chunk=chunk, chunks=chunks)
     h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
-    with pltpu.force_tpu_interpret_mode():
-        h_ref, c_ref = jax_pallas.qrnn_pool_pallas(
-            jnp.asarray(y), None if c0 is None else jnp.asarray(c0))
+    h_ref, c_ref = _pallas_pool(y, c0)
     assert h.shape == (3, t, 8) and c.shape == (3, 8)
     for got, want in ((h, h_ser), (c, c_ser), (h, np.asarray(h_ref)),
                       (c, np.asarray(c_ref))):
@@ -253,9 +264,7 @@ def test_serial_plain_matches_pallas_at_push_shapes(shape, seeded):
     y, c0 = _inputs(*shape, seed=sum(shape) + seeded)
     c0t = torch.from_numpy(c0) if seeded else None
     h, c = torch_qrnn.qrnn_pool_serial_plain(torch.from_numpy(y), c0t)
-    with pltpu.force_tpu_interpret_mode():
-        h_ref, c_ref = jax_pallas.qrnn_pool_pallas(
-            jnp.asarray(y), jnp.asarray(c0) if seeded else None)
+    h_ref, c_ref = _pallas_pool(y, c0 if seeded else None)
     h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
     assert h.shape == shape and c.shape == (shape[0], shape[2])
     for got, want in ((h, np.asarray(h_ref)), (c, np.asarray(c_ref)),

@@ -433,10 +433,13 @@ def test_train_loop_stops_on_a_non_finite_loss(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--n_model", "2"], ["--n_model", "4"]])
-def test_train_cli_refuses_unported_flags(tmp_path, flags):
+    ["--n_model", "2"], ["--n_model", "4", "--num_processes", "2"]])
+def test_train_cli_n_model_needs_a_grid_that_divides(tmp_path, flags):
+    """--n_model must divide the processes (one per card): in one process,
+    or 4 over 2, a ValueError before anything is built."""
     from pase_tpu_torch import train as port_train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="must divide the number of "
+                                         "processes"):
         port_train.main(["--synthetic", "--device", "cpu", "--net_cfg",
                          "cfg/workers/workers+.cfg", "--fe_cfg",
                          "cfg/frontend/PASE+.cfg", "--save_path",

@@ -11,7 +11,8 @@ the test with its output.
 
     python tests/torch_port_ranks.py SPEC RANK WORLD PORT OUT
 
-is a rank's own entry point.
+is a rank's own entry point; ``python -m torch_port_ranks --cli STEPS
+ARGS`` runs the training CLI with STEPS steps a --synthetic epoch.
 """
 
 import os
@@ -111,24 +112,29 @@ def _np(t):
 
 
 def train_steps(rank, world, fe_cfg, wk_cfg, cfg, variables, batches,
-                gan_cfg=None, draws=None):
+                gan_cfg=None, draws=None, device="cpu"):
     """Trainer steps on this rank's rows of each global batch, from the
     JAX-layout ``variables`` ({'params/...', 'batch_stats/...'}; None
-    keeps the seeded init). ``draws``: per step, {'z_real': global
-    array} sliced to the rank's rows. Returns the losses of every step,
-    and the gradients (JAX layout), the BatchNorm / VQ state and the
-    policy's alpha after the first."""
+    keeps the seeded init); ``cfg['n_model']`` lays the ranks out as a
+    grid (the rows are the data index's). ``draws``: per step,
+    {'z_real': global array} sliced to the rank's rows. Returns the
+    losses of every step, and the gradients (JAX layout, leaves held as
+    parts gathered whole), the BatchNorm / VQ state and the policy's
+    alpha after the first, the routes and the elements this rank holds
+    (parameters, Adam moments). ``device``: the ranks' (gloo on the
+    card's tensors too)."""
     import torch
     from pase_tpu_torch.checkpoint import (load_model_variables,
                                            model_state_dict_to_variables)
+    from pase_tpu_torch.parallel import tp
     from pase_tpu_torch.parallel.mesh import host_batch_slice
     from pase_tpu_torch.trainer import Trainer
     torch.set_num_threads(1)
-    tr = Trainer(fe_cfg, wk_cfg, cfg, device="cpu", gan_cfg=gan_cfg)
+    tr = Trainer(fe_cfg, wk_cfg, cfg, device=device, gan_cfg=gan_cfg)
     if variables is not None:
         load_model_variables(tr.model, variables)
-    sl = host_batch_slice(cfg["batch_size"], rank, world) if world > 1 \
-        else slice(None)
+    sl = host_batch_slice(cfg["batch_size"]) if world > 1 else slice(None)
+    specs = tp.leaf_specs(tr.model)
     losses, grads = [], None
     for i, raw in enumerate(batches):
         extra = {k: v[sl] for k, v in (draws[i] if draws else {}).items()}
@@ -136,18 +142,25 @@ def train_steps(rank, world, fe_cfg, wk_cfg, cfg, variables, batches,
         losses.append({k: _np(v) for k, v in out.items()})
         if i == 0:
             grads = {k: _np(v) for k, v in model_state_dict_to_variables(
-                {n: p.grad for n, p in tr.model.named_parameters()
-                 if p.grad is not None}).items()}
+                tp.full_tensors({n: p.grad for n, p in
+                                 tr.model.named_parameters()
+                                 if p.grad is not None}, specs)).items()}
             if tr.discriminator is not None:
-                grads.update({f"d/{n}": _np(p.grad) for n, p in
-                              tr.discriminator.named_parameters()})
+                d_specs = tp.leaf_specs(tr.discriminator)
+                grads.update({f"d/{n}": _np(g) for n, g in tp.full_tensors(
+                    {n: p.grad for n, p in
+                     tr.discriminator.named_parameters()}, d_specs).items()})
             state = {k: _np(v) for k, v in model_state_dict_to_variables(
-                {k: b for k, b in tr.model.state_dict().items()
-                 if "running" in k or "ema" in k
-                 or k.endswith(".emb")}).items()}
+                tp.full_tensors({k: b for k, b in tr.model.state_dict().items()
+                                 if "running" in k or "ema" in k
+                                 or k.endswith(".emb")}, specs)).items()}
             alpha = _np(tr.alpha)
+    moments = sum(st["exp_avg"].numel() + st["exp_avg_sq"].numel()
+                  for st in tr.opt.state.values() if "exp_avg" in st)
     return {"losses": losses, "grads": grads, "state": state,
-            "alpha": alpha}
+            "alpha": alpha, "routes": dict(tr.model.tp_routes),
+            "params": sum(p.numel() for p in tr.model.parameters()),
+            "moments": moments}
 
 
 def collectives(rank, world):
@@ -179,6 +192,45 @@ def collectives(rank, world):
                  "b": torch.tensor(2.0 * rank)}).items()}}
 
 
+def grid_collectives(rank, world, n_model):
+    """This rank's place in the grid of ``n_model``, its rows of a batch
+    of 4, and the data- and model-group collectives of x = 10 i_model +
+    i_data."""
+    import torch
+    from pase_tpu_torch.parallel import mesh
+    g = mesh.set_grid(n_model)
+    x = torch.tensor([10.0 * g.i_model + g.i_data])
+    s = [x.clone()]
+    mesh.all_reduce_(s)
+    sl = mesh.host_batch_slice(4)
+    return {"place": [g.n_data, g.n_model, g.i_data, g.i_model],
+            "rows": [sl.start, sl.stop], "data_sum": float(s[0][0]),
+            "data_gather": mesh.gather(x)[:, 0].tolist(),
+            "model_gather": mesh.gather(x, g.model_group)[:, 0].tolist()}
+
+
+def tp_checkpoint(rank, world, fe_cfg, wk_cfg, cfg, batches, resume):
+    """A Trainer of ``cfg`` (its n_model): with ``resume`` from the latest
+    checkpoint of its save_path, else the steps of ``batches`` and a
+    save; returns its train state tree (gathered: the n_model = 1
+    layout) and step."""
+    import torch
+    from pase_tpu_torch.checkpoint import train_state_to_tree
+    from pase_tpu_torch.parallel.mesh import host_batch_slice
+    from pase_tpu_torch.trainer import Trainer
+    torch.set_num_threads(1)
+    tr = Trainer(fe_cfg, wk_cfg, cfg, device="cpu")
+    if resume:
+        tr.try_resume()
+    sl = host_batch_slice(cfg["batch_size"])
+    for raw in batches:
+        tr.train_step({k: v[sl] for k, v in raw.items()})
+    if not resume:
+        tr.save(0)
+    return {"tree": {k: np.asarray(v) for k, v in
+                     train_state_to_tree(tr).items()}, "step": tr.step}
+
+
 def batchnorm(rank, world, x, weight, bias, dy, dtype="float32"):
     """The port's BatchNorm1d in train mode on this rank's rows of x
     (global [B, C, T]): its output, input and parameter gradients under
@@ -203,9 +255,14 @@ def _main(spec, rank, world, port, out):
     import torch
     from pase_tpu_torch.parallel.mesh import init_distributed
     torch.set_num_threads(1)
+    # float32 without TF32 on a card, as the tests' one process runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     with open(spec, "rb") as f:
         spec = pickle.load(f)
-    assert init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    assert init_distributed(f"127.0.0.1:{port}", world, rank,
+                            device=spec["kwargs"].get("device", "cpu"),
+                            backend="gloo")
     result = globals()[spec["fn"]](rank, world, **spec["kwargs"])
     import torch.distributed as dist
     dist.barrier()
@@ -214,6 +271,18 @@ def _main(spec, rank, world, port, out):
     dist.destroy_process_group()
 
 
+def _cli(steps, argv):
+    """The training CLI with ``steps`` steps a --synthetic epoch."""
+    import torch
+    from pase_tpu_torch import train
+    torch.set_num_threads(1)
+    train.SYNTHETIC_BPE = steps
+    train.main(argv)
+
+
 if __name__ == "__main__":
-    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-          sys.argv[5])
+    if sys.argv[1] == "--cli":
+        _cli(int(sys.argv[2]), sys.argv[3:])
+    else:
+        _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+              sys.argv[5])
