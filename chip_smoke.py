@@ -416,6 +416,30 @@ Phases, each printed as it ends; any failure exits non-zero:
                parameter and Adam bytes per rank of (a) and (b) against
                one process's: the sharded leaves' 1 / n_model plus the
                whole replicated ones.
+ 28. rehearsal — ``bash pase_tpu_torch/recipes/rehearsal.sh`` whole
+               (REHEARSAL_ENV: HOURS 0.25, EPOCHS 3, 32 x 32000 float32,
+               PASE+ / workers+), every assertion of the script: the
+               corpus and its statistics, run A, run B with --sup_exec
+               probes killed (-9) in epoch 2 and resumed in a new process,
+               A's and B's FE_e2.npz bit for bit (or, where two
+               uninterrupted card runs differ, B within twice their
+               spread), the export, serve-encode within 2e-4 of
+               forward-chunk, the probe fired and beating chance and the
+               random-init encoder. It starts with the gate after phase 9
+               and runs beside phases 10-11, which time nothing. Each
+               ``python -m`` CLI of the script runs through this script's
+               --counted mode (a ``python`` first on its PATH), which
+               writes the CLI's launch counts and TF32 flags at each launch
+               and at exit: every --device CLI has both TF32 flags off
+               after its setup; run A launches the training kernels once
+               per layer per train step and qrnn_pool_fwd once per layer
+               per eval step, run B (killed and resumed) at least as many,
+               forward-chunk and serve-encode qrnn_pool_fwd_chunked once
+               per layer and nothing else. Beside run B, one epoch of run
+               A's command under torch's deterministic algorithms (a
+               process of its own) lists the ops torch has no
+               deterministic implementation of. Prints the script's PASS
+               lines, each step's seconds and the launches of each CLI.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
 once per QRNN layer per encoder call and qrnn_pool_fwd never; training
@@ -481,7 +505,10 @@ per eval step, encode-codec2 and the decoders none, the attention
 variant's ranks the training kernels once per layer per rank per step;
 phase 27's grid steps (every rank) the training kernels once per layer
 per rank per step, its CLI once per layer per rank per train step and
-qrnn_pool_fwd once per layer per rank per eval step.
+qrnn_pool_fwd once per layer per rank per eval step; phase 28's runs A and
+B (summed over B's two processes) as phase 7's CLI, forward-chunk and
+serve-encode qrnn_pool_fwd_chunked once per layer, the probes once per
+layer per utterance.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
 (forward-chunk --streaming), export (phase 14's serve-encode), phase
@@ -500,7 +527,8 @@ eval_ckpts, cache_feats, and phase 24's kaldi_cli, kaldi_step,
 clusterize, project_features, prosodic_eval, and phase 25's dp_step,
 dp_cli, sharded_corpus, time_shard, time_shard_grad, time_shard_cli, and
 phase 26's host_stage_cli, host_stage_plain, encode_codec2, decoders,
-dp_attention, and phase 27's tp_step_1x2, tp_step_2x2, tp_cli:
+dp_attention, and phase 27's tp_step_1x2, tp_step_2x2, tp_cli, and
+phase 28's rehearsal (every CLI process of the script, summed):
 the steps the training kernels once per layer (MGD's per-worker
 gradients reuse the loss forward's graph: no second forward), the CLI
 runs once per layer per train step and qrnn_pool_fwd once per layer per
@@ -775,6 +803,17 @@ KMEANS_ITERS = 50
 KMEANS_TIE_REL = 1e-5
 
 
+# phase 28: the rehearsal script, its depth (the script's defaults are
+# HOURS=2 EPOCHS=5) and its time limit
+REHEARSAL = os.path.join("pase_tpu_torch", "recipes", "rehearsal.sh")
+REHEARSAL_ENV = {"HOURS": "0.25", "EPOCHS": "3"}
+REHEARSAL_TIMEOUT = 900
+# the rehearsal's CLIs that take --device: TF32 off after their setup
+DEVICE_CLIS = ("pase_tpu_torch.train", "pase_tpu_torch.util_scripts",
+               "pase_tpu_torch.run_probe",
+               "pase_tpu_torch.make_trainset_statistics")
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -821,6 +860,7 @@ def _sync(device):
 
 def phase_device():
     import torch
+    from pase_tpu_torch.precision import full_precision
     check(torch.cuda.is_available(),
           "no CUDA device: torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -828,8 +868,7 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision()
     name = torch.cuda.get_device_name(0)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.device_count()} device(s); {name}")
@@ -1606,8 +1645,8 @@ def resume_check():
     import torch
     from pase_tpu_torch import trajectory as T
     from pase_tpu_torch.data.dataset import DeviceSyntheticBatcher
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from pase_tpu_torch.precision import full_precision
+    full_precision()
     torch.backends.cudnn.benchmark = False
     torch.use_deterministic_algorithms(True, warn_only=True)
     tmp = tempfile.mkdtemp(prefix="pase_chip_resume_")
@@ -3367,6 +3406,259 @@ def _gate_join(started):
     res["lines"] = [line for line in text.splitlines()
                     if line.startswith("[transfer]")]
     return res
+
+
+def counted_child(out_dir, argv):
+    """Phase 28's ``python -m MODULE ARGS`` (``argv``) as ``python -m``
+    runs it, with its launch counts and TF32 flags written to
+    ``out_dir/<pid>.json`` at its start, at each launch (a SIGKILL loses
+    none that finished) and at exit (``when``)."""
+    import atexit
+    import runpy
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from pase_tpu_torch.ops import conv, cuda_qrnn
+    path = os.path.join(out_dir, f"{os.getpid()}.json")
+    b = torch.backends
+
+    def dump(when):
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"argv": argv, "launches": read_launches(), "tf32": {
+                "matmul": b.cuda.matmul.allow_tf32,
+                "cudnn": b.cudnn.allow_tf32}, "when": when}, f)
+        os.replace(tmp, path)
+
+    class Counts(dict):
+        def __setitem__(self, key, value):
+            super().__setitem__(key, value)
+            dump("launch")
+
+    cuda_qrnn.LAUNCHES = Counts(cuda_qrnn.LAUNCHES)
+    conv.LAUNCHES = Counts(conv.LAUNCHES)
+    dump("start")
+    atexit.register(dump, "exit")
+    sys.argv = [argv[1]] + argv[2:]
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    return 0
+
+
+def det_ops_child(argv, out):
+    """Phase 28's listing, in a process of its own: the rehearsal's
+    training command (``argv``, the CLI's flags) under torch's
+    deterministic algorithms (warn_only); the ops torch warns it has no
+    deterministic implementation of go to ``out`` (JSON)."""
+    import re
+    import warnings
+    import torch
+    from pase_tpu_torch import train as train_cli
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        train_cli.main(argv)
+    ops = sorted({m.group(1) for w in caught for m in [re.match(
+        r"(\w+) does not have a deterministic implementation",
+        str(w.message))] if m})
+    with open(out, "w") as f:
+        json.dump(ops, f)
+    return 0
+
+
+def _deterministic_start(tmp):
+    """``det_ops_child`` on run A's command cut to one epoch, started once
+    run A has exited (beside run B); None before that."""
+    import glob
+    for path in glob.glob(os.path.join(tmp, "counts", "*.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        if rec["when"] == "exit" and _rehearsal_role(rec["argv"]) == "train_A":
+            break
+    else:
+        return None
+    args = list(rec["argv"][2:])
+    for flag, value in (("--epoch", "1"),
+                        ("--save_path", os.path.join(tmp, "det_ops"))):
+        args[args.index(flag) + 1] = value
+    out = os.path.join(tmp, "det_ops.json")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--det-ops", json.dumps(args), out], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    return proc, out
+
+
+def _deterministic_join(started):
+    """The ops ``det_ops_child`` listed."""
+    proc, out = started
+    text = proc.communicate(timeout=300)[0]
+    check(proc.returncode == 0, f"rehearsal: the deterministic epoch "
+          f"failed: {text[-3000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _rehearsal_start(tmp):
+    """Phase 28's script, started in a session of its own (every process
+    it starts is ended with it): a ``python`` first on its PATH runs each
+    ``python -m`` CLI through ``counted_child``, anything else as it
+    is."""
+    for d in ("bin", "counts", "work"):
+        os.makedirs(os.path.join(tmp, d), exist_ok=True)
+    shim = os.path.join(tmp, "bin", "python")
+    with open(shim, "w") as f:
+        f.write(f"""#!/bin/sh
+if [ "$1" = "-m" ]; then
+    exec {sys.executable} {os.path.abspath(__file__)} --counted \
+        {os.path.join(tmp, "counts")} "$@"
+fi
+exec {sys.executable} "$@"
+""")
+    os.chmod(shim, 0o755)
+    env = dict(os.environ, **REHEARSAL_ENV,
+               PATH=os.path.join(tmp, "bin") + os.pathsep
+               + os.environ.get("PATH", ""))
+    with open(os.path.join(tmp, "stdout.log"), "w") as out:
+        proc = subprocess.Popen(
+            ["bash", os.path.join(HERE, REHEARSAL),
+             os.path.join(tmp, "work")], cwd=HERE, env=env, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    _CHILDREN.append(proc)
+    _GROUPS.append(proc.pid)
+    return tmp, proc, time.perf_counter()
+
+
+def _end_group(pgid):
+    import signal
+    try:
+        os.killpg(pgid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def _rehearsal_role(argv):
+    """The rehearsal CLI of a counted process's argv."""
+    module, args = argv[1], argv[2:]
+    if module == "pase_tpu_torch.train":
+        save = os.path.basename(args[args.index("--save_path") + 1])
+        return "train_" + save[len("run"):]
+    if module == "pase_tpu_torch.util_scripts":
+        return args[0]
+    if module == "pase_tpu_torch.run_probe":
+        return "probe_sup" if "--fe_ckpt" in args else "probe_random"
+    return module.split(".")[-1]
+
+
+def _rehearsal_join(started):
+    """Phase 28's result: the script's PASS lines, its steps' seconds,
+    the launches and TF32 flags of each CLI. Returns {'rehearsal': the
+    launches of every CLI process, summed}."""
+    import glob
+    from pase_tpu_torch.frontend import wf_builder
+    tmp, proc, t0 = started
+    det = None
+    while proc.poll() is None:
+        det = det or _deterministic_start(tmp)
+        if time.perf_counter() - t0 > REHEARSAL_TIMEOUT:
+            _end_group(proc.pid)
+            proc.wait()
+        time.sleep(1)
+    wall = time.perf_counter() - t0
+    _end_group(proc.pid)            # the probes' shells, if any are left
+    with open(os.path.join(tmp, "stdout.log")) as f:
+        text = f.read()
+    check(wall <= REHEARSAL_TIMEOUT, f"rehearsal: not done in "
+          f"{REHEARSAL_TIMEOUT} s: {text[-3000:]}")
+    lines = [ln for ln in text.splitlines() if ln.startswith("[rehearsal]")]
+    for ln in lines:
+        print(ln)
+    log = os.path.join(tmp, "work", "rehearsal.log")
+    if proc.returncode != 0 and os.path.exists(log):
+        with open(log) as f:
+            text += "\n--- rehearsal.log ---\n" + f.read()[-4000:]
+    check(proc.returncode == 0, f"rehearsal exited {proc.returncode}: "
+          f"{text[-5000:]}")
+    check(any("REHEARSAL COMPLETE" in ln for ln in lines),
+          "rehearsal: no completion line")
+    roles, n_tf32 = {}, 0
+    for path in sorted(glob.glob(os.path.join(tmp, "counts", "*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        role = _rehearsal_role(rec["argv"])
+        roles.setdefault(role, []).append(rec)
+        if rec["argv"][1] in DEVICE_CLIS:
+            # flags read at a launch or at exit, after the CLI's setup
+            n_tf32 += 1
+            check(rec["when"] != "start" and not (
+                rec["tf32"]["matmul"] or rec["tf32"]["cudnn"]),
+                f"rehearsal: {role} ran with TF32 on or was read only "
+                f"before its setup: {rec['tf32']}, {rec['when']}")
+    launches = {role: {k: sum(r["launches"][k] for r in recs)
+                       for k in recs[0]["launches"]}
+                for role, recs in roles.items()}
+    with open(os.path.join(tmp, "work", "runA", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    bpe = next(r["step"] for r in recs if r["split"] == "perf")
+    epochs = int(REHEARSAL_ENV["EPOCHS"])
+    layers = len(wf_builder(PASEP_CFG, device="cpu").module.rnn.layers)
+    zero = {k: 0 for k in launches["train_A"]}
+    want = {
+        "train_A": {**zero, "qrnn_pool_fwd_train": layers * epochs * bpe,
+                    "qrnn_pool_bwd": layers * epochs * bpe,
+                    "qrnn_pool_fwd": layers * epochs * max(bpe // 10, 1)},
+        "forward-chunk": {**zero, "qrnn_pool_fwd_chunked": layers},
+        "serve-encode": {**zero, "qrnn_pool_fwd_chunked": layers}}
+    if "train_A2" in launches:      # the card's spread: A2 is run as A
+        want["train_A2"] = want["train_A"]
+    print(f"[rehearsal] phase 28: bash {REHEARSAL} with "
+          + " ".join(f"{k}={v}" for k, v in REHEARSAL_ENV.items())
+          + f" ({REHEARSAL_ENV.get('BATCH', 32)} x "
+          f"{REHEARSAL_ENV.get('CHUNK', 32000)} float32, {bpe} steps an "
+          f"epoch): every assertion "
+          f"passed in {wall:.1f} s; TF32 off after the setup of each of the "
+          f"{n_tf32} --device CLI processes")
+    for role in sorted(launches):
+        print(f"[launches] rehearsal {role} ({len(roles[role])} "
+              f"process(es)): {launches[role]}")
+    for role, w in want.items():
+        check(launches.get(role) == w, f"rehearsal {role} launches "
+              f"{launches.get(role)} != {w}")
+    # run B: the killed process past epoch 1's last step and its two
+    # evals, the resumed one from epoch 2's first step to the end
+    va = max(bpe // 10, 1)
+    killed, resumed = (next(r["launches"] for r in roles["train_B"]
+                            if (r["when"] == "exit") == done)
+                       for done in (False, True))
+    check(len(roles["train_B"]) == 2, "rehearsal: run B is not two "
+          "processes")
+    check(resumed == {**zero, "qrnn_pool_fwd": layers * (epochs - 2) * va,
+                      "qrnn_pool_fwd_train": layers * (epochs - 2) * bpe,
+                      "qrnn_pool_bwd": layers * (epochs - 2) * bpe},
+          f"rehearsal: the resumed run B launched {resumed}")
+    check(killed["qrnn_pool_fwd"] == layers * 2 * va
+          and 2 * bpe * layers < killed["qrnn_pool_fwd_train"]
+          <= epochs * bpe * layers, f"rehearsal: the killed run B launched "
+          f"{killed}, not 2 evals and a step of epoch 2")
+    with open(os.path.join(tmp, "work", "probe_tr.lst")) as f:
+        utts = sum(1 for line in f if line.strip())
+    with open(os.path.join(tmp, "work", "probe_te.lst")) as f:
+        utts += sum(1 for line in f if line.strip())
+    for role in ("probe_sup", "probe_random"):
+        for r in roles[role]:
+            check(r["launches"] == {**zero, "qrnn_pool_fwd_chunked":
+                                    layers * utts},
+                  f"rehearsal {role} launched {r['launches']}, not "
+                  f"{layers} x {utts} utterances of qrnn_pool_fwd_chunked")
+    # the ops torch cannot make repeat: where B is held to the spread, they
+    # and cuDNN's algorithm choice are what the bits may differ by
+    ops = _deterministic_join(det or _deterministic_start(tmp))
+    print(f"[rehearsal] run A's command for an epoch under torch's "
+          f"deterministic algorithms (beside run B, a process of its own): "
+          f"ops without a deterministic implementation: "
+          f"{', '.join(ops) or 'none'}")
+    total = {k: sum(c[k] for c in launches.values()) for k in zero}
+    return {"rehearsal": total}
 
 
 def _rnn_encoder_cfg(tmp, rnn_type):
@@ -5163,6 +5455,8 @@ def _free_port():
 # the processes this script started and has not joined yet: main() ends
 # any still running when a phase fails
 _CHILDREN = []
+# the process groups of the children that start processes of their own
+_GROUPS = []
 
 
 def _ranks(mode, spec, tmp, world=DP_RANKS):
@@ -5241,8 +5535,8 @@ def dp_child(mode, spec_path, rank, world, port, out):
     Each returns its launch counts."""
     import pickle
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from pase_tpu_torch.precision import full_precision
+    full_precision()
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
     reset_launches()
@@ -6196,12 +6490,15 @@ def main():
         convs = phase_conv()
         clock(9)
         gate = _gate_start(os.path.join(tmp, "gate"))
+        rehearsal = _rehearsal_start(os.path.join(tmp, "rehearsal"))
         phase_trajectory(os.path.join(tmp, "trajectory"))
         torch.cuda.empty_cache()
         clock(10)
         phase_resume()
         gate = _gate_join(gate)
         clock(11)
+        rehearsal_paths = _rehearsal_join(rehearsal)
+        clock(28)
         _, disk_common = phase_disk(os.path.join(tmp, "disk"),
                                     dist_perf["bfloat16"]["steps_per_sec"])
         clock(12)
@@ -6242,6 +6539,7 @@ def main():
         clock(26)
         paths.update(phase_tp(os.path.join(tmp, "tp")))
         clock(27)
+        paths.update(rehearsal_paths)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -6250,6 +6548,8 @@ def main():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        for pgid in _GROUPS:
+            _end_group(pgid)
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
     # the chunked kernel at the serving shape; the one-thread-a-lane one at
@@ -6367,6 +6667,11 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--resume-check"]:        # phase 11's own process
         sys.path.insert(0, HERE)
         sys.exit(resume_check())
+    if sys.argv[1:2] == ["--counted"]:            # phase 28's CLIs
+        sys.exit(counted_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--det-ops"]:            # phase 28's listing
+        sys.path.insert(0, HERE)
+        sys.exit(det_ops_child(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--gate"]:               # phase 19's gate
         sys.path.insert(0, HERE)
         sys.exit(gate_child(sys.argv[2], sys.argv[3]))

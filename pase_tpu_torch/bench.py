@@ -34,6 +34,8 @@ import time
 import numpy as np
 import torch
 
+from pase_tpu_torch.precision import full_precision
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FE_CFG = os.path.join(ROOT, "cfg", "frontend", "PASE+.cfg")
 NET_CFG = os.path.join(ROOT, "cfg", "workers", "workers+.cfg")
@@ -160,8 +162,7 @@ def main(argv=None):
         raise RuntimeError("--device cuda: no CUDA device "
                            "(torch.cuda.is_available() is False)")
     # no TF32: float32 means float32, bf16 is chosen by --compute_dtype
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision()
     tr, raws, _, _ = build(args.device, args.compute_dtype)
     rates = measure(tr, raws)
     tr.logger.close()

@@ -823,7 +823,9 @@ class Saver:
     def save(self, name, flat, step):
         """Write the new weights first, then the index naming them, then
         evict the oldest: a kill in between never leaves ``current``
-        dangling."""
+        dangling. The index is written to a temporary file and renamed
+        over the old one, so a kill while it is written leaves the old
+        index whole (the JAX package's ``Saver`` writes it in place)."""
         os.makedirs(self.save_path, exist_ok=True)
         ckpts = self._read_index()
         model_path = f"{self.prefix}{name}-{step}.npz"
@@ -835,8 +837,10 @@ class Saver:
             todel, latest = latest[0], latest[1:]
         latest.append(model_path)
         ckpts["latest"], ckpts["current"] = latest, model_path
-        with open(self.index_path, "w") as f:
+        tmp = self.index_path + ".tmp"
+        with open(tmp, "w") as f:
             f.write(json.dumps(ckpts, indent=2))
+        os.replace(tmp, self.index_path)
         if todel is not None:
             try:
                 os.remove(os.path.join(self.save_path, "weights_" + todel))

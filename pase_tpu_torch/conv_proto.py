@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from pase_tpu_torch.ops import conv
+from pase_tpu_torch.precision import full_precision
 
 B = 96
 LAYERS = [
@@ -188,11 +189,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m pase_tpu_torch.conv_proto")
     p.add_argument("--device", default="cuda", choices=("cuda",))
     opts = p.parse_args(argv)
+    full_precision()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
                            "False)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; B={B}, bfloat16")
     inputs = make_inputs(torch.bfloat16, opts.device)
     rows = measure(inputs, forward(inputs))

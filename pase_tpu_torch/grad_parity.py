@@ -40,6 +40,7 @@ from pase_tpu_torch.data.pipeline import make_prepare_fn
 from pase_tpu_torch.model import build_pase, worker_losses
 from pase_tpu_torch.nn import SincConv
 from pase_tpu_torch.ops.pad import pad_1d, sinc_same_pad
+from pase_tpu_torch.precision import full_precision
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PASEP_CFG = os.path.join(HERE, "cfg", "frontend", "PASE+.cfg")
@@ -68,15 +69,16 @@ def group_of(name):
 def prelu_signs(model, record=None, force=None):
     """Within the block, each PReLU (and ReLU module, slope 0) of ``model``
     puts its input (detached, on the CPU) into ``record`` under its module
-    name; with ``force`` (name -> bool mask), it computes where(mask, x,
-    slope * x) instead, so its derivative takes the mask's side of the
-    kink rather than its own input's sign."""
+    name; with ``force`` (name -> bool mask), each one named there
+    computes where(mask, x, slope * x) instead, so its derivative takes
+    the mask's side of the kink rather than its own input's sign (the
+    others keep their own)."""
     def hook(name):
         def fn(mod, inputs, out):
             x = inputs[0]
             if record is not None:
                 record[name] = x.detach().cpu()
-            if force is not None:
+            if force is not None and name in force:
                 slope = (mod.weight.view(1, -1, *([1] * (x.dim() - 2)))
                          if isinstance(mod, nn.PReLU) else 0.0)
                 return torch.where(force[name].to(x.device), x, slope * x)
@@ -324,8 +326,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision()
     print(f"[grad_parity] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}; cudnn {torch.backends.cudnn.version()}; "
           f"batch {opts.batch} x {opts.chunk}")

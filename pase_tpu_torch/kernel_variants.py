@@ -38,6 +38,7 @@ import torch
 from pase_tpu_torch import conv_proto
 from pase_tpu_torch.ops import conv, cuda_build, cuda_qrnn
 from pase_tpu_torch.ops import qrnn as plain
+from pase_tpu_torch.precision import full_precision
 
 VARIANT_DIR = os.path.join(cuda_build.BUILD_DIR, "variants")
 _CHUNK = ("constexpr int kMaxChunk = 8;", "constexpr int kChunkBlocks = 2;",
@@ -263,8 +264,7 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
                            "False)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision()
     print(torch.cuda.get_device_name(0), flush=True)
     return {g: GROUPS[g]() for g in groups}
 

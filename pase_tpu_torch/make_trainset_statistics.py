@@ -49,6 +49,8 @@ def main(argv=None):
                                              SyntheticChunkBatcher)
     from pase_tpu_torch.data.pipeline import compute_stats, save_stats_pkl
     from pase_tpu_torch.model import parse_workers_cfg
+    from pase_tpu_torch.precision import full_precision
+    full_precision()        # float32 as the JAX CLI's: no TF32
     if opts.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device "
                            "(torch.cuda.is_available() is False)")

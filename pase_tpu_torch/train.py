@@ -97,6 +97,8 @@ import time
 
 import torch
 
+from pase_tpu_torch.precision import full_precision
+
 
 def str2bool(v):
     return str(v).lower() in ("true", "1", "yes")
@@ -645,12 +647,7 @@ def train(opts):
 
 def _train(opts):
     from pase_tpu_torch.data.pipeline import load_stats_pkl
-    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.trainer import Trainer
-    # no TF32 matmuls, convolutions or recurrences: float32 is the JAX
-    # CLI's reference precision, and bf16 is chosen explicitly by
-    # --compute_dtype
-    full_precision()
     with open(opts.fe_cfg) as f:
         fe_cfg = json.load(f)
     with open(opts.net_cfg) as f:
@@ -695,6 +692,10 @@ def _train(opts):
 
 def main(argv=None):
     opts = build_argparser().parse_args(argv)
+    # no TF32 matmuls, convolutions or recurrences: float32 is the JAX
+    # CLI's reference precision, and bf16 is chosen explicitly by
+    # --compute_dtype
+    full_precision()
     os.makedirs(opts.save_path, exist_ok=True)
     with open(os.path.join(opts.save_path, "train.opts"), "w") as f:
         f.write(json.dumps(vars(opts), indent=2))

@@ -246,10 +246,8 @@ def run(opts, workdir):
     from pase_tpu_torch.checkpoint import save_variables_npz
     from pase_tpu_torch.data.pipeline import compute_stats
     from pase_tpu_torch.model import parse_workers_cfg
-    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.trainer import Trainer
 
-    full_precision()
     device = opts.device
     corpus = os.path.join(workdir, "probe_corpus")
     print("[transfer] building probe corpus ...")
@@ -338,6 +336,8 @@ def main(argv=None):
     the gate holds, else 1."""
     opts = build_argparser().parse_args(argv)
     import torch
+    from pase_tpu_torch.precision import full_precision
+    full_precision()        # float32 as the JAX gate's: no TF32
     if opts.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device "
                            "(torch.cuda.is_available() is False)")

@@ -97,9 +97,7 @@ def forward_chunk(opts):
     [emb, F] .npy."""
     _needs_input(opts, "forward-chunk")
     from pase_tpu_torch.data.io import read_wav
-    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.streaming import stream_frames
-    full_precision()
     enc = _encoder(opts)
     chunk = opts.chunk_size
 
@@ -235,9 +233,7 @@ def eval_ckpts(opts):
     from pase_tpu_torch.data.dataset import (ChunkBatcher,
                                              LibriSpeechTupleDataset,
                                              SyntheticChunkBatcher)
-    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.trainer import Trainer
-    full_precision()
     fe_cfg, wk_cfg = _cfgs(opts)
     cfg = dict(backprop_mode="base", hop=160, bpe=opts.n_batches, epoch=1,
                batch_size=opts.batch_size, chunk_size=opts.chunk_size,
@@ -291,10 +287,8 @@ def profile_step(opts):
     --compute_dtype, with bench.py's distortion stack on its seeded
     assets and ZNorm statistics of 2 synthetic batches of 8 unless
     --bare (model and targets only)."""
-    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.profiling import profile_train_step
     from pase_tpu_torch.trainer import Trainer
-    full_precision()
     fe_cfg, wk_cfg = _cfgs(opts)
     cfg = dict(backprop_mode="base", hop=160, bpe=1, epoch=1,
                batch_size=opts.batch_size, chunk_size=opts.chunk_size,
@@ -384,9 +378,7 @@ def kmeans(x, k, iters=50, seed=0, init_idx=None):
 def _frame_features(opts):
     """The frame embeddings [sum of frames, D] of the first --max_utts
     wavs of --wav_list (``probes.extract.FeatureExtractor``)."""
-    from pase_tpu_torch.precision import full_precision
     from pase_tpu_torch.probes.extract import FeatureExtractor
-    full_precision()
     ex = FeatureExtractor(opts.fe_cfg, opts.fe_ckpt, device=opts.device)
     return np.concatenate([
         ex.extract_file(os.path.join(opts.data_root, p))
@@ -436,8 +428,6 @@ def prosodic_eval(opts):
     from pase_tpu_torch.data.pipeline import load_stats_pkl
     from pase_tpu_torch.model import build_pase
     from pase_tpu_torch.ops.features import prosody
-    from pase_tpu_torch.precision import full_precision
-    full_precision()
     fe_cfg, wk_cfg = _cfgs(opts)
     model, meta = build_pase(fe_cfg, wk_cfg)
     flat, _ = load_variables(opts.ckpt)
@@ -798,6 +788,8 @@ def build_parser():
 
 def main(argv=None):
     opts = build_parser().parse_args(argv)
+    from pase_tpu_torch.precision import full_precision
+    full_precision()        # float32 as the JAX CLI's: no TF32
     return {"forward-chunk": forward_chunk, "export": export,
             "serve-encode": serve_encode, "eval-ckpts": eval_ckpts,
             "precompute-feats": precompute_feats,

@@ -218,6 +218,32 @@ def test_saver_retention_and_write_order(tmp_path, monkeypatch):
     assert sorted(p.name for p in tmp_path.glob("weights_*")) == files
 
 
+def test_saver_index_write_cut_short_keeps_the_old_index(tmp_path,
+                                                         monkeypatch):
+    """A process that dies while the index is written (here: before the
+    rename of its new copy) leaves the previous index whole, naming the
+    previous checkpoint, and the next save completes over it."""
+    import json
+    from pase_tpu_torch import checkpoint as ck
+    saver = ck.Saver(str(tmp_path), max_ckpts=5, prefix="PASE-")
+    saver.save("m", {"step": np.asarray(1, np.int32)}, 1)
+    with open(tmp_path / "PASE-checkpoints") as f:
+        index = json.load(f)
+
+    def killed(*a, **k):
+        raise KeyboardInterrupt
+
+    with monkeypatch.context() as m:
+        m.setattr(ck.os, "replace", killed)
+        with pytest.raises(KeyboardInterrupt):
+            saver.save("m", {"step": np.asarray(2, np.int32)}, 2)
+    with open(tmp_path / "PASE-checkpoints") as f:
+        assert json.load(f) == index
+    assert saver.load_weights()[1] == {"step": 1}
+    saver.save("m", {"step": np.asarray(3, np.int32)}, 3)
+    assert saver.load_weights()[1] == {"step": 3}
+
+
 def test_legacy_weights_only_checkpoint_warns(tmp_path, capsys):
     from pase_tpu_torch.checkpoint import model_state_dict_to_variables
     from pase_tpu_torch.trainer import NAME

@@ -1448,3 +1448,130 @@ def test_tensor_parallel_step_on_the_card(cuda_device, tmp_path):
         groups[top][1] = max(groups[top][1], np.abs(g).max())
     for top, (err, big) in groups.items():
         assert err <= 1e-3 * big, (top, err, big)
+
+
+# ---------------------------------------------------------------------------
+# the training CLI as processes of their own (the rehearsal's setting)
+# ---------------------------------------------------------------------------
+
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the training CLI under torch's deterministic algorithms (cuBLAS's
+# workspace fixed by CUBLAS_WORKSPACE_CONFIG), as a `python -m` run of it;
+# torch warns once for each op it has no deterministic implementation of
+DETERMINISTIC_TRAIN = (
+    "import runpy, sys, torch\n"
+    "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+    "sys.argv = ['pase_tpu_torch.train'] + sys.argv[1:]\n"
+    "runpy.run_module('pase_tpu_torch.train', run_name='__main__')\n")
+# the ops of the rehearsal's step that torch has no deterministic
+# implementation of (the card's torch 2.11): their atomics gave the same
+# bits in every run on the card so far
+NONDETERMINISTIC_OPS = {"reflection_pad1d_backward_out_cuda"}
+
+
+def _child_env(**extra):
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT, **extra)
+    env.pop("PYTEST_CURRENT_TEST", None)
+    return env
+
+
+def test_train_cli_process_turns_tf32_off(cuda_device, tmp_path):
+    """A fresh process of the training CLI (its ``main``, two --synthetic
+    steps on the card): cuDNN's TF32 default is on there (torch's
+    default), and after the CLI's setup both TF32 flags are off."""
+    import json
+    import subprocess
+    import sys
+    fe, wk = _slice_cfgs(tmp_path)
+    code = (
+        "import json, sys, torch\n"
+        "b = torch.backends\n"
+        "before = [b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32]\n"
+        "from pase_tpu_torch import train\n"
+        "train.SYNTHETIC_BPE = 2\n"
+        "train.main(sys.argv[1:])\n"
+        "print(json.dumps({'before': before, 'after': "
+        "[b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32]}))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--synthetic", "--device", "cuda",
+         "--fe_cfg", fe, "--net_cfg", wk, "--batch_size", "2",
+         "--chunk_size", "4800", "--epoch", "1", "--save_path",
+         str(tmp_path / "run")], cwd=REPO_ROOT, env=_child_env(),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    flags = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert flags["before"][1] is True          # cuDNN's default: TF32
+    assert flags["after"] == [False, False]
+
+
+def test_train_cli_kill_and_resume_across_processes(cuda_device, tmp_path):
+    """The rehearsal's preemption at a narrow cfg: run A trains 3 epochs
+    from a device corpus with the distortion stack; run B, the same
+    command, is killed (SIGKILL) once a step of epoch 2 is logged and
+    resumed in a new process. Under deterministic algorithms (each process
+    sets them, with CUBLAS_WORKSPACE_CONFIG) B's FE_e2.npz is A's bit for
+    bit, and the ops torch warns it has no deterministic implementation
+    of are NONDETERMINISTIC_OPS; without them two uninterrupted runs on
+    the card already differ (chip_smoke.py phase 28)."""
+    import json
+    import re
+    import subprocess
+    import sys
+    import time
+    from pase_tpu_torch import make_bench_corpus
+    corpus = tmp_path / "corpus"
+    make_bench_corpus.main(["--out_root", str(corpus), "--hours", "0.0223",
+                            "--seg_s", "1"])
+    fe, wk = _slice_cfgs(tmp_path)
+    argv = ["--data_root", str(corpus / "wavs"), "--data_cfg",
+            str(corpus / "data.cfg"), "--dtrans_cfg", str(corpus / "dist.cfg"),
+            "--fe_cfg", fe, "--net_cfg", wk, "--device_corpus",
+            "--batch_size", "4", "--chunk_size", "4800", "--epoch", "3",
+            "--seed", "42", "--log_freq", "1", "--device", "cuda"]
+    env = _child_env(CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+    def start(run):
+        return subprocess.Popen(
+            [sys.executable, "-c", DETERMINISTIC_TRAIN] + argv
+            + ["--save_path", str(tmp_path / run)], cwd=REPO_ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    warned = set()
+
+    def finish(proc):
+        err = proc.communicate(timeout=600)[1]
+        assert proc.returncode == 0, err[-3000:]
+        warned.update(re.findall(r"(\w+) does not have a deterministic "
+                                 r"implementation", err))
+
+    def rows(run):
+        path = tmp_path / run / "metrics.jsonl"
+        if not path.exists():
+            return []
+        with open(path) as f:
+            return [json.loads(ln) for ln in f if ln.endswith("\n")]
+
+    finish(start("runA"))
+    bpe = next(r["step"] for r in rows("runA") if r["split"] == "perf")
+    b = start("runB")
+    deadline = time.time() + 600
+    while not any(r["split"] == "train" and r["step"] > 2 * bpe
+                  for r in rows("runB")):
+        assert b.poll() is None, b.communicate()[1][-3000:]
+        assert time.time() < deadline
+        time.sleep(0.02)
+    b.kill()
+    b.communicate()
+    assert not (tmp_path / "runB" / "FE_e2.npz").exists(), "killed late"
+    killed = max(r["step"] for r in rows("runB") if r["split"] == "train")
+    finish(start("runB"))
+    steps = [r["step"] for r in rows("runB") if r["split"] == "train"]
+    assert steps.count(2 * bpe + 1) == 2 and steps[-1] == 3 * bpe
+    assert 2 * bpe < killed <= 3 * bpe
+    a = np.load(tmp_path / "runA" / "FE_e2.npz")
+    got = np.load(tmp_path / "runB" / "FE_e2.npz")
+    assert sorted(a.files) == sorted(got.files)
+    for k in a.files:
+        assert np.array_equal(a[k], got[k]), k
+    assert warned <= NONDETERMINISTIC_OPS, warned

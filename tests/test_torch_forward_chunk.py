@@ -138,8 +138,9 @@ def test_wav_io_matches_jax(tmp_path):
 def test_port_imports_no_jax():
     """Importing every pase_tpu_torch module (the encoders of
     pase_tpu_torch.encoders, parallel.mesh, parallel.sp, parallel.tp,
-    data.device_corpus, data.host_distortions and decoders among them)
-    loads no jax, flax or pase_tpu module (the card's host has no JAX)."""
+    data.device_corpus, data.host_distortions, decoders, sbatch_writer and
+    make_bench_corpus among them) loads no jax, flax or pase_tpu module
+    (the card's host has no JAX)."""
     code = (
         "import pkgutil, importlib, sys, pase_tpu_torch\n"
         "for m in pkgutil.walk_packages(pase_tpu_torch.__path__, "
@@ -150,7 +151,8 @@ def test_port_imports_no_jax():
         "assert 'pase_tpu_torch.encoders' in sys.modules\n"
         "for m in ('parallel.mesh', 'parallel.sp', 'parallel.tp',\n"
         "          'data.device_corpus',\n"
-        "          'data.host_distortions', 'decoders'):\n"
+        "          'data.host_distortions', 'decoders', 'sbatch_writer',\n"
+        "          'make_bench_corpus'):\n"
         "    assert 'pase_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('pase_tpu_torch')]))\n"
         "assert not bad, bad\n")

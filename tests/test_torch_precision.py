@@ -11,6 +11,7 @@ held to the JAX bf16 step: per-worker losses within 2^-7 relative
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -399,3 +400,85 @@ def test_one_bf16_train_step_matches_jax(tmp_path):
     for name in tr.ordered_names + ["total"]:
         got, want = float(losses[name]), float(jlosses[name])
         assert abs(got - want) <= STEP_REL * abs(want), (name, got, want)
+
+
+# ---------------------------------------------------------------------------
+# float32 means TF32 off in every CLI that takes --device
+# ---------------------------------------------------------------------------
+
+
+class _SetUp(Exception):
+    """Raised by a stub where the CLI's work would start."""
+
+
+def _stop(*args, **kwargs):
+    raise _SetUp
+
+
+def _tf32_is_off():
+    b = torch.backends
+    conv = getattr(getattr(b.cudnn, "conv", None), "fp32_precision", None)
+    return (not b.cuda.matmul.allow_tf32 and not b.cudnn.allow_tf32
+            and conv != "tf32")
+
+
+def _cli_cases():
+    from pase_tpu_torch import (bench, conv_proto, make_trainset_statistics,
+                                run_probe, train, transfer_gate,
+                                util_scripts)
+    from pase_tpu_torch.data import pipeline as port_pipeline
+    from pase_tpu_torch.probes import tasks
+    probe = ["--fe_cfg", "fe.cfg", "--train_list", "tr.lst", "--test_list",
+             "te.lst", "--device", "cpu"]
+    return {
+        "train": (train, [(train, "train")], ["--synthetic", "--device",
+                                              "cpu"], True),
+        "util_scripts": (util_scripts, [(util_scripts, "forward_chunk")],
+                         ["forward-chunk", "--fe_cfg", "fe.cfg", "--in_wav",
+                          "a.wav", "--out_file", "a.npy", "--device", "cpu"],
+                         False),
+        "run_probe": (run_probe, [(tasks, "run_utt_classification")],
+                      ["utt"] + probe, False),
+        "transfer_gate": (transfer_gate, [(transfer_gate, "run")],
+                          ["--device", "cpu"], False),
+        "make_trainset_statistics": (
+            make_trainset_statistics, [(port_pipeline, "compute_stats")],
+            ["--synthetic", "--net_cfg", PASEP_WK, "--device", "cpu"],
+            False),
+        "bench": (bench, [(bench, "build")], ["--device", "cpu"], False),
+        # no CPU route: main refuses without a card, after its setup
+        "conv_proto": (conv_proto, [], [], False),
+    }
+
+
+PASEP_WK = "cfg/workers/workers+.cfg"
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLIS = ["train", "util_scripts", "run_probe", "transfer_gate",
+        "make_trainset_statistics", "bench", "conv_proto"]
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags on (cuDNN's default) for the test, restored after."""
+    b = torch.backends
+    old = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = True
+    yield
+    b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("cli", CLIS)
+def test_cli_setup_turns_tf32_off(cli, tf32_on, monkeypatch, tmp_path):
+    """Each --device CLI's main leaves matmuls and cuDNN convolutions
+    without TF32 before its work starts (``precision.full_precision``),
+    whatever the process had: the card's torch defaults cuDNN to TF32."""
+    module, stubs, argv, save = _cli_cases()[cli]
+    for owner, name in stubs:
+        monkeypatch.setattr(owner, name, _stop)
+    if save:
+        argv = argv + ["--save_path", str(tmp_path / "run")]
+    monkeypatch.chdir(REPO_ROOT)
+    assert not _tf32_is_off()
+    with pytest.raises((_SetUp, RuntimeError)):
+        module.main(argv)
+    assert _tf32_is_off()

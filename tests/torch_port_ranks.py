@@ -111,8 +111,34 @@ def _np(t):
     return t.detach().double().cpu().numpy()
 
 
+def rank_sides(model, force, batch, rows):
+    """This rank's part of each global PReLU mask of ``force`` ({module
+    name: bool array [k * batch, C, ...]}, k blocks of the global batch's
+    rows side by side: the encoder's chunk, ctxt and rand): its ``rows``
+    of each block and, in a layer that computes column-parallel, its
+    model index's channels (axis 1)."""
+    import torch
+    mods = dict(model.named_modules())
+    out = {}
+    for name, mask in force.items():
+        k = mask.shape[0] // batch
+        part = np.concatenate([mask[s * batch + rows.start:
+                                    s * batch + rows.stop]
+                               for s in range(k)])
+        parents = [name.rsplit(".", i)[0] for i in range(1, name.count(".")
+                                                         + 1)]
+        grid = next((mods[p].tp_column for p in parents
+                     if getattr(mods[p], "tp_column", None) is not None),
+                    None)
+        if grid is not None:
+            c = part.shape[1] // grid.n_model
+            part = part[:, grid.i_model * c:(grid.i_model + 1) * c]
+        out[name] = torch.from_numpy(np.ascontiguousarray(part))
+    return out
+
+
 def train_steps(rank, world, fe_cfg, wk_cfg, cfg, variables, batches,
-                gan_cfg=None, draws=None, device="cpu"):
+                gan_cfg=None, draws=None, device="cpu", sides=None):
     """Trainer steps on this rank's rows of each global batch, from the
     JAX-layout ``variables`` ({'params/...', 'batch_stats/...'}; None
     keeps the seeded init); ``cfg['n_model']`` lays the ranks out as a
@@ -122,10 +148,13 @@ def train_steps(rank, world, fe_cfg, wk_cfg, cfg, variables, batches,
     parts gathered whole), the BatchNorm / VQ state and the policy's
     alpha after the first, the routes and the elements this rank holds
     (parameters, Adam moments). ``device``: the ranks' (gloo on the
-    card's tensors too)."""
+    card's tensors too). ``sides``: {PReLU module name: the global batch's
+    bool mask of its input} forced in the first step (``rank_sides``,
+    ``grad_parity.prelu_signs``); the other PReLUs keep their own."""
     import torch
     from pase_tpu_torch.checkpoint import (load_model_variables,
                                            model_state_dict_to_variables)
+    from pase_tpu_torch.grad_parity import prelu_signs
     from pase_tpu_torch.parallel import tp
     from pase_tpu_torch.parallel.mesh import host_batch_slice
     from pase_tpu_torch.trainer import Trainer
@@ -133,12 +162,17 @@ def train_steps(rank, world, fe_cfg, wk_cfg, cfg, variables, batches,
     tr = Trainer(fe_cfg, wk_cfg, cfg, device=device, gan_cfg=gan_cfg)
     if variables is not None:
         load_model_variables(tr.model, variables)
-    sl = host_batch_slice(cfg["batch_size"]) if world > 1 else slice(None)
+    sl = (host_batch_slice(cfg["batch_size"]) if world > 1
+          else slice(0, cfg["batch_size"]))
     specs = tp.leaf_specs(tr.model)
+    force = (rank_sides(tr.model, sides, cfg["batch_size"], sl) if sides
+             else None)
     losses, grads = [], None
     for i, raw in enumerate(batches):
         extra = {k: v[sl] for k, v in (draws[i] if draws else {}).items()}
-        out = tr.train_step({k: v[sl] for k, v in raw.items()}, **extra)
+        with prelu_signs(tr.model, force=force if i == 0 else None):
+            out = tr.train_step({k: v[sl] for k, v in raw.items()},
+                                **extra)
         losses.append({k: _np(v) for k, v in out.items()})
         if i == 0:
             grads = {k: _np(v) for k, v in model_state_dict_to_variables(
@@ -255,9 +289,9 @@ def _main(spec, rank, world, port, out):
     import torch
     from pase_tpu_torch.parallel.mesh import init_distributed
     torch.set_num_threads(1)
+    from pase_tpu_torch.precision import full_precision
     # float32 without TF32 on a card, as the tests' one process runs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision()
     with open(spec, "rb") as f:
         spec = pickle.load(f)
     assert init_distributed(f"127.0.0.1:{port}", world, rank,
