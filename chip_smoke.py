@@ -34,10 +34,15 @@ Phases, each printed as it ends; any failure exits non-zero:
   5. serve   — forward-chunk (the port's CLI entry point) over four wavs
                with the seeded weights saved as a native .npz.
   6. kernel-train — the training kernels qrnn_pool_fwd_train and
-               qrnn_pool_bwd against the plain version's autograd at the
-               train step's QRNN shapes (batch 32 and 8): zero-seeded,
-               c0-seeded, nonzero dc_T, both; dy within 1e-5 of
-               max(1, max|dy_plain|); median kernel times and bounds.
+               qrnn_pool_bwd (the chunked pair) against the plain
+               version's autograd and against the chunked plain versions
+               (their algebra, at their chunking) at every shape of
+               TRAIN_QRNN_SHAPES: zero-seeded, c0-seeded, nonzero dc_T,
+               both; h, c, c_T and dc0 within 1e-5, dy within 1e-5 of
+               max(1, max|dy_plain|); two calls bit for bit; the time of
+               each (CUDA graphs of 20 launches: the kernels are shorter
+               than their wrappers' host time at the few-lane shapes) and
+               its bound.
   7. train   — one PASE+ / workers+ train step at full width (batch
                2 x 16000) on the card against the same weights and batch
                on the CPU (plain path): per-worker losses within 1e-4
@@ -207,8 +212,8 @@ Phases, each printed as it ends; any failure exits non-zero:
                4 x 16000: after each, a knn probe on the card and one on
                the CPU (run_probe --device cpu), waited on, every return
                code 0; (e) ``python -m pase_tpu_torch.transfer_gate``
-               (a process of its own, run beside phases 10-11, which
-               time nothing) cut to GATE_EPOCHS epochs of the JAX
+               (a process of its own, started after phase 13) cut to
+               GATE_EPOCHS epochs of the JAX
                record's 250 steps:
                the random-init probe below 1 and the pretrained one above
                it, printed beside benchmarks/transfer_gate_r5.json (8
@@ -425,8 +430,8 @@ Phases, each printed as it ends; any failure exits non-zero:
                uninterrupted card runs differ, B within twice their
                spread), the export, serve-encode within 2e-4 of
                forward-chunk, the probe fired and beating chance and the
-               random-init encoder. It starts with the gate after phase 9
-               and runs beside phases 10-11, which time nothing. Each
+               random-init encoder. It starts with the gate after phase
+               13. Each
                ``python -m`` CLI of the script runs through this script's
                --counted mode (a ``python`` first on its PATH), which
                writes the CLI's launch counts and TF32 flags at each launch
@@ -539,7 +544,15 @@ attention recipe's [48,200,512] ("attention") and at [64,200,512]
 K2 at the attention variant's per-rank [24,200,512] ("dp_attention"),
 and the loop and K2 at phase 27's lane shards [96,200,256] ("tp") and
 [48,200,256] ("tp_2x2").
-No other path launches a conv kernel. The line before the last is a
+No other path launches a conv kernel.
+Schedule: phases 1-9 and 13, which time every kernel, run alone in this
+process. Then the gate (19 e), phase 11, the rehearsal (28) and a lane
+process with phases 22-25 and 27 (``--lane``) start, each in a session of
+its own, and this process runs phases 10, 12, 14-21 and 26 beside them;
+it prints the lane's lines between its phases and joins them all at the
+end. Their rates and seconds are taken on a shared host and card. CPU
+ops run on SHARED_THREADS threads here and in the lane, CHILD_THREADS in
+the others. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
 {...}}.
 """
@@ -553,6 +566,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -808,6 +822,13 @@ KMEANS_TIE_REL = 1e-5
 REHEARSAL = os.path.join("pase_tpu_torch", "recipes", "rehearsal.sh")
 REHEARSAL_ENV = {"HOURS": "0.25", "EPOCHS": "3"}
 REHEARSAL_TIMEOUT = 900
+# the host's cores once phase 13 is done: the main process and the lane of
+# phases 22-25 and 27 run their CPU ops on SHARED_THREADS / LANE_THREADS
+# threads each, the gate, phase 11 and the rehearsal's CLIs on
+# CHILD_THREADS (torch's default, one a core, oversubscribes the host)
+SHARED_THREADS = LANE_THREADS = 4
+CHILD_THREADS = 2
+LANE_TIMEOUT = 900
 # the rehearsal's CLIs that take --device: TF32 off after their setup
 DEVICE_CLIS = ("pase_tpu_torch.train", "pase_tpu_torch.util_scripts",
                "pase_tpu_torch.run_probe",
@@ -984,6 +1005,19 @@ def bound(nbytes, nops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_route(shape):
+    """The training pair's route at a QRNN shape (B, T, H), for the
+    phases whose steps launch it: its kernels and chunking there."""
+    from pase_tpu_torch.ops import cuda_qrnn
+    b, t, h = shape
+    chunks, len_fwd, len_bwd = cuda_qrnn.train_chunking(t)
+    return (f"K2 at {list(shape)} ({b * h} lanes): the chunked pair "
+            f"qrnn_pool_fwd_train_kernel, {-(-t // (chunks * len_fwd))} "
+            f"segment(s) of {chunks} chunks of {len_fwd} steps, and "
+            f"qrnn_pool_bwd_chunked_kernel, {-(-t // (chunks * len_bwd))} of "
+            f"{chunks} x {len_bwd}")
 
 
 def phase_kernel():
@@ -1239,8 +1273,9 @@ def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000, label="serve"):
 
 def phase_kernel_train():
     """qrnn_pool_fwd_train and qrnn_pool_bwd vs the plain version's
-    autograd at the train step's QRNN shapes; returns one summary row per
-    shape."""
+    autograd and vs the chunked plain versions (the kernels' algebra, at
+    their chunking) at the train step's QRNN shapes, timed in CUDA graphs;
+    returns one summary row per shape."""
     import torch
     from pase_tpu_torch.ops import cuda_qrnn
     from pase_tpu_torch.ops import qrnn as plain
@@ -1250,7 +1285,9 @@ def phase_kernel_train():
         def rnd(*shape):
             return torch.randn(*shape, device="cuda", generator=gen)
         y, c0, dh, dct = rnd(b, t, 3 * h), rnd(b, h), rnd(b, t, h), rnd(b, h)
+        chunks, len_fwd, len_bwd = cuda_qrnn.train_chunking(t)
         fwd_err = dy_abs = dy_rel = dc0_err = 0.0
+        fwd_alg = dy_alg = 0.0
         for seed, dc_last in ((None, None), (c0, None), (None, dct),
                               (c0, dct)):
             hk, ck, ctk = cuda_qrnn.qrnn_pool_fwd_train(y, seed)
@@ -1264,6 +1301,10 @@ def phase_kernel_train():
                 loss = loss + torch.sum(ct_ * dc_last)
             grads = torch.autograd.grad(
                 loss, [yp] + ([] if c0p is None else [c0p]))
+            ha, ca, cta = plain.qrnn_pool_fwd_train_chunked_plain(
+                y, seed, chunk=len_fwd, chunks=chunks)
+            dya, dc0a = plain.qrnn_pool_bwd_chunked_plain(
+                y, ck, dh, dc_last, seed, chunk=len_bwd, chunks=chunks)
             torch.cuda.synchronize()
             fwd_err = max(fwd_err, (hk - hp).abs().max().item(),
                           (ck - cp).abs().max().item(),
@@ -1272,11 +1313,25 @@ def phase_kernel_train():
             dy_abs = max(dy_abs, err)
             dy_rel = max(dy_rel, err / max(1.0, grads[0].abs().max().item()))
             if seed is not None:
-                dc0_err = max(dc0_err, (dc0k - grads[1]).abs().max().item())
+                dc0_err = max(dc0_err, (dc0k - grads[1]).abs().max().item(),
+                              (dc0k - dc0a).abs().max().item())
+            fwd_alg = max(fwd_alg, (hk - ha).abs().max().item(),
+                          (ck - ca).abs().max().item(),
+                          (ctk - cta).abs().max().item())
+            dy_alg = max(dy_alg, (dyk - dya).abs().max().item()
+                         / max(1.0, dya.abs().max().item()))
+        # two calls, the same bits (no atomics, a fixed order)
+        h1, c1, ct1 = cuda_qrnn.qrnn_pool_fwd_train(y, c0)
+        dy1, dc01 = cuda_qrnn.qrnn_pool_bwd(y, c1, dh, dct, c0)
+        h2, c2, ct2 = cuda_qrnn.qrnn_pool_fwd_train(y, c0)
+        dy2, dc02 = cuda_qrnn.qrnn_pool_bwd(y, c2, dh, dct, c0)
+        same = all(bool(torch.equal(u, v)) for u, v in (
+            (h1, h2), (c1, c2), (ct1, ct2), (dy1, dy2), (dc01, dc02)))
+        del h1, c1, dy1, h2, c2, dy2
         _, c, _ = cuda_qrnn.qrnn_pool_fwd_train(y)
         zeros = torch.zeros_like(dct)
-        fwd_ms = _kernel_ms(lambda: cuda_qrnn.qrnn_pool_fwd_train(y))
-        bwd_ms = _kernel_ms(lambda: cuda_qrnn.qrnn_pool_bwd(y, c, dh, zeros))
+        fwd_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd_train(y))
+        bwd_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_bwd(y, c, dh, zeros))
         fwd_plain = _wall_ms(lambda: plain.qrnn_pool_fwd_train(y), "cuda")
         bwd_plain = _wall_ms(lambda: plain.qrnn_pool_bwd(y, c, dh, zeros),
                              "cuda")
@@ -1289,16 +1344,23 @@ def phase_kernel_train():
         print(f"[kernel-train] y[{b},{t},{3 * h}]: fwd_train max|dh|,|dc| "
               f"{fwd_err:.3e}; bwd max|dy - dy_plain| {dy_abs:.3e}, / max(1,"
               f" max|dy_plain|) {dy_rel:.3e}, max|dc0 - dc0_plain| "
-              f"{dc0_err:.3e} (zero / c0 / dc_T / both); fwd_train "
-              f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f}, {fwd_by}), plain "
-              f"{fwd_plain:.2f} ms; bwd {bwd_ms:.4f} ms (bound "
-              f"{bwd_bound:.4f}, {bwd_by}), plain {bwd_plain:.2f} ms")
-        check(fwd_err <= KERNEL_ATOL,
-              f"fwd_train vs plain at {(b, t, h)}: {fwd_err:.3e}")
-        check(dy_rel <= KERNEL_ATOL,
-              f"bwd dy vs plain at {(b, t, h)}: {dy_rel:.3e}")
+              f"{dc0_err:.3e} (zero / c0 / dc_T / both); against the "
+              f"chunked plain versions ({chunks} chunks of {len_fwd} / "
+              f"{len_bwd} steps a segment) fwd {fwd_alg:.3e}, dy rel "
+              f"{dy_alg:.3e}; two calls bit for bit: {same}; fwd_train "
+              f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f}, {fwd_by}: "
+              f"{100 * fwd_bound / fwd_ms:.0f} %), plain {fwd_plain:.2f} ms; "
+              f"bwd {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, {bwd_by}: "
+              f"{100 * bwd_bound / bwd_ms:.0f} %), plain {bwd_plain:.2f} ms "
+              f"(kernels: CUDA graphs of 20, median of 5)")
+        check(fwd_err <= KERNEL_ATOL and fwd_alg <= KERNEL_ATOL,
+              f"fwd_train vs plain at {(b, t, h)}: {fwd_err:.3e}, "
+              f"{fwd_alg:.3e}")
+        check(dy_rel <= KERNEL_ATOL and dy_alg <= KERNEL_ATOL,
+              f"bwd dy vs plain at {(b, t, h)}: {dy_rel:.3e}, {dy_alg:.3e}")
         check(dc0_err <= KERNEL_ATOL,
               f"bwd dc0 vs plain at {(b, t, h)}: {dc0_err:.3e}")
+        check(same, f"two training calls differ at {(b, t, h)}")
         rows.append({"shape": [b, t, h], "fwd_err": fwd_err,
                      "dy_abs": dy_abs, "dy_rel": dy_rel, "dc0_err": dc0_err,
                      "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
@@ -1540,7 +1602,8 @@ def phase_train_dist(tmp, compute_dtype="bfloat16"):
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps}
     print(f"[launches] distorted training step, {compute_dtype}: {launches}"
-          f" (expected {expected}: {layers} QRNN layer(s) x {steps} steps)")
+          f" (expected {expected}: {layers} QRNN layer(s) x {steps} steps); "
+          + k2_route(TRAIN_SHAPE))
     check(launches == expected, f"distorted step ({compute_dtype}) "
           f"launches {launches} != {expected}")
     totals = torch.stack([torch.stack(list(d.values())) for d in losses])
@@ -1620,19 +1683,21 @@ def phase_trajectory(tmp):
               + T.format_rows(rows))
 
 
-def phase_resume():
+def _resume_start(tmp):
     """Phase 11 in a process of its own: CUBLAS_WORKSPACE_CONFIG has to be
     set before cuBLAS starts, and the deterministic mode must not touch
-    the other phases' timings."""
+    the other phases' timings. ``_resume_join`` waits for it."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--resume-check"], env=env, capture_output=True,
-                          text=True, timeout=600)
-    for line in proc.stdout.splitlines():
+    os.makedirs(tmp, exist_ok=True)
+    return _background(["--resume-check"], os.path.join(tmp, "resume.log"),
+                       env)
+
+
+def _resume_join(started):
+    text = _background_join(started, "resume check", 600)
+    for line in text.splitlines():
         if line.startswith("[resume]"):
             print(line)
-    check(proc.returncode == 0, f"resume check failed (exit "
-          f"{proc.returncode}): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
 
 def resume_check():
@@ -3326,7 +3391,7 @@ def phase_probes(tmp, gate):
     torch.cuda.empty_cache()
 
     # (e) the transfer gate, cut to GATE_EPOCHS of the JAX record's epochs
-    # (run beside phases 10-11: gate_child)
+    # (started after phase 13: gate_child)
     for line in gate["lines"]:
         print(line)
     rc, gate_s = gate["rc"], gate["seconds"]
@@ -3380,25 +3445,19 @@ def gate_child(tmp, out):
 
 def _gate_start(tmp):
     """The transfer gate's process (``gate_child``), started after phase
-    9: it runs beside phases 10-11, which time nothing, and the host's
-    and the card's share of it does not touch their checks."""
+    13: it runs beside the phases after it, and the host's and the card's
+    share of it does not touch their checks."""
     os.makedirs(tmp, exist_ok=True)
     out = os.path.join(tmp, "gate_result.json")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--gate", tmp, out],
-        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
-    _CHILDREN.append(proc)
-    return tmp, proc, out
+    return tmp, _background(["--gate", tmp, out],
+                            os.path.join(tmp, "gate.log")), out
 
 
 def _gate_join(started):
     """The gate's result: {'rc', 'launches', 'seconds', 'json' (its
     record), 'lines' (its [transfer] lines)}."""
     tmp, proc, out = started
-    text = proc.communicate(timeout=900)[0]
-    check(proc.returncode == 0, f"the gate's process exited "
-          f"{proc.returncode}: {text[-3000:]}")
+    text = _background_join(proc, "the gate's process", 900)
     with open(out) as f:
         res = json.load(f)
     with open(os.path.join(tmp, "gate.json")) as f:
@@ -3517,6 +3576,7 @@ exec {sys.executable} "$@"
 """)
     os.chmod(shim, 0o755)
     env = dict(os.environ, **REHEARSAL_ENV,
+               OMP_NUM_THREADS=str(CHILD_THREADS),
                PATH=os.path.join(tmp, "bin") + os.pathsep
                + os.environ.get("PATH", ""))
     with open(os.path.join(tmp, "stdout.log"), "w") as out:
@@ -3526,7 +3586,27 @@ exec {sys.executable} "$@"
             stderr=subprocess.STDOUT, start_new_session=True)
     _CHILDREN.append(proc)
     _GROUPS.append(proc.pid)
-    return tmp, proc, time.perf_counter()
+    state = {"tmp": tmp, "proc": proc, "t0": time.perf_counter(),
+             "det": None, "wall": None}
+    state["watch"] = threading.Thread(target=_rehearsal_watch, args=(state,),
+                                      daemon=True)
+    state["watch"].start()
+    return state
+
+
+def _rehearsal_watch(state):
+    """A thread of the main process while the script runs: it starts the
+    deterministic epoch once run A has exited, ends the script past
+    REHEARSAL_TIMEOUT and takes its wall time when it ends."""
+    proc = state["proc"]
+    while proc.poll() is None:
+        if state["det"] is None:
+            state["det"] = _deterministic_start(state["tmp"])
+        if time.perf_counter() - state["t0"] > REHEARSAL_TIMEOUT:
+            _end_group(proc.pid)
+            proc.wait()
+        time.sleep(1)
+    state["wall"] = time.perf_counter() - state["t0"]
 
 
 def _end_group(pgid):
@@ -3556,15 +3636,10 @@ def _rehearsal_join(started):
     launches of every CLI process, summed}."""
     import glob
     from pase_tpu_torch.frontend import wf_builder
-    tmp, proc, t0 = started
-    det = None
-    while proc.poll() is None:
-        det = det or _deterministic_start(tmp)
-        if time.perf_counter() - t0 > REHEARSAL_TIMEOUT:
-            _end_group(proc.pid)
-            proc.wait()
-        time.sleep(1)
-    wall = time.perf_counter() - t0
+    started["watch"].join()
+    tmp, proc, det = started["tmp"], started["proc"], started["det"]
+    wall = started["wall"]
+    check(wall is not None, "rehearsal: its watching thread failed")
     _end_group(proc.pid)            # the probes' shells, if any are left
     with open(os.path.join(tmp, "stdout.log")) as f:
         text = f.read()
@@ -5459,6 +5534,47 @@ _CHILDREN = []
 _GROUPS = []
 
 
+def _end_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for pgid in _GROUPS:
+        _end_group(pgid)
+
+
+def _background(argv, log, env=None, threads=CHILD_THREADS):
+    """``python3 chip_smoke.py ARGV`` in a session of its own (the
+    processes it starts end with it), its output to ``log``, its CPU ops
+    on ``threads`` threads: it shares the host's cores with this process
+    and the other children. ``_background_join`` waits for it."""
+    env = dict(env or os.environ, OMP_NUM_THREADS=str(threads))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv], cwd=HERE,
+            env=env, stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    _CHILDREN.append(proc)
+    _GROUPS.append(proc.pid)
+    return proc, log
+
+
+def _background_join(started, what, timeout):
+    """The output of a ``_background`` process, which must exit 0 within
+    ``timeout`` s of this call."""
+    proc, log = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _end_group(proc.pid)
+        proc.wait()
+    with open(log) as f:
+        text = f.read()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: "
+          f"{text[-3000:]}")
+    return text
+
+
 def _ranks(mode, spec, tmp, world=DP_RANKS):
     """``world`` processes of this script in ``mode`` (--dp-step: the
     trainer's step; --cli-rank: the training CLI), gloo ranks on the one
@@ -5635,6 +5751,8 @@ def _global_signs(ranks, batch=TRAIN_BATCH, n_model=1, channels=None):
 def _dp_step(tmp):
     """(a): two gloo ranks on the card, each 16 of the 32 x 32000 rows,
     two steps; against the one-process step on the card."""
+    print("[data-parallel] (a) a rank's " + k2_route(
+        (3 * TRAIN_BATCH // DP_RANKS, TRAIN_CHUNK // 160, 512)))
     return _dp_compare(tmp, _dp_cfg(os.path.join(tmp, "ranks")),
                        _dp_batches(), "(a) data-parallel step", "dp_step")[0]
 
@@ -6289,6 +6407,8 @@ def _tp_step(tmp, name, ref, joined):
     world, n_model = TP_GRIDS[name]
     part = "(a)" if name == "1x2" else "(b)"
     rate_steps = 0 if name == "1x2" else TP_RATE_STEPS
+    print(f"[n-model] {part} the {name} grid: a rank's "
+          + k2_route(TP_SHAPES[name]))
     launches, ranks = _dp_compare(
         tmp, _tp_cfg(tmp, name), _tp_batches(),
         f"{part} the {name} grid's step", f"tp_step_{name}", world=world,
@@ -6435,6 +6555,82 @@ def _row(name, source, replaces, launches, err, ms, plain_ms, bnd,
             **extra}
 
 
+def lane_child(tmp, args_path, out):
+    """Phases 22-25 and 27 in a process of their own (``_lane_start``),
+    beside the main process's phases 10-21 and 26: {path: launches} go to
+    ``out`` (JSON). ``args_path``: the main process's start (time.time())
+    and phase 8's rates."""
+    from pase_tpu_torch import train as train_cli
+    from pase_tpu_torch.precision import full_precision
+    with open(args_path) as f:
+        args = json.load(f)
+    full_precision()
+    train_cli.SYNTHETIC_BPE = CLI_STEPS     # every --synthetic CLI epoch
+    dist_perf = args["dist_perf"]
+    rate = dist_perf["bfloat16"]["steps_per_sec"]
+    paths = {}
+    try:
+        for phase, run in (
+                (22, lambda: phase_options(os.path.join(tmp, "options"),
+                                           rate)),
+                (23, lambda: phase_ami(os.path.join(tmp, "ami"), dist_perf)),
+                (24, lambda: phase_kaldi(os.path.join(tmp, "kaldi"), rate)),
+                (25, lambda: phase_parallel(os.path.join(tmp, "parallel"))),
+                (27, lambda: phase_tp(os.path.join(tmp, "tp")))):
+            paths.update(run())
+            _clock(phase, args["t0"])
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", flush=True)
+        return 1
+    finally:
+        _end_children()
+    with open(out, "w") as f:
+        json.dump(paths, f)
+    return 0
+
+
+def _lane_start(tmp, t0, dist_perf):
+    """``lane_child``'s process, on LANE_THREADS threads."""
+    os.makedirs(tmp, exist_ok=True)
+    args, out = (os.path.join(tmp, n) for n in ("args.json", "paths.json"))
+    with open(args, "w") as f:
+        json.dump({"t0": t0, "dist_perf": dist_perf}, f)
+    log = os.path.join(tmp, "lane.log")
+    return {"started": _background(["--lane", tmp, args, out], log,
+                                   threads=LANE_THREADS),
+            "out": out, "log": log, "shown": 0}
+
+
+def _lane_show(lane):
+    """Prints the lane's whole lines not printed yet."""
+    with open(lane["log"], "rb") as f:
+        f.seek(lane["shown"])
+        text = f.read()
+    text = text[:text.rfind(b"\n") + 1]
+    lane["shown"] += len(text)
+    print(text.decode(errors="replace"), end="", flush=True)
+
+
+def _lane_join(lane):
+    """The lane's {path: launches}, its output printed."""
+    proc, _ = lane["started"]
+    try:
+        proc.wait(timeout=LANE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _end_group(proc.pid)
+        proc.wait()
+    _lane_show(lane)
+    check(proc.returncode == 0, f"phases 22-25 and 27 (their own process) "
+          f"exited {proc.returncode}")
+    with open(lane["out"]) as f:
+        return json.load(f)
+
+
+def _clock(phases, t0):
+    print(f"[clock] phase {phases} done at {time.time() - t0:.1f} s",
+          flush=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "pase_tpu_torch")):
         print("FAIL: the pase_tpu_torch package is not beside chip_smoke.py",
@@ -6444,11 +6640,14 @@ def main():
     from pase_tpu_torch import train as train_cli
     train_cli.SYNTHETIC_BPE = CLI_STEPS     # every --synthetic CLI epoch
     tmp = tempfile.mkdtemp(prefix="pase_chip_train_")
-    t_start = time.perf_counter()
+    t0 = time.time()
+    lane = None
 
     def clock(phases):
-        print(f"[clock] phase {phases} done at "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        # between two phases: the lane's lines so far, then the clock
+        if lane is not None:
+            _lane_show(lane)
+        _clock(phases, t0)
 
     try:
         name = phase_device()
@@ -6489,23 +6688,25 @@ def main():
         clock(8)
         convs = phase_conv()
         clock(9)
-        gate = _gate_start(os.path.join(tmp, "gate"))
-        rehearsal = _rehearsal_start(os.path.join(tmp, "rehearsal"))
-        phase_trajectory(os.path.join(tmp, "trajectory"))
-        torch.cuda.empty_cache()
-        clock(10)
-        phase_resume()
-        gate = _gate_join(gate)
-        clock(11)
-        rehearsal_paths = _rehearsal_join(rehearsal)
-        clock(28)
-        _, disk_common = phase_disk(os.path.join(tmp, "disk"),
-                                    dist_perf["bfloat16"]["steps_per_sec"])
-        clock(12)
         paths = {"serving": serving_launches, "training": train_launches}
         stream_paths, k1 = phase_stream()
         paths.update(stream_paths)
+        torch.cuda.empty_cache()
         clock(13)
+        # every phase above runs alone; the rest share the host and the
+        # card with the gate, the rehearsal, phase 11's process and the
+        # lane of phases 22-25 and 27, so their rates are not alone
+        gate = _gate_start(os.path.join(tmp, "gate"))
+        rehearsal = _rehearsal_start(os.path.join(tmp, "rehearsal"))
+        resume = _resume_start(os.path.join(tmp, "resume"))
+        lane = _lane_start(os.path.join(tmp, "lane"), t0, dist_perf)
+        torch.set_num_threads(SHARED_THREADS)
+        phase_trajectory(os.path.join(tmp, "trajectory"))
+        torch.cuda.empty_cache()
+        clock(10)
+        _, disk_common = phase_disk(os.path.join(tmp, "disk"),
+                                    dist_perf["bfloat16"]["steps_per_sec"])
+        clock(12)
         paths["export"] = phase_export()
         phase_overlap()
         clock("14-15")
@@ -6516,40 +6717,32 @@ def main():
         clock("16-17")
         paths.update(phase_gan(os.path.join(tmp, "gan")))
         clock(18)
-        paths.update(phase_probes(os.path.join(tmp, "probes"), gate))
+        paths.update(phase_probes(os.path.join(tmp, "probes"),
+                                  _gate_join(gate)))
         clock(19)
         paths.update(phase_recurrent(os.path.join(tmp, "recurrent")))
         clock(20)
         paths.update(phase_encoders(os.path.join(tmp, "encoders"),
                                     dist_perf["bfloat16"]["steps_per_sec"]))
         clock(21)
-        paths.update(phase_options(os.path.join(tmp, "options"),
-                                   dist_perf["bfloat16"]["steps_per_sec"]))
-        clock(22)
-        paths.update(phase_ami(os.path.join(tmp, "ami"), dist_perf))
-        clock(23)
-        paths.update(phase_kaldi(os.path.join(tmp, "kaldi"),
-                                 dist_perf["bfloat16"]["steps_per_sec"]))
-        clock(24)
-        paths.update(phase_parallel(os.path.join(tmp, "parallel")))
-        clock(25)
         paths.update(phase_host_stage(
             os.path.join(tmp, "host_stage"), disk_common,
             dist_perf["bfloat16"]["steps_per_sec"]))
         clock(26)
-        paths.update(phase_tp(os.path.join(tmp, "tp")))
-        clock(27)
-        paths.update(rehearsal_paths)
+        _resume_join(resume)
+        clock(11)
+        paths.update(_rehearsal_join(rehearsal))
+        clock(28)
+        paths.update(_lane_join(lane))
+        lane = None
+        clock("22-25, 27 joined")
     except SmokeFailure as e:
+        if lane is not None:
+            _lane_show(lane)
         print(f"FAIL: {e}", flush=True)
         return 1
     finally:
-        for proc in _CHILDREN:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for pgid in _GROUPS:
-            _end_group(pgid)
+        _end_children()
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
     # the chunked kernel at the serving shape; the one-thread-a-lane one at
@@ -6672,6 +6865,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--det-ops"]:            # phase 28's listing
         sys.path.insert(0, HERE)
         sys.exit(det_ops_child(json.loads(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--lane"]:               # phases 22-25, 27
+        sys.path.insert(0, HERE)
+        sys.exit(lane_child(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--gate"]:               # phase 19's gate
         sys.path.insert(0, HERE)
         sys.exit(gate_child(sys.argv[2], sys.argv[3]))

@@ -20,13 +20,11 @@
 //   dc0  = a_0 * g_0
 //
 // Layout: y / dy [B, T, 3H], h / c / dh [B, T, H], c0 / c_T / dc_T / dc0
-// [B, H], all f32, contiguous. In qrnn_pool_fwd and the training kernels
-// one thread owns one (b, j) lane, j fastest, so the loads and stores at
-// t*3H + {0, H, 2H} + j and t*H + j are coalesced across a warp;
-// qrnn_pool_fwd_seg and qrnn_pool_fwd_chunked tile lanes and steps
-// (below). The carry (c forward, g backward) lives in a register. No
-// padding copies: the ragged last block is masked, and every offset is
-// 64-bit.
+// [B, H], all f32, contiguous. In qrnn_pool_fwd one thread owns one (b, j)
+// lane, j fastest, so the loads and stores at t*3H + {0, H, 2H} + j and
+// t*H + j are coalesced across a warp; the other kernels tile lanes and
+// steps (below). No padding copies: the ragged last block is masked, and
+// every offset is 64-bit.
 //
 // Five entry points:
 //   qrnn_pool_fwd        forward: reads y, writes h and c_T (16 bytes per
@@ -38,20 +36,21 @@
 //   qrnn_pool_fwd_chunked the same function, chunked in time: the unseeded
 //                        serving and eval call (below);
 //   qrnn_pool_fwd_train  the same, and also writes c, the residual of the
-//                        backward (20 bytes per lane-step). A reverse scan
-//                        cannot rebuild c_{t-1} from c_t without dividing
-//                        by a, so c is stored;
+//                        backward (20 bytes per lane-step), chunked in
+//                        time (below). A reverse scan cannot rebuild
+//                        c_{t-1} from c_t without dividing by a, so c is
+//                        stored;
 //   qrnn_pool_bwd        reads y, c and dh, writes dy once (32 bytes per
-//                        lane-step). c_{t-1} of step t is c_t of step t-1,
-//                        so it is carried in a register, not read twice.
-//                        The JAX VJP flips a and dc, materializes a_next and
-//                        c_prev and runs the forward kernel again; here one
-//                        pass walks t from T-1 down to 0.
+//                        lane-step), chunked in time (below). The JAX VJP
+//                        flips a and dc, materializes a_next and c_prev
+//                        and runs the forward kernel again; here one
+//                        kernel walks the chunks from the last to the
+//                        first.
 //
 // What bounds them: device memory bytes, when there are enough lanes. At
 // the streaming push shapes there are few lanes and few steps ([1, 100,
 // 512]: 512 lanes of 100 steps, 0.6 MB). There the one-thread-per-lane
-// loop (qrnn_pool_fwd_kernel, still the training forward) gave 8 blocks of
+// loop (qrnn_pool_fwd_kernel) gave 8 blocks of
 // two warps, each thread doing tanhf, two expf and two IEEE divides before
 // the one FMA of the carry, with nothing to hide their latency: about 360
 // cycles a step against the FMA's 4 (0.0201 ms at [1,100,512] on the H100,
@@ -91,6 +90,40 @@
 // the serial kernel is bound by bytes and the chunked one is slower
 // (ops/cuda_qrnn.py routes by lane count).
 //
+// qrnn_pool_fwd_train and qrnn_pool_bwd, the training pair (K2 of
+// pallas_qrnn.py:76-97, with K3's gates and their gradient fused in), run
+// once each in every training step at a rank's lanes: 12288 to 98304
+// (B*H) of T = 200 steps. Bytes bound them: 20 and 32 bytes a lane-step
+// against 14 and 25 operations, so the card needs about 25 KB of loads in
+// flight on each SM to stream at its rate. One thread a lane walking T
+// (the first design of the pair, still qrnn_pool_fwd's) had 2-12 warps an
+// SM at those lanes, each with one lane's next 8 steps in flight, and
+// nothing in flight while it computed them: 26-30 % of the byte bound at
+// 12288 lanes. Here a block owns kTrainLanes consecutive lanes (one warp's
+// width, so a warp's loads and stores of one step are one coalesced row)
+// and walks T in segments of kTrainChunks chunks of `len` steps, one chunk
+// a warp, chosen so that the fewest segments cover T (T = 200: forward 4
+// of 8 x 7, backward 7 of 8 x 4):
+// (1) each thread has its chunk's inputs in registers, loaded together
+// (forward: the z, f and o gates; backward: those, dh and c), and issues
+// the next segment's loads (kPrefetch) before it computes the gates and
+// composes the chunk's affine map from a zero carry; (2) after one
+// barrier, each thread puts the segment's carry through the maps of the
+// chunks before it (the ones after it, backward), in a fixed order: no
+// atomics, the same bits on every call; (3) it re-runs its chunk from that
+// carry with the serial step's expressions and writes its outputs. The
+// carry into the next segment is the last chunk's (the first chunk's,
+// backward), through shared memory in two buffers, so one barrier a
+// segment suffices. The backward's carry is q_t = a_t g_t, the gradient
+// into c_{t-1}: seeded with dc_T, and dc0 = q_0. Every output is written
+// once, every input read once but c at each chunk's first step - 1 (the
+// c_{t-1} of dy_f), which the warp of the chunk before also loads.
+// Loads go straight to registers: no asynchronous copy and no mbarrier,
+// so no wait needs the 10 s trap of csrc/conv_s1_tc.cu; every thread of a
+// block runs the same segments, so each reaches every __syncthreads().
+// ops/qrnn.py's qrnn_pool_fwd_train_chunked_plain and
+// qrnn_pool_bwd_chunked_plain repeat this algebra in this order.
+//
 // The carry is SEEDED with c0 and every step is c = a*c + b (one FMA). The
 // JAX version folds c0 into b_1 instead (a rounded multiply, then an add);
 // seeding keeps a block-streamed run, which threads c_T into the next
@@ -109,26 +142,21 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <bool kWriteC>
 __device__ __forceinline__ float step_(float c, float zr, float fr, float orr,
-                                       float* h_out, float* c_out) {
+                                       float* h_out) {
   const float z = tanhf(zr);
   const float f = sigmoidf_(fr);
   const float a = 1.0f - f;
   const float b = f * z;
   c = fmaf(a, c, b);
   *h_out = sigmoidf_(orr) * c;
-  if (kWriteC) *c_out = c;
   return c;
 }
 
-// kWriteC = false is qrnn_pool_fwd; true also stores every c_t.
-template <bool kWriteC>
 __global__ void __launch_bounds__(kThreads)
 qrnn_pool_fwd_kernel(const float* __restrict__ y, const float* __restrict__ c0,
-                     float* __restrict__ h, float* __restrict__ c_all,
-                     float* __restrict__ c_last, int64_t B, int64_t T,
-                     int64_t H) {
+                     float* __restrict__ h, float* __restrict__ c_last,
+                     int64_t B, int64_t T, int64_t H) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (lane >= B * H) return;
   const int64_t b = lane / H;
@@ -136,7 +164,6 @@ qrnn_pool_fwd_kernel(const float* __restrict__ y, const float* __restrict__ c0,
   const int64_t ys = 3 * H;  // y stride over t
   const float* yp = y + b * T * ys + j;
   float* hp = h + b * T * H + j;
-  float* cp = kWriteC ? c_all + b * T * H + j : nullptr;
   float c = (c0 != nullptr) ? c0[lane] : 0.0f;
 
   int64_t t = 0;
@@ -151,95 +178,14 @@ qrnn_pool_fwd_kernel(const float* __restrict__ y, const float* __restrict__ c0,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      c = step_<kWriteC>(c, zr[u], fr[u], orr[u], hp + (t + u) * H,
-                         kWriteC ? cp + (t + u) * H : nullptr);
+      c = step_(c, zr[u], fr[u], orr[u], hp + (t + u) * H);
     }
   }
   for (; t < T; ++t) {
     const float* p = yp + t * ys;
-    c = step_<kWriteC>(c, p[0], p[H], p[2 * H], hp + t * H,
-                       kWriteC ? cp + t * H : nullptr);
+    c = step_(c, p[0], p[H], p[2 * H], hp + t * H);
   }
   c_last[lane] = c;
-}
-
-// One reverse step at time t: updates g and a_next, puts dy_t's three gate
-// gradients in dyp. c_t is the forward state at t, c_prev the one at t-1
-// (c0 or 0 at t = 0).
-__device__ __forceinline__ void bwd_step_(float zr, float fr, float orr,
-                                          float dh, float c_t, float c_prev,
-                                          float& g, float& a_next,
-                                          float* dyp) {
-  const float z = tanhf(zr);
-  const float f = sigmoidf_(fr);
-  const float a = 1.0f - f;
-  const float s = sigmoidf_(orr);
-  g = fmaf(a_next, g, dh * s);
-  dyp[0] = g * f * (1.0f - z * z);
-  dyp[1] = g * (z - c_prev) * f * a;
-  dyp[2] = dh * c_t * s * (1.0f - s);
-  a_next = a;
-}
-
-__global__ void __launch_bounds__(kThreads)
-qrnn_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ c,
-                     const float* __restrict__ dh,
-                     const float* __restrict__ dc_last,
-                     const float* __restrict__ c0, float* __restrict__ dy,
-                     float* __restrict__ dc0, int64_t B, int64_t T,
-                     int64_t H) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= B * H) return;
-  const int64_t b = lane / H;
-  const int64_t j = lane - b * H;
-  const int64_t ys = 3 * H;
-  const float* yp = y + b * T * ys + j;
-  const float* cp = c + b * T * H + j;
-  const float* dhp = dh + b * T * H + j;
-  float* dyp = dy + b * T * ys + j;
-  const float seed = (c0 != nullptr) ? c0[lane] : 0.0f;
-  float g = (dc_last != nullptr) ? dc_last[lane] : 0.0f;
-  float a_next = 1.0f;     // g_{T-1} = dh s + dc_T
-  float c_t = cp[(T - 1) * H];
-
-  int64_t t = T - 1;
-  // steps t, t-1, ..., t-kUnroll+1; each needs c at one step earlier, which
-  // exists while t - kUnroll >= 0
-  for (; t - kUnroll >= 0; t -= kUnroll) {
-    float zr[kUnroll], fr[kUnroll], orr[kUnroll], dhr[kUnroll], cpr[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t tt = t - u;
-      const float* p = yp + tt * ys;
-      zr[u] = p[0];
-      fr[u] = p[H];
-      orr[u] = p[2 * H];
-      dhr[u] = dhp[tt * H];
-      cpr[u] = cp[(tt - 1) * H];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float out[3];
-      bwd_step_(zr[u], fr[u], orr[u], dhr[u], c_t, cpr[u], g, a_next, out);
-      float* q = dyp + (t - u) * ys;
-      q[0] = out[0];
-      q[H] = out[1];
-      q[2 * H] = out[2];
-      c_t = cpr[u];
-    }
-  }
-  for (; t >= 0; --t) {
-    const float* p = yp + t * ys;
-    const float c_prev = (t > 0) ? cp[(t - 1) * H] : seed;
-    float out[3];
-    bwd_step_(p[0], p[H], p[2 * H], dhp[t * H], c_t, c_prev, g, a_next, out);
-    float* q = dyp + t * ys;
-    q[0] = out[0];
-    q[H] = out[1];
-    q[2 * H] = out[2];
-    c_t = c_prev;
-  }
-  if (dc0 != nullptr) dc0[lane] = a_next * g;   // a_0 * g_0
 }
 
 // qrnn_pool_fwd_seg's kernel, gates apart from the chain (header). A block
@@ -493,6 +439,253 @@ qrnn_pool_fwd_chunked_kernel(const float* __restrict__ y,
   }
 }
 
+// The training pair's tile (header): lanes a block, threads a block (so
+// kTrainChunks chunks a segment), steps a chunk at most forward and
+// backward, blocks an SM the registers must allow, and whether the next
+// segment's loads are issued before this one's gates are computed. Chosen
+// on the H100 at chip_smoke.TRAIN_QRNN_SHAPES among the tiles of python -m
+// pase_tpu_torch.kernel_variants train (PERF.md): the forward is fastest
+// with chunks of 8 at 3 blocks an SM (at 4, 64 registers a thread, 0.0295
+// ms against 0.0198 at [24,200,512]), the backward, which holds 5 inputs
+// and 4 factors a step, with chunks of 4 at 3 blocks (chunks of 8 took 128
+// registers, so 2 blocks: 0.0433 ms against 0.0314).
+constexpr int kTrainLanes = 32;
+constexpr int kTrainThreads = 256;
+constexpr int kFwdChunk = 8;
+constexpr int kBwdChunk = 4;
+constexpr int kFwdBlocks = 3;
+constexpr int kBwdBlocks = 3;
+constexpr bool kPrefetch = true;
+constexpr int kTrainChunks = kTrainThreads / kTrainLanes;
+static_assert(kTrainThreads % kTrainLanes == 0 && kTrainLanes % 32 == 0,
+              "a warp holds lanes of one chunk");
+
+// Steps a chunk for T: the fewest segments of kTrainChunks chunks of at
+// most max_chunk steps, then the shortest chunk that covers T in as many.
+int train_len(long long T, int max_chunk) {
+  const long long per = static_cast<long long>(kTrainChunks) * max_chunk;
+  const long long cover = (T + per - 1) / per * kTrainChunks;
+  return static_cast<int>((T + cover - 1) / cover);
+}
+
+// The steps of chunk k of the segment from s0 (0 on a dead lane).
+__device__ __forceinline__ int chunk_steps(bool live, int64_t T, int64_t t0,
+                                           int len) {
+  const int64_t left = live ? T - t0 : 0;
+  return left <= 0 ? 0 : (left < len ? static_cast<int>(left) : len);
+}
+
+// A chunk's raw gates: p points at y[b, t0, j].
+template <int C>
+__device__ __forceinline__ void train_load_y_(const float* p, int n,
+                                              int64_t H, float (&z)[C],
+                                              float (&f)[C], float (&o)[C]) {
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    if (u < n) {
+      const float* q = p + u * 3 * H;
+      z[u] = q[0];
+      f[u] = q[H];
+      o[u] = q[2 * H];
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kTrainThreads, kFwdBlocks)
+qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
+                           const float* __restrict__ c0,
+                           float* __restrict__ h, float* __restrict__ c_all,
+                           float* __restrict__ c_last, int64_t B, int64_t T,
+                           int64_t H, int len) {
+  constexpr int L = kTrainLanes, NC = kTrainChunks;
+  // the chunk maps (A, B) and the carry into the segment, by segment parity
+  __shared__ float sa[2][NC][L], sb[2][NC][L], carry[2][L];
+  const int l = threadIdx.x % L, k = threadIdx.x / L;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * L + l;
+  const bool live = lane < B * H;
+  const int64_t bi = live ? lane / H : 0;
+  const int64_t j = live ? lane - bi * H : 0;
+  const float* yp = y + bi * T * 3 * H + j;
+  float* hp = h + bi * T * H + j;
+  float* cp = c_all + bi * T * H + j;
+  if (k == 0) carry[0][l] = (live && c0 != nullptr) ? c0[lane] : 0.0f;
+  const int64_t seg = static_cast<int64_t>(NC) * len;
+  float rz[C], rf[C], ro[C];
+  if (kPrefetch) {
+    const int64_t t0 = static_cast<int64_t>(k) * len;
+    train_load_y_<C>(yp + t0 * 3 * H, chunk_steps(live, T, t0, len), H, rz,
+                     rf, ro);
+  }
+  int p = 0;
+  for (int64_t s0 = 0; s0 < T; s0 += seg, p ^= 1) {
+    const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
+    const int n = chunk_steps(live, T, t0, len);
+    if (!kPrefetch) train_load_y_<C>(yp + t0 * 3 * H, n, H, rz, rf, ro);
+    float a[C], b[C], s[C];
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      a[u] = rf[u];
+      b[u] = rz[u];
+      s[u] = ro[u];
+    }
+    if (kPrefetch && s0 + seg < T) {    // in flight until the next segment
+      train_load_y_<C>(yp + (t0 + seg) * 3 * H,
+                       chunk_steps(live, T, t0 + seg, len), H, rz, rf, ro);
+    }
+    // (1) the gates, and the chunk's map c -> A c + B from c = 0
+    float ma = 1.0f, mb = 0.0f;
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      if (u < n) {
+        const float z = tanhf(b[u]);
+        const float f = sigmoidf_(a[u]);
+        a[u] = 1.0f - f;
+        b[u] = f * z;
+        s[u] = sigmoidf_(s[u]);
+        mb = fmaf(a[u], mb, b[u]);
+        ma *= a[u];
+      }
+    }
+    sa[p][k][l] = ma;
+    sb[p][k][l] = mb;
+    __syncthreads();
+    // (2) the segment's carry through the maps of the chunks before this one
+    float c = carry[p][l];
+    for (int m = 0; m < k; ++m) c = fmaf(sa[p][m][l], c, sb[p][m][l]);
+    // (3) the chunk from its carry, as the serial step
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      if (u < n) {
+        c = fmaf(a[u], c, b[u]);
+        cp[(t0 + u) * H] = c;
+        hp[(t0 + u) * H] = s[u] * c;
+      }
+    }
+    if (n > 0 && t0 + n == T) c_last[lane] = c;
+    // into the next segment: when there is one, every chunk here is full
+    if (k == NC - 1) carry[p ^ 1][l] = c;
+  }
+}
+
+// A chunk's backward inputs: the raw gates and dh at t0 .. t0 + n - 1 and c
+// at t0 - 1 .. t0 + n - 1 (cc[0] = c_{t0-1}: the seed at t0 = 0).
+template <int C>
+__device__ __forceinline__ void train_load_bwd_(
+    const float* yq, const float* dhq, const float* cq, int n, bool first,
+    float seed, int64_t H, float (&z)[C], float (&f)[C], float (&o)[C],
+    float (&dh)[C], float (&cc)[C + 1]) {
+  train_load_y_<C>(yq, n, H, z, f, o);
+  if (n > 0) cc[0] = first ? seed : cq[-H];
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    if (u < n) {
+      dh[u] = dhq[u * H];
+      cc[u + 1] = cq[u * H];
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kTrainThreads, kBwdBlocks)
+qrnn_pool_bwd_chunked_kernel(const float* __restrict__ y,
+                             const float* __restrict__ c,
+                             const float* __restrict__ dh,
+                             const float* __restrict__ dc_last,
+                             const float* __restrict__ c0,
+                             float* __restrict__ dy, float* __restrict__ dc0,
+                             int64_t B, int64_t T, int64_t H, int len) {
+  constexpr int L = kTrainLanes, NC = kTrainChunks;
+  // the chunk maps q_in -> A q_in + B (q_in: the q out of the chunk after)
+  // and the carry into the segment from the one after, by parity
+  __shared__ float sa[2][NC][L], sb[2][NC][L], carry[2][L];
+  const int l = threadIdx.x % L, k = threadIdx.x / L;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * L + l;
+  const bool live = lane < B * H;
+  const int64_t bi = live ? lane / H : 0;
+  const int64_t j = live ? lane - bi * H : 0;
+  const float* yp = y + bi * T * 3 * H + j;
+  const float* cp = c + bi * T * H + j;
+  const float* dhp = dh + bi * T * H + j;
+  float* dyp = dy + bi * T * 3 * H + j;
+  const float seed = (live && c0 != nullptr) ? c0[lane] : 0.0f;
+  if (k == 0) {
+    carry[0][l] = (live && dc_last != nullptr) ? dc_last[lane] : 0.0f;
+  }
+  const int64_t seg = static_cast<int64_t>(NC) * len;
+  const int64_t last = (T - 1) / seg * seg;   // the last segment's s0
+  float rz[C], rf[C], ro[C], rdh[C], rc[C + 1];
+  auto load = [&](int64_t s0) {
+    const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
+    train_load_bwd_<C>(yp + t0 * 3 * H, dhp + t0 * H, cp + t0 * H,
+                       chunk_steps(live, T, t0, len), t0 == 0, seed, H, rz,
+                       rf, ro, rdh, rc);
+  };
+  if (kPrefetch) load(last);
+  int p = 0;
+  for (int64_t s0 = last; s0 >= 0; s0 -= seg, p ^= 1) {
+    const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
+    const int n = chunk_steps(live, T, t0, len);
+    if (!kPrefetch) load(s0);
+    float a[C], ds[C], kz[C], kf[C], o[C], cc[C + 1];
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      a[u] = rf[u];
+      kz[u] = rz[u];
+      o[u] = ro[u];
+      ds[u] = rdh[u];
+    }
+#pragma unroll
+    for (int u = 0; u <= C; ++u) cc[u] = rc[u];
+    if (kPrefetch && s0 > 0) load(s0 - seg);   // in flight until then
+    // (1) the gates, dy_o, the factors of dy_z and dy_f, and the chunk's
+    // map from q_in = 0, walking t down as the serial step
+    float ma = 1.0f, g = 0.0f, a_next = 1.0f;
+#pragma unroll
+    for (int u = C - 1; u >= 0; --u) {
+      if (u < n) {
+        const float z = tanhf(kz[u]);
+        const float f = sigmoidf_(a[u]);
+        const float s = sigmoidf_(o[u]);
+        const float d = ds[u];
+        a[u] = 1.0f - f;
+        dyp[(t0 + u) * 3 * H + 2 * H] = d * cc[u + 1] * s * (1.0f - s);
+        ds[u] = d * s;
+        kz[u] = f * (1.0f - z * z);
+        kf[u] = (z - cc[u]) * f * a[u];
+        g = fmaf(a_next, g, ds[u]);
+        a_next = a[u];
+        ma *= a[u];
+      }
+    }
+    sa[p][k][l] = ma;
+    sb[p][k][l] = a_next * g;
+    __syncthreads();
+    // (2) the segment's carry through the maps of the chunks after this one
+    float q = carry[p][l];
+    for (int m = NC - 1; m > k; --m) q = fmaf(sa[p][m][l], q, sb[p][m][l]);
+    // (3) the chunk from its carry, as the serial step: g_t = dh_t s_t +
+    // a_{t+1} g_{t+1}, with a_{t+1} g_{t+1} = q at the chunk's last step
+    g = q;
+    a_next = 1.0f;
+#pragma unroll
+    for (int u = C - 1; u >= 0; --u) {
+      if (u < n) {
+        g = fmaf(a_next, g, ds[u]);
+        float* dq = dyp + (t0 + u) * 3 * H;
+        dq[0] = g * kz[u];
+        dq[H] = g * kf[u];
+        a_next = a[u];
+      }
+    }
+    q = a_next * g;                      // q at t0
+    if (k == 0) {
+      carry[p ^ 1][l] = q;               // into the segment before
+      if (s0 == 0 && live && dc0 != nullptr) dc0[lane] = q;
+    }
+  }
+}
+
 unsigned int blocks_for(long long B, long long H) {
   return static_cast<unsigned int>((B * H + kThreads - 1) / kThreads);
 }
@@ -506,10 +699,10 @@ unsigned int blocks_for(long long B, long long H) {
 extern "C" int qrnn_pool_fwd(const void* y, const void* c0, void* h,
                              void* c_last, long long B, long long T,
                              long long H, void* stream) {
-  qrnn_pool_fwd_kernel<false><<<blocks_for(B, H), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  qrnn_pool_fwd_kernel<<<blocks_for(B, H), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<const float*>(c0),
-      static_cast<float*>(h), nullptr, static_cast<float*>(c_last), B, T, H);
+      static_cast<float*>(h), static_cast<float*>(c_last), B, T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -554,11 +747,12 @@ extern "C" int qrnn_pool_fwd_chunked(const void* y, const void* c0, void* h,
 extern "C" int qrnn_pool_fwd_train(const void* y, const void* c0, void* h,
                                    void* c_all, void* c_last, long long B,
                                    long long T, long long H, void* stream) {
-  qrnn_pool_fwd_kernel<true><<<blocks_for(B, H), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(c0),
-      static_cast<float*>(h), static_cast<float*>(c_all),
-      static_cast<float*>(c_last), B, T, H);
+  qrnn_pool_fwd_train_kernel<kFwdChunk>
+      <<<static_cast<unsigned int>((B * H + kTrainLanes - 1) / kTrainLanes),
+         kTrainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(y), static_cast<const float*>(c0),
+          static_cast<float*>(h), static_cast<float*>(c_all),
+          static_cast<float*>(c_last), B, T, H, train_len(T, kFwdChunk));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -566,11 +760,22 @@ extern "C" int qrnn_pool_bwd(const void* y, const void* c, const void* dh,
                              const void* dc_last, const void* c0, void* dy,
                              void* dc0, long long B, long long T, long long H,
                              void* stream) {
-  qrnn_pool_bwd_kernel<<<blocks_for(B, H), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(c),
-      static_cast<const float*>(dh), static_cast<const float*>(dc_last),
-      static_cast<const float*>(c0), static_cast<float*>(dy),
-      static_cast<float*>(dc0), B, T, H);
+  qrnn_pool_bwd_chunked_kernel<kBwdChunk>
+      <<<static_cast<unsigned int>((B * H + kTrainLanes - 1) / kTrainLanes),
+         kTrainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(y), static_cast<const float*>(c),
+          static_cast<const float*>(dh), static_cast<const float*>(dc_last),
+          static_cast<const float*>(c0), static_cast<float*>(dy),
+          static_cast<float*>(dc0), B, T, H, train_len(T, kBwdChunk));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The training pair's chunking for T: {chunks a segment, steps a chunk
+// forward, steps a chunk backward} into out (tests repeat it in the plain
+// versions).
+extern "C" int qrnn_pool_train_chunking(long long T, int* out) {
+  out[0] = kTrainChunks;
+  out[1] = train_len(T, kFwdChunk);
+  out[2] = train_len(T, kBwdChunk);
+  return 0;
 }

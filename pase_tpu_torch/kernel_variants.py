@@ -1,9 +1,10 @@
 """The design choices of three kernels, measured against the variants
 they were chosen over, on the card.
 
-    python -m pase_tpu_torch.kernel_variants [conv] [qrnn] [serial]
+    python -m pase_tpu_torch.kernel_variants [conv] [qrnn] [serial] [train]
+        [--against SOURCE]
 
-(no group named: all three). Each variant is a copy of the shipped source
+(no group named: all four). Each variant is a copy of the shipped source
 with a few lines replaced (``VARIANTS``), built like the shipped kernels
 into ``build/pase_tpu_torch/variants/`` (all at once) and called through
 its own library:
@@ -21,7 +22,17 @@ its own library:
           ``qrnn_pool_fwd``: ms at the streaming push shapes, around the
           route's limit and at the eval shape (``SERIAL_SHAPES``), in two
           passes (the second in reverse order), each output equal to the
-          loop's bit for bit.
+          loop's bit for bit;
+  train   ``qrnn_pool_fwd_train`` and ``qrnn_pool_bwd`` (the same file) as
+          shipped and in each other tile of ``TRAIN_TILES`` (lanes and
+          threads a block, steps a chunk forward and backward, blocks an
+          SM, the next segment's loads in flight or not), and, with
+          ``--against SOURCE``, the same entry points built from another
+          qrnn_pool.cu (the one-thread-a-lane kernels of an earlier
+          commit: ``git show <commit>:pase_tpu_torch/csrc/qrnn_pool.cu``):
+          ms at the training shapes (``chip_smoke.TRAIN_QRNN_SHAPES``) in
+          two passes (the second in reverse order), each output against
+          the plain version of its own algebra.
 Times are CUDA-event medians of CUDA graphs of 20 calls (no host time
 between launches). Nothing here is on a path; the shipped kernels are
 chosen in the sources.
@@ -46,6 +57,9 @@ _CHUNK = ("constexpr int kMaxChunk = 8;", "constexpr int kChunkBlocks = 2;",
 _LANES = "  const int lanes = (B * H + 7) / 8 >= sms ? 8 : 4;"
 _SEG_NAMES = ("kSegLanes", "kSegSteps", "kSegThreads")
 SEG_SHIPPED = (8, 128, 128)
+_TRAIN_NAMES = ("kTrainLanes", "kTrainThreads", "kFwdChunk", "kBwdChunk",
+                "kFwdBlocks", "kBwdBlocks", "kPrefetch")
+TRAIN_SHIPPED = (32, 256, 8, 4, 3, 3, "true")
 
 
 def _seg_consts(*tile):
@@ -53,6 +67,17 @@ def _seg_consts(*tile):
     segmented kernel."""
     return [(f"constexpr int {k} = {old};", f"constexpr int {k} = {new};")
             for k, old, new in zip(_SEG_NAMES, SEG_SHIPPED, tile)
+            if old != new]
+
+
+def _train_consts(*tile):
+    """Line replacements for a tile of the training pair (lanes, threads,
+    forward and backward chunk, forward and backward blocks an SM,
+    prefetch)."""
+    return [(f"constexpr {'bool' if k == 'kPrefetch' else 'int'} {k} = "
+             f"{old};", f"constexpr {'bool' if k == 'kPrefetch' else 'int'} "
+             f"{k} = {new};")
+            for k, old, new in zip(_TRAIN_NAMES, TRAIN_SHIPPED, tile)
             if old != new]
 
 
@@ -90,6 +115,21 @@ VARIANTS.update({
     "qrnn serial: {} lanes, {} steps, {} threads".format(*tile):
     (cuda_qrnn.SOURCE, _seg_consts(*tile))
     for tile in SEG_TILES if tile != SEG_SHIPPED})
+# the training pair's tiles: (lanes, threads a block, forward and backward
+# steps a chunk at most, forward and backward blocks an SM, prefetch); the
+# shipped one (TRAIN_SHIPPED) is built as shipped
+TRAIN_TILES = [TRAIN_SHIPPED, (32, 256, 8, 8, 3, 2, "true"),
+               (32, 256, 8, 8, 3, 2, "false"), (32, 256, 4, 4, 4, 3, "true"),
+               (32, 256, 16, 4, 2, 3, "true"), (32, 256, 8, 8, 4, 3, "true"),
+               (32, 512, 8, 8, 1, 1, "true"), (32, 128, 8, 8, 6, 4, "true"),
+               (64, 256, 8, 8, 3, 2, "true"), (32, 256, 8, 4, 3, 4, "true"),
+               (32, 256, 8, 4, 3, 3, "false"), (32, 256, 8, 2, 3, 4, "true"),
+               (32, 256, 8, 4, 2, 3, "true"), (32, 128, 8, 4, 6, 6, "true"),
+               (64, 256, 8, 4, 3, 3, "true")]
+VARIANTS.update({
+    "qrnn train: {} lanes, {} threads, chunks {}/{}, blocks {}/{}, "
+    "prefetch {}".format(*tile): (cuda_qrnn.SOURCE, _train_consts(*tile))
+    for tile in TRAIN_TILES if tile != TRAIN_SHIPPED})
 QRNN_SHAPES = [(8, 1000, 512), (1, 1000, 512), (24, 200, 512),
                (1, 10000, 512), (8, 4000, 512)]
 # the streaming pushes (1 s and 100 ms at B = 1 and 8); one step, 16 x 10
@@ -253,11 +293,91 @@ def serial_rows():
     return rows
 
 
-GROUPS = {"conv": conv_rows, "qrnn": qrnn_rows, "serial": serial_rows}
+def train_rows(against=None):
+    """The training pair as shipped and in its other tiles (and from the
+    ``against`` source) at chip_smoke.TRAIN_QRNN_SHAPES: fwd_train and bwd
+    ms in two passes (the second in reverse order); max |h|, |c|, |c_T|,
+    |dc0| error and max |dy| error / max(1, max |dy_plain|) against the
+    chunked plain versions at each library's chunking (the serial ones for
+    ``against``), seeded with c0 and dc_T."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import TRAIN_QRNN_SHAPES
+    libs = {"shipped: {} lanes, {} threads, chunks {}/{}, blocks {}/{}, "
+            "prefetch {}".format(*TRAIN_SHIPPED): cuda_qrnn.build()}
+    libs.update(build_variants([k for k in VARIANTS
+                                if k.startswith("qrnn train")]))
+    if against:
+        libs[f"against {against}"] = cuda_build.load(
+            against, {k: cuda_qrnn._ARGTYPES[k] for k in
+                      ("qrnn_pool_fwd_train", "qrnn_pool_bwd")},
+            os.path.join(VARIANT_DIR, "against"))
+    order = list(libs)
+    rows = []
+    for b, t, h in TRAIN_QRNN_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * t + h)
+        y = torch.randn(b, t, 3 * h, device="cuda", generator=gen)
+        c0, dct = (torch.randn(b, h, device="cuda", generator=gen)
+                   for _ in range(2))
+        dh = torch.randn(b, t, h, device="cuda", generator=gen)
+        zeros = torch.zeros_like(dct)
+        errs = {}
+
+        def run():
+            hk, ck, ctk = cuda_qrnn.qrnn_pool_fwd_train(y, c0)
+            return (hk, ck, ctk) + cuda_qrnn.qrnn_pool_bwd(y, ck, dh, dct, c0)
+        for name, lib in libs.items():
+            hk, ck, ctk, dyk, dc0k = _with_lib(cuda_qrnn, lib, run)
+            if name.startswith("against"):
+                hp, cp = plain.qrnn_pool_fwd_train(y, c0)
+                ctp = cp[:, -1]
+                dyp, dc0p = plain.qrnn_pool_bwd(y, ck, dh, dct, c0)
+            else:
+                chunks, lf, lb = cuda_qrnn.train_chunking(t, lib)
+                hp, cp, ctp = plain.qrnn_pool_fwd_train_chunked_plain(
+                    y, c0, chunk=lf, chunks=chunks)
+                dyp, dc0p = plain.qrnn_pool_bwd_chunked_plain(
+                    y, ck, dh, dct, c0, chunk=lb, chunks=chunks)
+            errs[name] = (max((hk - hp).abs().max().item(),
+                              (ck - cp).abs().max().item(),
+                              (ctk - ctp).abs().max().item(),
+                              (dc0k - dc0p).abs().max().item()),
+                          (dyk - dyp).abs().max().item()
+                          / max(1.0, dyp.abs().max().item()))
+        _, c, _ = _with_lib(cuda_qrnn, libs[order[0]],
+                            lambda: cuda_qrnn.qrnn_pool_fwd_train(y))
+        ms = {k: ([], []) for k in order}
+        for pas in (order, order[::-1]):
+            for name in pas:
+                lib = libs[name]
+                ms[name][0].append(_with_lib(cuda_qrnn, lib, lambda: graph_ms(
+                    lambda: cuda_qrnn.qrnn_pool_fwd_train(y))))
+                ms[name][1].append(_with_lib(cuda_qrnn, lib, lambda: graph_ms(
+                    lambda: cuda_qrnn.qrnn_pool_bwd(y, c, dh, zeros))))
+        for name in order:
+            fwd, bwd = (statistics.mean(v) for v in ms[name])
+            rows.append(((b, t, h), name, errs[name], fwd, bwd))
+            print(f"[train] y[{b},{t},{3 * h}] {name}: fwd_train {fwd:.5f} "
+                  f"ms (passes {ms[name][0][0]:.5f}, {ms[name][0][1]:.5f}), "
+                  f"bwd {bwd:.5f} ms (passes {ms[name][1][0]:.5f}, "
+                  f"{ms[name][1][1]:.5f}); max err fwd {errs[name][0]:.2e}, "
+                  f"dy rel {errs[name][1]:.2e}", flush=True)
+        del y, c0, dct, dh, c
+    return rows
+
+
+GROUPS = {"conv": conv_rows, "qrnn": qrnn_rows, "serial": serial_rows,
+          "train": train_rows}
 
 
 def main():
-    groups = sys.argv[1:] or list(GROUPS)
+    args = sys.argv[1:]
+    against = None
+    if "--against" in args:
+        i = args.index("--against")
+        against = os.path.abspath(args[i + 1])
+        args = args[:i] + args[i + 2:]
+    groups = args or list(GROUPS)
     unknown = [g for g in groups if g not in GROUPS]
     if unknown:
         raise SystemExit(f"unknown group(s) {unknown}; of {list(GROUPS)}")
@@ -266,7 +386,8 @@ def main():
                            "False)")
     full_precision()
     print(torch.cuda.get_device_name(0), flush=True)
-    return {g: GROUPS[g]() for g in groups}
+    return {g: GROUPS[g](against) if g == "train" else GROUPS[g]()
+            for g in groups}
 
 
 if __name__ == "__main__":

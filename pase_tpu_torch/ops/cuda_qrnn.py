@@ -24,7 +24,16 @@ Entry points, each with a launch count in ``LAUNCHES``:
                         eval at batch), one thread a lane, with the same
                         bits as qrnn_pool_fwd_seg;
   qrnn_pool_fwd_train   the forward of ``QRNNPool``: also stores every c_t;
-  qrnn_pool_bwd         the backward of ``QRNNPool``.
+  qrnn_pool_bwd         the backward of ``QRNNPool``. Both cut each lane's
+                        time axis into chunks, one warp a chunk of 32
+                        lanes, compose each chunk's affine map, put the
+                        carry through them in a fixed order and re-run the
+                        chunks from it, so a training rank's few lanes
+                        fill the card; within 1e-5 of the plain versions,
+                        the same bits on every call (``train_chunking``
+                        gives their chunking, which
+                        ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain`` and
+                        ``qrnn_pool_bwd_chunked_plain`` repeat).
 
 ``qrnn_pool(y, c0=None)`` goes through the ``QRNNPool`` autograd Function
 when a gradient is needed, and through ``qrnn_pool_fwd`` otherwise, which
@@ -44,6 +53,8 @@ one exported program takes each route at the batch sizes that call for
 it. Importing this module registers the operator; a process that
 loads an exported program needs nothing else of the package.
 """
+
+import ctypes
 
 import torch
 
@@ -85,6 +96,8 @@ _ARGTYPES = {
     "qrnn_pool_bwd": [_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _P],
     # () -> qrnn_pool_fwd_seg's segment length
     "qrnn_pool_fwd_segment_steps": [],
+    # (T, int[3] out) -> the training pair's chunking
+    "qrnn_pool_train_chunking": [_N, _P],
 }
 
 
@@ -111,6 +124,16 @@ def segment_steps():
     """Steps per segment of ``qrnn_pool_fwd_seg``'s kernel, from the
     built library."""
     return build().qrnn_pool_fwd_segment_steps()
+
+
+def train_chunking(steps, lib=None):
+    """The training pair's chunking at T = steps, from the built library
+    (or ``lib``): (chunks a segment, steps a chunk forward, steps a chunk
+    backward), as ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain`` and
+    ``qrnn_pool_bwd_chunked_plain`` take it."""
+    out = (ctypes.c_int * 3)()
+    (lib or build()).qrnn_pool_train_chunking(steps, ctypes.addressof(out))
+    return tuple(out)
 
 
 def _check_lanes(name, t, like):

@@ -11,9 +11,10 @@ build_rnn_block):
 
 These are the plain versions of the CUDA kernels in ``ops/cuda_qrnn.py``:
 the CPU path of the encoder and the reference the kernels are held to on
-the card (``qrnn_pool_chunked_plain`` repeats the chunked kernel's
+the card (``qrnn_pool_chunked_plain`` repeats the chunked serving kernel's
 algebra, ``qrnn_pool_serial_plain`` the seeded chain of the serial ones,
-for tests).
+``qrnn_pool_fwd_train_chunked_plain`` and ``qrnn_pool_bwd_chunked_plain``
+the training pair's, for tests).
 ``forget_mult`` steps sequentially over T in the JAX package's
 algebra (a = 1-f, b = f*z, c0 folded into b_1); ``qrnn_pool_bwd`` is the
 reverse-time scan of its gradient (the VJP of
@@ -108,6 +109,126 @@ def qrnn_pool_chunked_plain(y, c0=None, chunk=8, chunks=64):
         carry = c[:, -1]
     c = torch.cat(parts, dim=1)
     return torch.sigmoid(yo) * c, c[:, -1]
+
+
+# the training kernels' chunks a segment and steps a chunk at most, forward
+# and backward (kTrainChunks, kFwdChunk, kBwdChunk of csrc/qrnn_pool.cu)
+TRAIN_CHUNKS, FWD_CHUNK, BWD_CHUNK = 8, 8, 4
+
+
+def train_chunk_len(t, chunks=TRAIN_CHUNKS, max_chunk=FWD_CHUNK):
+    """Steps a chunk of the training kernels for T = t: the fewest
+    segments of ``chunks`` chunks of at most ``max_chunk`` steps, then the
+    shortest chunk that covers T in as many (``train_len`` of
+    csrc/qrnn_pool.cu)."""
+    cover = -(-t // (chunks * max_chunk)) * chunks
+    return -(-t // cover)
+
+
+def _segment(x, s0, n, seg, chunks, pad):
+    """Steps s0 .. s0 + n of x [B, T, H] padded with ``pad`` to a segment
+    of seg steps, as [B, chunks, seg // chunks, H]."""
+    bsz, _, hid = x.shape
+    part = F.pad(x[:, s0:s0 + n], (0, 0, 0, seg - n), value=pad)
+    return part.reshape(bsz, chunks, seg // chunks, hid)
+
+
+def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
+                                      chunks=TRAIN_CHUNKS):
+    """The chunked training forward's algebra (``qrnn_pool_fwd_train``),
+    for tests: the same function as ``qrnn_pool_fwd_train``. T is walked in
+    segments of ``chunks`` chunks of ``chunk`` steps: (1) every chunk's map
+    c -> A c + B from c = 0 (B = a B + b, A = A a, steps in order); (2) the
+    carry into chunk k, the segment's carry put through the maps of chunks
+    0 .. k-1 one after the other; (3) each chunk re-run from its carry; the
+    next segment's carry is the last step's c. Steps past T are the
+    identity (a = 1, b = 0). ``chunk`` None: the shipped kernel's
+    (``train_chunk_len``). Returns (h [B, T, H], c [B, T, H], c_T [B, H])."""
+    yz, yf, yo = torch.chunk(y, 3, dim=-1)
+    f = torch.sigmoid(yf)
+    a, b, s = 1.0 - f, f * torch.tanh(yz), torch.sigmoid(yo)
+    t = a.shape[1]
+    chunk = chunk or train_chunk_len(t, chunks, FWD_CHUNK)
+    carry = torch.zeros_like(a[:, 0]) if c0 is None else c0
+    seg = chunk * chunks
+    parts = []
+    for s0 in range(0, t, seg):
+        n = min(seg, t - s0)
+        aa = _segment(a, s0, n, seg, chunks, 1.0)
+        bb = _segment(b, s0, n, seg, chunks, 0.0)
+        ma, mb = torch.ones_like(aa[:, :, 0]), torch.zeros_like(aa[:, :, 0])
+        for u in range(chunk):
+            mb = aa[:, :, u] * mb + bb[:, :, u]
+            ma = ma * aa[:, :, u]
+        cin, c = [], carry
+        for k in range(chunks):
+            cin.append(c)
+            c = ma[:, k] * c + mb[:, k]
+        c = torch.stack(cin, dim=1)
+        cs = []
+        for u in range(chunk):
+            c = aa[:, :, u] * c + bb[:, :, u]
+            cs.append(c)
+        c = torch.stack(cs, dim=2).reshape(a.shape[0], seg, -1)[:, :n]
+        parts.append(c)
+        carry = c[:, -1]
+    c = torch.cat(parts, dim=1)
+    return s * c, c, c[:, -1]
+
+
+def qrnn_pool_bwd_chunked_plain(y, c, dh, dc_last=None, c0=None, chunk=None,
+                                chunks=TRAIN_CHUNKS):
+    """The chunked training backward's algebra (``qrnn_pool_bwd``), for
+    tests: the same function as ``qrnn_pool_bwd``. The carry is q_t = a_t
+    g_t, the gradient into c_{t-1} (q_T = dc_T, dc0 = q_0), and g_t = dh_t
+    s_t + a_{t+1} g_{t+1} inside a chunk. Segments of ``chunks`` chunks of
+    ``chunk`` steps from the last to the first: (1) every chunk's map q_in
+    -> A q_in + B from q_in = 0, its steps walked down; (2) the carry into
+    chunk k, the segment's carry put through the maps of the chunks after
+    it, the last first; (3) each chunk re-run from its carry, g seeded with
+    q_in and a_next with 1. The gate factors: dy_z = g (f (1 - z^2)), dy_f
+    = g ((z - c_{t-1}) f a), dy_o = dh c s (1 - s). ``chunk`` None: the
+    shipped kernel's. Returns (dy [B, T, 3H], dc0 [B, H] or None when c0 is
+    None)."""
+    yz, yf, yo = torch.chunk(y, 3, dim=-1)
+    z, f, s = torch.tanh(yz), torch.sigmoid(yf), torch.sigmoid(yo)
+    a = 1.0 - f
+    first = torch.zeros_like(c[:, 0]) if c0 is None else c0
+    c_prev = torch.cat([first[:, None], c[:, :-1]], dim=1)
+    ds = dh * s
+    t = a.shape[1]
+    chunk = chunk or train_chunk_len(t, chunks, BWD_CHUNK)
+    q = torch.zeros_like(c[:, 0]) if dc_last is None else dc_last
+    seg = chunk * chunks
+    g_all = torch.empty_like(c)
+    for s0 in range((t - 1) // seg * seg, -1, -seg):
+        n = min(seg, t - s0)
+        aa = _segment(a, s0, n, seg, chunks, 1.0)
+        dd = _segment(ds, s0, n, seg, chunks, 0.0)
+        ma, g = torch.ones_like(aa[:, :, 0]), torch.zeros_like(aa[:, :, 0])
+        an = torch.ones_like(ma)
+        for u in range(chunk - 1, -1, -1):
+            g = an * g + dd[:, :, u]
+            an = aa[:, :, u]
+            ma = ma * aa[:, :, u]
+        mb = an * g
+        qin = [None] * chunks
+        for k in range(chunks - 1, -1, -1):
+            qin[k] = q
+            q = ma[:, k] * q + mb[:, k]
+        g, an = torch.stack(qin, dim=1), torch.ones_like(ma)
+        gs = [None] * chunk
+        for u in range(chunk - 1, -1, -1):
+            g = an * g + dd[:, :, u]
+            gs[u] = g
+            an = aa[:, :, u]
+        g_all[:, s0:s0 + n] = torch.stack(gs, dim=2).reshape(
+            a.shape[0], seg, -1)[:, :n]
+        q = (an * g)[:, 0]
+    dy = torch.cat([g_all * (f * (1.0 - z * z)),
+                    g_all * ((z - c_prev) * f * a),
+                    dh * c * s * (1.0 - s)], dim=-1)
+    return dy, (None if c0 is None else q)
 
 
 def qrnn_pool_serial_plain(y, c0=None):

@@ -87,7 +87,7 @@ def kernel_kind(name):
     n = name.lower()
     if "qrnn_pool_bwd" in n:
         return "qrnn bwd"
-    if "qrnn_pool_fwd_kernel<true>" in n:
+    if "qrnn_pool_fwd_train_kernel" in n:
         return "qrnn fwd_train"
     if "qrnn_pool_fwd_chunked" in n:
         return "qrnn fwd chunked"

@@ -3,7 +3,9 @@
 one-thread-a-lane serving forward, the last two also against each other,
 bit for bit; training forward, backward) and the stride-1 conv kernels
 (csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
-against their plain PyTorch versions, the encoder on the GPU against the
+against their plain PyTorch versions (the training pair also against the
+chunked plain versions of its own algebra, bit for bit between calls and
+in a CUDA graph), the encoder on the GPU against the
 same weights on the CPU, one small train
 step on the GPU against the CPU, the probes' PASE+ extractor and MLP fit
 on the GPU against the CPU, the distortion stack on the GPU
@@ -189,7 +191,7 @@ def test_serial_kernel_block_streamed_equals_full(cuda_device, cut, b, h):
 @pytest.mark.parametrize("b,t,kernel", [
     (1, 100, "qrnn_pool_fwd_seg_kernel"), (8, 10, "qrnn_pool_fwd_seg_kernel"),
     (1, 1, "qrnn_pool_fwd_seg_kernel"), (16, 10, "qrnn_pool_fwd_seg_kernel"),
-    (32, 100, "qrnn_pool_fwd_kernel<false>")])
+    (32, 100, "qrnn_pool_fwd_kernel(")])
 def test_serial_forward_routes_by_lanes(cuda_device, b, t, kernel):
     """A seeded qrnn_pool_fwd launches the segmented kernel under
     SEG_LANES lanes and the one-thread-a-lane loop from there on (the same
@@ -285,6 +287,96 @@ def test_train_kernels_count_launches(cuda_device):
     assert after["qrnn_pool_fwd"] == before["qrnn_pool_fwd"]
     assert after["qrnn_pool_fwd_seg"] == before["qrnn_pool_fwd_seg"]
     assert after["qrnn_pool_fwd_chunked"] == before["qrnn_pool_fwd_chunked"]
+
+
+def _train_inputs(shape, cuda_device, seeded, dct):
+    """y, c0 (or None), dh and dc_T (or None) of a training-pair call."""
+    b, t, h = shape
+    y, c0 = _inputs(b, t, h, cuda_device, seed=t + h)
+    rng = np.random.RandomState(t + b)
+    dh = torch.from_numpy(rng.randn(b, t, h).astype(np.float32))
+    dc = torch.from_numpy(rng.randn(b, h).astype(np.float32))
+    return (y, c0 if seeded else None, dh.to(cuda_device),
+            dc.to(cuda_device) if dct else None)
+
+
+# ragged T (37: one segment of 8 chunks of 5, the last two idle; 201: four
+# of 8 x 7 and a fifth of 33 steps) at ragged lanes (120 and 32 lanes, not
+# whole blocks), and two training ranks' lane counts: the attention
+# variant's rank and a 2 x 2 --n_model rank
+TRAIN_CHUNKED_SHAPES = [(3, 37, 40), (2, 201, 16), (24, 200, 512),
+                        (48, 200, 256)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_CHUNKED_SHAPES, ids=str)
+@pytest.mark.parametrize("seeded,dct", [(False, False), (True, True)])
+def test_train_kernels_match_their_chunked_plain(cuda_device, shape, seeded,
+                                                 dct):
+    """qrnn_pool_fwd_train and qrnn_pool_bwd against the chunked plain
+    versions at the kernels' own chunking (the library's, which the plain
+    versions' defaults repeat): h, c, c_T and dc0 within 1e-5, dy within
+    1e-5 x max(1, max|dy_plain|); one launch each."""
+    y, c0, dh, dct_ = _train_inputs(shape, cuda_device, seeded, dct)
+    t = shape[1]
+    chunks, len_fwd, len_bwd = cuda_qrnn.train_chunking(t)
+    assert (chunks, len_fwd, len_bwd) == (
+        plain.TRAIN_CHUNKS, plain.train_chunk_len(t, chunks, plain.FWD_CHUNK),
+        plain.train_chunk_len(t, chunks, plain.BWD_CHUNK))
+    before = dict(cuda_qrnn.LAUNCHES)
+    hk, ck, ctk = cuda_qrnn.qrnn_pool_fwd_train(y, c0)
+    dyk, dc0k = cuda_qrnn.qrnn_pool_bwd(y, ck, dh, dct_, c0)
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_train": before["qrnn_pool_fwd_train"] + 1,
+        "qrnn_pool_bwd": before["qrnn_pool_bwd"] + 1}
+    hp, cp, ctp = plain.qrnn_pool_fwd_train_chunked_plain(
+        y, c0, chunk=len_fwd, chunks=chunks)
+    dyp, dc0p = plain.qrnn_pool_bwd_chunked_plain(
+        y, ck, dh, dct_, c0, chunk=len_bwd, chunks=chunks)
+    torch.cuda.synchronize()
+    for got, want in ((hk, hp), (ck, cp), (ctk, ctp)):
+        assert (got - want).abs().max().item() <= 1e-5
+    assert (dyk - dyp).abs().max().item() <= \
+        1e-5 * max(1.0, dyp.abs().max().item())
+    if seeded:
+        assert (dc0k - dc0p).abs().max().item() <= 1e-5
+    else:
+        assert dc0k is None
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 40), (24, 200, 512)], ids=str)
+def test_train_kernels_are_deterministic_and_capture(cuda_device, shape):
+    """Two calls of the training pair give the same bits (no atomics, one
+    order of composition), and a CUDA graph of one fwd_train + bwd gives
+    them too when replayed."""
+    y, c0, dh, dct = _train_inputs(shape, cuda_device, True, True)
+
+    def run():
+        h, c, c_last = cuda_qrnn.qrnn_pool_fwd_train(y, c0)
+        return (h, c, c_last) + cuda_qrnn.qrnn_pool_bwd(y, c, dh, dct, c0)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, captured))
+
+
+def test_qrnn_pool_function_launches_each_training_kernel_once(cuda_device):
+    """One QRNNPool forward and backward at a training rank's lanes (the
+    attention variant's [24,200,512]) launches qrnn_pool_fwd_train and
+    qrnn_pool_bwd once each and nothing else."""
+    y, _ = _inputs(24, 200, 512, cuda_device)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, _ = cuda_qrnn.qrnn_pool(y.clone().requires_grad_())
+    h.sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_train": before["qrnn_pool_fwd_train"] + 1,
+        "qrnn_pool_bwd": before["qrnn_pool_bwd"] + 1}
 
 
 def test_train_step_gpu_matches_cpu(cuda_device, tmp_path):

@@ -220,6 +220,138 @@ def test_chunked_plain_matches_serial_and_pallas(t, chunk, chunks, seeded):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+# the training pair's chunking (T, chunk, chunks): one step; T under one
+# chunk; T one past whole chunks (a second segment of one step); several
+# segments, the last ragged; the main path's T = 200 (4 segments of 8 x 7)
+TRAIN_CHUNKED = [(1, 1, 8), (5, 7, 8), (15, 7, 2), (37, 4, 2), (200, 7, 8)]
+
+
+def _train_chunked(y, c0, wh, wc, chunk, chunks):
+    """The chunked plain training pair on numpy inputs: (h, c_T) of the
+    forward, (dy, dc0) of the backward with dh = wh and dc_T = wc (None:
+    no c_T gradient)."""
+    yt = torch.from_numpy(y)
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    h, c, c_last = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+        yt, c0t, chunk=chunk, chunks=chunks)
+    dy, dc0 = torch_qrnn.qrnn_pool_bwd_chunked_plain(
+        yt, c, torch.from_numpy(wh), None if wc is None else
+        torch.from_numpy(wc), c0t, chunk=chunk, chunks=chunks)
+    return h, c, c_last, dy, dc0
+
+
+def _train_case(t, seeded, dct):
+    y, c0 = _inputs(3, t, 8, seed=t + 2 * seeded + dct)
+    rng = np.random.RandomState(t + 5)
+    wh = rng.randn(3, t, 8).astype(np.float32)
+    wc = rng.randn(3, 8).astype(np.float32) if dct else None
+    return y, (c0 if seeded else None), wh, wc
+
+
+@pytest.mark.parametrize("t,chunk,chunks", TRAIN_CHUNKED, ids=str)
+@pytest.mark.parametrize("seeded,dct", [(False, True), (True, False)])
+def test_train_chunked_plain_matches_jax_grad(t, chunk, chunks, seeded, dct):
+    """The chunked training pair's algebra (the kernels' chunk maps,
+    carries put through them one after the other, chunks re-run; the
+    backward's carry a_t g_t) against the Pallas kernel's forward and
+    jax.grad of its custom VJP in interpret mode, at the file's tolerance
+    (unseeded with a c_T gradient, seeded without one; the serial test
+    below takes all four)."""
+    y, c0, wh, wc = _train_case(t, seeded, dct)
+    h, _, c_last, dy, dc0 = _train_chunked(y, c0, wh, wc, chunk, chunks)
+    h_ref, c_ref = _pallas_pool(y, c0)
+    gy_ref, gc_ref = _jax_pool_grads(
+        y, c0, wh, np.zeros((3, 8), np.float32) if wc is None else wc)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=ATOL)
+    np.testing.assert_allclose(c_last.numpy(), np.asarray(c_ref), atol=ATOL)
+    np.testing.assert_allclose(dy.numpy(), np.asarray(gy_ref), atol=ATOL)
+    if seeded:
+        np.testing.assert_allclose(dc0.numpy(), np.asarray(gc_ref),
+                                   atol=ATOL)
+    else:
+        assert dc0 is None
+
+
+@pytest.mark.parametrize("t,chunk,chunks", TRAIN_CHUNKED, ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("dct", [False, True])
+def test_train_chunked_plain_matches_serial(t, chunk, chunks, seeded, dct):
+    """The chunked training pair against the serial plain versions (the
+    CPU main path's ``qrnn_pool_fwd_train`` / ``qrnn_pool_bwd``): every
+    output, c included, at the file's tolerance."""
+    y, c0, wh, wc = _train_case(t, seeded, dct)
+    h, c, c_last, dy, dc0 = _train_chunked(y, c0, wh, wc, chunk, chunks)
+    yt = torch.from_numpy(y)
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    h_ser, c_ser = torch_qrnn.qrnn_pool_fwd_train(yt, c0t)
+    dy_ser, dc0_ser = torch_qrnn.qrnn_pool_bwd(
+        yt, c_ser, torch.from_numpy(wh),
+        None if wc is None else torch.from_numpy(wc), c0t)
+    for got, want in ((h, h_ser), (c, c_ser), (c_last, c_ser[:, -1]),
+                      (dy, dy_ser)) + (((dc0, dc0_ser),) if seeded else ()):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("t,len_fwd,len_bwd", [
+    (1, 1, 1), (5, 1, 1), (21, 3, 3), (63, 8, 4), (64, 8, 4), (65, 5, 3),
+    (200, 7, 4), (1001, 8, 4)])
+def test_train_chunking_covers_t_in_the_fewest_segments(t, len_fwd,
+                                                        len_bwd):
+    """The training pair's chunk length: the fewest segments of 8 chunks
+    of at most 8 steps (forward) or 4 (backward) that cover T, then the
+    shortest chunk that covers T in as many; the chunked plain versions
+    default to it."""
+    chunks = torch_qrnn.TRAIN_CHUNKS
+    for got, most in ((len_fwd, torch_qrnn.FWD_CHUNK),
+                      (len_bwd, torch_qrnn.BWD_CHUNK)):
+        assert torch_qrnn.train_chunk_len(t, chunks, most) == got
+        assert -(-t // (chunks * got)) == -(-t // (chunks * most))
+    assert torch_qrnn.train_chunk_len(t) == len_fwd
+    y, c0 = _inputs(2, t, 4, seed=t)
+    yt, c0t = torch.from_numpy(y), torch.from_numpy(c0)
+    fwd = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(yt, c0t)
+    assert all(torch.equal(u, v) for u, v in zip(
+        fwd, torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+            yt, c0t, chunk=len_fwd)))
+    dh = torch.ones_like(fwd[0])
+    bwd = torch_qrnn.qrnn_pool_bwd_chunked_plain(yt, fwd[1], dh, None, c0t)
+    assert all(torch.equal(u, v) for u, v in zip(
+        bwd, torch_qrnn.qrnn_pool_bwd_chunked_plain(
+            yt, fwd[1], dh, None, c0t, chunk=len_bwd)))
+
+
+def test_train_chunking_constants_are_the_kernels():
+    """ops/qrnn.py's TRAIN_CHUNKS, FWD_CHUNK and BWD_CHUNK are the
+    shipped kernels' kTrainThreads / kTrainLanes, kFwdChunk and
+    kBwdChunk."""
+    import re
+    with open(cuda_qrnn.SOURCE) as f:
+        text = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kTrainThreads"] // const["kTrainLanes"] == \
+        torch_qrnn.TRAIN_CHUNKS
+    assert const["kFwdChunk"] == torch_qrnn.FWD_CHUNK
+    assert const["kBwdChunk"] == torch_qrnn.BWD_CHUNK
+
+
+def test_train_wrappers_cpu_path_launches_nothing():
+    """qrnn_pool_fwd_train / qrnn_pool_bwd on CPU tensors take the serial
+    plain versions (the CPU main path) and launch nothing."""
+    y, c0 = _inputs(2, 21, 8, seed=10)
+    yt, c0t = torch.from_numpy(y), torch.from_numpy(c0)
+    dh = torch.ones(2, 21, 8)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c, c_last = cuda_qrnn.qrnn_pool_fwd_train(yt, c0t)
+    dy, dc0 = cuda_qrnn.qrnn_pool_bwd(yt, c, dh, None, c0t)
+    h_ref, c_ref = torch_qrnn.qrnn_pool_fwd_train(yt, c0t)
+    dy_ref, dc0_ref = torch_qrnn.qrnn_pool_bwd(yt, c_ref, dh, None, c0t)
+    assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
+    assert torch.equal(c_last, c_ref[:, -1])
+    assert torch.equal(dy, dy_ref) and torch.equal(dc0, dc0_ref)
+    assert cuda_qrnn.LAUNCHES == before
+
+
 def test_chunked_wrapper_cpu_path_and_route():
     """qrnn_pool_fwd_chunked on a CPU tensor takes the chunked plain
     version and launches nothing; its launches are counted under their own
@@ -291,20 +423,23 @@ def test_serial_wrappers_cpu_path(wrapper):
     ("void (anonymous namespace)::qrnn_pool_fwd_seg_kernel<4, 128, 128>"
      "(float const*, float const*, float*, float*, long, long, long)",
      "qrnn fwd"),
-    ("void (anonymous namespace)::qrnn_pool_fwd_kernel<false>(float "
-     "const*, float const*, float*, float*, float*, long, long, long)",
-     "qrnn fwd"),
-    ("void (anonymous namespace)::qrnn_pool_fwd_kernel<true>(float "
-     "const*, float const*, float*, float*, float*, long, long, long)",
-     "qrnn fwd_train"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_kernel(float const*, "
+     "float const*, float*, float*, long, long, long)", "qrnn fwd"),
     ("(anonymous namespace)::qrnn_pool_fwd_chunked_kernel(float const*)",
      "qrnn fwd chunked"),
     ("(anonymous namespace)::qrnn_pool_bwd_kernel(float const*)",
-     "qrnn bwd")])
+     "qrnn bwd"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_train_kernel<8>(float "
+     "const*, float const*, float*, float*, float*, long, long, long, int)",
+     "qrnn fwd_train"),
+    ("void (anonymous namespace)::qrnn_pool_bwd_chunked_kernel<4>(float "
+     "const*, float const*, float const*, float const*, float const*, "
+     "float*, float*, long, long, long, int)", "qrnn bwd")])
 def test_profiler_names_the_qrnn_kernels(name, kind):
     """A push's profile counts K1's serial serving kernels (the segmented
     one and the one-thread-a-lane loop) as 'qrnn fwd', apart from the
-    chunked kernel."""
+    chunked kernel; a step's split counts the training pair's kernels as
+    'qrnn fwd_train' and 'qrnn bwd'."""
     from pase_tpu_torch.profiling import kernel_kind
     assert kernel_kind(name) == kind
 
@@ -313,12 +448,19 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     """python -m pase_tpu_torch.kernel_variants builds each variant from
     the shipped source with lines replaced: each line it replaces is
     there exactly once. The serial group holds every tile of the
-    segmented kernel but the shipped one."""
+    segmented kernel but the shipped one, the train group every tile of
+    the training pair but the shipped one, each a different one."""
     from pase_tpu_torch import kernel_variants
     serial = [k for k in kernel_variants.VARIANTS
               if k.startswith("qrnn serial")]
     assert kernel_variants.SEG_SHIPPED in kernel_variants.SEG_TILES
     assert len(serial) == len(kernel_variants.SEG_TILES) - 1
+    train = [k for k in kernel_variants.VARIANTS
+             if k.startswith("qrnn train")]
+    tiles = kernel_variants.TRAIN_TILES
+    assert kernel_variants.TRAIN_SHIPPED in tiles
+    assert len(set(tiles)) == len(tiles) and len(train) == len(tiles) - 1
+    assert "train" in kernel_variants.GROUPS
     for name, (source, subs) in kernel_variants.VARIANTS.items():
         with open(source) as f:
             text = f.read()
