@@ -14,14 +14,20 @@ Phases, each printed as it ends; any failure exits non-zero:
   3. kernel  — the serving forward kernels against the plain PyTorch
                version on the card at each of QRNN_SHAPES: the chunked
                kernel (qrnn_pool_fwd_chunked), the segmented serial one
-               (qrnn_pool_fwd_seg) and the one-thread-a-lane one
-               (qrnn_pool_fwd) unseeded, max|dh|, max|dc_T| <= 1e-5;
-               qrnn_pool c0-seeded, and block-streamed == full bit for bit
-               on that seeded route; the two serial kernels equal bit for
-               bit, seeded and unseeded; the time of each (CUDA graphs of
-               20 launches, so no host time between them; the two serial
-               kernels in turns) and the route an unseeded and a seeded
-               call take there.
+               (qrnn_pool_fwd_seg), the one-thread-a-lane one
+               (qrnn_pool_fwd) and the chunked eval one
+               (qrnn_pool_fwd_eval) unseeded, max|dh|, max|dc_T| <= 1e-5;
+               the eval kernel also within 5e-7 of the chunked plain
+               version of its algebra at the library's chunking, two calls
+               bit for bit; qrnn_pool c0-seeded, and block-streamed ==
+               full bit for bit on that seeded route; the two serial
+               kernels equal bit for bit, seeded and unseeded; the time
+               of each (CUDA graphs of 20 launches, so no host time
+               between them; the four in turns) beside the byte bound,
+               and the route an unseeded and a seeded call take there
+               (the eval kernel against the kernel the unseeded route
+               took before it: the chunked one under 16384 lanes, else
+               the loop).
   4. encoder — PASE+ at full width (cfg/frontend/PASE+.cfg), seeded
                weights: the (1,1,100000) -> (1,256,625) contract, a
                (8,1,160000) batch, the same batch on the CPU (plain path)
@@ -264,7 +270,7 @@ Phases, each printed as it ends; any failure exits non-zero:
                frames (the ResNet's hop 40); a narrow ASPP (with its
                QRNN) / workers+ step card vs CPU, dropout off on both
                sides. Phase 3 holds K1 at the TDNN serving shape
-               [8,1000,256] and K1's loop and K2 at the recipe's
+               [8,1000,256] and K1's eval kernel and K2 at the recipe's
                [192,200,256].
  22. options — the step's options: (a) recipes/run_pase_attention.sh's
                flags (PASE+, workers+, cfg/attention.cfg: K 64,
@@ -414,7 +420,8 @@ Phases, each printed as it ends; any failure exits non-zero:
                (TP_RATE_STEPS after one warm-up); (c) ``python -m
                pase_tpu_torch.train --n_model 2`` in two gloo processes
                (--cli-rank) at 32 x 32000 bf16 for TP_CLI_STEPS steps
-               (K1's loop at [96,200,256] in its eval; each step logged:
+               (K1's eval kernel at [96,200,256] in its eval; each step
+               logged:
                the 1 x 2 grid's steady bf16 steps/s from its rows), its
                checkpoint resumed in one process (strict) and its
                FE_e0.npz that process's encoder bit for bit; (d) the
@@ -579,6 +586,14 @@ VQ_CFG = os.path.join(HERE, "cfg", "frontend", "PASE+_resblocks_VQ8192.cfg")
 V01_CFG = os.path.join(HERE, "cfg", "frontend", "PASE.cfg")
 V01_WORKERS = os.path.join(HERE, "cfg", "workers", "workers.cfg")
 KERNEL_ATOL = 1e-5
+# qrnn_pool_fwd_eval against the chunked plain version of its algebra (the
+# same operations in the same order; tanh / exp round otherwise on the
+# card)
+EVAL_ALG_ATOL = 5e-7
+# the unseeded route before qrnn_pool_fwd_eval: the chunked kernel under
+# this many lanes, the one-thread-a-lane loop from there on (phase 3 times
+# the eval kernel against the kernel each shape took there)
+EARLIER_LOOP_LANES = 16384
 # the steps of every --synthetic training CLI epoch in this run (the CLI's
 # own default is 100; the eval takes a tenth, at least one batch)
 CLI_STEPS = 10
@@ -597,9 +612,9 @@ FWD_OPS, BWD_OPS = 14, 25
 # (B, T, H) of the train step's QRNN at batch 32, 8 and 16 (3 streams x B
 # chunks of 32000 samples -> 200 frames, rnn_dim 512; 16: the WaveRNN
 # recipe's step), at batch 16 x 3360 samples (21 frames, phase 20's cut
-# CLI, which also runs K1's loop there in eval), and the TDNN recipe's
-# 64 x 32000 (emb_dim 256; phase 21, which also runs K1's loop there in
-# eval), and phase 27's lane shards (TP_SHAPES)
+# CLI, which also runs K1's eval kernel there in eval), and the TDNN
+# recipe's 64 x 32000 (emb_dim 256; phase 21, which also runs K1's eval
+# kernel there in eval), and phase 27's lane shards (TP_SHAPES)
 TRAIN_QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (48, 200, 512),
                      (48, 21, 512), (192, 200, 256), (64, 200, 512),
                      (96, 200, 256), (48, 200, 256)]
@@ -648,12 +663,12 @@ TS_TOL = 2e-5
 TS_GRAD_ATOL, TS_GRAD_RTOL = 1e-5, 1e-4
 # (B, T, H) of the QRNN pooling: the four shapes of benchmarks/bench_qrnn.py,
 # the serving batch (8 x 10 s windows at 100 frames/s), one window alone
-# (forward-chunk's file at a time), 32 and 48 x 200, about the chunked
-# route's limit (cuda_qrnn.CHUNKED_LANES), 48 x 21, the eval of phase
-# 20's cut WaveRNN CLI, and phase 21's TDNN shapes at H = 256: the serving
-# batch and the recipe's eval, and phase 22's 4 x 16 rows (the attention
-# recipe's batch with a regularizer's fourth stream), and phase 27's lane
-# shards
+# (forward-chunk's file at a time), 32 and 48 x 200 (the unseeded route
+# took the loop from 16384 lanes before the eval kernel), 48 x 21, the
+# eval of phase 20's cut WaveRNN CLI, and phase 21's TDNN shapes at H =
+# 256: the serving batch and the recipe's eval, and phase 22's 4 x 16 rows
+# (the attention recipe's batch with a regularizer's fourth stream), and
+# phase 27's lane shards
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
                (32, 200, 512), (48, 200, 512), (48, 21, 512),
@@ -1020,9 +1035,18 @@ def k2_route(shape):
             f"{chunks} x {len_bwd}")
 
 
+def k1_eval(shape):
+    """K1's entry point for an unseeded (eval) call at a QRNN shape (B, T,
+    H): the route cuda_qrnn.forward_entry takes there."""
+    from pase_tpu_torch.ops import cuda_qrnn
+    b, t, h = shape
+    return cuda_qrnn.forward_entry(b * h, False, t)
+
+
 def phase_kernel():
     """The serving forward kernels vs the plain version at each QRNN shape,
-    the two serial ones also against each other; returns the summary
+    the two serial ones also against each other, the eval kernel also
+    against the chunked plain version of its algebra; returns the summary
     rows."""
     import torch
     from pase_tpu_torch.ops import cuda_qrnn
@@ -1037,12 +1061,24 @@ def phase_kernel():
                 ("chunked", lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
                 ("seg", lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
                 ("loop", lambda: cuda_qrnn.qrnn_pool_fwd_loop(y)),
+                ("eval", lambda: cuda_qrnn.qrnn_pool_fwd_eval(y)),
                 ("seeded", lambda: cuda_qrnn.qrnn_pool(y, c0))):
             hk, ck = fn()
             hp, cp = plain.qrnn_pool(y, c0 if name == "seeded" else None)
             torch.cuda.synchronize()
             errs[name] = ((hk - hp).abs().max().item(),
                           (ck - cp).abs().max().item())
+        # the eval kernel against its chunked plain version at the
+        # library's chunking, and two calls bit for bit
+        chunks, steps = cuda_qrnn.eval_chunking(t)
+        he, ce = cuda_qrnn.qrnn_pool_fwd_eval(y)
+        he2, ce2 = cuda_qrnn.qrnn_pool_fwd_eval(y)
+        hp, _, cp = plain.qrnn_pool_fwd_train_chunked_plain(
+            y, chunk=steps, chunks=chunks)
+        eval_alg = max((he - hp).abs().max().item(),
+                       (ce - cp).abs().max().item())
+        eval_same = bool(torch.equal(he, he2) and torch.equal(ce, ce2))
+        del he, ce, he2, ce2, hp, cp
         # the two serial kernels, seeded and unseeded
         same = True
         for seed in (c0, None):
@@ -1055,15 +1091,18 @@ def phase_kernel():
         h2, c2 = cuda_qrnn.qrnn_pool(y[:, half:].contiguous(), c1)
         streamed = bool(torch.equal(torch.cat([h1, h2], 1), h_full)
                         and torch.equal(c2, c_full))
-        route = cuda_qrnn.forward_entry(b * h, False)
-        seeded_route = cuda_qrnn.forward_entry(b * h, True)
-        chunked_ms = _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y))
+        route = k1_eval((b, t, h))
+        seeded_route = cuda_qrnn.forward_entry(b * h, True, t)
+        earlier = "chunked" if b * h < EARLIER_LOOP_LANES else "loop"
         ms = _turns_ms({
-            "seg": lambda: _graph_ms(
-                lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
+            "chunked": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
             "loop": lambda: _graph_ms(
-                lambda: cuda_qrnn.qrnn_pool_fwd_loop(y))})
-        seg_ms, loop_ms = ms["seg"], ms["loop"]
+                lambda: cuda_qrnn.qrnn_pool_fwd_loop(y)),
+            "eval": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_eval(y)),
+            "seg": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_seg(y))})
         plain_ms = _wall_ms(lambda: plain.qrnn_pool(y), "cuda")
         # y read once, h written once, c_T written once
         bound_ms, bound_by = bound(16 * b * t * h + 4 * b * h,
@@ -1072,25 +1111,37 @@ def phase_kernel():
         print(f"[kernel] qrnn_pool y[{b},{t},{3 * h}]: max|dh|, max|dc_T| "
               + "; ".join(f"{k} {e[0]:.3e}, {e[1]:.3e}"
                           for k, e in errs.items())
-              + f"; seg == loop bit for bit (seeded, unseeded): {same}; "
-              f"block-streamed == full (seeded): {streamed}; chunked "
-              f"{chunked_ms:.4f} ms, seg {seg_ms:.4f} ms, loop "
-              f"{loop_ms:.4f} ms (CUDA graphs of 20, median of 5; seg and "
-              f"loop in turns, mean of two); unseeded route {route}, seeded "
-              f"route {seeded_route}; plain "
-              f"{plain_ms:.2f} ms (synchronized, median of 3); bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              + f"; eval vs its chunked plain ({chunks} chunks of {steps}) "
+              f"{eval_alg:.3e}, two calls bit for bit: {eval_same}; "
+              f"seg == loop bit for bit (seeded, unseeded): {same}; "
+              f"block-streamed == full (seeded): {streamed}; "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in ms.items())
+              + f" (CUDA graphs of 20, median of 5, in turns, mean of two); "
+              f"bound {bound_ms:.5f} ms ({bound_by}): eval "
+              f"{bound_ms / ms['eval']:.1%}, chunked "
+              f"{bound_ms / ms['chunked']:.1%}, loop "
+              f"{bound_ms / ms['loop']:.1%}; unseeded route {route} (the "
+              f"earlier route: {earlier}, eval / {earlier} "
+              f"{ms['eval'] / ms[earlier]:.3f}), seeded route "
+              f"{seeded_route}; plain {plain_ms:.2f} ms (synchronized, "
+              f"median of 3)")
         check(err <= KERNEL_ATOL,
               f"kernels vs plain at {(b, t, h)}: {err:.3e} > {KERNEL_ATOL}")
+        check(eval_alg <= EVAL_ALG_ATOL, f"qrnn_pool_fwd_eval vs its chunked "
+              f"plain at {(b, t, h)}: {eval_alg:.3e} > {EVAL_ALG_ATOL}")
+        check(eval_same, f"qrnn_pool_fwd_eval: two calls differ at "
+              f"{(b, t, h)}")
         check(streamed, f"block-streamed != full at {(b, t, h)}")
         check(same, f"qrnn_pool_fwd_seg != qrnn_pool_fwd at {(b, t, h)}")
         rows.append({"shape": [b, t, h], "chunked_err": max(errs["chunked"]),
                      "seg_err": max(errs["seg"]),
                      "loop_err": max(max(errs["loop"]),
                                      max(errs["seeded"])),
-                     "chunked_ms": chunked_ms, "seg_ms": seg_ms,
-                     "loop_ms": loop_ms,
-                     "route": route, "plain_ms": plain_ms,
+                     "eval_err": max(errs["eval"]), "eval_alg": eval_alg,
+                     "chunked_ms": ms["chunked"], "seg_ms": ms["seg"],
+                     "loop_ms": ms["loop"], "eval_ms": ms["eval"],
+                     "route": route, "earlier_route": earlier,
+                     "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by})
         del y, c0, h_full, h1, h2
     torch.cuda.empty_cache()
@@ -1492,10 +1543,10 @@ def phase_train_cli(tmp):
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals}
+                k1_eval(TRAIN_SHAPE): layers * evals}
     print(f"[launches] training path: {launches} (expected {expected}: "
           f"{layers} QRNN layer(s) x {steps} train steps, x {evals} eval "
-          f"steps)")
+          f"steps, the eval's K1 route at {list(TRAIN_SHAPE)})")
     check(launches == expected, f"training launches {launches} != "
           f"{expected}")
     npz = os.path.join(tmp, "FE_e0.npz")
@@ -1911,7 +1962,7 @@ def _disk_run(args, label, synthetic_rate):
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals}
+                k1_eval(TRAIN_SHAPE): layers * evals}
     check(launches == expected, f"disk-fed ({label}) launches {launches} "
           f"!= {expected}")
     sps = perf["steps_per_sec"]
@@ -2381,7 +2432,7 @@ def phase_export():
         ref = enc(wide[:, None]).transpose(1, 2).cpu().numpy()
         err = float(np.abs(got - ref).max())
         expected = {**{k: 0 for k in wide_launches},
-                    "qrnn_pool_fwd": layers}
+                    k1_eval((EXPORT_WIDE_BATCH, 64000 // 160, 512)): layers}
         print(f"[launches] exported T=64000 program at B="
               f"{EXPORT_WIDE_BATCH} ({EXPORT_WIDE_BATCH * 512} lanes): "
               f"{wide_launches}; vs the offline encoder max|d| {err:.3e}")
@@ -2677,12 +2728,12 @@ def _variant_cli(fe_cfg, net_cfg, what, tmp, extra=()):
         + list(extra), what, tmp)
 
 
-def _cli_run(argv, what, tmp):
+def _cli_run(argv, what, tmp, eval_shape=TRAIN_SHAPE):
     """``python -m pase_tpu_torch.train`` in this process for one epoch:
     every logged loss finite, the training kernels once per QRNN layer
-    per train step and qrnn_pool_fwd once per layer per eval step.
-    Returns (trainer, launch counts, the perf line, the last train
-    line)."""
+    per train step and K1's route at the eval's QRNN shape ``eval_shape``
+    (``k1_eval``) once per layer per eval step. Returns (trainer, launch
+    counts, the perf line, the last train line)."""
     import math
     import torch
     from pase_tpu_torch import train as train_cli
@@ -2708,7 +2759,7 @@ def _cli_run(argv, what, tmp):
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals}
+                k1_eval(eval_shape): layers * evals}
     print(f"[launches] {what} training CLI: {launches} (expected "
           f"{expected}: {layers} QRNN layer(s) x {steps} train steps, x "
           f"{evals} eval steps)")
@@ -2836,7 +2887,8 @@ def phase_gan(tmp):
         run = os.path.join(tmp, "cli_gan" if with_gan else "cli_plain")
         torch.cuda.reset_peak_memory_stats()
         tr, launches, perf, last = _cli_run(
-            _recipe_cli_argv(run, with_gan), label, run)
+            _recipe_cli_argv(run, with_gan), label, run,
+            (3 * 16, TRAIN_CHUNK // 160, 512))
         paths["gan_cli" if with_gan else "gan_cli_plain"] = launches
         rates[label] = perf["steps_per_sec"]
         batcher = DeviceSyntheticBatcher(tr.batch_size, tr.chunk_size,
@@ -3213,7 +3265,6 @@ def phase_probes(tmp, gate):
     from pase_tpu_torch import transfer_gate, wf_builder
     from pase_tpu_torch.checkpoint import save_variables_npz
     from pase_tpu_torch.data.io import read_wav
-    from pase_tpu_torch.ops import cuda_qrnn
     from pase_tpu_torch.probes.extract import FeatureExtractor
     from pase_tpu_torch.profiling import profile_calls
     os.makedirs(tmp, exist_ok=True)
@@ -3364,7 +3415,7 @@ def phase_probes(tmp, gate):
     done = tr.aux_sup.wait(timeout=600)
     wait_s = time.perf_counter() - t0 - train_s
     steps, evals = 2 * tr.bpe, 2 * tr.cfg["va_bpe"]
-    eval_kernel = cuda_qrnn.forward_entry(3 * SUP_BATCH * 512, False)
+    eval_kernel = k1_eval((3 * SUP_BATCH, 16000 // 160, 512))
     expected = {**{k: 0 for k in paths["probe_sup"]},
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps, eval_kernel: layers * evals}
@@ -3681,7 +3732,8 @@ def _rehearsal_join(started):
     want = {
         "train_A": {**zero, "qrnn_pool_fwd_train": layers * epochs * bpe,
                     "qrnn_pool_bwd": layers * epochs * bpe,
-                    "qrnn_pool_fwd": layers * epochs * max(bpe // 10, 1)},
+                    k1_eval(TRAIN_SHAPE): layers * epochs * max(bpe // 10,
+                                                                 1)},
         "forward-chunk": {**zero, "qrnn_pool_fwd_chunked": layers},
         "serve-encode": {**zero, "qrnn_pool_fwd_chunked": layers}}
     if "train_A2" in launches:      # the card's spread: A2 is run as A
@@ -3707,11 +3759,12 @@ def _rehearsal_join(started):
                        for done in (False, True))
     check(len(roles["train_B"]) == 2, "rehearsal: run B is not two "
           "processes")
-    check(resumed == {**zero, "qrnn_pool_fwd": layers * (epochs - 2) * va,
+    check(resumed == {**zero,
+                      k1_eval(TRAIN_SHAPE): layers * (epochs - 2) * va,
                       "qrnn_pool_fwd_train": layers * (epochs - 2) * bpe,
                       "qrnn_pool_bwd": layers * (epochs - 2) * bpe},
           f"rehearsal: the resumed run B launched {resumed}")
-    check(killed["qrnn_pool_fwd"] == layers * 2 * va
+    check(killed[k1_eval(TRAIN_SHAPE)] == layers * 2 * va
           and 2 * bpe * layers < killed["qrnn_pool_fwd_train"]
           <= epochs * bpe * layers, f"rehearsal: the killed run B launched "
           f"{killed}, not 2 evals and a step of epoch 2")
@@ -4003,7 +4056,8 @@ def _wavernn_cli(tmp):
     tr, launches, _, last = _cli_run(
         _recipe_cli_argv(run, script=WAVERNN_RECIPE, values={
             "--chunk_size": str(WAVERNN_CLI_CHUNK)}),
-        f"the WaveRNN recipe, chunk cut to {WAVERNN_CLI_CHUNK}", run)
+        f"the WaveRNN recipe, chunk cut to {WAVERNN_CLI_CHUNK}", run,
+        (48, WAVERNN_CLI_CHUNK // 160, 512))
     check("wavernn" in last, "the recipe's CLI logged no wavernn loss")
     print(f"[recurrent] the recipe's CLI: step {last['step']} wavernn "
           f"{last['wavernn']:.4f}")
@@ -4161,7 +4215,7 @@ def _tdnn_recipe(tmp, bf16_rate):
     dist = write_bench_dtrans_cfg(os.path.join(tmp, "tdnn_assets"))
     tr, launches, perf, last = _cli_run(
         _recipe_cli_argv(run, script=TDNN_RECIPE) + ["--dtrans_cfg", dist],
-        "the TDNN recipe", run)
+        "the TDNN recipe", run, TDNN_TRAIN_SHAPE)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(tr.cfg["compute_dtype"] == "bfloat16"
           and (tr.batch_size, tr.chunk_size) == (64, 32000),
@@ -4300,7 +4354,7 @@ def _attention_recipe(tmp, bf16_rate):
     dist = write_bench_dtrans_cfg(os.path.join(tmp, "attention_assets"))
     tr, launches, perf, last = _cli_run(
         _recipe_cli_argv(run, script=ATT_RECIPE) + ["--dtrans_cfg", dist],
-        "the attention recipe", run)
+        "the attention recipe", run, ATT_TRAIN_SHAPE)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(tr.cfg["compute_dtype"] == "bfloat16"
           and (tr.batch_size, tr.chunk_size) == (16, 32000)
@@ -4908,7 +4962,8 @@ def _tools(tmp, saves, libri, recipe, dist_perf):
     torch.cuda.synchronize()
     paths["eval_ckpts"] = read_launches()    # ... and ends here
     expected = {**{k: 0 for k in paths["eval_ckpts"]},
-                "qrnn_pool_fwd": layers * EVAL_CKPT_BATCHES * len(runs)}
+                k1_eval(TRAIN_SHAPE): layers * EVAL_CKPT_BATCHES
+                * len(runs)}
     check(paths["eval_ckpts"] == expected,
           f"eval-ckpts launches {paths['eval_ckpts']} != {expected}")
     with open(out) as f:
@@ -5208,8 +5263,9 @@ def _kaldi_step(tmp, bf16_rate):
           f"kaldimfcc {last['kaldimfcc']:.4f}, kaldiplp "
           f"{last['kaldiplp']:.4f}; K2 (qrnn_pool_fwd_train, qrnn_pool_bwd) "
           f"{launches['qrnn_pool_fwd_train']}, {launches['qrnn_pool_bwd']} "
-          f"launches at [96,200,512], K1's loop (qrnn_pool_fwd) "
-          f"{launches['qrnn_pool_fwd']} in the eval")
+          f"launches at [96,200,512], K1's eval route "
+          f"({k1_eval(TRAIN_SHAPE)}) {launches[k1_eval(TRAIN_SHAPE)]} in "
+          f"the eval")
     del tr
     torch.cuda.empty_cache()
     errs = _kaldi_targets_card_vs_cpu()
@@ -5959,7 +6015,7 @@ def _dp_cli(tmp):
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": layers * steps,
                 "qrnn_pool_bwd": layers * steps,
-                "qrnn_pool_fwd": layers * evals}
+                k1_eval(TRAIN_SHAPE): layers * evals}
     perf = [r for r in recs if r["split"] == "perf"][0]
     print(f"[parallel] (b) python -m pase_tpu_torch.train --synthetic "
           f"--coordinator_address --num_processes 1 --process_id 0 (NCCL; "
@@ -6030,7 +6086,8 @@ def _sharded_corpus(tmp):
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": DP_RANKS * layers * res["bpe"],
                 "qrnn_pool_bwd": DP_RANKS * layers * res["bpe"],
-                "qrnn_pool_fwd": DP_RANKS * layers * res["va_bpe"]}
+                k1_eval((3 * TRAIN_BATCH // DP_RANKS, TRAIN_CHUNK // 160,
+                         512)): DP_RANKS * layers * res["va_bpe"]}
     print(f"[launches] sharded_corpus: {launches} (expected {expected})")
     check(launches == expected, f"sharded_corpus launches {launches} != "
           f"{expected}")
@@ -6504,7 +6561,7 @@ def _tp_cli(tmp, ref, started):
     expected = {**{k: 0 for k in launches},
                 "qrnn_pool_fwd_train": TP_CLI_MODEL * layers * steps,
                 "qrnn_pool_bwd": TP_CLI_MODEL * layers * steps,
-                "qrnn_pool_fwd": TP_CLI_MODEL * layers * evals}
+                k1_eval(TP_SHAPES["1x2"]): TP_CLI_MODEL * layers * evals}
     print(f"[launches] tp_cli: {launches} (expected {expected})")
     check(launches == expected, f"tp_cli launches {launches} != {expected}")
     del one, enc
@@ -6745,35 +6802,40 @@ def main():
         _end_children()
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
-    # the chunked kernel at the serving shape; the one-thread-a-lane one at
-    # the eval shape of the training path, where it runs; the segmented one
-    # at a 1 s push at B=1 (phase 13 prints it at all four push shapes)
+    # the chunked kernel at the serving shape; the eval kernel at the eval
+    # shape of the training path, where it runs; the one-thread-a-lane one
+    # there too (seeded calls on as many lanes take it; no path makes
+    # one); the segmented one at a 1 s push at B=1 (phase 13 prints it at
+    # all four push shapes)
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
     evals = next(r for r in rows if tuple(r["shape"]) == TRAIN_SHAPE)
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
     push = k1[(1, 100)]
     # phase 21's TDNN shapes (H = 256): the serving batch (K1 chunked), the
-    # recipe's eval (K1's loop) and its train step (K2)
+    # recipe's eval (K1's eval kernel) and its train step (K2)
     tdnn_serve = next(r for r in rows
                       if tuple(r["shape"]) == TDNN_SERVING_SHAPE)
     tdnn_eval = next(r for r in rows if tuple(r["shape"]) == TDNN_TRAIN_SHAPE)
     tdnn_train = next(r for r in train_rows
                       if tuple(r["shape"]) == TDNN_TRAIN_SHAPE)
-    # phase 22's shapes: the attention recipe's (K1's loop in eval, K2)
-    # and with a regularizer's fourth stream
+    # phase 22's shapes: the attention recipe's (K1's eval kernel in eval,
+    # K2) and with a regularizer's fourth stream; phase 20's cut WaveRNN
+    # CLI's eval
     att_eval, regu_eval = (next(r for r in rows if tuple(r["shape"]) == sh)
                            for sh in (ATT_TRAIN_SHAPE, REGU_TRAIN_SHAPE))
     att_train, regu_train = (next(r for r in train_rows
                                   if tuple(r["shape"]) == sh)
                              for sh in (ATT_TRAIN_SHAPE, REGU_TRAIN_SHAPE))
+    wavernn_eval = next(r for r in rows if tuple(r["shape"]) == (
+        48, WAVERNN_CLI_CHUNK // 160, 512))
 
     # phase 26 (d)'s per-rank shape: 8 rows x 3 streams
     dpa_train = next(r for r in train_rows
                      if tuple(r["shape"]) == (3 * ATT_BATCH // DP_RANKS,
                                               200, 512))
-    # phase 27's lane shards: K1's loop and K2 at [96,200,256] (1 x 2) and
-    # [48,200,256] (2 x 2)
+    # phase 27's lane shards: K1's eval kernel and K2 at [96,200,256] (1 x
+    # 2) and [48,200,256] (2 x 2)
     tp_eval = {g: next(r for r in rows if tuple(r["shape"]) == sh)
                for g, sh in TP_SHAPES.items()}
     tp_train = {g: next(r for r in train_rows if tuple(r["shape"]) == sh)
@@ -6797,22 +6859,29 @@ def main():
                  + [r["err"] for r in k1.values()]), push["ms"],
              push["plain_ms"], (push["bound_ms"], push["bound_by"]),
              paths=paths, shape=[1, 100, 512], floor_ms=push["floor_ms"]),
+        _row("qrnn_pool_fwd_eval", src, "pase_tpu/ops/pallas_qrnn.py:63",
+             train_launches["qrnn_pool_fwd_eval"],
+             max(r["eval_err"] for r in rows), evals["eval_ms"],
+             evals["plain_ms"], (evals["bound_ms"], evals["bound_by"]),
+             paths=paths, shape=list(TRAIN_SHAPE),
+             tdnn=tdnn(tdnn_eval, "eval_ms", "plain_ms", (
+                 tdnn_eval["bound_ms"], tdnn_eval["bound_by"])),
+             attention=tdnn(att_eval, "eval_ms", "plain_ms", (
+                 att_eval["bound_ms"], att_eval["bound_by"])),
+             dp=tdnn(att_eval, "eval_ms", "plain_ms", (
+                 att_eval["bound_ms"], att_eval["bound_by"])),
+             regu=tdnn(regu_eval, "eval_ms", "plain_ms", (
+                 regu_eval["bound_ms"], regu_eval["bound_by"])),
+             wavernn=tdnn(wavernn_eval, "eval_ms", "plain_ms", (
+                 wavernn_eval["bound_ms"], wavernn_eval["bound_by"])),
+             **{("tp" if g == "1x2" else f"tp_{g}"): tdnn(
+                 r, "eval_ms", "plain_ms", (r["bound_ms"], r["bound_by"]))
+                for g, r in tp_eval.items()}),
         _row("qrnn_pool_fwd", src, "pase_tpu/ops/pallas_qrnn.py:63",
              train_launches["qrnn_pool_fwd"],
              max(r["loop_err"] for r in rows), evals["loop_ms"],
              evals["plain_ms"], (evals["bound_ms"], evals["bound_by"]),
-             paths=paths, shape=list(TRAIN_SHAPE),
-             tdnn=tdnn(tdnn_eval, "loop_ms", "plain_ms", (
-                 tdnn_eval["bound_ms"], tdnn_eval["bound_by"])),
-             attention=tdnn(att_eval, "loop_ms", "plain_ms", (
-                 att_eval["bound_ms"], att_eval["bound_by"])),
-             dp=tdnn(att_eval, "loop_ms", "plain_ms", (
-                 att_eval["bound_ms"], att_eval["bound_by"])),
-             regu=tdnn(regu_eval, "loop_ms", "plain_ms", (
-                 regu_eval["bound_ms"], regu_eval["bound_by"])),
-             **{("tp" if g == "1x2" else f"tp_{g}"): tdnn(
-                 r, "loop_ms", "plain_ms", (r["bound_ms"], r["bound_by"]))
-                for g, r in tp_eval.items()}),
+             paths=paths, shape=list(TRAIN_SHAPE)),
         _row("qrnn_pool_fwd_train", src, "pase_tpu/ops/pallas_qrnn.py:82",
              train_launches["qrnn_pool_fwd_train"],
              max(r["fwd_err"] for r in train_rows), train["fwd_ms"],

@@ -26,15 +26,21 @@
 // steps (below). No padding copies: the ragged last block is masked, and
 // every offset is 64-bit.
 //
-// Five entry points:
+// Six entry points:
 //   qrnn_pool_fwd        forward: reads y, writes h and c_T (16 bytes per
-//                        lane-step), one thread a lane: the serving call
-//                        on many lanes (eval at batch);
+//                        lane-step), one thread a lane: the seeded serving
+//                        call on many lanes;
 //   qrnn_pool_fwd_seg    the same function, bit for bit, gates apart from
 //                        the chain (below): the seeded serving call on
 //                        fewer lanes (a streaming push);
-//   qrnn_pool_fwd_chunked the same function, chunked in time: the unseeded
-//                        serving and eval call (below);
+//   qrnn_pool_fwd_chunked the same function, chunked in time, a block's
+//                        8 or 4 lanes at a time: the unseeded call on few
+//                        lanes (serving, a long file; below);
+//   qrnn_pool_fwd_eval   the same function, chunked in time as the
+//                        training forward is, 32 lanes a block, without
+//                        its c stores (below): the unseeded call on many
+//                        lanes (every training CLI's eval, batched
+//                        serving);
 //   qrnn_pool_fwd_train  the same, and also writes c, the residual of the
 //                        backward (20 bytes per lane-step), chunked in
 //                        time (below). A reverse scan cannot rebuild
@@ -87,8 +93,8 @@
 // otherwise than the serial loop (a = 1 - f lies in (0, 1): the composition
 // only contracts); a block-streamed run is bit-identical to the full run
 // only on the serial kernel, so seeded calls stay there. With many lanes
-// the serial kernel is bound by bytes and the chunked one is slower
-// (ops/cuda_qrnn.py routes by lane count).
+// qrnn_pool_fwd_eval is faster (ops/cuda_qrnn.py routes by lanes and
+// steps).
 //
 // qrnn_pool_fwd_train and qrnn_pool_bwd, the training pair (K2 of
 // pallas_qrnn.py:76-97, with K3's gates and their gradient fused in), run
@@ -99,11 +105,12 @@
 // (the first design of the pair, still qrnn_pool_fwd's) had 2-12 warps an
 // SM at those lanes, each with one lane's next 8 steps in flight, and
 // nothing in flight while it computed them: 26-30 % of the byte bound at
-// 12288 lanes. Here a block owns kTrainLanes consecutive lanes (one warp's
-// width, so a warp's loads and stores of one step are one coalesced row)
-// and walks T in segments of kTrainChunks chunks of `len` steps, one chunk
-// a warp, chosen so that the fewest segments cover T (T = 200: forward 4
-// of 8 x 7, backward 7 of 8 x 4):
+// 12288 lanes (qrnn_pool_fwd itself: 41 % at 24576 lanes). Here a block
+// owns kTrainLanes consecutive lanes (one warp's width, so a warp's loads
+// and stores of one step are one coalesced row) and walks T in segments
+// of kTrainChunks chunks of `len` steps, one chunk a warp, chosen so that
+// the fewest segments cover T (T = 200: forward 4 of 8 x 7, backward 7 of
+// 8 x 4):
 // (1) each thread has its chunk's inputs in registers, loaded together
 // (forward: the z, f and o gates; backward: those, dh and c), and issues
 // the next segment's loads (kPrefetch) before it computes the gates and
@@ -121,8 +128,18 @@
 // Loads go straight to registers: no asynchronous copy and no mbarrier,
 // so no wait needs the 10 s trap of csrc/conv_s1_tc.cu; every thread of a
 // block runs the same segments, so each reaches every __syncthreads().
-// ops/qrnn.py's qrnn_pool_fwd_train_chunked_plain and
-// qrnn_pool_bwd_chunked_plain repeat this algebra in this order.
+// ops/qrnn.py's qrnn_pool_fwd_train_chunked_plain (at either forward's
+// chunking) and qrnn_pool_bwd_chunked_plain repeat this algebra in this
+// order.
+//
+// qrnn_pool_fwd_eval, the unseeded forward on many lanes (every training
+// CLI's eval: 3 streams x the batch's rows, T = 200), runs the training
+// forward's body (fwd_chunks_) without c's stores: 16 bytes a lane-step,
+// 80 registers a thread either way, at a tile of its own (kEval*, below):
+// 8 chunks of at most 5 steps a block, so T = 200 is 5 full segments of
+// 8 x 5. A seeded call never takes it: its composed carry rounds otherwise
+// than the serial chain, and only that chain keeps a block-streamed run
+// bit for bit equal to a full one.
 //
 // The carry is SEEDED with c0 and every step is c = a*c + b (one FMA). The
 // JAX version folds c0 into b_1 instead (a rounded multiply, then an add);
@@ -460,12 +477,16 @@ constexpr int kTrainChunks = kTrainThreads / kTrainLanes;
 static_assert(kTrainThreads % kTrainLanes == 0 && kTrainLanes % 32 == 0,
               "a warp holds lanes of one chunk");
 
-// Steps a chunk for T: the fewest segments of kTrainChunks chunks of at
-// most max_chunk steps, then the shortest chunk that covers T in as many.
-int train_len(long long T, int max_chunk) {
-  const long long per = static_cast<long long>(kTrainChunks) * max_chunk;
-  const long long cover = (T + per - 1) / per * kTrainChunks;
+// Steps a chunk for T: the fewest segments of `chunks` chunks of at most
+// max_chunk steps, then the shortest chunk that covers T in as many.
+int chunk_len(long long T, int chunks, int max_chunk) {
+  const long long per = static_cast<long long>(chunks) * max_chunk;
+  const long long cover = (T + per - 1) / per * chunks;
   return static_cast<int>((T + cover - 1) / cover);
+}
+
+int train_len(long long T, int max_chunk) {
+  return chunk_len(T, kTrainChunks, max_chunk);
 }
 
 // The steps of chunk k of the segment from s0 (0 on a dead lane).
@@ -477,7 +498,7 @@ __device__ __forceinline__ int chunk_steps(bool live, int64_t T, int64_t t0,
 
 // A chunk's raw gates: p points at y[b, t0, j].
 template <int C>
-__device__ __forceinline__ void train_load_y_(const float* p, int n,
+__device__ __forceinline__ void chunk_load_y_(const float* p, int n,
                                               int64_t H, float (&z)[C],
                                               float (&f)[C], float (&o)[C]) {
 #pragma unroll
@@ -491,14 +512,20 @@ __device__ __forceinline__ void train_load_y_(const float* p, int n,
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(kTrainThreads, kFwdBlocks)
-qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
-                           const float* __restrict__ c0,
-                           float* __restrict__ h, float* __restrict__ c_all,
-                           float* __restrict__ c_last, int64_t B, int64_t T,
-                           int64_t H, int len) {
-  constexpr int L = kTrainLanes, NC = kTrainChunks;
+// The chunked forward's body (header): a block of NC chunks of L lanes
+// walks T in segments of NC chunks of `len` <= C steps, the loads of the
+// next D segments in flight across the barrier (D = 0: none). With kStoreC
+// (qrnn_pool_fwd_train) it also writes every c_t to c_all; without it
+// (qrnn_pool_fwd_eval) c_all is not touched. Every thread of the block
+// runs the same segments, so each reaches every __syncthreads().
+template <int L, int NC, int C, int D, bool kStoreC>
+__device__ __forceinline__ void fwd_chunks_(const float* __restrict__ y,
+                                            const float* __restrict__ c0,
+                                            float* __restrict__ h,
+                                            float* __restrict__ c_all,
+                                            float* __restrict__ c_last,
+                                            int64_t B, int64_t T, int64_t H,
+                                            int len) {
   // the chunk maps (A, B) and the carry into the segment, by segment parity
   __shared__ float sa[2][NC][L], sb[2][NC][L], carry[2][L];
   const int l = threadIdx.x % L, k = threadIdx.x / L;
@@ -508,30 +535,43 @@ qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
   const int64_t j = live ? lane - bi * H : 0;
   const float* yp = y + bi * T * 3 * H + j;
   float* hp = h + bi * T * H + j;
-  float* cp = c_all + bi * T * H + j;
+  float* cp = kStoreC ? c_all + bi * T * H + j : nullptr;
   if (k == 0) carry[0][l] = (live && c0 != nullptr) ? c0[lane] : 0.0f;
   const int64_t seg = static_cast<int64_t>(NC) * len;
-  float rz[C], rf[C], ro[C];
-  if (kPrefetch) {
-    const int64_t t0 = static_cast<int64_t>(k) * len;
-    train_load_y_<C>(yp + t0 * 3 * H, chunk_steps(live, T, t0, len), H, rz,
-                     rf, ro);
+  // the raw gates of this segment ([0]) and of the D - 1 after it
+  constexpr int R = D > 0 ? D : 1;
+  float rz[R][C], rf[R][C], ro[R][C];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int64_t t0 = d * seg + static_cast<int64_t>(k) * len;
+    chunk_load_y_<C>(yp + t0 * 3 * H, chunk_steps(live, T, t0, len), H,
+                     rz[d], rf[d], ro[d]);
   }
   int p = 0;
   for (int64_t s0 = 0; s0 < T; s0 += seg, p ^= 1) {
     const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
     const int n = chunk_steps(live, T, t0, len);
-    if (!kPrefetch) train_load_y_<C>(yp + t0 * 3 * H, n, H, rz, rf, ro);
+    if (D == 0) chunk_load_y_<C>(yp + t0 * 3 * H, n, H, rz[0], rf[0], ro[0]);
     float a[C], b[C], s[C];
 #pragma unroll
     for (int u = 0; u < C; ++u) {
-      a[u] = rf[u];
-      b[u] = rz[u];
-      s[u] = ro[u];
+      a[u] = rf[0][u];
+      b[u] = rz[0][u];
+      s[u] = ro[0][u];
     }
-    if (kPrefetch && s0 + seg < T) {    // in flight until the next segment
-      train_load_y_<C>(yp + (t0 + seg) * 3 * H,
-                       chunk_steps(live, T, t0 + seg, len), H, rz, rf, ro);
+#pragma unroll
+    for (int d = 0; d + 1 < D; ++d) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        rz[d][u] = rz[d + 1][u];
+        rf[d][u] = rf[d + 1][u];
+        ro[d][u] = ro[d + 1][u];
+      }
+    }
+    const int64_t ahead = t0 + D * seg;  // in flight until D segments on
+    if (D > 0 && s0 + D * seg < T) {
+      chunk_load_y_<C>(yp + ahead * 3 * H, chunk_steps(live, T, ahead, len),
+                       H, rz[R - 1], rf[R - 1], ro[R - 1]);
     }
     // (1) the gates, and the chunk's map c -> A c + B from c = 0
     float ma = 1.0f, mb = 0.0f;
@@ -558,7 +598,7 @@ qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
     for (int u = 0; u < C; ++u) {
       if (u < n) {
         c = fmaf(a[u], c, b[u]);
-        cp[(t0 + u) * H] = c;
+        if (kStoreC) cp[(t0 + u) * H] = c;
         hp[(t0 + u) * H] = s[u] * c;
       }
     }
@@ -568,6 +608,49 @@ qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
   }
 }
 
+template <int C>
+__global__ void __launch_bounds__(kTrainThreads, kFwdBlocks)
+qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
+                           const float* __restrict__ c0,
+                           float* __restrict__ h, float* __restrict__ c_all,
+                           float* __restrict__ c_last, int64_t B, int64_t T,
+                           int64_t H, int len) {
+  fwd_chunks_<kTrainLanes, kTrainChunks, C, kPrefetch ? 1 : 0, true>(
+      y, c0, h, c_all, c_last, B, T, H, len);
+}
+
+// qrnn_pool_fwd_eval's tile (header): lanes a block, threads a block (so
+// kEvalChunks chunks a segment), steps a chunk at most, blocks an SM the
+// registers must allow, and how many segments ahead the loads are issued
+// before this one's gates are computed. Chosen on the H100 among the 16
+// tiles of python -m pase_tpu_torch.kernel_variants eval at the T = 200
+// shapes of chip_smoke.QRNN_SHAPES (PERF.md): chunks of at most 5 steps
+// (T = 200 in 5 full segments of 8 x 5) were faster at every shape than
+// the training forward's chunks of 8 (4 segments of 8 x 7, the last 4/7
+// full; 80 registers either way): 0.0324 against 0.0344 ms at
+// [48,200,512], 0.0605 against 0.0625 at [96,200,512], 0.0158 against
+// 0.0162 at [48,200,256]. 4 blocks an SM, 128 threads a block or the loads
+// of two segments ahead were faster at some shapes and slower in total
+// (two segments ahead: 0.0362 ms at [48,200,512]).
+constexpr int kEvalLanes = 32;
+constexpr int kEvalThreads = 256;
+constexpr int kEvalChunk = 5;
+constexpr int kEvalBlocks = 3;
+constexpr int kEvalDepth = 1;
+constexpr int kEvalChunks = kEvalThreads / kEvalLanes;
+static_assert(kEvalThreads % kEvalLanes == 0 && kEvalLanes % 32 == 0,
+              "a warp holds lanes of one chunk");
+
+template <int C>
+__global__ void __launch_bounds__(kEvalThreads, kEvalBlocks)
+qrnn_pool_fwd_eval_kernel(const float* __restrict__ y,
+                          const float* __restrict__ c0,
+                          float* __restrict__ h, float* __restrict__ c_last,
+                          int64_t B, int64_t T, int64_t H, int len) {
+  fwd_chunks_<kEvalLanes, kEvalChunks, C, kEvalDepth, false>(
+      y, c0, h, nullptr, c_last, B, T, H, len);
+}
+
 // A chunk's backward inputs: the raw gates and dh at t0 .. t0 + n - 1 and c
 // at t0 - 1 .. t0 + n - 1 (cc[0] = c_{t0-1}: the seed at t0 = 0).
 template <int C>
@@ -575,7 +658,7 @@ __device__ __forceinline__ void train_load_bwd_(
     const float* yq, const float* dhq, const float* cq, int n, bool first,
     float seed, int64_t H, float (&z)[C], float (&f)[C], float (&o)[C],
     float (&dh)[C], float (&cc)[C + 1]) {
-  train_load_y_<C>(yq, n, H, z, f, o);
+  chunk_load_y_<C>(yq, n, H, z, f, o);
   if (n > 0) cc[0] = first ? seed : cq[-H];
 #pragma unroll
   for (int u = 0; u < C; ++u) {
@@ -756,6 +839,18 @@ extern "C" int qrnn_pool_fwd_train(const void* y, const void* c0, void* h,
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int qrnn_pool_fwd_eval(const void* y, const void* c0, void* h,
+                                  void* c_last, long long B, long long T,
+                                  long long H, void* stream) {
+  qrnn_pool_fwd_eval_kernel<kEvalChunk>
+      <<<static_cast<unsigned int>((B * H + kEvalLanes - 1) / kEvalLanes),
+         kEvalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(y), static_cast<const float*>(c0),
+          static_cast<float*>(h), static_cast<float*>(c_last), B, T, H,
+          chunk_len(T, kEvalChunks, kEvalChunk));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int qrnn_pool_bwd(const void* y, const void* c, const void* dh,
                              const void* dc_last, const void* c0, void* dy,
                              void* dc0, long long B, long long T, long long H,
@@ -777,5 +872,13 @@ extern "C" int qrnn_pool_train_chunking(long long T, int* out) {
   out[0] = kTrainChunks;
   out[1] = train_len(T, kFwdChunk);
   out[2] = train_len(T, kBwdChunk);
+  return 0;
+}
+
+// qrnn_pool_fwd_eval's chunking for T: {chunks a segment, steps a chunk}
+// into out (tests repeat it in the chunked plain version).
+extern "C" int qrnn_pool_eval_chunking(long long T, int* out) {
+  out[0] = kEvalChunks;
+  out[1] = chunk_len(T, kEvalChunks, kEvalChunk);
   return 0;
 }

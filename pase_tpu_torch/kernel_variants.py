@@ -2,9 +2,9 @@
 they were chosen over, on the card.
 
     python -m pase_tpu_torch.kernel_variants [conv] [qrnn] [serial] [train]
-        [--against SOURCE]
+        [eval] [--against SOURCE]
 
-(no group named: all four). Each variant is a copy of the shipped source
+(no group named: all five). Each variant is a copy of the shipped source
 with a few lines replaced (``VARIANTS``), built like the shipped kernels
 into ``build/pase_tpu_torch/variants/`` (all at once) and called through
 its own library:
@@ -32,7 +32,18 @@ its own library:
           commit: ``git show <commit>:pase_tpu_torch/csrc/qrnn_pool.cu``):
           ms at the training shapes (``chip_smoke.TRAIN_QRNN_SHAPES``) in
           two passes (the second in reverse order), each output against
-          the plain version of its own algebra.
+          the plain version of its own algebra;
+  eval    ``qrnn_pool_fwd_eval`` (the same file) as shipped and in each
+          other tile of ``EVAL_TILES`` (lanes and threads a block, steps a
+          chunk, blocks an SM, segments of loads in flight): ms at the
+          T = 200 shapes of ``chip_smoke.QRNN_SHAPES`` in two passes (the
+          second in reverse order), max |h|, |c_T| error against the
+          chunked plain version at each library's chunking and against
+          the plain version, two calls bit for bit; then the shipped
+          library's three unseeded entry points (``qrnn_pool_fwd_eval``,
+          ``qrnn_pool_fwd_chunked``, ``qrnn_pool_fwd``) in turns at
+          ``ROUTE_SHAPES``, where the route (``cuda_qrnn.forward_entry``)
+          is drawn.
 Times are CUDA-event medians of CUDA graphs of 20 calls (no host time
 between launches). Nothing here is on a path; the shipped kernels are
 chosen in the sources.
@@ -60,25 +71,19 @@ SEG_SHIPPED = (8, 128, 128)
 _TRAIN_NAMES = ("kTrainLanes", "kTrainThreads", "kFwdChunk", "kBwdChunk",
                 "kFwdBlocks", "kBwdBlocks", "kPrefetch")
 TRAIN_SHIPPED = (32, 256, 8, 4, 3, 3, "true")
+_EVAL_NAMES = ("kEvalLanes", "kEvalThreads", "kEvalChunk", "kEvalBlocks",
+               "kEvalDepth")
+EVAL_SHIPPED = (32, 256, 5, 3, 1)
 
 
-def _seg_consts(*tile):
-    """Line replacements for a tile (lanes, steps, threads) of the
-    segmented kernel."""
-    return [(f"constexpr int {k} = {old};", f"constexpr int {k} = {new};")
-            for k, old, new in zip(_SEG_NAMES, SEG_SHIPPED, tile)
-            if old != new]
-
-
-def _train_consts(*tile):
-    """Line replacements for a tile of the training pair (lanes, threads,
-    forward and backward chunk, forward and backward blocks an SM,
-    prefetch)."""
-    return [(f"constexpr {'bool' if k == 'kPrefetch' else 'int'} {k} = "
-             f"{old};", f"constexpr {'bool' if k == 'kPrefetch' else 'int'} "
-             f"{k} = {new};")
-            for k, old, new in zip(_TRAIN_NAMES, TRAIN_SHIPPED, tile)
-            if old != new]
+def _tile_consts(names, shipped, tile):
+    """Line replacements that set a kernel's tile constants ``names`` from
+    their shipped values to ``tile``'s (a string value is a bool)."""
+    def line(name, value):
+        kind = "bool" if isinstance(value, str) else "int"
+        return f"constexpr {kind} {name} = {value};"
+    return [(line(k, old), line(k, new))
+            for k, old, new in zip(names, shipped, tile) if old != new]
 
 
 def _chunk_consts(steps, blocks, loads):
@@ -113,7 +118,7 @@ SEG_TILES = [(4, 32, 128), (4, 64, 128), (4, 128, 128), (8, 32, 128),
              (32, 128, 128), (4, 64, 256), (4, 128, 256), (8, 128, 256)]
 VARIANTS.update({
     "qrnn serial: {} lanes, {} steps, {} threads".format(*tile):
-    (cuda_qrnn.SOURCE, _seg_consts(*tile))
+    (cuda_qrnn.SOURCE, _tile_consts(_SEG_NAMES, SEG_SHIPPED, tile))
     for tile in SEG_TILES if tile != SEG_SHIPPED})
 # the training pair's tiles: (lanes, threads a block, forward and backward
 # steps a chunk at most, forward and backward blocks an SM, prefetch); the
@@ -128,8 +133,35 @@ TRAIN_TILES = [TRAIN_SHIPPED, (32, 256, 8, 8, 3, 2, "true"),
                (64, 256, 8, 4, 3, 3, "true")]
 VARIANTS.update({
     "qrnn train: {} lanes, {} threads, chunks {}/{}, blocks {}/{}, "
-    "prefetch {}".format(*tile): (cuda_qrnn.SOURCE, _train_consts(*tile))
+    "prefetch {}".format(*tile):
+    (cuda_qrnn.SOURCE, _tile_consts(_TRAIN_NAMES, TRAIN_SHIPPED, tile))
     for tile in TRAIN_TILES if tile != TRAIN_SHIPPED})
+# qrnn_pool_fwd_eval's tiles: (lanes, threads a block, steps a chunk at
+# most, blocks an SM, segments of loads in flight); the shipped one
+# (EVAL_SHIPPED) is built as shipped
+EVAL_TILES = [(32, 256, 8, 3, 1), (32, 256, 8, 3, 0), (32, 256, 7, 3, 1),
+              (32, 256, 5, 3, 1), (32, 256, 5, 4, 1), (32, 256, 5, 3, 2),
+              (32, 256, 5, 4, 2), (32, 256, 4, 4, 1), (32, 256, 4, 3, 2),
+              (32, 256, 4, 4, 2), (32, 256, 8, 2, 2), (32, 128, 5, 6, 1),
+              (32, 128, 5, 8, 1), (32, 128, 5, 6, 2), (32, 128, 4, 8, 1),
+              (32, 128, 4, 8, 2)]
+VARIANTS.update({
+    "qrnn eval: {} lanes, {} threads, chunk {}, blocks {}, "
+    "depth {}".format(*tile):
+    (cuda_qrnn.SOURCE, _tile_consts(_EVAL_NAMES, EVAL_SHIPPED, tile))
+    for tile in EVAL_TILES if tile != EVAL_SHIPPED})
+# the unseeded route's shapes: B x 200 at 2048 to 16384 lanes (H = 512
+# and 256), 400 to 4000 steps at 4096 to 16384 lanes, the long serving
+# windows, and 21 steps
+ROUTE_SHAPES = [(4, 200, 512), (8, 200, 512), (12, 200, 512),
+                (16, 200, 512), (20, 200, 512), (24, 200, 512),
+                (32, 200, 512), (32, 200, 256), (48, 200, 256),
+                (8, 400, 512), (8, 600, 512), (12, 400, 512),
+                (12, 1000, 512),
+                (8, 1000, 512), (16, 1000, 512), (24, 1000, 512),
+                (32, 1000, 512), (8, 1000, 256), (16, 4000, 512),
+                (8, 4000, 512), (1, 10000, 512), (8, 21, 512),
+                (24, 21, 512), (48, 21, 512)]
 QRNN_SHAPES = [(8, 1000, 512), (1, 1000, 512), (24, 200, 512),
                (1, 10000, 512), (8, 4000, 512)]
 # the streaming pushes (1 s and 100 ms at B = 1 and 8); one step, 16 x 10
@@ -366,8 +398,78 @@ def train_rows(against=None):
     return rows
 
 
+def eval_rows():
+    """qrnn_pool_fwd_eval as shipped and in its other tiles at the T = 200
+    shapes of chip_smoke.QRNN_SHAPES (ms in two passes, the second in
+    reverse order; max |h|, |c_T| error against the chunked plain version
+    at each library's chunking and against the plain version; two calls
+    bit for bit), then the shipped unseeded entry points in turns at
+    ROUTE_SHAPES."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import QRNN_SHAPES as SMOKE_SHAPES
+    shipped = cuda_qrnn.build()
+    libs = {"shipped: {} lanes, {} threads, chunk {}, blocks {}, "
+            "depth {}".format(*EVAL_SHIPPED): shipped}
+    libs.update(build_variants([k for k in VARIANTS
+                                if k.startswith("qrnn eval")]))
+    order = list(libs)
+    rows = []
+    for b, t, h in [s for s in SMOKE_SHAPES if s[1] == 200]:
+        gen = torch.Generator(device="cuda").manual_seed(b * t + h)
+        y = torch.randn(b, t, 3 * h, device="cuda", generator=gen)
+        h_ref, c_ref = plain.qrnn_pool(y)
+        errs, same = {}, {}
+
+        def run():
+            return cuda_qrnn.qrnn_pool_fwd_eval(y)
+        for name, lib in libs.items():
+            hk, ck = _with_lib(cuda_qrnn, lib, run)
+            hk2, ck2 = _with_lib(cuda_qrnn, lib, run)
+            chunks, steps = cuda_qrnn.eval_chunking(t, lib)
+            hp, _, cp = plain.qrnn_pool_fwd_train_chunked_plain(
+                y, chunk=steps, chunks=chunks)
+            errs[name] = (max((hk - hp).abs().max().item(),
+                              (ck - cp).abs().max().item()),
+                          max((hk - h_ref).abs().max().item(),
+                              (ck - c_ref).abs().max().item()))
+            same[name] = bool(torch.equal(hk, hk2) and torch.equal(ck, ck2))
+        ms = {k: [] for k in order}
+        for pas in (order, order[::-1]):
+            for name in pas:
+                ms[name].append(_with_lib(cuda_qrnn, libs[name],
+                                         lambda: graph_ms(run)))
+        for name in order:
+            rows.append(((b, t, h), name, errs[name], same[name], ms[name]))
+            print(f"[eval] y[{b},{t},{3 * h}] {name}: "
+                  f"{statistics.mean(ms[name]):.5f} ms (passes "
+                  f"{ms[name][0]:.5f}, {ms[name][1]:.5f}); max err vs its "
+                  f"chunked plain {errs[name][0]:.2e}, vs plain "
+                  f"{errs[name][1]:.2e}; two calls bit for bit "
+                  f"{same[name]}", flush=True)
+        del y, h_ref, c_ref
+    entries = {"eval": cuda_qrnn.qrnn_pool_fwd_eval,
+               "chunked": cuda_qrnn.qrnn_pool_fwd_chunked,
+               "loop": cuda_qrnn.qrnn_pool_fwd_loop}
+    for b, t, h in ROUTE_SHAPES:
+        y = torch.randn(b, t, 3 * h, device="cuda")
+        ms = {k: [] for k in entries}
+        for pas in (list(entries), list(entries)[::-1]):
+            for name in pas:
+                ms[name].append(graph_ms(lambda: entries[name](y)))
+        mean = {k: statistics.mean(v) for k, v in ms.items()}
+        rows.append(((b, t, h), "route", mean))
+        print(f"[eval route] y[{b},{t},{3 * h}] ({b * h} lanes): "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in mean.items())
+              + f" (in turns, mean of two); fastest "
+              f"{min(mean, key=mean.get)}; routed to "
+              f"{cuda_qrnn.forward_entry(b * h, False, t)}", flush=True)
+        del y
+    return rows
+
+
 GROUPS = {"conv": conv_rows, "qrnn": qrnn_rows, "serial": serial_rows,
-          "train": train_rows}
+          "train": train_rows, "eval": eval_rows}
 
 
 def main():

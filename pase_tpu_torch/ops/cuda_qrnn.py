@@ -8,11 +8,20 @@ at first use, cached under ``build/pase_tpu_torch/`` by a hash of the
 source, and loaded with ``ctypes`` (``ops/cuda_build.py``).
 
 Entry points, each with a launch count in ``LAUNCHES``:
-  qrnn_pool_fwd_chunked ``qrnn_pool`` without a gradient and without c0,
-                        on fewer than CHUNKED_LANES lanes (B * H; serving):
-                        the time axis in chunks, their carries composed in
-                        the block, so few lanes fill the card; within 1e-5
-                        of the plain version;
+  qrnn_pool_fwd_eval    ``qrnn_pool`` without a gradient and without c0 on
+                        many lanes (B * H; ``forward_entry``: the eval of
+                        every training CLI, batched serving): the training
+                        forward's chunked scan without c's stores, at a
+                        tile of its own (``eval_chunking`` gives its
+                        chunking, which
+                        ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain``
+                        repeats); within 1e-5 of the plain version, the
+                        same bits on every call;
+  qrnn_pool_fwd_chunked ``qrnn_pool`` without a gradient and without c0 on
+                        the other calls (few lanes: serving, long files):
+                        the time axis in chunks of a block's 8 or 4 lanes,
+                        their carries composed in the block, so few lanes
+                        fill the card; within 1e-5 of the plain version;
   qrnn_pool_fwd_seg     ``qrnn_pool`` without a gradient, seeded with c0,
                         on fewer than SEG_LANES lanes (a streaming push):
                         the gates of a segment of steps computed by every
@@ -20,8 +29,8 @@ Entry points, each with a launch count in ``LAUNCHES``:
                         lane seeded with c0, so a block-streamed run (c_T
                         threaded into the next block's c0) equals one full
                         run bit for bit;
-  qrnn_pool_fwd         the same function on the other calls (many lanes:
-                        eval at batch), one thread a lane, with the same
+  qrnn_pool_fwd         the same function, seeded, on the other calls
+                        (many lanes), one thread a lane, with the same
                         bits as qrnn_pool_fwd_seg;
   qrnn_pool_fwd_train   the forward of ``QRNNPool``: also stores every c_t;
   qrnn_pool_bwd         the backward of ``QRNNPool``. Both cut each lane's
@@ -47,7 +56,7 @@ The serving forward is also a registered operator,
 Tensor)`` (``torch.library.Library``: a CPU implementation, the plain
 version; a CUDA one, the kernels; a fake one for the shapes), so that
 ``torch.export`` traces the encoder with a symbolic batch and an exported
-program calls the kernels. The route between the three forward kernels
+program calls the kernels. The route between the four forward kernels
 is taken inside the CUDA implementation, from the shapes of the call, so
 one exported program takes each route at the batch sizes that call for
 it. Importing this module registers the operator; a process that
@@ -66,17 +75,24 @@ BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches per entry point since import (or since reset_launches)
 LAUNCHES = {"qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd_seg": 0,
-            "qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 0,
-            "qrnn_pool_bwd": 0}
+            "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
+            "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0}
 _LIB = None
-# unseeded calls on fewer lanes take the chunked kernel. On the H100 the
-# chunked kernel took 0.0356 ms at [24,200,512] (12288 lanes) against the
-# serial kernel's 0.0489, but 0.0682 at [48,200,512] (24576 lanes) against
-# 0.0578 and 0.1313 at [96,200,512] against 0.0715, where the serial kernel
-# is bound by bytes (chip_smoke.py phase 3)
-CHUNKED_LANES = 16384
+# unseeded calls take the chunked eval kernel on at least EVAL_LANES lanes,
+# or on at least EVAL_SHORT_LANES lanes of at most EVAL_SHORT_STEPS steps,
+# the chunked serving kernel on the others. On the H100 (python -m
+# pase_tpu_torch.kernel_variants eval, in turns; eval / chunked ms):
+# 0.0117 / 0.0172 at [12,200,512] (6144 lanes), 0.0219 / 0.0262 at
+# [12,400,512], 0.0519 / 0.0527 at [12,1000,512], 0.1987 / 0.2486 at
+# [16,4000,512]; at 4096 lanes 0.0033 / 0.0102 at [8,21,512] and 0.0098 /
+# 0.0123 at [8,200,512], but 0.0173 / 0.0162 at [8,400,512], 0.0413 /
+# 0.0378 at [8,1000,512] (the serving batch) and 0.1541 / 0.1290 at
+# [8,4000,512]; 0.0096 / 0.0071 at [4,200,512] (2048 lanes), 0.3733 /
+# 0.0728 at [1,10000,512]
+EVAL_LANES, EVAL_SHORT_LANES, EVAL_SHORT_STEPS = 6144, 4096, 200
 # seeded calls on fewer lanes take the segmented kernel, the others the
-# one-thread-a-lane loop (the same bits). On the H100, seeded (python -m
+# one-thread-a-lane loop (the same bits: a composed carry rounds otherwise,
+# so no seeded call takes a chunked kernel). On the H100, seeded (python -m
 # pase_tpu_torch.kernel_variants serial): the segmented kernel took
 # 0.00456 ms at [1,100,512] against the loop's 0.01975 and 0.01884 at
 # [32,100,512] (16384 lanes) against 0.02062, but 0.05817 at [48,200,512]
@@ -90,6 +106,7 @@ _ARGTYPES = {
     "qrnn_pool_fwd": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_seg": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_chunked": [_P, _P, _P, _P, _N, _N, _N, _P],
+    "qrnn_pool_fwd_eval": [_P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c0, h, c, c_T, B, T, H, stream)
     "qrnn_pool_fwd_train": [_P, _P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c, dh, dc_T, c0, dy, dc0, B, T, H, stream)
@@ -98,6 +115,8 @@ _ARGTYPES = {
     "qrnn_pool_fwd_segment_steps": [],
     # (T, int[3] out) -> the training pair's chunking
     "qrnn_pool_train_chunking": [_N, _P],
+    # (T, int[2] out) -> qrnn_pool_fwd_eval's chunking
+    "qrnn_pool_eval_chunking": [_N, _P],
 }
 
 
@@ -133,6 +152,15 @@ def train_chunking(steps, lib=None):
     ``qrnn_pool_bwd_chunked_plain`` take it."""
     out = (ctypes.c_int * 3)()
     (lib or build()).qrnn_pool_train_chunking(steps, ctypes.addressof(out))
+    return tuple(out)
+
+
+def eval_chunking(steps, lib=None):
+    """``qrnn_pool_fwd_eval``'s chunking at T = steps, from the built
+    library (or ``lib``): (chunks a segment, steps a chunk), as
+    ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain`` takes it."""
+    out = (ctypes.c_int * 2)()
+    (lib or build()).qrnn_pool_eval_chunking(steps, ctypes.addressof(out))
     return tuple(out)
 
 
@@ -216,22 +244,25 @@ def _qrnn_pool_fwd_cpu(y, c0):
     return h, c_last.clone()
 
 
-def forward_entry(lanes, seeded):
+def forward_entry(lanes, seeded, steps):
     """The forward kernel's entry point for a call on ``lanes`` lanes
-    (B * H): unseeded on fewer than CHUNKED_LANES the chunked kernel,
-    seeded on fewer than SEG_LANES the segmented one, else the
-    one-thread-a-lane loop."""
-    if not seeded and lanes < CHUNKED_LANES:
-        return "qrnn_pool_fwd_chunked"
-    if seeded and lanes < SEG_LANES:
-        return "qrnn_pool_fwd_seg"
-    return "qrnn_pool_fwd"
+    (B * H) of ``steps`` steps (T). Unseeded: the chunked eval kernel on
+    at least EVAL_LANES lanes, or on at least EVAL_SHORT_LANES lanes of at
+    most EVAL_SHORT_STEPS steps; else the chunked serving kernel. Seeded:
+    the segmented kernel on fewer than SEG_LANES lanes, else the
+    one-thread-a-lane loop (the same bits)."""
+    if seeded:
+        return "qrnn_pool_fwd_seg" if lanes < SEG_LANES else "qrnn_pool_fwd"
+    if lanes >= EVAL_LANES or (lanes >= EVAL_SHORT_LANES
+                               and steps <= EVAL_SHORT_STEPS):
+        return "qrnn_pool_fwd_eval"
+    return "qrnn_pool_fwd_chunked"
 
 
 def _qrnn_pool_fwd_cuda(y, c0):
     """The kernels, routed by this call's shapes (``forward_entry``)."""
     lanes = y.shape[0] * (y.shape[-1] // 3)
-    return _forward(forward_entry(lanes, c0 is not None), y, c0)
+    return _forward(forward_entry(lanes, c0 is not None, y.shape[1]), y, c0)
 
 
 @torch.library.register_fake("pase_tpu_torch::qrnn_pool_fwd", lib=_OPS)
@@ -250,6 +281,20 @@ def qrnn_pool_fwd(y, c0=None):
     ``torch.ops.pase_tpu_torch.qrnn_pool_fwd``, which launches the kernel
     ``forward_entry`` names; on the CPU the plain version."""
     return torch.ops.pase_tpu_torch.qrnn_pool_fwd(y, c0)
+
+
+def qrnn_pool_fwd_eval(y, c0=None):
+    """The chunked eval forward: y [B, T, 3H] (+ c0 [B, H]) -> (h, c_T),
+    no gradient, within 1e-5 of the plain version. On the CPU the chunked
+    plain version of its algebra at its chunking
+    (``ops.qrnn.qrnn_pool_fwd_train_chunked_plain``, ``EVAL_CHUNKS`` chunks
+    of ``eval_chunk_len(T)`` steps)."""
+    if _cuda_or_plain(y):
+        h, _, c_last = _plain.qrnn_pool_fwd_train_chunked_plain(
+            y, c0, chunk=_plain.eval_chunk_len(y.shape[1]),
+            chunks=_plain.EVAL_CHUNKS)
+        return h, c_last
+    return _forward("qrnn_pool_fwd_eval", y, c0)
 
 
 def qrnn_pool_fwd_chunked(y, c0=None):

@@ -125,6 +125,17 @@ def train_chunk_len(t, chunks=TRAIN_CHUNKS, max_chunk=FWD_CHUNK):
     return -(-t // cover)
 
 
+# qrnn_pool_fwd_eval's chunks a segment and steps a chunk at most
+# (kEvalThreads / kEvalLanes and kEvalChunk of csrc/qrnn_pool.cu)
+EVAL_CHUNKS, EVAL_CHUNK = 8, 5
+
+
+def eval_chunk_len(t):
+    """Steps a chunk of ``qrnn_pool_fwd_eval``'s kernel for T = t
+    (``train_chunk_len`` at its chunks and chunk length)."""
+    return train_chunk_len(t, EVAL_CHUNKS, EVAL_CHUNK)
+
+
 def _segment(x, s0, n, seg, chunks, pad):
     """Steps s0 .. s0 + n of x [B, T, H] padded with ``pad`` to a segment
     of seg steps, as [B, chunks, seg // chunks, H]."""

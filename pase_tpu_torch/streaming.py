@@ -22,8 +22,8 @@ The QRNN's first push is seeded with a zero carry. So every call of the
 pooling is seeded and takes a serial kernel (``qrnn_pool_fwd_seg``, or
 ``qrnn_pool_fwd`` on ``cuda_qrnn.SEG_LANES`` lanes or more: the same
 bits), whose block-streamed evaluation equals one full run bit for bit;
-an unseeded first push on few lanes would take the chunked kernel, which
-rounds otherwise. The offline encoder takes the chunked kernel there, so
+an unseeded first push would take a chunked kernel, which rounds
+otherwise. The offline encoder takes a chunked kernel there, so
 streamed and offline frames differ at float32 rounding level (the JAX
 contract is rtol 1e-3 / atol 2e-4, ``tests/test_streaming.py``).
 

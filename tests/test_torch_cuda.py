@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: the QRNN pooling kernels
 (pase_tpu_torch/csrc/qrnn_pool.cu: the chunked, the segmented and the
 one-thread-a-lane serving forward, the last two also against each other,
-bit for bit; training forward, backward) and the stride-1 conv kernels
+bit for bit; the chunked eval forward, also against the chunked plain
+version of its algebra; training forward, backward) and the stride-1 conv kernels
 (csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
 against their plain PyTorch versions (the training pair also against the
 chunked plain versions of its own algebra, bit for bit between calls and
@@ -112,18 +113,53 @@ def test_chunked_kernel_matches_plain(cuda_device, b, t):
 
 
 def test_serving_forward_routes(cuda_device):
-    """Unseeded under CHUNKED_LANES lanes: the chunked kernel; seeded
-    under SEG_LANES: the segmented one; unseeded on more lanes: the
-    one-thread-a-lane loop. One launch each."""
+    """Unseeded on few lanes: the chunked kernel; on EVAL_LANES lanes: the
+    chunked eval kernel; seeded under SEG_LANES: the segmented one; seeded
+    on more lanes: the one-thread-a-lane loop. One launch each."""
     small, c0 = _inputs(2, 30, 16, cuda_device)
-    big = torch.randn(cuda_qrnn.CHUNKED_LANES // 64, 3, 3 * 64,
+    big = torch.randn(cuda_qrnn.EVAL_LANES // 64, 3, 3 * 64,
                       device=cuda_device)
+    wide, wide_c0 = _inputs(cuda_qrnn.SEG_LANES // 64, 3, 64, cuda_device)
     for y, seed, name in ((small, None, "qrnn_pool_fwd_chunked"),
                           (small, c0, "qrnn_pool_fwd_seg"),
-                          (big, None, "qrnn_pool_fwd")):
+                          (big, None, "qrnn_pool_fwd_eval"),
+                          (wide, wide_c0, "qrnn_pool_fwd")):
         before = dict(cuda_qrnn.LAUNCHES)
         cuda_qrnn.qrnn_pool(y, seed)
         assert cuda_qrnn.LAUNCHES == {**before, name: before[name] + 1}
+
+
+# the eval kernel at T = 1 and a ragged T on lane counts that are not a
+# multiple of a block's 32 (120 and 65), and at the 2 x 2 --n_model
+# rank's eval, [48,200,256]
+EVAL_SHAPES = [(3, 1, 40), (5, 37, 13), (48, 200, 256)]
+
+
+@pytest.mark.parametrize("shape", EVAL_SHAPES, ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_eval_kernel_matches_plain(cuda_device, shape, seeded):
+    """qrnn_pool_fwd_eval against the plain version (1e-5) and against the
+    chunked plain version of its algebra at the library's chunking (5e-7);
+    two calls bit for bit; one launch each."""
+    y, c0 = _inputs(*shape, cuda_device, seed=sum(shape))
+    c0 = c0 if seeded else None
+    chunks, steps = cuda_qrnn.eval_chunking(shape[1])
+    assert (chunks, steps) == (plain.EVAL_CHUNKS,
+                               plain.eval_chunk_len(shape[1]))
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c = cuda_qrnn.qrnn_pool_fwd_eval(y, c0)
+    h2, c2 = cuda_qrnn.qrnn_pool_fwd_eval(y, c0)
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_eval": before["qrnn_pool_fwd_eval"] + 2}
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    h_ref, c_ref = plain.qrnn_pool(y, c0)
+    assert (h - h_ref).abs().max().item() <= 1e-5
+    assert (c - c_ref).abs().max().item() <= 1e-5
+    hp, _, cp = plain.qrnn_pool_fwd_train_chunked_plain(
+        y, c0, chunk=steps, chunks=chunks)
+    assert (h - hp).abs().max().item() <= 5e-7
+    assert (c - cp).abs().max().item() <= 5e-7
 
 
 @pytest.mark.parametrize("shape", [(3, 200, 16), (1, 1001, 512)])
@@ -287,6 +323,7 @@ def test_train_kernels_count_launches(cuda_device):
     assert after["qrnn_pool_fwd"] == before["qrnn_pool_fwd"]
     assert after["qrnn_pool_fwd_seg"] == before["qrnn_pool_fwd_seg"]
     assert after["qrnn_pool_fwd_chunked"] == before["qrnn_pool_fwd_chunked"]
+    assert after["qrnn_pool_fwd_eval"] == before["qrnn_pool_fwd_eval"]
 
 
 def _train_inputs(shape, cuda_device, seeded, dct):
@@ -451,8 +488,8 @@ def test_bf16_step_launches_the_training_kernels(cuda_device, tmp_path):
     layers = len(tr.model.frontend.rnn.layers)
     assert cuda_qrnn.LAUNCHES == {
         "qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd_seg": 0,
-        "qrnn_pool_fwd": 0, "qrnn_pool_fwd_train": 2 * layers,
-        "qrnn_pool_bwd": 2 * layers}
+        "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
+        "qrnn_pool_fwd_train": 2 * layers, "qrnn_pool_bwd": 2 * layers}
     assert not any(conv_ops.LAUNCHES.values())
 
 
@@ -663,12 +700,12 @@ def test_device_corpus_rows_on_the_card(cuda_device, tmp_path):
 def test_registered_op_launches_and_routes(cuda_device):
     """torch.ops.pase_tpu_torch.qrnn_pool_fwd on CUDA tensors launches the
     kernels, the route taken inside the operator from the call's shapes:
-    unseeded on 1 x 512 lanes the chunked kernel, on 64 x 512 the
-    one-thread-a-lane one; seeded, on 1 x 512 the segmented one, on 64 x
-    512 the one-thread-a-lane one. Within 1e-5 of the plain version."""
+    unseeded on 1 x 512 lanes the chunked kernel, on 64 x 512 the chunked
+    eval kernel; seeded, on 1 x 512 the segmented one, on 64 x 512 the
+    one-thread-a-lane one. Within 1e-5 of the plain version."""
     op = torch.ops.pase_tpu_torch.qrnn_pool_fwd
     for b, seeded, name in ((1, False, "qrnn_pool_fwd_chunked"),
-                            (64, False, "qrnn_pool_fwd"),
+                            (64, False, "qrnn_pool_fwd_eval"),
                             (1, True, "qrnn_pool_fwd_seg"),
                             (64, True, "qrnn_pool_fwd")):
         y, c0 = _inputs(b, 50, 512, cuda_device, seed=b)
@@ -710,8 +747,7 @@ def test_streaming_is_bit_identical_across_chunkings(cuda_device):
 def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
     """A bucket exported on the card serves there (meta device 'cuda'),
     within 2e-5 of the offline encoder, through the chunked kernel at a
-    small batch and the one-thread-a-lane one above CHUNKED_LANES
-    lanes."""
+    small batch and the chunked eval kernel from EVAL_LANES lanes."""
     from pase_tpu_torch import serving
     enc = wf_builder(dict(NARROW_CFG, strides=[1, 10, 4, 4]),
                      device=cuda_device)
@@ -720,7 +756,7 @@ def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
     assert srv.meta["device"] == "cuda"
     lanes = NARROW_CFG["rnn_dim"]
     for b, name in ((2, "qrnn_pool_fwd_chunked"),
-                    (cuda_qrnn.CHUNKED_LANES // lanes, "qrnn_pool_fwd")):
+                    (cuda_qrnn.EVAL_LANES // lanes, "qrnn_pool_fwd_eval")):
         wav = (np.random.RandomState(b).randn(b, 1600) * 0.1).astype(
             np.float32)
         before = dict(cuda_qrnn.LAUNCHES)
@@ -1465,8 +1501,8 @@ def test_dropout_masks_on_the_card(cuda_device):
 def test_lane_shard_kernels_match_plain(cuda_device, shape):
     """The QRNN's lane shards under --n_model (PASE+ at 32 x 2 s on a 1 x 2
     and a 2 x 2 grid): K2 (fwd_train + bwd through QRNNPool) against the
-    plain version's autograd and K1's loop against the plain forward,
-    each launched once."""
+    plain version's autograd and K1's eval kernel (a rank's eval route)
+    against the plain forward, each launched once."""
     y, _ = _inputs(*shape, cuda_device, seed=21)
     dh = torch.from_numpy(np.random.RandomState(22).randn(*shape).astype(
         np.float32)).to(cuda_device)
@@ -1477,16 +1513,18 @@ def test_lane_shard_kernels_match_plain(cuda_device, shape):
         h, _ = fn(yg)
         grads.append((h.detach(), torch.autograd.grad(
             torch.sum(h * dh), [yg])[0]))
-    h_loop, _ = cuda_qrnn.qrnn_pool_fwd_loop(y)
+    assert cuda_qrnn.forward_entry(shape[0] * shape[2], False,
+                                   shape[1]) == "qrnn_pool_fwd_eval"
+    h_eval, _ = cuda_qrnn.qrnn_pool_fwd(y)
     torch.cuda.synchronize()
     (h, dy), (h_ref, dy_ref) = grads
     assert (h - h_ref).abs().max().item() <= 1e-5
-    assert (h_loop - h_ref).abs().max().item() <= 1e-5
+    assert (h_eval - h_ref).abs().max().item() <= 1e-5
     assert (dy - dy_ref).abs().max().item() <= \
         1e-5 * max(1.0, dy_ref.abs().max().item())
     after = cuda_qrnn.LAUNCHES
     for k, n in (("qrnn_pool_fwd_train", 1), ("qrnn_pool_bwd", 1),
-                 ("qrnn_pool_fwd", 1)):
+                 ("qrnn_pool_fwd_eval", 1), ("qrnn_pool_fwd", 0)):
         assert after[k] == before[k] + n, k
 
 

@@ -13,6 +13,8 @@ run op by op, an eager dispatch of the main thread can wait on the CPU
 device while the interpreted kernel's io_callbacks of the call before it
 wait on the main thread, a hang seen under a loaded 6-worker run."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -320,6 +322,97 @@ def test_train_chunking_covers_t_in_the_fewest_segments(t, len_fwd,
             yt, fwd[1], dh, None, c0t, chunk=len_bwd)))
 
 
+# the eval kernel's algebra (the training forward's, without c) at the
+# chunkings (T, chunk, chunks) of CHUNKED and TRAIN_CHUNKED and its own
+# (eval_chunk_len): one step; T under one chunk; T one past whole chunks;
+# several segments, the last ragged; the main path's T = 200 (5 segments
+# of 8 x 5, and 4 of 8 x 7), on 3 x 11 lanes (not a multiple of 32)
+EVAL_CHUNKED = [(1, 1, 8), (1, 8, 64), (5, 8, 64), (5, 7, 8), (17, 8, 64),
+                (17, 3, 8), (37, 4, 2), (37, 5, 8), (200, 5, 8),
+                (200, 7, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_case(t, seeded):
+    """Inputs of an eval-chunking case and the Pallas kernel's (h, c_T)
+    on them in interpret mode, once per (T, seeded)."""
+    y, c0 = _inputs(3, t, 11, seed=t + 7 * seeded)
+    c0 = c0 if seeded else None
+    return y, c0, _pallas_pool(y, c0)
+
+
+@pytest.mark.parametrize("t,chunk,chunks", EVAL_CHUNKED, ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_eval_chunked_plain_matches_serial_and_pallas(t, chunk, chunks,
+                                                      seeded):
+    """qrnn_pool_fwd_eval's algebra (qrnn_pool_fwd_train_chunked_plain's h
+    and c_T: chunk maps, the carry put through them one after the other,
+    chunks re-run) against the Pallas kernel in interpret mode and the
+    serial plain version, within 1e-6."""
+    y, c0, (h_ref, c_ref) = _eval_case(t, seeded)
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    h, _, c = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+        torch.from_numpy(y), c0t, chunk=chunk, chunks=chunks)
+    h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
+    assert h.shape == (3, t, 11) and c.shape == (3, 11)
+    for got, want in ((h, h_ser), (c, c_ser), (h, np.asarray(h_ref)),
+                      (c, np.asarray(c_ref))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("t,chunk", [(1, 1), (17, 3), (21, 3), (40, 5),
+                                     (41, 3), (200, 5), (1000, 5)])
+def test_eval_chunk_len_covers_t_in_the_fewest_segments(t, chunk):
+    """The eval kernel's chunk length: the fewest segments of EVAL_CHUNKS
+    chunks of at most EVAL_CHUNK steps that cover T, then the shortest
+    chunk that covers T in as many; its CPU wrapper takes the chunked plain
+    version there."""
+    assert torch_qrnn.eval_chunk_len(t) == chunk
+    per = torch_qrnn.EVAL_CHUNKS * chunk
+    assert -(-t // per) == -(-t // (torch_qrnn.EVAL_CHUNKS
+                                    * torch_qrnn.EVAL_CHUNK))
+    y, c0 = _inputs(2, t, 4, seed=t)
+    h, _, c = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+        torch.from_numpy(y), torch.from_numpy(c0), chunk=chunk,
+        chunks=torch_qrnn.EVAL_CHUNKS)
+    hk, ck = cuda_qrnn.qrnn_pool_fwd_eval(torch.from_numpy(y),
+                                          torch.from_numpy(c0))
+    assert torch.equal(hk, h) and torch.equal(ck, c)
+
+
+def test_eval_chunking_constants_are_the_kernels():
+    """ops/qrnn.py's EVAL_CHUNKS and EVAL_CHUNK are the shipped eval
+    kernel's kEvalThreads / kEvalLanes and kEvalChunk, and
+    kernel_variants's EVAL_SHIPPED is its tile."""
+    import re
+    from pase_tpu_torch import kernel_variants
+    with open(cuda_qrnn.SOURCE) as f:
+        text = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kEvalThreads"] // const["kEvalLanes"] == \
+        torch_qrnn.EVAL_CHUNKS
+    assert const["kEvalChunk"] == torch_qrnn.EVAL_CHUNK
+    assert kernel_variants.EVAL_SHIPPED == tuple(
+        const[k] for k in ("kEvalLanes", "kEvalThreads", "kEvalChunk",
+                           "kEvalBlocks", "kEvalDepth"))
+
+
+def test_eval_wrapper_cpu_path_launches_nothing():
+    """qrnn_pool_fwd_eval on CPU tensors takes the chunked plain version at
+    the eval kernel's chunking, seeded and unseeded, and launches
+    nothing."""
+    y, c0 = _inputs(2, 21, 8, seed=12)
+    before = dict(cuda_qrnn.LAUNCHES)
+    for seed in (None, torch.from_numpy(c0)):
+        h, c = cuda_qrnn.qrnn_pool_fwd_eval(torch.from_numpy(y), seed)
+        hp, _, cp = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+            torch.from_numpy(y), seed, chunk=torch_qrnn.eval_chunk_len(21),
+            chunks=torch_qrnn.EVAL_CHUNKS)
+        assert torch.equal(h, hp) and torch.equal(c, cp)
+    assert cuda_qrnn.LAUNCHES == before
+
+
 def test_train_chunking_constants_are_the_kernels():
     """ops/qrnn.py's TRAIN_CHUNKS, FWD_CHUNK and BWD_CHUNK are the
     shipped kernels' kTrainThreads / kTrainLanes, kFwdChunk and
@@ -355,31 +448,51 @@ def test_train_wrappers_cpu_path_launches_nothing():
 def test_chunked_wrapper_cpu_path_and_route():
     """qrnn_pool_fwd_chunked on a CPU tensor takes the chunked plain
     version and launches nothing; its launches are counted under their own
-    name (an unseeded call on the card under CHUNKED_LANES lanes)."""
+    name (an unseeded call on the card on few lanes: forward_entry), as
+    the eval kernel's are."""
     y, c0 = _inputs(2, 21, 8, seed=6)
     before = dict(cuda_qrnn.LAUNCHES)
     h, c = cuda_qrnn.qrnn_pool_fwd_chunked(torch.from_numpy(y))
     h_ref, c_ref = torch_qrnn.qrnn_pool_chunked_plain(torch.from_numpy(y))
     assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
     assert cuda_qrnn.LAUNCHES == before
-    assert cuda_qrnn.CHUNKED_LANES == 16384
+    assert (cuda_qrnn.EVAL_LANES, cuda_qrnn.EVAL_SHORT_LANES,
+            cuda_qrnn.EVAL_SHORT_STEPS) == (6144, 4096, 200)
     assert set(cuda_qrnn.LAUNCHES) == {"qrnn_pool_fwd_chunked",
                                        "qrnn_pool_fwd_seg",
                                        "qrnn_pool_fwd",
+                                       "qrnn_pool_fwd_eval",
                                        "qrnn_pool_fwd_train",
                                        "qrnn_pool_bwd"}
 
 
-@pytest.mark.parametrize("lanes,seeded,entry", [
-    (512, True, "qrnn_pool_fwd_seg"), (512, False, "qrnn_pool_fwd_chunked"),
-    (16383, True, "qrnn_pool_fwd_seg"), (16384, True, "qrnn_pool_fwd"),
-    (16384, False, "qrnn_pool_fwd"), (49152, False, "qrnn_pool_fwd")])
-def test_forward_entry_routes_by_seed_and_lanes(lanes, seeded, entry):
-    """The operator's route: unseeded under CHUNKED_LANES lanes the
-    chunked kernel, seeded under SEG_LANES the segmented one (a streaming
-    push), else the one-thread-a-lane loop (eval at batch)."""
+@pytest.mark.parametrize("lanes,seeded,steps,entry", [
+    (512, True, 100, "qrnn_pool_fwd_seg"),
+    (16383, True, 200, "qrnn_pool_fwd_seg"),
+    (16384, True, 200, "qrnn_pool_fwd"), (49152, True, 200, "qrnn_pool_fwd"),
+    (512, False, 100, "qrnn_pool_fwd_chunked"),
+    (2048, False, 200, "qrnn_pool_fwd_chunked"),
+    (4096, False, 200, "qrnn_pool_fwd_eval"),
+    (4096, False, 201, "qrnn_pool_fwd_chunked"),
+    (4096, False, 1000, "qrnn_pool_fwd_chunked"),
+    (2048, False, 1000, "qrnn_pool_fwd_chunked"),
+    (512, False, 10000, "qrnn_pool_fwd_chunked"),
+    (4096, False, 4000, "qrnn_pool_fwd_chunked"),
+    (6144, False, 1000, "qrnn_pool_fwd_eval"),
+    (12288, False, 200, "qrnn_pool_fwd_eval"),
+    (24576, False, 200, "qrnn_pool_fwd_eval"),
+    (24576, False, 21, "qrnn_pool_fwd_eval"),
+    (49152, False, 200, "qrnn_pool_fwd_eval")])
+def test_forward_entry_routes_by_seed_and_lanes(lanes, seeded, steps, entry):
+    """The operator's route: seeded under SEG_LANES lanes the segmented
+    kernel (a streaming push), else the one-thread-a-lane loop; unseeded
+    the chunked eval kernel on EVAL_LANES lanes or more, or on
+    EVAL_SHORT_LANES or more of at most EVAL_SHORT_STEPS steps (every
+    training CLI's eval: [48,200,256] 12288 lanes, [96,200,512] 49152,
+    [48,21,512] 24576), else the chunked serving kernel (the long serving
+    windows [8,1000,512], [8,4000,512], [8,1000,256], [1,10000,512])."""
     assert cuda_qrnn.SEG_LANES == 16384
-    assert cuda_qrnn.forward_entry(lanes, seeded) == entry
+    assert cuda_qrnn.forward_entry(lanes, seeded, steps) == entry
 
 
 # (B, T, H) of narrow streaming pushes: a 1 s push, a 100 ms push
@@ -434,12 +547,15 @@ def test_serial_wrappers_cpu_path(wrapper):
      "qrnn fwd_train"),
     ("void (anonymous namespace)::qrnn_pool_bwd_chunked_kernel<4>(float "
      "const*, float const*, float const*, float const*, float const*, "
-     "float*, float*, long, long, long, int)", "qrnn bwd")])
+     "float*, float*, long, long, long, int)", "qrnn bwd"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_eval_kernel<5>(float "
+     "const*, float const*, float*, float*, long, long, long, int)",
+     "qrnn fwd eval")])
 def test_profiler_names_the_qrnn_kernels(name, kind):
     """A push's profile counts K1's serial serving kernels (the segmented
     one and the one-thread-a-lane loop) as 'qrnn fwd', apart from the
-    chunked kernel; a step's split counts the training pair's kernels as
-    'qrnn fwd_train' and 'qrnn bwd'."""
+    chunked kernel and the eval kernel; a step's split counts the training
+    pair's kernels as 'qrnn fwd_train' and 'qrnn bwd'."""
     from pase_tpu_torch.profiling import kernel_kind
     assert kernel_kind(name) == kind
 
@@ -449,7 +565,8 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     the shipped source with lines replaced: each line it replaces is
     there exactly once. The serial group holds every tile of the
     segmented kernel but the shipped one, the train group every tile of
-    the training pair but the shipped one, each a different one."""
+    the training pair but the shipped one, the eval group every tile of
+    the eval kernel but the shipped one, each a different one."""
     from pase_tpu_torch import kernel_variants
     serial = [k for k in kernel_variants.VARIANTS
               if k.startswith("qrnn serial")]
@@ -461,6 +578,12 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     assert kernel_variants.TRAIN_SHIPPED in tiles
     assert len(set(tiles)) == len(tiles) and len(train) == len(tiles) - 1
     assert "train" in kernel_variants.GROUPS
+    evals = [k for k in kernel_variants.VARIANTS
+             if k.startswith("qrnn eval")]
+    tiles = kernel_variants.EVAL_TILES
+    assert kernel_variants.EVAL_SHIPPED in tiles
+    assert len(set(tiles)) == len(tiles) and len(evals) == len(tiles) - 1
+    assert "eval" in kernel_variants.GROUPS
     for name, (source, subs) in kernel_variants.VARIANTS.items():
         with open(source) as f:
             text = f.read()
