@@ -12,22 +12,30 @@ Phases, each printed as it ends; any failure exits non-zero:
                for sm_90a, from the sources of this checkout, the two
                builds at once.
   3. kernel  — the serving forward kernels against the plain PyTorch
-               version on the card at each of QRNN_SHAPES: the chunked
-               kernel (qrnn_pool_fwd_chunked), the segmented serial one
+               version on the card at each of QRNN_SHAPES: the split
+               kernel (qrnn_pool_fwd_split), the chunked one
+               (qrnn_pool_fwd_chunked), the segmented serial one
                (qrnn_pool_fwd_seg), the one-thread-a-lane one
                (qrnn_pool_fwd) and the chunked eval one
                (qrnn_pool_fwd_eval) unseeded, max|dh|, max|dc_T| <= 1e-5;
-               the eval kernel also within 5e-7 of the chunked plain
-               version of its algebra at the library's chunking, two calls
-               bit for bit; qrnn_pool c0-seeded, and block-streamed ==
-               full bit for bit on that seeded route; the two serial
-               kernels equal bit for bit, seeded and unseeded; the time
-               of each (CUDA graphs of 20 launches, so no host time
-               between them; the four in turns) beside the byte bound,
-               and the route an unseeded and a seeded call take there
-               (the eval kernel against the kernel the unseeded route
-               took before it: the chunked one under 16384 lanes, else
-               the loop).
+               the eval and the split kernels also within 5e-7 of the
+               plain versions of their algebra at the library's chunking
+               and tiling, two calls bit for bit; qrnn_pool c0-seeded,
+               and block-streamed == full bit for bit on that seeded
+               route; the two serial kernels equal bit for bit, seeded
+               and unseeded; the time of each (CUDA graphs of 20
+               launches, so no host time between them; the five in
+               turns) beside the byte bound, and the route an unseeded
+               and a seeded call take there (the routed kernel against
+               the kernel the unseeded route took before the split
+               kernel: the eval one on its lanes and steps, else the
+               chunked one); an empty kernel's time in the same graphs,
+               the launch floor; then the split kernel at
+               QRNN_GATE_SHAPES, on gates whose carries decay slowly
+               (f less 6) and never (f = 0 from the second step): within
+               1e-5 of the plain version and 5e-7 of its algebra, two
+               calls bit for bit, and its time in turns with the chunked
+               kernel's.
   4. encoder — PASE+ at full width (cfg/frontend/PASE+.cfg), seeded
                weights: the (1,1,100000) -> (1,256,625) contract, a
                (8,1,160000) batch, the same batch on the CPU (plain path)
@@ -223,7 +231,11 @@ Phases, each printed as it ends; any failure exits non-zero:
                record's 250 steps:
                the random-init probe below 1 and the pretrained one above
                it, printed beside benchmarks/transfer_gate_r5.json (8
-               epochs).
+               epochs); (f) after it in the same process, ``python -m
+               pase_tpu_torch.util_scripts forward-chunk --chunk_size
+               1600000`` over a seeded 100 s file (one window, a long
+               export bucket: K1 at [1,10000,512]), its (256, 10000)
+               frames finite and within 1e-5 of the in-memory encoder's.
  20. recurrent — cuDNN's LSTM / GRU (float32, TF32 off): (a) PASE+ with
                rnn_type lstm and gru (a BiRNN of 256 each way) at
                (8,1,160000), card vs CPU within 2e-4 of max|y|, its
@@ -446,15 +458,18 @@ Phases, each printed as it ends; any failure exits non-zero:
                after its setup; run A launches the training kernels once
                per layer per train step and qrnn_pool_fwd once per layer
                per eval step, run B (killed and resumed) at least as many,
-               forward-chunk and serve-encode qrnn_pool_fwd_chunked once
-               per layer and nothing else. Beside run B, one epoch of run
+               forward-chunk and serve-encode K1's unseeded route (the
+               chunked kernel at the rehearsal's [1,800,512]) once per
+               layer and nothing else. Beside run B, one epoch of run
                A's command under torch's deterministic algorithms (a
                process of its own) lists the ops torch has no
                deterministic implementation of. Prints the script's PASS
                lines, each step's seconds and the launches of each CLI.
 Main paths, each with the launch counts reset to 0 just before it and
-read just after: serving (phases 4-5) must launch qrnn_pool_fwd_chunked
-once per QRNN layer per encoder call and qrnn_pool_fwd never; training
+read just after: serving (phases 4-5) must launch the kernel of K1's
+unseeded route (cuda_qrnn.forward_entry: qrnn_pool_fwd_chunked at the
+(8,1,160000) batch's [8,1000,512] and at B = 1) once per QRNN layer per
+encoder call and qrnn_pool_fwd never; training
 (the CLI in phase 7) must launch qrnn_pool_fwd_train and qrnn_pool_bwd
 once per QRNN layer per train step, and qrnn_pool_fwd once per layer per
 eval step (batch 3 x 32: above the chunked route's lane count); the
@@ -466,23 +481,25 @@ the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
 the float32 run conv_s1_tf32x3 7 times; each stream (phase 13)
 qrnn_pool_fwd_seg once per QRNN layer per push that reaches the QRNN and
 no other forward kernel; serve-encode through the exported programs
-(phase 14) qrnn_pool_fwd_chunked once per layer per program call, and the
-B=40 call qrnn_pool_fwd; the overlap step (phase 15) the training
-kernels once per layer; phase 16's steps (VQ, v0.1, Gap) the training
+(phase 14) the unseeded route (the chunked kernel) once per layer per program
+call, and the B=40 call the eval kernel; the overlap step (phase 15) the
+training kernels once per layer; phase 16's steps (VQ, v0.1, Gap) the training
 kernels once per QRNN layer (none in v0.1, which has no QRNN), the VQ
 training CLI the training kernels once per layer per train step and
 qrnn_pool_fwd once per layer per eval step, the v0.1 CLI none; phase 17's
-VQ serving path qrnn_pool_fwd_chunked once per layer per encoder call,
-its streams qrnn_pool_fwd_seg once per layer per push that reaches the
-QRNN,
-its serve-encode qrnn_pool_fwd_chunked once per layer per program call;
+VQ serving path the unseeded route once per layer per encoder call (the
+chunked kernel), its streams qrnn_pool_fwd_seg once
+per layer per push that reaches the QRNN, its serve-encode the chunked kernel
+once per layer per program call;
 phase 18's GAN steps (wave, z) the training kernels once per layer (D
 has no QRNN), each recipe CLI run the training kernels once per layer
 per train step and qrnn_pool_fwd once per layer per eval step, the snorm
-and wnorm encoders qrnn_pool_fwd_chunked once per layer per call;
-phase 19's probe runs (utt, knn, kfold, frames, timit-full)
-qrnn_pool_fwd_chunked once per layer per utterance encoded and nothing
-else, the superviser's training run the training kernels once per layer
+and wnorm encoders the unseeded route once per layer per call;
+phase 19's probe runs (utt, knn, kfold, frames, timit-full) the
+unseeded route at B = 1 (the chunked kernel) once per layer per
+utterance encoded and nothing else, forward-chunk over a 100 s file in
+one window (in the gate's process) the split kernel once per layer and
+nothing else, the superviser's training run the training kernels once per layer
 per train step and the chunked kernel once per layer per eval step (3 x
 4 rows), the transfer gate (its encoder has no QRNN) none; phase 20's
 lstm and gru encoders (serving) and the lstm encoder's step none (no
@@ -490,7 +507,8 @@ QRNN), the GRU-head step and the WaveRNN recipe's steps the training
 kernels once per layer per step, its CLI the training kernels once per
 layer per train step and qrnn_pool_fwd once per layer per eval step,
 generate none; phase 21's TDNN serving path and its serve-encode
-qrnn_pool_fwd_chunked once per encoder / program call and nothing else,
+the unseeded route (the chunked kernel) once per encoder / program call
+and nothing else,
 the TDNN and narrow ASPP steps the training kernels once each, the TDNN
 recipe's CLI the training kernels once per train step and qrnn_pool_fwd
 once per eval step (192 x 256 lanes), ASPP with its QRNN the chunked
@@ -502,12 +520,13 @@ per step (3 warm-up and 20 timed, each dtype), eval-ckpts qrnn_pool_fwd
 once per eval batch; phase 24's CLI epoch the training kernels once per
 train step and qrnn_pool_fwd once per eval step, its profiled steps the
 training kernels once each, clusterize, project-features and
-prosodic-eval qrnn_pool_fwd_chunked once per utterance, the other tools
+prosodic-eval the unseeded route at B = 1 (the chunked kernel) once per
+utterance, the other tools
 none; phase 25's data-parallel step (both ranks) the training kernels
 once per layer per rank per step, dp_cli as phase 7's CLI, the sharded
 corpus (both ranks) the training kernels once per layer per rank per
 train step and qrnn_pool_fwd once per layer per rank per eval step (48
-rows x 512 lanes), the time shard qrnn_pool_fwd_chunked on D - 1 shards
+rows x 512 lanes), the time shard the chunked kernel on D - 1 shards
 (pass 1) and qrnn_pool_fwd_seg on D (pass 2) per layer, its gradient
 qrnn_pool_fwd_train and qrnn_pool_bwd 2 D - 1 times per layer, and
 forward-chunk --time_shard (D = the visible cards) as the time shard;
@@ -519,7 +538,7 @@ phase 27's grid steps (every rank) the training kernels once per layer
 per rank per step, its CLI once per layer per rank per train step and
 qrnn_pool_fwd once per layer per rank per eval step; phase 28's runs A and
 B (summed over B's two processes) as phase 7's CLI, forward-chunk and
-serve-encode qrnn_pool_fwd_chunked once per layer, the probes once per
+serve-encode the chunked kernel once per layer, the probes once per
 layer per utterance.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
@@ -528,7 +547,8 @@ serving, training, stream (phase 13's four streams), stream_cli
 vq_serving, vq_stream, vq_export, phase 18's gan_step, gan_z_step,
 gan_cli, gan_cli_plain, snorm_serving, wnorm_serving, and phase 19's
 probe (the utt run), probe_knn, probe_kfold, probe_frames, probe_timit,
-probe_sup, transfer_gate, phase 20's lstm_serving, gru_serving,
+probe_sup, transfer_gate, forward_chunk_100s, phase 20's lstm_serving,
+gru_serving,
 lstm_step, gru_head_step, wavernn_step, wavernn_cli, wavernn_generate,
 and phase 21's tdnn_serving, tdnn_export, tdnn_step, tdnn_cli,
 aspp_serving, aspp_rnn_serving, resnet_serving, aspp_step, and phase
@@ -590,10 +610,6 @@ KERNEL_ATOL = 1e-5
 # same operations in the same order; tanh / exp round otherwise on the
 # card)
 EVAL_ALG_ATOL = 5e-7
-# the unseeded route before qrnn_pool_fwd_eval: the chunked kernel under
-# this many lanes, the one-thread-a-lane loop from there on (phase 3 times
-# the eval kernel against the kernel each shape took there)
-EARLIER_LOOP_LANES = 16384
 # the steps of every --synthetic training CLI epoch in this run (the CLI's
 # own default is 100; the eval takes a tenth, at least one batch)
 CLI_STEPS = 10
@@ -668,12 +684,23 @@ TS_GRAD_ATOL, TS_GRAD_RTOL = 1e-5, 1e-4
 # eval of phase 20's cut WaveRNN CLI, and phase 21's TDNN shapes at H =
 # 256: the serving batch and the recipe's eval, and phase 22's 4 x 16 rows
 # (the attention recipe's batch with a regularizer's fourth stream), and
-# phase 27's lane shards
+# phase 27's lane shards, and B = 1 extraction of a 2 s utterance, the
+# rehearsal's 8 s file and the time shard's [2,1500,512]
 QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (8, 4000, 512), (8, 1000, 512), (1, 1000, 512),
                (32, 200, 512), (48, 200, 512), (48, 21, 512),
                (8, 1000, 256), (192, 200, 256), (64, 200, 512),
-               (96, 200, 256), (48, 200, 256)]
+               (96, 200, 256), (48, 200, 256), (1, 200, 512),
+               (1, 800, 512), (2, 1500, 512)]
+# the split kernel's target shape (a 100 s file in one forward)
+LONG_SHAPE = (1, 10000, 512)
+# the split kernel on gates whose carries decay slowly (f less 6) and not
+# at all (f = 0 from the second step; a ragged last segment), where its
+# second run takes every segment of a tile
+QRNN_GATE_SHAPES = [((1, 10000, 512), "slow"), ((1, 9999, 512), "frozen")]
+# phase 19: a 100 s file through forward-chunk in one window (--chunk_size
+# the file's samples: a long export bucket), in the gate's process
+FC_LONG_SAMPLES = 1600000
 SERVING_SHAPE = (8, 1000, 512)
 WAV_SECONDS = [3.0, 7.3, 10.0, 12.5]
 SR = 16000
@@ -1043,12 +1070,48 @@ def k1_eval(shape):
     return cuda_qrnn.forward_entry(b * h, False, t)
 
 
+def k1_before(shape):
+    """The kernel an unseeded call at (B, T, H) took before the split
+    kernel: the eval kernel on its lanes and steps, else the chunked one."""
+    from pase_tpu_torch.ops import cuda_qrnn
+    b, t, h = shape
+    lanes = b * h
+    return ("eval" if lanes >= cuda_qrnn.EVAL_LANES
+            or (lanes >= cuda_qrnn.EVAL_SHORT_LANES
+                and t <= cuda_qrnn.EVAL_SHORT_STEPS) else "chunked")
+
+
+def k1_calls(module, calls):
+    """K1's launches for the encoder calls ``calls`` ({(B, T): calls}) of
+    an encoder module: each takes the unseeded entry k1_eval names at B x
+    H lanes (H the QRNN's width) and T steps, once per QRNN layer ({}
+    without a QRNN)."""
+    layers = qrnn_layers(module)
+    out = {}
+    if layers:
+        hid = module.rnn.layers[0].linear.weight.shape[0] // 3
+        for (b, t), n in calls.items():
+            entry = k1_eval((b, t, hid))
+            out[entry] = out.get(entry, 0) + layers * n
+    return out
+
+
+def _calls_sum(*calls):
+    """{(B, T): calls} summed."""
+    out = {}
+    for c in calls:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
 def phase_kernel():
     """The serving forward kernels vs the plain version at each QRNN shape,
-    the two serial ones also against each other, the eval kernel also
-    against the chunked plain version of its algebra; returns the summary
-    rows."""
+    the two serial ones also against each other, the eval and the split
+    kernels also against the plain versions of their algebra; returns the
+    summary rows and the empty kernel's time (the launch floor)."""
     import torch
+    from pase_tpu_torch.kernel_variants import gates
     from pase_tpu_torch.ops import cuda_qrnn
     from pase_tpu_torch.ops import qrnn as plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1058,6 +1121,7 @@ def phase_kernel():
         c0 = torch.randn(b, h, device="cuda", generator=gen)
         errs = {}
         for name, fn in (
+                ("split", lambda: cuda_qrnn.qrnn_pool_fwd_split(y)),
                 ("chunked", lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
                 ("seg", lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
                 ("loop", lambda: cuda_qrnn.qrnn_pool_fwd_loop(y)),
@@ -1079,6 +1143,16 @@ def phase_kernel():
                        (ce - cp).abs().max().item())
         eval_same = bool(torch.equal(he, he2) and torch.equal(ce, ce2))
         del he, ce, he2, ce2, hp, cp
+        # the split kernel against the plain version of its algebra at the
+        # library's tiling, and two calls bit for bit
+        chunk, tile, tiles = cuda_qrnn.split_tiling(b * h, t)
+        hs, cs = cuda_qrnn.qrnn_pool_fwd_split(y)
+        hs2, cs2 = cuda_qrnn.qrnn_pool_fwd_split(y)
+        hp, cp = plain.qrnn_pool_split_plain(y, tile=tile, chunk=chunk)
+        split_alg = max((hs - hp).abs().max().item(),
+                        (cs - cp).abs().max().item())
+        split_same = bool(torch.equal(hs, hs2) and torch.equal(cs, cs2))
+        del hs, cs, hs2, cs2, hp, cp
         # the two serial kernels, seeded and unseeded
         same = True
         for seed in (c0, None):
@@ -1092,9 +1166,12 @@ def phase_kernel():
         streamed = bool(torch.equal(torch.cat([h1, h2], 1), h_full)
                         and torch.equal(c2, c_full))
         route = k1_eval((b, t, h))
+        short = route.replace("qrnn_pool_fwd_", "")
         seeded_route = cuda_qrnn.forward_entry(b * h, True, t)
-        earlier = "chunked" if b * h < EARLIER_LOOP_LANES else "loop"
+        before = k1_before((b, t, h))
         ms = _turns_ms({
+            "split": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_split(y)),
             "chunked": lambda: _graph_ms(
                 lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
             "loop": lambda: _graph_ms(
@@ -1112,17 +1189,21 @@ def phase_kernel():
               + "; ".join(f"{k} {e[0]:.3e}, {e[1]:.3e}"
                           for k, e in errs.items())
               + f"; eval vs its chunked plain ({chunks} chunks of {steps}) "
-              f"{eval_alg:.3e}, two calls bit for bit: {eval_same}; "
+              f"{eval_alg:.3e}, two calls bit for bit: {eval_same}; split "
+              f"vs its plain algebra ({tiles} tiles of {tile} steps, chunks "
+              f"of {chunk}) {split_alg:.3e}, two calls bit for bit: "
+              f"{split_same}; "
               f"seg == loop bit for bit (seeded, unseeded): {same}; "
               f"block-streamed == full (seeded): {streamed}; "
               + ", ".join(f"{k} {v:.5f} ms" for k, v in ms.items())
               + f" (CUDA graphs of 20, median of 5, in turns, mean of two); "
-              f"bound {bound_ms:.5f} ms ({bound_by}): eval "
+              f"bound {bound_ms:.5f} ms ({bound_by}): split "
+              f"{bound_ms / ms['split']:.1%}, eval "
               f"{bound_ms / ms['eval']:.1%}, chunked "
               f"{bound_ms / ms['chunked']:.1%}, loop "
               f"{bound_ms / ms['loop']:.1%}; unseeded route {route} (the "
-              f"earlier route: {earlier}, eval / {earlier} "
-              f"{ms['eval'] / ms[earlier]:.3f}), seeded route "
+              f"route before the split kernel: {before}, {short} / {before} "
+              f"{ms[short] / ms[before]:.3f}), seeded route "
               f"{seeded_route}; plain {plain_ms:.2f} ms (synchronized, "
               f"median of 3)")
         check(err <= KERNEL_ATOL,
@@ -1131,36 +1212,78 @@ def phase_kernel():
               f"plain at {(b, t, h)}: {eval_alg:.3e} > {EVAL_ALG_ATOL}")
         check(eval_same, f"qrnn_pool_fwd_eval: two calls differ at "
               f"{(b, t, h)}")
+        check(split_alg <= EVAL_ALG_ATOL, f"qrnn_pool_fwd_split vs its plain "
+              f"algebra at {(b, t, h)}: {split_alg:.3e} > {EVAL_ALG_ATOL}")
+        check(split_same, f"qrnn_pool_fwd_split: two calls differ at "
+              f"{(b, t, h)}")
         check(streamed, f"block-streamed != full at {(b, t, h)}")
         check(same, f"qrnn_pool_fwd_seg != qrnn_pool_fwd at {(b, t, h)}")
         rows.append({"shape": [b, t, h], "chunked_err": max(errs["chunked"]),
+                     "split_err": max(errs["split"]), "split_alg": split_alg,
+                     "split_ms": ms["split"], "route_ms": ms[short],
+                     "before_ms": ms[before],
                      "seg_err": max(errs["seg"]),
                      "loop_err": max(max(errs["loop"]),
                                      max(errs["seeded"])),
                      "eval_err": max(errs["eval"]), "eval_alg": eval_alg,
                      "chunked_ms": ms["chunked"], "seg_ms": ms["seg"],
                      "loop_ms": ms["loop"], "eval_ms": ms["eval"],
-                     "route": route, "earlier_route": earlier,
+                     "route": route, "before_route": before,
                      "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by})
         del y, c0, h_full, h1, h2
+    for (b, t, h), kind in QRNN_GATE_SHAPES:
+        # gates whose carries decay slowly or never: the second run takes
+        # every segment
+        y = gates(torch.randn(b, t, 3 * h, device="cuda", generator=gen),
+                  kind)
+        chunk, tile, tiles = cuda_qrnn.split_tiling(b * h, t)
+        hs, cs = cuda_qrnn.qrnn_pool_fwd_split(y)
+        hs2, cs2 = cuda_qrnn.qrnn_pool_fwd_split(y)
+        hr, cr = plain.qrnn_pool(y)
+        hp, cp = plain.qrnn_pool_split_plain(y, tile=tile, chunk=chunk)
+        err = max((hs - hr).abs().max().item(), (cs - cr).abs().max().item())
+        alg = max((hs - hp).abs().max().item(), (cs - cp).abs().max().item())
+        same = bool(torch.equal(hs, hs2) and torch.equal(cs, cs2))
+        ms = _turns_ms({
+            "split": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_split(y)),
+            "chunked": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y))})
+        print(f"[kernel] qrnn_pool y[{b},{t},{3 * h}], {kind} gates: split "
+              f"vs plain {err:.3e}, vs its plain algebra ({tiles} tiles of "
+              f"{tile} steps) {alg:.3e}, two calls bit for bit: "
+              f"{same}; split {ms['split']:.5f} ms, chunked "
+              f"{ms['chunked']:.5f} ms (in turns), split / chunked "
+              f"{ms['split'] / ms['chunked']:.3f}; unseeded route "
+              f"{k1_eval((b, t, h))}")
+        check(err <= KERNEL_ATOL, f"qrnn_pool_fwd_split vs plain at "
+              f"{(b, t, h)}, {kind} gates: {err:.3e} > {KERNEL_ATOL}")
+        check(alg <= EVAL_ALG_ATOL, f"qrnn_pool_fwd_split vs its plain "
+              f"algebra at {(b, t, h)}, {kind} gates: {alg:.3e} > "
+              f"{EVAL_ALG_ATOL}")
+        check(same, f"qrnn_pool_fwd_split: two calls differ at {(b, t, h)}, "
+              f"{kind} gates")
+        del y, hs, cs, hs2, cs2, hr, cr, hp, cp
     torch.cuda.empty_cache()
-    return rows
+    floor = _graph_ms(cuda_qrnn.empty_launch)
+    print(f"[kernel] an empty kernel (one warp), the launch floor of the "
+          f"shapes above: {floor:.5f} ms (CUDA graphs of 20, median of 5)")
+    return rows, floor
 
 
 def phase_encoder(device, cfg=PASEP_CFG, batch=8, samples=160000, reps=5,
                   label="encoder"):
     """PASE+ (or ``cfg``'s encoder) forward on ``device`` vs the same
     weights on the CPU, a frame every ``hop`` samples of the module.
-    Returns (encoder, number of encoder calls made on ``device``)."""
+    Returns (encoder, the encoder calls made on ``device``: {(B, frames):
+    calls})."""
     import torch
     from pase_tpu_torch import wf_builder
     enc = wf_builder(cfg, device=device, seed=0)
     hop = enc.module.hop
     rng = np.random.RandomState(0)
-    calls = 0
     y = enc((rng.randn(1, 1, 100000) * 0.1).astype(np.float32))
-    calls += 1
     _sync(device)
     check(tuple(y.shape) == (1, enc.emb_dim, 100000 // hop),
           f"contract: {tuple(y.shape)}")
@@ -1169,13 +1292,12 @@ def phase_encoder(device, cfg=PASEP_CFG, batch=8, samples=160000, reps=5,
 
     x = (rng.randn(batch, 1, samples) * 0.1).astype(np.float32)
     y = enc(x)
-    calls += 1
     _sync(device)
     check(tuple(y.shape) == (batch, enc.emb_dim, samples // hop),
           f"batch output {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), "batch output not finite")
     ms = _wall_ms(lambda: enc(x), device, reps=reps)
-    calls += 1 + reps
+    calls = {(1, 100000 // hop): 1, (batch, samples // hop): 2 + reps}
     audio_s = batch * samples / SR
     print(f"[{label}] ({batch},1,{samples}) -> {tuple(y.shape)}: forward "
           f"{ms:.2f} ms (synchronized, median of {reps}), "
@@ -1277,8 +1399,8 @@ def write_wavs(root):
 
 
 def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000, label="serve"):
-    """forward-chunk over four wavs; returns the number of encoder calls
-    (one per window, plus one for the cross-check)."""
+    """forward-chunk over four wavs; returns the encoder calls ({(1,
+    frames): calls}: one per window, plus one for the cross-check)."""
     from pase_tpu_torch import util_scripts
     from pase_tpu_torch.checkpoint import save_variables_npz
     from pase_tpu_torch.data.io import read_wav
@@ -1317,7 +1439,7 @@ def phase_serve(enc, device, cfg=PASEP_CFG, chunk=160000, label="serve"):
               f"{len(lengths) / dt:.2f} requests/s, "
               f"{audio_s / dt:.1f} audio-s/s; vs in-memory encoder "
               f"{rel:.3e}")
-        return windows + 1
+        return {(1, chunk // enc.module.hop): windows + 1}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2364,7 +2486,7 @@ def phase_export():
         single = read_launches()        # ... and end here
         calls = sum(-(-m // 64000) for m in lengths.values())
         expected = {**{k: 0 for k in single},
-                    "qrnn_pool_fwd_chunked": layers * calls}
+                    **k1_calls(enc.module, {(1, 64000 // 160): calls})}
         print(f"[launches] serve-encode (exported programs): {single} "
               f"(expected {expected}: {calls} program calls x {layers} "
               "layer(s))")
@@ -2472,7 +2594,7 @@ def phase_export():
         print(f"[export] an artifact exported on the CPU (meta device "
               f"cpu), served on the card: launches {moved}; vs its CPU "
               f"frames max|d| {err:.3e}")
-        check(moved["qrnn_pool_fwd_chunked"] == 2, f"moved: {moved}")
+        check(moved[k1_eval((1, 1600 // 160, 24))] == 2, f"moved: {moved}")
         check(err <= SERVE_TOL, f"moved artifact: {err:.3e}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2955,9 +3077,8 @@ def phase_gan(tmp):
         reset_launches()                 # this encoder's path starts
         enc, calls = phase_encoder("cuda", cfg=cfg, reps=3)
         launches = read_launches()       # ... and ends here
-        layers = len(enc.module.rnn.layers)
         expected = {**{k: 0 for k in launches},
-                    "qrnn_pool_fwd_chunked": layers * calls}
+                    **k1_calls(enc.module, calls)}
         print(f"[gan] PASE+ with {norm} FeBlocks (no sinc layer: it takes "
               f"no reparameterization): launches {launches}")
         check(launches == expected, f"{norm} encoder launches {launches}")
@@ -3017,9 +3138,8 @@ def phase_variants_serve():
     with vq_codes(enc.module, record=rec):
         y = enc(x)
     _sync("cuda")
-    calls = 1
     ms = _wall_ms(lambda: enc(x), "cuda", reps=5)
-    calls += 6
+    calls = {(8, 1000): 7}
     with vq_codes(cpu.module, force={k: c for k, (c, _) in rec.items()},
                   forced=forced):
         y_cpu = cpu(x)
@@ -3032,10 +3152,11 @@ def phase_variants_serve():
           f"forced to the card's at {sum(forced.values())} ties of 8000")
     check(rel <= ENCODER_REL, f"VQ card vs cpu: {rel:.3e}")
     del cpu, y_cpu
-    calls += phase_serve(enc, "cuda", cfg=VQ_CFG, label="variants-serve")
+    calls = _calls_sum(calls, phase_serve(enc, "cuda", cfg=VQ_CFG,
+                                          label="variants-serve"))
     paths["vq_serving"] = read_launches()    # ... and ends here
     expected = {**{k: 0 for k in paths["vq_serving"]},
-                "qrnn_pool_fwd_chunked": layers * calls}
+                **k1_calls(enc.module, calls)}
     print(f"[launches] VQ serving path: {paths['vq_serving']} (expected "
           f"{expected}: {calls} encoder calls)")
     check(paths["vq_serving"] == expected,
@@ -3107,7 +3228,7 @@ def phase_variants_serve():
         paths["vq_export"] = read_launches()     # ... and end here
         pcalls = sum(-(-m // 64000) for m in lengths.values())
         expected = {**{k: 0 for k in paths["vq_export"]},
-                    "qrnn_pool_fwd_chunked": layers * pcalls}
+                    **k1_calls(enc.module, {(1, 64000 // 160): pcalls})}
         check(paths["vq_export"] == expected,
               f"VQ serve-encode launches {paths['vq_export']}")
         worst = 0.0
@@ -3231,9 +3352,10 @@ def _timed(module, name, sink):
 
 def _probe_run(argv, what, layers, n_utts, paths, path):
     """``python -m pase_tpu_torch.run_probe`` in this process, its launch
-    counts reset just before and read just after: qrnn_pool_fwd_chunked
-    once per QRNN layer per utterance encoded, no other kernel. Returns
-    (metrics, seconds, seconds in train_mlp_probe)."""
+    counts reset just before and read just after: the unseeded route of a
+    B = 1 call of a few hundred frames (the chunked kernel) once per QRNN
+    layer per utterance encoded, no other kernel. Returns (metrics,
+    seconds, seconds in train_mlp_probe)."""
     from pase_tpu_torch import run_probe
     from pase_tpu_torch.probes import tasks, timit_decode
     fit_s = []
@@ -3246,7 +3368,7 @@ def _probe_run(argv, what, layers, n_utts, paths, path):
     wall = time.perf_counter() - t0
     paths[path] = read_launches()        # ... and ends here
     expected = {**{k: 0 for k in paths[path]},
-                "qrnn_pool_fwd_chunked": layers * n_utts}
+                k1_eval((1, 200, 512)): layers * n_utts}
     print(f"[launches] {what}: {paths[path]} (expected {expected}: "
           f"{layers} QRNN layer(s) x {n_utts} utterances)")
     check(paths[path] == expected, f"{what} launches {paths[path]}")
@@ -3445,6 +3567,7 @@ def phase_probes(tmp, gate):
     # (started after phase 13: gate_child)
     for line in gate["lines"]:
         print(line)
+    paths["forward_chunk_100s"] = _forward_chunk_long_check(gate["fc_long"])
     rc, gate_s = gate["rc"], gate["seconds"]
     paths["transfer_gate"] = gate["launches"]
     gate = gate["json"]
@@ -3475,10 +3598,70 @@ def phase_probes(tmp, gate):
     return paths
 
 
+def _forward_chunk_long(tmp):
+    """Phase 19 (f): a 100 s seeded file (FC_LONG_SAMPLES) through
+    ``python -m pase_tpu_torch.util_scripts forward-chunk`` in one window
+    (``--chunk_size`` its length, a long export bucket) with seeded PASE+
+    weights, K1's launches counted from 0 just before the CLI and read just
+    after; its frames against the in-memory encoder's on the same file.
+    Returns {'launches', 'seconds', 'rel', 'shape', 'finite', 'layers'}."""
+    import torch
+    from pase_tpu_torch import util_scripts, wf_builder
+    from pase_tpu_torch.checkpoint import save_variables_npz
+    from pase_tpu_torch.data.io import read_wav, write_wav
+    os.makedirs(tmp, exist_ok=True)
+    enc = wf_builder(PASEP_CFG, device="cuda", seed=0)
+    npz = save_variables_npz(os.path.join(tmp, "FE_seed0.npz"),
+                             enc.module.state_dict())
+    path, out = (os.path.join(tmp, n) for n in ("long.wav", "long.npy"))
+    write_wav(path, (np.random.RandomState(19).randn(FC_LONG_SAMPLES)
+                     * 0.1).astype(np.float32))
+    reset_launches()                     # the CLI's path starts here
+    t0 = time.perf_counter()
+    util_scripts.main(["forward-chunk", "--device", "cuda", "--fe_cfg",
+                       PASEP_CFG, "--fe_ckpt", npz, "--in_wav", path,
+                       "--out_file", out, "--chunk_size",
+                       str(FC_LONG_SAMPLES)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()           # ... and ends here
+    got = np.load(out)
+    wav, _ = read_wav(path)
+    ref = enc(wav[None, None])[0].cpu().numpy()
+    return {"launches": launches, "seconds": seconds,
+            "rel": float(np.abs(got - ref).max() / np.abs(ref).max()),
+            "shape": list(got.shape), "finite": bool(np.isfinite(got).all()),
+            "layers": len(enc.module.rnn.layers)}
+
+
+def _forward_chunk_long_check(res):
+    """Phase 19 (f)'s checks: (256, FC_LONG_SAMPLES / 160) finite frames
+    within 1e-5 of the in-memory encoder's, K1's unseeded route at
+    LONG_SHAPE (the split kernel) once per QRNN layer and nothing else.
+    Returns its launches."""
+    launches = res["launches"]
+    expected = {**{k: 0 for k in launches},
+                k1_eval(LONG_SHAPE): res["layers"]}
+    print(f"[probes] (f) forward-chunk --chunk_size {FC_LONG_SAMPLES} over a "
+          f"{FC_LONG_SAMPLES // SR} s file (the gate's process): "
+          f"{res['seconds']:.2f} s incl. encoder build + weight load, frames "
+          f"{tuple(res['shape'])}, vs the in-memory encoder "
+          f"{res['rel']:.3e}; launches {launches} (expected {expected})")
+    check(res["shape"] == [256, FC_LONG_SAMPLES // 160] and res["finite"],
+          f"forward-chunk of the 100 s file: {res['shape']}, finite "
+          f"{res['finite']}")
+    check(res["rel"] <= 1e-5, f"forward-chunk of the 100 s file vs the "
+          f"encoder: {res['rel']:.3e}")
+    check(launches == expected, f"forward-chunk of the 100 s file launched "
+          f"{launches} != {expected}")
+    return launches
+
+
 def gate_child(tmp, out):
     """Phase 19 (e) in a process of its own: ``python -m
     pase_tpu_torch.transfer_gate`` cut to GATE_EPOCHS; its rc, launch
-    counts and seconds go to ``out`` (JSON)."""
+    counts and seconds go to ``out`` (JSON), and then phase 19 (f)'s
+    (``_forward_chunk_long``)."""
     import torch
     from pase_tpu_torch import transfer_gate
     reset_launches()                     # the gate's path starts here
@@ -3488,9 +3671,11 @@ def gate_child(tmp, out):
                              "--epochs", str(GATE_EPOCHS), "--bpe",
                              str(GATE_BPE)])
     torch.cuda.synchronize()
+    res = {"rc": rc, "launches": read_launches(),  # ... and ends here
+           "seconds": time.perf_counter() - t0}
+    res["fc_long"] = _forward_chunk_long(os.path.join(tmp, "fc_long"))
     with open(out, "w") as f:
-        json.dump({"rc": rc, "launches": read_launches(),  # ... and ends
-                   "seconds": time.perf_counter() - t0}, f)
+        json.dump(res, f)
     return 0
 
 
@@ -3734,8 +3919,8 @@ def _rehearsal_join(started):
                     "qrnn_pool_bwd": layers * epochs * bpe,
                     k1_eval(TRAIN_SHAPE): layers * epochs * max(bpe // 10,
                                                                  1)},
-        "forward-chunk": {**zero, "qrnn_pool_fwd_chunked": layers},
-        "serve-encode": {**zero, "qrnn_pool_fwd_chunked": layers}}
+        "forward-chunk": {**zero, k1_eval((1, 800, 512)): layers},
+        "serve-encode": {**zero, k1_eval((1, 800, 512)): layers}}
     if "train_A2" in launches:      # the card's spread: A2 is run as A
         want["train_A2"] = want["train_A"]
     print(f"[rehearsal] phase 28: bash {REHEARSAL} with "
@@ -3774,10 +3959,11 @@ def _rehearsal_join(started):
         utts += sum(1 for line in f if line.strip())
     for role in ("probe_sup", "probe_random"):
         for r in roles[role]:
-            check(r["launches"] == {**zero, "qrnn_pool_fwd_chunked":
+            check(r["launches"] == {**zero, k1_eval((1, 200, 512)):
                                     layers * utts},
                   f"rehearsal {role} launched {r['launches']}, not "
-                  f"{layers} x {utts} utterances of qrnn_pool_fwd_chunked")
+                  f"{layers} x {utts} utterances of "
+                  f"{k1_eval((1, 200, 512))}")
     # the ops torch cannot make repeat: where B is held to the spread, they
     # and cuDNN's algorithm choice are what the bits may differ by
     ops = _deterministic_join(det or _deterministic_start(tmp))
@@ -4120,18 +4306,18 @@ def phase_recurrent(tmp):
 
 def _tdnn_serving():
     """Phase 21 (a): TDNNFe at cfg/frontend/TDNN.cfg, seeded weights,
-    float32, through phase 4's checks; the chunked kernel once per call
-    and no other kernel. Returns (encoder, launch counts)."""
+    float32, through phase 4's checks; K1's unseeded route (the chunked
+    kernel at [8,1000,256]) once per call and no other kernel. Returns
+    (encoder, launch counts)."""
     check(TDNN_SERVING_SHAPE in QRNN_SHAPES,
           "phase 3 does not check K1 at the TDNN serving shape")
     reset_launches()                     # the TDNN serving path starts
     enc, calls = phase_encoder("cuda", cfg=TDNN_CFG, label="TDNN")
     launches = read_launches()           # ... and ends here
     layers = qrnn_layers(enc.module)
-    expected = {**{k: 0 for k in launches},
-                "qrnn_pool_fwd_chunked": layers * calls}
+    expected = {**{k: 0 for k in launches}, **k1_calls(enc.module, calls)}
     print(f"[launches] TDNN serving: {launches} (expected {expected}: "
-          f"{layers} QRNN layer(s) x {calls} encoder calls)")
+          f"{layers} QRNN layer(s) x {sum(calls.values())} encoder calls)")
     check(layers == 1 and launches == expected,
           f"TDNN serving launches {launches}")
     return enc, launches
@@ -4174,7 +4360,8 @@ def _tdnn_export(enc, tmp):
                          os.path.join(root, "se")] + lst)
     launches = read_launches()           # ... and end here
     calls = sum(-(-m // 64000) for m in lengths.values())
-    expected = {**{k: 0 for k in launches}, "qrnn_pool_fwd_chunked": calls}
+    expected = {**{k: 0 for k in launches},
+                **k1_calls(enc.module, {(1, 64000 // 160): calls})}
     worst = 0.0
     for k, m in lengths.items():
         want = np.load(os.path.join(root, "fc", f"{k}.npy"))
@@ -4252,8 +4439,8 @@ def _alt_encoders():
     """Phase 21 (e): ASPPResEncoder (without and with its QRNN) and
     ResnetEncoder at the JAX modules' defaults, seeded weights, through
     phase 4's checks at ALT_SHAPE (T / hop frames: the ResNet's hop is
-    40); the chunked kernel once per call where there is a QRNN. Returns
-    {path: launch counts}."""
+    40); K1's unseeded route (the chunked kernel at [8,200,256]) once per
+    call where there is a QRNN. Returns {path: launch counts}."""
     import torch
     paths = {}
     b, t = ALT_SHAPE
@@ -4264,9 +4451,10 @@ def _alt_encoders():
         launches = read_launches()       # ... and ends here
         layers = qrnn_layers(enc.module)
         expected = {**{k: 0 for k in launches},
-                    "qrnn_pool_fwd_chunked": layers * calls}
+                    **k1_calls(enc.module, calls)}
         print(f"[launches] {label}: {launches} (expected {expected}: "
-              f"{layers} QRNN layer(s) x {calls} encoder calls); hop "
+              f"{layers} QRNN layer(s) x {sum(calls.values())} encoder "
+              f"calls); hop "
               f"{enc.module.hop}")
         check(label != "resnet" or enc.module.hop == 40,
               f"the ResNet's hop {enc.module.hop}")
@@ -5349,8 +5537,9 @@ def _kaldi_step(tmp, bf16_rate):
 
 def _tool(argv, what, audio_s=None, utts=None, layers=None):
     """One util_scripts subcommand on the card, its K1 launches counted
-    from 0 (the chunked kernel once per QRNN layer per utterance where
-    ``utts`` is given, no kernel otherwise). Returns (result, launches)."""
+    from 0 (the unseeded route of a B = 1 call of 200 frames, the chunked
+    kernel, once per QRNN layer per utterance where ``utts`` is given, no
+    kernel otherwise). Returns (result, launches)."""
     import torch
     from pase_tpu_torch import util_scripts
     reset_launches()                          # the tool starts here
@@ -5360,14 +5549,14 @@ def _tool(argv, what, audio_s=None, utts=None, layers=None):
     launches = read_launches()                # ... and ends here
     sec = time.perf_counter() - t0
     expected = {k: 0 for k in launches}
+    entry = k1_eval((1, 200, 512))
     if utts is not None:
-        expected["qrnn_pool_fwd_chunked"] = layers * utts
+        expected[entry] = layers * utts
     check(launches == expected, f"{what} launches {launches} != {expected}")
     print(f"[tools24] python -m pase_tpu_torch.util_scripts {argv[0]}: "
           f"{sec:.2f} s" + (f", {audio_s / sec:.1f} audio-s/s"
                             if audio_s else "")
-          + f"; K1 launches {launches.get('qrnn_pool_fwd_chunked', 0)} "
-          f"chunked ({what})")
+          + f"; K1 launches {launches.get(entry, 0)} {entry} ({what})")
     return out, launches
 
 
@@ -6183,13 +6372,13 @@ def _time_shard(tmp):
     check(c_ok, f"forward-chunk --time_shard beyond {TS_TOL}: {c_err:.3e}")
     checks = (
         ("time_shard", fwd_launches,
-         {"qrnn_pool_fwd_chunked": (TS_SHARDS - 1) * layers,
+         {k1_eval((2, 1500, 512)): (TS_SHARDS - 1) * layers,
           "qrnn_pool_fwd_seg": TS_SHARDS * layers}),
         ("time_shard_grad", grad_launches,
          {"qrnn_pool_fwd_train": (2 * TS_SHARDS - 1) * layers,
           "qrnn_pool_bwd": (2 * TS_SHARDS - 1) * layers}),
         ("time_shard_cli", cli_launches,
-         {"qrnn_pool_fwd_chunked": (d_cli - 1) * layers,
+         {k1_eval((1, 1000, 512)): (d_cli - 1) * layers,
           "qrnn_pool_fwd_seg": d_cli * layers}))
     for name, got_l, want in checks:
         expected = {**{k: 0 for k in got_l}, **want}
@@ -6710,20 +6899,20 @@ def main():
         name = phase_device()
         import torch
         phase_build()
-        rows = phase_kernel()
+        rows, floor_ms = phase_kernel()
         train_rows = phase_kernel_train()
         clock("1-3, 6")
         reset_launches()                    # the serving path starts here
         enc, enc_calls = phase_encoder("cuda")
-        serve_calls = phase_serve(enc, "cuda")
+        calls = _calls_sum(enc_calls, phase_serve(enc, "cuda"))
         serving_launches = read_launches()  # ... and ends here
         layers = len(enc.module.rnn.layers)
         expected = {**{k: 0 for k in serving_launches},
-                    "qrnn_pool_fwd_chunked": layers * (enc_calls
-                                                       + serve_calls)}
+                    **k1_calls(enc.module, calls)}
         print(f"[launches] serving path: {serving_launches} (expected "
-              f"{expected}: {layers} QRNN layer(s) x "
-              f"{enc_calls + serve_calls} encoder calls)")
+              f"{expected}: {layers} QRNN layer(s) x encoder calls "
+              + ", ".join(f"{n} at [{b},{t},512]"
+                          for (b, t), n in calls.items()) + ")")
         check(serving_launches == expected,
               f"serving launches {serving_launches} != {expected}")
         phase_operator(enc)
@@ -6808,6 +6997,14 @@ def main():
     # one); the segmented one at a 1 s push at B=1 (phase 13 prints it at
     # all four push shapes)
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
+    window = next(r for r in rows if tuple(r["shape"]) == (1, 1000, 512))
+    long = next(r for r in rows if tuple(r["shape"]) == LONG_SHAPE)
+    # the split kernel at every QRNN shape, and where the route sends it
+    split_at = {"x".join(map(str, r["shape"])): {
+        "ms": r["split_ms"], "bound_ms": r["bound_ms"],
+        "routed": r["route"] == "qrnn_pool_fwd_split",
+        "before_ms": r["before_ms"], "before": r["before_route"]}
+        for r in rows}
     evals = next(r for r in rows if tuple(r["shape"]) == TRAIN_SHAPE)
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
@@ -6847,11 +7044,20 @@ def main():
                 "bound_by": bnd[1]}
 
     print(json.dumps({"kernels": [
+        _row("qrnn_pool_fwd_split", src, "pase_tpu/ops/pallas_qrnn.py:63",
+             paths["forward_chunk_100s"]["qrnn_pool_fwd_split"],
+             max(r["split_err"] for r in rows), long["split_ms"],
+             long["plain_ms"], (long["bound_ms"], long["bound_by"]),
+             paths=paths, shape=list(LONG_SHAPE), floor_ms=floor_ms,
+             serving=tdnn(serving, "split_ms", "plain_ms", (
+                 serving["bound_ms"], serving["bound_by"])),
+             shapes=split_at),
         _row("qrnn_pool_fwd_chunked", src, "pase_tpu/ops/pallas_qrnn.py:63",
              serving_launches["qrnn_pool_fwd_chunked"],
-             max(r["chunked_err"] for r in rows), serving["chunked_ms"],
-             serving["plain_ms"], (serving["bound_ms"], serving["bound_by"]),
-             paths=paths, tdnn=tdnn(tdnn_serve, "chunked_ms", "plain_ms", (
+             max(r["chunked_err"] for r in rows), window["chunked_ms"],
+             window["plain_ms"], (window["bound_ms"], window["bound_by"]),
+             paths=paths, shape=[1, 1000, 512], floor_ms=floor_ms,
+             tdnn=tdnn(tdnn_serve, "chunked_ms", "plain_ms", (
                  tdnn_serve["bound_ms"], tdnn_serve["bound_by"]))),
         _row("qrnn_pool_fwd_seg", src, "pase_tpu/ops/pallas_qrnn.py:63",
              paths["stream"]["qrnn_pool_fwd_seg"],

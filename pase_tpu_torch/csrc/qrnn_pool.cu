@@ -26,7 +26,7 @@
 // steps (below). No padding copies: the ragged last block is masked, and
 // every offset is 64-bit.
 //
-// Six entry points:
+// Seven entry points:
 //   qrnn_pool_fwd        forward: reads y, writes h and c_T (16 bytes per
 //                        lane-step), one thread a lane: the seeded serving
 //                        call on many lanes;
@@ -35,7 +35,13 @@
 //                        fewer lanes (a streaming push);
 //   qrnn_pool_fwd_chunked the same function, chunked in time, a block's
 //                        8 or 4 lanes at a time: the unseeded call on few
-//                        lanes (serving, a long file; below);
+//                        lanes (B = 1 extraction, a 10 s window, the
+//                        serving batch; below);
+//   qrnn_pool_fwd_split  the same function, each lane's time axis cut
+//                        into tiles spread over blocks, their carries
+//                        passed between blocks (below): the unseeded call
+//                        on 512 lanes or fewer of 7500 steps or more (a
+//                        file of 75 s or more at B = 1);
 //   qrnn_pool_fwd_eval   the same function, chunked in time as the
 //                        training forward is, 32 lanes a block, without
 //                        its c stores (below): the unseeded call on many
@@ -92,9 +98,69 @@
 // one launch. The carry into a chunk comes from composed maps, so it rounds
 // otherwise than the serial loop (a = 1 - f lies in (0, 1): the composition
 // only contracts); a block-streamed run is bit-identical to the full run
-// only on the serial kernel, so seeded calls stay there. With many lanes
-// qrnn_pool_fwd_eval is faster (ops/cuda_qrnn.py routes by lanes and
-// steps).
+// only on the serial kernel, so seeded calls stay there. The tile of 8
+// lanes was chosen at [8,1000,512] (kChunk* below); under 8 x the SMs'
+// lanes (B = 1 at H = 512) a block takes 4, so 128 blocks walk T, one an
+// SM, each warp's load of a step a 16-byte quarter of a row: 34 % of the
+// byte bound at [1,10000,512] (0.0718 ms on the H100), 26 % at
+// [1,1000,512], where one segment covers T. With many lanes
+// qrnn_pool_fwd_eval is faster, with many steps on few lanes
+// qrnn_pool_fwd_split (ops/cuda_qrnn.py routes by lanes and steps). A
+// cluster of blocks a lane tile (32 lanes, 8 blocks cutting T, one
+// segment each, their maps passed through distributed shared memory: one
+// pass, no flags) only matched this kernel at B = 1 of 200-1000 steps
+// (0.0053 against 0.0051 ms at [1,200,512], 0.0089 against 0.0093 at
+// [1,1000,512]; PERF.md), and was taken out again.
+//
+// qrnn_pool_fwd_split cuts each lane's time axis across blocks, which the
+// TPU kernel never had to do (its grid walks the time blocks in order,
+// carrying c in scratch; Hopper's blocks run in no order). A block owns a
+// tile of kEvalLanes lanes (a warp's load of a step is one 128-byte row)
+// x segs segments of the eval kernel's chunking, about kSplitGrid tiles a
+// call (one wave of 3 blocks an SM), tiles taken by an atomic ticket so a
+// block waits only on running ones. The carry between tiles is composed
+// as pase_tpu/parallel/sp.py composes it between shards, in index order,
+// with the same bits on every call: (1) the block runs its tile with
+// fwd_chunks_ from c = 0 (c0 on the first tile, whose carry is the true
+// one), recording the carry into each segment, A (the product of the a)
+// and B (the carry out): the tile's map c -> A c + B; it stores h only
+// from the first segment before which A so far is under kSpecTiny in
+// every lane (a carry in has no say there); (2) warp 0 publishes the map,
+// composes the carry into the tile from the published maps of the tiles
+// before it (look_back_: from the nearest tile whose carry out is
+// published, fmaf(A, c, B) each, the same value whichever block computes
+// it) and publishes the carry out; (3) the block runs the tile again from
+// the true carry, the next segment's loads in flight, up to the first
+// segment from (1)'s first stored one whose carry in equals the recorded
+// one bit for bit in every lane: from there on the two runs are the same,
+// so h and c_T are those of the run from the true carry. The carry's
+// influence decays as the product of the a: on random gates within a
+// segment, so (3) is a segment; on gates that keep a carry thousands of
+// steps (f near 0) (1) stores nothing and (3) is the whole tile, read
+// twice. Measured on the H100 (python -m pase_tpu_torch.kernel_variants
+// split, in turns; PERF.md), split / chunked on random and on slow gates:
+// 0.65 and 0.98-1.01 at [1,10000,512], 0.84 and 1.17 at [1,5000,512], 0.93
+// and 1.56 at [8,4000,512]; so ops/cuda_qrnn.py routes it only where it is
+// no slower on either. Other designs at [1,10000,512]: storing h in (1)
+// from the start and running (3) a segment at a time, 0.043 ms on random
+// gates but 1.12 of the chunked kernel on slow ones; a map pass and then
+// the run in each block (z and f read again from L2) 0.066 ms, the two
+// passes adding up (0.031 and 0.038 alone); one pass with the tile's gates
+// in registers 0.059-0.062, its look-back then on each block's critical
+// path; persistent blocks holding their next ticket 0.145 (a held tile's
+// map waits for its holder); map blocks and run blocks in turns in one
+// launch 0.070. A cooperative launch (a grid barrier between the maps and
+// the runs) needs every block resident, so each would walk several tiles
+// and read them twice, the two passes again; it was not built, nor two
+// launches (z and f read twice). Flags: ctrl = {ticket counter, epoch, a
+// flag a tile}; a flag holds the call's epoch and the tile's state (1:
+// map, 2: carry out), so no call clears them: the block with the last
+// ticket resets the counter and moves the epoch on. The wrapper keeps one
+// zeroed ctrl a stream for eager calls, and gives each call captured in a
+// CUDA graph a zeroed ctrl of its own (the zeroing replays with it;
+// ops/cuda_qrnn.py), so two streams or two graphs never share flags.
+// Every wait traps after 10 s. For short calls the look-back and the
+// second run cost more than the split saves.
 //
 // qrnn_pool_fwd_train and qrnn_pool_bwd, the training pair (K2 of
 // pallas_qrnn.py:76-97, with K3's gates and their gradient fused in), run
@@ -337,7 +403,8 @@ constexpr int kChunkThreads = 512;
 // Steps per chunk at most, blocks per SM the registers must allow, o loads
 // in flight per thread in (3). Of 16/1/16, 16/2/8, 16/2/16, 8/2/8 and
 // 8/3/8, 8/2/8 was the fastest at the serving shape [8,1000,512] on the
-// H100 (python -m pase_tpu_torch.kernel_variants; PERF.md).
+// H100 (python -m pase_tpu_torch.kernel_variants; PERF.md). The 4-lane
+// tile the host entry takes under 8 x the SMs' lanes was not tuned.
 constexpr int kMaxChunk = 8;
 constexpr int kChunkBlocks = 2;
 constexpr int kOLoads = 8;
@@ -512,45 +579,87 @@ __device__ __forceinline__ void chunk_load_y_(const float* p, int n,
   }
 }
 
-// The chunked forward's body (header): a block of NC chunks of L lanes
-// walks T in segments of NC chunks of `len` <= C steps, the loads of the
-// next D segments in flight across the barrier (D = 0: none). With kStoreC
-// (qrnn_pool_fwd_train) it also writes every c_t to c_all; without it
-// (qrnn_pool_fwd_eval) c_all is not touched. Every thread of the block
-// runs the same segments, so each reaches every __syncthreads().
-template <int L, int NC, int C, int D, bool kStoreC>
+// The split kernel's speculative run (fwd_chunks_ with spec) stores h
+// from the first segment before which the product of the a is under
+// kSpecTiny in every live lane of the tile: a carry in (|c| <= 1 past the
+// first tile: c is a mean of tanh values) then moves c by less than 1e-9,
+// so the run from the true carry meets it there or soon after; the
+// segments before are the second run's.
+constexpr float kSpecTiny = 1e-9f;
+
+// The chunked forward's body (header): the NC chunks of L lanes of a block
+// walk the steps t_begin .. t_end - 1 of lane tile `tile` (lanes tile L ..
+// tile L + L - 1) in segments of NC chunks of `len` <= C steps from
+// t_begin, the loads of the next D segments in flight across the barrier
+// (D = 0: none). The carry into the first segment is seed(lane, live),
+// called by warp 0's threads (k == 0) after the first segments' loads are
+// issued. With kStoreC (qrnn_pool_fwd_train) it also writes every c_t to
+// c_all; without it (qrnn_pool_fwd_eval, qrnn_pool_fwd_split) c_all is not
+// touched; c_T is written by the lane's step T - 1. With kRecord
+// (qrnn_pool_fwd_split) rec ([2 + segments][L], shared) gets the product
+// of the segments' chunk A in rec[0], the last chunk's last c in rec[1]
+// (the carry out, when the last segment is whole) and the carry into
+// segment i in rec[2 + i], read after a barrier; with spec (the split
+// kernel's speculative run) h is stored only from the first segment
+// before which the product of the a is under kSpecTiny in every live lane
+// (*first: its index, 1 << 30 if none; 0 without spec). stop(i, carry) is
+// called by every thread before segment i's loads are issued, with the
+// carry into it in shared memory: true, the same in every thread, ends the
+// run there (RerunStop). Every thread of the block runs the same segments,
+// so each reaches every __syncthreads().
+struct NoStop {
+  __device__ __forceinline__ bool operator()(int, const float*) const {
+    return false;
+  }
+};
+
+template <int L, int NC, int C, int D, bool kStoreC, typename Seed,
+          bool kRecord = false, typename Stop = NoStop>
 __device__ __forceinline__ void fwd_chunks_(const float* __restrict__ y,
-                                            const float* __restrict__ c0,
                                             float* __restrict__ h,
                                             float* __restrict__ c_all,
                                             float* __restrict__ c_last,
                                             int64_t B, int64_t T, int64_t H,
-                                            int len) {
-  // the chunk maps (A, B) and the carry into the segment, by segment parity
+                                            int len, int64_t tile,
+                                            int64_t t_begin, int64_t t_end,
+                                            Seed seed,
+                                            float* rec = nullptr,
+                                            bool spec = false,
+                                            int* first = nullptr,
+                                            Stop stop = Stop{}) {
+  // the chunk maps (A, B) and the carry into the segment, by segment
+  // parity; with kRecord, whether the segment's h is stored
   __shared__ float sa[2][NC][L], sb[2][NC][L], carry[2][L];
+  __shared__ int keep_h[2];
   const int l = threadIdx.x % L, k = threadIdx.x / L;
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * L + l;
+  const int64_t lane = tile * L + l;
   const bool live = lane < B * H;
   const int64_t bi = live ? lane / H : 0;
   const int64_t j = live ? lane - bi * H : 0;
   const float* yp = y + bi * T * 3 * H + j;
   float* hp = h + bi * T * H + j;
   float* cp = kStoreC ? c_all + bi * T * H + j : nullptr;
-  if (k == 0) carry[0][l] = (live && c0 != nullptr) ? c0[lane] : 0.0f;
   const int64_t seg = static_cast<int64_t>(NC) * len;
   // the raw gates of this segment ([0]) and of the D - 1 after it
   constexpr int R = D > 0 ? D : 1;
   float rz[R][C], rf[R][C], ro[R][C];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const int64_t t0 = d * seg + static_cast<int64_t>(k) * len;
-    chunk_load_y_<C>(yp + t0 * 3 * H, chunk_steps(live, T, t0, len), H,
+    const int64_t t0 = t_begin + d * seg + static_cast<int64_t>(k) * len;
+    chunk_load_y_<C>(yp + t0 * 3 * H, chunk_steps(live, t_end, t0, len), H,
                      rz[d], rf[d], ro[d]);
   }
-  int p = 0;
-  for (int64_t s0 = 0; s0 < T; s0 += seg, p ^= 1) {
+  if (k == 0) carry[0][l] = seed(lane, live);
+  if (kRecord && threadIdx.x == 0) {
+    keep_h[0] = !spec;
+    *first = spec ? 1 << 30 : 0;
+  }
+  int p = 0, si = 0;
+  float prod = 1.0f;
+  for (int64_t s0 = t_begin; s0 < t_end; s0 += seg, p ^= 1, ++si) {
+    if (stop(si, carry[p])) break;
     const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
-    const int n = chunk_steps(live, T, t0, len);
+    const int n = chunk_steps(live, t_end, t0, len);
     if (D == 0) chunk_load_y_<C>(yp + t0 * 3 * H, n, H, rz[0], rf[0], ro[0]);
     float a[C], b[C], s[C];
 #pragma unroll
@@ -569,8 +678,8 @@ __device__ __forceinline__ void fwd_chunks_(const float* __restrict__ y,
       }
     }
     const int64_t ahead = t0 + D * seg;  // in flight until D segments on
-    if (D > 0 && s0 + D * seg < T) {
-      chunk_load_y_<C>(yp + ahead * 3 * H, chunk_steps(live, T, ahead, len),
+    if (D > 0 && s0 + D * seg < t_end) {
+      chunk_load_y_<C>(yp + ahead * 3 * H, chunk_steps(live, t_end, ahead, len),
                        H, rz[R - 1], rf[R - 1], ro[R - 1]);
     }
     // (1) the gates, and the chunk's map c -> A c + B from c = 0
@@ -590,23 +699,45 @@ __device__ __forceinline__ void fwd_chunks_(const float* __restrict__ y,
     sa[p][k][l] = ma;
     sb[p][k][l] = mb;
     __syncthreads();
+    const bool keep = !kRecord || keep_h[p];
     // (2) the segment's carry through the maps of the chunks before this one
     float c = carry[p][l];
     for (int m = 0; m < k; ++m) c = fmaf(sa[p][m][l], c, sb[p][m][l]);
+    if (kRecord && k == 0) {
+      rec[(si + 2) * L + l] = c;
+#pragma unroll
+      for (int m = 0; m < NC; ++m) prod *= sa[p][m][l];
+      // the next segment's h stored once a carry in has no say in it
+      const bool tiny = __all_sync(0xffffffffu, !live || prod < kSpecTiny);
+      if (l == 0) {
+        keep_h[p ^ 1] = keep || tiny;
+        if (!keep && tiny) *first = si + 1;
+      }
+    }
     // (3) the chunk from its carry, as the serial step
 #pragma unroll
     for (int u = 0; u < C; ++u) {
       if (u < n) {
         c = fmaf(a[u], c, b[u]);
         if (kStoreC) cp[(t0 + u) * H] = c;
-        hp[(t0 + u) * H] = s[u] * c;
+        if (keep) hp[(t0 + u) * H] = s[u] * c;
       }
     }
     if (n > 0 && t0 + n == T) c_last[lane] = c;
     // into the next segment: when there is one, every chunk here is full
     if (k == NC - 1) carry[p ^ 1][l] = c;
+    if (kRecord && k == NC - 1) rec[L + l] = c;
   }
+  if (kRecord && k == 0) rec[l] = prod;
 }
+
+// The seed of a lane of the training and eval kernels: c0[lane], or 0.
+struct LaneSeed {
+  const float* c0;
+  __device__ __forceinline__ float operator()(int64_t lane, bool live) const {
+    return (live && c0 != nullptr) ? c0[lane] : 0.0f;
+  }
+};
 
 template <int C>
 __global__ void __launch_bounds__(kTrainThreads, kFwdBlocks)
@@ -616,7 +747,7 @@ qrnn_pool_fwd_train_kernel(const float* __restrict__ y,
                            float* __restrict__ c_last, int64_t B, int64_t T,
                            int64_t H, int len) {
   fwd_chunks_<kTrainLanes, kTrainChunks, C, kPrefetch ? 1 : 0, true>(
-      y, c0, h, c_all, c_last, B, T, H, len);
+      y, h, c_all, c_last, B, T, H, len, blockIdx.x, 0, T, LaneSeed{c0});
 }
 
 // qrnn_pool_fwd_eval's tile (header): lanes a block, threads a block (so
@@ -648,8 +779,262 @@ qrnn_pool_fwd_eval_kernel(const float* __restrict__ y,
                           float* __restrict__ h, float* __restrict__ c_last,
                           int64_t B, int64_t T, int64_t H, int len) {
   fwd_chunks_<kEvalLanes, kEvalChunks, C, kEvalDepth, false>(
-      y, c0, h, nullptr, c_last, B, T, H, len);
+      y, h, nullptr, c_last, B, T, H, len, blockIdx.x, 0, T, LaneSeed{c0});
 }
+
+// qrnn_pool_fwd_split's tile (header): kEvalLanes lanes x whole segments
+// of the eval kernel's chunking (kEvalChunks chunks of at most kEvalChunk
+// steps, kEvalBlocks blocks an SM, kEvalDepth segments of loads in
+// flight: the same body at the same tile), at most kSplitSegs segments a
+// tile (their carries are kept in shared memory), about kSplitGrid tiles
+// a call (one wave of 3 blocks on each of the H100's 132 SMs).
+constexpr int kSplitSegs = 64;
+constexpr int kSplitGrid = 384;
+static_assert(kEvalLanes == 32, "warp 0 holds the tile's lanes");
+
+// qrnn_pool_fwd_split's tiling of a call on `lanes` lanes (B * H) of T
+// steps: tiles of kEvalLanes lanes x `tile` steps, `segs` segments of
+// kEvalChunks chunks of `chunk` steps. As many time tiles as bring the
+// tiles to kSplitGrid, each of the fewest whole segments of kEvalChunks x
+// kEvalChunk steps (at most kSplitSegs) that holds its share of T; when
+// one tile holds T, the shortest chunk that covers T in as many.
+struct SplitTiling {
+  int segs, chunk;
+  long long tile, lane_tiles, time_tiles;
+};
+
+SplitTiling split_tiling(long long lanes, long long T) {
+  const long long seg = static_cast<long long>(kEvalChunks) * kEvalChunk;
+  SplitTiling s;
+  s.lane_tiles = (lanes + kEvalLanes - 1) / kEvalLanes;
+  long long want = (kSplitGrid + s.lane_tiles - 1) / s.lane_tiles;
+  want = want < 1 ? 1 : want;
+  long long segs = ((T + want - 1) / want + seg - 1) / seg;
+  s.segs = static_cast<int>(segs < 1 ? 1 : segs > kSplitSegs ? kSplitSegs
+                                                               : segs);
+  const long long chunks = static_cast<long long>(s.segs) * kEvalChunks;
+  s.chunk = T <= chunks * kEvalChunk
+                ? static_cast<int>((T + chunks - 1) / chunks)
+                : kEvalChunk;
+  s.tile = chunks * s.chunk;
+  s.time_tiles = (T + s.tile - 1) / s.tile;
+  return s;
+}
+
+__device__ __forceinline__ uint64_t global_ns_() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int ld_acquire_(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :
+               : "l"(p), "r"(v)
+               : "memory");
+}
+
+// The epoch of a call lives in bits 2 and up of a flag, its state (1: the
+// tile's map published, 2: the carry out of it too) in bits 0-1; the call
+// count wraps at kEpochMask + 1.
+constexpr int kEpochMask = (1 << 29) - 1;
+
+// The tile's state in this call's epoch e once it is at least 1 (its map
+// published). A block publishes its map once its gates are computed,
+// microseconds after it starts, and it started before any block that waits
+// on it took its ticket: after 10 s the kernel traps, so a broken ticket or
+// flag fails its launch instead of holding the card (as
+// csrc/conv_s1_tc.cu's waits do).
+__device__ __forceinline__ int wait_map_(const int* flag, int e) {
+  int f = ld_acquire_(flag);
+  if ((f >> 2) == e && (f & 3)) return f & 3;
+  const uint64_t t0 = global_ns_();
+  while (true) {
+    __nanosleep(64);
+    f = ld_acquire_(flag);
+    if ((f >> 2) == e && (f & 3)) return f & 3;
+    if (global_ns_() - t0 > 10000000000ull) __trap();
+  }
+}
+
+// The carry into time tile tt of lane tile lt, for warp 0 (thread l: lane
+// l of the tile): the seed put through the maps of time tiles 0 .. tt - 1
+// in that order, c = fmaf(A, c, B) each. A tile publishes its map (state
+// 1) and then the carry out of it (state 2), fmaf(A, its carry in, B):
+// that is this fold's value there, the same bits whichever block computes
+// it. So the fold starts at the nearest tile before tt whose carry out is
+// published, or at the seed; the flags of 32 tiles are read at once
+// (thread i the i-th), each waited on until its map is published.
+__device__ __forceinline__ float look_back_(const int* flags,
+                                            const float* maps, int lt,
+                                            int lane_tiles, int tt, int l,
+                                            int e, float seed) {
+  constexpr int L = kEvalLanes;
+  int start = -1;        // the tile whose carry out starts the fold
+  for (int hi = tt; hi > 0 && start < 0; hi -= 32) {
+    const int lo = hi > 32 ? hi - 32 : 0;
+    const int j = lo + l;
+    const int f =
+        j < hi
+            ? wait_map_(flags + static_cast<int64_t>(j) * lane_tiles + lt, e)
+            : 0;
+    const unsigned two = __ballot_sync(0xffffffffu, f == 2);
+    if (two) start = lo + 31 - __clz(two);
+    else if (lo == 0) break;
+  }
+  __syncwarp();
+  __threadfence();
+  float c = start < 0 ? seed
+                      : __ldcg(maps + (static_cast<int64_t>(start) *
+                                       lane_tiles + lt) * 3 * L + 2 * L + l);
+#pragma unroll 8
+  for (int m = start + 1; m < tt; ++m) {
+    const float* mp =
+        maps + (static_cast<int64_t>(m) * lane_tiles + lt) * 3 * L;
+    c = fmaf(__ldcg(mp + l), c, __ldcg(mp + L + l));
+  }
+  return c;
+}
+
+// The carry into every lane of the tile as the seed of fwd_chunks_: the
+// value warp 0 left in shared memory.
+struct SharedSeed {
+  const float* c;
+  __device__ __forceinline__ float operator()(int64_t, bool) const {
+    return c[threadIdx.x % kEvalLanes];
+  }
+};
+
+// fwd_chunks_'s stop for the split kernel's second run (header, (3)):
+// true at the first segment from `first` on (the speculative run's first
+// stored one) whose carry in equals the speculative run's (rec[2 + i] of
+// its record) bit for bit in every live lane of the tile.
+struct RerunStop {
+  const float* rec;
+  int first;
+  int64_t lanes, tile;
+  __device__ __forceinline__ bool operator()(int si,
+                                             const float* carry) const {
+    if (si < first) return false;
+    __syncthreads();                  // the carry into segment si written
+    const int l = threadIdx.x % kEvalLanes;
+    const bool differs =
+        threadIdx.x < kEvalLanes && tile * kEvalLanes + l < lanes &&
+        __float_as_int(carry[l]) !=
+            __float_as_int(rec[(si + 2) * kEvalLanes + l]);
+    return !__syncthreads_or(differs);
+  }
+};
+
+// qrnn_pool_fwd_split's kernel (header): a block a tile of L lanes x segs
+// segments of NC chunks of `len` steps, taken by ticket. ctrl: {ticket
+// counter, epoch, a flag a tile}, 0 before a stream's first call; maps:
+// {A, B, carry out} of L lanes a tile.
+template <int C, int NS>
+__global__ void __launch_bounds__(kEvalThreads, kEvalBlocks)
+qrnn_pool_fwd_split_kernel(const float* __restrict__ y,
+                           const float* __restrict__ c0,
+                           float* __restrict__ h, float* __restrict__ c_last,
+                           int* ctrl, float* maps, int64_t B, int64_t T,
+                           int64_t H, int segs, int len, int lane_tiles,
+                           int tiles) {
+  constexpr int L = kEvalLanes, NC = kEvalChunks;
+  // the speculative run's record (fwd_chunks_'s rec) and its first stored
+  // segment, the carry into the tile
+  __shared__ float rec[NS + 2][L], s_cin[L];
+  __shared__ int s_ticket, s_epoch, s_first;
+  int* const flags = ctrl + 2;
+  // tiles in the order blocks start: a block waits only on tiles of lower
+  // tickets, whose blocks are running or done. The block with the last
+  // ticket leaves the counter at 0 and moves the epoch on for the next
+  // call: every block read the epoch before it took its ticket.
+  if (threadIdx.x == 0) {
+    const int e = *static_cast<volatile int*>(ctrl + 1);
+    __threadfence();
+    const int ticket = atomicAdd(ctrl, 1);
+    if (ticket == tiles - 1) {
+      __threadfence();
+      ctrl[0] = 0;
+      ctrl[1] = (e + 1) & kEpochMask;
+    }
+    s_ticket = ticket;
+    s_epoch = e;
+  }
+  __syncthreads();
+  const int ticket = s_ticket, e = s_epoch;
+  const int tt = ticket / lane_tiles, lt = ticket - tt * lane_tiles;
+  const int l = threadIdx.x % L, k = threadIdx.x / L;
+  const int64_t seg = static_cast<int64_t>(NC) * len;
+  const int64_t t_begin = tt * segs * seg;
+  const bool last = t_begin + segs * seg >= T;
+  const int64_t t_end = last ? T : t_begin + segs * seg;
+  // (1) the speculative run: fwd_chunks_ from c = 0 (or c0 on the first
+  // time tile, which stores all of h: its carry is the true one), h stored
+  // from the first segment a carry in has no say in; its record: the carry
+  // into each segment, the product of the a (A) and the carry out (B) of
+  // the tile's map
+  const auto zero = [&](int64_t ln, bool lv) {
+    return (tt == 0 && lv && c0 != nullptr) ? c0[ln] : 0.0f;
+  };
+  fwd_chunks_<L, NC, C, kEvalDepth, false, decltype(zero), true>(
+      y, h, nullptr, c_last, B, T, H, len, lt, t_begin, t_end, zero,
+      &rec[0][0], tt > 0, &s_first);
+  __syncthreads();
+  if (tt == 0) {
+    // it ran from its true carry: the carry out of it published at once
+    // (so no look-back folds its map)
+    if (!last && k == 0) {
+      maps[static_cast<int64_t>(ticket) * 3 * L + 2 * L + l] = rec[1][l];
+      __threadfence();
+      __syncwarp();
+      if (l == 0) st_release_(flags + ticket, (e << 2) | 2);
+    }
+    return;
+  }
+  // (2) warp 0: the tile's map published (the last time tile's is read by
+  // none); the carry into it (look_back_); the carry out of it, fmaf(A,
+  // c_in, B), published
+  if (k == 0) {
+    float* mp = maps + static_cast<int64_t>(ticket) * 3 * L;
+    const float ta = rec[0][l], tb = rec[1][l];
+    if (!last) {
+      mp[l] = ta;
+      mp[L + l] = tb;
+      __threadfence();
+      __syncwarp();
+      if (l == 0) st_release_(flags + ticket, (e << 2) | 1);
+    }
+    const float c = look_back_(flags, maps, lt, lane_tiles, tt, l, e, 0.0f);
+    s_cin[l] = c;
+    if (!last) {
+      mp[2 * L + l] = fmaf(ta, c, tb);
+      __threadfence();
+      __syncwarp();
+      if (l == 0) st_release_(flags + ticket, (e << 2) | 2);
+    }
+  }
+  __syncthreads();
+  // (3) the tile again from the true carry, the next segment's loads in
+  // flight, up to the first segment from the speculative run's first
+  // stored one whose carry in is the speculative run's bit for bit in
+  // every live lane (RerunStop): from there on the two runs are the same
+  fwd_chunks_<L, NC, C, kEvalDepth, false, SharedSeed, false, RerunStop>(
+      y, h, nullptr, c_last, B, T, H, len, lt, t_begin, t_end,
+      SharedSeed{s_cin}, nullptr, false, nullptr,
+      RerunStop{&rec[0][0], s_first, B * H, lt});
+}
+
+// The launch floor: an empty kernel of one warp.
+__global__ void qrnn_pool_empty_kernel() {}
 
 // A chunk's backward inputs: the raw gates and dh at t0 .. t0 + n - 1 and c
 // at t0 - 1 .. t0 + n - 1 (cc[0] = c_{t0-1}: the seed at t0 = 0).
@@ -848,6 +1233,48 @@ extern "C" int qrnn_pool_fwd_eval(const void* y, const void* c0, void* h,
           static_cast<const float*>(y), static_cast<const float*>(c0),
           static_cast<float*>(h), static_cast<float*>(c_last), B, T, H,
           chunk_len(T, kEvalChunks, kEvalChunk));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ctrl and maps: the kernel's scratch (above); tiles: the tiling's tile
+// count, as qrnn_pool_split_tiling gives it (cudaErrorInvalidValue if
+// not), which ctrl (2 + tiles ints, 0 before a stream's first call) and
+// maps (3 x kEvalLanes x tiles floats) must hold.
+extern "C" int qrnn_pool_fwd_split(const void* y, const void* c0, void* h,
+                                   void* c_last, void* ctrl, void* maps,
+                                   long long tiles, long long B, long long T,
+                                   long long H, void* stream) {
+  const SplitTiling s = split_tiling(B * H, T);
+  if (s.lane_tiles * s.time_tiles != tiles || tiles > 0x3fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  qrnn_pool_fwd_split_kernel<kEvalChunk, kSplitSegs>
+      <<<static_cast<unsigned int>(tiles),
+         kEvalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(y), static_cast<const float*>(c0),
+          static_cast<float*>(h), static_cast<float*>(c_last),
+          static_cast<int*>(ctrl), static_cast<float*>(maps), B, T, H,
+          s.segs, s.chunk, static_cast<int>(s.lane_tiles),
+          static_cast<int>(tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// qrnn_pool_fwd_split's tiling of a call on `lanes` lanes of T steps:
+// {steps a chunk, steps a time tile, tiles} into out (the wrapper sizes its
+// scratch by it; tests repeat it in the plain version).
+extern "C" int qrnn_pool_split_tiling(long long lanes, long long T,
+                                      long long* out) {
+  const SplitTiling s = split_tiling(lanes, T);
+  out[0] = s.chunk;
+  out[1] = s.tile;
+  out[2] = s.lane_tiles * s.time_tiles;
+  return 0;
+}
+
+// One empty kernel on `stream`: the launch floor the smoke run times
+// beside the launch-bound shapes.
+extern "C" int qrnn_pool_empty(void* stream) {
+  qrnn_pool_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,9 +2,9 @@
 they were chosen over, on the card.
 
     python -m pase_tpu_torch.kernel_variants [conv] [qrnn] [serial] [train]
-        [eval] [--against SOURCE]
+        [eval] [split] [--against SOURCE]
 
-(no group named: all five). Each variant is a copy of the shipped source
+(no group named: all six). Each variant is a copy of the shipped source
 with a few lines replaced (``VARIANTS``), built like the shipped kernels
 into ``build/pase_tpu_torch/variants/`` (all at once) and called through
 its own library:
@@ -43,10 +43,26 @@ its own library:
           library's three unseeded entry points (``qrnn_pool_fwd_eval``,
           ``qrnn_pool_fwd_chunked``, ``qrnn_pool_fwd``) in turns at
           ``ROUTE_SHAPES``, where the route (``cuda_qrnn.forward_entry``)
-          is drawn.
+          is drawn;
+  split   ``qrnn_pool_fwd_split`` (the same file) as shipped and in each
+          other tile of ``SPLIT_TILES`` (steps a chunk, blocks an SM, the
+          tiles the tiling aims at, segments of loads in flight): at
+          ``SPLIT_SHAPES``, max |h|, |c_T| error against the
+          plain version of its algebra at each library's tiling and
+          against the plain version, two calls bit for bit, ms in two
+          passes (the second in reverse order); then the shipped library's
+          unseeded entry points (``qrnn_pool_fwd_split``,
+          ``qrnn_pool_fwd_chunked``, ``qrnn_pool_fwd_eval``) and an empty
+          kernel (the launch floor) in turns there, where the route is
+          drawn; where T is cut, the split and chunked kernels again on
+          gates whose carries decay slowly and not at all (its second
+          run's worst case), with the share of segments that run takes;
+          and the split and eval kernels in turns at the eval kernel's
+          shapes.
 Times are CUDA-event medians of CUDA graphs of 20 calls (no host time
-between launches). Nothing here is on a path; the shipped kernels are
-chosen in the sources.
+between launches; a captured split call zeroes flags of its own, one memset
+in the graph). Nothing here is on a path; the shipped kernels are chosen in
+the sources.
 """
 
 import concurrent.futures
@@ -74,6 +90,10 @@ TRAIN_SHIPPED = (32, 256, 8, 4, 3, 3, "true")
 _EVAL_NAMES = ("kEvalLanes", "kEvalThreads", "kEvalChunk", "kEvalBlocks",
                "kEvalDepth")
 EVAL_SHIPPED = (32, 256, 5, 3, 1)
+# the split kernel runs the eval kernel's tile (chunk, blocks an SM,
+# depth) at kSplitGrid tiles a call
+_SPLIT_NAMES = ("kEvalChunk", "kEvalBlocks", "kSplitGrid", "kEvalDepth")
+SPLIT_SHIPPED = (5, 3, 384, 1)
 
 
 def _tile_consts(names, shipped, tile):
@@ -150,6 +170,31 @@ VARIANTS.update({
     "depth {}".format(*tile):
     (cuda_qrnn.SOURCE, _tile_consts(_EVAL_NAMES, EVAL_SHIPPED, tile))
     for tile in EVAL_TILES if tile != EVAL_SHIPPED})
+# qrnn_pool_fwd_split's tiles: (steps a chunk at most, blocks an SM, tiles
+# the tiling aims at, segments of loads in flight); the shipped one
+# (SPLIT_SHIPPED) is built as shipped
+SPLIT_TILES = [SPLIT_SHIPPED, (5, 3, 264, 1), (5, 3, 528, 1),
+               (5, 3, 768, 1), (5, 3, 192, 1), (5, 4, 384, 1),
+               (5, 2, 384, 1), (5, 3, 384, 2), (8, 3, 384, 1),
+               (4, 3, 384, 1), (5, 3, 1536, 1)]
+VARIANTS.update({
+    "qrnn split: chunk {}, blocks {}, grid {}, depth {}".format(*tile):
+    (cuda_qrnn.SOURCE, _tile_consts(_SPLIT_NAMES, SPLIT_SHIPPED, tile))
+    for tile in SPLIT_TILES if tile != SPLIT_SHIPPED})
+# the shapes of the unseeded calls under 4096 lanes or over 200 steps at
+# 4096 (the split and the chunked kernels' side of the route): B = 1
+# extraction (2 s, the contract's 625 frames, the rehearsal's 8 s,
+# forward-chunk's 10 s window, 15 to 200 s files), the time shard's
+# [2,1500,512], 2 to 8 rows of 200 to 10000 steps at H = 512 and 256
+SPLIT_SHAPES = [(1, 200, 512), (1, 625, 512), (1, 800, 512), (1, 1000, 512),
+                (1, 1500, 512), (1, 2000, 512), (1, 3000, 512),
+                (1, 5000, 512), (1, 7500, 512), (1, 10000, 512),
+                (1, 20000, 512), (2, 1500, 512), (2, 3000, 512),
+                (2, 5000, 512), (2, 10000, 512), (4, 200, 512),
+                (4, 1000, 512), (4, 2000, 512), (4, 3000, 512),
+                (8, 1000, 256), (8, 2000, 256), (8, 4000, 256),
+                (8, 400, 512), (8, 600, 512), (8, 800, 512),
+                (8, 1000, 512), (8, 4000, 512)]
 # the unseeded route's shapes: B x 200 at 2048 to 16384 lanes (H = 512
 # and 256), 400 to 4000 steps at 4096 to 16384 lanes, the long serving
 # windows, and 21 steps
@@ -468,8 +513,191 @@ def eval_rows():
     return rows
 
 
+def rerun_share(y):
+    """The share of the split kernel's segments that its second run takes
+    on y, as the plain version of its algebra rounds: in each time tile
+    but the first, the segments up to the first one (i) before which the
+    product of the a is under 1e-9 in every lane of a TILE_LANES-lane tile
+    (the speculative run stores h from there) and (ii) whose carry in, run
+    from the tile's carry in, equals the one run from 0 bit for bit in
+    every lane of the tile (the kernel's tests; the carry in is the last
+    tile's carry out, run from its own)."""
+    b, t, h3 = y.shape
+    hid = h3 // 3
+    chunk, tile = plain.split_tiling(b * hid, t)
+    if tile >= t:
+        return 0.0
+    seg = plain.EVAL_CHUNKS * chunk
+    a = 1.0 - torch.sigmoid(torch.chunk(y, 3, dim=-1)[1])
+    lanes = b * hid
+    pad = -lanes % plain.TILE_LANES
+
+    def by_tile(x):
+        """[B, segs, H] -> [segs, lane tiles]: every lane of a tile."""
+        x = x.permute(1, 0, 2).reshape(x.shape[1], lanes)
+        return torch.nn.functional.pad(x, (0, pad), value=True).reshape(
+            x.shape[0], -1, plain.TILE_LANES).all(-1)
+    carry, again, total = None, 0.0, 0
+    for t0 in range(0, t, tile):
+        n = min(tile, t - t0)
+        part = y[:, t0:t0 + n]
+        _, c_true, c_last = plain.qrnn_pool_fwd_train_chunked_plain(
+            part, carry, chunk=chunk, chunks=plain.EVAL_CHUNKS)
+        segs = -(-n // seg)
+        total += segs
+        if t0 > 0:
+            _, c_spec, _ = plain.qrnn_pool_fwd_train_chunked_plain(
+                part, chunk=chunk, chunks=plain.EVAL_CHUNKS)
+            # the carry into segment g: the seed at g = 0, else c at g seg - 1
+            ends = [g * seg - 1 for g in range(1, segs)]
+            meet = torch.ones(b, segs, hid, dtype=torch.bool,
+                              device=y.device)
+            meet[:, 0] = carry == 0
+            if ends:
+                meet[:, 1:] = c_true[:, ends] == c_spec[:, ends]
+            # the product of the a before segment g: chunks', in order
+            ca = torch.nn.functional.pad(
+                a[:, t0:t0 + n], (0, 0, 0, segs * seg - n), value=1.0
+            ).reshape(b, segs * plain.EVAL_CHUNKS, chunk, hid).prod(2)
+            before = torch.ones(b, segs, hid, device=y.device)
+            prod = torch.ones(b, hid, device=y.device)
+            for g in range(segs):
+                before[:, g] = prod
+                for m in range(plain.EVAL_CHUNKS):
+                    prod = prod * ca[:, g * plain.EVAL_CHUNKS + m]
+            tiny = by_tile(before < 1e-9)
+            stop = by_tile(meet) & (tiny.cumsum(0) > 0)
+            idx = torch.arange(segs, device=y.device)[:, None]
+            first = torch.where(stop, idx, segs).min(0).values
+            again += first.float().mean().item()
+        carry = c_last
+    return again / total
+
+
+def gates(y, kind):
+    """y with its f third as ``kind`` has it: "randn" as drawn; "slow": 6
+    less (a = 1 - f about 0.9975, a carry lives thousands of steps);
+    "frozen": f = 0 exactly from the second step on (a = 1: a carry never
+    decays, so a run from 0 never meets the run from the true one)."""
+    hid = y.shape[-1] // 3
+    y = y.clone()
+    if kind == "slow":
+        y[..., hid:2 * hid] -= 6.0
+    elif kind == "frozen":
+        y[:, 1:, hid:2 * hid] = -200.0
+    return y
+
+
+# the eval kernel's shapes (6144 to 49152 lanes of T = 200, and 21 steps),
+# where the split kernel runs its body at one or two time tiles
+EVAL_MATCH_SHAPES = [(12, 200, 512), (24, 200, 512), (48, 200, 512),
+                     (96, 200, 512), (48, 200, 256), (48, 21, 512)]
+
+
+def split_rows():
+    """qrnn_pool_fwd_split as shipped and in its other tiles at
+    SPLIT_SHAPES (max |h|, |c_T| error against the plain version of its
+    algebra at each library's tiling and against the plain version; two
+    calls bit for bit; ms in two passes, the second in reverse order),
+    then the shipped unseeded entry points and the empty kernel in turns
+    there; where the split kernel cuts T, the split and chunked kernels in
+    turns on gates that decay slowly or not at all (``gates``), with the
+    share of segments its second run takes (``rerun_share``); and the
+    split and eval kernels in turns at EVAL_MATCH_SHAPES."""
+    shipped = cuda_qrnn.build()
+    libs = {"shipped: chunk {}, blocks {}, grid {}, depth {}".format(
+        *SPLIT_SHIPPED): shipped}
+    libs.update(build_variants([k for k in VARIANTS
+                                if k.startswith("qrnn split")]))
+    order = list(libs)
+    entries = {"split": cuda_qrnn.qrnn_pool_fwd_split,
+               "chunked": cuda_qrnn.qrnn_pool_fwd_chunked,
+               "eval": cuda_qrnn.qrnn_pool_fwd_eval}
+    rows = []
+    for b, t, h in SPLIT_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * t + h)
+        y = torch.randn(b, t, 3 * h, device="cuda", generator=gen)
+        h_ref, c_ref = plain.qrnn_pool(y)
+        errs, same = {}, {}
+
+        def run():
+            return cuda_qrnn.qrnn_pool_fwd_split(y)
+        for name, lib in libs.items():
+            hk, ck = _with_lib(cuda_qrnn, lib, run)
+            hk2, ck2 = _with_lib(cuda_qrnn, lib, run)
+            chunk, tile, _ = cuda_qrnn.split_tiling(b * h, t, lib)
+            hp, cp = plain.qrnn_pool_split_plain(y, tile=tile, chunk=chunk)
+            errs[name] = (max((hk - hp).abs().max().item(),
+                              (ck - cp).abs().max().item()),
+                          max((hk - h_ref).abs().max().item(),
+                              (ck - c_ref).abs().max().item()))
+            same[name] = bool(torch.equal(hk, hk2) and torch.equal(ck, ck2))
+        ms = {k: [] for k in order}
+        for pas in (order, order[::-1]):
+            for name in pas:
+                ms[name].append(_with_lib(cuda_qrnn, libs[name],
+                                         lambda: graph_ms(run)))
+        for name in order:
+            tiling = cuda_qrnn.split_tiling(b * h, t, libs[name])
+            rows.append(((b, t, h), name, errs[name], same[name], ms[name]))
+            print(f"[split] y[{b},{t},{3 * h}] {name} (tiles {tiling[2]} of "
+                  f"{tiling[1]} steps, chunks of {tiling[0]}): "
+                  f"{statistics.mean(ms[name]):.5f} ms (passes "
+                  f"{ms[name][0]:.5f}, {ms[name][1]:.5f}); max err vs its "
+                  f"algebra {errs[name][0]:.2e}, vs plain "
+                  f"{errs[name][1]:.2e}; two calls bit for bit "
+                  f"{same[name]}", flush=True)
+        fns = {k: (lambda f=f: f(y)) for k, f in entries.items()}
+        fns["empty"] = cuda_qrnn.empty_launch
+        turns = {k: [] for k in fns}
+        for pas in (list(fns), list(fns)[::-1]):
+            for name in pas:
+                turns[name].append(graph_ms(fns[name]))
+        mean = {k: statistics.mean(v) for k, v in turns.items()}
+        rows.append(((b, t, h), "route", mean))
+        print(f"[split route] y[{b},{t},{3 * h}] ({b * h} lanes): "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in mean.items())
+              + f" (in turns, mean of two); bound "
+              f"{16 * b * t * h / 3.35e9:.5f} ms (bytes); routed to "
+              f"{cuda_qrnn.forward_entry(b * h, False, t)}", flush=True)
+        if plain.split_tiling(b * h, t)[1] < t:
+            for kind in ("randn", "slow", "frozen"):
+                yk = gates(y, kind)
+                turns = {"split": [], "chunked": []}
+                for pas in (list(turns), list(turns)[::-1]):
+                    for name in pas:
+                        turns[name].append(
+                            graph_ms(lambda f=entries[name]: f(yk)))
+                mean = {k: statistics.mean(v) for k, v in turns.items()}
+                share = rerun_share(yk)
+                rows.append(((b, t, h), f"gates {kind}", mean, share))
+                print(f"[split gates] y[{b},{t},{3 * h}] {kind}: split "
+                      f"{mean['split']:.5f} ms, chunked "
+                      f"{mean['chunked']:.5f} ms (in turns, mean of two), "
+                      f"split / chunked {mean['split'] / mean['chunked']:.3f}"
+                      f"; segments run again {share:.1%} (the plain "
+                      f"algebra's)", flush=True)
+                del yk
+        del y, h_ref, c_ref
+    for b, t, h in EVAL_MATCH_SHAPES:
+        y = torch.randn(b, t, 3 * h, device="cuda")
+        turns = {"split": [], "eval": []}
+        for pas in (list(turns), list(turns)[::-1]):
+            for name in pas:
+                turns[name].append(graph_ms(lambda f=entries[name]: f(y)))
+        mean = {k: statistics.mean(v) for k, v in turns.items()}
+        chunk, tile, tiles = cuda_qrnn.split_tiling(b * h, t)
+        rows.append(((b, t, h), "eval match", mean))
+        print(f"[split eval] y[{b},{t},{3 * h}] ({b * h} lanes; split: "
+              f"{tiles} tiles of {tile} steps): split {mean['split']:.5f} "
+              f"ms, eval {mean['eval']:.5f} ms (in turns, mean of two), "
+              f"split / eval {mean['split'] / mean['eval']:.3f}", flush=True)
+        del y
+    return rows
+
+
 GROUPS = {"conv": conv_rows, "qrnn": qrnn_rows, "serial": serial_rows,
-          "train": train_rows, "eval": eval_rows}
+          "train": train_rows, "eval": eval_rows, "split": split_rows}
 
 
 def main():

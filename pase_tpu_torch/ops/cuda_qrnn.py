@@ -17,11 +17,28 @@ Entry points, each with a launch count in ``LAUNCHES``:
                         ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain``
                         repeats); within 1e-5 of the plain version, the
                         same bits on every call;
+  qrnn_pool_fwd_split   ``qrnn_pool`` without a gradient and without c0 on
+                        few lanes of many steps (``forward_entry``: at most
+                        SPLIT_LANES lanes of at least SPLIT_STEPS steps, a
+                        file of 75 s or more at B = 1 in one window): each
+                        lane's time axis cut into tiles over blocks, every
+                        tile run from c = 0 (h stored once a carry in has
+                        no say in it), its map published, the carries
+                        composed between blocks in tile order, each tile
+                        run again from its true carry until the two runs
+                        meet; within 1e-5 of the plain version, the same
+                        bits on every call and on every replay of a CUDA
+                        graph (``split_tiling`` gives its tiling, which
+                        ``ops.qrnn.qrnn_pool_split_plain`` repeats). Its
+                        time depends on the gates: the second run is a
+                        segment where a carry dies fast, the whole tile
+                        where it lives thousands of steps;
   qrnn_pool_fwd_chunked ``qrnn_pool`` without a gradient and without c0 on
-                        the other calls (few lanes: serving, long files):
-                        the time axis in chunks of a block's 8 or 4 lanes,
-                        their carries composed in the block, so few lanes
-                        fill the card; within 1e-5 of the plain version;
+                        the other calls (few lanes: B = 1 extraction, a
+                        10 s window, the serving batch): the time axis in
+                        chunks of a block's 8 or 4 lanes, their carries
+                        composed in the block, so few lanes fill the card;
+                        within 1e-5 of the plain version;
   qrnn_pool_fwd_seg     ``qrnn_pool`` without a gradient, seeded with c0,
                         on fewer than SEG_LANES lanes (a streaming push):
                         the gates of a segment of steps computed by every
@@ -56,7 +73,7 @@ The serving forward is also a registered operator,
 Tensor)`` (``torch.library.Library``: a CPU implementation, the plain
 version; a CUDA one, the kernels; a fake one for the shapes), so that
 ``torch.export`` traces the encoder with a symbolic batch and an exported
-program calls the kernels. The route between the four forward kernels
+program calls the kernels. The route between the five forward kernels
 is taken inside the CUDA implementation, from the shapes of the call, so
 one exported program takes each route at the batch sizes that call for
 it. Importing this module registers the operator; a process that
@@ -74,22 +91,31 @@ SOURCE = cuda_build.source_path("qrnn_pool")
 BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches per entry point since import (or since reset_launches)
-LAUNCHES = {"qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd_seg": 0,
-            "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
-            "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0}
+LAUNCHES = {"qrnn_pool_fwd_split": 0, "qrnn_pool_fwd_chunked": 0,
+            "qrnn_pool_fwd_seg": 0, "qrnn_pool_fwd": 0,
+            "qrnn_pool_fwd_eval": 0, "qrnn_pool_fwd_train": 0,
+            "qrnn_pool_bwd": 0}
 _LIB = None
 # unseeded calls take the chunked eval kernel on at least EVAL_LANES lanes,
-# or on at least EVAL_SHORT_LANES lanes of at most EVAL_SHORT_STEPS steps,
-# the chunked serving kernel on the others. On the H100 (python -m
-# pase_tpu_torch.kernel_variants eval, in turns; eval / chunked ms):
-# 0.0117 / 0.0172 at [12,200,512] (6144 lanes), 0.0219 / 0.0262 at
+# or on at least EVAL_SHORT_LANES lanes of at most EVAL_SHORT_STEPS steps;
+# of the others, those on at most SPLIT_LANES lanes of at least SPLIT_STEPS
+# steps the split kernel, the rest the chunked serving kernel. On the H100
+# (python -m pase_tpu_torch.kernel_variants eval, in turns; eval / chunked
+# ms): 0.0117 / 0.0172 at [12,200,512] (6144 lanes), 0.0219 / 0.0262 at
 # [12,400,512], 0.0519 / 0.0527 at [12,1000,512], 0.1987 / 0.2486 at
 # [16,4000,512]; at 4096 lanes 0.0033 / 0.0102 at [8,21,512] and 0.0098 /
-# 0.0123 at [8,200,512], but 0.0173 / 0.0162 at [8,400,512], 0.0413 /
-# 0.0378 at [8,1000,512] (the serving batch) and 0.1541 / 0.1290 at
-# [8,4000,512]; 0.0096 / 0.0071 at [4,200,512] (2048 lanes), 0.3733 /
-# 0.0728 at [1,10000,512]
+# 0.0123 at [8,200,512], but 0.0173 / 0.0162 at [8,400,512]; 0.0096 /
+# 0.0071 at [4,200,512] (2048 lanes). The split kernel's time depends on
+# the gates, so it takes a shape only where it is no slower than the
+# chunked kernel on gates whose carries live thousands of steps (f less 6)
+# as well as on random ones (kernel_variants split, in turns; NVIDIA H100
+# 80GB HBM3, 700.00 W; split / chunked, random gates and slow ones): at 512
+# lanes 1.10 and 1.44 at T = 3000, 0.84 and 1.17 at 5000, 0.67 and 0.99 at
+# 7500, 0.65 and 0.98-1.01 at 10000, 0.57 and 0.93 at 20000; at 1024 lanes
+# 0.68 and 1.11 at 10000; at 2048 lanes 1.02 and 1.61 at 3000; at 4096
+# lanes 1.04 and 1.57 at [8,1000,512], 0.93 and 1.56 at [8,4000,512]
 EVAL_LANES, EVAL_SHORT_LANES, EVAL_SHORT_STEPS = 6144, 4096, 200
+SPLIT_LANES, SPLIT_STEPS = 512, 7500
 # seeded calls on fewer lanes take the segmented kernel, the others the
 # one-thread-a-lane loop (the same bits: a composed carry rounds otherwise,
 # so no seeded call takes a chunked kernel). On the H100, seeded (python -m
@@ -107,6 +133,8 @@ _ARGTYPES = {
     "qrnn_pool_fwd_seg": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_chunked": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_eval": [_P, _P, _P, _P, _N, _N, _N, _P],
+    # (y, c0, h, c_T, ctrl, maps, tiles, B, T, H, stream)
+    "qrnn_pool_fwd_split": [_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _P],
     # (y, c0, h, c, c_T, B, T, H, stream)
     "qrnn_pool_fwd_train": [_P, _P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c, dh, dc_T, c0, dy, dc0, B, T, H, stream)
@@ -117,7 +145,19 @@ _ARGTYPES = {
     "qrnn_pool_train_chunking": [_N, _P],
     # (T, int[2] out) -> qrnn_pool_fwd_eval's chunking
     "qrnn_pool_eval_chunking": [_N, _P],
+    # (lanes, T, long long[3] out) -> qrnn_pool_fwd_split's tiling
+    "qrnn_pool_split_tiling": [_N, _N, _P],
+    # (stream) -> one empty kernel
+    "qrnn_pool_empty": [_P],
 }
+# qrnn_pool_fwd_split's flags for calls outside a CUDA graph capture:
+# {(device index, stream handle): int32 tensors, the last one in use}. A
+# stream's buffer is zeroed once, when it is made; every call leaves the
+# ticket counter at 0 and moves the epoch its flags carry on. A call being
+# captured takes flags of its own (``_split_ctrl``).
+_SPLIT_CTRL = {}
+# the flags a stream's first buffer holds at least
+SPLIT_CTRL_TILES = 4096
 
 
 def reset_launches():
@@ -162,6 +202,25 @@ def eval_chunking(steps, lib=None):
     out = (ctypes.c_int * 2)()
     (lib or build()).qrnn_pool_eval_chunking(steps, ctypes.addressof(out))
     return tuple(out)
+
+
+def split_tiling(lanes, steps, lib=None):
+    """``qrnn_pool_fwd_split``'s tiling of a call on ``lanes`` lanes of T =
+    steps, from the built library (or ``lib``): (steps a chunk, steps a
+    time tile, tiles); the first two are what ``ops.qrnn.split_tiling``
+    repeats and ``ops.qrnn.qrnn_pool_split_plain`` takes."""
+    out = (ctypes.c_longlong * 3)()
+    (lib or build()).qrnn_pool_split_tiling(lanes, steps,
+                                            ctypes.addressof(out))
+    return tuple(out)
+
+
+def empty_launch():
+    """One empty kernel on the current stream (the launch floor timed
+    beside launch-bound shapes; on no path, so not counted)."""
+    err = build().qrnn_pool_empty(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qrnn_pool_empty launch failed: cudaError {err}")
 
 
 def _check_lanes(name, t, like):
@@ -232,6 +291,40 @@ def _forward(name, y, c0):
     return h, c_last
 
 
+def _split_ctrl(device, stream, tiles):
+    """The flags of ``qrnn_pool_fwd_split`` on ``stream``: 2 + tiles int32
+    at least (ticket counter, epoch, a flag a tile), zeroed.
+    While the stream captures a CUDA graph, a new buffer: its zeroing is
+    captured with the call, so every replay clears its own flags and no
+    two graphs, nor a graph and an eager call, share them. Otherwise the
+    stream's buffer, made on the stream when it has none that holds
+    ``tiles``."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(2 + tiles, dtype=torch.int32, device=device)
+    held = _SPLIT_CTRL.setdefault((device.index, stream.cuda_stream), [])
+    if not held or held[-1].numel() < 2 + tiles:
+        held.append(torch.zeros(2 + max(tiles, SPLIT_CTRL_TILES),
+                                dtype=torch.int32, device=device))
+    return held[-1]
+
+
+def _forward_split(y, c0):
+    _check(y, c0)
+    bsz, t, h3 = y.shape
+    tiles = split_tiling(bsz * (h3 // 3), t)[2]
+    h = torch.empty((bsz, t, h3 // 3), dtype=y.dtype, device=y.device)
+    c_last = torch.empty((bsz, h3 // 3), dtype=y.dtype, device=y.device)
+    maps = torch.empty(3 * _plain.TILE_LANES * tiles, dtype=torch.float32,
+                       device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device)
+        ctrl = _split_ctrl(y.device, stream, tiles)
+        _launch("qrnn_pool_fwd_split", y.data_ptr(), _ptr(c0), h.data_ptr(),
+                c_last.data_ptr(), ctrl.data_ptr(), maps.data_ptr(), tiles,
+                bsz, t, h3 // 3, stream.cuda_stream)
+    return h, c_last
+
+
 # the operator's namespace; its registrations last as long as this object
 _OPS = torch.library.Library("pase_tpu_torch", "DEF")
 _OPS.define("qrnn_pool_fwd(Tensor y, Tensor? c0) -> (Tensor, Tensor)")
@@ -248,21 +341,27 @@ def forward_entry(lanes, seeded, steps):
     """The forward kernel's entry point for a call on ``lanes`` lanes
     (B * H) of ``steps`` steps (T). Unseeded: the chunked eval kernel on
     at least EVAL_LANES lanes, or on at least EVAL_SHORT_LANES lanes of at
-    most EVAL_SHORT_STEPS steps; else the chunked serving kernel. Seeded:
-    the segmented kernel on fewer than SEG_LANES lanes, else the
-    one-thread-a-lane loop (the same bits)."""
+    most EVAL_SHORT_STEPS steps; else the split kernel on at most
+    SPLIT_LANES lanes of at least SPLIT_STEPS steps; else the chunked
+    serving kernel. Seeded: the segmented kernel on fewer than SEG_LANES
+    lanes, else the one-thread-a-lane loop (the same bits)."""
     if seeded:
         return "qrnn_pool_fwd_seg" if lanes < SEG_LANES else "qrnn_pool_fwd"
     if lanes >= EVAL_LANES or (lanes >= EVAL_SHORT_LANES
                                and steps <= EVAL_SHORT_STEPS):
         return "qrnn_pool_fwd_eval"
+    if lanes <= SPLIT_LANES and steps >= SPLIT_STEPS:
+        return "qrnn_pool_fwd_split"
     return "qrnn_pool_fwd_chunked"
 
 
 def _qrnn_pool_fwd_cuda(y, c0):
     """The kernels, routed by this call's shapes (``forward_entry``)."""
     lanes = y.shape[0] * (y.shape[-1] // 3)
-    return _forward(forward_entry(lanes, c0 is not None, y.shape[1]), y, c0)
+    entry = forward_entry(lanes, c0 is not None, y.shape[1])
+    if entry == "qrnn_pool_fwd_split":
+        return _forward_split(y, c0)
+    return _forward(entry, y, c0)
 
 
 @torch.library.register_fake("pase_tpu_torch::qrnn_pool_fwd", lib=_OPS)
@@ -295,6 +394,16 @@ def qrnn_pool_fwd_eval(y, c0=None):
             chunks=_plain.EVAL_CHUNKS)
         return h, c_last
     return _forward("qrnn_pool_fwd_eval", y, c0)
+
+
+def qrnn_pool_fwd_split(y, c0=None):
+    """The split forward: y [B, T, 3H] (+ c0 [B, H]) -> (h, c_T), no
+    gradient, within 1e-5 of the plain version, the same bits on every
+    call. On the CPU the plain version of its algebra at its tiling
+    (``ops.qrnn.qrnn_pool_split_plain``)."""
+    if _cuda_or_plain(y):
+        return _plain.qrnn_pool_split_plain(y, c0)
+    return _forward_split(y, c0)
 
 
 def qrnn_pool_fwd_chunked(y, c0=None):

@@ -12,7 +12,8 @@ build_rnn_block):
 These are the plain versions of the CUDA kernels in ``ops/cuda_qrnn.py``:
 the CPU path of the encoder and the reference the kernels are held to on
 the card (``qrnn_pool_chunked_plain`` repeats the chunked serving kernel's
-algebra, ``qrnn_pool_serial_plain`` the seeded chain of the serial ones,
+algebra, ``qrnn_pool_split_plain`` the split one's,
+``qrnn_pool_serial_plain`` the seeded chain of the serial ones,
 ``qrnn_pool_fwd_train_chunked_plain`` and ``qrnn_pool_bwd_chunked_plain``
 the training pair's, for tests).
 ``forget_mult`` steps sequentially over T in the JAX package's
@@ -136,6 +137,81 @@ def eval_chunk_len(t):
     return train_chunk_len(t, EVAL_CHUNKS, EVAL_CHUNK)
 
 
+# qrnn_pool_fwd_split's lanes a tile (kEvalLanes of csrc/qrnn_pool.cu; its
+# chunks are the eval kernel's), segments a time tile at most and the
+# blocks its tiling aims at (kSplitSegs, kSplitGrid)
+TILE_LANES = 32
+SPLIT_SEGS, SPLIT_GRID = 64, 384
+
+
+def split_tiling(lanes, t):
+    """``qrnn_pool_fwd_split``'s tiling of a call on ``lanes`` lanes (B * H)
+    of T = t steps (``split_tiling`` of csrc/qrnn_pool.cu): (steps a chunk,
+    steps a time tile). As many time tiles as bring the blocks (tiles of
+    TILE_LANES lanes) to SPLIT_GRID, each of the fewest whole segments of
+    EVAL_CHUNKS x EVAL_CHUNK steps (at most SPLIT_SEGS) that hold its share
+    of t; when one tile holds t, the shortest chunk that covers t in as
+    many."""
+    seg = EVAL_CHUNKS * EVAL_CHUNK
+    want = max(1, -(-SPLIT_GRID // -(-lanes // TILE_LANES)))
+    segs = min(SPLIT_SEGS, max(1, -(-(-(-t // want)) // seg)))
+    chunks = segs * EVAL_CHUNKS
+    chunk = -(-t // chunks) if t <= chunks * EVAL_CHUNK else EVAL_CHUNK
+    return chunk, chunks * chunk
+
+
+def qrnn_pool_split_plain(y, c0=None, tile=None, chunk=None):
+    """The split forward's algebra (``qrnn_pool_fwd_split``), for tests and
+    the wrapper's CPU path: the same function as ``qrnn_pool``. T is cut
+    into time tiles of ``tile`` steps, each run as
+    ``qrnn_pool_fwd_train_chunked_plain`` runs a call (segments of
+    EVAL_CHUNKS chunks of ``chunk`` steps). Tile i runs from its carry in;
+    its map c -> A c + B is A, the product of its a (each chunk's a in
+    order, then the chunks' products in order, as the kernel multiplies
+    them), and B, the carry out of the run from c = 0. The carry into
+    tile 0 is the seed (c0 or 0), into tile 1 the carry out of tile 0's
+    run, into tile i + 1 A_i c_i + B_i, rounded once. ``tile`` None: the shipped kernel's
+    tiling (``split_tiling``). Returns (h [B, T, H], c_T [B, H])."""
+    bsz, t, h3 = y.shape
+    if tile is None:
+        chunk, tile = split_tiling(bsz * (h3 // 3), t)
+    f = torch.sigmoid(torch.chunk(y, 3, dim=-1)[1])
+    a = 1.0 - f
+    carry = torch.zeros_like(a[:, 0]) if c0 is None else c0
+    hs = []
+    for t0 in range(0, t, tile):
+        n = min(tile, t - t0)
+        part = y[:, t0:t0 + n]
+        h, _, c_last = qrnn_pool_fwd_train_chunked_plain(
+            part, carry, chunk=chunk, chunks=EVAL_CHUNKS)
+        hs.append(h)
+        if t0 + n == t:
+            break
+        if t0 == 0:
+            carry = c_last
+            continue
+        # A: each chunk's product of its a, the chunks' in order
+        aa = _segment(a, t0, n, n, n // chunk, 1.0)
+        ca = torch.ones_like(aa[:, :, 0])
+        for u in range(chunk):
+            ca = ca * aa[:, :, u]
+        ma = torch.ones_like(carry)
+        for k in range(ca.shape[1]):
+            ma = ma * ca[:, k]
+        mb = qrnn_pool_fwd_train_chunked_plain(
+            part, chunk=chunk, chunks=EVAL_CHUNKS)[2]
+        carry = _fma(ma, carry, mb)
+    return torch.cat(hs, dim=1), c_last
+
+
+def _fma(a, c, b):
+    """a c + b rounded once to float32, as the kernels' fmaf: the product
+    of two float32 is exact in float64, so only the float64 sum rounds
+    before the float32 (twice: unlike fmaf only where the float64 sum
+    lies on a float32 rounding boundary)."""
+    return (a.double() * c.double() + b.double()).float()
+
+
 def _segment(x, s0, n, seg, chunks, pad):
     """Steps s0 .. s0 + n of x [B, T, H] padded with ``pad`` to a segment
     of seg steps, as [B, chunks, seg // chunks, H]."""
@@ -152,7 +228,8 @@ def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
     c -> A c + B from c = 0 (B = a B + b, A = A a, steps in order); (2) the
     carry into chunk k, the segment's carry put through the maps of chunks
     0 .. k-1 one after the other; (3) each chunk re-run from its carry; the
-    next segment's carry is the last step's c. Steps past T are the
+    next segment's carry is the last step's c. Every a x + b is rounded
+    once, as the kernels' fmaf (``_fma``). Steps past T are the
     identity (a = 1, b = 0). ``chunk`` None: the shipped kernel's
     (``train_chunk_len``). Returns (h [B, T, H], c [B, T, H], c_T [B, H])."""
     yz, yf, yo = torch.chunk(y, 3, dim=-1)
@@ -169,16 +246,16 @@ def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
         bb = _segment(b, s0, n, seg, chunks, 0.0)
         ma, mb = torch.ones_like(aa[:, :, 0]), torch.zeros_like(aa[:, :, 0])
         for u in range(chunk):
-            mb = aa[:, :, u] * mb + bb[:, :, u]
+            mb = _fma(aa[:, :, u], mb, bb[:, :, u])
             ma = ma * aa[:, :, u]
         cin, c = [], carry
         for k in range(chunks):
             cin.append(c)
-            c = ma[:, k] * c + mb[:, k]
+            c = _fma(ma[:, k], c, mb[:, k])
         c = torch.stack(cin, dim=1)
         cs = []
         for u in range(chunk):
-            c = aa[:, :, u] * c + bb[:, :, u]
+            c = _fma(aa[:, :, u], c, bb[:, :, u])
             cs.append(c)
         c = torch.stack(cs, dim=2).reshape(a.shape[0], seg, -1)[:, :n]
         parts.append(c)

@@ -29,9 +29,10 @@ process serves with torch, numpy and the registered QRNN operator alone
 The QRNN pooling in the programs is the registered operator
 ``pase_tpu_torch::qrnn_pool_fwd``: its CUDA implementation takes the
 route (``cuda_qrnn.forward_entry``) from each call's shapes, so one
-exported bucket takes the chunked serving kernel at a small batch and the
-chunked eval kernel from ``cuda_qrnn.EVAL_LANES`` lanes, and a streaming
-program's seeded calls take the segmented one.
+exported bucket takes the chunked serving kernel at a small batch, the
+split kernel on few lanes of many steps and the chunked eval kernel from
+``cuda_qrnn.EVAL_LANES`` lanes, and a streaming program's seeded calls
+take the segmented one.
 
 Devices: a program traced on one device names it in some of its nodes (a
 zero carry, the SincConv's time axes), so an artifact serves the device it

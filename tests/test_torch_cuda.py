@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from pase_tpu_torch import wf_builder
+from pase_tpu_torch.kernel_variants import gates
 from pase_tpu_torch.ops import conv, cuda_qrnn
 from pase_tpu_torch.ops import qrnn as plain
 from torch_port_common import NARROW_CFG, cuda_device  # noqa: F401
@@ -69,6 +70,11 @@ def _inputs(b, t, h, device, seed=11):
     return y.to(device), c0.to(device)
 
 
+def _unseeded(b, t, h):
+    """The forward entry an unseeded call of [b, t, 3 h] takes."""
+    return cuda_qrnn.forward_entry(b * h, False, t)
+
+
 def test_kernel_builds(cuda_device):
     lib = cuda_qrnn.build(verbose=True)
     assert lib.qrnn_pool_fwd is not None
@@ -77,9 +83,10 @@ def test_kernel_builds(cuda_device):
 @pytest.mark.parametrize("shape", [(3, 200, 16), (2, 1000, 512),
                                    (9, 131, 40), (1, 7, 24)])
 def test_kernel_matches_plain(cuda_device, shape):
-    """Unseeded (the chunked kernel at these lane counts) and seeded (the
-    segmented serial kernel) against the plain version."""
+    """Unseeded (the route's kernel at these shapes: the chunked one) and
+    seeded (the segmented serial kernel) against the plain version."""
     y, c0 = _inputs(*shape, cuda_device)
+    unseeded = _unseeded(*shape)
     before = dict(cuda_qrnn.LAUNCHES)
     for seed in (None, c0):
         h, c = cuda_qrnn.qrnn_pool(y, seed)
@@ -90,7 +97,7 @@ def test_kernel_matches_plain(cuda_device, shape):
         assert (c - c_ref).abs().max().item() <= 1e-5
     assert cuda_qrnn.LAUNCHES == {
         **before, "qrnn_pool_fwd_seg": before["qrnn_pool_fwd_seg"] + 1,
-        "qrnn_pool_fwd_chunked": before["qrnn_pool_fwd_chunked"] + 1}
+        unseeded: before[unseeded] + 1}
 
 
 @pytest.mark.parametrize("b", [1, 8])
@@ -113,14 +120,17 @@ def test_chunked_kernel_matches_plain(cuda_device, b, t):
 
 
 def test_serving_forward_routes(cuda_device):
-    """Unseeded on few lanes: the chunked kernel; on EVAL_LANES lanes: the
+    """Unseeded on few lanes: the chunked kernel, or the split one on at
+    most SPLIT_LANES lanes from SPLIT_STEPS steps; on EVAL_LANES lanes: the
     chunked eval kernel; seeded under SEG_LANES: the segmented one; seeded
     on more lanes: the one-thread-a-lane loop. One launch each."""
     small, c0 = _inputs(2, 30, 16, cuda_device)
+    long = torch.randn(1, cuda_qrnn.SPLIT_STEPS, 3 * 16, device=cuda_device)
     big = torch.randn(cuda_qrnn.EVAL_LANES // 64, 3, 3 * 64,
                       device=cuda_device)
     wide, wide_c0 = _inputs(cuda_qrnn.SEG_LANES // 64, 3, 64, cuda_device)
     for y, seed, name in ((small, None, "qrnn_pool_fwd_chunked"),
+                          (long, None, "qrnn_pool_fwd_split"),
                           (small, c0, "qrnn_pool_fwd_seg"),
                           (big, None, "qrnn_pool_fwd_eval"),
                           (wide, wide_c0, "qrnn_pool_fwd")):
@@ -160,6 +170,116 @@ def test_eval_kernel_matches_plain(cuda_device, shape, seeded):
         y, c0, chunk=steps, chunks=chunks)
     assert (h - hp).abs().max().item() <= 5e-7
     assert (c - cp).abs().max().item() <= 5e-7
+
+
+# the split kernel at few-lane shapes: B = 1 extraction of a 2 s
+# utterance, forward-chunk's 10 s window, a 100 s file in one forward,
+# the time shard's [2,1500,512]; and a narrow ragged one (11 lanes a row:
+# tiles of 32 lanes across three rows, a ragged last time tile)
+SPLIT_SHAPES = [(1, 200, 512), (1, 1000, 512), (1, 10000, 512),
+                (2, 1500, 512), (3, 1237, 11)]
+# gates whose carries decay slowly ("slow": f less 6, a about 0.9975) or
+# not at all ("frozen": f = 0 exactly from the second step;
+# kernel_variants.gates), so that the speculative run stores no h and the
+# second run takes every segment of a tile: 100 s, 50 s on two rows, and a
+# ragged last segment
+SPLIT_GATES = [((1, 10000, 512), "slow"), ((2, 5000, 512), "slow"),
+               ((1, 10000, 512), "frozen"), ((1, 9999, 512), "frozen")]
+
+
+@pytest.mark.parametrize(
+    "shape,kind", [(s, "randn") for s in SPLIT_SHAPES] + SPLIT_GATES,
+    ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_split_kernel_matches_plain(cuda_device, shape, kind, seeded):
+    """qrnn_pool_fwd_split against the plain version (1e-5) and against the
+    plain version of its algebra at the library's tiling (5e-7), which is
+    ops/qrnn.py's; two calls bit for bit; one launch each."""
+    b, t, hid = shape
+    y, c0 = _inputs(*shape, cuda_device, seed=sum(shape))
+    y = gates(y, kind)
+    c0 = c0 if seeded else None
+    chunk, tile, tiles = cuda_qrnn.split_tiling(b * hid, t)
+    assert (chunk, tile) == plain.split_tiling(b * hid, t)
+    assert tiles == -(-b * hid // plain.TILE_LANES) * -(-t // tile)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c = cuda_qrnn.qrnn_pool_fwd_split(y, c0)
+    h2, c2 = cuda_qrnn.qrnn_pool_fwd_split(y, c0)
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_split": before["qrnn_pool_fwd_split"] + 2}
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    h_ref, c_ref = plain.qrnn_pool(y, c0)
+    assert (h - h_ref).abs().max().item() <= 1e-5
+    assert (c - c_ref).abs().max().item() <= 1e-5
+    hp, cp = plain.qrnn_pool_split_plain(y, c0, tile=tile, chunk=chunk)
+    assert (h - hp).abs().max().item() <= 5e-7
+    assert (c - cp).abs().max().item() <= 5e-7
+
+
+@pytest.mark.parametrize("shape", [(1, 10000, 512), (1, 1000, 512)],
+                         ids=str)
+def test_split_kernel_replays_in_a_cuda_graph(cuda_device, shape):
+    """Two CUDA graphs of the split kernel, captured with no call before
+    on torch's capture stream, replayed on new inputs at once on two
+    streams, give the eager call's bits each time: each graph clears flags
+    of its own on every replay."""
+    cuda_qrnn.build()
+    ys = [_inputs(*shape, cuda_device, seed=s)[0] for s in (1, 2, 3, 4)]
+    statics = [ys[0].clone(), ys[1].clone()]
+    graphs, outs = [], []
+    for static in statics:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(cuda_qrnn.qrnn_pool_fwd_split(static))
+        graphs.append(graph)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for turn in range(3):
+        for i, (static, graph, stream) in enumerate(
+                zip(statics, graphs, streams)):
+            static.copy_(ys[(turn + 2 * i) % 4])
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for i, (h, c) in enumerate(outs):
+            h_ref, c_ref = cuda_qrnn.qrnn_pool_fwd_split(ys[(turn + 2 * i)
+                                                            % 4])
+            torch.cuda.synchronize()
+            assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
+
+
+def test_split_kernel_through_the_operator(cuda_device):
+    """torch.ops.pase_tpu_torch.qrnn_pool_fwd at [1,10000,512] launches the
+    split kernel once and gives the direct call's bits."""
+    y, _ = _inputs(1, 10000, 512, cuda_device, seed=5)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c = torch.ops.pase_tpu_torch.qrnn_pool_fwd(y, None)
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_split": before["qrnn_pool_fwd_split"] + 1}
+    h2, c2 = cuda_qrnn.qrnn_pool_fwd_split(y)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+
+
+def test_split_kernel_on_a_b1_encoder_forward(cuda_device):
+    """PASE+ at B = 1 on a 100 s file in one forward (10000 frames): one
+    split launch per QRNN layer and no other K1 launch; within 2e-4 of
+    max|y| of the same weights on the CPU."""
+    cfg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "cfg", "frontend", "PASE+.cfg")
+    gpu = wf_builder(cfg, device=cuda_device, seed=0)
+    cpu = wf_builder(cfg, device="cpu", seed=0)
+    x = (np.random.RandomState(4).randn(1, 1, 1600000) * 0.1).astype(
+        np.float32)
+    cuda_qrnn.reset_launches()
+    y = gpu(x)
+    layers = len(gpu.module.rnn.layers)
+    assert cuda_qrnn.LAUNCHES == {**{k: 0 for k in cuda_qrnn.LAUNCHES},
+                                  "qrnn_pool_fwd_split": layers}
+    y_cpu = cpu(x)
+    rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+    assert rel <= 2e-4, rel
 
 
 @pytest.mark.parametrize("shape", [(3, 200, 16), (1, 1001, 512)])
@@ -273,10 +393,10 @@ def test_encoder_gpu_matches_cpu(cuda_device):
     gpu = wf_builder(NARROW_CFG, device=cuda_device, seed=0)
     cpu = wf_builder(NARROW_CFG, device="cpu", seed=0)
     x = (np.random.RandomState(0).randn(2, 1, 16000) * 0.1).astype(np.float32)
-    before = cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"]
+    name = _unseeded(2, 400, NARROW_CFG["rnn_dim"])
+    before = cuda_qrnn.LAUNCHES[name]
     y = gpu(x)
-    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == \
-        before + len(gpu.module.rnn.layers)
+    assert cuda_qrnn.LAUNCHES[name] == before + len(gpu.module.rnn.layers)
     y_cpu = cpu(x)
     assert tuple(y.shape) == tuple(y_cpu.shape) == (2, 8, 400)
     rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
@@ -487,8 +607,8 @@ def test_bf16_step_launches_the_training_kernels(cuda_device, tmp_path):
         assert all(torch.isfinite(v) for v in losses.values())
     layers = len(tr.model.frontend.rnn.layers)
     assert cuda_qrnn.LAUNCHES == {
-        "qrnn_pool_fwd_chunked": 0, "qrnn_pool_fwd_seg": 0,
-        "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
+        "qrnn_pool_fwd_split": 0, "qrnn_pool_fwd_chunked": 0,
+        "qrnn_pool_fwd_seg": 0, "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
         "qrnn_pool_fwd_train": 2 * layers, "qrnn_pool_bwd": 2 * layers}
     assert not any(conv_ops.LAUNCHES.values())
 
@@ -737,6 +857,7 @@ def test_streaming_is_bit_identical_across_chunkings(cuda_device):
         ys = [st.push(wav[:, i:i + chunk])
               for i in range(0, 16000, chunk)] + [st.flush()]
         outs.append(torch.cat([y for y in ys if y is not None], 2))
+        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_split"] == 0
         assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == 0
         assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_seg"] == st.qrnn_calls
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
@@ -892,8 +1013,8 @@ def test_bf16_gan_steps_launch_the_training_kernels(cuda_device, tmp_path):
 def test_probe_extraction_gpu_matches_cpu(cuda_device):
     """The probes' PASE+ extractor at batch 1 on a 2 s utterance (the
     1600-sample bucket, 'avg_concat'): the card within 2e-4 of max|y| of
-    the same weights on the CPU, K1's chunked kernel once per QRNN
-    layer."""
+    the same weights on the CPU, K1's chunked kernel once per QRNN layer
+    and no other forward kernel."""
     from pase_tpu_torch.probes.extract import FeatureExtractor
     cfg = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "cfg", "frontend", "PASE+.cfg")
@@ -904,7 +1025,8 @@ def test_probe_extraction_gpu_matches_cpu(cuda_device):
     cuda_qrnn.reset_launches()
     got = gpu.extract(wav)
     layers = len(gpu.encoder.module.rnn.layers)
-    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == layers
+    assert cuda_qrnn.LAUNCHES == {**{k: 0 for k in cuda_qrnn.LAUNCHES},
+                                  "qrnn_pool_fwd_chunked": layers}
     want = cpu.extract(wav)
     assert got.shape == want.shape == (194, 2 * gpu.encoder.emb_dim)
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
@@ -1054,15 +1176,17 @@ ENCODER_CFGS = {
 def test_alternative_encoder_gpu_matches_cpu(cuda_device, name):
     """TDNNFe, ASPPResEncoder and ResnetEncoder on the card against the
     same weights on the CPU (2e-4 of the largest output); the QRNN of the
-    first two launches the chunked serving kernel once a call."""
+    first two launches the chunked kernel (a few lanes) once a call."""
     cfg, frames, layers = ENCODER_CFGS[name]
     gpu = wf_builder(cfg, device=cuda_device, seed=0)
     cpu = wf_builder(cfg, device="cpu", seed=0)
     x = (np.random.RandomState(1).randn(2, 1, 16000) * 0.1).astype(
         np.float32)
-    before = cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"]
+    before = dict(cuda_qrnn.LAUNCHES)
     y = gpu(x)
-    assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == before + layers
+    launched = {k: cuda_qrnn.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {**{k: 0 for k in before},
+                        "qrnn_pool_fwd_chunked": layers}, launched
     y_cpu = cpu(x)
     assert tuple(y.shape) == tuple(y_cpu.shape) == (2, gpu.emb_dim, frames)
     rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()

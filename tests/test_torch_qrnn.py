@@ -413,6 +413,80 @@ def test_eval_wrapper_cpu_path_launches_nothing():
     assert cuda_qrnn.LAUNCHES == before
 
 
+# the split kernel's algebra (T, tile, chunk; 8 chunks a segment, a
+# tile's map from its eighths): one step; T under one tile; several tiles,
+# the last ragged; two whole tiles; the shipped tiling at T = 203 on 512
+# lanes (6 tiles of 40 steps, the last of 3) and at T = 21 (one tile of
+# chunks of 3); tiles of one step a chunk; on 3 x 11 lanes (a 32-lane tile
+# spans three rows)
+SPLIT_TILED = [(1, 8, 1), (7, 40, 5), (37, 16, 2), (80, 40, 5),
+               (203, 40, 5), (21, 24, 3), (50, 8, 1)]
+
+
+@pytest.mark.parametrize("t,tile,chunk", SPLIT_TILED, ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_split_plain_matches_serial_and_pallas(t, tile, chunk, seeded):
+    """qrnn_pool_fwd_split's algebra (each tile's map folded from its
+    chunks' maps, the carry into a tile put through the maps of the tiles
+    before it in order, the carry into a chunk through the maps of the
+    chunks before it in its tile, each chunk re-run) against the Pallas
+    kernel in interpret mode and the serial plain version, within 1e-6."""
+    y, c0, (h_ref, c_ref) = _eval_case(t, seeded)
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    h, c = torch_qrnn.qrnn_pool_split_plain(
+        torch.from_numpy(y), c0t, tile=tile, chunk=chunk)
+    h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
+    assert h.shape == (3, t, 11) and c.shape == (3, 11)
+    for got, want in ((h, h_ser), (c, c_ser), (h, np.asarray(h_ref)),
+                      (c, np.asarray(c_ref))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("lanes,t,tiling", [
+    (512, 1, (1, 8)), (512, 21, (3, 24)), (512, 200, (5, 40)),
+    (512, 800, (5, 40)), (512, 1000, (5, 80)), (512, 10000, (5, 440)),
+    (1024, 1500, (5, 160)), (2048, 1000, (5, 200)), (4096, 4000, (5, 1360)),
+    (49152, 200, (5, 200)), (49152, 60, (4, 64)), (512, 41, (5, 40))])
+def test_split_tiling_aims_at_the_grid(lanes, t, tiling):
+    """The split kernel's tiling: as many time tiles as bring the blocks
+    (tiles of 32 lanes) to SPLIT_GRID, each the fewest whole segments of 8
+    x 5 steps (at most SPLIT_SEGS) that hold its share; one tile, chunks of
+    the shortest length that covers T; its CPU wrapper takes the plain
+    version of its algebra there and launches nothing."""
+    assert torch_qrnn.split_tiling(lanes, t) == tiling
+    b, hid = max(1, lanes // 512), min(lanes, 512)
+    if b * t * hid <= 512 * 1000:
+        y, _ = _inputs(b, t, hid, seed=t)
+        before = dict(cuda_qrnn.LAUNCHES)
+        h, c = cuda_qrnn.qrnn_pool_fwd_split(torch.from_numpy(y))
+        chunk, tile = tiling
+        hp, cp = torch_qrnn.qrnn_pool_split_plain(
+            torch.from_numpy(y), tile=tile, chunk=chunk)
+        assert torch.equal(h, hp) and torch.equal(c, cp)
+        assert cuda_qrnn.LAUNCHES == before
+
+
+def test_split_tiling_constants_are_the_kernels():
+    """ops/qrnn.py's TILE_LANES, SPLIT_SEGS and SPLIT_GRID are the shipped
+    split kernel's kEvalLanes, kSplitSegs and kSplitGrid (its chunks are
+    the eval kernel's: EVAL_CHUNKS, EVAL_CHUNK), and kernel_variants's
+    SPLIT_SHIPPED is its tile: the eval kernel's kEvalChunk, kEvalBlocks
+    and kEvalDepth, and kSplitGrid."""
+    import re
+    from pase_tpu_torch import kernel_variants
+    with open(cuda_qrnn.SOURCE) as f:
+        text = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert "kSplitLanes" not in const and "kSplitChunk" not in const
+    assert (const["kEvalLanes"], const["kSplitSegs"],
+            const["kSplitGrid"]) == (
+        torch_qrnn.TILE_LANES, torch_qrnn.SPLIT_SEGS, torch_qrnn.SPLIT_GRID)
+    assert kernel_variants.SPLIT_SHIPPED == tuple(
+        const[k] for k in ("kEvalChunk", "kEvalBlocks", "kSplitGrid",
+                           "kEvalDepth"))
+
+
 def test_train_chunking_constants_are_the_kernels():
     """ops/qrnn.py's TRAIN_CHUNKS, FWD_CHUNK and BWD_CHUNK are the
     shipped kernels' kTrainThreads / kTrainLanes, kFwdChunk and
@@ -458,7 +532,8 @@ def test_chunked_wrapper_cpu_path_and_route():
     assert cuda_qrnn.LAUNCHES == before
     assert (cuda_qrnn.EVAL_LANES, cuda_qrnn.EVAL_SHORT_LANES,
             cuda_qrnn.EVAL_SHORT_STEPS) == (6144, 4096, 200)
-    assert set(cuda_qrnn.LAUNCHES) == {"qrnn_pool_fwd_chunked",
+    assert set(cuda_qrnn.LAUNCHES) == {"qrnn_pool_fwd_split",
+                                       "qrnn_pool_fwd_chunked",
                                        "qrnn_pool_fwd_seg",
                                        "qrnn_pool_fwd",
                                        "qrnn_pool_fwd_eval",
@@ -471,13 +546,25 @@ def test_chunked_wrapper_cpu_path_and_route():
     (16383, True, 200, "qrnn_pool_fwd_seg"),
     (16384, True, 200, "qrnn_pool_fwd"), (49152, True, 200, "qrnn_pool_fwd"),
     (512, False, 100, "qrnn_pool_fwd_chunked"),
+    (512, False, 200, "qrnn_pool_fwd_chunked"),
+    (512, False, 1000, "qrnn_pool_fwd_chunked"),
+    (512, False, 7499, "qrnn_pool_fwd_chunked"),
+    (512, False, 7500, "qrnn_pool_fwd_split"),
+    (512, False, 10000, "qrnn_pool_fwd_split"),
+    (16, False, 20000, "qrnn_pool_fwd_split"),
+    (513, False, 10000, "qrnn_pool_fwd_chunked"),
+    (512, False, 3000, "qrnn_pool_fwd_chunked"),
+    (1024, False, 1500, "qrnn_pool_fwd_chunked"),
+    (1024, False, 3000, "qrnn_pool_fwd_chunked"),
     (2048, False, 200, "qrnn_pool_fwd_chunked"),
+    (2048, False, 1000, "qrnn_pool_fwd_chunked"),
+    (2048, False, 4000, "qrnn_pool_fwd_chunked"),
     (4096, False, 200, "qrnn_pool_fwd_eval"),
     (4096, False, 201, "qrnn_pool_fwd_chunked"),
+    (4096, False, 600, "qrnn_pool_fwd_chunked"),
     (4096, False, 1000, "qrnn_pool_fwd_chunked"),
-    (2048, False, 1000, "qrnn_pool_fwd_chunked"),
-    (512, False, 10000, "qrnn_pool_fwd_chunked"),
     (4096, False, 4000, "qrnn_pool_fwd_chunked"),
+    (4096, False, 10000, "qrnn_pool_fwd_chunked"),
     (6144, False, 1000, "qrnn_pool_fwd_eval"),
     (12288, False, 200, "qrnn_pool_fwd_eval"),
     (24576, False, 200, "qrnn_pool_fwd_eval"),
@@ -489,9 +576,15 @@ def test_forward_entry_routes_by_seed_and_lanes(lanes, seeded, steps, entry):
     the chunked eval kernel on EVAL_LANES lanes or more, or on
     EVAL_SHORT_LANES or more of at most EVAL_SHORT_STEPS steps (every
     training CLI's eval: [48,200,256] 12288 lanes, [96,200,512] 49152,
-    [48,21,512] 24576), else the chunked serving kernel (the long serving
-    windows [8,1000,512], [8,4000,512], [8,1000,256], [1,10000,512])."""
+    [48,21,512] 24576), else the split kernel on at most SPLIT_LANES lanes
+    of SPLIT_STEPS steps or more (a 100 s file at B = 1 in one window,
+    [1,10000,512]), else the chunked serving kernel (B = 1 extraction
+    [1,200,512], forward-chunk's window [1,1000,512], the time shard's
+    [2,1500,512], the serving batch [8,1000,512], [8,4000,512],
+    [8,1000,256]; 3000 steps at 512 to 2048 lanes and 600 at 4096, where
+    the split kernel wins on random gates but not on slow ones)."""
     assert cuda_qrnn.SEG_LANES == 16384
+    assert (cuda_qrnn.SPLIT_LANES, cuda_qrnn.SPLIT_STEPS) == (512, 7500)
     assert cuda_qrnn.forward_entry(lanes, seeded, steps) == entry
 
 
@@ -550,11 +643,14 @@ def test_serial_wrappers_cpu_path(wrapper):
      "float*, float*, long, long, long, int)", "qrnn bwd"),
     ("void (anonymous namespace)::qrnn_pool_fwd_eval_kernel<5>(float "
      "const*, float const*, float*, float*, long, long, long, int)",
-     "qrnn fwd eval")])
+     "qrnn fwd eval"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_split_kernel<5, 3>(float "
+     "const*, float const*, float*, float*, int*, float*, long, long, long, "
+     "int, int, int, int)", "qrnn fwd split")])
 def test_profiler_names_the_qrnn_kernels(name, kind):
     """A push's profile counts K1's serial serving kernels (the segmented
     one and the one-thread-a-lane loop) as 'qrnn fwd', apart from the
-    chunked kernel and the eval kernel; a step's split counts the training
+    chunked kernel, the eval kernel and the split kernel; a step's split counts the training
     pair's kernels as 'qrnn fwd_train' and 'qrnn bwd'."""
     from pase_tpu_torch.profiling import kernel_kind
     assert kernel_kind(name) == kind
@@ -566,7 +662,8 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     there exactly once. The serial group holds every tile of the
     segmented kernel but the shipped one, the train group every tile of
     the training pair but the shipped one, the eval group every tile of
-    the eval kernel but the shipped one, each a different one."""
+    the eval kernel but the shipped one, the split group every tile of
+    the split kernel but the shipped one, each a different one."""
     from pase_tpu_torch import kernel_variants
     serial = [k for k in kernel_variants.VARIANTS
               if k.startswith("qrnn serial")]
@@ -584,6 +681,12 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     assert kernel_variants.EVAL_SHIPPED in tiles
     assert len(set(tiles)) == len(tiles) and len(evals) == len(tiles) - 1
     assert "eval" in kernel_variants.GROUPS
+    splits = [k for k in kernel_variants.VARIANTS
+              if k.startswith("qrnn split")]
+    tiles = kernel_variants.SPLIT_TILES
+    assert kernel_variants.SPLIT_SHIPPED in tiles
+    assert len(set(tiles)) == len(tiles) and len(splits) == len(tiles) - 1
+    assert "split" in kernel_variants.GROUPS
     for name, (source, subs) in kernel_variants.VARIANTS.items():
         with open(source) as f:
             text = f.read()
