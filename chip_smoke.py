@@ -9,33 +9,43 @@ Phases, each printed as it ends; any failure exits non-zero:
   2. build   — the QRNN kernels (pase_tpu_torch/csrc/qrnn_pool.cu) and the
                stride-1 conv kernels (csrc/conv_s1_tc.cu: conv_s1_tc, bf16,
                and conv_s1_tf32x3, float32, both on the tensor cores), nvcc
-               for sm_90a, from the sources of this checkout, the two
-               builds at once.
+               for sm_90a, from the sources of this checkout, both builds
+               at once.
   3. kernel  — the serving forward kernels against the plain PyTorch
                version on the card at each of QRNN_SHAPES: the split
-               kernel (qrnn_pool_fwd_split), the chunked one
-               (qrnn_pool_fwd_chunked), the segmented serial one
+               kernel (qrnn_pool_fwd_split), the few-lane one
+               (qrnn_pool_fwd_few), the segmented serial one
                (qrnn_pool_fwd_seg), the one-thread-a-lane one
                (qrnn_pool_fwd) and the chunked eval one
                (qrnn_pool_fwd_eval) unseeded, max|dh|, max|dc_T| <= 1e-5;
-               the eval and the split kernels also within 5e-7 of the
-               plain versions of their algebra at the library's chunking
-               and tiling, two calls bit for bit; qrnn_pool c0-seeded,
+               the eval, the split and the few-lane kernels also within
+               5e-7 of the plain versions of their algebra at the
+               library's chunking and tiling, two calls bit for bit;
+               qrnn_pool c0-seeded,
                and block-streamed == full bit for bit on that seeded
                route; the two serial kernels equal bit for bit, seeded
                and unseeded; the time of each (CUDA graphs of 20
                launches, so no host time between them; the five in
                turns) beside the byte bound, and the route an unseeded
                and a seeded call take there (the routed kernel against
-               the kernel the unseeded route took before the split
+               the kernel the unseeded route takes without the split
                kernel: the eval one on its lanes and steps, else the
-               chunked one); an empty kernel's time in the same graphs,
+               few-lane one); an empty kernel's time in the same graphs,
                the launch floor; then the split kernel at
                QRNN_GATE_SHAPES, on gates whose carries decay slowly
                (f less 6) and never (f = 0 from the second step): within
                1e-5 of the plain version and 5e-7 of its algebra, two
-               calls bit for bit, and its time in turns with the chunked
-               kernel's.
+               calls bit for bit, and its time in turns with the few-lane
+               kernel's. At FEW_SHAPES (B = 1 of 200, 800 and 1000
+               steps, [2,1500,512], the serving batch [8,1000,512]), on
+               random gates and at FEW_GATE_SHAPES on slow and frozen
+               ones, the few-lane kernel in turns with the streaming
+               floor (cuda_qrnn.stream_floor: y read once, h written
+               once, no carry) and the empty kernel, and its time as a
+               ratio to both floors. (The kernel the few-lane one
+               replaced is timed beside it by ``python -m
+               pase_tpu_torch.kernel_variants fewlane --against`` an
+               earlier qrnn_pool.cu, not here.)
   4. encoder — PASE+ at full width (cfg/frontend/PASE+.cfg), seeded
                weights: the (1,1,100000) -> (1,256,625) contract, a
                (8,1,160000) batch, the same batch on the CPU (plain path)
@@ -145,7 +155,7 @@ Phases, each printed as it ends; any failure exits non-zero:
                forward-chunk --chunk_size 64000 (requests/s of each); the
                streaming artifact against the in-process stream at the same
                chunk, bit for bit (B=1 and 4); the 64000 bucket at B=40,
-               above the chunked route's lanes, within 2e-5 of the offline
+               above the few-lane route's lanes, within 2e-5 of the offline
                encoder; and a narrow artifact exported on the CPU, served on
                the card (moved by the loader), within 2e-5 of its CPU
                frames.
@@ -459,20 +469,27 @@ Phases, each printed as it ends; any failure exits non-zero:
                per layer per train step and qrnn_pool_fwd once per layer
                per eval step, run B (killed and resumed) at least as many,
                forward-chunk and serve-encode K1's unseeded route (the
-               chunked kernel at the rehearsal's [1,800,512]) once per
+               few-lane kernel at the rehearsal's [1,800,512]) once per
                layer and nothing else. Beside run B, one epoch of run
                A's command under torch's deterministic algorithms (a
                process of its own) lists the ops torch has no
                deterministic implementation of. Prints the script's PASS
                lines, each step's seconds and the launches of each CLI.
+ 29. trained gates — once every phase above has ended: run A's last
+               FE_e*.npz (phase 28), the first QRNN layer's pooling input
+               on a 2 s and a 100 s seeded wav; the few-lane kernel and
+               the split kernel on it in turns (CUDA graphs), each within
+               1e-5 of the plain
+               version; the split kernel's share of segments run again
+               and the quantiles of a = 1 - f.
 Main paths, each with the launch counts reset to 0 just before it and
 read just after: serving (phases 4-5) must launch the kernel of K1's
-unseeded route (cuda_qrnn.forward_entry: qrnn_pool_fwd_chunked at the
-(8,1,160000) batch's [8,1000,512] and at B = 1) once per QRNN layer per
-encoder call and qrnn_pool_fwd never; training
+unseeded route (cuda_qrnn.forward_entry: qrnn_pool_fwd_few, its wide
+tile at the (8,1,160000) batch's [8,1000,512], its narrow one at B = 1)
+once per QRNN layer per encoder call and qrnn_pool_fwd never; training
 (the CLI in phase 7) must launch qrnn_pool_fwd_train and qrnn_pool_bwd
 once per QRNN layer per train step, and qrnn_pool_fwd once per layer per
-eval step (batch 3 x 32: above the chunked route's lane count); the
+eval step (batch 3 x 32: above the few-lane route's lane count); the
 distorted step (phase 8, bf16 and float32 each) the training kernels once
 per layer per step;
 each disk-fed run (phase 12, five of them) the training kernels once per
@@ -481,38 +498,43 @@ the bf16 conv_proto run (phase 9) conv_s1_tc once per layer, 7 in all,
 the float32 run conv_s1_tf32x3 7 times; each stream (phase 13)
 qrnn_pool_fwd_seg once per QRNN layer per push that reaches the QRNN and
 no other forward kernel; serve-encode through the exported programs
-(phase 14) the unseeded route (the chunked kernel) once per layer per program
-call, and the B=40 call the eval kernel; the overlap step (phase 15) the
+(phase 14) the unseeded route (the few-lane kernel) once per layer per
+program call, and the B=40 call the eval kernel; the overlap step (phase
+15) the
 training kernels once per layer; phase 16's steps (VQ, v0.1, Gap) the training
 kernels once per QRNN layer (none in v0.1, which has no QRNN), the VQ
 training CLI the training kernels once per layer per train step and
 qrnn_pool_fwd once per layer per eval step, the v0.1 CLI none; phase 17's
 VQ serving path the unseeded route once per layer per encoder call (the
-chunked kernel), its streams qrnn_pool_fwd_seg once
-per layer per push that reaches the QRNN, its serve-encode the chunked kernel
-once per layer per program call;
+few-lane kernel at B = 8 and at B = 1),
+its streams qrnn_pool_fwd_seg once per layer per push that reaches the
+QRNN, its serve-encode the few-lane kernel once per layer per program
+call;
 phase 18's GAN steps (wave, z) the training kernels once per layer (D
 has no QRNN), each recipe CLI run the training kernels once per layer
 per train step and qrnn_pool_fwd once per layer per eval step, the snorm
 and wnorm encoders the unseeded route once per layer per call;
 phase 19's probe runs (utt, knn, kfold, frames, timit-full) the
-unseeded route at B = 1 (the chunked kernel) once per layer per
+unseeded route at B = 1 (the few-lane kernel) once per layer per
 utterance encoded and nothing else, forward-chunk over a 100 s file in
 one window (in the gate's process) the split kernel once per layer and
 nothing else, the superviser's training run the training kernels once per layer
-per train step and the chunked kernel once per layer per eval step (3 x
-4 rows), the transfer gate (its encoder has no QRNN) none; phase 20's
+per train step and the unseeded route once per layer per eval step (3 x
+4 rows: the eval kernel), the transfer gate (its encoder has no QRNN)
+none; phase 20's
 lstm and gru encoders (serving) and the lstm encoder's step none (no
 QRNN), the GRU-head step and the WaveRNN recipe's steps the training
 kernels once per layer per step, its CLI the training kernels once per
 layer per train step and qrnn_pool_fwd once per layer per eval step,
 generate none; phase 21's TDNN serving path and its serve-encode
-the unseeded route (the chunked kernel) once per encoder / program call
-and nothing else,
+the unseeded route (the few-lane kernel at [8,1000,256] and at B = 1)
+once per encoder / program call and
+nothing else,
 the TDNN and narrow ASPP steps the training kernels once each, the TDNN
 recipe's CLI the training kernels once per train step and qrnn_pool_fwd
-once per eval step (192 x 256 lanes), ASPP with its QRNN the chunked
-kernel once per call, ASPP without it and the ResNet none; phase 23's
+once per eval step (192 x 256 lanes), ASPP with its QRNN the few-lane
+kernel once per call, ASPP without it and the ResNet
+none; phase 23's
 CLI epochs (the AMI recipe, its --synthetic twin, channel-key, device
 corpus, the feature cache) the training kernels once per train step and
 qrnn_pool_fwd once per eval step, profile-step the training kernels once
@@ -520,13 +542,13 @@ per step (3 warm-up and 20 timed, each dtype), eval-ckpts qrnn_pool_fwd
 once per eval batch; phase 24's CLI epoch the training kernels once per
 train step and qrnn_pool_fwd once per eval step, its profiled steps the
 training kernels once each, clusterize, project-features and
-prosodic-eval the unseeded route at B = 1 (the chunked kernel) once per
+prosodic-eval the unseeded route at B = 1 (the few-lane kernel) once per
 utterance, the other tools
 none; phase 25's data-parallel step (both ranks) the training kernels
 once per layer per rank per step, dp_cli as phase 7's CLI, the sharded
 corpus (both ranks) the training kernels once per layer per rank per
 train step and qrnn_pool_fwd once per layer per rank per eval step (48
-rows x 512 lanes), the time shard the chunked kernel on D - 1 shards
+rows x 512 lanes), the time shard the few-lane kernel on D - 1 shards
 (pass 1) and qrnn_pool_fwd_seg on D (pass 2) per layer, its gradient
 qrnn_pool_fwd_train and qrnn_pool_bwd 2 D - 1 times per layer, and
 forward-chunk --time_shard (D = the visible cards) as the time shard;
@@ -538,7 +560,7 @@ phase 27's grid steps (every rank) the training kernels once per layer
 per rank per step, its CLI once per layer per rank per train step and
 qrnn_pool_fwd once per layer per rank per eval step; phase 28's runs A and
 B (summed over B's two processes) as phase 7's CLI, forward-chunk and
-serve-encode the chunked kernel once per layer, the probes once per
+serve-encode the few-lane kernel once per layer, the probes once per
 layer per utterance.
 The kernels line gives each kernel's launches on every path ("paths":
 serving, training, stream (phase 13's four streams), stream_cli
@@ -570,14 +592,19 @@ attention recipe's [48,200,512] ("attention") and at [64,200,512]
 ("regu"), and at the data-parallel step's per-rank [48,200,512] ("dp"),
 K2 at the attention variant's per-rank [24,200,512] ("dp_attention"),
 and the loop and K2 at phase 27's lane shards [96,200,256] ("tp") and
-[48,200,256] ("tp_2x2").
+[48,200,256] ("tp_2x2"); the few-lane kernel's entry its time at
+[1,200,512], at the serving batch ("serving"), at phase 21's TDNN shape
+("tdnn"), at each of FEW_SHAPES ("shapes": beside the streaming floor,
+the empty kernel and the byte bound, on random, slow and frozen gates)
+and on phase 29's trained gates ("trained").
 No other path launches a conv kernel.
 Schedule: phases 1-9 and 13, which time every kernel, run alone in this
 process. Then the gate (19 e), phase 11, the rehearsal (28) and a lane
 process with phases 22-25 and 27 (``--lane``) start, each in a session of
 its own, and this process runs phases 10, 12, 14-21 and 26 beside them;
 it prints the lane's lines between its phases and joins them all at the
-end. Their rates and seconds are taken on a shared host and card. CPU
+end; phase 29 runs last, alone. Their rates and seconds are taken on a
+shared host and card. CPU
 ops run on SHARED_THREADS threads here and in the lane, CHILD_THREADS in
 the others. The line before the last is a
 JSON summary of the kernels; the last line is {"ok": true, "device":
@@ -694,6 +721,16 @@ QRNN_SHAPES = [(96, 200, 512), (24, 200, 512), (1, 10000, 512),
                (1, 800, 512), (2, 1500, 512)]
 # the split kernel's target shape (a 100 s file in one forward)
 LONG_SHAPE = (1, 10000, 512)
+# the few-lane kernel's shapes timed beside both floors: B = 1 extraction
+# of a 2 s utterance (the probes' 3120 launches), the rehearsal's 8 s file,
+# forward-chunk's 10 s window, the time shard's [2,1500,512], the serving
+# batch; also on gates whose carries decay slowly or never
+FEW_SHAPES = [(1, 200, 512), (1, 800, 512), (1, 1000, 512), (2, 1500, 512),
+              (8, 1000, 512)]
+FEW_GATE_SHAPES = [(s, kind) for s in FEW_SHAPES
+                   for kind in ("slow", "frozen")]
+# a trained encoder's gates (phase 28's run A): seconds of the seeded wavs
+TRAINED_GATE_SECONDS = (2, 100)
 # the split kernel on gates whose carries decay slowly (f less 6) and not
 # at all (f = 0 from the second step; a ragged last segment), where its
 # second run takes every segment of a tile
@@ -733,7 +770,7 @@ EXPORT_BUCKETS = "8000,16000,32000,64000"
 # bucket that holds it and its halo, exact at any set)
 VQ_EXPORT_BUCKETS = "32000,64000"
 EXPORT_CHUNK = 16000
-# a batch above the chunked route's lanes (40 x 512 >= 16384)
+# a batch above the few-lane route's lanes (40 x 512 >= 16384)
 EXPORT_WIDE_BATCH = 40
 # phase 4's operator timing: calls per host-time sample (5 samples), and
 # alternating pairs of forwards per batch of 160000 samples
@@ -1071,14 +1108,15 @@ def k1_eval(shape):
 
 
 def k1_before(shape):
-    """The kernel an unseeded call at (B, T, H) took before the split
-    kernel: the eval kernel on its lanes and steps, else the chunked one."""
+    """The kernel an unseeded call at (B, T, H) takes without the split
+    kernel: the eval kernel on its lanes and steps, else the few-lane
+    one."""
     from pase_tpu_torch.ops import cuda_qrnn
     b, t, h = shape
     lanes = b * h
     return ("eval" if lanes >= cuda_qrnn.EVAL_LANES
             or (lanes >= cuda_qrnn.EVAL_SHORT_LANES
-                and t <= cuda_qrnn.EVAL_SHORT_STEPS) else "chunked")
+                and t <= cuda_qrnn.EVAL_SHORT_STEPS) else "few")
 
 
 def k1_calls(module, calls):
@@ -1105,11 +1143,45 @@ def _calls_sum(*calls):
     return out
 
 
+def _few_check(y):
+    """qrnn_pool_fwd_few on y: (max error against the plain version,
+    against the plain version of its algebra at the library's tile, two
+    calls bit for bit)."""
+    import torch
+    from pase_tpu_torch.ops import cuda_qrnn
+    from pase_tpu_torch.ops import qrnn as plain
+    b, t, h3 = y.shape
+    tile = cuda_qrnn.few_chunking(b * (h3 // 3), t)
+    check(tile == plain.few_tile(b * (h3 // 3), t), f"qrnn_pool_fwd_few's "
+          f"tile {tile} != ops.qrnn.few_tile's at {list(y.shape)}")
+    _, per, warps, chunk = tile
+    hk, ck = cuda_qrnn.qrnn_pool_fwd_few(y)
+    hk2, ck2 = cuda_qrnn.qrnn_pool_fwd_few(y)
+    hr, cr = plain.qrnn_pool(y)
+    hp, _, cp = plain.qrnn_pool_fwd_train_chunked_plain(
+        y, chunk=chunk, chunks=per * warps, warp_chunks=per)
+    return (max((hk - hr).abs().max().item(), (ck - cr).abs().max().item()),
+            max((hk - hp).abs().max().item(), (ck - cp).abs().max().item()),
+            bool(torch.equal(hk, hk2) and torch.equal(ck, ck2)))
+
+
+def _few_turns(y):
+    """The few-lane kernel, the streaming floor and the empty kernel in
+    turns on y: {name: ms}."""
+    from pase_tpu_torch.ops import cuda_qrnn
+    return _turns_ms({
+        "few": lambda: _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd_few(y)),
+        "stream_floor": lambda: _graph_ms(lambda: cuda_qrnn.stream_floor(y)),
+        "empty": lambda: _graph_ms(cuda_qrnn.empty_launch)})
+
+
 def phase_kernel():
     """The serving forward kernels vs the plain version at each QRNN shape,
-    the two serial ones also against each other, the eval and the split
-    kernels also against the plain versions of their algebra; returns the
-    summary rows and the empty kernel's time (the launch floor)."""
+    the two serial ones also against each other, the eval, the split and
+    the few-lane kernels also against the plain versions of their
+    algebra; at FEW_SHAPES the few-lane kernel against both floors, also
+    on slow and frozen gates; returns the summary rows and the empty
+    kernel's time (the launch floor)."""
     import torch
     from pase_tpu_torch.kernel_variants import gates
     from pase_tpu_torch.ops import cuda_qrnn
@@ -1122,7 +1194,7 @@ def phase_kernel():
         errs = {}
         for name, fn in (
                 ("split", lambda: cuda_qrnn.qrnn_pool_fwd_split(y)),
-                ("chunked", lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
+                ("few", lambda: cuda_qrnn.qrnn_pool_fwd_few(y)),
                 ("seg", lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
                 ("loop", lambda: cuda_qrnn.qrnn_pool_fwd_loop(y)),
                 ("eval", lambda: cuda_qrnn.qrnn_pool_fwd_eval(y)),
@@ -1153,6 +1225,9 @@ def phase_kernel():
                         (cs - cp).abs().max().item())
         split_same = bool(torch.equal(hs, hs2) and torch.equal(cs, cs2))
         del hs, cs, hs2, cs2, hp, cp
+        # the few-lane kernel against the plain version of its algebra at
+        # the library's tile, and two calls bit for bit
+        _, few_alg, few_same = _few_check(y)
         # the two serial kernels, seeded and unseeded
         same = True
         for seed in (c0, None):
@@ -1172,14 +1247,15 @@ def phase_kernel():
         ms = _turns_ms({
             "split": lambda: _graph_ms(
                 lambda: cuda_qrnn.qrnn_pool_fwd_split(y)),
-            "chunked": lambda: _graph_ms(
-                lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y)),
             "loop": lambda: _graph_ms(
                 lambda: cuda_qrnn.qrnn_pool_fwd_loop(y)),
             "eval": lambda: _graph_ms(
                 lambda: cuda_qrnn.qrnn_pool_fwd_eval(y)),
             "seg": lambda: _graph_ms(
-                lambda: cuda_qrnn.qrnn_pool_fwd_seg(y))})
+                lambda: cuda_qrnn.qrnn_pool_fwd_seg(y)),
+            "few": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_few(y))})
+        few = _few_turns(y) if (b, t, h) in FEW_SHAPES else {}
         plain_ms = _wall_ms(lambda: plain.qrnn_pool(y), "cuda")
         # y read once, h written once, c_T written once
         bound_ms, bound_by = bound(16 * b * t * h + 4 * b * h,
@@ -1192,17 +1268,18 @@ def phase_kernel():
               f"{eval_alg:.3e}, two calls bit for bit: {eval_same}; split "
               f"vs its plain algebra ({tiles} tiles of {tile} steps, chunks "
               f"of {chunk}) {split_alg:.3e}, two calls bit for bit: "
-              f"{split_same}; "
+              f"{split_same}; few vs its plain algebra {few_alg:.3e}, two "
+              f"calls bit for bit: {few_same}; "
               f"seg == loop bit for bit (seeded, unseeded): {same}; "
               f"block-streamed == full (seeded): {streamed}; "
               + ", ".join(f"{k} {v:.5f} ms" for k, v in ms.items())
               + f" (CUDA graphs of 20, median of 5, in turns, mean of two); "
               f"bound {bound_ms:.5f} ms ({bound_by}): split "
-              f"{bound_ms / ms['split']:.1%}, eval "
-              f"{bound_ms / ms['eval']:.1%}, chunked "
-              f"{bound_ms / ms['chunked']:.1%}, loop "
+              f"{bound_ms / ms['split']:.1%}, few "
+              f"{bound_ms / ms['few']:.1%}, eval "
+              f"{bound_ms / ms['eval']:.1%}, loop "
               f"{bound_ms / ms['loop']:.1%}; unseeded route {route} (the "
-              f"route before the split kernel: {before}, {short} / {before} "
+              f"route without the split kernel: {before}, {short} / {before} "
               f"{ms[short] / ms[before]:.3f}), seeded route "
               f"{seeded_route}; plain {plain_ms:.2f} ms (synchronized, "
               f"median of 3)")
@@ -1216,9 +1293,25 @@ def phase_kernel():
               f"algebra at {(b, t, h)}: {split_alg:.3e} > {EVAL_ALG_ATOL}")
         check(split_same, f"qrnn_pool_fwd_split: two calls differ at "
               f"{(b, t, h)}")
+        check(few_alg <= EVAL_ALG_ATOL, f"qrnn_pool_fwd_few vs its plain "
+              f"algebra at {(b, t, h)}: {few_alg:.3e} > {EVAL_ALG_ATOL}")
+        check(few_same, f"qrnn_pool_fwd_few: two calls differ at "
+              f"{(b, t, h)}")
         check(streamed, f"block-streamed != full at {(b, t, h)}")
         check(same, f"qrnn_pool_fwd_seg != qrnn_pool_fwd at {(b, t, h)}")
-        rows.append({"shape": [b, t, h], "chunked_err": max(errs["chunked"]),
+        if few:
+            print(f"[kernel] few-lane y[{b},{t},{3 * h}] (in turns, CUDA "
+                  f"graphs of 20): the few-lane kernel {few['few']:.5f} ms, "
+                  f"the streaming floor {few['stream_floor']:.5f} ms, the "
+                  f"empty kernel "
+                  f"{few['empty']:.5f} ms; few / streaming floor "
+                  f"{few['few'] / few['stream_floor']:.2f}, few / launch "
+                  f"floor {few['few'] / few['empty']:.2f}; byte bound "
+                  f"{bound_ms:.5f} ms")
+        rows.append({"shape": [b, t, h],
+                     "few_err": max(errs["few"]), "few_alg": few_alg,
+                     "few_ms": ms["few"],
+                     "few_turns": few,
                      "split_err": max(errs["split"]), "split_alg": split_alg,
                      "split_ms": ms["split"], "route_ms": ms[short],
                      "before_ms": ms[before],
@@ -1226,7 +1319,7 @@ def phase_kernel():
                      "loop_err": max(max(errs["loop"]),
                                      max(errs["seeded"])),
                      "eval_err": max(errs["eval"]), "eval_alg": eval_alg,
-                     "chunked_ms": ms["chunked"], "seg_ms": ms["seg"],
+                     "seg_ms": ms["seg"],
                      "loop_ms": ms["loop"], "eval_ms": ms["eval"],
                      "route": route, "before_route": before,
                      "plain_ms": plain_ms,
@@ -1248,14 +1341,14 @@ def phase_kernel():
         ms = _turns_ms({
             "split": lambda: _graph_ms(
                 lambda: cuda_qrnn.qrnn_pool_fwd_split(y)),
-            "chunked": lambda: _graph_ms(
-                lambda: cuda_qrnn.qrnn_pool_fwd_chunked(y))})
+            "few": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_few(y))})
         print(f"[kernel] qrnn_pool y[{b},{t},{3 * h}], {kind} gates: split "
               f"vs plain {err:.3e}, vs its plain algebra ({tiles} tiles of "
               f"{tile} steps) {alg:.3e}, two calls bit for bit: "
-              f"{same}; split {ms['split']:.5f} ms, chunked "
-              f"{ms['chunked']:.5f} ms (in turns), split / chunked "
-              f"{ms['split'] / ms['chunked']:.3f}; unseeded route "
+              f"{same}; split {ms['split']:.5f} ms, few "
+              f"{ms['few']:.5f} ms (in turns), split / few "
+              f"{ms['split'] / ms['few']:.3f}; unseeded route "
               f"{k1_eval((b, t, h))}")
         check(err <= KERNEL_ATOL, f"qrnn_pool_fwd_split vs plain at "
               f"{(b, t, h)}, {kind} gates: {err:.3e} > {KERNEL_ATOL}")
@@ -1265,6 +1358,29 @@ def phase_kernel():
         check(same, f"qrnn_pool_fwd_split: two calls differ at {(b, t, h)}, "
               f"{kind} gates")
         del y, hs, cs, hs2, cs2, hr, cr, hp, cp
+    for (b, t, h), kind in FEW_GATE_SHAPES:
+        # the few-lane kernel has no second run: its time is the gates'
+        # transcendentals', not their carries'
+        y = gates(torch.randn(b, t, 3 * h, device="cuda", generator=gen),
+                  kind)
+        err, alg, same = _few_check(y)
+        few = _few_turns(y)
+        print(f"[kernel] few-lane y[{b},{t},{3 * h}], {kind} gates: vs plain "
+              f"{err:.3e}, vs its plain algebra {alg:.3e}, two calls bit "
+              f"for bit: {same}; in turns: few {few['few']:.5f} ms, "
+              f"streaming floor {few['stream_floor']:.5f} ms, empty "
+              f"{few['empty']:.5f} ms")
+        check(err <= KERNEL_ATOL, f"qrnn_pool_fwd_few vs plain at "
+              f"{(b, t, h)}, {kind} gates: {err:.3e} > {KERNEL_ATOL}")
+        check(alg <= EVAL_ALG_ATOL, f"qrnn_pool_fwd_few vs its plain "
+              f"algebra at {(b, t, h)}, {kind} gates: {alg:.3e} > "
+              f"{EVAL_ALG_ATOL}")
+        check(same, f"qrnn_pool_fwd_few: two calls differ at {(b, t, h)}, "
+              f"{kind} gates")
+        row = next(r for r in rows if r["shape"] == [b, t, h])
+        row.setdefault("few_gates", {})[kind] = {"err": err, "alg": alg,
+                                                 **few}
+        del y
     torch.cuda.empty_cache()
     floor = _graph_ms(cuda_qrnn.empty_launch)
     print(f"[kernel] an empty kernel (one warp), the launch floor of the "
@@ -3353,7 +3469,7 @@ def _timed(module, name, sink):
 def _probe_run(argv, what, layers, n_utts, paths, path):
     """``python -m pase_tpu_torch.run_probe`` in this process, its launch
     counts reset just before and read just after: the unseeded route of a
-    B = 1 call of a few hundred frames (the chunked kernel) once per QRNN
+    B = 1 call of a few hundred frames (the few-lane kernel) once per QRNN
     layer per utterance encoded, no other kernel. Returns (metrics,
     seconds, seconds in train_mlp_probe)."""
     from pase_tpu_torch import run_probe
@@ -3975,6 +4091,88 @@ def _rehearsal_join(started):
     return {"rehearsal": total}
 
 
+def _pool_inputs(enc, wav):
+    """The QRNN pooling inputs y (one a layer) of ``enc``'s forward on
+    ``wav``, as the layers pass them to cuda_qrnn.qrnn_pool."""
+    import torch
+    from pase_tpu_torch.ops import cuda_qrnn
+    seen, inner = [], cuda_qrnn.qrnn_pool
+
+    def record(y, c0=None):
+        seen.append(y.clone())
+        return inner(y, c0)
+    cuda_qrnn.qrnn_pool = record
+    try:
+        with torch.no_grad():
+            enc(wav)
+    finally:
+        cuda_qrnn.qrnn_pool = inner
+    return seen
+
+
+def phase_trained_gates(run_dir):
+    """A trained encoder's gates (phase 28's run A, its last FE_e*.npz; the
+    card otherwise idle): the first QRNN layer's pooling input y of a
+    seeded wav of each of TRAINED_GATE_SECONDS; the few-lane kernel and
+    the split kernel on it in turns (CUDA graphs), each within KERNEL_ATOL
+    of the
+    plain version; the split kernel's share of segments run again
+    (kernel_variants.rerun_share) and the gates' a = 1 - f. Returns
+    {shape: its numbers}."""
+    import glob
+    import numpy as np
+    import torch
+    from pase_tpu_torch.frontend import wf_builder
+    from pase_tpu_torch.kernel_variants import rerun_share
+    from pase_tpu_torch.ops import cuda_qrnn
+    from pase_tpu_torch.ops import qrnn as plain
+    ckpts = glob.glob(os.path.join(run_dir, "FE_e*.npz"))
+    check(bool(ckpts), f"no FE_e*.npz in {run_dir}")
+    npz = max(ckpts, key=lambda p: int(p.rsplit("FE_e", 1)[1][:-4]))
+    enc = wf_builder(PASEP_CFG, device="cuda").load_pretrained(npz)
+    out = {}
+    for seconds in TRAINED_GATE_SECONDS:
+        wav = (np.random.RandomState(seconds).randn(1, 1, seconds * SR)
+               * 0.1).astype(np.float32)
+        y = _pool_inputs(enc, wav)[0]
+        b, t, h3 = y.shape
+        h_ref, c_ref = plain.qrnn_pool(y)
+        errs = {}
+        for name, fn in (
+                ("few", lambda: cuda_qrnn.qrnn_pool_fwd_few(y)),
+                ("split", lambda: cuda_qrnn.qrnn_pool_fwd_split(y))):
+            hk, ck = fn()
+            errs[name] = max((hk - h_ref).abs().max().item(),
+                             (ck - c_ref).abs().max().item())
+            check(errs[name] <= KERNEL_ATOL, f"{name} on the trained gates "
+                  f"at {list(y.shape)}: {errs[name]:.3e} > {KERNEL_ATOL}")
+        ms = _turns_ms({
+            "few": lambda: _graph_ms(lambda: cuda_qrnn.qrnn_pool_fwd_few(y)),
+            "split": lambda: _graph_ms(
+                lambda: cuda_qrnn.qrnn_pool_fwd_split(y))})
+        a = 1.0 - torch.sigmoid(y[..., h3 // 3:2 * h3 // 3]).flatten()
+        q = torch.quantile(a[torch.randperm(a.numel(), device=a.device)[
+            :1 << 20]], torch.tensor([0.5, 0.99, 0.999], device=a.device))
+        share = rerun_share(y)
+        route = k1_eval((b, t, h3 // 3))
+        print(f"[trained] {os.path.basename(npz)} of run A on a {seconds} s "
+              f"seeded wav: the first QRNN layer's y[{b},{t},{h3}]; a = 1 - "
+              f"f median {q[0].item():.4f}, 99th percentile "
+              f"{q[1].item():.4f}, 99.9th {q[2].item():.4f}; in turns: few "
+              f"{ms['few']:.5f} ms, split {ms['split']:.5f} ms; max err vs "
+              f"plain "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; the split kernel's segments run again {share:.1%}; "
+              f"routed to {route}")
+        out["x".join(map(str, (b, t, h3 // 3)))] = {
+            "ms": ms, "err": errs, "rerun_share": share, "route": route,
+            "a_quantiles": [v.item() for v in q]}
+        del y, h_ref, c_ref
+    del enc
+    torch.cuda.empty_cache()
+    return out
+
+
 def _rnn_encoder_cfg(tmp, rnn_type):
     """PASE+.cfg with an lstm / gru context layer, written to ``tmp``."""
     with open(PASEP_CFG) as f:
@@ -4306,7 +4504,7 @@ def phase_recurrent(tmp):
 
 def _tdnn_serving():
     """Phase 21 (a): TDNNFe at cfg/frontend/TDNN.cfg, seeded weights,
-    float32, through phase 4's checks; K1's unseeded route (the chunked
+    float32, through phase 4's checks; K1's unseeded route (the few-lane
     kernel at [8,1000,256]) once per call and no other kernel. Returns
     (encoder, launch counts)."""
     check(TDNN_SERVING_SHAPE in QRNN_SHAPES,
@@ -4439,7 +4637,7 @@ def _alt_encoders():
     """Phase 21 (e): ASPPResEncoder (without and with its QRNN) and
     ResnetEncoder at the JAX modules' defaults, seeded weights, through
     phase 4's checks at ALT_SHAPE (T / hop frames: the ResNet's hop is
-    40); K1's unseeded route (the chunked kernel at [8,200,256]) once per
+    40); K1's unseeded route (the few-lane kernel at [8,200,256]) once per
     call where there is a QRNN. Returns {path: launch counts}."""
     import torch
     paths = {}
@@ -5537,7 +5735,7 @@ def _kaldi_step(tmp, bf16_rate):
 
 def _tool(argv, what, audio_s=None, utts=None, layers=None):
     """One util_scripts subcommand on the card, its K1 launches counted
-    from 0 (the unseeded route of a B = 1 call of 200 frames, the chunked
+    from 0 (the unseeded route of a B = 1 call of 200 frames, the few-lane
     kernel, once per QRNN layer per utterance where ``utts`` is given, no
     kernel otherwise). Returns (result, launches)."""
     import torch
@@ -6982,6 +7180,9 @@ def main():
         paths.update(_lane_join(lane))
         lane = None
         clock("22-25, 27 joined")
+        trained = phase_trained_gates(
+            os.path.join(tmp, "rehearsal", "work", "runA"))
+        clock("the trained gates")
     except SmokeFailure as e:
         if lane is not None:
             _lane_show(lane)
@@ -6991,14 +7192,23 @@ def main():
         _end_children()
         shutil.rmtree(tmp, ignore_errors=True)
     src = "pase_tpu_torch/csrc/qrnn_pool.cu"
-    # the chunked kernel at the serving shape; the eval kernel at the eval
+    # the few-lane kernel at the serving shape; the eval kernel at the eval
     # shape of the training path, where it runs; the one-thread-a-lane one
     # there too (seeded calls on as many lanes take it; no path makes
     # one); the segmented one at a 1 s push at B=1 (phase 13 prints it at
     # all four push shapes)
     serving = next(r for r in rows if tuple(r["shape"]) == SERVING_SHAPE)
-    window = next(r for r in rows if tuple(r["shape"]) == (1, 1000, 512))
     long = next(r for r in rows if tuple(r["shape"]) == LONG_SHAPE)
+    # the few-lane kernel at B = 1 extraction's [1,200,512] (the probes'
+    # calls), and at each of FEW_SHAPES beside both floors and its bound,
+    # on random, slow and frozen gates
+    b1 = next(r for r in rows if tuple(r["shape"]) == FEW_SHAPES[0])
+    few_at = {"x".join(map(str, r["shape"])): {
+        "ms": r["few_turns"]["few"],
+        "stream_floor_ms": r["few_turns"]["stream_floor"],
+        "empty_ms": r["few_turns"]["empty"], "bound_ms": r["bound_ms"],
+        "gates": r.get("few_gates", {})}
+        for r in rows if r["few_turns"]}
     # the split kernel at every QRNN shape, and where the route sends it
     split_at = {"x".join(map(str, r["shape"])): {
         "ms": r["split_ms"], "bound_ms": r["bound_ms"],
@@ -7009,7 +7219,7 @@ def main():
     train = next(r for r in train_rows
                  if tuple(r["shape"]) == TRAIN_SHAPE)
     push = k1[(1, 100)]
-    # phase 21's TDNN shapes (H = 256): the serving batch (K1 chunked), the
+    # phase 21's TDNN shapes (H = 256): the serving batch (K1 few-lane), the
     # recipe's eval (K1's eval kernel) and its train step (K2)
     tdnn_serve = next(r for r in rows
                       if tuple(r["shape"]) == TDNN_SERVING_SHAPE)
@@ -7052,13 +7262,18 @@ def main():
              serving=tdnn(serving, "split_ms", "plain_ms", (
                  serving["bound_ms"], serving["bound_by"])),
              shapes=split_at),
-        _row("qrnn_pool_fwd_chunked", src, "pase_tpu/ops/pallas_qrnn.py:63",
-             serving_launches["qrnn_pool_fwd_chunked"],
-             max(r["chunked_err"] for r in rows), window["chunked_ms"],
-             window["plain_ms"], (window["bound_ms"], window["bound_by"]),
-             paths=paths, shape=[1, 1000, 512], floor_ms=floor_ms,
-             tdnn=tdnn(tdnn_serve, "chunked_ms", "plain_ms", (
-                 tdnn_serve["bound_ms"], tdnn_serve["bound_by"]))),
+        _row("qrnn_pool_fwd_few", src, "pase_tpu/ops/pallas_qrnn.py:63",
+             serving_launches["qrnn_pool_fwd_few"],
+             max(r["few_err"] for r in rows), b1["few_turns"]["few"],
+             b1["plain_ms"], (b1["bound_ms"], b1["bound_by"]),
+             paths=paths, shape=list(FEW_SHAPES[0]),
+             floor_ms=b1["few_turns"]["empty"],
+             stream_floor_ms=b1["few_turns"]["stream_floor"], shapes=few_at,
+             serving=tdnn(serving, "few_ms", "plain_ms", (
+                 serving["bound_ms"], serving["bound_by"])),
+             tdnn=tdnn(tdnn_serve, "few_ms", "plain_ms", (
+                 tdnn_serve["bound_ms"], tdnn_serve["bound_by"])),
+             trained=trained),
         _row("qrnn_pool_fwd_seg", src, "pase_tpu/ops/pallas_qrnn.py:63",
              paths["stream"]["qrnn_pool_fwd_seg"],
              max([r["seg_err"] for r in rows]

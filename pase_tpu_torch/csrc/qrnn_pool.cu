@@ -33,10 +33,11 @@
 //   qrnn_pool_fwd_seg    the same function, bit for bit, gates apart from
 //                        the chain (below): the seeded serving call on
 //                        fewer lanes (a streaming push);
-//   qrnn_pool_fwd_chunked the same function, chunked in time, a block's
-//                        8 or 4 lanes at a time: the unseeded call on few
-//                        lanes (B = 1 extraction, a 10 s window, the
-//                        serving batch; below);
+//   qrnn_pool_fwd_few    the same function, chunked in time, the chunk
+//                        maps of each warp scanned by shuffles: the
+//                        unseeded call outside the eval and split routes
+//                        (B = 1 extraction, a 10 s window, the serving
+//                        batch; below);
 //   qrnn_pool_fwd_split  the same function, each lane's time axis cut
 //                        into tiles spread over blocks, their carries
 //                        passed between blocks (below): the unseeded call
@@ -83,34 +84,50 @@
 // same gates, the same seed, the same fmaf in the same order, so the bits
 // are those of the one-thread-per-lane loop at every shape.
 //
-// qrnn_pool_fwd_chunked cuts each lane's time axis into chunks of at most
-// kMaxChunk steps, one thread each, as pase_tpu/parallel/sp.py composes the
-// carries across shards, inside one block: (1) each thread loads its chunk's
-// z and f gates (all loads issued before the first use), keeps a and b in
-// registers, and composes the chunk's map c -> A c + B from c = 0; (2) one
-// warp per lane scans the lane's chunk maps (each thread composes a few
-// consecutive chunks, then a shuffle scan) into the carry into every chunk;
-// (3) each thread re-runs its chunk from its carry with the serial step's
-// fmaf(a, c, b), loading the o gate, and writes h. y is read once. A block
-// is a tile of kChunkThreads / lanes chunks x `lanes` consecutive lanes (8,
-// or 4 when tiles of 8 would leave SMs idle); longer T is walked in segments
-// of chunks x len steps, each seeded with the last one's c_T, so any T is
-// one launch. The carry into a chunk comes from composed maps, so it rounds
-// otherwise than the serial loop (a = 1 - f lies in (0, 1): the composition
-// only contracts); a block-streamed run is bit-identical to the full run
-// only on the serial kernel, so seeded calls stay there. The tile of 8
-// lanes was chosen at [8,1000,512] (kChunk* below); under 8 x the SMs'
-// lanes (B = 1 at H = 512) a block takes 4, so 128 blocks walk T, one an
-// SM, each warp's load of a step a 16-byte quarter of a row: 34 % of the
-// byte bound at [1,10000,512] (0.0718 ms on the H100), 26 % at
-// [1,1000,512], where one segment covers T. With many lanes
-// qrnn_pool_fwd_eval is faster, with many steps on few lanes
-// qrnn_pool_fwd_split (ops/cuda_qrnn.py routes by lanes and steps). A
-// cluster of blocks a lane tile (32 lanes, 8 blocks cutting T, one
-// segment each, their maps passed through distributed shared memory: one
-// pass, no flags) only matched this kernel at B = 1 of 200-1000 steps
-// (0.0053 against 0.0051 ms at [1,200,512], 0.0089 against 0.0093 at
-// [1,1000,512]; PERF.md), and was taken out again.
+// qrnn_pool_fwd_few, the unseeded forward outside the eval and split
+// routes: B = 1 extraction (2 s utterances: 512 lanes of 200 steps, 1.2 MB
+// of y, a byte bound of 0.5 us under the 1.3 us launch floor), a 10 s
+// window, the serving batch of 8 (4096 lanes of 1000 steps). It cuts each
+// lane's time axis into chunks, one thread each, as pase_tpu/parallel/sp.py
+// composes the carries across shards, inside one block. The kernel it
+// replaced (a tile of 512 threads, 8 lanes a block, or 4 under 8 x the
+// SMs' lanes) took 0.0052 ms at [1,200,512]: two dependent trips to memory
+// (z and f, then o after the scan), two barriers and a 4-warp scan of 128
+// maps for 2 steps a thread, and each warp's load of a step 16 bytes of a
+// row. Here a block owns LW consecutive lanes and walks T in segments of
+// 32 / LW chunks a warp x NW warps (qrnn_pool_fwd_few_kernel): (1) each
+// thread loads its chunk's z, f and o together, every load issued before
+// the first use (the next segment's in flight across the barrier), and
+// composes its chunk's map c -> A c + B from c = 0; (2) each warp scans its
+// chunks' maps with shuffles; (3) after the segment's one barrier a thread
+// puts the carry through the maps of the warps before its own, then its
+// warp's scanned map; (4) it re-runs its chunk from that carry with the
+// serial step's fmaf and writes h. y is read once; longer T is walked in
+// segments, each seeded with the last one's c_T, so any T is one launch.
+// The carry into a chunk comes from composed maps, so it rounds otherwise
+// than the serial loop (a = 1 - f lies in (0, 1): the composition only
+// contracts); a block-streamed run is bit-identical to the full run only
+// on the serial kernels, so seeded calls stay there. Three tiles by lanes
+// (kFew*): on at most kFewNarrow lanes blocks of 4 lanes (B = 1: 128
+// blocks, 16 warps of 8 chunks of at most 4 steps, 2 blocks an SM), on at
+// most kFewMid blocks of 8 (a 32-byte sector a step; B = 2: 128 blocks, 16
+// warps of 4 chunks of at most 8, 1 block an SM), on more blocks of 8 with
+// chunks of at most 4 at 2 blocks an SM (the serving batch: 512 blocks in
+// one wave). Its sigmoids hold their argument at -80 or above
+// (sigmoid_sat_): frozen gates (y_f = -200) otherwise send the divide to
+// its slow path on every step. Measured on the H100 (python -m
+// pase_tpu_torch.kernel_variants fewlane, in turns with the replaced
+// kernel built from an earlier source; PERF.md): 0.0038 against 0.0052 ms
+// at [1,200,512], 0.0075 against 0.0091 at [1,1000,512], 0.0125 against
+// 0.0191 at [2,1500,512], 0.0314 against 0.0372 at [8,1000,512]; the
+// streaming floor (y read once, h written once, no carry) takes 0.0026 at
+// [1,200,512]. More blocks mattered more than full sectors at B = 1
+// (blocks of 8 lanes: 0.0087-0.0097 ms at [1,1000,512]); full sectors from
+// 1024 lanes (blocks of 4 there: 0.0161 ms at [2,1500,512]). A cluster of
+// blocks a lane tile (32 lanes, 8 blocks cutting T, one segment each,
+// their maps passed through distributed shared memory: one pass, no flags)
+// only matched the replaced kernel at B = 1 of 200-1000 steps (0.0053
+// against 0.0051 ms at [1,200,512]), and was taken out again.
 //
 // qrnn_pool_fwd_split cuts each lane's time axis across blocks, which the
 // TPU kernel never had to do (its grid walks the time blocks in order,
@@ -138,12 +155,13 @@
 // segment, so (3) is a segment; on gates that keep a carry thousands of
 // steps (f near 0) (1) stores nothing and (3) is the whole tile, read
 // twice. Measured on the H100 (python -m pase_tpu_torch.kernel_variants
-// split, in turns; PERF.md), split / chunked on random and on slow gates:
-// 0.65 and 0.98-1.01 at [1,10000,512], 0.84 and 1.17 at [1,5000,512], 0.93
-// and 1.56 at [8,4000,512]; so ops/cuda_qrnn.py routes it only where it is
-// no slower on either. Other designs at [1,10000,512]: storing h in (1)
+// split, in turns; PERF.md), split / the kernel qrnn_pool_fwd_few
+// replaced on random and on slow gates: 0.65 and 0.98-1.01 at
+// [1,10000,512], 0.84 and 1.17 at [1,5000,512], 0.93 and 1.56 at
+// [8,4000,512]; against qrnn_pool_fwd_few 0.89 and 1.36 at [1,10000,512];
+// ops/cuda_qrnn.py routes it at most 512 lanes of at least 7500 steps. Other designs at [1,10000,512]: storing h in (1)
 // from the start and running (3) a segment at a time, 0.043 ms on random
-// gates but 1.12 of the chunked kernel on slow ones; a map pass and then
+// gates but 1.12 of the replaced kernel on slow ones; a map pass and then
 // the run in each block (z and f read again from L2) 0.066 ms, the two
 // passes adding up (0.031 and 0.038 alone); one pass with the tile's gates
 // in registers 0.059-0.062, its look-back then on each block's critical
@@ -223,6 +241,17 @@ constexpr int kUnroll = 8;
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// sigmoidf_ with x held at -kSigmoidFloor or above (qrnn_pool_fwd_few's
+// kernel): 1 + expf(-x) stays finite, so the IEEE divide keeps its fast
+// path (a forget gate of -200 gives 1 / inf, the slow path, on every step
+// of a chunk). It differs from sigmoidf_ only below -kSigmoidFloor, where
+// both are under 2e-35; NaN stays NaN.
+constexpr float kSigmoidFloor = 80.0f;
+
+__device__ __forceinline__ float sigmoid_sat_(float x) {
+  return sigmoidf_(x < -kSigmoidFloor ? -kSigmoidFloor : x);
 }
 
 __device__ __forceinline__ float step_(float c, float zr, float fr, float orr,
@@ -399,130 +428,6 @@ qrnn_pool_fwd_seg_kernel(const float* __restrict__ y,
 }
 
 
-constexpr int kChunkThreads = 512;
-// Steps per chunk at most, blocks per SM the registers must allow, o loads
-// in flight per thread in (3). Of 16/1/16, 16/2/8, 16/2/16, 8/2/8 and
-// 8/3/8, 8/2/8 was the fastest at the serving shape [8,1000,512] on the
-// H100 (python -m pase_tpu_torch.kernel_variants; PERF.md). The 4-lane
-// tile the host entry takes under 8 x the SMs' lanes was not tuned.
-constexpr int kMaxChunk = 8;
-constexpr int kChunkBlocks = 2;
-constexpr int kOLoads = 8;
-
-__global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
-qrnn_pool_fwd_chunked_kernel(const float* __restrict__ y,
-                             const float* __restrict__ c0,
-                             float* __restrict__ h,
-                             float* __restrict__ c_last, int64_t B,
-                             int64_t T, int64_t H, int lanes, int len) {
-  // the chunk maps (A, B) of a segment; phase 2 puts the carry into each
-  // chunk in sb
-  __shared__ float sa[kChunkThreads], sb[kChunkThreads];
-  __shared__ float carry[8];         // into the segment, per lane
-  const int chunks = kChunkThreads / lanes;
-  const int l = threadIdx.x % lanes, k = threadIdx.x / lanes;
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * lanes + l;
-  const bool live = lane < B * H;
-  const int64_t b = lane / H;
-  const int64_t j = lane - b * H;
-  const int64_t ys = 3 * H;
-  const float* yp = y + b * T * ys + j;
-  float* hp = h + b * T * H + j;
-  if (threadIdx.x < lanes) {
-    carry[threadIdx.x] = (live && c0 != nullptr) ? c0[lane] : 0.0f;
-  }
-  const int64_t seg = static_cast<int64_t>(chunks) * len;
-  for (int64_t s0 = 0; s0 < T; s0 += seg) {
-    const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
-    const int64_t left = live ? T - t0 : 0;
-    const int n = left <= 0 ? 0 : (left < len ? static_cast<int>(left) : len);
-    // (1) the chunk's z and f gates (z in bz, f in a); then a = 1 - f,
-    // b = f z and the map from c = 0 (steps past n are the identity)
-    float a[kMaxChunk], bz[kMaxChunk];
-#pragma unroll
-    for (int u = 0; u < kMaxChunk; ++u) {
-      a[u] = 1.0f;
-      bz[u] = 0.0f;
-      if (u < n) {
-        const float* p = yp + (t0 + u) * ys;
-        bz[u] = p[0];
-        a[u] = p[H];
-      }
-    }
-    float ca = 1.0f, cb = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kMaxChunk; ++u) {
-      if (u < n) {
-        const float z = tanhf(bz[u]);
-        const float f = sigmoidf_(a[u]);
-        a[u] = 1.0f - f;
-        bz[u] = f * z;
-        cb = fmaf(a[u], cb, bz[u]);
-        ca *= a[u];
-      }
-    }
-    sa[threadIdx.x] = ca;
-    sb[threadIdx.x] = cb;
-    __syncthreads();
-    // (2) warp w scans lane w's chunks; thread i owns chunks i q .. i q +
-    // q - 1. A map (pa, pb) composed after an earlier one (qa, qb) is
-    // c -> pa (qa c + qb) + pb
-    if (threadIdx.x / 32 < lanes) {
-      const int wl = threadIdx.x / 32, i = threadIdx.x % 32;
-      const int q = chunks / 32;
-      float pa = 1.0f, pb = 0.0f;
-      for (int m = 0; m < q; ++m) {
-        const int idx = (i * q + m) * lanes + wl;
-        pb = fmaf(sa[idx], pb, sb[idx]);
-        pa *= sa[idx];
-      }
-      for (int off = 1; off < 32; off *= 2) {
-        const float qa = __shfl_up_sync(0xffffffffu, pa, off);
-        const float qb = __shfl_up_sync(0xffffffffu, pb, off);
-        if (i >= off) {
-          pb = fmaf(pa, qb, pb);
-          pa *= qa;
-        }
-      }
-      float ea = __shfl_up_sync(0xffffffffu, pa, 1);
-      float eb = __shfl_up_sync(0xffffffffu, pb, 1);
-      if (i == 0) {
-        ea = 1.0f;
-        eb = 0.0f;
-      }
-      float c = fmaf(ea, carry[wl], eb);
-      for (int m = 0; m < q; ++m) {
-        const int idx = (i * q + m) * lanes + wl;
-        const float ma = sa[idx], mb = sb[idx];
-        sb[idx] = c;
-        c = fmaf(ma, c, mb);
-      }
-    }
-    __syncthreads();
-    // (3) the chunk again from its carry, as the serial kernel steps, with
-    // the o gate loaded kOLoads steps at a time
-    float c = sb[threadIdx.x];
-#pragma unroll
-    for (int u0 = 0; u0 < kMaxChunk; u0 += kOLoads) {
-      float o[kOLoads];
-#pragma unroll
-      for (int u = 0; u < kOLoads; ++u) {
-        if (u0 + u < n) o[u] = yp[(t0 + u0 + u) * ys + 2 * H];
-      }
-#pragma unroll
-      for (int u = 0; u < kOLoads; ++u) {
-        if (u0 + u < n) {
-          c = fmaf(a[u0 + u], c, bz[u0 + u]);
-          hp[(t0 + u0 + u) * H] = sigmoidf_(o[u]) * c;
-        }
-      }
-    }
-    if (n > 0 && t0 + n == T) c_last[lane] = c;
-    if (k == chunks - 1 && n == len) carry[l] = c;  // into the next segment
-    __syncthreads();
-  }
-}
-
 // The training pair's tile (header): lanes a block, threads a block (so
 // kTrainChunks chunks a segment), steps a chunk at most forward and
 // backward, blocks an SM the registers must allow, and whether the next
@@ -576,6 +481,149 @@ __device__ __forceinline__ void chunk_load_y_(const float* p, int n,
       f[u] = q[H];
       o[u] = q[2 * H];
     }
+  }
+}
+
+// qrnn_pool_fwd_few's tiles (header): on at most kFewNarrow lanes, lanes
+// a block (a warp's row of a step), warps a block (the block's chunks: 32
+// / kFewLanes a warp x kFewWarps), steps a chunk at most and blocks an SM
+// the registers must allow; on at most kFewMid lanes the same of the mid
+// tile, on more of the wide one; and segments of loads in flight.
+constexpr int kFewNarrow = 512;
+constexpr int kFewLanes = 4;
+constexpr int kFewWarps = 16;
+constexpr int kFewChunk = 4;
+constexpr int kFewBlocks = 2;
+constexpr int kFewMid = 1024;
+constexpr int kFewMidLanes = 8;
+constexpr int kFewMidWarps = 16;
+constexpr int kFewMidChunk = 8;
+constexpr int kFewMidBlocks = 1;
+constexpr int kFewWideLanes = 8;
+constexpr int kFewWideWarps = 16;
+constexpr int kFewWideChunk = 4;
+constexpr int kFewWideBlocks = 2;
+constexpr int kFewDepth = 1;
+static_assert(32 % kFewLanes == 0 && 32 % kFewMidLanes == 0 &&
+                  32 % kFewWideLanes == 0,
+              "a warp holds whole lane groups");
+
+// qrnn_pool_fwd_few's kernel (header): a block owns LW consecutive lanes
+// and walks T in segments of NW warps x 32 / LW chunks of `len` <= C
+// steps; warp w holds chunks w 32 / LW .. w 32 / LW + 32 / LW - 1 (thread
+// i: lane i % LW of the group, the warp's chunk i / LW), the loads of the
+// next D segments in flight across the barrier. (1) Each thread loads its
+// chunk's z, f and o gates (every load issued before the first use) and
+// composes the chunk's map c -> A c + B from c = 0; (2) the warp scans its
+// chunks' maps with shuffles (an inclusive scan over the chunk index, a
+// map composed after an earlier one as c -> pa (qa c + qb) + pb), and its
+// last chunk's map, the warp's, goes to shared memory; (3) after the
+// segment's one barrier, each thread puts the segment's carry through the
+// maps of the warps before its own in order, then through the scanned map
+// of its warp's chunks before its own; (4) it runs its chunk from that
+// carry with the serial step's fmaf and writes h. The carry into the next
+// segment is the last chunk's, through shared memory in two buffers.
+template <int LW, int NW, int C, int D, int MB>
+__global__ void __launch_bounds__(32 * NW, MB)
+qrnn_pool_fwd_few_kernel(const float* __restrict__ y,
+                         const float* __restrict__ c0,
+                         float* __restrict__ h, float* __restrict__ c_last,
+                         int64_t B, int64_t T, int64_t H, int len) {
+  constexpr int CW = 32 / LW, NC = CW * NW;
+  // the warps' maps and the carry into the segment, by segment parity
+  __shared__ float wa[2][NW][LW], wb[2][NW][LW], carry[2][LW];
+  const int w = threadIdx.x / 32, i = threadIdx.x % 32;
+  const int l = i % LW, kw = i / LW, k = w * CW + kw;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * LW + l;
+  const bool live = lane < B * H;
+  const int64_t bi = live ? lane / H : 0;
+  const int64_t j = live ? lane - bi * H : 0;
+  const float* yp = y + bi * T * 3 * H + j;
+  float* hp = h + bi * T * H + j;
+  const int64_t seg = static_cast<int64_t>(NC) * len;
+  constexpr int R = D > 0 ? D : 1;
+  float rz[R][C], rf[R][C], ro[R][C];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int64_t t0 = d * seg + static_cast<int64_t>(k) * len;
+    chunk_load_y_<C>(yp + t0 * 3 * H, chunk_steps(live, T, t0, len), H,
+                     rz[d], rf[d], ro[d]);
+  }
+  if (k == 0) carry[0][l] = (live && c0 != nullptr) ? c0[lane] : 0.0f;
+  int p = 0;
+  for (int64_t s0 = 0; s0 < T; s0 += seg, p ^= 1) {
+    const int64_t t0 = s0 + static_cast<int64_t>(k) * len;
+    const int n = chunk_steps(live, T, t0, len);
+    if (D == 0) chunk_load_y_<C>(yp + t0 * 3 * H, n, H, rz[0], rf[0], ro[0]);
+    float a[C], b[C], s[C];
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      a[u] = rf[0][u];
+      b[u] = rz[0][u];
+      s[u] = ro[0][u];
+    }
+#pragma unroll
+    for (int d = 0; d + 1 < D; ++d) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        rz[d][u] = rz[d + 1][u];
+        rf[d][u] = rf[d + 1][u];
+        ro[d][u] = ro[d + 1][u];
+      }
+    }
+    const int64_t ahead = t0 + D * seg;
+    if (D > 0 && s0 + D * seg < T) {
+      chunk_load_y_<C>(yp + ahead * 3 * H, chunk_steps(live, T, ahead, len),
+                       H, rz[R - 1], rf[R - 1], ro[R - 1]);
+    }
+    // (1) the gates, and the chunk's map from c = 0
+    float pa = 1.0f, pb = 0.0f;
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      if (u < n) {
+        const float z = tanhf(b[u]);
+        const float f = sigmoid_sat_(a[u]);
+        a[u] = 1.0f - f;
+        b[u] = f * z;
+        s[u] = sigmoid_sat_(s[u]);
+        pb = fmaf(a[u], pb, b[u]);
+        pa *= a[u];
+      }
+    }
+    // (2) the warp's chunks scanned: thread i then holds the map of the
+    // warp's chunks 0 .. kw; ea, eb that of chunks 0 .. kw - 1
+#pragma unroll
+    for (int off = LW; off < 32; off *= 2) {
+      const float qa = __shfl_up_sync(0xffffffffu, pa, off);
+      const float qb = __shfl_up_sync(0xffffffffu, pb, off);
+      if (i >= off) {
+        pb = fmaf(pa, qb, pb);
+        pa *= qa;
+      }
+    }
+    const float ea = __shfl_up_sync(0xffffffffu, pa, LW % 32);
+    const float eb = __shfl_up_sync(0xffffffffu, pb, LW % 32);
+    if (kw == CW - 1) {
+      wa[p][w][l] = pa;
+      wb[p][w][l] = pb;
+    }
+    __syncthreads();
+    // (3) the segment's carry through the warps before this one, then
+    // through the warp's chunks before this one
+    float c = carry[p][l];
+    for (int m = 0; m < w; ++m) c = fmaf(wa[p][m][l], c, wb[p][m][l]);
+    if (kw > 0) c = fmaf(ea, c, eb);
+    // (4) the chunk from its carry, as the serial step
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      if (u < n) {
+        c = fmaf(a[u], c, b[u]);
+        hp[(t0 + u) * H] = s[u] * c;
+      }
+    }
+    if (n > 0 && t0 + n == T) c_last[lane] = c;
+    // into the next segment: when there is one, every chunk here is full
+    if (k == NC - 1) carry[p ^ 1][l] = c;
   }
 }
 
@@ -1036,6 +1084,26 @@ qrnn_pool_fwd_split_kernel(const float* __restrict__ y,
 // The launch floor: an empty kernel of one warp.
 __global__ void qrnn_pool_empty_kernel() {}
 
+// The streaming floor: h = sigmoid(o) tanh(z) sigmoid(f) of each lane-step,
+// y's three thirds read once and h written once, four lanes a thread
+// (float4; H a multiple of 4), no carry, with qrnn_pool_fwd_few's
+// sigmoids. No K1 of one launch moves less.
+__global__ void __launch_bounds__(256)
+qrnn_pool_stream_floor_kernel(const float4* __restrict__ y,
+                              float4* __restrict__ h, int64_t quads,
+                              int64_t hq) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (e >= quads) return;
+  const int64_t r = e / hq, q = e - r * hq;
+  const float4* p = y + r * 3 * hq + q;
+  const float4 z = p[0], f = p[hq], o = p[2 * hq];
+  h[e] = make_float4(sigmoid_sat_(o.x) * tanhf(z.x) * sigmoid_sat_(f.x),
+                     sigmoid_sat_(o.y) * tanhf(z.y) * sigmoid_sat_(f.y),
+                     sigmoid_sat_(o.z) * tanhf(z.z) * sigmoid_sat_(f.z),
+                     sigmoid_sat_(o.w) * tanhf(z.w) * sigmoid_sat_(f.w));
+}
+
 // A chunk's backward inputs: the raw gates and dh at t0 .. t0 + n - 1 and c
 // at t0 - 1 .. t0 + n - 1 (cc[0] = c_{t0-1}: the seed at t0 = 0).
 template <int C>
@@ -1188,27 +1256,107 @@ extern "C" int qrnn_pool_fwd_seg(const void* y, const void* c0, void* h,
 // The segment length of qrnn_pool_fwd_seg's kernel (tests cut T around it).
 extern "C" int qrnn_pool_fwd_segment_steps() { return kSegSteps; }
 
-// Lanes per block: 8, or 4 when tiles of 8 would be fewer blocks than the
-// card has SMs.
-extern "C" int qrnn_pool_fwd_chunked(const void* y, const void* c0, void* h,
-                                     void* c_last, long long B, long long T,
-                                     long long H, void* stream) {
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+namespace {
+
+// qrnn_pool_fwd_few's kernel at one tile on `stream`.
+template <int LW, int NW, int C, int MB>
+int few_launch(const void* y, const void* c0, void* h, void* c_last,
+               long long B, long long T, long long H, void* stream) {
+  qrnn_pool_fwd_few_kernel<LW, NW, C, kFewDepth, MB>
+      <<<static_cast<unsigned int>((B * H + LW - 1) / LW), 32 * NW, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(y), static_cast<const float*>(c0),
+          static_cast<float*>(h), static_cast<float*>(c_last), B, T, H,
+          chunk_len(T, 32 / LW * NW, C));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// {lanes a block, chunks a warp, warps a block, steps a chunk} of
+// qrnn_pool_fwd_few's tile for a call on `lanes` lanes of T steps.
+void few_tile(long long lanes, long long T, int* out) {
+  const int which = lanes <= kFewNarrow ? 0 : lanes <= kFewMid ? 1 : 2;
+  const int lw[3] = {kFewLanes, kFewMidLanes, kFewWideLanes};
+  const int nw[3] = {kFewWarps, kFewMidWarps, kFewWideWarps};
+  const int c[3] = {kFewChunk, kFewMidChunk, kFewWideChunk};
+  out[0] = lw[which];
+  out[1] = 32 / out[0];
+  out[2] = nw[which];
+  out[3] = chunk_len(T, out[1] * out[2], c[which]);
+}
+
+// {registers a thread, local (spill) bytes a thread, blocks an SM} of one
+// tile's kernel as built into out.
+template <int LW, int NW, int C, int MB>
+cudaError_t few_attrs(int* out) {
+  const auto kernel = qrnn_pool_fwd_few_kernel<LW, NW, C, kFewDepth, MB>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                       32 * NW, 0);
+}
+
+}  // namespace
+
+// qrnn_pool_fwd_few's kernel, the unseeded forward outside the eval and
+// split routes, at one of its tiles by lanes (kFew*, header): on at most
+// kFewNarrow lanes the narrow one (B = 1 at H = 512: blocks of 4 lanes, so
+// 128 blocks), on at most kFewMid the mid one (B = 2: blocks of 8, a
+// 32-byte sector a step, longer chunks), on more the wide one (blocks of
+// 8 at 2 an SM).
+extern "C" int qrnn_pool_fwd_few(const void* y, const void* c0, void* h,
+                                 void* c_last, long long B, long long T,
+                                 long long H, void* stream) {
+  if (B * H <= kFewNarrow) {
+    return few_launch<kFewLanes, kFewWarps, kFewChunk, kFewBlocks>(
+        y, c0, h, c_last, B, T, H, stream);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int lanes = (B * H + 7) / 8 >= sms ? 8 : 4;
-  const long long chunks = kChunkThreads / lanes;
-  const long long need = (T + chunks - 1) / chunks;
-  const int len = static_cast<int>(need < kMaxChunk ? need : kMaxChunk);
-  qrnn_pool_fwd_chunked_kernel<<<
-      static_cast<unsigned int>((B * H + lanes - 1) / lanes), kChunkThreads,
-      0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(c0),
-      static_cast<float*>(h), static_cast<float*>(c_last), B, T, H, lanes,
-      len);
+  if (B * H <= kFewMid) {
+    return few_launch<kFewMidLanes, kFewMidWarps, kFewMidChunk,
+                      kFewMidBlocks>(y, c0, h, c_last, B, T, H, stream);
+  }
+  return few_launch<kFewWideLanes, kFewWideWarps, kFewWideChunk,
+                    kFewWideBlocks>(y, c0, h, c_last, B, T, H, stream);
+}
+
+// qrnn_pool_fwd_few's tile for a call on `lanes` lanes of T steps:
+// {lanes a block, chunks a warp, warps a block, steps a chunk} into out
+// (tests repeat it in the plain version).
+extern "C" int qrnn_pool_few_chunking(long long lanes, long long T,
+                                      int* out) {
+  few_tile(lanes, T, out);
+  return 0;
+}
+
+// qrnn_pool_fwd_few's kernels as built: {registers a thread, local (spill)
+// bytes a thread, blocks an SM at its block size} of the narrow tile, then
+// of the mid and the wide ones, into out.
+extern "C" int qrnn_pool_few_attrs(int* out) {
+  cudaError_t e = few_attrs<kFewLanes, kFewWarps, kFewChunk, kFewBlocks>(out);
+  if (e == cudaSuccess) {
+    e = few_attrs<kFewMidLanes, kFewMidWarps, kFewMidChunk, kFewMidBlocks>(
+        out + 3);
+  }
+  if (e == cudaSuccess) {
+    e = few_attrs<kFewWideLanes, kFewWideWarps, kFewWideChunk,
+                  kFewWideBlocks>(out + 6);
+  }
+  return static_cast<int>(e);
+}
+
+// The streaming floor (qrnn_pool_stream_floor_kernel) on `stream`: h [B,
+// T, H] from y [B, T, 3H]; cudaErrorInvalidValue unless H % 4 == 0.
+extern "C" int qrnn_pool_stream_floor(const void* y, void* h, long long B,
+                                      long long T, long long H,
+                                      void* stream) {
+  if (H % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long quads = B * T * H / 4;
+  qrnn_pool_stream_floor_kernel<<<static_cast<unsigned int>(
+                                      (quads + 255) / 256),
+                                  256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(y), static_cast<float4*>(h), quads, H / 4);
   return static_cast<int>(cudaGetLastError());
 }
 

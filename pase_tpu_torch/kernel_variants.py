@@ -1,8 +1,8 @@
 """The design choices of three kernels, measured against the variants
 they were chosen over, on the card.
 
-    python -m pase_tpu_torch.kernel_variants [conv] [qrnn] [serial] [train]
-        [eval] [split] [--against SOURCE]
+    python -m pase_tpu_torch.kernel_variants [conv] [serial] [train] [eval]
+        [split] [fewlane] [--against SOURCE]
 
 (no group named: all six). Each variant is a copy of the shipped source
 with a few lines replaced (``VARIANTS``), built like the shipped kernels
@@ -12,11 +12,7 @@ its own library:
           promotion of each window's partial sums into float32 sums: max
           |y - y_plain| / max|y_plain| and ms at the seven trunk layers in
           float32 (``conv_proto.LAYERS``, B = 96);
-  qrnn    ``qrnn_pool_fwd_chunked`` (csrc/qrnn_pool.cu) with other chunk
-          lengths, blocks per SM and o loads in flight, and with its lanes
-          per block fixed at 8 or at 4 instead of chosen by the SM count:
-          ms at the serving shapes;
-  serial  ``qrnn_pool_fwd_seg`` (the same file), seeded, as shipped and
+  serial  ``qrnn_pool_fwd_seg`` (csrc/qrnn_pool.cu), seeded, as shipped and
           in each other tile of ``SEG_TILES`` (lanes, steps per segment
           and threads a block), and the one-thread-a-lane
           ``qrnn_pool_fwd``: ms at the streaming push shapes, around the
@@ -41,7 +37,7 @@ its own library:
           chunked plain version at each library's chunking and against
           the plain version, two calls bit for bit; then the shipped
           library's three unseeded entry points (``qrnn_pool_fwd_eval``,
-          ``qrnn_pool_fwd_chunked``, ``qrnn_pool_fwd``) in turns at
+          ``qrnn_pool_fwd_few``, ``qrnn_pool_fwd``) in turns at
           ``ROUTE_SHAPES``, where the route (``cuda_qrnn.forward_entry``)
           is drawn;
   split   ``qrnn_pool_fwd_split`` (the same file) as shipped and in each
@@ -52,13 +48,29 @@ its own library:
           against the plain version, two calls bit for bit, ms in two
           passes (the second in reverse order); then the shipped library's
           unseeded entry points (``qrnn_pool_fwd_split``,
-          ``qrnn_pool_fwd_chunked``, ``qrnn_pool_fwd_eval``) and an empty
+          ``qrnn_pool_fwd_few``, ``qrnn_pool_fwd_eval``) and an empty
           kernel (the launch floor) in turns there, where the route is
-          drawn; where T is cut, the split and chunked kernels again on
+          drawn; where T is cut, the split and few-lane kernels again on
           gates whose carries decay slowly and not at all (its second
           run's worst case), with the share of segments that run takes;
           and the split and eval kernels in turns at the eval kernel's
-          shapes.
+          shapes;
+  fewlane ``qrnn_pool_fwd_few`` (the same file) as shipped and in each
+          other tile of ``FEW_TILES`` (lanes a block, warps a block, steps
+          a chunk and blocks an SM of its narrow, mid and wide tiles,
+          segments of loads in flight), with ``--against SOURCE`` beside
+          the unseeded serving entry ``qrnn_pool_fwd_chunked`` built from
+          another qrnn_pool.cu (the kernel the few-lane one replaced: ``git
+          show <commit>:pase_tpu_torch/csrc/qrnn_pool.cu`` of an earlier
+          commit), and the split and eval kernels, the streaming floor and
+          an empty kernel, in turns at ``FEW_SHAPES`` on random, slow and
+          frozen gates (``gates``): max |h|, |c_T| error against the plain
+          version and the few-lane kernels' against the plain version of
+          their algebra at each library's chunking, two calls bit for bit,
+          ms in two passes (the second in reverse order); each library's
+          registers, spills and blocks an SM; host us per eager call at
+          [1,200,512] (each library's entry through ctypes, the wrapper,
+          the operator).
 Times are CUDA-event medians of CUDA graphs of 20 calls (no host time
 between launches; a captured split call zeroes flags of its own, one memset
 in the graph). Nothing here is on a path; the shipped kernels are chosen in
@@ -79,9 +91,6 @@ from pase_tpu_torch.ops import qrnn as plain
 from pase_tpu_torch.precision import full_precision
 
 VARIANT_DIR = os.path.join(cuda_build.BUILD_DIR, "variants")
-_CHUNK = ("constexpr int kMaxChunk = 8;", "constexpr int kChunkBlocks = 2;",
-          "constexpr int kOLoads = 8;")
-_LANES = "  const int lanes = (B * H + 7) / 8 >= sms ? 8 : 4;"
 _SEG_NAMES = ("kSegLanes", "kSegSteps", "kSegThreads")
 SEG_SHIPPED = (8, 128, 128)
 _TRAIN_NAMES = ("kTrainLanes", "kTrainThreads", "kFwdChunk", "kBwdChunk",
@@ -94,6 +103,13 @@ EVAL_SHIPPED = (32, 256, 5, 3, 1)
 # depth) at kSplitGrid tiles a call
 _SPLIT_NAMES = ("kEvalChunk", "kEvalBlocks", "kSplitGrid", "kEvalDepth")
 SPLIT_SHIPPED = (5, 3, 384, 1)
+_FEW_NAMES = ("kFewLanes", "kFewWarps", "kFewChunk", "kFewBlocks",
+              "kFewMidLanes", "kFewMidWarps", "kFewMidChunk",
+              "kFewMidBlocks", "kFewWideLanes", "kFewWideWarps",
+              "kFewWideChunk", "kFewWideBlocks", "kFewDepth")
+FEW_SHIPPED = (4, 16, 4, 2, 8, 16, 8, 1, 8, 16, 4, 2, 1)
+# the unseeded serving entry of an earlier qrnn_pool.cu (--against)
+AGAINST_ENTRY = "qrnn_pool_fwd_chunked"
 
 
 def _tile_consts(names, shipped, tile):
@@ -106,30 +122,12 @@ def _tile_consts(names, shipped, tile):
             for k, old, new in zip(names, shipped, tile) if old != new]
 
 
-def _chunk_consts(steps, blocks, loads):
-    return [(_CHUNK[0], f"constexpr int kMaxChunk = {steps};"),
-            (_CHUNK[1], f"constexpr int kChunkBlocks = {blocks};"),
-            (_CHUNK[2], f"constexpr int kOLoads = {loads};")]
-
-
 # name: (source, [(shipped line, replacement)])
 VARIANTS = {
     "conv: no promotion": (conv.SOURCE, [
         ("            zero(acc);\n          }", "          }"),
         ("            promote(sum, acc);\n", ""),
         ("        copy(acc, sum);\n", "")]),
-    "qrnn: 16 steps, 1 block/SM, 16 o loads": (cuda_qrnn.SOURCE,
-                                               _chunk_consts(16, 1, 16)),
-    "qrnn: 16 steps, 2 blocks/SM, 8 o loads": (cuda_qrnn.SOURCE,
-                                               _chunk_consts(16, 2, 8)),
-    "qrnn: 16 steps, 2 blocks/SM, 16 o loads": (cuda_qrnn.SOURCE,
-                                                _chunk_consts(16, 2, 16)),
-    "qrnn: 8 steps, 3 blocks/SM, 8 o loads": (cuda_qrnn.SOURCE,
-                                              _chunk_consts(8, 3, 8)),
-    "qrnn: always 8 lanes a block": (cuda_qrnn.SOURCE, [
-        (_LANES, "  const int lanes = 8;")]),
-    "qrnn: always 4 lanes a block": (cuda_qrnn.SOURCE, [
-        (_LANES, "  const int lanes = 4;")]),
 }
 # the segmented kernel's tiles (lanes, steps, threads a block); the
 # shipped one (SEG_SHIPPED) is built as shipped
@@ -181,8 +179,36 @@ VARIANTS.update({
     "qrnn split: chunk {}, blocks {}, grid {}, depth {}".format(*tile):
     (cuda_qrnn.SOURCE, _tile_consts(_SPLIT_NAMES, SPLIT_SHIPPED, tile))
     for tile in SPLIT_TILES if tile != SPLIT_SHIPPED})
+# qrnn_pool_fwd_few's tiles: (lanes a block, warps a block, steps a chunk
+# at most, blocks an SM) on at most kFewNarrow lanes, the same on at most
+# kFewMid and on more, and segments of loads in flight; each other tile
+# changes one of the three (the 15 other pairs of narrow and wide tiles of
+# the first design were timed before, PERF.md); the shipped one
+# (FEW_SHIPPED) is built as shipped
+_N, _M, _W = FEW_SHIPPED[:4], FEW_SHIPPED[4:8], FEW_SHIPPED[8:12]
+FEW_TILES = [FEW_SHIPPED] + [
+    narrow + _M + _W + (1,) for narrow in ((4, 16, 2, 2), (8, 16, 4, 2))
+] + [_N + mid + _W + (1,) for mid in ((8, 16, 4, 2), (8, 32, 4, 1))] + [
+    _N + _M + wide + (1,) for wide in ((16, 16, 8, 1), (8, 16, 8, 1))]
+VARIANTS.update({
+    "qrnn fewlane: {} lanes, {} warps, chunk {}, blocks {}; mid {} lanes, "
+    "{} warps, chunk {}, blocks {}; wide {} lanes, {} warps, chunk {}, "
+    "blocks {}; depth {}".format(*tile):
+    (cuda_qrnn.SOURCE, _tile_consts(_FEW_NAMES, FEW_SHIPPED, tile))
+    for tile in FEW_TILES if tile != FEW_SHIPPED})
+# B = 1 extraction from 1 s to 30 s, the time shard's [2,1500,512], the
+# serving shapes (the batch of 8, TDNN's, 8 x 2 s, and 2048 to 6144 lanes
+# between them, where the eval kernel's route begins), and the split
+# kernel's [1,10000,512]
+FEW_SHAPES = [(1, 100, 512), (1, 200, 512), (1, 500, 512), (1, 625, 512),
+              (1, 800, 512), (1, 1000, 512), (1, 1500, 512),
+              (1, 3000, 512), (2, 200, 512), (2, 1000, 512),
+              (2, 1500, 512), (8, 1000, 512), (8, 4000, 512),
+              (8, 1000, 256), (8, 200, 256), (4, 200, 512),
+              (4, 1000, 512), (8, 200, 512), (8, 400, 512),
+              (12, 1000, 512), (1, 10000, 512)]
 # the shapes of the unseeded calls under 4096 lanes or over 200 steps at
-# 4096 (the split and the chunked kernels' side of the route): B = 1
+# 4096 (the split and the few-lane kernels' side of the route): B = 1
 # extraction (2 s, the contract's 625 frames, the rehearsal's 8 s,
 # forward-chunk's 10 s window, 15 to 200 s files), the time shard's
 # [2,1500,512], 2 to 8 rows of 200 to 10000 steps at H = 512 and 256
@@ -207,8 +233,6 @@ ROUTE_SHAPES = [(4, 200, 512), (8, 200, 512), (12, 200, 512),
                 (32, 1000, 512), (8, 1000, 256), (16, 4000, 512),
                 (8, 4000, 512), (1, 10000, 512), (8, 21, 512),
                 (24, 21, 512), (48, 21, 512)]
-QRNN_SHAPES = [(8, 1000, 512), (1, 1000, 512), (24, 200, 512),
-               (1, 10000, 512), (8, 4000, 512)]
 # the streaming pushes (1 s and 100 ms at B = 1 and 8); one step, 16 x 10
 # and 24 x 200 (the segmented kernel's side of the route), 32 x 100 and
 # 48 x 200 (the loop's); the eval shape; a long stream
@@ -295,29 +319,6 @@ def conv_rows():
             print(f"[conv] {layer} float32 {name}: max|y - y_plain| / "
                   f"max|y_plain| {err:.3e}, {ms:.4f} ms", flush=True)
         del xs, ws, want, x, w
-    return rows
-
-
-def qrnn_rows():
-    libs = {"shipped: 8 steps, 2 blocks/SM, 8 o loads, lanes by SMs":
-            cuda_qrnn.build()}
-    libs.update(build_variants([k for k in VARIANTS
-                                if k.startswith("qrnn:")]))
-    rows = []
-    for b, t, h in QRNN_SHAPES:
-        y = torch.randn(b, t, 3 * h, device="cuda")
-        h_ref, c_ref = plain.qrnn_pool(y)
-        for name, lib in libs.items():
-            def run():
-                return cuda_qrnn.qrnn_pool_fwd_chunked(y)
-            hk, ck = _with_lib(cuda_qrnn, lib, run)
-            err = max((hk - h_ref).abs().max().item(),
-                      (ck - c_ref).abs().max().item())
-            ms = _with_lib(cuda_qrnn, lib, lambda: graph_ms(run))
-            rows.append(((b, t, h), name, err, ms))
-            print(f"[qrnn] y[{b},{t},{3 * h}] {name}: max err {err:.2e}, "
-                  f"{ms:.4f} ms", flush=True)
-        del y
     return rows
 
 
@@ -494,7 +495,7 @@ def eval_rows():
                   f"{same[name]}", flush=True)
         del y, h_ref, c_ref
     entries = {"eval": cuda_qrnn.qrnn_pool_fwd_eval,
-               "chunked": cuda_qrnn.qrnn_pool_fwd_chunked,
+               "few": cuda_qrnn.qrnn_pool_fwd_few,
                "loop": cuda_qrnn.qrnn_pool_fwd_loop}
     for b, t, h in ROUTE_SHAPES:
         y = torch.randn(b, t, 3 * h, device="cuda")
@@ -600,7 +601,7 @@ def split_rows():
     algebra at each library's tiling and against the plain version; two
     calls bit for bit; ms in two passes, the second in reverse order),
     then the shipped unseeded entry points and the empty kernel in turns
-    there; where the split kernel cuts T, the split and chunked kernels in
+    there; where the split kernel cuts T, the split and few-lane kernels in
     turns on gates that decay slowly or not at all (``gates``), with the
     share of segments its second run takes (``rerun_share``); and the
     split and eval kernels in turns at EVAL_MATCH_SHAPES."""
@@ -611,7 +612,7 @@ def split_rows():
                                 if k.startswith("qrnn split")]))
     order = list(libs)
     entries = {"split": cuda_qrnn.qrnn_pool_fwd_split,
-               "chunked": cuda_qrnn.qrnn_pool_fwd_chunked,
+               "few": cuda_qrnn.qrnn_pool_fwd_few,
                "eval": cuda_qrnn.qrnn_pool_fwd_eval}
     rows = []
     for b, t, h in SPLIT_SHAPES:
@@ -663,7 +664,7 @@ def split_rows():
         if plain.split_tiling(b * h, t)[1] < t:
             for kind in ("randn", "slow", "frozen"):
                 yk = gates(y, kind)
-                turns = {"split": [], "chunked": []}
+                turns = {"split": [], "few": []}
                 for pas in (list(turns), list(turns)[::-1]):
                     for name in pas:
                         turns[name].append(
@@ -672,9 +673,9 @@ def split_rows():
                 share = rerun_share(yk)
                 rows.append(((b, t, h), f"gates {kind}", mean, share))
                 print(f"[split gates] y[{b},{t},{3 * h}] {kind}: split "
-                      f"{mean['split']:.5f} ms, chunked "
-                      f"{mean['chunked']:.5f} ms (in turns, mean of two), "
-                      f"split / chunked {mean['split'] / mean['chunked']:.3f}"
+                      f"{mean['split']:.5f} ms, few "
+                      f"{mean['few']:.5f} ms (in turns, mean of two), "
+                      f"split / few {mean['split'] / mean['few']:.3f}"
                       f"; segments run again {share:.1%} (the plain "
                       f"algebra's)", flush=True)
                 del yk
@@ -696,8 +697,176 @@ def split_rows():
     return rows
 
 
-GROUPS = {"conv": conv_rows, "qrnn": qrnn_rows, "serial": serial_rows,
-          "train": train_rows, "eval": eval_rows, "split": split_rows}
+def few_libs(against=None):
+    """{name: library} of the fewlane group: the shipped one, every other
+    tile of FEW_TILES and, with ``against``, AGAINST_ENTRY built from that
+    source."""
+    libs = {"shipped: {} lanes, {} warps, chunk {}, blocks {}; mid {} "
+            "lanes, {} warps, chunk {}, blocks {}; wide {} lanes, {} warps, "
+            "chunk {}, blocks {}; depth {}".format(*FEW_SHIPPED):
+            cuda_qrnn.build()}
+    libs.update(build_variants([k for k in VARIANTS
+                                if k.startswith("qrnn fewlane")]))
+    if against:
+        libs[f"against {against}"] = cuda_build.load(
+            against, {AGAINST_ENTRY: cuda_qrnn._ARGTYPES["qrnn_pool_fwd_few"]},
+            os.path.join(VARIANT_DIR, "against"))
+    return libs
+
+
+def _entry(name):
+    """The unseeded forward entry a fewlane library is timed by."""
+    return AGAINST_ENTRY if name.startswith("against") else "qrnn_pool_fwd_few"
+
+
+def _call(lib, entry, y):
+    """(h, c_T) of ``lib``'s forward entry ``entry`` on y, unseeded, on the
+    current stream (not counted: on no path)."""
+    b, t, h3 = y.shape
+    h = torch.empty(b, t, h3 // 3, device=y.device)
+    c = torch.empty(b, h3 // 3, device=y.device)
+    err = getattr(lib, entry)(y.data_ptr(), None, h.data_ptr(), c.data_ptr(),
+                              b, t, h3 // 3,
+                              torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return h, c
+
+
+def few_turns(y, libs, extra=None):
+    """{name: [ms of two passes in turns]} on y of each library's entry
+    (``_entry``) and of ``extra`` ({name: fn}), in CUDA graphs."""
+    fns = {name: (lambda lib=lib, e=_entry(name): graph_ms(
+        lambda: _call(lib, e, y))) for name, lib in libs.items()}
+    for name, fn in (extra or {}).items():
+        fns[name] = (lambda fn=fn: graph_ms(fn))
+    ms = {k: [] for k in fns}
+    for pas in (list(fns), list(fns)[::-1]):
+        for name in pas:
+            ms[name].append(fns[name]())
+    return ms
+
+
+def _host_us(fn, calls=300):
+    """Host us per unsynchronized call, after a warm-up call."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def few_host_us(libs):
+    """Host us per eager call at [1,200,512], median of 6 samples of 300
+    calls in turns: the shipped library's and ``against``'s entries through
+    ctypes (arguments built in Python), the wrapper qrnn_pool_fwd_few and
+    the operator."""
+    y = torch.randn(1, 200, 3 * 512, device="cuda")
+    h, c = torch.empty(1, 200, 512, device="cuda"), torch.empty(
+        1, 512, device="cuda")
+
+    def args():
+        return (y.data_ptr(), None, h.data_ptr(), c.data_ptr(), 1, 200, 512,
+                torch.cuda.current_stream().cuda_stream)
+    order = list(libs)
+    timers = {f"{name}, its entry": (lambda lib=libs[name], e=_entry(name):
+                                     _host_us(lambda: getattr(lib, e)(
+                                         *args())))
+              for name in order
+              if name == order[0] or name.startswith("against")}
+    timers["shipped, the wrapper"] = lambda: _host_us(
+        lambda: cuda_qrnn.qrnn_pool_fwd_few(y))
+    timers["shipped, the operator"] = lambda: _host_us(
+        lambda: cuda_qrnn.qrnn_pool_fwd(y))
+    samples = {k: [] for k in timers}
+    for _ in range(3):
+        for name in list(timers) + list(timers)[::-1]:
+            samples[name].append(timers[name]())
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def fewlane_rows(against=None):
+    """qrnn_pool_fwd_few as shipped and in its other tiles (and
+    ``against``'s entry), the split and eval kernels, the streaming floor
+    and an empty kernel in turns at FEW_SHAPES on random, slow and frozen
+    gates, with each output's error against the plain version (and the
+    few-lane kernels' against their algebra) and two calls bit for bit;
+    each library's registers; host us per eager call at [1,200,512]."""
+    libs = few_libs(against)
+    order = list(libs)
+    old = next((k for k in order if k.startswith("against")), None)
+    rows = []
+    for name, lib in libs.items():
+        if name != old:
+            attrs = cuda_qrnn.few_attrs(lib)
+            rows.append((name, "attrs", attrs))
+            print(f"[fewlane] {name}: {attrs}", flush=True)
+    host = few_host_us(libs)
+    rows.append(((1, 200, 512), "host us", host))
+    print("[fewlane host] y[1,200,1536] host us per eager call, median of "
+          "6 samples of 300 calls in turns: " + "; ".join(
+              f"{k} {v:.2f}" for k, v in host.items()), flush=True)
+    for b, t, hid in FEW_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b * t + hid)
+        base = torch.randn(b, t, 3 * hid, device="cuda", generator=gen)
+        bound_ms = (16 * b * t * hid + 4 * b * hid) / 3.35e9
+        for kind in ("randn", "slow", "frozen"):
+            y = gates(base, kind)
+            h_ref, c_ref = plain.qrnn_pool(y)
+            errs, same = {}, {}
+            for name, lib in libs.items():
+                hk, ck = _call(lib, _entry(name), y)
+                hk2, ck2 = _call(lib, _entry(name), y)
+                alg = float("nan")
+                if name != old:
+                    _, per, warps, steps = cuda_qrnn.few_chunking(
+                        b * hid, t, lib)
+                    hp, _, cp = plain.qrnn_pool_fwd_train_chunked_plain(
+                        y, chunk=steps, chunks=per * warps, warp_chunks=per)
+                    alg = max((hk - hp).abs().max().item(),
+                              (ck - cp).abs().max().item())
+                errs[name] = (max((hk - h_ref).abs().max().item(),
+                                  (ck - c_ref).abs().max().item()), alg)
+                same[name] = bool(torch.equal(hk, hk2)
+                                  and torch.equal(ck, ck2))
+            extra = {"split": lambda: cuda_qrnn.qrnn_pool_fwd_split(y),
+                     "eval": lambda: cuda_qrnn.qrnn_pool_fwd_eval(y),
+                     "empty": cuda_qrnn.empty_launch}
+            if hid % 4 == 0:
+                extra["stream floor"] = lambda: cuda_qrnn.stream_floor(y)
+            ms = few_turns(y, libs, extra)
+            mean = {k: statistics.mean(v) for k, v in ms.items()}
+            rows.append(((b, t, hid), kind, errs, same, ms))
+            for name in order:
+                print(f"[fewlane] y[{b},{t},{3 * hid}] {kind} {name}: "
+                      f"{mean[name]:.5f} ms (passes {ms[name][0]:.5f}, "
+                      f"{ms[name][1]:.5f}); max err vs plain "
+                      f"{errs[name][0]:.2e}, vs its algebra "
+                      f"{errs[name][1]:.2e}; two calls bit for bit "
+                      f"{same[name]}", flush=True)
+            best = min((k for k in order if k != old), key=mean.get)
+            vs_old = (f"against {mean[old]:.5f}, shipped / against "
+                      f"{mean[order[0]] / mean[old]:.3f}, " if old else "")
+            print(f"[fewlane turns] y[{b},{t},{3 * hid}] {kind} ({b * hid} "
+                  f"lanes): shipped {mean[order[0]]:.5f} ms, {vs_old}split "
+                  f"{mean['split']:.5f}, eval {mean['eval']:.5f}, stream "
+                  f"floor {mean.get('stream floor', float('nan')):.5f}, "
+                  f"empty {mean['empty']:.5f}; bound {bound_ms:.5f} ms "
+                  f"(bytes); fastest tile {best} {mean[best]:.5f}; routed "
+                  f"to {cuda_qrnn.forward_entry(b * hid, False, t)}",
+                  flush=True)
+            del y, h_ref, c_ref
+        del base
+    return rows
+
+
+GROUPS = {"conv": conv_rows, "serial": serial_rows,
+          "train": train_rows, "eval": eval_rows, "split": split_rows,
+          "fewlane": fewlane_rows}
 
 
 def main():
@@ -716,8 +885,8 @@ def main():
                            "False)")
     full_precision()
     print(torch.cuda.get_device_name(0), flush=True)
-    return {g: GROUPS[g](against) if g == "train" else GROUPS[g]()
-            for g in groups}
+    return {g: GROUPS[g](against) if g in ("train", "fewlane")
+            else GROUPS[g]() for g in groups}
 
 
 if __name__ == "__main__":

@@ -33,12 +33,16 @@ Entry points, each with a launch count in ``LAUNCHES``:
                         time depends on the gates: the second run is a
                         segment where a carry dies fast, the whole tile
                         where it lives thousands of steps;
-  qrnn_pool_fwd_chunked ``qrnn_pool`` without a gradient and without c0 on
-                        the other calls (few lanes: B = 1 extraction, a
-                        10 s window, the serving batch): the time axis in
-                        chunks of a block's 8 or 4 lanes, their carries
-                        composed in the block, so few lanes fill the card;
-                        within 1e-5 of the plain version;
+  qrnn_pool_fwd_few     ``qrnn_pool`` without a gradient and without c0 on
+                        the other calls (B = 1 extraction, a 10 s window,
+                        the serving batch): the time axis in chunks, each
+                        warp's chunk maps scanned with shuffles, the
+                        block's warps cutting T, z, f and o loaded in one
+                        round trip, so few lanes fill the card; at a tile
+                        by lanes (``few_chunking`` gives it, which
+                        ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain``
+                        repeats with ``warp_chunks``); within 1e-5 of the
+                        plain version, the same bits on every call;
   qrnn_pool_fwd_seg     ``qrnn_pool`` without a gradient, seeded with c0,
                         on fewer than SEG_LANES lanes (a streaming push):
                         the gates of a segment of steps computed by every
@@ -91,29 +95,32 @@ SOURCE = cuda_build.source_path("qrnn_pool")
 BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches per entry point since import (or since reset_launches)
-LAUNCHES = {"qrnn_pool_fwd_split": 0, "qrnn_pool_fwd_chunked": 0,
-            "qrnn_pool_fwd_seg": 0, "qrnn_pool_fwd": 0,
-            "qrnn_pool_fwd_eval": 0, "qrnn_pool_fwd_train": 0,
-            "qrnn_pool_bwd": 0}
+LAUNCHES = {"qrnn_pool_fwd_split": 0, "qrnn_pool_fwd_few": 0,
+            "qrnn_pool_fwd_seg": 0,
+            "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
+            "qrnn_pool_fwd_train": 0, "qrnn_pool_bwd": 0}
 _LIB = None
 # unseeded calls take the chunked eval kernel on at least EVAL_LANES lanes,
 # or on at least EVAL_SHORT_LANES lanes of at most EVAL_SHORT_STEPS steps;
 # of the others, those on at most SPLIT_LANES lanes of at least SPLIT_STEPS
-# steps the split kernel, the rest the chunked serving kernel. On the H100
-# (python -m pase_tpu_torch.kernel_variants eval, in turns; eval / chunked
-# ms): 0.0117 / 0.0172 at [12,200,512] (6144 lanes), 0.0219 / 0.0262 at
-# [12,400,512], 0.0519 / 0.0527 at [12,1000,512], 0.1987 / 0.2486 at
+# steps the split kernel, the rest the few-lane kernel. The limits were
+# drawn against the serving kernel the few-lane one replaced ("old"), on
+# the H100 (python -m pase_tpu_torch.kernel_variants eval, in turns; eval /
+# old ms): 0.0117 / 0.0172 at [12,200,512] (6144 lanes), 0.0219 / 0.0262
+# at [12,400,512], 0.0519 / 0.0527 at [12,1000,512], 0.1987 / 0.2486 at
 # [16,4000,512]; at 4096 lanes 0.0033 / 0.0102 at [8,21,512] and 0.0098 /
 # 0.0123 at [8,200,512], but 0.0173 / 0.0162 at [8,400,512]; 0.0096 /
 # 0.0071 at [4,200,512] (2048 lanes). The split kernel's time depends on
-# the gates, so it takes a shape only where it is no slower than the
-# chunked kernel on gates whose carries live thousands of steps (f less 6)
-# as well as on random ones (kernel_variants split, in turns; NVIDIA H100
-# 80GB HBM3, 700.00 W; split / chunked, random gates and slow ones): at 512
-# lanes 1.10 and 1.44 at T = 3000, 0.84 and 1.17 at 5000, 0.67 and 0.99 at
-# 7500, 0.65 and 0.98-1.01 at 10000, 0.57 and 0.93 at 20000; at 1024 lanes
-# 0.68 and 1.11 at 10000; at 2048 lanes 1.02 and 1.61 at 3000; at 4096
-# lanes 1.04 and 1.57 at [8,1000,512], 0.93 and 1.56 at [8,4000,512]
+# the gates, so it takes a shape only where it is no slower than the old
+# kernel on gates whose carries live thousands of steps (f less 6) as well
+# as on random ones (kernel_variants split, in turns; NVIDIA H100 80GB
+# HBM3, 700.00 W; split / old, random gates and slow ones): at 512 lanes
+# 1.10 and 1.44 at T = 3000, 0.84 and 1.17 at 5000, 0.67 and 0.99 at 7500,
+# 0.65 and 0.98-1.01 at 10000, 0.57 and 0.93 at 20000; at 1024 lanes 0.68
+# and 1.11 at 10000; at 2048 lanes 1.02 and 1.61 at 3000; at 4096 lanes
+# 1.04 and 1.57 at [8,1000,512], 0.93 and 1.56 at [8,4000,512]. Against
+# the few-lane kernel (kernel_variants fewlane, in turns): split / few 0.89
+# on random gates and 1.36 on slow ones at [1,10000,512]
 EVAL_LANES, EVAL_SHORT_LANES, EVAL_SHORT_STEPS = 6144, 4096, 200
 SPLIT_LANES, SPLIT_STEPS = 512, 7500
 # seeded calls on fewer lanes take the segmented kernel, the others the
@@ -131,8 +138,8 @@ _ARGTYPES = {
     # (y, c0, h, c_T, B, T, H, stream)
     "qrnn_pool_fwd": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_seg": [_P, _P, _P, _P, _N, _N, _N, _P],
-    "qrnn_pool_fwd_chunked": [_P, _P, _P, _P, _N, _N, _N, _P],
     "qrnn_pool_fwd_eval": [_P, _P, _P, _P, _N, _N, _N, _P],
+    "qrnn_pool_fwd_few": [_P, _P, _P, _P, _N, _N, _N, _P],
     # (y, c0, h, c_T, ctrl, maps, tiles, B, T, H, stream)
     "qrnn_pool_fwd_split": [_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _P],
     # (y, c0, h, c, c_T, B, T, H, stream)
@@ -149,6 +156,13 @@ _ARGTYPES = {
     "qrnn_pool_split_tiling": [_N, _N, _P],
     # (stream) -> one empty kernel
     "qrnn_pool_empty": [_P],
+    # (y, h, B, T, H, stream) -> the streaming floor's kernel
+    "qrnn_pool_stream_floor": [_P, _P, _N, _N, _N, _P],
+    # (lanes, T, int[4] out) -> qrnn_pool_fwd_few's tile
+    "qrnn_pool_few_chunking": [_N, _N, _P],
+    # (int[9] out) -> qrnn_pool_fwd_few's registers, spills, blocks an SM
+    # (narrow, mid and wide tiles)
+    "qrnn_pool_few_attrs": [_P],
 }
 # qrnn_pool_fwd_split's flags for calls outside a CUDA graph capture:
 # {(device index, stream handle): int32 tensors, the last one in use}. A
@@ -215,12 +229,56 @@ def split_tiling(lanes, steps, lib=None):
     return tuple(out)
 
 
+def few_chunking(lanes, steps, lib=None):
+    """``qrnn_pool_fwd_few``'s tile for a call on ``lanes`` lanes (B * H) of
+    T = steps, from the built library (or ``lib``): (lanes a block, chunks
+    a warp, warps a block, steps a chunk), as ``ops.qrnn.few_tile`` repeats
+    it and ``ops.qrnn.qrnn_pool_fwd_train_chunked_plain`` takes it
+    (``chunks`` = chunks a warp x warps, ``warp_chunks`` = chunks a
+    warp)."""
+    out = (ctypes.c_int * 4)()
+    (lib or build()).qrnn_pool_few_chunking(lanes, steps,
+                                            ctypes.addressof(out))
+    return tuple(out)
+
+
+def few_attrs(lib=None):
+    """``qrnn_pool_fwd_few``'s kernels as built (or as ``lib`` has them):
+    {tile: {registers a thread, spill bytes a thread, blocks an SM}} of
+    its narrow, mid and wide tiles."""
+    out = (ctypes.c_int * 9)()
+    err = (lib or build()).qrnn_pool_few_attrs(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"qrnn_pool_few_attrs failed: cudaError {err}")
+    keys = ("registers", "spill_bytes", "blocks_per_sm")
+    return {tile: dict(zip(keys, out[3 * i:3 * i + 3]))
+            for i, tile in enumerate(("narrow", "mid", "wide"))}
+
+
 def empty_launch():
     """One empty kernel on the current stream (the launch floor timed
     beside launch-bound shapes; on no path, so not counted)."""
     err = build().qrnn_pool_empty(torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"qrnn_pool_empty launch failed: cudaError {err}")
+
+
+def stream_floor(y):
+    """The streaming floor on y [B, T, 3H] (CUDA, float32, contiguous, H a
+    multiple of 4): h = sigmoid(o) tanh(z) sigmoid(f) of each lane-step in
+    one kernel, y read once, h written once, no carry; the least a K1 of
+    one launch can move, timed beside it (on no path, so not counted)."""
+    _check(y, None)
+    bsz, t, h3 = y.shape
+    h = torch.empty((bsz, t, h3 // 3), dtype=y.dtype, device=y.device)
+    with torch.cuda.device(y.device):
+        err = build().qrnn_pool_stream_floor(
+            y.data_ptr(), h.data_ptr(), bsz, t, h3 // 3,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qrnn_pool_stream_floor launch failed: "
+                           f"cudaError {err}")
+    return h
 
 
 def _check_lanes(name, t, like):
@@ -342,8 +400,8 @@ def forward_entry(lanes, seeded, steps):
     (B * H) of ``steps`` steps (T). Unseeded: the chunked eval kernel on
     at least EVAL_LANES lanes, or on at least EVAL_SHORT_LANES lanes of at
     most EVAL_SHORT_STEPS steps; else the split kernel on at most
-    SPLIT_LANES lanes of at least SPLIT_STEPS steps; else the chunked
-    serving kernel. Seeded: the segmented kernel on fewer than SEG_LANES
+    SPLIT_LANES lanes of at least SPLIT_STEPS steps; else the few-lane
+    kernel. Seeded: the segmented kernel on fewer than SEG_LANES
     lanes, else the one-thread-a-lane loop (the same bits)."""
     if seeded:
         return "qrnn_pool_fwd_seg" if lanes < SEG_LANES else "qrnn_pool_fwd"
@@ -352,7 +410,7 @@ def forward_entry(lanes, seeded, steps):
         return "qrnn_pool_fwd_eval"
     if lanes <= SPLIT_LANES and steps >= SPLIT_STEPS:
         return "qrnn_pool_fwd_split"
-    return "qrnn_pool_fwd_chunked"
+    return "qrnn_pool_fwd_few"
 
 
 def _qrnn_pool_fwd_cuda(y, c0):
@@ -406,13 +464,14 @@ def qrnn_pool_fwd_split(y, c0=None):
     return _forward_split(y, c0)
 
 
-def qrnn_pool_fwd_chunked(y, c0=None):
-    """The chunked serving forward: y [B, T, 3H] (+ c0 [B, H]) -> (h,
-    c_T), no gradient. On the CPU the chunked plain version
-    (``ops.qrnn.qrnn_pool_chunked_plain``)."""
+def qrnn_pool_fwd_few(y, c0=None):
+    """The few-lane forward at any lane count: y [B, T, 3H] (+ c0 [B, H])
+    -> (h, c_T), no gradient, within 1e-5 of the plain version. On the CPU
+    the plain version of its algebra at its chunking
+    (``ops.qrnn.qrnn_pool_few_plain``)."""
     if _cuda_or_plain(y):
-        return _plain.qrnn_pool_chunked_plain(y, c0)
-    return _forward("qrnn_pool_fwd_chunked", y, c0)
+        return _plain.qrnn_pool_few_plain(y, c0)
+    return _forward("qrnn_pool_fwd_few", y, c0)
 
 
 def qrnn_pool_fwd_seg(y, c0=None):

@@ -11,8 +11,8 @@ build_rnn_block):
 
 These are the plain versions of the CUDA kernels in ``ops/cuda_qrnn.py``:
 the CPU path of the encoder and the reference the kernels are held to on
-the card (``qrnn_pool_chunked_plain`` repeats the chunked serving kernel's
-algebra, ``qrnn_pool_split_plain`` the split one's,
+the card (``qrnn_pool_few_plain`` repeats the few-lane kernel's algebra,
+``qrnn_pool_split_plain`` the split one's,
 ``qrnn_pool_serial_plain`` the seeded chain of the serial ones,
 ``qrnn_pool_fwd_train_chunked_plain`` and ``qrnn_pool_bwd_chunked_plain``
 the training pair's, for tests).
@@ -68,50 +68,6 @@ def qrnn_pool(y, c0=None):
     return h, c[:, -1]
 
 
-def qrnn_pool_chunked_plain(y, c0=None, chunk=8, chunks=64):
-    """The chunked serving kernel's algebra (``qrnn_pool_fwd_chunked``),
-    for tests: the same function as ``qrnn_pool``. T is walked in segments
-    of ``chunks`` chunks of ``chunk`` steps, each seeded with the last
-    one's c_T: (1) every chunk's map c -> A c + B from c = 0; (2) the carry
-    into each chunk, the segment's carry put through the composed maps of
-    the chunks before it; (3) each chunk re-run from its carry.
-    Returns (h [B, T, H], c_T [B, H])."""
-    yz, yf, yo = torch.chunk(y, 3, dim=-1)
-    f = torch.sigmoid(yf)
-    a, b = 1.0 - f, f * torch.tanh(yz)
-    bsz, t, hid = a.shape
-    carry = torch.zeros_like(a[:, 0]) if c0 is None else c0
-    seg = chunk * chunks
-    parts = []
-    for s0 in range(0, t, seg):
-        n = min(seg, t - s0)
-        nc = -(-n // chunk)
-        pad = (0, 0, 0, nc * chunk - n)     # steps past T: the identity
-        aa = F.pad(a[:, s0:s0 + n], pad, value=1.0).reshape(
-            bsz, nc, chunk, hid)
-        bb = F.pad(b[:, s0:s0 + n], pad).reshape(bsz, nc, chunk, hid)
-        ma, mb = torch.ones_like(aa[:, :, 0]), torch.zeros_like(aa[:, :, 0])
-        for u in range(chunk):
-            mb = aa[:, :, u] * mb + bb[:, :, u]
-            ma = ma * aa[:, :, u]
-        pa, pb = torch.ones_like(carry), torch.zeros_like(carry)
-        cin = []
-        for k in range(nc):
-            cin.append(pa * carry + pb)
-            pb = ma[:, k] * pb + mb[:, k]
-            pa = pa * ma[:, k]
-        c = torch.stack(cin, dim=1)
-        cs = []
-        for u in range(chunk):
-            c = aa[:, :, u] * c + bb[:, :, u]
-            cs.append(c)
-        c = torch.stack(cs, dim=2).reshape(bsz, nc * chunk, hid)[:, :n]
-        parts.append(c)
-        carry = c[:, -1]
-    c = torch.cat(parts, dim=1)
-    return torch.sigmoid(yo) * c, c[:, -1]
-
-
 # the training kernels' chunks a segment and steps a chunk at most, forward
 # and backward (kTrainChunks, kFwdChunk, kBwdChunk of csrc/qrnn_pool.cu)
 TRAIN_CHUNKS, FWD_CHUNK, BWD_CHUNK = 8, 8, 4
@@ -135,6 +91,40 @@ def eval_chunk_len(t):
     """Steps a chunk of ``qrnn_pool_fwd_eval``'s kernel for T = t
     (``train_chunk_len`` at its chunks and chunk length)."""
     return train_chunk_len(t, EVAL_CHUNKS, EVAL_CHUNK)
+
+
+# qrnn_pool_fwd_few's tiles (kFew* of csrc/qrnn_pool.cu): on at most
+# FEW_NARROW lanes (lanes a block, warps a block, steps a chunk at most),
+# on at most FEW_MID the mid tile's, on more the wide tile's
+FEW_NARROW, FEW_MID = 512, 1024
+FEW_TILE, FEW_MID_TILE, FEW_WIDE_TILE = (4, 16, 4), (8, 16, 8), (8, 16, 4)
+
+
+def few_tile(lanes, t):
+    """``qrnn_pool_fwd_few``'s tile for a call on ``lanes`` lanes (B * H) of
+    T = t steps (``few_tile`` of csrc/qrnn_pool.cu): (lanes a block, chunks
+    a warp, warps a block, steps a chunk). The narrow tile on at most
+    FEW_NARROW lanes, the mid one on at most FEW_MID, else the wide one;
+    32 / lanes chunks a warp; the chunk ``train_chunk_len`` at the block's
+    chunks and the tile's chunk length."""
+    lw, warps, max_chunk = (FEW_TILE if lanes <= FEW_NARROW else
+                            FEW_MID_TILE if lanes <= FEW_MID else
+                            FEW_WIDE_TILE)
+    per = 32 // lw
+    return lw, per, warps, train_chunk_len(t, per * warps, max_chunk)
+
+
+def qrnn_pool_few_plain(y, c0=None):
+    """The few-lane forward's algebra (``qrnn_pool_fwd_few``) at the
+    shipped kernel's tile for y's lanes (``few_tile``), for tests and the
+    wrapper's CPU path: ``qrnn_pool_fwd_train_chunked_plain`` with its
+    chunks a warp x warps chunks of its chunk length, its chunks a warp as
+    ``warp_chunks``. Returns (h [B, T, H], c_T [B, H])."""
+    bsz, t, h3 = y.shape
+    _, per, warps, chunk = few_tile(bsz * (h3 // 3), t)
+    h, _, c_last = qrnn_pool_fwd_train_chunked_plain(
+        y, c0, chunk=chunk, chunks=per * warps, warp_chunks=per)
+    return h, c_last
 
 
 # qrnn_pool_fwd_split's lanes a tile (kEvalLanes of csrc/qrnn_pool.cu; its
@@ -221,7 +211,7 @@ def _segment(x, s0, n, seg, chunks, pad):
 
 
 def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
-                                      chunks=TRAIN_CHUNKS):
+                                      chunks=TRAIN_CHUNKS, warp_chunks=1):
     """The chunked training forward's algebra (``qrnn_pool_fwd_train``),
     for tests: the same function as ``qrnn_pool_fwd_train``. T is walked in
     segments of ``chunks`` chunks of ``chunk`` steps: (1) every chunk's map
@@ -231,7 +221,10 @@ def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
     next segment's carry is the last step's c. Every a x + b is rounded
     once, as the kernels' fmaf (``_fma``). Steps past T are the
     identity (a = 1, b = 0). ``chunk`` None: the shipped kernel's
-    (``train_chunk_len``). Returns (h [B, T, H], c [B, T, H], c_T [B, H])."""
+    (``train_chunk_len``). With ``warp_chunks`` > 1 (``qrnn_pool_fwd_few``'s
+    algebra) (2) composes the maps as that kernel's warps do
+    (``_warp_carries``; with 1 it is the fold above). Returns (h [B, T, H],
+    c [B, T, H], c_T [B, H])."""
     yz, yf, yo = torch.chunk(y, 3, dim=-1)
     f = torch.sigmoid(yf)
     a, b, s = 1.0 - f, f * torch.tanh(yz), torch.sigmoid(yo)
@@ -248,11 +241,7 @@ def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
         for u in range(chunk):
             mb = _fma(aa[:, :, u], mb, bb[:, :, u])
             ma = ma * aa[:, :, u]
-        cin, c = [], carry
-        for k in range(chunks):
-            cin.append(c)
-            c = _fma(ma[:, k], c, mb[:, k])
-        c = torch.stack(cin, dim=1)
+        c = _warp_carries(ma, mb, carry, warp_chunks)
         cs = []
         for u in range(chunk):
             c = _fma(aa[:, :, u], c, bb[:, :, u])
@@ -262,6 +251,37 @@ def qrnn_pool_fwd_train_chunked_plain(y, c0=None, chunk=None,
         carry = c[:, -1]
     c = torch.cat(parts, dim=1)
     return s * c, c, c[:, -1]
+
+
+def _warp_carries(ma, mb, carry, per_warp):
+    """The carry into each chunk of a segment (maps ma, mb [B, chunks, H],
+    the segment's carry [B, H]) as ``qrnn_pool_fwd_few``'s kernel composes
+    it, a warp holding ``per_warp`` consecutive chunks: (1) an inclusive
+    scan of each warp's maps over its chunks (Hillis-Steele: at offsets 1,
+    2, ..., chunk k >= off takes (A_k A_{k-off}, A_k B_{k-off} + B_k),
+    rounded once, all at once); (2) the carry into warp w, the segment's
+    carry put through the scanned maps of warps 0 .. w-1 (their last
+    chunk's) one after the other; (3) into chunk k > 0 of a warp, the
+    warp's carry put through the scanned map of its chunk k - 1. With one
+    chunk a warp only (2) is left: the carry put through the maps of the
+    chunks before each one after the other. Returns [B, chunks, H]."""
+    bsz, nc, hid = ma.shape
+    pa = ma.reshape(bsz, nc // per_warp, per_warp, hid)
+    pb = mb.reshape(bsz, nc // per_warp, per_warp, hid)
+    off = 1
+    while off < per_warp:
+        na, nb = pa.clone(), pb.clone()
+        nb[:, :, off:] = _fma(pa[:, :, off:], pb[:, :, :-off], pb[:, :, off:])
+        na[:, :, off:] = pa[:, :, off:] * pa[:, :, :-off]
+        pa, pb, off = na, nb, 2 * off
+    cw, c = [], carry
+    for w in range(pa.shape[1]):
+        cw.append(c)
+        c = _fma(pa[:, w, -1], c, pb[:, w, -1])
+    cw = torch.stack(cw, dim=1)[:, :, None]
+    cin = cw.expand(-1, -1, per_warp, -1).clone()
+    cin[:, :, 1:] = _fma(pa[:, :, :-1], cw, pb[:, :, :-1])
+    return cin.reshape(bsz, nc, hid)
 
 
 def qrnn_pool_bwd_chunked_plain(y, c, dh, dc_last=None, c0=None, chunk=None,

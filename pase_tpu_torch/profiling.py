@@ -5,12 +5,13 @@
 (the ``pase.*`` spans of ``trainer.py``) and by kernel kind, read from the
 kernel's name:
 
-  qrnn fwd_train / qrnn bwd / qrnn fwd / qrnn fwd chunked / qrnn fwd
-      eval / qrnn fwd split — this package's CUDA kernels (qrnn fwd: the
-      serial serving forward, the seeded K1 of a streaming push; qrnn fwd
-      eval: the unseeded forward on many lanes, an eval batch; qrnn fwd
-      split: the unseeded forward on few lanes, split in time across
-      blocks);
+  qrnn fwd_train / qrnn bwd / qrnn fwd / qrnn fwd few / qrnn fwd eval /
+      qrnn fwd split — this package's CUDA kernels
+      (qrnn fwd: the serial serving forward, the seeded K1 of a streaming
+      push; qrnn fwd few: the unseeded forward on few lanes of short T, a
+      B = 1 extraction; qrnn fwd eval: the unseeded forward on many
+      lanes, an eval batch; qrnn fwd split: the unseeded forward on few
+      lanes of many steps, split in time across blocks);
   rnn — cuDNN's recurrent kernels (the BiRNN context layer, the GRU
       head's and WaveRNN's GRUs; the GEMMs cuDNN launches for them count
       as matmul) and ATen's fused cells (``generate``'s steps);
@@ -96,8 +97,8 @@ def kernel_kind(name):
         return "qrnn fwd eval"
     if "qrnn_pool_fwd_split_kernel" in n:
         return "qrnn fwd split"
-    if "qrnn_pool_fwd_chunked" in n:
-        return "qrnn fwd chunked"
+    if "qrnn_pool_fwd_few_kernel" in n:
+        return "qrnn fwd few"
     if "qrnn_pool_fwd_seg_kernel" in n or "qrnn_pool_fwd_kernel" in n:
         return "qrnn fwd"
     if _RECURRENT.search(name):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: the QRNN pooling kernels
-(pase_tpu_torch/csrc/qrnn_pool.cu: the chunked, the segmented and the
-one-thread-a-lane serving forward, the last two also against each other,
+(pase_tpu_torch/csrc/qrnn_pool.cu: the few-lane, the split, the segmented
+and the one-thread-a-lane serving forward, the last two also against each other,
 bit for bit; the chunked eval forward, also against the chunked plain
 version of its algebra; training forward, backward) and the stride-1 conv kernels
 (csrc/conv_s1_tc.cu: conv_s1_tc for bf16, conv_s1_tf32x3 for float32)
@@ -71,7 +71,8 @@ def _inputs(b, t, h, device, seed=11):
 
 
 def _unseeded(b, t, h):
-    """The forward entry an unseeded call of [b, t, 3 h] takes."""
+    """The launch count an unseeded call of [b, t, 3 h] adds to: its
+    forward entry's (cuda_qrnn.forward_entry)."""
     return cuda_qrnn.forward_entry(b * h, False, t)
 
 
@@ -83,7 +84,7 @@ def test_kernel_builds(cuda_device):
 @pytest.mark.parametrize("shape", [(3, 200, 16), (2, 1000, 512),
                                    (9, 131, 40), (1, 7, 24)])
 def test_kernel_matches_plain(cuda_device, shape):
-    """Unseeded (the route's kernel at these shapes: the chunked one) and
+    """Unseeded (the route's kernel at these shapes: the few-lane one) and
     seeded (the segmented serial kernel) against the plain version."""
     y, c0 = _inputs(*shape, cuda_device)
     unseeded = _unseeded(*shape)
@@ -103,16 +104,17 @@ def test_kernel_matches_plain(cuda_device, shape):
 @pytest.mark.parametrize("b", [1, 8])
 @pytest.mark.parametrize("t", [1, 17, 1000, 10000])
 def test_chunked_kernel_matches_plain(cuda_device, b, t):
-    """qrnn_pool_fwd_chunked against the plain version: one step, a ragged
-    chunk, one segment, several segments; at B = 1 in tiles of 4 lanes a
-    block (64 tiles of 8 would leave SMs idle), at B = 8 of 8."""
+    """qrnn_pool_fwd_few, the unseeded forward chunked in time, against
+    the plain version: one step, a ragged chunk, one segment, several
+    segments; at B = 1 its narrow tile (4 lanes a block), at B = 8 its
+    wide one (8 lanes a block, chunks of at most 4)."""
     y, c0 = _inputs(b, t, 512, cuda_device, seed=t + b)
     h_ref, c_ref = plain.qrnn_pool(y)
-    h, c = cuda_qrnn.qrnn_pool_fwd_chunked(y)
+    h, c = cuda_qrnn.qrnn_pool_fwd_few(y)
     torch.cuda.synchronize()
     assert (h - h_ref).abs().max().item() <= 1e-5
     assert (c - c_ref).abs().max().item() <= 1e-5
-    h, c = cuda_qrnn.qrnn_pool_fwd_chunked(y, c0)
+    h, c = cuda_qrnn.qrnn_pool_fwd_few(y, c0)
     h_ref, c_ref = plain.qrnn_pool(y, c0)
     torch.cuda.synchronize()
     assert (h - h_ref).abs().max().item() <= 1e-5
@@ -120,16 +122,16 @@ def test_chunked_kernel_matches_plain(cuda_device, b, t):
 
 
 def test_serving_forward_routes(cuda_device):
-    """Unseeded on few lanes: the chunked kernel, or the split one on at
-    most SPLIT_LANES lanes from SPLIT_STEPS steps; on EVAL_LANES lanes: the
-    chunked eval kernel; seeded under SEG_LANES: the segmented one; seeded
-    on more lanes: the one-thread-a-lane loop. One launch each."""
+    """Unseeded on few lanes: the few-lane kernel, or the split one on at most SPLIT_LANES lanes from SPLIT_STEPS
+    steps; on EVAL_LANES lanes: the chunked eval kernel; seeded under
+    SEG_LANES: the segmented one; seeded on more lanes: the
+    one-thread-a-lane loop. One launch each."""
     small, c0 = _inputs(2, 30, 16, cuda_device)
     long = torch.randn(1, cuda_qrnn.SPLIT_STEPS, 3 * 16, device=cuda_device)
     big = torch.randn(cuda_qrnn.EVAL_LANES // 64, 3, 3 * 64,
                       device=cuda_device)
     wide, wide_c0 = _inputs(cuda_qrnn.SEG_LANES // 64, 3, 64, cuda_device)
-    for y, seed, name in ((small, None, "qrnn_pool_fwd_chunked"),
+    for y, seed, name in ((small, None, "qrnn_pool_fwd_few"),
                           (long, None, "qrnn_pool_fwd_split"),
                           (small, c0, "qrnn_pool_fwd_seg"),
                           (big, None, "qrnn_pool_fwd_eval"),
@@ -280,6 +282,106 @@ def test_split_kernel_on_a_b1_encoder_forward(cuda_device):
     y_cpu = cpu(x)
     rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
     assert rel <= 2e-4, rel
+
+
+# the few-lane kernel: one step, a ragged chunk, B = 1 extraction's 200
+# steps and one past them, the rehearsal's 8 s, forward-chunk's 10 s
+# window, the longest call the route gives it at B = 1 (7499 steps), the
+# time shard's [2,1500,512] (the mid tile), the serving batch [8,1000,512]
+# and a ragged 1500 lanes (the wide tile), and a narrow ragged one (33
+# lanes: a block's 4 lanes across rows, a ragged last block)
+FEW_SHAPES = [(1, 1, 512), (1, 7, 512), (1, 200, 512), (1, 201, 512),
+              (1, 800, 512), (1, 1000, 512), (1, 7499, 512), (2, 1500, 512),
+              (8, 1000, 512), (5, 97, 300), (3, 1237, 11)]
+FEW_GATES = [((1, 200, 512), "slow"), ((1, 1000, 512), "slow"),
+             ((2, 1500, 512), "frozen"), ((1, 1000, 512), "frozen"),
+             ((8, 1000, 512), "frozen")]
+
+
+@pytest.mark.parametrize(
+    "shape,kind", [(s, "randn") for s in FEW_SHAPES] + FEW_GATES, ids=str)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_few_kernel_matches_plain(cuda_device, shape, kind, seeded):
+    """qrnn_pool_fwd_few against the plain version (1e-5) and against the
+    plain version of its algebra at the library's chunking, which is
+    ops/qrnn.py's (5e-7); two calls bit for bit; one launch each, counted
+    under its own name."""
+    b, t, hid = shape
+    y, c0 = _inputs(*shape, cuda_device, seed=sum(shape))
+    y = gates(y, kind)
+    c0 = c0 if seeded else None
+    assert cuda_qrnn.few_chunking(b * hid, t) == plain.few_tile(b * hid, t)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c = cuda_qrnn.qrnn_pool_fwd_few(y, c0)
+    h2, c2 = cuda_qrnn.qrnn_pool_fwd_few(y, c0)
+    assert cuda_qrnn.LAUNCHES == {
+        **before, "qrnn_pool_fwd_few": before["qrnn_pool_fwd_few"] + 2}
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(c, c2)
+    h_ref, c_ref = plain.qrnn_pool(y, c0)
+    assert (h - h_ref).abs().max().item() <= 1e-5
+    assert (c - c_ref).abs().max().item() <= 1e-5
+    hp, cp = plain.qrnn_pool_few_plain(y, c0)
+    assert (h - hp).abs().max().item() <= 5e-7
+    assert (c - cp).abs().max().item() <= 5e-7
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 512), (2, 1500, 512),
+                                   (8, 1000, 512)], ids=str)
+def test_few_kernel_replays_in_a_cuda_graph(cuda_device, shape):
+    """A CUDA graph of the few-lane kernel replayed on new inputs gives
+    the eager call's bits each time."""
+    ys = [_inputs(*shape, cuda_device, seed=s)[0] for s in (1, 2, 3)]
+    static = ys[0].clone()
+    cuda_qrnn.qrnn_pool_fwd_few(static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h, c = cuda_qrnn.qrnn_pool_fwd_few(static)
+    for y in ys[1:] + ys[:1]:
+        static.copy_(y)
+        graph.replay()
+        h_ref, c_ref = cuda_qrnn.qrnn_pool_fwd_few(y)
+        torch.cuda.synchronize()
+        assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
+
+
+@pytest.mark.parametrize("shape,key", [
+    ((1, 200, 512), "qrnn_pool_fwd_few"), ((1, 1000, 512),
+                                           "qrnn_pool_fwd_few"),
+    ((1, 7499, 512), "qrnn_pool_fwd_few"), ((2, 1500, 512),
+                                            "qrnn_pool_fwd_few"),
+    ((1, 7500, 512), "qrnn_pool_fwd_split"),
+    ((3, 1000, 512), "qrnn_pool_fwd_few")], ids=str)
+def test_few_lanes_route_to_the_few_kernel(cuda_device, shape, key):
+    """The operator's unseeded route: B = 1 at H = 512 under SPLIT_STEPS
+    steps, B = 2 and 1536 lanes to the few-lane kernel, one launch on its
+    counter, its bits; from SPLIT_STEPS steps the split kernel."""
+    y, _ = _inputs(*shape, cuda_device, seed=7)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h, c = torch.ops.pase_tpu_torch.qrnn_pool_fwd(y, None)
+    assert cuda_qrnn.LAUNCHES == {**before, key: before[key] + 1}
+    assert cuda_qrnn.forward_entry(shape[0] * shape[2], False,
+                                   shape[1]) == key
+    if key == "qrnn_pool_fwd_few":
+        h2, c2 = cuda_qrnn.qrnn_pool_fwd_few(y)
+        torch.cuda.synchronize()
+        assert torch.equal(h, h2) and torch.equal(c, c2)
+
+
+def test_stream_floor_is_its_elementwise_function(cuda_device):
+    """The streaming floor writes sigmoid(o) tanh(z) sigmoid(f) of each
+    lane-step (1e-6) and counts no launch; H not a multiple of 4 is
+    refused."""
+    y, _ = _inputs(2, 300, 512, cuda_device, seed=9)
+    before = dict(cuda_qrnn.LAUNCHES)
+    h = cuda_qrnn.stream_floor(y)
+    z, f, o = torch.chunk(y, 3, dim=-1)
+    want = torch.sigmoid(o) * torch.tanh(z) * torch.sigmoid(f)
+    assert (h - want).abs().max().item() <= 1e-6
+    assert cuda_qrnn.LAUNCHES == before
+    with pytest.raises(RuntimeError):
+        cuda_qrnn.stream_floor(_inputs(1, 5, 6, cuda_device)[0])
 
 
 @pytest.mark.parametrize("shape", [(3, 200, 16), (1, 1001, 512)])
@@ -442,7 +544,7 @@ def test_train_kernels_count_launches(cuda_device):
     assert after["qrnn_pool_bwd"] == before["qrnn_pool_bwd"] + 1
     assert after["qrnn_pool_fwd"] == before["qrnn_pool_fwd"]
     assert after["qrnn_pool_fwd_seg"] == before["qrnn_pool_fwd_seg"]
-    assert after["qrnn_pool_fwd_chunked"] == before["qrnn_pool_fwd_chunked"]
+    assert after["qrnn_pool_fwd_few"] == before["qrnn_pool_fwd_few"]
     assert after["qrnn_pool_fwd_eval"] == before["qrnn_pool_fwd_eval"]
 
 
@@ -607,8 +709,9 @@ def test_bf16_step_launches_the_training_kernels(cuda_device, tmp_path):
         assert all(torch.isfinite(v) for v in losses.values())
     layers = len(tr.model.frontend.rnn.layers)
     assert cuda_qrnn.LAUNCHES == {
-        "qrnn_pool_fwd_split": 0, "qrnn_pool_fwd_chunked": 0,
-        "qrnn_pool_fwd_seg": 0, "qrnn_pool_fwd": 0, "qrnn_pool_fwd_eval": 0,
+        "qrnn_pool_fwd_split": 0, "qrnn_pool_fwd_few": 0,
+        "qrnn_pool_fwd_seg": 0, "qrnn_pool_fwd": 0,
+        "qrnn_pool_fwd_eval": 0,
         "qrnn_pool_fwd_train": 2 * layers, "qrnn_pool_bwd": 2 * layers}
     assert not any(conv_ops.LAUNCHES.values())
 
@@ -820,11 +923,13 @@ def test_device_corpus_rows_on_the_card(cuda_device, tmp_path):
 def test_registered_op_launches_and_routes(cuda_device):
     """torch.ops.pase_tpu_torch.qrnn_pool_fwd on CUDA tensors launches the
     kernels, the route taken inside the operator from the call's shapes:
-    unseeded on 1 x 512 lanes the chunked kernel, on 64 x 512 the chunked
-    eval kernel; seeded, on 1 x 512 the segmented one, on 64 x 512 the
-    one-thread-a-lane one. Within 1e-5 of the plain version."""
+    unseeded on 1 x 512 lanes the few-lane kernel's narrow tile, on 4 x
+    512 its wide one, on 64 x 512 the chunked eval kernel; seeded,
+    on 1 x 512 the segmented one, on 64 x 512 the one-thread-a-lane one.
+    Within 1e-5 of the plain version."""
     op = torch.ops.pase_tpu_torch.qrnn_pool_fwd
-    for b, seeded, name in ((1, False, "qrnn_pool_fwd_chunked"),
+    for b, seeded, name in ((1, False, "qrnn_pool_fwd_few"),
+                            (4, False, "qrnn_pool_fwd_few"),
                             (64, False, "qrnn_pool_fwd_eval"),
                             (1, True, "qrnn_pool_fwd_seg"),
                             (64, True, "qrnn_pool_fwd")):
@@ -858,7 +963,7 @@ def test_streaming_is_bit_identical_across_chunkings(cuda_device):
               for i in range(0, 16000, chunk)] + [st.flush()]
         outs.append(torch.cat([y for y in ys if y is not None], 2))
         assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_split"] == 0
-        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_chunked"] == 0
+        assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_few"] == 0
         assert cuda_qrnn.LAUNCHES["qrnn_pool_fwd_seg"] == st.qrnn_calls
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
     ref = enc(wav)
@@ -867,8 +972,9 @@ def test_streaming_is_bit_identical_across_chunkings(cuda_device):
 
 def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
     """A bucket exported on the card serves there (meta device 'cuda'),
-    within 2e-5 of the offline encoder, through the chunked kernel at a
-    small batch and the chunked eval kernel from EVAL_LANES lanes."""
+    within 2e-5 of the offline encoder, through the few-lane kernel at a
+    small batch and the chunked eval kernel from
+    EVAL_LANES lanes."""
     from pase_tpu_torch import serving
     enc = wf_builder(dict(NARROW_CFG, strides=[1, 10, 4, 4]),
                      device=cuda_device)
@@ -876,7 +982,7 @@ def test_exported_bucket_runs_on_the_card(cuda_device, tmp_path):
     srv = serving.ServingEncoder(str(tmp_path))
     assert srv.meta["device"] == "cuda"
     lanes = NARROW_CFG["rnn_dim"]
-    for b, name in ((2, "qrnn_pool_fwd_chunked"),
+    for b, name in ((2, "qrnn_pool_fwd_few"),
                     (cuda_qrnn.EVAL_LANES // lanes, "qrnn_pool_fwd_eval")):
         wav = (np.random.RandomState(b).randn(b, 1600) * 0.1).astype(
             np.float32)
@@ -1013,8 +1119,8 @@ def test_bf16_gan_steps_launch_the_training_kernels(cuda_device, tmp_path):
 def test_probe_extraction_gpu_matches_cpu(cuda_device):
     """The probes' PASE+ extractor at batch 1 on a 2 s utterance (the
     1600-sample bucket, 'avg_concat'): the card within 2e-4 of max|y| of
-    the same weights on the CPU, K1's chunked kernel once per QRNN layer
-    and no other forward kernel."""
+    the same weights on the CPU, K1's few-lane kernel (the unseeded route
+    at B = 1) once per QRNN layer and no other forward kernel."""
     from pase_tpu_torch.probes.extract import FeatureExtractor
     cfg = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "cfg", "frontend", "PASE+.cfg")
@@ -1026,7 +1132,7 @@ def test_probe_extraction_gpu_matches_cpu(cuda_device):
     got = gpu.extract(wav)
     layers = len(gpu.encoder.module.rnn.layers)
     assert cuda_qrnn.LAUNCHES == {**{k: 0 for k in cuda_qrnn.LAUNCHES},
-                                  "qrnn_pool_fwd_chunked": layers}
+                                  "qrnn_pool_fwd_few": layers}
     want = cpu.extract(wav)
     assert got.shape == want.shape == (194, 2 * gpu.encoder.emb_dim)
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
@@ -1176,7 +1282,7 @@ ENCODER_CFGS = {
 def test_alternative_encoder_gpu_matches_cpu(cuda_device, name):
     """TDNNFe, ASPPResEncoder and ResnetEncoder on the card against the
     same weights on the CPU (2e-4 of the largest output); the QRNN of the
-    first two launches the chunked kernel (a few lanes) once a call."""
+    first two launches the few-lane kernel (a few lanes) once a call."""
     cfg, frames, layers = ENCODER_CFGS[name]
     gpu = wf_builder(cfg, device=cuda_device, seed=0)
     cpu = wf_builder(cfg, device="cpu", seed=0)
@@ -1186,7 +1292,7 @@ def test_alternative_encoder_gpu_matches_cpu(cuda_device, name):
     y = gpu(x)
     launched = {k: cuda_qrnn.LAUNCHES[k] - before[k] for k in before}
     assert launched == {**{k: 0 for k in before},
-                        "qrnn_pool_fwd_chunked": layers}, launched
+                        "qrnn_pool_fwd_few": layers}, launched
     y_cpu = cpu(x)
     assert tuple(y.shape) == tuple(y_cpu.shape) == (2, gpu.emb_dim, frames)
     rel = ((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
@@ -1500,7 +1606,7 @@ def test_global_batchnorm_one_rank_nccl(cuda_device, dtype):
 @pytest.mark.parametrize("layers", [1, 2])
 def test_time_shard_matches_offline_on_the_card(cuda_device, layers):
     """encode_time_sharded over [cuda:0] * 4 (the QRNN carry through K1's
-    chunked and seeded kernels) against the offline forward on the card
+    few-lane and seeded kernels) against the offline forward on the card
     (atol = rtol = 2e-5, JAX's bound), and its gradient (K2 with dc0)
     against the offline gradient (atol 1e-5, rtol 1e-4)."""
     from pase_tpu_torch import frontend
@@ -1515,7 +1621,7 @@ def test_time_shard_matches_offline_on_the_card(cuda_device, layers):
     got = sp.encode_time_sharded(m, wav, devices)
     launched = {k: cuda_qrnn.LAUNCHES[k] - before[k] for k in before}
     # pass 1 on the shards but the last, pass 2 on every shard
-    assert launched["qrnn_pool_fwd_chunked"] == 3 * layers, launched
+    assert launched["qrnn_pool_fwd_few"] == 3 * layers, launched
     assert launched["qrnn_pool_fwd_seg"] == 4 * layers, launched
     with torch.no_grad():
         want = m(wav)

@@ -197,23 +197,29 @@ def test_plain_backward_returns_no_c0_grad_without_c0():
     assert dy.shape == yt.shape and dc0 is None
 
 
-# (T, chunk, chunks per segment): one step; T under one chunk; T one past
-# whole chunks; several segments (5 of 8 steps, the last ragged)
-CHUNKED = [(1, 8, 64), (5, 8, 64), (17, 8, 64), (37, 4, 2)]
+# (lanes the tile is chosen for, T): the few-lane kernel's mid tile (8
+# lanes, 16 warps of 4 chunks of at most 8) and its wide one (8 lanes, 16
+# warps of 4 chunks of at most 4): one step; T under one chunk; several
+# segments, the last ragged
+CHUNKED = [(1024, 1), (1024, 5), (1024, 517), (4096, 1), (4096, 17),
+           (4096, 600)]
 
 
-@pytest.mark.parametrize("t,chunk,chunks", CHUNKED,
-                         ids=lambda v: str(v))
+@pytest.mark.parametrize("lanes,t", CHUNKED, ids=lambda v: str(v))
 @pytest.mark.parametrize("seeded", [False, True])
-def test_chunked_plain_matches_serial_and_pallas(t, chunk, chunks, seeded):
-    """The chunked kernel's algebra (chunk maps, composed carries, chunks
-    re-run from their carry) against the serial plain version and the
-    Pallas kernel in interpret mode, within 1e-6."""
-    y, c0 = _inputs(3, t, 8, seed=t + chunk)
+def test_chunked_plain_matches_serial_and_pallas(lanes, t, seeded):
+    """The few-lane kernel's algebra at the tile it takes on ``lanes``
+    lanes (chunk maps, each warp's 4 chunks scanned as its shuffles scan
+    them, the carry put through the warps' maps in order, chunks re-run
+    from their carry) against the serial plain version and the Pallas
+    kernel in interpret mode, within 1e-6, on 3 x 8 lanes."""
+    y, c0 = _inputs(3, t, 8, seed=t + lanes)
     c0 = c0 if seeded else None
     c0t = None if c0 is None else torch.from_numpy(c0)
-    h, c = torch_qrnn.qrnn_pool_chunked_plain(torch.from_numpy(y), c0t,
-                                              chunk=chunk, chunks=chunks)
+    _, per, warps, chunk = torch_qrnn.few_tile(lanes, t)
+    h, _, c = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+        torch.from_numpy(y), c0t, chunk=chunk, chunks=per * warps,
+        warp_chunks=per)
     h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
     h_ref, c_ref = _pallas_pool(y, c0)
     assert h.shape == (3, t, 8) and c.shape == (3, 8)
@@ -413,6 +419,133 @@ def test_eval_wrapper_cpu_path_launches_nothing():
     assert cuda_qrnn.LAUNCHES == before
 
 
+@functools.lru_cache(maxsize=None)
+def _few_case(b, t, seeded):
+    """Inputs of a few-lane case (B rows of 5 lanes) and the Pallas
+    kernel's (h, c_T) on them in interpret mode, once per (B, T,
+    seeded)."""
+    y, c0 = _inputs(b, t, 5, seed=3 * t + b + 11 * seeded)
+    c0 = c0 if seeded else None
+    return y, c0, _pallas_pool(y, c0)
+
+
+@pytest.mark.parametrize("t", [1, 7, 200, 201, 1000])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_few_plain_matches_serial_and_pallas(t, b, seeded):
+    """qrnn_pool_fwd_few's algebra at its narrow tile (chunk maps, each
+    warp's 8 chunks scanned as its shuffles scan them, the carry put
+    through the warps' maps in order, chunks re-run) against the Pallas
+    kernel in interpret mode and the serial plain version, within 1e-6:
+    one step, a ragged chunk, B = 1 extraction's 200 steps (one segment of
+    128 chunks of 2), one past it, forward-chunk's 1000 (2 segments of 128
+    x 4)."""
+    y, c0, (h_ref, c_ref) = _few_case(b, t, seeded)
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    h, c = torch_qrnn.qrnn_pool_few_plain(torch.from_numpy(y), c0t)
+    h_ser, c_ser = torch_qrnn.qrnn_pool(torch.from_numpy(y), c0t)
+    assert h.shape == (b, t, 5) and c.shape == (b, 5)
+    for got, want in ((h, h_ser), (c, c_ser), (h, np.asarray(h_ref)),
+                      (c, np.asarray(c_ref))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+# the warp scan at other tiles (T, chunk, chunks a segment, chunks a
+# warp): 2, 4, 8 and 32 chunks a warp (16, 8, 4 and 1 lanes a block), one
+# and several segments, ragged
+WARP_CHUNKED = [(37, 3, 4, 2), (37, 2, 8, 4), (200, 2, 128, 4),
+                (61, 1, 16, 8), (100, 2, 32, 32), (5, 7, 8, 4)]
+
+
+@pytest.mark.parametrize("t,chunk,chunks,per_warp", WARP_CHUNKED, ids=str)
+def test_warp_chunked_plain_matches_serial(t, chunk, chunks, per_warp):
+    """The warp-scanned composition (``warp_chunks``) at other tiles
+    against the serial plain version, seeded, within 1e-6; with one chunk
+    a warp it is the serial fold's algebra bit for bit."""
+    y, c0 = _inputs(2, t, 6, seed=t + per_warp)
+    yt, c0t = torch.from_numpy(y), torch.from_numpy(c0)
+    h, _, c = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+        yt, c0t, chunk=chunk, chunks=chunks, warp_chunks=per_warp)
+    h_ser, c_ser = torch_qrnn.qrnn_pool(yt, c0t)
+    np.testing.assert_allclose(h.numpy(), h_ser.numpy(), atol=1e-6)
+    np.testing.assert_allclose(c.numpy(), c_ser.numpy(), atol=1e-6)
+    rng = np.random.RandomState(t)
+    ma, mb = (torch.from_numpy(rng.rand(2, chunks, 6).astype(np.float32))
+              for _ in range(2))
+    cin, c = [], c0t
+    for k in range(chunks):
+        cin.append(c)
+        c = torch_qrnn._fma(ma[:, k], c, mb[:, k])
+    assert torch.equal(torch_qrnn._warp_carries(ma, mb, c0t, 1),
+                       torch.stack(cin, dim=1))
+
+
+@pytest.mark.parametrize("lanes,t,tile", [
+    (512, 1, (4, 8, 16, 1)), (512, 128, (4, 8, 16, 1)),
+    (512, 200, (4, 8, 16, 2)), (512, 513, (4, 8, 16, 3)),
+    (512, 1000, (4, 8, 16, 4)), (16, 7, (4, 8, 16, 1)),
+    (513, 200, (8, 4, 16, 4)), (1024, 1500, (8, 4, 16, 8)),
+    (1024, 1, (8, 4, 16, 1)), (1025, 200, (8, 4, 16, 4)),
+    (1048, 3000, (8, 4, 16, 4)), (4096, 1000, (8, 4, 16, 4)),
+    (4096, 21, (8, 4, 16, 1)), (6143, 4000, (8, 4, 16, 4)),
+    (2048, 257, (8, 4, 16, 3))])
+def test_few_tile_by_lanes_covers_t_in_the_fewest_segments(lanes, t, tile):
+    """The few-lane kernel's tile: the narrow one (4 lanes, 16 warps of 8
+    chunks of at most 4 steps) on at most FEW_NARROW lanes, the mid one (8
+    lanes, 16 warps of 4 chunks of at most 8) on at most FEW_MID, else the
+    wide one (8 lanes, 16 warps of 4 chunks of at most 4); the chunk the
+    shortest that covers T in the fewest segments."""
+    assert torch_qrnn.few_tile(lanes, t) == tile
+    lw, per, warps, chunk = tile
+    max_chunk = (torch_qrnn.FEW_TILE if lanes <= torch_qrnn.FEW_NARROW
+                 else torch_qrnn.FEW_MID_TILE if lanes <= torch_qrnn.FEW_MID
+                 else torch_qrnn.FEW_WIDE_TILE)[2]
+    assert -(-t // (per * warps * chunk)) == -(-t // (per * warps
+                                                      * max_chunk))
+
+
+def test_few_chunking_constants_are_the_kernels():
+    """ops/qrnn.py's FEW_NARROW, FEW_MID, FEW_TILE, FEW_MID_TILE and
+    FEW_WIDE_TILE are the shipped few-lane kernel's kFewNarrow, kFewMid
+    and kFew* constants, and kernel_variants's FEW_SHIPPED is its
+    tiles."""
+    import re
+    from pase_tpu_torch import kernel_variants
+    with open(cuda_qrnn.SOURCE) as f:
+        text = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kFewNarrow"] == torch_qrnn.FEW_NARROW
+    assert const["kFewMid"] == torch_qrnn.FEW_MID
+    assert tuple(const[k] for k in (
+        "kFewMidLanes", "kFewMidWarps",
+        "kFewMidChunk")) == torch_qrnn.FEW_MID_TILE
+    assert tuple(const[k] for k in ("kFewLanes", "kFewWarps",
+                                    "kFewChunk")) == torch_qrnn.FEW_TILE
+    assert tuple(const[k] for k in (
+        "kFewWideLanes", "kFewWideWarps",
+        "kFewWideChunk")) == torch_qrnn.FEW_WIDE_TILE
+    assert kernel_variants.FEW_SHIPPED == tuple(
+        const[k] for k in kernel_variants._FEW_NAMES)
+
+
+def test_few_wrapper_cpu_path_launches_nothing():
+    """qrnn_pool_fwd_few on CPU tensors takes the plain version of its
+    algebra at its chunking, seeded and unseeded, and launches nothing."""
+    y, c0 = _inputs(2, 37, 8, seed=14)
+    before = dict(cuda_qrnn.LAUNCHES)
+    for seed in (None, torch.from_numpy(c0)):
+        h, c = cuda_qrnn.qrnn_pool_fwd_few(torch.from_numpy(y), seed)
+        _, per, warps, chunk = torch_qrnn.few_tile(16, 37)
+        hp, _, cp = torch_qrnn.qrnn_pool_fwd_train_chunked_plain(
+            torch.from_numpy(y), seed, chunk=chunk, chunks=per * warps,
+            warp_chunks=per)
+        assert torch.equal(h, hp) and torch.equal(c, cp)
+        assert torch.equal(h, torch_qrnn.qrnn_pool_few_plain(
+            torch.from_numpy(y), seed)[0])
+    assert cuda_qrnn.LAUNCHES == before
+
+
 # the split kernel's algebra (T, tile, chunk; 8 chunks a segment, a
 # tile's map from its eighths): one step; T under one tile; several tiles,
 # the last ragged; two whole tiles; the shipped tiling at T = 203 on 512
@@ -519,57 +652,62 @@ def test_train_wrappers_cpu_path_launches_nothing():
     assert cuda_qrnn.LAUNCHES == before
 
 
-def test_chunked_wrapper_cpu_path_and_route():
-    """qrnn_pool_fwd_chunked on a CPU tensor takes the chunked plain
-    version and launches nothing; its launches are counted under their own
-    name (an unseeded call on the card on few lanes: forward_entry), as
-    the eval kernel's are."""
-    y, c0 = _inputs(2, 21, 8, seed=6)
-    before = dict(cuda_qrnn.LAUNCHES)
-    h, c = cuda_qrnn.qrnn_pool_fwd_chunked(torch.from_numpy(y))
-    h_ref, c_ref = torch_qrnn.qrnn_pool_chunked_plain(torch.from_numpy(y))
-    assert torch.equal(h, h_ref) and torch.equal(c, c_ref)
-    assert cuda_qrnn.LAUNCHES == before
+def test_launches_count_each_forward_entry_under_its_name():
+    """Every entry forward_entry routes to, and the training pair, has a
+    launch count of its own, and no other count is kept (the few-lane
+    kernel's launches are its entry's); the route's limits are those its
+    comment measured."""
     assert (cuda_qrnn.EVAL_LANES, cuda_qrnn.EVAL_SHORT_LANES,
             cuda_qrnn.EVAL_SHORT_STEPS) == (6144, 4096, 200)
-    assert set(cuda_qrnn.LAUNCHES) == {"qrnn_pool_fwd_split",
-                                       "qrnn_pool_fwd_chunked",
-                                       "qrnn_pool_fwd_seg",
-                                       "qrnn_pool_fwd",
-                                       "qrnn_pool_fwd_eval",
-                                       "qrnn_pool_fwd_train",
-                                       "qrnn_pool_bwd"}
+    assert (cuda_qrnn.SPLIT_LANES, cuda_qrnn.SPLIT_STEPS) == (512, 7500)
+    routed = {cuda_qrnn.forward_entry(lanes, seeded, steps)
+              for lanes in (1, 512, 1024, 4096, 6144, 16384)
+              for seeded in (False, True) for steps in (1, 200, 7500)}
+    assert routed == {"qrnn_pool_fwd_split", "qrnn_pool_fwd_few",
+                      "qrnn_pool_fwd_seg", "qrnn_pool_fwd",
+                      "qrnn_pool_fwd_eval"}
+    assert set(cuda_qrnn.LAUNCHES) == routed | {"qrnn_pool_fwd_train",
+                                                "qrnn_pool_bwd"}
 
 
 @pytest.mark.parametrize("lanes,seeded,steps,entry", [
     (512, True, 100, "qrnn_pool_fwd_seg"),
     (16383, True, 200, "qrnn_pool_fwd_seg"),
     (16384, True, 200, "qrnn_pool_fwd"), (49152, True, 200, "qrnn_pool_fwd"),
-    (512, False, 100, "qrnn_pool_fwd_chunked"),
-    (512, False, 200, "qrnn_pool_fwd_chunked"),
-    (512, False, 1000, "qrnn_pool_fwd_chunked"),
-    (512, False, 7499, "qrnn_pool_fwd_chunked"),
+    (512, False, 100, "qrnn_pool_fwd_few"),
+    (512, False, 200, "qrnn_pool_fwd_few"),
+    (512, False, 1000, "qrnn_pool_fwd_few"),
+    (512, False, 7499, "qrnn_pool_fwd_few"),
     (512, False, 7500, "qrnn_pool_fwd_split"),
     (512, False, 10000, "qrnn_pool_fwd_split"),
     (16, False, 20000, "qrnn_pool_fwd_split"),
-    (513, False, 10000, "qrnn_pool_fwd_chunked"),
-    (512, False, 3000, "qrnn_pool_fwd_chunked"),
-    (1024, False, 1500, "qrnn_pool_fwd_chunked"),
-    (1024, False, 3000, "qrnn_pool_fwd_chunked"),
-    (2048, False, 200, "qrnn_pool_fwd_chunked"),
-    (2048, False, 1000, "qrnn_pool_fwd_chunked"),
-    (2048, False, 4000, "qrnn_pool_fwd_chunked"),
+    (513, False, 10000, "qrnn_pool_fwd_few"),
+    (512, False, 3000, "qrnn_pool_fwd_few"),
+    (1024, False, 1500, "qrnn_pool_fwd_few"),
+    (1024, False, 3000, "qrnn_pool_fwd_few"),
+    (2048, False, 200, "qrnn_pool_fwd_few"),
+    (2048, False, 1000, "qrnn_pool_fwd_few"),
+    (2048, False, 4000, "qrnn_pool_fwd_few"),
     (4096, False, 200, "qrnn_pool_fwd_eval"),
-    (4096, False, 201, "qrnn_pool_fwd_chunked"),
-    (4096, False, 600, "qrnn_pool_fwd_chunked"),
-    (4096, False, 1000, "qrnn_pool_fwd_chunked"),
-    (4096, False, 4000, "qrnn_pool_fwd_chunked"),
-    (4096, False, 10000, "qrnn_pool_fwd_chunked"),
+    (4096, False, 201, "qrnn_pool_fwd_few"),
+    (4096, False, 600, "qrnn_pool_fwd_few"),
+    (4096, False, 1000, "qrnn_pool_fwd_few"),
+    (4096, False, 4000, "qrnn_pool_fwd_few"),
+    (4096, False, 10000, "qrnn_pool_fwd_few"),
     (6144, False, 1000, "qrnn_pool_fwd_eval"),
     (12288, False, 200, "qrnn_pool_fwd_eval"),
     (24576, False, 200, "qrnn_pool_fwd_eval"),
     (24576, False, 21, "qrnn_pool_fwd_eval"),
-    (49152, False, 200, "qrnn_pool_fwd_eval")])
+    (49152, False, 200, "qrnn_pool_fwd_eval"),
+    (1, False, 1, "qrnn_pool_fwd_few"), (24, False, 10, "qrnn_pool_fwd_few"),
+    (1025, False, 200, "qrnn_pool_fwd_few"),
+    (1048, False, 3000, "qrnn_pool_fwd_few"),
+    (1049, False, 200, "qrnn_pool_fwd_few"),
+    (4095, False, 200, "qrnn_pool_fwd_few"),
+    (6143, False, 1000, "qrnn_pool_fwd_few"),
+    (6143, False, 200, "qrnn_pool_fwd_eval"),
+    (513, False, 7500, "qrnn_pool_fwd_few"),
+    (1, True, 20000, "qrnn_pool_fwd_seg")])
 def test_forward_entry_routes_by_seed_and_lanes(lanes, seeded, steps, entry):
     """The operator's route: seeded under SEG_LANES lanes the segmented
     kernel (a streaming push), else the one-thread-a-lane loop; unseeded
@@ -578,7 +716,7 @@ def test_forward_entry_routes_by_seed_and_lanes(lanes, seeded, steps, entry):
     training CLI's eval: [48,200,256] 12288 lanes, [96,200,512] 49152,
     [48,21,512] 24576), else the split kernel on at most SPLIT_LANES lanes
     of SPLIT_STEPS steps or more (a 100 s file at B = 1 in one window,
-    [1,10000,512]), else the chunked serving kernel (B = 1 extraction
+    [1,10000,512]), else the few-lane kernel (B = 1 extraction
     [1,200,512], forward-chunk's window [1,1000,512], the time shard's
     [2,1500,512], the serving batch [8,1000,512], [8,4000,512],
     [8,1000,256]; 3000 steps at 512 to 2048 lanes and 600 at 4096, where
@@ -631,8 +769,9 @@ def test_serial_wrappers_cpu_path(wrapper):
      "qrnn fwd"),
     ("void (anonymous namespace)::qrnn_pool_fwd_kernel(float const*, "
      "float const*, float*, float*, long, long, long)", "qrnn fwd"),
-    ("(anonymous namespace)::qrnn_pool_fwd_chunked_kernel(float const*)",
-     "qrnn fwd chunked"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_few_kernel<4, 16, 4, 1, 2>("
+     "float const*, float const*, float*, float*, long, long, long, int)",
+     "qrnn fwd few"),
     ("(anonymous namespace)::qrnn_pool_bwd_kernel(float const*)",
      "qrnn bwd"),
     ("void (anonymous namespace)::qrnn_pool_fwd_train_kernel<8>(float "
@@ -646,11 +785,15 @@ def test_serial_wrappers_cpu_path(wrapper):
      "qrnn fwd eval"),
     ("void (anonymous namespace)::qrnn_pool_fwd_split_kernel<5, 3>(float "
      "const*, float const*, float*, float*, int*, float*, long, long, long, "
-     "int, int, int, int)", "qrnn fwd split")])
+     "int, int, int, int)", "qrnn fwd split"),
+    ("void (anonymous namespace)::qrnn_pool_fwd_few_kernel<8, 8, 8, 1>("
+     "float const*, float const*, float*, float*, long, long, long, int)",
+     "qrnn fwd few")])
 def test_profiler_names_the_qrnn_kernels(name, kind):
     """A push's profile counts K1's serial serving kernels (the segmented
     one and the one-thread-a-lane loop) as 'qrnn fwd', apart from the
-    chunked kernel, the eval kernel and the split kernel; a step's split counts the training
+    few-lane kernel, the eval kernel and the split
+    kernel; a step's split counts the training
     pair's kernels as 'qrnn fwd_train' and 'qrnn bwd'."""
     from pase_tpu_torch.profiling import kernel_kind
     assert kernel_kind(name) == kind
@@ -663,7 +806,8 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     segmented kernel but the shipped one, the train group every tile of
     the training pair but the shipped one, the eval group every tile of
     the eval kernel but the shipped one, the split group every tile of
-    the split kernel but the shipped one, each a different one."""
+    the split kernel but the shipped one, the fewlane group every tile of
+    the few-lane kernel but the shipped one, each a different one."""
     from pase_tpu_torch import kernel_variants
     serial = [k for k in kernel_variants.VARIANTS
               if k.startswith("qrnn serial")]
@@ -687,6 +831,12 @@ def test_kernel_variants_replace_lines_of_the_shipped_sources():
     assert kernel_variants.SPLIT_SHIPPED in tiles
     assert len(set(tiles)) == len(tiles) and len(splits) == len(tiles) - 1
     assert "split" in kernel_variants.GROUPS
+    few = [k for k in kernel_variants.VARIANTS
+           if k.startswith("qrnn fewlane")]
+    tiles = kernel_variants.FEW_TILES
+    assert kernel_variants.FEW_SHIPPED in tiles
+    assert len(set(tiles)) == len(tiles) and len(few) == len(tiles) - 1
+    assert "fewlane" in kernel_variants.GROUPS
     for name, (source, subs) in kernel_variants.VARIANTS.items():
         with open(source) as f:
             text = f.read()
